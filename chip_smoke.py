@@ -21,8 +21,10 @@ non-zero exit code:
                 requests of a 64-token suffix with 16 decode tokens each at
                 budget 0.25, period 8, subperiod 4, c=16; assert read
                 amplification 1.0 and each kernel's launch count per
-                request; hold a budget-1.0 run's first-token logits against
-                the dense forward over prefix + suffix;
+                request; print where each request's time goes and profile
+                one more request (device busy time, idle share, top device
+                ops); hold a budget-1.0 run's first-token logits against the
+                dense forward over prefix + suffix;
   4. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
      main path, its error against its plain version, and its times;
   5. last line: ``{"ok": true, "device": {...}}``.
@@ -265,11 +267,15 @@ def phase_e2e(cfg):
     expect = {"chunk_score": n_periods, "chunk_attention": cfg.n_layers,
               "decode_attention": cfg.n_layers * DECODE_TOKENS}
     suffixes = [rng.integers(0, cfg.vocab_size, SUFFIX_LEN) for _ in range(N_REQUESTS)]
+    walls = []  # request wall time: first token, then the decode tokens
     for mod in ops.values():
         mod.launches = 0
     for i, suffix in enumerate(suffixes):
         before = {k: mod.launches for k, mod in ops.items()}
+        busy = dict(ex.stage_times)
+        t0 = time.perf_counter()
         logits, trace = eng.reprefill(suffix, request_id=i, decode_tokens=DECODE_TOKENS)
+        walls.append((time.perf_counter() - t0) * 1e3)
         got = {k: mod.launches - before[k] for k, mod in ops.items()}
         if got != expect:
             fail(f"request {i}: kernel launches {got}, expected {expect}")
@@ -283,8 +289,15 @@ def phase_e2e(cfg):
               f"{trace.tpot * 1e3:.3f} ms over {trace.n_decoded} tokens, read "
               f"amplification {trace.read_amplification}, {len(trace.selected_per_layer[0])}"
               f" of {sess.meta.n_chunks} chunks, launches {got}")
+        # host clock inside the engine's compute ops (each ends in a device
+        # sync) by tag, and the engine's waits on IO; the rest of a request's
+        # time is the engine's own bookkeeping
+        busy = {k: round((v - busy.get(k, 0.0)) * 1e3, 2) for k, v in ex.stage_times.items()}
+        waits = {k: round(v * 1e3, 2) for k, v in trace.stages.items()}
+        print(f"e2e: request {i}: compute ops ms {busy}, waits ms {waits}")
     totals = {k: mod.launches for k, mod in ops.items()}
     print(f"e2e: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    profile_request(eng, suffixes[0], statistics.mean(walls[1:]))
 
     # budget 1.0 against the dense forward over prefix + suffix
     full = ContiguousKVEngine(sess, RealCompute(cfg, params, device=DEVICE), RealExecutor(),
@@ -304,6 +317,35 @@ def phase_e2e(cfg):
         fail("budget-1.0 first-token logits disagree with the dense forward")
     ex.shutdown()
     return totals
+
+
+def profile_request(eng, suffix, warm_wall_ms: float):
+    """One more request under torch.profiler: the device's busy time (sum of
+    its kernels and copies, one stream), the idle share against the mean wall
+    time of the warm requests run without the profiler (which slows the
+    host), and the device operations that take most of the busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.reprefill(suffix, request_id=N_REQUESTS, decode_tokens=DECODE_TOKENS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    def device_us(e):  # the attribute's name changed across torch versions
+        t = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if t is None else t
+
+    dev = [(e.key, e.count, device_us(e)) for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(t for _, _, t in dev) / 1e3
+    if busy_ms <= 0:
+        fail("the profiler saw no device time")
+    top = sorted(dev, key=lambda x: -x[2])[:6]
+    print(f"e2e: profiled request: device busy {busy_ms:.1f} ms of a warm request's "
+          f"{warm_wall_ms:.1f} ms ({100 * (1 - busy_ms / warm_wall_ms):.1f} % idle; "
+          f"{wall_ms:.1f} ms under the profiler); top device ops: "
+          + "; ".join(f"{k[:48]} x{n} {t / 1e3:.2f} ms" for k, n, t in top))
 
 
 def main() -> int:

@@ -115,12 +115,9 @@ class TailPool:
     def valid_tokens(self) -> int:
         return self.n_res * self.page + self.t
 
-    def table(self, width: int = 0) -> np.ndarray:
-        """Page table padded with -1 to `width` (default: full capacity)."""
-        width = width or (self.n_res + self.cap_pages)
-        if width < self.n_active:
-            raise ValueError(f"table width {width} < {self.n_active} active pages")
-        tbl = np.full(width, -1, np.int32)
+    def table(self) -> np.ndarray:
+        """Page table over the full capacity: active pages, then -1 pad slots."""
+        tbl = np.full(self.n_res + self.cap_pages, -1, np.int32)
         tbl[: self.n_active] = np.arange(self.n_active, dtype=np.int32)
         return tbl
 

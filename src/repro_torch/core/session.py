@@ -16,7 +16,7 @@ from repro_torch.core.engine import PrefixSession
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
-from repro_torch.storage.layout import ContiguousChunkLayout, CoarseBlockLayout, KVGeometry
+from repro_torch.storage.layout import ContiguousChunkLayout, KVGeometry
 from repro_torch.storage.ssd import ChunkStore
 
 
@@ -37,21 +37,16 @@ def build_real_session(
     prefix_tokens: np.ndarray,
     *,
     chunk_tokens: int = 16,
-    coarse_blocks: bool = False,
-    block_tokens: int = 64,
     in_memory: bool = False,
     device="cuda",
 ) -> PrefixSession:
     """Run the causal forward over the prefix on ``device`` and persist its
-    chunked float16 KV to the (file) store. Only the last position's logits
-    are computed: ingest discards them."""
+    float16 KV as ContiguousChunks to the (file) store. Only the last
+    position's logits are computed: ingest discards them. (Coarse-block
+    sessions come with the baseline engines.)"""
     dev = resolve_device(device)
     n = len(prefix_tokens)
-    geom = _geometry(cfg)
-    if coarse_blocks:
-        layout = CoarseBlockLayout(n, cfg.n_layers, geom, block_tokens)
-    else:
-        layout = ContiguousChunkLayout(n, cfg.n_layers, geom, chunk_tokens)
+    layout = ContiguousChunkLayout(n, cfg.n_layers, _geometry(cfg), chunk_tokens)
     store = ChunkStore(layout, dtype=np.float16, in_memory=in_memory)
 
     toks = torch.as_tensor(np.asarray(prefix_tokens), device=dev)[None]
@@ -62,10 +57,7 @@ def build_real_session(
     v_all = v[:, 0].to(torch.float16).cpu().numpy()
     for l in range(cfg.n_layers):
         store.write_layer(l, k_all[l], v_all[l])
-    # the pruning/storage unit: chunk granularity, or the coarse block size
-    # when the session is laid out in blocks
-    meta = ChunkMeta(n_tokens=n,
-                     chunk_tokens=block_tokens if coarse_blocks else chunk_tokens)
+    meta = ChunkMeta(n_tokens=n, chunk_tokens=chunk_tokens)
     # retain the raw prefix tokens: the hybrid re-prefill planner recomputes
     # chunk KV from them instead of loading it when IO is the bottleneck
     return PrefixSession(cfg=cfg, prefix_len=n, meta=meta, store=store,

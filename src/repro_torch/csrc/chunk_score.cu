@@ -1,7 +1,7 @@
 // chunk_score: ContiguousChunk importance (Eq. 1) for the identify step.
 //
 // Replaces the TPU kernel src/repro/kernels/chunk_score/kernel.py:chunk_score
-// (_stats_kernel, _score_kernel). The engine's own identify step runs
+// (_stats_kernel, _score_kernel). The JAX engine's identify step runs
 // core/sparse_attention.py:probe_token_scores and a numpy reduceat; this
 // kernel computes the same (m,) chunk scores on the card, so only m floats
 // cross back to the host instead of n.
@@ -9,98 +9,103 @@
 // Function: a_t = sum over query heads and suffix rows of softmax_t(q . k_t *
 // d^-0.5) over all n prefix keys; A_j = sum of a_t over chunk j's c tokens.
 //
-// Three launches, no float atomics (top-k must be reproducible):
-//   1. row_stats_kernel: one CTA per (kv head, block of 16 query rows) serves
-//      the `group` query heads that share the kv head, streaming all n keys in
-//      64-key tiles through shared memory with an online max/denominator.
-//   2. mass_pass_kernel (common.cuh): one CTA per (kv head, 64-key block)
-//      sums the normalized probability of every row of that kv head per chunk.
-//   3. reduce_heads_kernel: ordered sum over kv heads -> (m,).
+// Four launches, no float atomics (top-k must be reproducible):
+//   1. stats_split_kernel: one CTA per (64 query rows of one kv head — the
+//      `group` query heads that share it —, key split) streams its split's
+//      keys in 64-key tiles with an online max/denominator per row;
+//   2. merge_stats_kernel: merges the splits' statistics in split order;
+//   3. mass_pass_kernel (common.cuh): one CTA per (kv head, 64-key block)
+//      sums the normalised probability of every row of that kv head per chunk;
+//   4. reduce_heads_kernel: ordered sum over kv heads -> (m,).
 // Any n is accepted: the ragged last key tile and the partial last chunk are
 // masked (the TPU kernel asserted n % block_k == 0).
 //
 // Bound on the H100: at the main path's shape (28 query heads, 64 rows,
-// 4096 keys, d=128) it moves ~4 MB (the fp16 keys) and does 2 x 1.9 GFLOP of
-// dot products, so its least time is bytes-bound (~1.3 us at 3.35 TB/s) while
-// this simple version runs the dot products on the fp32 CUDA cores; the key
-// tiles are read once per CTA from L2. Tensor-core tiles (wgmma) are left to a
-// later version.
+// 4096 keys, d = 128) the products are 2 x 1.9 GFLOP against ~5 MB of
+// inputs. With float32 queries (every identify past layer 0) the products
+// must run in float32 on the CUDA cores (67 TFLOP/s), so operations bound it
+// (~0.03 ms for one product pass); with bfloat16 queries the bytes would.
+// The design keeps each thread's 4 x 4 scores in registers and splits the
+// keys across CTAs so that the 7 x 4 row tiles fill the 132 SMs.
 #include "common.cuh"
 
 namespace ckv {
 
-constexpr int ST_ROWS = 16;
-constexpr int ST_KEYS = 64;
-
+// Partial row statistics of one key split. Row r of kv head h is query
+// head h * group + r / s at position r % s; its statistics go to
+// [split][h * group * s + r].
 template <typename TQ>
-static __global__ void __launch_bounds__(256) row_stats_kernel(
-    const TQ* __restrict__ q, const __half* __restrict__ k, float* __restrict__ m_stat,
-    float* __restrict__ l_stat, int s, int n_q, int n_kv, int n, int d, float scale) {
+static __global__ void __launch_bounds__(NT) stats_split_kernel(
+    const TQ* __restrict__ q, const __half* __restrict__ k, float* __restrict__ m_part,
+    float* __restrict__ l_part, int s, int n_q, int n_kv, int n, int d, int keys_per_split,
+    float scale) {
   extern __shared__ float smem[];
-  float* qs = smem;                       // [ST_ROWS][d]
-  float* ks = qs + ST_ROWS * d;           // [ST_KEYS][d + 1]
-  float* ss = ks + ST_KEYS * (d + 1);     // [ST_ROWS][ST_KEYS]
-  const int h = blockIdx.y, r0 = blockIdx.x * ST_ROWS, tid = threadIdx.x;
+  const int ld = tile_ld(d);
+  float* qs = smem;          // [TR][ld]
+  float* ks = qs + TR * ld;  // [TK][ld]
+  const int h = blockIdx.y, r0 = blockIdx.x * TR, sp = blockIdx.z, tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
   const int group = n_q / n_kv, rows = group * s;
-  const int warp = tid / 32, lane = tid % 32;
-  for (int i = tid; i < ST_ROWS * d; i += blockDim.x) {
-    int rr = i / d, x = i % d, r = r0 + rr;
-    float v = 0.f;
-    if (r < rows) v = to_f32(q[((size_t)(r % s) * n_q + h * group + r / s) * d + x]);
-    qs[i] = v;
+  const int t_begin = sp * keys_per_split, t_end = min(n, t_begin + keys_per_split);
+  load_tile<TQ>(qs, TR, d, [&](int rr) -> const TQ* {
+    int r = r0 + rr;
+    return r < rows ? q + ((size_t)(r % s) * n_q + h * group + r / s) * d : nullptr;
+  });
+  float m_run[4], l_run[4], alpha[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m_run[i] = CKV_NEG_INF, l_run[i] = 0.f;
+  for (int t0 = t_begin; t0 < t_end; t0 += TK) {
+    __syncthreads();
+    load_tile<__half>(ks, TK, d, [&](int kk) -> const __half* {
+      int t = t0 + kk;
+      return t < t_end ? k + ((size_t)t * n_kv + h) * d : nullptr;
+    });
+    __syncthreads();
+    float sc[4][4];
+    tile_scores(qs, ks, d, ty, tx, sc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        sc[i][j] = t0 + tx + 16 * j < t_end ? sc[i][j] * scale : CKV_NEG_INF;
+    online_softmax(sc, m_run, l_run, alpha);
   }
-  float m_run[2] = {CKV_NEG_INF, CKV_NEG_INF}, l_run[2] = {0.f, 0.f};
-  const int kk = tid % ST_KEYS, l4 = tid / ST_KEYS;
-  for (int t0 = 0; t0 < n; t0 += ST_KEYS) {
-    __syncthreads();
-    for (int i = tid; i < ST_KEYS * d; i += blockDim.x) {
-      int kj = i / d, x = i % d, t = t0 + kj;
-      ks[kj * (d + 1) + x] = t < n ? __half2float(k[((size_t)t * n_kv + h) * d + x]) : 0.f;
-    }
-    __syncthreads();
-    for (int rr = l4; rr < ST_ROWS; rr += 4) {
-      if (r0 + rr >= rows) break;
-      const float* qr = qs + rr * d;
-      const float* kr = ks + kk * (d + 1);
-      float dot = 0.f;
-      for (int x = 0; x < d; ++x) dot = fmaf(qr[x], kr[x], dot);
-      ss[rr * ST_KEYS + kk] = t0 + kk < n ? dot * scale : CKV_NEG_INF;
-    }
-    __syncthreads();
-    for (int i = 0; i < 2; ++i) {
-      int rr = warp + 8 * i;
-      if (r0 + rr >= rows) break;
-      float v0 = ss[rr * ST_KEYS + lane], v1 = ss[rr * ST_KEYS + lane + 32];
-      float m_new = fmaxf(m_run[i], warp_max(fmaxf(v0, v1)));
-      float p = (CKV_MASKED(v0) ? 0.f : expf(v0 - m_new)) +
-                (CKV_MASKED(v1) ? 0.f : expf(v1 - m_new));
-      float psum = warp_sum(p);
-      l_run[i] = l_run[i] * expf(m_run[i] - m_new) + psum;
-      m_run[i] = m_new;
-    }
-  }
-  if (lane == 0) {
-    for (int i = 0; i < 2; ++i) {
-      int r = r0 + warp + 8 * i;
-      if (r >= rows) break;
-      int qh = h * group + r / s, pos = r % s;
-      m_stat[qh * s + pos] = m_run[i];
-      l_stat[qh * s + pos] = l_run[i];
+  if (tx == 0) {
+    const size_t base = (size_t)sp * n_q * s + (size_t)h * rows;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int r = r0 + ty + 16 * i;
+      if (r < rows) {
+        m_part[base + r] = m_run[i];
+        l_part[base + r] = l_run[i];
+      }
     }
   }
 }
 
+static __global__ void merge_stats_kernel(const float* __restrict__ m_part,
+                                          const float* __restrict__ l_part,
+                                          float* __restrict__ m_stat, float* __restrict__ l_stat,
+                                          int n_rows, int n_split) {
+  int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r < n_rows) merge_stats(m_part, l_part, n_split, n_rows, r, m_stat + r, l_stat + r);
+}
+
 template <typename TQ>
 static void launch_chunk_score(const void* q, const void* k, float* out, float* m_stat,
-                               float* l_stat, float* partial, int s, int n_q, int n_kv, int n,
-                               int d, int c, cudaStream_t st) {
-  const int rows = (n_q / n_kv) * s;
-  const size_t smem = sizeof(float) * (ST_ROWS * d + ST_KEYS * (d + 1) + ST_ROWS * ST_KEYS);
-  cudaFuncSetAttribute(row_stats_kernel<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               float* l_stat, float* m_part, float* l_part, float* partial, int s,
+                               int n_q, int n_kv, int n, int d, int c, int keys_per_split,
+                               cudaStream_t st) {
+  const int rows = (n_q / n_kv) * s, n_split = (n + keys_per_split - 1) / keys_per_split;
+  const size_t smem = sizeof(float) * (TR + TK) * tile_ld(d);
+  cudaFuncSetAttribute(stats_split_kernel<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  dim3 grid((rows + ST_ROWS - 1) / ST_ROWS, n_kv);
-  row_stats_kernel<TQ><<<grid, 256, smem, st>>>((const TQ*)q, (const __half*)k, m_stat, l_stat,
-                                                 s, n_q, n_kv, n, d, softmax_scale(d));
+  dim3 grid((rows + TR - 1) / TR, n_kv, n_split);
+  stats_split_kernel<TQ><<<grid, NT, smem, st>>>((const TQ*)q, (const __half*)k, m_part, l_part,
+                                                  s, n_q, n_kv, n, d, keys_per_split,
+                                                  softmax_scale(d));
+  merge_stats_kernel<<<(n_q * s + 255) / 256, 256, 0, st>>>(m_part, l_part, m_stat, l_stat,
+                                                             n_q * s, n_split);
   launch_mass<TQ>(q, (const __half*)k, m_stat, l_stat, partial, out, s, n_q, n_kv, n, d, c,
                   (n + c - 1) / c, st);
 }
@@ -112,21 +117,26 @@ extern "C" const char* ckv_error_string(int code) {
 }
 
 // q (s, n_q, d) in q_dtype; k (n, n_kv, d) float16; out (ceil(n / c),) float32.
-// Scratch: m_stat, l_stat (n_q * s) float32; partial (n_kv * ceil(n / c)) float32.
+// Scratch (float32): m_stat, l_stat (n_q * s); m_part, l_part
+// (ceil(n / keys_per_split) * n_q * s); partial (n_kv * ceil(n / c)).
+// keys_per_split is a multiple of 64; d a multiple of 4, at most 128.
 extern "C" int ckv_chunk_score(const void* q, const void* k, float* out, float* m_stat,
-                               float* l_stat, float* partial, int s, int n_q, int n_kv, int n,
-                               int d, int c, int q_dtype, void* stream) {
+                               float* l_stat, float* m_part, float* l_part, float* partial, int s,
+                               int n_q, int n_kv, int n, int d, int c, int keys_per_split,
+                               int q_dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (q_dtype) {
     case ckv::F32:
-      ckv::launch_chunk_score<float>(q, k, out, m_stat, l_stat, partial, s, n_q, n_kv, n, d, c, st);
+      ckv::launch_chunk_score<float>(q, k, out, m_stat, l_stat, m_part, l_part, partial, s, n_q,
+                                     n_kv, n, d, c, keys_per_split, st);
       break;
     case ckv::BF16:
-      ckv::launch_chunk_score<__nv_bfloat16>(q, k, out, m_stat, l_stat, partial, s, n_q, n_kv, n,
-                                             d, c, st);
+      ckv::launch_chunk_score<__nv_bfloat16>(q, k, out, m_stat, l_stat, m_part, l_part, partial,
+                                             s, n_q, n_kv, n, d, c, keys_per_split, st);
       break;
     case ckv::F16:
-      ckv::launch_chunk_score<__half>(q, k, out, m_stat, l_stat, partial, s, n_q, n_kv, n, d, c, st);
+      ckv::launch_chunk_score<__half>(q, k, out, m_stat, l_stat, m_part, l_part, partial, s, n_q,
+                                      n_kv, n, d, c, keys_per_split, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;

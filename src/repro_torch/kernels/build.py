@@ -32,16 +32,15 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 # C signature of each launcher: argument types in order (restype is int)
 SIGNATURES = {
-    # q, k, out, m_stat, l_stat, partial, s, n_q, n_kv, n, d, c, q_dtype, stream
-    "ckv_chunk_score": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
-    # q, k_sel, v_sel, k_suf, v_suf, out, mass, m_stat, l_stat, partial,
-    # s, n_q, n_kv, nb, c, n_valid, d, q_dtype, stream
-    "ckv_chunk_attention": [P, P, P, P, P, P, P, P, P, P,
-                            I, I, I, I, I, I, I, I, P],
-    # q, k_pool, v_pool, table, lengths, out, mass, m_at,
+    # q, k, out, m_stat, l_stat, m_part, l_part, partial,
+    # s, n_q, n_kv, n, d, c, keys_per_split, q_dtype, stream
+    "ckv_chunk_score": [P] * 8 + [I] * 8 + [P],
+    # q, k_sel, v_sel, k_suf, v_suf, out, mass, m_stat, l_stat, o_part, m_part,
+    # l_part, partial, s, n_q, n_kv, nb, c, n_valid, d, keys_per_split, q_dtype, stream
+    "ckv_chunk_attention": [P] * 13 + [I] * 9 + [P],
+    # q, k_pool, v_pool, table, lengths, out, mass, m_at, o_part, m_part, l_part,
     # b, n_q, n_kv, n_pages, page, n_active, d, dtype, stream
-    "ckv_decode_attention": [P, P, P, P, P, P, P, P,
-                             I, I, I, I, I, I, I, I, P],
+    "ckv_decode_attention": [P] * 11 + [I] * 8 + [P],
 }
 
 
@@ -71,7 +70,8 @@ def build() -> Path:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     sources = sorted(CSRC.glob("*.cu"))
-    objs = [BUILD_DIR / (f.stem + f"-{lib.stem[-16:]}.o") for f in sources]
+    # per-process object names: concurrent builders never share a file
+    objs = [BUILD_DIR / f"{f.stem}-{lib.stem[-16:]}-{os.getpid()}.o" for f in sources]
     t0 = time.perf_counter()
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -94,6 +94,8 @@ def build() -> Path:
     if res.returncode != 0:
         raise RuntimeError(f"link failed:\n{res.stdout}{res.stderr}")
     os.replace(tmp, lib)
+    for obj in objs:
+        obj.unlink()
     with open(BUILD_DIR / "build.log", "a") as f:
         f.write(f"\nbuilt {lib.name} in {time.perf_counter() - t0:.1f} s\n")
     return lib
@@ -147,14 +149,17 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
 
 
 def require(t: torch.Tensor, name: str, ndim: int, dtypes) -> None:
-    """Raise unless ``t`` has ``ndim`` dims, one of ``dtypes`` and is contiguous."""
+    """Raise unless ``t`` has ``ndim`` dims, one of ``dtypes``, is contiguous
+    and starts on a 16-byte boundary (the kernels load 16-byte vectors)."""
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
     if t.dtype not in dtypes:
         raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: the kernel takes contiguous tensors only")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel takes 16-byte aligned tensors only")
 
 
 FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16)
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 128  # head dims must also be multiples of 8 (16-byte rows)

@@ -13,6 +13,7 @@ from repro_torch.kernels import build as B
 from repro_torch.kernels.chunk_attention.ref import chunk_attention_ref
 
 launches = 0  # kernel launches since the count was last set to 0
+KEYS_PER_SPLIT = 256  # chunk + suffix keys per CTA of the attention pass
 
 
 def chunk_attention(q: torch.Tensor, k_sel: torch.Tensor, v_sel: torch.Tensor,
@@ -36,24 +37,26 @@ def chunk_attention(q: torch.Tensor, k_sel: torch.Tensor, v_sel: torch.Tensor,
     s, n_q, d = q.shape
     nb, c, n_kv, dk = k_sel.shape
     n_valid = int(n_valid)
-    if (dk != d or d > B.MAX_HEAD_DIM or n_q % n_kv or n_q // n_kv > 32
+    if (dk != d or d > B.MAX_HEAD_DIM or d % 8 or n_q % n_kv
             or v_sel.shape != k_sel.shape or k_suf.shape != (s, n_kv, d)
             or v_suf.shape != k_suf.shape or not 0 <= n_valid <= nb
             or not 1 <= c <= 64 or s < 1):
         raise ValueError(
             f"chunk_attention: unsupported shapes q {tuple(q.shape)} "
             f"k_sel {tuple(k_sel.shape)} k_suf {tuple(k_suf.shape)} n_valid {n_valid}")
+    n_split = -(-(n_valid * c + s) // KEYS_PER_SPLIT)
     f32 = dict(dtype=torch.float32, device=q.device)
     out = torch.empty(s, n_q, d, **f32)
     mass = torch.empty(nb, **f32)
-    m_stat = torch.empty(n_q * s, **f32)
-    l_stat = torch.empty(n_q * s, **f32)
+    m_stat, l_stat = torch.empty(2, n_q * s, **f32)
+    o_part = torch.empty(n_split * n_q * s * d, **f32)
+    m_part, l_part = torch.empty(2, n_split * n_q * s, **f32)
     partial = torch.empty(max(1, n_kv * n_valid), **f32)
     rc = B.library().ckv_chunk_attention(
         q.data_ptr(), k_sel.data_ptr(), v_sel.data_ptr(), k_suf.data_ptr(), v_suf.data_ptr(),
         out.data_ptr(), mass.data_ptr(), m_stat.data_ptr(), l_stat.data_ptr(),
-        partial.data_ptr(), s, n_q, n_kv, nb, c, n_valid, d, B.dtype_code(q),
-        B.stream_handle(q))
+        o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), partial.data_ptr(),
+        s, n_q, n_kv, nb, c, n_valid, d, KEYS_PER_SPLIT, B.dtype_code(q), B.stream_handle(q))
     B.check(rc, "chunk_attention")
     launches += 1
     return out, mass

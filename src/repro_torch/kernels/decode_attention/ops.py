@@ -36,19 +36,23 @@ def decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor
     b, n_q, d = q.shape
     _, n_pages, page, n_kv, dk = k_pool.shape
     n_active = page_table.shape[1]
-    if (dk != d or d > B.MAX_HEAD_DIM or n_q % n_kv or n_q // n_kv > 32
+    if (dk != d or d > B.MAX_HEAD_DIM or d % 8 or n_q % n_kv or n_q // n_kv > 32
             or k_pool.shape[0] != b or v_pool.shape != k_pool.shape
             or page_table.shape[0] != b or lengths.shape[0] != b
             or not 1 <= page <= 64 or n_active < 1):
         raise ValueError(
             f"decode_attention: unsupported shapes q {tuple(q.shape)} "
             f"pool {tuple(k_pool.shape)} table {tuple(page_table.shape)}")
+    n_split = -(-n_active // (64 // page))  # one 64-key tile of whole pages per split
+    f32 = dict(dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
-    mass = torch.empty(b, n_q, n_active, dtype=torch.float32, device=q.device)
-    m_at = torch.empty_like(mass)
+    mass, m_at = torch.empty(2, b, n_q, n_active, **f32)
+    o_part = torch.empty(n_split * b * n_q * d, **f32)
+    m_part, l_part = torch.empty(2, n_split * b * n_q, **f32)
     rc = B.library().ckv_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), mass.data_ptr(), m_at.data_ptr(),
+        o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
         b, n_q, n_kv, n_pages, page, n_active, d, B.dtype_code(q), B.stream_handle(q))
     B.check(rc, "decode_attention")
     launches += 1

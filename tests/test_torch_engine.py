@@ -120,6 +120,20 @@ def test_full_budget_matches_dense_forward(fp32):
     _close(logits, je.reprefill(suffix)[0])
 
 
+def test_recompute_prefix_kv_matches_store(fp32):
+    """The hybrid planner's recompute runs the ingest forward again: its
+    float16 KV equals what the store holds, bit for bit."""
+    _, pcfg, _, tparams, prefix, _, _, psess = fp32
+    end = 48
+    k, v = RealCompute(pcfg, tparams, device="cpu").recompute_prefix_kv(prefix, end, block_q=16)
+    assert k.dtype == np.float16 and k.shape == (pcfg.n_layers, end, pcfg.n_kv_heads, pcfg.d_head)
+    np.testing.assert_array_equal(k, psess.probe[:, :end])
+    for l in range(pcfg.n_layers):
+        rec = psess.store.read_units(l, [0, 1, 2])
+        stored_v = np.concatenate([rec[u][:, 1] for u in (0, 1, 2)])
+        np.testing.assert_array_equal(v[l], stored_v)
+
+
 def test_host_pool_decodes_like_device_pool(fp32):
     _, pe_dev = _engines(fp32, 0.25)
     _, pe_host = _engines(fp32, 0.25, device_tail_pool=False)

@@ -4,7 +4,7 @@ For a CPU tensor each wrapper runs its plain version; those are held against
 (a) the jnp function the JAX engine really calls and (b) the Pallas kernel
 in interpret mode, as tests/test_kernels.py runs it. Inputs are made with
 numpy from a seed. The kernels themselves run only on the card
-(``gpu``-marked tests below, and chip_smoke.py).
+(tests/test_torch_gpu.py and chip_smoke.py).
 
 Tolerances: float32 against float32 arithmetic summed in another order
 (1e-5 relative); bfloat16 inputs are exact in float32, so the same holds.
@@ -24,7 +24,6 @@ from repro_torch.kernels.chunk_attention.ref import chunk_attention_ref
 from repro_torch.kernels.chunk_score import ops as cs_ops
 from repro_torch.kernels.chunk_score.ref import chunk_score_ref
 from repro_torch.kernels.decode_attention import ops as da_ops
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -178,6 +177,25 @@ class TestDecodeAttention:
         assert mass_w[:, :, tight.shape[1]:].abs().max() == 0.0
 
 
+def test_importance_matches_jax():
+    """core/importance.py: token mass in torch, chunk sums, top-k on numpy."""
+    from repro.core import importance as JI
+    from repro_torch.core import importance as PI
+
+    q, k = _rand(0, (6, 4, 16)), _rand(1, (50, 2, 16), np.float16)
+    ja = JI.token_attention_scores(jnp.asarray(q), jnp.asarray(k))
+    pa = PI.token_attention_scores(_t(q), _t(k))
+    np.testing.assert_allclose(pa.numpy(), np.asarray(ja), **TOL)
+    np.testing.assert_allclose(PI.chunk_scores_from_token_scores(pa, 16).numpy(),
+                               np.asarray(JI.chunk_scores_from_token_scores(ja, 16)), **TOL)
+    scores = _rand(2, (37,))
+    for budget in (0.1, 0.25, 1.0):
+        np.testing.assert_array_equal(PI.select_topk_chunks(scores, budget),
+                                      JI.select_topk_chunks(scores, budget))
+        np.testing.assert_array_equal(PI.select_topk_tokens(scores, budget),
+                                      JI.select_topk_tokens(scores, budget))
+
+
 def test_cpu_tensors_never_launch():
     before = (cs_ops.launches, ca_ops.launches, da_ops.launches)
     q, ks, vs, kf, vf = _chunk_inputs(0, 4, 4, 2, 8, 16, 16, "float32")
@@ -191,36 +209,3 @@ def test_mixed_devices_raise():
     k = torch.zeros(8, 2, 16, dtype=torch.float16, device="meta")
     with pytest.raises(ValueError, match="several devices"):
         cs_ops.chunk_score(q, k, 16)
-
-
-# -- on the card -----------------------------------------------------------
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-def _gpu(a, dev):
-    return bridge.tensor_from_numpy(a, dev)
-
-
-@pytest.mark.gpu
-def test_gpu_kernels_match_plain_versions(cuda):
-    """Each kernel against its plain version on the same card inputs."""
-    q, ks, vs, kf, vf = _chunk_inputs(0, 20, 8, 2, 8, 16, 32, "float32")
-    k = _rand(9, (100, 2, 32), np.float16)
-    a = cs_ops.chunk_score(_gpu(q, cuda), _gpu(k, cuda), 16)
-    torch.testing.assert_close(a, chunk_score_ref(_gpu(q, cuda), _gpu(k, cuda), 16),
-                               rtol=1e-5, atol=1e-5)
-    args = [_gpu(x, cuda) for x in (q, ks, vs)]
-    o, m = ca_ops.chunk_attention(*args, 5, _gpu(kf, cuda), _gpu(vf, cuda))
-    o2, m2 = chunk_attention_ref(*args, 5, _gpu(kf, cuda), _gpu(vf, cuda))
-    torch.testing.assert_close(o, o2, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(m, m2, rtol=1e-5, atol=1e-5)
-    dq, kp, vp, tbl, lens, _ = _decode_inputs(2, 8, 2, 32, 16, [(3, 7), (1, 16)], 6)
-    dargs = [_gpu(x, cuda) for x in (dq, kp, vp, tbl, lens)]
-    o, m = da_ops.decode_attention(*dargs)
-    o2, m2 = decode_attention_ref(*dargs)
-    torch.testing.assert_close(o, o2, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(m, m2, rtol=1e-5, atol=1e-6)
