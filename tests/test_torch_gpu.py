@@ -96,3 +96,40 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     flat = _rand(dev, 1, (40 * 2 * 32 + 1,), torch.float16)
     with pytest.raises(ValueError):  # one element off a 16-byte boundary
         cs_ops.chunk_score(q, flat[1:].view(40, 2, 32), 16)
+
+
+def test_engine_on_the_card_matches_the_cpu(dev):
+    """The whole slice at reduced float32 size: the engine on the card, through
+    the three kernels, selects the same chunks and decodes the same tokens as
+    on the CPU through their plain versions."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.backends import RealCompute
+    from repro_torch.core.engine import ContiguousKVEngine
+    from repro_torch.core.session import build_real_session
+    from repro_torch.models.transformer import init_params
+    from repro_torch.storage.timing import RealExecutor
+
+    cfg = dataclasses.replace(reduced_config("qwen2.5-7b", n_layers=4), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    prefix, suffix = rng.integers(0, cfg.vocab_size, 100), rng.integers(0, cfg.vocab_size, 16)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        p = params if device == "cpu" else {
+            k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict) else v.to(dev))
+            for k, v in params.items()}
+        sess = build_real_session(cfg, p, prefix, in_memory=True, device=device)
+        eng = ContiguousKVEngine(sess, RealCompute(cfg, p, device=device), RealExecutor(),
+                                 budget=0.25, period=2, subperiod=1)
+        counts = (cs_ops.launches, ca_ops.launches, da_ops.launches)
+        runs[device] = eng.reprefill(suffix, decode_tokens=8)
+        counts = tuple(after - before for after, before in
+                       zip((cs_ops.launches, ca_ops.launches, da_ops.launches), counts))
+        assert counts == ((0, 0, 0) if device == "cpu" else (2, 4, 32))
+    (lc, tc), (lg, tg) = runs["cpu"], runs["cuda"]
+    for l, sel in tc.selected_per_layer.items():
+        np.testing.assert_array_equal(tg.selected_per_layer[l], sel)
+    assert tg.decode_tokens_out == tc.decode_tokens_out
+    np.testing.assert_allclose(lg, lc, rtol=0, atol=1e-3 * np.abs(lc).max())
