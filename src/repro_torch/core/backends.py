@@ -20,7 +20,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import sparse_attention as SA
 from repro_torch.device import resolve_device
 from repro_torch.kernels.chunk_attention.ops import chunk_attention
 from repro_torch.kernels.chunk_score.ops import chunk_score
@@ -28,7 +27,7 @@ from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.models.attention import qkv_project
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import matmul, rms_norm
-from repro_torch.models.transformer import _ffn, _logits, forward, layer_params
+from repro_torch.models.transformer import _ffn, _logits, layer_params
 
 
 class TailPool:
@@ -203,14 +202,6 @@ class RealCompute:
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def token_scores(self, q, k_probe: np.ndarray, layer: int) -> np.ndarray:
-        """Token attention mass (n,): q (1, s, nq, d); k_probe (n, n_kv, d_probe)."""
-        kp = self._upload(k_probe)
-        qq = q[0]
-        if kp.shape[-1] != self.cfg.d_head:  # partial keys: truncate q dims to match
-            qq = qq[..., : kp.shape[-1]]
-        return SA.probe_token_scores(qq, kp).cpu().numpy()
-
     def chunk_scores(self, q, k_probe: np.ndarray, layer: int,
                      chunk_tokens: int) -> np.ndarray:
         """(ceil(n / c),) float32 chunk scores (Eq. 1) by the chunk_score kernel."""
@@ -232,17 +223,6 @@ class RealCompute:
         h = h + matmul(out.reshape(1, s, -1), lp["wo"].reshape(-1, self.cfg.d_model))
         h = _ffn(h, lp, self.cfg)
         return h, mass.cpu().numpy()
-
-    def recompute_prefix_kv(self, prefix_tokens: np.ndarray, end: int,
-                            block_q: int):
-        """Recompute KV for the prefix head ``[0, end)`` from raw tokens, by
-        the same causal forward the ingest ran. Returns (k, v), each
-        (L, end, n_kv, d) float16 numpy."""
-        toks = torch.as_tensor(np.asarray(prefix_tokens[:end]), device=self.device)
-        _, (k, v) = forward(self.params, {"tokens": toks[None]}, self.cfg,
-                            block_q=block_q, logits_positions="last", return_kv=True)
-        return (k[:, 0].to(torch.float16).cpu().numpy(),
-                v[:, 0].to(torch.float16).cpu().numpy())
 
     def logits(self, h) -> np.ndarray:
         return _logits(self.params, h[:, -1:], self.cfg).cpu().numpy()

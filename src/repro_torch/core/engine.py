@@ -1,21 +1,16 @@
-"""Re-Prefill engine: ContiguousKV (§4).
+"""Re-Prefill engine: ContiguousKV (§4), real mode.
 
-One orchestration skeleton runs in two modes:
-  real — real models on the card, real chunk reads, wall clock;
-  sim  — paper-scale configs, discrete-event timeline, workload model
-         (its backend joins the port later; the engine keeps both branches).
+ContiguousKVEngine runs a real model on the card (or the CPU, if the backend
+was built there) with real chunk reads on the wall clock: chunk granularity,
+period-reused identification, intra- and inter-period prefetch and the
+attention-guided cache. Identification runs the chunk_score kernel through
+``backend.chunk_scores``, so only the (m,) chunk scores reach the host.
 
-  ContiguousKVEngine — chunk granularity, period-reused identification,
-      intra-/inter-period prefetch, attention-guided cache. Flags turn each
-      mechanism off for the ablations (w/o P, w/o AC). Identification runs
-      the chunk_score kernel through ``backend.chunk_scores``, so only the
-      (m,) chunk scores reach the host.
-
-Since the serving refactor every engine is a *step-plan factory*: ``plan()``
-returns a resumable generator of ComputeOp/WaitOp steps (repro_torch.core.stepplan)
-that a scheduler can interleave with other requests' plans. ``reprefill()``
-remains as the single-request wrapper and reproduces the historical
-run-to-completion behaviour exactly.
+The engine is a *step-plan factory*: ``plan()`` returns a resumable generator
+of ComputeOp/WaitOp steps (repro_torch.core.stepplan) and ``reprefill()``
+drives one plan to completion. The sim mode, chunked prefill and the
+compute-or-load planner of the JAX engine come with the slices that bring
+their callers (``SimCompute`` and the serving ``Scheduler``).
 """
 from __future__ import annotations
 
@@ -25,28 +20,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core import costmodel as CM
-from repro_torch.core.cache import (
-    DEVICE,
-    HOST,
-    SSD,
-    AttentionGuidedCache,
-    CachePolicy,
-)
+from repro_torch.core.backends import DeviceTailPool, TailPool
+from repro_torch.core.cache import DEVICE, HOST, AttentionGuidedCache, CachePolicy
 from repro_torch.core.chunking import ChunkMeta
 from repro_torch.core.importance import select_topk_chunks
 from repro_torch.core.periods import PeriodSchedule
 from repro_torch.core.sparse_attention import bucket_size
-from repro_torch.core.backends import DeviceTailPool, TailPool
-from repro_torch.core.hybrid import HybridPlanner, TOKEN_BYTES
-from repro_torch.core.stepplan import (
-    ComputeOp,
-    DecodeBatchCtx,
-    PrefillChunkCtx,
-    RequestClock,
-    StepPlan,
-    WaitOp,
-    drive_serial,
-)
+from repro_torch.core.stepplan import ComputeOp, RequestClock, StepPlan, WaitOp, drive_serial
 from repro_torch.storage.timing import BaseExecutor, ChannelSim, IOHandle
 
 
@@ -58,17 +38,8 @@ class PrefixSession:
     cfg: object
     prefix_len: int
     meta: ChunkMeta
-    store: object  # ChunkStore or PlanStore
+    store: object  # ChunkStore
     probe: Optional[np.ndarray] = None  # (L, n, n_kv, d) fp16 prefix keys
-    tenant: int = 0  # namespace for shared-cache keys (0 = single-tenant)
-    # prefix token ids (real mode): the raw material the hybrid re-prefill
-    # planner recomputes KV from; None disables recompute in real mode
-    tokens: Optional[np.ndarray] = None
-    # content address of the prefix (e.g. sha256 of its token ids): engines
-    # sharing a content-addressed store key cached units (digest, layer,
-    # unit) so identical prompts across tenants dedupe to one entry; None
-    # keeps tenant-namespaced keys
-    digest: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -86,20 +57,13 @@ class ReprefillTrace:
     tokens_loaded: int = 0
     hits_device: int = 0
     hits_host: int = 0
-    hits_ssd: int = 0  # resident in the tier store's SSD log (not a miss)
     misses: int = 0
     selected_per_period: List[np.ndarray] = dataclasses.field(default_factory=list)
     selected_per_layer: Dict[int, np.ndarray] = dataclasses.field(default_factory=dict)
     # decode phase (request lifecycle past the first token)
     first_token_at: float = 0.0  # absolute clock time of the first token
     decode_times: List[float] = dataclasses.field(default_factory=list)
-    decode_selected: List[np.ndarray] = dataclasses.field(default_factory=list)
-    decode_tokens_out: List[int] = dataclasses.field(default_factory=list)  # real mode: greedy token ids
-    # hybrid re-prefill (compute-or-load): per-request planner outcome
-    recompute_units: int = 0  # units satisfied by recompute instead of load
-    recompute_tokens: int = 0  # causal frontier extent of the recompute leg
-    ssd_bytes_avoided: int = 0  # SSD traffic (all layers) recompute saved
-    hybrid_decision: object = None  # core.hybrid.HybridDecision (or None)
+    decode_tokens_out: List[int] = dataclasses.field(default_factory=list)  # greedy token ids
 
     @property
     def read_amplification(self) -> float:
@@ -118,28 +82,8 @@ class ReprefillTrace:
             return 0.0
         return (self.decode_times[-1] - self.first_token_at) / len(self.decode_times)
 
-    def inter_token_latencies(self) -> np.ndarray:
-        """Gaps between consecutive emitted tokens (first token excluded)."""
-        if not self.decode_times:
-            return np.empty(0)
-        return np.diff(np.array([self.first_token_at] + self.decode_times))
-
     def add_stage(self, tag: str, dt: float):
         self.stages[tag] = self.stages.get(tag, 0.0) + dt
-
-
-class PlanStore:
-    """Timing-only store for sim mode: layout math without a backing file."""
-
-    def __init__(self, layout):
-        self.layout = layout
-
-    def run_plan(self, layer: int, units) -> Tuple[int, int]:
-        runs = self.layout.coalesce(layer, units)
-        return sum(r.nbytes for r in runs), len(runs)
-
-    def read_units(self, layer, units):
-        return {int(u): None for u in units}
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +91,6 @@ class PlanStore:
 # ---------------------------------------------------------------------------
 class _EngineBase:
     name = "base"
-    unit_is_chunk = True  # False => coarse blocks with token selection
 
     def __init__(
         self,
@@ -157,222 +100,97 @@ class _EngineBase:
         cache: CachePolicy,
         *,
         budget: float = 0.25,
-        prefill_chunk_tokens: Optional[int] = None,
         device_tail_pool: bool = True,
-        hybrid: Optional[HybridPlanner] = None,
-        suffix_flops_attended=None,
     ):
+        if isinstance(executor, ChannelSim):
+            raise TypeError("the engine runs real mode only; the sim mode comes "
+                            "with SimCompute")
         self.session = session
         self.backend = backend
         self.ex = executor
         self.cache = cache
         self.budget = budget
-        # compute-or-load hybrid re-prefill planner (core.hybrid); None or
-        # mode "off" keeps today's load-only path bit-identically
-        self.hybrid = hybrid
-        # chunk-granular prefill: split each layer's suffix compute into
-        # resumable chunks of this many tokens so the serving scheduler can
-        # mix them with other plans' decode tokens. None (or >= suffix len)
-        # keeps the monolithic per-layer op — bit-identical to the
-        # pre-chunking plans.
-        self.prefill_chunk_tokens = prefill_chunk_tokens
-        # real mode: decode-phase KV pools live in device memory (one upload
-        # at decode start, in-place donated writes per token) unless the
-        # host-resident PR-4 path is forced for comparison/debugging
+        # decode-phase KV pools live in device memory (one upload at decode
+        # start, in-place writes per token) unless the host-resident pool is
+        # forced for comparison
         self.device_tail_pool = device_tail_pool
         self.cfg = session.cfg
-        self.sim = isinstance(executor, ChannelSim)
-        self.tenant = session.tenant
-        # the model's weight-stream namespace: every ComputeOp's weight_key
-        # is suffixed "@<stream>" so a heterogeneous fleet's batch former
-        # never amortizes weight bytes across different models' ops
-        self.stream = self.cfg.name
-        # content-addressed keys only when both ends opt in: the session
-        # carries a prefix digest AND the store dedupes across tenants
-        # (flat caches keep tenant-namespaced keys — the control arm)
-        self._digest = (session.digest
-                        if session.digest is not None
-                        and getattr(cache, "content_addressed", False)
-                        else None)
         self._data: Dict[Tuple, np.ndarray] = {}
 
     # -- plan entry points ----------------------------------------------------
     def plan(self, suffix_tokens, request_id: int = 0,
-             arrival: float = 0.0, decode_tokens: int = 0) -> StepPlan:
+             decode_tokens: int = 0) -> StepPlan:
         """Build a resumable step plan for one request (does not run it).
 
-        With ``decode_tokens=N`` the plan continues past the first token:
-        after the Re-Prefill ComputeOps it yields per-token decode steps
-        (phase="decode") — sparse decode attention over the resident units.
+        With ``decode_tokens=N`` the plan continues past the first token with
+        one decode step (phase="decode") per token.
         """
-        clock = RequestClock(arrival)
+        clock = RequestClock()
         trace = ReprefillTrace(system=self.name)
-        gen = self._steps(np.asarray(suffix_tokens), request_id, clock, trace,
+        gen = self._steps(np.asarray(suffix_tokens), clock, trace,
                           decode_tokens=decode_tokens)
         return StepPlan(request_id=request_id, gen=gen, clock=clock, trace=trace)
 
     def reprefill(self, suffix_tokens, request_id: int = 0,
                   decode_tokens: int = 0):
-        """Single-request compatibility wrapper around the step plan."""
+        """Run one request's plan to completion: (logits, trace)."""
         p = self.plan(suffix_tokens, request_id, decode_tokens=decode_tokens)
         logits = drive_serial(self.ex, p)
         return logits, p.trace
 
-    def _steps(self, suffix_tokens, request_id, clock, trace, decode_tokens=0):
+    def _steps(self, suffix_tokens, clock, trace, decode_tokens=0):
         raise NotImplementedError
 
-    # -- keys ------------------------------------------------------------------
-    def _key(self, layer: int, unit: int) -> Tuple:
-        """Cache/data key; content-addressed (digest-keyed) when the store
-        dedupes across tenants, tenant-namespaced when sharing a flat cache."""
-        if self._digest is not None:
-            return (self._digest, layer, int(unit))
-        if self.tenant:
-            return (self.tenant, layer, int(unit))
+    @staticmethod
+    def _key(layer: int, unit: int) -> Tuple[int, int]:
         return (layer, int(unit))
 
-    def _bound(self, request_id: int, fn):
-        """Pin a shared backend to this request while `fn` runs (concurrent
-        plans interleave over one backend; the sim workload is keyed by the
-        current request id)."""
-        be = self.backend
-        if not hasattr(be, "new_request"):
-            return fn
-
-        def rebind():
-            be.new_request(request_id)
-            return fn()
-
-        return rebind
-
     # -- I/O helpers ---------------------------------------------------------
-    def _io(self, clock: RequestClock, fn, *, nbytes: int, n_requests: int,
-            channel: str, after: Optional[IOHandle] = None) -> IOHandle:
-        """Submit a transfer no earlier than the request's own clock."""
-        if self.sim:
-            return self.ex.submit_io_at(fn, nbytes=nbytes, n_requests=n_requests,
-                                        channel=channel, at=clock.t, after=after)
-        return self.ex.submit_io(fn, nbytes=nbytes, n_requests=n_requests,
-                                 channel=channel)
-
     def _submit_units(self, layer: int, units: List[int], trace: ReprefillTrace,
-                      handles: Dict, clock: RequestClock, *,
-                      speculative: bool = False,
-                      needed_bytes_per_unit: Optional[Dict[int, int]] = None) -> None:
-        """Load `units` of `layer` honoring cache tiers; records handles.
-
-        `needed_bytes_per_unit` maps unit -> bytes actually required from it
-        (token-granularity baselines need only selected tokens out of a
-        block). Defaults to the whole unit (chunk granularity: aligned).
-        """
+                      handles: Dict, *, speculative: bool = False) -> None:
+        """Load `units` of `layer` honoring cache tiers; records handles."""
         store = self.session.store
-        missing, host_hits, ssd_hits = [], [], []
+        missing, host_hits = [], []
         for u in units:
             key = self._key(layer, u)
             if key in handles:
                 continue
-            tier = self.cache.lookup(key, tenant=self.tenant)
+            tier = self.cache.lookup(key)
             if tier == DEVICE:
                 trace.hits_device += 1
-                handles[key] = IOHandle(ready_at=clock.t)
-                if key in self._data:
-                    handles[key].result = self._data[key]
+                handles[key] = IOHandle()
+                handles[key].result = self._data.get(key)
             elif tier == HOST:
                 trace.hits_host += 1
                 host_hits.append(u)
-            elif tier == SSD:
-                trace.hits_ssd += 1
-                ssd_hits.append(u)
             else:
                 trace.misses += 1
                 missing.append(u)
         unit_bytes = store.layout.unit_bytes
-        ssd_nb = ssd_nr = ssd_live = 0
-        if ssd_hits:
-            ssd_keys = [self._key(layer, u) for u in ssd_hits]
-            ssd_nb, ssd_nr, ssd_live = self.cache.ssd_plan(ssd_keys,
-                                                           charge=self.sim)
-        miss_nb = miss_nr = 0
-        if missing:
-            miss_nb, miss_nr = store.run_plan(layer, missing)
-
-        def account_ssd_leg(nbytes, nreq, needed):
-            trace.ssd_bytes += nbytes
-            if speculative:
-                trace.ssd_bytes_spec += nbytes
-            else:
-                trace.ssd_bytes_demand += nbytes
-                trace.needed_bytes += needed
-            trace.ssd_requests += nreq
-            trace.pcie_bytes += nbytes
-
-        def miss_needed():
-            if needed_bytes_per_unit is None:
-                return len(missing) * unit_bytes
-            return sum(needed_bytes_per_unit.get(int(u), unit_bytes)
-                       for u in missing)
-
-        combined = self.sim and bool(ssd_hits) and bool(missing)
-        if combined:
-            # the tier store's log and the prefix store share one physical
-            # SSD, so a layer's two read sets ride a single submission
-            # batch (one fixed latency) and one PCIe leg up — splitting
-            # them would double-charge the per-batch latency the device
-            # model pays once for a pipelined submission
-            nb, nr = ssd_nb + miss_nb, ssd_nr + miss_nr
-            h = self._io(clock, None, nbytes=nb, n_requests=nr,
-                         channel="ssd")
-            h = self._io(clock, None, nbytes=nb, n_requests=1,
-                         channel="pcie", after=h)
-            for u in ssd_hits:
-                handles[self._key(layer, u)] = h
-            for u in missing:
-                handles[self._key(layer, u)] = h
-            account_ssd_leg(ssd_nb, ssd_nr, ssd_live)
-            account_ssd_leg(miss_nb, miss_nr, miss_needed())
-            trace.tokens_loaded += len(missing) * store.layout.unit_tokens
-        elif ssd_hits:
-            # resident in the tier store's SSD log: read the gap-merged
-            # coalesced runs (cheaper request count than the prefix store's
-            # scattered-unit plan when demotion waves landed adjacently),
-            # then the PCIe leg up — the fetch+insert path below promotes
-            # the units back to HBM, completing the attention-guided ladder
-            fetch = None if self.sim else (
-                lambda ks=tuple(ssd_keys): self._fetch_cache_ssd(ks))
-            h = self._io(clock, fetch, nbytes=ssd_nb, n_requests=ssd_nr,
-                         channel="ssd")
-            if self.sim:  # chain the PCIe leg after the SSD leg
-                h = self._io(clock, None, nbytes=ssd_nb, n_requests=1,
-                             channel="pcie", after=h)
-            account_ssd_leg(ssd_nb, ssd_nr, ssd_live)
-            for u in ssd_hits:
-                handles[self._key(layer, u)] = h
         if host_hits:
             nbytes = len(host_hits) * unit_bytes
-            h = self._io(clock, self._mk_fetch(layer, host_hits, from_host=True),
-                         nbytes=nbytes, n_requests=1, channel="pcie")
+            h = self.ex.submit_io(self._mk_fetch(layer, host_hits, from_host=True),
+                                  nbytes=nbytes, n_requests=1, channel="pcie")
             trace.pcie_bytes += nbytes
             for u in host_hits:
                 handles[self._key(layer, u)] = h
-        if missing and not combined:
-            fetch = self._mk_fetch(layer, missing, from_host=False)
-            if fetch is not None and self.hybrid is not None:
-                # feed the planner's EWMA of measured IO service time
-                fetch = self.hybrid.timed_fetch(fetch, miss_nb, miss_nr)
-            h = self._io(clock, fetch,
-                         nbytes=miss_nb, n_requests=miss_nr, channel="ssd")
-            if self.sim:  # chain the PCIe leg after the SSD leg
-                h = self._io(clock, None, nbytes=miss_nb, n_requests=1,
-                             channel="pcie", after=h)
-            account_ssd_leg(miss_nb, miss_nr, miss_needed())
+        if missing:
+            miss_nb, miss_nr = store.run_plan(layer, missing)
+            h = self.ex.submit_io(self._mk_fetch(layer, missing, from_host=False),
+                                  nbytes=miss_nb, n_requests=miss_nr, channel="ssd")
+            trace.ssd_bytes += miss_nb
+            if speculative:
+                trace.ssd_bytes_spec += miss_nb
+            else:
+                trace.ssd_bytes_demand += miss_nb
+                trace.needed_bytes += len(missing) * unit_bytes
+            trace.ssd_requests += miss_nr
+            trace.pcie_bytes += miss_nb
             trace.tokens_loaded += len(missing) * store.layout.unit_tokens
             for u in missing:
                 handles[self._key(layer, u)] = h
-        return None
 
     def _mk_fetch(self, layer: int, units: List[int], from_host: bool):
-        if self.sim:
-            return None
         store = self.session.store
 
         def fetch():
@@ -395,18 +213,10 @@ class _EngineBase:
                 yield WaitOp(h, tag=tag)
         trace.add_stage(tag, clock.t - t0)
 
-    def _fetch_cache_ssd(self, keys):
-        """Real mode: pull SSD-tier payloads out of the tier store's log."""
-        got = self.cache.ssd_fetch(keys)
-        for k, arr in got.items():
-            self._data[k] = np.asarray(arr)
-        return got
-
     def _insert_cache(self, layer: int, units):
         for u in units:
             key = self._key(layer, u)
-            self.cache.insert(key, DEVICE, tenant=self.tenant,
-                              payload=self._data.get(key))
+            self.cache.insert(key, DEVICE, payload=self._data.get(key))
 
     def _sweep_data(self):
         live = self.cache.tiers[DEVICE] | self.cache.tiers[HOST]
@@ -415,126 +225,21 @@ class _EngineBase:
                 del self._data[key]
 
     def _unit_data(self, layer: int, unit: int) -> np.ndarray:
-        """KV payload of one unit; falls back to the tier store's canonical
-        copy (content-addressed dedup), then to a store re-read if a
-        concurrent plan's sweep evicted it between our wait and our gather."""
+        """KV payload of one unit; re-read from the store if the sweep at the
+        end of an earlier request dropped it."""
         key = self._key(layer, unit)
         rec = self._data.get(key)
-        if rec is None and hasattr(self.cache, "payload_of"):
-            rec = self.cache.payload_of(key)
         if rec is None:
             rec = self.session.store.read_units(layer, [int(unit)])[int(unit)]
         self._data[key] = rec
         return rec
 
-    # -- hybrid re-prefill (compute-or-load) ----------------------------------
-    def _hybrid_reprefill(self, request_id: int, selected, trace, handles,
-                          clock: RequestClock, suffix_len: int = 0,
-                          attended: int = 0, extra_overlap_flops: float = 0.0):
-        """Generator: recompute-vs-load split over the first selection.
-
-        Consulted once per request, at the first point the important-unit set
-        is known (period 0 / layer 0).  The planner prices a cut point over
-        the cache-missing units; the head ``[0, end)`` of the prefix is then
-        recomputed by ONE truncated causal forward covering *every* layer
-        (bit-identical to the ingested KV), its units installed as DEVICE
-        residents with ready handles so every later ``_submit_units`` — any
-        layer, any period — sees hits instead of SSD traffic.  The tail
-        stays on today's load path.  With no planner, mode "off", or mode
-        "force-load" this yields nothing, so the plan is unchanged op-for-op.
-        """
-        hp = self.hybrid
-        if hp is None or hp.mode == "off":
-            return
-        if not self.sim and self.session.tokens is None:
-            return  # no prefix tokens retained: nothing to recompute from
-        # `contains`, not `lookup`: this is a planning probe, and a declined
-        # decision must leave hit stats / recency untouched (force-load has
-        # to stay bit-identical to running with no planner at all)
-        missing = sorted(
-            int(u) for u in selected
-            if self._key(0, int(u)) not in handles
-            and self.cache.contains(self._key(0, int(u))) is None)
-        if not missing:
-            return
-        d = hp.decide(cfg=self.cfg, store=self.session.store,
-                      missing_units=missing,
-                      prefix_len=self.session.prefix_len, clock_t=clock.t,
-                      executor=self.ex if self.sim else None,
-                      suffix_len=suffix_len, attended_tokens=attended,
-                      extra_overlap_flops=extra_overlap_flops,
-                      compute_channel=getattr(clock, "channel", "compute"))
-        trace.hybrid_decision = d
-        if not d.recompute_units:
-            return
-        t0 = clock.t
-        end = int(d.recompute_tokens)
-        layout = self.session.store.layout
-        cfg = self.cfg
-        # the prefix tokens are host-resident (the prompt): PCIe upload only,
-        # never the SSD queue the recompute is trying to dodge
-        tok_bytes = TOKEN_BYTES * end
-        h_tok = self._io(clock, None if self.sim else (lambda: None),
-                         nbytes=tok_bytes, n_requests=1, channel="pcie")
-        yield WaitOp(h_tok, tag="recompute_io")
-        cost = CM.chunk_recompute_cost(cfg, end, 0)
-        wb = float(cfg.n_layers * CM.layer_weight_bytes(cfg))
-        fn = None
-        if not self.sim:
-            units = [int(u) for u in d.recompute_units]
-
-            def fn(units=units, end=end):
-                k_all, v_all = self.backend.recompute_prefix_kv(
-                    self.session.tokens, end,
-                    block_q=min(512, max(16, self.session.prefix_len)))
-                ut = layout.unit_tokens
-                g = layout.geom
-                for u in units:
-                    lo, hi = u * ut, min((u + 1) * ut, end)
-                    for l in range(cfg.n_layers):
-                        rec = np.zeros((ut, 2, g.n_kv_heads, g.d_head),
-                                       np.float16)
-                        rec[: hi - lo, 0] = k_all[l, lo:hi]
-                        rec[: hi - lo, 1] = v_all[l, lo:hi]
-                        self._data[self._key(l, u)] = rec
-                return None
-
-        yield ComputeOp(self._bound(request_id, fn) if fn is not None else None,
-                        flops=cost.flops, hbm_bytes=cost.hbm_bytes,
-                        tag="recompute", phase="prefill", tokens=end,
-                        weight_bytes=wb, weight_key=f"model@{self.stream}")
-        # recomputed KV occupies the same pool pages loaded KV would: ready
-        # handles + DEVICE-tier cache entries for every layer's head units
-        for u in d.recompute_units:
-            for l in range(cfg.n_layers):
-                key = self._key(l, int(u))
-                handles[key] = IOHandle(ready_at=clock.t)
-                self.cache.insert(key, DEVICE, tenant=self.tenant,
-                                  payload=self._data.get(key))
-        trace.recompute_units += len(d.recompute_units)
-        trace.recompute_tokens += end
-        trace.ssd_bytes_avoided += d.ssd_bytes_avoided
-        trace.add_stage("recompute", clock.t - t0)
-
     # -- probe ----------------------------------------------------------------
-    def _submit_probe(self, layer: int, trace: ReprefillTrace,
-                      clock: RequestClock, ratio: float = 1.0):
-        nbytes = CM.probe_bytes(self.cfg, self.session.prefix_len, ratio)
+    def _submit_probe(self, layer: int, trace: ReprefillTrace) -> IOHandle:
+        nbytes = CM.probe_bytes(self.cfg, self.session.prefix_len)
         probe = self.session.probe
-
-        def fetch():
-            if probe is None:
-                return None
-            k = probe[layer]
-            if ratio < 1.0:
-                d = k.shape[-1]
-                k = k[..., : max(1, int(d * ratio))]
-            return k
-
-        h = self._io(clock, fetch, nbytes=nbytes, n_requests=1, channel="ssd")
-        if self.sim:
-            h = self._io(clock, None, nbytes=nbytes, n_requests=1,
-                         channel="pcie", after=h)
+        h = self.ex.submit_io(lambda: None if probe is None else probe[layer],
+                              nbytes=nbytes, n_requests=1, channel="ssd")
         trace.ssd_bytes_probe += nbytes
         trace.pcie_bytes += nbytes
         return h
@@ -552,210 +257,87 @@ class _EngineBase:
         a = self._cost_part_a(suffix_len)
         return lc.flops - a, lc.hbm_bytes
 
-    def _part_b_ops(self, fn, suffix_len: int, attended: int, layer: int,
-                    tag: str = "compute", ctx: Optional[PrefillChunkCtx] = None):
-        """Yield one layer's part-B suffix compute, chunk-granular on demand.
-
-        With ``prefill_chunk_tokens`` unset or >= the suffix length this is
-        exactly the legacy monolithic ComputeOp (the serving parity matrix
-        pins that).  Otherwise the suffix splits into ceil(s/c) resumable
-        chunks, each priced by :func:`costmodel.prefill_chunk_cost` and
-        stamped with ``tokens``/``weight_bytes`` so the scheduler's
-        token-budgeted batch former can coalesce it with other plans' decode
-        tokens (the weight stream is then paid once per iteration).  Only
-        the final chunk runs ``fn`` — earlier chunks are pure occupancy, so
-        real-mode results are unaffected.  The final chunk also carries
-        `ctx` (a real-mode :class:`PrefillChunkCtx`), letting the wall-clock
-        batch former coalesce it with other plans' same-layer final chunks
-        into one ``part_b_batch`` pass.  Returns the final op's value."""
-        c = self.prefill_chunk_tokens
-        if not c or c >= suffix_len:
-            fl, hb = self._cost_part_b(suffix_len, attended)
-            out = yield ComputeOp(fn, flops=fl, hbm_bytes=hb, tag=tag)
-            return out
-        wb = float(CM.layer_weight_bytes(self.cfg))
-        out = None
-        done = 0
-        while done < suffix_len:
-            n_tok = min(c, suffix_len - done)
-            done += n_tok
-            final = done >= suffix_len
-            cost = CM.prefill_chunk_cost(self.cfg, n_tok, attended)
-            out = yield ComputeOp(fn if final else None,
-                                  flops=cost.flops, hbm_bytes=cost.hbm_bytes,
-                                  tag=tag, phase="prefill", tokens=n_tok,
-                                  weight_bytes=wb,
-                                  weight_key=f"layer:{layer}@{self.stream}",
-                                  batch_ctx=ctx if final else None)
-        return out
-
-    def _chunk_ctx(self, layer, h, q, k_suf, v_suf, k_sel, v_sel, valid,
-                   chunk_tokens) -> Optional[PrefillChunkCtx]:
-        """Batching surface for this layer's final prefill chunk (real mode
-        with chunking active; None otherwise)."""
-        if self.sim or not self.prefill_chunk_tokens:
-            return None
-        return PrefillChunkCtx(backend=self.backend, layer=int(layer), h=h,
-                               q=q, k_suf=k_suf, v_suf=v_suf, k_sel=k_sel,
-                               v_sel=v_sel, valid=valid,
-                               chunk_tokens=int(chunk_tokens))
-
     # -- gather ----------------------------------------------------------------
-    def _gather_chunks(self, layer: int, units: np.ndarray, chunk_tokens: int):
-        """-> (k_sel, v_sel, valid) bucket-padded; sim mode returns Nones."""
-        nb = bucket_size(max(len(units), 1))
-        valid = np.zeros((nb,), bool)
-        valid[: len(units)] = True
-        if self.sim:
-            return None, None, valid
-        g = self.session.store.layout.geom
-        k_sel = np.zeros((nb, chunk_tokens, g.n_kv_heads, g.d_head), np.float16)
-        v_sel = np.zeros_like(k_sel)
-        for i, u in enumerate(units):
-            rec = self._unit_data(layer, int(u))  # (c, 2, n_kv, d)
-            k_sel[i] = rec[:, 0]
-            v_sel[i] = rec[:, 1]
-        return k_sel, v_sel, valid
-
-    def _gather_unit_pages(self, layer: int, units) -> Tuple[np.ndarray, np.ndarray]:
-        """Resident unit KV as decode-attention pages: (n_units, page, n_kv, d)."""
+    def _unit_pages(self, layer: int, units, n_pages: int):
+        """Units' KV as (n_pages, c, n_kv, d) float16 pages, zero past the units."""
         layout = self.session.store.layout
         g = layout.geom
-        page = layout.unit_tokens
-        n = len(units)
-        k = np.zeros((n, page, g.n_kv_heads, g.d_head), np.float16)
+        k = np.zeros((n_pages, layout.unit_tokens, g.n_kv_heads, g.d_head), np.float16)
         v = np.zeros_like(k)
         for i, u in enumerate(units):
-            rec = self._unit_data(layer, int(u))
+            rec = self._unit_data(layer, int(u))  # (c, 2, n_kv, d)
             k[i] = rec[:, 0]
             v[i] = rec[:, 1]
         return k, v
 
+    def _gather_chunks(self, layer: int, units: np.ndarray):
+        """-> (k_sel, v_sel, valid), padded to the bucket size."""
+        nb = bucket_size(max(len(units), 1))
+        valid = np.zeros((nb,), bool)
+        valid[: len(units)] = True
+        k_sel, v_sel = self._unit_pages(layer, units, nb)
+        return k_sel, v_sel, valid
+
     # -- decode phase ----------------------------------------------------------
-    def _decode_phase(self, decode_tokens, request_id, clock, trace, logits,
-                      suffix_len, resident, handles, kv_suffix):
+    def _decode_phase(self, decode_tokens, clock, trace, logits, suffix_len,
+                      resident, kv_suffix):
         """Per-token decode steps after the first token (phase="decode").
 
-        sim  — decode-time selection drifts per token (workload decode score
-               field at the engine's own unit granularity), cache misses turn
-               into demand fetches (WaitOps), and each token is one
-               costmodel-priced ComputeOp a scheduler may batch with other
-               requests' decode steps;
-        real — sparse decode attention (the decode_attention kernel) over
-               a preallocated per-layer pool built once at decode start
-               (resident unit pages + suffix KV paged in, each decoded
-               token's KV written into its page slot in place); greedy
-               next-token feedback.  By default the pool is a
-               :class:`DeviceTailPool` — pages in device memory, uploaded
-               once and written in place by an indexed assignment, so decode
-               steps move zero pool bytes over H2D; ``device_tail_pool=False``
-               forces the host-resident :class:`TailPool` (re-uploaded per
-               step).  Each decode ComputeOp carries a :class:`DecodeBatchCtx`
-               so a wall-clock driver can coalesce concurrent requests' steps
-               into one batched kernel pass.
-
-        Both modes refresh the attention-guided cache from decode-time
-        scores (Eq. 2 keeps accumulating past the first token).
+        Sparse decode attention (the decode_attention kernel) over a
+        preallocated per-layer pool built once at decode start: the resident
+        unit pages and the suffix KV are paged in, and each decoded token's
+        KV is written into its page slot in place; greedy next-token
+        feedback. By default the pool is a :class:`DeviceTailPool` (pages in
+        device memory, no pool bytes over H2D after the start);
+        ``device_tail_pool=False`` forces the host-resident
+        :class:`TailPool`, re-uploaded per step. The resident units are the
+        ones loaded and waited for during prefill, so decode issues no IO.
+        The attention-guided cache keeps accumulating A_j (Eq. 2) from the
+        decode-time page mass.
         """
         if decode_tokens <= 0:
             return logits
         be, cfg = self.backend, self.cfg
-        layout = self.session.store.layout
-        unit_tokens = layout.unit_tokens
+        unit_tokens = self.session.store.layout.unit_tokens
         trace.first_token_at = clock.t
         weight_bytes = CM.decode_weight_bytes(cfg)
-        tok = int(np.argmax(logits[0, -1])) if logits is not None else 0
+        tok = int(np.argmax(logits[0, -1]))
+        per_layer = {l: np.asarray(resident.get(l, []), dtype=int)
+                     for l in range(cfg.n_layers)}
+        # model compute dtype, so a layer without suffix KV never falls back
+        # to the fp16 storage dtype for its decoded tail
+        compute_dtype = next((kv[0].dtype for kv in kv_suffix.values()), None)
+        pool_cls = DeviceTailPool if self.device_tail_pool else TailPool
         pools: Dict[int, TailPool] = {}
-        res_layers: Dict[int, np.ndarray] = {}
-        if not self.sim:
-            # page the whole decode-attention pool exactly once: resident
-            # unit pages + suffix KV now, one in-place slot per future token
-            res_layers = {l: np.asarray(resident.get(l, []), dtype=int)
-                          for l in range(cfg.n_layers)}
-            # model compute dtype, so a layer without suffix KV never falls
-            # back to the fp16 storage dtype for its decoded tail
-            compute_dtype = next(
-                (kv[0].dtype for kv in kv_suffix.values()), None)
-            pool_cls = DeviceTailPool if self.device_tail_pool else TailPool
-            for l in range(cfg.n_layers):
-                k_res, v_res = self._gather_unit_pages(l, res_layers[l])
-                pools[l] = pool_cls(k_res, v_res, kv_suffix.get(l),
-                                    unit_tokens, decode_tokens,
-                                    dtype=compute_dtype, device=be.device)
+        for l, units in per_layer.items():
+            k_res, v_res = self._unit_pages(l, units, len(units))
+            pools[l] = pool_cls(k_res, v_res, kv_suffix.get(l), unit_tokens,
+                                decode_tokens, dtype=compute_dtype, device=be.device)
         for step in range(decode_tokens):
-            if self.sim:
-                scores = be.decode_scores(request_id, step)
-                cs = np.add.reduceat(
-                    np.pad(scores, (0, layout.n_units * unit_tokens - len(scores))),
-                    np.arange(0, layout.n_units * unit_tokens, unit_tokens),
-                )
-                selected = select_topk_chunks(cs, self.budget)
-                per_layer = {l: selected for l in range(cfg.n_layers)}
-            else:
-                per_layer = res_layers
-            trace.decode_selected.append(per_layer[0])
-            # demand-fetch cache misses, then wait on in-flight transfers
-            for l, units in per_layer.items():
-                self._submit_units(l, list(units), trace, handles, clock)
-            t0 = clock.t
-            waited = set()
-            for l, units in per_layer.items():
-                for u in units:
-                    h = handles.get(self._key(l, u))
-                    if h is None or id(h) in waited:
-                        continue
-                    pending = (h.ready_at > clock.t if self.sim
-                               else h.future is not None and not h.future.done())
-                    if pending:
-                        waited.add(id(h))
-                        yield WaitOp(h, tag="decode_io")
-            trace.add_stage("decode_io", clock.t - t0)
-
             attended = [len(per_layer[l]) * unit_tokens + suffix_len + step + 1
                         for l in range(cfg.n_layers)]
             cost = CM.decode_step_cost(cfg, attended)
-            ctx = None
-            if self.sim:
-                fn = None
-            else:
-                pos = self.session.prefix_len + suffix_len + step
-                ctx = DecodeBatchCtx(backend=be, token=tok, pos=pos,
-                                     pools=pools)
+            pos = self.session.prefix_len + suffix_len + step
 
-                def fn(tok_now=tok, pos=pos, pools=pools, ctx=ctx):
-                    # the backend comes off the ctx, not the closure: a
-                    # disaggregated scheduler reassigns ctx.backend at the
-                    # KV handoff, and the standalone path must follow the
-                    # plan onto the decode worker's engine just like the
-                    # batched path does
-                    bk = ctx.backend
-                    h = bk.embed(np.array([tok_now]))
-                    masses = {}
-                    for l in range(cfg.n_layers):
-                        _, q, k_cur, v_cur = bk.part_a_at(l, h, [[pos]])
-                        pools[l].append(k_cur, v_cur)
-                        h, masses[l] = bk.decode_attend(l, h, q, pools[l])
-                    return bk.logits(h), masses
+            def fn(tok_now=tok, pos=pos):
+                h = be.embed(np.array([tok_now]))
+                masses = {}
+                for l in range(cfg.n_layers):
+                    _, q, k_cur, v_cur = be.part_a_at(l, h, [[pos]])
+                    pools[l].append(k_cur, v_cur)
+                    h, masses[l] = be.decode_attend(l, h, q, pools[l])
+                return be.logits(h), masses
 
-            out = yield ComputeOp(self._bound(request_id, fn) if fn else None,
-                                  flops=cost.flops, hbm_bytes=cost.hbm_bytes,
-                                  tag="decode", phase="decode",
-                                  weight_bytes=weight_bytes, tokens=1,
-                                  weight_key=f"model@{self.stream}",
-                                  batch_ctx=ctx)
-            masses = None
-            if out is not None:
-                logits, masses = out
-                tok = int(np.argmax(logits[0, -1]))
-                trace.decode_tokens_out.append(tok)
+            logits, masses = yield ComputeOp(fn, flops=cost.flops,
+                                             hbm_bytes=cost.hbm_bytes, tag="decode",
+                                             phase="decode", weight_bytes=weight_bytes,
+                                             tokens=1)
+            tok = int(np.argmax(logits[0, -1]))
+            trace.decode_tokens_out.append(tok)
             for l, units in per_layer.items():
-                if isinstance(self.cache, AttentionGuidedCache) and len(units):
-                    if masses is not None:
-                        m = np.asarray(masses[l])
-                    else:
-                        m = be.decode_mass(request_id, l, len(units))
+                if isinstance(self.cache, AttentionGuidedCache):
                     for i, u in enumerate(units):
-                        self.cache.update_importance(self._key(l, u), float(m[i]))
+                        self.cache.update_importance(self._key(l, u), float(masses[l][i]))
                 self._insert_cache(l, units)
             trace.decode_times.append(clock.t)
         return logits
@@ -768,106 +350,76 @@ class ContiguousKVEngine(_EngineBase):
     name = "contiguous_kv"
 
     def __init__(self, session, backend, executor, cache=None, *, budget=0.25,
-                 period: int = 8, subperiod: int = 4, prefetch: bool = True,
-                 inter_period: bool = True, device_cap: int = 0, host_cap: int = 0,
-                 prefill_chunk_tokens: Optional[int] = None,
-                 device_tail_pool: bool = True,
-                 hybrid: Optional[HybridPlanner] = None):
+                 period: int = 8, subperiod: int = 4, device_cap: int = 0,
+                 host_cap: int = 0, device_tail_pool: bool = True):
         cache = cache if cache is not None else AttentionGuidedCache(device_cap, host_cap)
         super().__init__(session, backend, executor, cache, budget=budget,
-                         prefill_chunk_tokens=prefill_chunk_tokens,
-                         device_tail_pool=device_tail_pool, hybrid=hybrid)
+                         device_tail_pool=device_tail_pool)
         self.schedule = PeriodSchedule(self.cfg.n_layers, period, subperiod)
-        self.prefetch = prefetch
-        self.inter_period = inter_period and prefetch
         self.chunk_tokens = session.meta.chunk_tokens
 
-    def _steps(self, suffix_tokens, request_id, clock, trace, decode_tokens=0):
+    def _steps(self, suffix_tokens, clock, trace, decode_tokens=0):
         be, cfg = self.backend, self.cfg
-        meta = self.session.meta
-        if hasattr(be, "new_request"):
-            be.new_request(request_id)
+        c = self.chunk_tokens
+        prefix_len = self.session.prefix_len
         s = len(suffix_tokens)
         t_start = clock.t
         kv_suffix: Dict[int, Tuple] = {}
-        keep_suffix_kv = decode_tokens > 0 and not self.sim
 
         h = yield ComputeOp(lambda: be.embed(suffix_tokens),
                             flops=2.0 * s * cfg.d_model, tag="compute")
         handles: Dict = {}
-        probe_handles: Dict[int, IOHandle] = {}
-        probe_handles[0] = self._submit_probe(0, trace, clock)
+        probe_handles: Dict[int, IOHandle] = {0: self._submit_probe(0, trace)}
 
         for period in self.schedule:
             head = period.head
             x, q, k_suf, v_suf = yield ComputeOp(
-                lambda hh=h, l=head: be.part_a(l, hh, self.session.prefix_len),
+                lambda hh=h, l=head: be.part_a(l, hh, prefix_len),
                 flops=self._cost_part_a(s), tag="compute")
 
-            if period.index not in probe_handles:  # lazy (no inter-period)
-                probe_handles[period.index] = self._submit_probe(head, trace, clock)
             t0 = clock.t
             probe_data = yield WaitOp(probe_handles[period.index], tag="probe_io")
             trace.add_stage("probe_io", clock.t - t0)
 
             # (m,) chunk scores straight from the chunk_score kernel: the
             # token scores never leave the device
-            cs = yield ComputeOp(
-                self._bound(request_id,
-                            lambda qq=q, pd=probe_data, l=head: be.chunk_scores(
-                                qq, pd, l, meta.chunk_tokens)),
-                flops=self._cost_identify(s), tag="identify")
+            cs = yield ComputeOp(lambda qq=q, pd=probe_data, l=head: be.chunk_scores(qq, pd, l, c),
+                                 flops=self._cost_identify(s), tag="identify")
             selected = select_topk_chunks(cs, self.budget)
             trace.selected_per_period.append(selected)
             for l in period.layers:
                 trace.selected_per_layer[l] = selected
 
-            if period.index == 0:
-                yield from self._hybrid_reprefill(
-                    request_id, selected, trace, handles, clock,
-                    suffix_len=s,
-                    attended=len(selected) * meta.chunk_tokens + s,
-                    extra_overlap_flops=(len(self.schedule)
-                                         * self._cost_identify(s)))
-            if self.prefetch:
-                for l in period.layers:
-                    self._submit_units(l, list(selected), trace, handles, clock)
-                if self.inter_period and period.index + 1 < len(self.schedule):
-                    nxt = self.schedule.periods[period.index + 1]
-                    probe_handles[nxt.index] = self._submit_probe(nxt.head, trace, clock)
-                    for l in nxt.layers:  # speculative warm-up with current set
-                        self._submit_units(l, list(selected), trace, handles, clock,
-                                           speculative=True)
-                for l in self.schedule.gate_layers(period):
-                    yield from self._wait_keys(l, selected, handles, trace,
-                                               "kv_io", clock)
-            elif period.index + 1 < len(self.schedule):
+            # intra-period prefetch of this period's layers; inter-period:
+            # the next period's probe, and its layers warmed up with the
+            # current set
+            for l in period.layers:
+                self._submit_units(l, list(selected), trace, handles)
+            if period.index + 1 < len(self.schedule):
                 nxt = self.schedule.periods[period.index + 1]
-                # probe must still be loaded for the next period (on demand)
-                probe_handles[nxt.index] = self._submit_probe(nxt.head, trace, clock)
+                probe_handles[nxt.index] = self._submit_probe(nxt.head, trace)
+                for l in nxt.layers:
+                    self._submit_units(l, list(selected), trace, handles,
+                                       speculative=True)
+            for l in self.schedule.gate_layers(period):
+                yield from self._wait_keys(l, selected, handles, trace, "kv_io", clock)
 
-            n_attended = len(selected) * meta.chunk_tokens + s
+            fl, hb = self._cost_part_b(s, len(selected) * c + s)
             for l in period.layers:
                 if l != head:
                     x, q, k_suf, v_suf = yield ComputeOp(
-                        lambda hh=h, ll=l: be.part_a(ll, hh, self.session.prefix_len),
+                        lambda hh=h, ll=l: be.part_a(ll, hh, prefix_len),
                         flops=self._cost_part_a(s), tag="compute")
-                if not self.prefetch:
-                    self._submit_units(l, list(selected), trace, handles, clock)
                 yield from self._wait_keys(l, selected, handles, trace, "kv_io", clock)
-                k_sel, v_sel, valid = self._gather_chunks(l, selected, meta.chunk_tokens)
-                if keep_suffix_kv:
+                k_sel, v_sel, valid = self._gather_chunks(l, selected)
+                if decode_tokens > 0:
                     kv_suffix[l] = (k_suf, v_suf)
-                h, mass = yield from self._part_b_ops(
-                    self._bound(request_id,
-                                lambda hh=h, ll=l, b=q, c1=k_suf, c2=v_suf,
-                                       k1=k_sel, v1=v_sel, vd=valid: be.part_b(
-                                    ll, hh, b, c1, c2, k1, v1, vd, meta.chunk_tokens)),
-                    s, n_attended, l,
-                    ctx=self._chunk_ctx(l, h, q, k_suf, v_suf, k_sel, v_sel,
-                                        valid, meta.chunk_tokens))
+                h, mass = yield ComputeOp(
+                    lambda hh=h, ll=l, qq=q, ks=k_suf, vs=v_suf, k1=k_sel, v1=v_sel,
+                           vd=valid: be.part_b(ll, hh, qq, ks, vs, k1, v1, vd, c),
+                    flops=fl, hbm_bytes=hb, tag="compute")
                 # attention-guided cache updates (Eq. 1/2)
-                if isinstance(self.cache, AttentionGuidedCache) and mass is not None:
+                if isinstance(self.cache, AttentionGuidedCache):
                     for i, u in enumerate(selected):
                         self.cache.update_importance(self._key(l, u), float(mass[i]))
                 self._insert_cache(l, selected)
@@ -875,8 +427,7 @@ class ContiguousKVEngine(_EngineBase):
         logits = yield ComputeOp(lambda hh=h: be.logits(hh),
                                  flops=2.0 * cfg.d_model * cfg.vocab_size, tag="compute")
         trace.ttft = clock.t - t_start
-        logits = yield from self._decode_phase(
-            decode_tokens, request_id, clock, trace, logits, s,
-            trace.selected_per_layer, handles, kv_suffix)
+        logits = yield from self._decode_phase(decode_tokens, clock, trace, logits, s,
+                                               trace.selected_per_layer, kv_suffix)
         self._sweep_data()
         return logits

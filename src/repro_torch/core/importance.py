@@ -7,8 +7,6 @@ ceil(budget * n) tokens (token-level, H2O — used by the baselines).
 """
 from __future__ import annotations
 
-from typing import Tuple
-
 import numpy as np
 import torch
 
@@ -29,16 +27,6 @@ def token_attention_scores(q: torch.Tensor, k: torch.Tensor, *,
     logits = torch.einsum("sngd,tnd->ngst", qg, k.to(torch.float32)) * scale
     probs = torch.softmax(logits, dim=-1)  # over prefix tokens
     return probs.sum(dim=(0, 1, 2))  # (sk,)
-
-
-def chunk_scores_from_token_scores(a: torch.Tensor, chunk_tokens: int) -> torch.Tensor:
-    """A_j = sum of a_i within chunk j (Eq. 1). a: (n,) -> (m,)."""
-    n = a.shape[0]
-    m = -(-n // chunk_tokens)
-    pad = m * chunk_tokens - n
-    if pad:
-        a = torch.nn.functional.pad(a, (0, pad))
-    return a.reshape(m, chunk_tokens).sum(dim=-1)
 
 
 def select_topk_chunks(scores: np.ndarray, budget_ratio: float) -> np.ndarray:

@@ -6,8 +6,6 @@ the probing keys.
 """
 from __future__ import annotations
 
-import hashlib
-
 import numpy as np
 import torch
 
@@ -22,13 +20,6 @@ from repro_torch.storage.ssd import ChunkStore
 
 def _geometry(cfg: ModelConfig) -> KVGeometry:
     return KVGeometry(n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, bytes_per_el=2)
-
-
-def prefix_digest(prefix_tokens: np.ndarray) -> str:
-    """Content address of a prefix: sha256 over its token ids. Identical
-    system prompts — whatever tenant submits them — digest identically."""
-    toks = np.ascontiguousarray(np.asarray(prefix_tokens, dtype=np.int64))
-    return hashlib.sha256(toks.tobytes()).hexdigest()[:16]
 
 
 def build_real_session(
@@ -58,8 +49,4 @@ def build_real_session(
     for l in range(cfg.n_layers):
         store.write_layer(l, k_all[l], v_all[l])
     meta = ChunkMeta(n_tokens=n, chunk_tokens=chunk_tokens)
-    # retain the raw prefix tokens: the hybrid re-prefill planner recomputes
-    # chunk KV from them instead of loading it when IO is the bottleneck
-    return PrefixSession(cfg=cfg, prefix_len=n, meta=meta, store=store,
-                         probe=k_all, tokens=np.asarray(prefix_tokens),
-                         digest=prefix_digest(prefix_tokens))
+    return PrefixSession(cfg=cfg, prefix_len=n, meta=meta, store=store, probe=k_all)

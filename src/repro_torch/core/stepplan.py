@@ -1,25 +1,14 @@
-"""Schedulable step plans: the engine/executor contract for serving.
+"""Schedulable step plans: the engine/executor contract.
 
-A Re-Prefill engine no longer runs to completion inside ``reprefill``;
-instead :meth:`_EngineBase.plan` returns a :class:`StepPlan` whose generator
-yields one :class:`ComputeOp` or :class:`WaitOp` per blocking point.  Whoever
-drives the generator decides *when* each op runs:
-
-  drive_serial          — one plan at a time against the executor's own clock
-                          (exactly the pre-refactor single-request behaviour;
-                          all existing benchmarks run through this wrapper);
-  serving.Scheduler     — many plans interleaved over shared FIFO channels
-                          (ssd / pcie / compute), so one request's I/O stall
-                          is another request's compute window.
+:meth:`_EngineBase.plan` returns a :class:`StepPlan` whose generator yields
+one :class:`ComputeOp` or :class:`WaitOp` per blocking point; whoever drives
+the generator decides *when* each op runs. :func:`drive_serial` runs one plan
+at a time against the executor's own clock; the serving scheduler, which
+interleaves many plans, comes with a later slice of the port.
 
 Non-blocking work (I/O submissions, numpy scoring between ops) executes
-inline inside the generator and is charged zero virtual time, mirroring how
-the engine's control loop was modelled before the refactor.
-
-Each plan carries a :class:`RequestClock` — the request-local notion of
-"now".  Drivers update ``clock.t`` after every op; engine code reads it for
-stage accounting and passes it as the earliest-start time of channel
-occupancy.  This replaces the executor-global ``t_now`` control point.
+inline inside the generator. Each plan carries a :class:`RequestClock`, the
+request-local notion of "now".
 """
 from __future__ import annotations
 
@@ -32,20 +21,14 @@ from repro_torch.storage.timing import IOHandle
 class RequestClock:
     """Request-local virtual time (sim) / last-observed wall time (real).
 
-    ``channel`` names the accelerator channel the request's compute ops
-    occupy: the shared ``"compute"`` channel by default, the assigned
-    worker's channel (``"compute:p0"``, ``"compute:d1"``, ...) once a
-    disaggregated scheduler routes the plan.  It rides on the clock because
-    the clock is the one per-request object both the scheduler (which
-    assigns workers) and the engine generator (which prices hybrid
-    decisions against the worker's backlog) already share.
+    Drivers update ``t`` after every op; the engine reads it for stage
+    accounting.
     """
 
-    __slots__ = ("t", "channel")
+    __slots__ = ("t",)
 
-    def __init__(self, t: float = 0.0, channel: str = "compute"):
+    def __init__(self, t: float = 0.0):
         self.t = t
-        self.channel = channel
 
     def __repr__(self):
         return f"RequestClock(t={self.t:.6f})"
@@ -55,44 +38,13 @@ class RequestClock:
 class ComputeOp:
     """Occupy the accelerator; the generator receives ``fn()``'s value.
 
-    ``phase`` distinguishes prefill ops from per-token decode steps — the
-    serving scheduler may coalesce decode-phase ops of concurrent plans into
-    one batched accelerator occupation (continuous batching).  For batchable
-    ops, ``weight_bytes`` is the slice of ``hbm_bytes`` that is *shared*
-    across a batch (streamed model weights): a batch pays it once while the
-    per-request remainder (KV traffic) is summed.
-
-    ``tokens`` is the op's contribution to a batch iteration's token budget:
-    1 for a decode step, the chunk length for a chunk-granular prefill op
-    (``prefill_chunk_tokens``), 0 for ops that must run alone (monolithic
-    prefill, identification, probes).  The scheduler's token-level batch
-    former only coalesces ops with ``tokens > 0`` and caps each iteration
-    at ``max_batch_tokens``.
-
-    ``weight_key`` names the weight stream ``weight_bytes`` refers to:
-    ``"model"`` for decode steps (every layer + LM head) and ``"layer:<l>"``
-    for a single layer's prefill chunk.  In a heterogeneous fleet the key is
-    additionally namespaced per model — ``"model@<cfg.name>"`` /
-    ``"layer:<l>@<cfg.name>"`` — because two different models never share
-    weights: the batch former only amortizes ``weight_bytes`` across ops of
-    the *same* stream (see :func:`weight_stream`).  Two ops share a weight
-    stream only if their keys match or one of them streams the whole model
-    *of the same family* — a batch of chunks from *different* layers (or
-    different models) must not pretend to share weights.
-
-    Hybrid re-prefill stamps recompute ops with ``tag="recompute"``,
-    ``phase="prefill"`` and ``weight_key="model"`` (a truncated causal
-    forward streams every layer's weights), so they mix Sarathi-style into
-    decode-led iterations under ``max_batch_tokens`` while load legs stay on
-    the IO channels.
-
-    ``batch_ctx`` (real mode only) is the op's batching surface: a
-    :class:`DecodeBatchCtx` for decode steps (coalesced into one
-    ``backend.decode_step_batch`` pass) or a :class:`PrefillChunkCtx` for
-    the final chunk of a chunked prefill layer (consecutive same-layer chunk
-    ops from different plans coalesce into one ``backend.part_b_batch``
-    call).  ``fn`` stays the standalone single-request path, so drivers that
-    ignore the metadata (``drive_serial``) execute the plan unchanged.
+    ``flops``/``hbm_bytes`` price the op for a simulated executor (the real
+    executor runs ``fn`` on the wall clock). ``phase`` distinguishes prefill
+    ops from per-token decode steps, which a serving scheduler may coalesce
+    across concurrent plans; ``weight_bytes`` is the slice of ``hbm_bytes``
+    such a batch shares (streamed model weights) and ``tokens`` the op's
+    share of a batch iteration's token budget (1 for a decode step, 0 for
+    ops that run alone).
     """
 
     fn: Optional[Callable]
@@ -102,63 +54,6 @@ class ComputeOp:
     phase: str = "prefill"
     weight_bytes: float = 0.0
     tokens: int = 0
-    weight_key: str = ""
-    batch_ctx: Optional[object] = None  # DecodeBatchCtx | PrefillChunkCtx
-
-
-@dataclasses.dataclass
-class DecodeBatchCtx:
-    """Batchable-op metadata for one real-mode decode ComputeOp.
-
-    ``backend`` is the shared :class:`repro_torch.core.backends.RealCompute` (two
-    ops may only batch if they share one); ``token``/``pos`` are this step's
-    greedy-fed input token and absolute position; ``pools`` maps layer ->
-    the request's preallocated paged KV pool the batched pass appends to and
-    attends over — a device-resident
-    :class:`repro_torch.core.backends.DeviceTailPool` by default (host
-    :class:`~repro_torch.core.backends.TailPool` when the engine was built with
-    ``device_tail_pool=False``).  ``pools`` is also the preemption surface:
-    the real scheduler snapshots the pools to host (``swap_out``) when it
-    evicts this plan under SLO pressure and restores them (``swap_in``)
-    before the held op resumes.
-    """
-
-    backend: object
-    token: int
-    pos: int
-    pools: dict
-
-
-@dataclasses.dataclass
-class PrefillChunkCtx:
-    """Batchable-op metadata for a real-mode prefill-chunk ComputeOp.
-
-    Carried by the *final* chunk op of a chunked part-B layer (the one whose
-    ``fn`` performs the actual attention; earlier chunks are pure occupancy).
-    Two ops coalesce into one ``backend.part_b_batch`` call only when they
-    share a backend, the same layer and identical array shapes — the batched
-    pass vmaps the single-request part-B, so ragged members cannot mix.
-    """
-
-    backend: object
-    layer: int
-    h: object  # (1, s, d_model) residual stream entering part-B
-    q: object  # (1, s, n_q, d_head) rotated queries
-    k_suf: object  # (1, s, n_kv, d_head) suffix keys
-    v_suf: object  # (1, s, n_kv, d_head) suffix values
-    k_sel: object  # (nb, c, n_kv, d_head) gathered selected-chunk keys
-    v_sel: object  # (nb, c, n_kv, d_head) gathered selected-chunk values
-    valid: object  # (nb,) bucket-validity mask
-    chunk_tokens: int
-
-    def shape_key(self):
-        def sig(x):
-            shp = getattr(x, "shape", None)
-            dt = getattr(x, "dtype", None)
-            return (tuple(shp) if shp is not None else None, str(dt))
-
-        return (self.layer, int(self.chunk_tokens), sig(self.h), sig(self.q),
-                sig(self.k_suf), sig(self.k_sel), sig(self.valid))
 
 
 @dataclasses.dataclass
@@ -167,18 +62,6 @@ class WaitOp:
 
     handle: IOHandle
     tag: str = ""
-
-
-def weight_stream(weight_key: str) -> str:
-    """The model namespace of a ``weight_key``: the part after the last
-    ``"@"``, or ``""`` for un-namespaced (single-model) keys.  Ops whose
-    streams differ belong to different models and must never pretend to
-    share a weight read, no matter how their base keys compare."""
-    _, sep, stream = weight_key.rpartition("@")
-    return stream if sep else ""
-
-
-Op = object  # ComputeOp | WaitOp
 
 
 @dataclasses.dataclass
@@ -190,12 +73,6 @@ class StepPlan:
     clock: RequestClock
     trace: object  # ReprefillTrace (avoid circular import)
 
-    def resume_time(self, op) -> float:
-        """Earliest virtual time the pending op can run."""
-        if isinstance(op, WaitOp):
-            return max(self.clock.t, op.handle.ready_at)
-        return self.clock.t
-
 
 def resolve_handle(handle: IOHandle):
     """Materialize a completed handle's payload (real mode joins the future)."""
@@ -205,13 +82,9 @@ def resolve_handle(handle: IOHandle):
 
 
 def drive_serial(executor, plan: StepPlan):
-    """Run one plan to completion on a single-control-point executor.
-
-    This is the compatibility wrapper: with a ``SimExecutor`` the resulting
-    timeline is bit-identical to the pre-stepplan monolithic ``reprefill``,
-    because every op is issued at the executor's own ``now()`` in program
-    order.  Returns the generator's return value (the logits).
-    """
+    """Run one plan to completion on a single-control-point executor, every
+    op issued at the executor's own ``now()`` in program order. Returns the
+    generator's return value (the logits)."""
     clock = plan.clock
     clock.t = executor.now()
     gen = plan.gen

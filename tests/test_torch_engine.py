@@ -120,18 +120,39 @@ def test_full_budget_matches_dense_forward(fp32):
     _close(logits, je.reprefill(suffix)[0])
 
 
-def test_recompute_prefix_kv_matches_store(fp32):
-    """The hybrid planner's recompute runs the ingest forward again: its
-    float16 KV equals what the store holds, bit for bit."""
-    _, pcfg, _, tparams, prefix, _, _, psess = fp32
-    end = 48
-    k, v = RealCompute(pcfg, tparams, device="cpu").recompute_prefix_kv(prefix, end, block_q=16)
-    assert k.dtype == np.float16 and k.shape == (pcfg.n_layers, end, pcfg.n_kv_heads, pcfg.d_head)
-    np.testing.assert_array_equal(k, psess.probe[:, :end])
-    for l in range(pcfg.n_layers):
-        rec = psess.store.read_units(l, [0, 1, 2])
-        stored_v = np.concatenate([rec[u][:, 1] for u in (0, 1, 2)])
-        np.testing.assert_array_equal(v[l], stored_v)
+TRACE_COUNTS = ("hits_device", "hits_host", "misses", "ssd_bytes", "ssd_bytes_demand",
+                "ssd_bytes_spec", "ssd_bytes_probe", "ssd_requests", "pcie_bytes",
+                "needed_bytes", "tokens_loaded")
+
+
+@pytest.mark.parametrize("device_cap,host_cap", [(4, 2), (999, 0)])
+def test_cache_tiers_across_requests_match_jax(fp32, device_cap, host_cap):
+    """Three requests on one engine: later ones find earlier chunks in the
+    attention-guided cache (device or host tier). Hits, misses and bytes per
+    request, and the cache's tiers and frequencies after them, equal the JAX
+    engine's; the importance scores agree to float32 rounding."""
+    je, pe = _engines(fp32, 0.25, device_cap=device_cap, host_cap=host_cap)
+    rng = np.random.default_rng(1)
+    suffixes = [fp32[5]] + [rng.integers(0, fp32[0].vocab_size, 16) for _ in range(2)]
+    for suffix in suffixes:
+        _, tj = je.reprefill(suffix, decode_tokens=2)
+        _, tp = pe.reprefill(suffix, decode_tokens=2)
+        assert {f: getattr(tp, f) for f in TRACE_COUNTS} == {f: getattr(tj, f) for f in TRACE_COUNTS}
+        assert tp.decode_tokens_out == tj.decode_tokens_out
+    assert pe.cache.tiers == je.cache.tiers and pe.cache.F == je.cache.F
+    keys = sorted(je.cache.I)
+    assert sorted(pe.cache.I) == keys
+    np.testing.assert_allclose([pe.cache.I[k] for k in keys], [je.cache.I[k] for k in keys],
+                               rtol=1e-4)
+
+
+def test_engine_runs_real_mode_only(fp32):
+    from repro_torch.storage.timing import ChannelSim, DeviceModel
+
+    _, pcfg, _, tparams, *_, psess = fp32
+    with pytest.raises(TypeError, match="real mode"):
+        ContiguousKVEngine(psess, RealCompute(pcfg, tparams, device="cpu"),
+                           ChannelSim(DeviceModel()))
 
 
 def test_host_pool_decodes_like_device_pool(fp32):

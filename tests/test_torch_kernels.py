@@ -178,7 +178,7 @@ class TestDecodeAttention:
 
 
 def test_importance_matches_jax():
-    """core/importance.py: token mass in torch, chunk sums, top-k on numpy."""
+    """core/importance.py: token mass in torch, top-k on numpy."""
     from repro.core import importance as JI
     from repro_torch.core import importance as PI
 
@@ -186,8 +186,6 @@ def test_importance_matches_jax():
     ja = JI.token_attention_scores(jnp.asarray(q), jnp.asarray(k))
     pa = PI.token_attention_scores(_t(q), _t(k))
     np.testing.assert_allclose(pa.numpy(), np.asarray(ja), **TOL)
-    np.testing.assert_allclose(PI.chunk_scores_from_token_scores(pa, 16).numpy(),
-                               np.asarray(JI.chunk_scores_from_token_scores(ja, 16)), **TOL)
     scores = _rand(2, (37,))
     for budget in (0.1, 0.25, 1.0):
         np.testing.assert_array_equal(PI.select_topk_chunks(scores, budget),
