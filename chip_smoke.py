@@ -13,27 +13,43 @@ non-zero exit code:
   2. kernels  — chunk_score, chunk_attention and decode_attention at the
                 main path's shapes on full-width Qwen2.5-7B, each held
                 against its plain PyTorch version on the same card inputs
-                (tolerances stated below), timed beside its plain version
-                and the least time the card could take (bound);
+                (tolerances stated below), timed beside its plain version,
+                the least time the card could take (bound) and, where one
+                exists, one PyTorch call computing the same function
+                (library);
   3. e2e      — ContiguousKV Re-Prefill then decode on full-width
                 Qwen2.5-7B (28 layers, random bfloat16 weights from a seeded
-                generator on the card): ingest a 4096-token prefix, serve 4
-                requests of a 64-token suffix with 16 decode tokens each at
-                budget 0.25, period 8, subperiod 4, c=16; assert read
-                amplification 1.0 and each kernel's launch count per
-                request; print where each request's time goes and profile
-                one more request (device busy time, idle share, top device
-                ops); hold a budget-1.0 run's first-token logits against the
-                dense forward over prefix + suffix;
-  4. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
-     main path, its error against its plain version, and its times;
-  5. last line: ``{"ok": true, "device": {...}}``.
+                generator on the card): ingest a 4096-token prefix (through
+                flash_attention, its launches asserted), serve 4 requests of
+                a 64-token suffix with 16 decode tokens each at budget 0.25,
+                period 8, subperiod 4, c=16; assert read amplification 1.0
+                and each kernel's launch count per request; print where each
+                request's time goes and profile one more request (device
+                busy time, idle share, top device ops); hold a budget-1.0
+                run's first-token logits against the dense forward over
+                prefix + suffix;
+  4. state    — flash_attention (hymba prefill, dense ingest, ragged s,
+                window, q_offset) and selective_scan (hymba prefill with a
+                ragged s, h0-seeded resume, decode at b = 1 and 2) checked
+                and timed as in phase 2; then the state-space path
+                (StateSpaceEngine over StateCompute) on full-width
+                hymba-1.5b (32 layers, random bfloat16 weights from a
+                seeded generator): 4 requests of the same 4096-token
+                prefix + 64-token suffix with 16 decode tokens each, with
+                flash_attention and selective_scan launches asserted per
+                request, timed and profiled as above; decode's logits held
+                against a prefill over the same tokens; then one request on
+                full-width falcon-mamba-7b (64 layers, attention-free);
+  5. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
+     paths it names, its error against its plain version, and its times;
+  6. last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
 outside a checkout (it builds and imports ``src/repro_torch``).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -55,7 +71,8 @@ HBM_BYTES_PER_S = 3.35e12
 TENSOR_CORE_OPS_PER_S = 989e12
 CUDA_CORE_FP32_OPS_PER_S = 67e12
 
-# full-width main path (serve.py's default prefix length)
+# full-width main path (serve.py's default prefix length); the state-space
+# phase serves the same request shape
 PREFIX_LEN, SUFFIX_LEN, DECODE_TOKENS, N_REQUESTS = 4096, 64, 16, 4
 BUDGET, PERIOD, SUBPERIOD, CHUNK = 0.25, 8, 4, 16
 # budget-1.0 first-token logits against the dense forward: the engine keeps
@@ -65,6 +82,25 @@ BUDGET, PERIOD, SUBPERIOD, CHUNK = 0.25, 8, 4, 16
 # test (4 layers) allows 3e-2. An H100 run measured 0.016 of the largest
 # logit and cosine 0.99986; the limits leave about 3x room
 DENSE_REL_TOL, DENSE_MIN_COS = 0.05, 0.999
+# flash_attention in bfloat16 multiplies P, rounded to bfloat16, on the
+# tensor cores (the plain version keeps P in float32) and rounds the output
+# once: 2^-7 of the largest output, about one bfloat16 ulp
+FLASH_REL = 2.0 ** -7
+# selective_scan against its plain version: the same float32 recurrence,
+# the kernel contracting multiply-adds and summing y in another order
+SCAN_REL = 1e-5
+# decode's logits against a prefill over the same tokens, hymba. The check
+# is of the state decode carries (h, conv window, KV cache), so it runs on
+# float32 copies of the same weights, where both sides compute in float32
+# and a wrong state would show far above rounding: the dense check's limits.
+STEP_REL_TOL, STEP_MIN_COS = DENSE_REL_TOL, DENSE_MIN_COS
+# The same check as served, in bfloat16: both sides round every op to
+# bfloat16 through 32 layers in different orders (GEMV against GEMM, the
+# decode's bfloat16 scores against flash_attention's float32 ones, decode's
+# float32 dt against prefill's bfloat16 dt), some 600 roundings of 2^-9 in a
+# random walk: ~0.05 of the largest logit. An H100 run measured 0.0517 and
+# cosine 0.99904 at step 1; the limits leave about 2x room
+STEP_BF16_REL_TOL, STEP_BF16_MIN_COS = 0.1, 0.998
 
 
 def fail(msg: str):
@@ -242,6 +278,115 @@ def phase_kernels(cfg):
     return rows
 
 
+def phase_state_kernels(hcfg, dcfg):
+    """flash_attention and selective_scan against their plain versions at
+    the state-space path's shapes (and flash at the dense ingest's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def rn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    rows = {}
+    s_full = PREFIX_LEN + SUFFIX_LEN  # the state-space prefill: 4160 tokens
+    # flash_attention, bfloat16 as the model runs it, q/k/v read through the
+    # (b, s, n, d) projections' transposed views
+    cases = [("hymba prefill", hcfg, s_full, s_full, 0, 0),
+             ("dense ingest", dcfg, PREFIX_LEN, PREFIX_LEN, 0, 0),
+             ("ragged s", hcfg, 1000, 1000, 0, 0),
+             ("window 256", hcfg, 1000, 1000, 256, 0),
+             ("q_offset 4096", hcfg, SUFFIX_LEN, s_full, 0, PREFIX_LEN)]
+    for label, c, s_q, s_k, window, q_offset in cases:
+        q = rn(1, s_q, c.n_heads, c.d_head).transpose(1, 2)
+        k = rn(1, s_k, c.n_kv_heads, c.d_head).transpose(1, 2)
+        v = rn(1, s_k, c.n_kv_heads, c.d_head).transpose(1, 2)
+        kw = dict(causal=True, window=window, q_offset=q_offset)
+        got, ref = flash_attention(q, k, v, **kw), flash_attention_ref(q, k, v, **kw)
+        err, tol = max_err(got, ref), FLASH_REL * ref.float().abs().max().item()
+        if not err <= tol:
+            fail(f"flash_attention {label}: max abs err {err} > {tol}")
+        print(f"kernels: flash_attention {label} q {tuple(q.shape)} k {tuple(k.shape)} "
+              f"{dname(q)}: max abs err {err:.3g} (tol {tol:.3g})")
+        if label in ("hymba prefill", "dense ingest"):
+            pairs = s_q * (s_q + 1) // 2  # causal key-query pairs of this run
+            ms = device_ms(lambda: flash_attention(q, k, v, **kw))
+            lib = device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+            r = dict(err=err, ms=ms, library_ms=lib,
+                     plain_ms=wall_ms(lambda: flash_attention_ref(q, k, v, **kw), reps=3),
+                     bound=bounds(nbytes(q, k, v, got), 4.0 * c.n_heads * c.d_head * pairs))
+            print(f"kernels: flash_attention {label}: {ms:.4f} ms on the card, "
+                  f"scaled_dot_product_attention {lib:.4f} ms, plain version "
+                  f"{r['plain_ms']:.2f} ms, bound {r['bound']['tensor_core'][0]:.5f} ms by "
+                  f"{r['bound']['tensor_core'][1]} at the tensor-core rate")
+            if label == "hymba prefill":  # the kernels line's row
+                rows["flash_attention"] = r
+
+    # selective_scan: bfloat16 x/B/C with bfloat16-rounded dt (prefill) or
+    # float32 dt seeded with h0 (decode); B and C are slices of the (b, s,
+    # 2n + 1) projection, as the block passes them
+    d_in, n = hcfg.d_inner, hcfg.ssm_state
+
+    def scan_inputs(b, s, dt_dtype):
+        x = rn(b, s, d_in)
+        dt = F.softplus(rn(b, s, dtype=torch.float32) - 2.0).to(dt_dtype)
+        A = -torch.exp(rn(d_in, n, dtype=torch.float32))
+        proj = rn(b, s, 2 * n + 1)
+        return x, dt, A, proj[..., :n], proj[..., n: 2 * n]
+
+    def check(label, args, h0=None):
+        (y, h), (yr, hr) = selective_scan(*args, h0), selective_scan_ref(*args, h0)
+        err = max(max_err(y, yr), max_err(h, hr))
+        tol = SCAN_REL * max(yr.abs().max().item(), hr.abs().max().item()) + 1e-6
+        if not err <= tol:
+            fail(f"selective_scan {label}: max abs err {err} > {tol}")
+        print(f"kernels: selective_scan {label} x {tuple(args[0].shape)} {dname(args[0])}: "
+              f"max abs err {err:.3g} on y and h (tol {tol:.3g})")
+        return err, y, h
+
+    args = scan_inputs(1, s_full, torch.bfloat16)
+    err, y_full, h_full = check("hymba prefill", args)
+    err = max(err, check("ragged s", scan_inputs(1, s_full - 27, torch.bfloat16))[0])
+    cut = s_full - 61  # resume mid-sequence from the carried state: bit-identical
+    x, dt, A, Bm, Cm = args
+    _, _, h_mid = check("first part", (x[:, :cut].contiguous(), dt[:, :cut], A,
+                                       Bm[:, :cut], Cm[:, :cut]))
+    _, y_res, h_res = check("resumed from h0", (x[:, cut:].contiguous(), dt[:, cut:], A,
+                                                Bm[:, cut:], Cm[:, cut:]), h_mid)
+    if not (torch.equal(y_res, y_full[:, cut:]) and torch.equal(h_res, h_full)):
+        fail("selective_scan: a resumed scan differs from the whole one")
+    print(f"kernels: selective_scan resumed at {cut} of {s_full}: bit-identical to the "
+          f"whole scan")
+    for b in (1, 2):
+        dec = scan_inputs(b, 1, torch.float32)
+        h0 = rn(b, d_in, n, dtype=torch.float32)
+        err = max(err, check(f"decode b={b}", dec, h0)[0])
+    dec = scan_inputs(1, 1, torch.float32)
+    h0 = rn(1, d_in, n, dtype=torch.float32)
+    # bytes: x, dt, B, C read and y, h written once; operations: per (t,
+    # channel, state) exp, dt * A, the two multiply-adds of h and one of y
+    # — float32 on the CUDA cores, so both bounds take that rate
+    scan_ops = 6.0 * s_full * d_in * n
+    r = dict(err=err, ms=device_ms(lambda: selective_scan(*args)), library_ms=None,
+             plain_ms=wall_ms(lambda: selective_scan_ref(*args), reps=2),
+             decode_ms=device_ms(lambda: selective_scan(*dec, h0)))
+    cc = bounds(nbytes(x, dt, A, Bm, Cm, y_full, h_full), scan_ops)["cuda_core"]
+    r["bound"] = {"tensor_core": cc, "cuda_core": cc}
+    print(f"kernels: selective_scan hymba prefill: {r['ms']:.4f} ms on the card, plain "
+          f"version {r['plain_ms']:.1f} ms, bound {cc[0]:.5f} ms by {cc[1]}; decode step "
+          f"{r['decode_ms']:.4f} ms; library call: none, no PyTorch call computes the scan")
+    rows["selective_scan"] = r
+    return rows
+
+
 def phase_e2e(cfg):
     import numpy as np
     import torch
@@ -255,22 +400,29 @@ def phase_e2e(cfg):
     from repro_torch.models import transformer as T
     from repro_torch.storage.timing import RealExecutor
 
+    from repro_torch.kernels.flash_attention import ops as fa
+
     ops = {"chunk_score": cs, "chunk_attention": ca, "decode_attention": da}
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in [params["embed"], params["unembed"],
-                                       *params["layers"].values()])
+    n_params = sum(t.numel() for t in _leaves(params))
     print(f"e2e: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads d_ff {cfg.d_ff} vocab {cfg.vocab_size}: "
           f"{n_params / 1e9:.2f} B random {cfg.dtype} weights in "
           f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     prefix = rng.integers(0, cfg.vocab_size, PREFIX_LEN)
+    fa.launches = 0
     t0 = time.perf_counter()
     sess = build_real_session(cfg, params, prefix, chunk_tokens=CHUNK, in_memory=True,
                               device=DEVICE)
-    print(f"e2e: ingest of {PREFIX_LEN} tokens took {time.perf_counter() - t0:.2f} s")
+    ingest_s = time.perf_counter() - t0
+    ingest_flash = fa.launches
+    if ingest_flash != cfg.n_layers:
+        fail(f"ingest: {ingest_flash} flash_attention launches, expected {cfg.n_layers}")
+    print(f"e2e: ingest of {PREFIX_LEN} tokens took {ingest_s:.2f} s "
+          f"({ingest_flash} flash_attention launches)")
 
     ex = RealExecutor()
     eng = ContiguousKVEngine(sess, RealCompute(cfg, params, device=DEVICE), ex, budget=BUDGET,
@@ -307,7 +459,8 @@ def phase_e2e(cfg):
         busy = {k: round((v - busy.get(k, 0.0)) * 1e3, 2) for k, v in ex.stage_times.items()}
         waits = {k: round(v * 1e3, 2) for k, v in trace.stages.items()}
         print(f"e2e: request {i}: compute ops ms {busy}, waits ms {waits}")
-    totals = {k: mod.launches for k, mod in ops.items()}
+    totals = {k: {"dense requests": mod.launches} for k, mod in ops.items()}
+    totals["flash_attention"] = {"dense ingest": ingest_flash}
     print(f"e2e: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     profile_request(eng, suffixes[0], statistics.mean(walls[1:]))
 
@@ -331,7 +484,124 @@ def phase_e2e(cfg):
     return totals
 
 
-def profile_request(eng, suffix, warm_wall_ms: float):
+def logit_agreement(a, b):
+    """(max abs err / max |b|, cosine) of two logit vectors."""
+    import torch
+
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    return (((a - b).abs().max() / b.abs().max()).item(),
+            torch.nn.functional.cosine_similarity(a, b, dim=0).item())
+
+
+def phase_state_e2e(cfg, n_requests: int, check_decode: bool):
+    """StateSpaceEngine on a full-width state-space config: per-request
+    launch counts asserted, TTFT/TPOT, compute-op host times, peak memory,
+    one profiled request; decode's logits against a prefill over the same
+    tokens. Returns {kernel: launches} over the requests."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.backends import StateCompute
+    from repro_torch.core.engine import StateSpaceEngine
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.selective_scan import ops as ss
+    from repro_torch.models import transformer as T
+    from repro_torch.storage.timing import RealExecutor
+
+    ops = {"flash_attention": fa, "selective_scan": ss}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"state: {cfg.name} ({cfg.family}) {cfg.n_layers} layers d_model {cfg.d_model} "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads d_inner {cfg.d_inner} ssm_state "
+          f"{cfg.ssm_state} d_ff {cfg.d_ff} vocab {cfg.vocab_size}: {n_params / 1e9:.2f} B "
+          f"random {cfg.dtype} weights in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, PREFIX_LEN)
+    suffixes = [rng.integers(0, cfg.vocab_size, SUFFIX_LEN) for _ in range(n_requests)]
+    be = StateCompute(cfg, params, device=DEVICE)
+    ex = RealExecutor()
+    eng = StateSpaceEngine(cfg, be, ex, prefix_tokens=prefix)
+    L = cfg.n_layers
+    expect = {"flash_attention": L if cfg.has_attention else 0,
+              "selective_scan": L + L * DECODE_TOKENS}
+    walls = []
+    for mod in ops.values():
+        mod.launches = 0
+    for i, suffix in enumerate(suffixes):
+        before = {k: mod.launches for k, mod in ops.items()}
+        busy = dict(ex.stage_times)
+        t0 = time.perf_counter()
+        logits, trace = eng.reprefill(suffix, request_id=i, decode_tokens=DECODE_TOKENS)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        got = {k: mod.launches - before[k] for k, mod in ops.items()}
+        if got != expect:
+            fail(f"{cfg.name} request {i}: kernel launches {got}, expected {expect}")
+        toks = trace.decode_tokens_out
+        if (logits.shape != (1, 1, cfg.vocab_size) or not np.isfinite(logits).all()
+                or len(toks) != DECODE_TOKENS or not all(0 <= t < cfg.vocab_size for t in toks)):
+            fail(f"{cfg.name} request {i}: bad output {logits.shape} {toks}")
+        busy = {k: round((v - busy.get(k, 0.0)) * 1e3, 2) for k, v in ex.stage_times.items()}
+        print(f"state: {cfg.name} request {i}: TTFT {trace.ttft * 1e3:.2f} ms, TPOT "
+              f"{trace.tpot * 1e3:.3f} ms over {trace.n_decoded} tokens, launches {got}, "
+              f"compute ops ms {busy}")
+    totals = {k: mod.launches for k, mod in ops.items()}
+    print(f"state: {cfg.name} peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    warm = walls[1:] if len(walls) > 1 else walls
+    profile_request(eng, suffixes[0], statistics.mean(warm), tag=f"state: {cfg.name}")
+
+    if check_decode:
+        prompt = np.concatenate([prefix, suffixes[0]])
+        decode_vs_prefill(be, prompt, STEP_BF16_REL_TOL, STEP_BF16_MIN_COS)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        params32 = _tree_map(params, lambda t: t.to(torch.float32))
+        decode_vs_prefill(StateCompute(cfg32, params32, device=DEVICE), prompt,
+                          STEP_REL_TOL, STEP_MIN_COS)
+        del params32
+    ex.shutdown()
+    return totals
+
+
+def decode_vs_prefill(be, prompt, rel_tol: float, min_cos: float):
+    """Decode step k's logits (k = 1, 8) against the last logits of a
+    prefill over the prompt and the k greedy tokens fed so far."""
+    import numpy as np
+
+    logits, pool = be.prefill(prompt, extra_tokens=DECODE_TOKENS)
+    fed, steps = [], {}
+    for k in range(1, 9):
+        fed.append(int(np.argmax(logits[0, -1])))
+        logits, pool.state = be.decode_step(fed[-1], pool.state)
+        steps[k] = logits[0, -1]
+    for k in (1, 8):
+        ref, _ = be.prefill(np.concatenate([prompt, fed[:k]]))
+        rel, cos = logit_agreement(steps[k], ref[0, -1])
+        print(f"state: {be.cfg.name} {be.cfg.dtype} decode step {k} vs prefill over the same "
+              f"{len(prompt) + k} tokens: max abs err / max |logit| {rel:.4f} (tol {rel_tol}), "
+              f"cosine {cos:.5f} (min {min_cos}), argmax {int(np.argmax(steps[k]))} vs "
+              f"{int(np.argmax(ref[0, -1]))}")
+        if not (rel <= rel_tol and cos >= min_cos):
+            fail(f"{be.cfg.name} {be.cfg.dtype}: decode step {k} disagrees with the prefill")
+
+
+def _tree_map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree_map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def profile_request(eng, suffix, warm_wall_ms: float, tag: str = "e2e"):
     """One more request under torch.profiler: the device's busy time (sum of
     its kernels and copies, one stream), the idle share against the mean wall
     time of the warm requests run without the profiler (which slows the
@@ -354,7 +624,7 @@ def profile_request(eng, suffix, warm_wall_ms: float):
     if busy_ms <= 0:
         fail("the profiler saw no device time")
     top = sorted(dev, key=lambda x: -x[2])[:6]
-    print(f"e2e: profiled request: device busy {busy_ms:.1f} ms of a warm request's "
+    print(f"{tag}: profiled request: device busy {busy_ms:.1f} ms of a warm request's "
           f"{warm_wall_ms:.1f} ms ({100 * (1 - busy_ms / warm_wall_ms):.1f} % idle; "
           f"{wall_ms:.1f} ms under the profiler); top device ops: "
           + "; ".join(f"{k[:48]} x{n} {t / 1e3:.2f} ms" for k, n, t in top))
@@ -379,27 +649,44 @@ def main() -> int:
     from repro_torch.configs import get_config
 
     cfg = get_config("qwen2.5-7b")
+    hcfg, fcfg = get_config("hymba-1.5b"), get_config("falcon-mamba-7b")
     phase_device()
+    # the dense phases first, so their requests run in the same process
+    # state as before the state-space phases existed
     rows = phase_kernels(cfg)
-    launches = phase_e2e(cfg)
+    paths = phase_e2e(cfg)
+    torch.cuda.empty_cache()  # the Qwen weights went with phase_e2e
+    rows.update(phase_state_kernels(hcfg, cfg))
+    for name, n in phase_state_e2e(hcfg, N_REQUESTS, check_decode=True).items():
+        paths.setdefault(name, {})["hymba-1.5b requests"] = n
+    torch.cuda.empty_cache()
+    for name, n in phase_state_e2e(fcfg, 1, check_decode=False).items():
+        if n:
+            paths.setdefault(name, {})["falcon-mamba-7b request"] = n
     sources = {"chunk_score": ("src/repro_torch/csrc/chunk_score.cu",
                                "src/repro/kernels/chunk_score/kernel.py:65"),
                "chunk_attention": ("src/repro_torch/csrc/chunk_attention.cu",
                                    "src/repro/kernels/chunk_attention/kernel.py:71"),
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
-                                    "src/repro/kernels/decode_attention/kernel.py:77")}
+                                    "src/repro/kernels/decode_attention/kernel.py:77"),
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention/kernel.py:68"),
+               "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
+                                  "src/repro/kernels/selective_scan/kernel.py:55")}
     kernels = []
     for name, r in rows.items():
-        if launches[name] < 1:
+        launches = sum(paths[name].values())
+        if launches < 1:
             fail(f"{name} never launched on the main path")
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
-                        "replaces": sources[name][1], "launches": launches[name],
+                        "replaces": sources[name][1], "launches": launches,
+                        "launches_by_path": paths[name],
                         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound"]["tensor_core"][0],
                         "bound_by": r["bound"]["tensor_core"][1],
                         "cuda_core_bound_ms": r["bound"]["cuda_core"][0],
                         "cuda_core_bound_by": r["bound"]["cuda_core"][1],
-                        "library_ms": None})
+                        "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,14 @@
-"""Compute backend for the Re-Prefill engine, real mode.
+"""Compute backends, real mode: the Re-Prefill engine's and the state-space
+engine's.
 
 RealCompute runs the model layer by layer on one device (the card unless the
 caller asks for the CPU). Its three attention steps go through the port's
 kernels: identify through ``chunk_score``, part B through
-``chunk_attention`` and decode through ``decode_attention``. For tensors on
-the CPU the kernels' wrappers run their plain versions.
+``chunk_attention`` and decode through ``decode_attention``. StateCompute
+runs the SSM and hybrid families' serve path (``transformer.prefill`` and
+``decode_step``): their prefill attention goes through ``flash_attention``
+and every mamba recurrence through ``selective_scan``. For tensors on the
+CPU the kernels' wrappers run their plain versions.
 
 dtypes follow the JAX package, which promotes where torch would refuse:
 part B joins float16 store chunks with the suffix KV in float32, so the
@@ -15,7 +19,7 @@ in the model dtype.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +31,7 @@ from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.models.attention import qkv_project
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import matmul, rms_norm
+from repro_torch.models import transformer as T
 from repro_torch.models.transformer import _ffn, _logits, layer_params
 
 
@@ -51,7 +56,7 @@ class TailPool:
 
     def __init__(self, k_res: np.ndarray, v_res: np.ndarray, kv_suffix,
                  page: int, extra_tokens: int, dtype: Optional[torch.dtype] = None,
-                 device="cpu"):
+                 device="cuda"):
         """k_res/v_res: (n_res, page, n_kv, d) float16 resident unit pages;
         kv_suffix: (k, v) tensors each (1, s, n_kv, d) from prefill, or None;
         extra_tokens: decode-token capacity to preallocate past the suffix;
@@ -61,7 +66,7 @@ class TailPool:
         if page < 1 or extra_tokens < 0:
             raise ValueError(f"page {page} and extra_tokens {extra_tokens}")
         self.page = page
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         home = self.device if self.is_device else torch.device("cpu")
         self.n_res = int(k_res.shape[0])
         k_suf = None if kv_suffix is None else kv_suffix[0][0]
@@ -242,3 +247,81 @@ class RealCompute:
         h = _ffn(h, lp, cfg)
         mass = page_mass[0].mean(dim=0)[: tail.n_res]  # head-avg, resident
         return h, mass.cpu().numpy()
+
+
+class StatePool:
+    """One request's fixed-size serve state for SSM/hybrid decode.
+
+    Instead of a growing paged KV tail, the pool owns the request's whole
+    serve-state dict from :func:`transformer.prefill`: the per-layer float32
+    recurrence ``ssm_h`` and conv window ``ssm_conv`` (plus the attention KV
+    buffers ``k``/``v`` for hybrid models, preallocated to the decode
+    capacity). A decode step rewrites the state in place, so ``nbytes`` never
+    grows with the decoded length. The state stays where it was made; swapping
+    it to the host comes with the serving scheduler."""
+
+    __slots__ = ("state",)
+
+    def __init__(self, state: Dict):
+        """``state``: keys length, ssm_h, ssm_conv[, k, v]."""
+        self.state = state
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.state.values()
+                   if isinstance(t, torch.Tensor))
+
+    @property
+    def valid_tokens(self) -> int:
+        return int(self.state["length"])
+
+    @property
+    def is_device(self) -> bool:
+        return self.state["ssm_h"].device.type == "cuda"
+
+    @property
+    def is_resident(self) -> bool:
+        return True
+
+
+class StateCompute:
+    """Real whole-model backend for the SSM/hybrid families; batch = 1 request.
+
+    :class:`RealCompute` decomposes attention models into part-A/part-B passes
+    around a paged KV pool; the state-space families instead run the serve
+    path of :mod:`repro_torch.models.transformer` directly: ``prefill`` fills
+    a fixed-size serve state (per-layer float32 recurrence and conv window,
+    plus attention KV for hybrid) wrapped in a :class:`StatePool`, and each
+    ``decode_step`` advances that state in place, every layer's recurrence
+    through the selective_scan kernel."""
+
+    def __init__(self, cfg: ModelConfig, params, *, device="cuda"):
+        if cfg.family not in T.STATE_FAMILIES:
+            raise ValueError("StateCompute serves the state-space families; use "
+                             "RealCompute for attention models")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed'].device}, "
+                             f"the backend on {self.device}")
+        self.params = params
+
+    def new_request(self, request_id: int):
+        """Interface parity with the JAX backend (stateless between requests)."""
+
+    def prefill(self, tokens, extra_tokens: int = 0) -> Tuple[np.ndarray, StatePool]:
+        """Run the whole prompt; returns (first-token logits (1, 1, vocab),
+        StatePool). ``extra_tokens`` preallocates decode capacity in the
+        hybrid KV buffers (pure SSM state is length-independent)."""
+        toks = torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)[None]
+        state = T.init_serve_state(self.cfg, 1, toks.shape[1] + int(extra_tokens),
+                                   device=self.device)
+        logits, state = T.prefill(self.params, {"tokens": toks}, self.cfg, state)
+        return logits.cpu().numpy(), StatePool(state)
+
+    def decode_step(self, token: int, state) -> Tuple[np.ndarray, Dict]:
+        """One greedy decode position; returns (logits, state). The state is
+        advanced in place and returned."""
+        tok = torch.tensor([[int(token)]], device=self.device)
+        logits, state = T.decode_step(self.params, tok, self.cfg, state)
+        return logits.cpu().numpy(), state

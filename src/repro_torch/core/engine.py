@@ -6,11 +6,16 @@ period-reused identification, intra- and inter-period prefetch and the
 attention-guided cache. Identification runs the chunk_score kernel through
 ``backend.chunk_scores``, so only the (m,) chunk scores reach the host.
 
-The engine is a *step-plan factory*: ``plan()`` returns a resumable generator
-of ComputeOp/WaitOp steps (repro_torch.core.stepplan) and ``reprefill()``
-drives one plan to completion. The sim mode, chunked prefill and the
-compute-or-load planner of the JAX engine come with the slices that bring
-their callers (``SimCompute`` and the serving ``Scheduler``).
+StateSpaceEngine serves the state-space families (hybrid hymba,
+attention-free falcon-mamba), which keep no prefix KV to identify and load:
+prefill is one scan over the whole prompt and decode advances a fixed-size
+recurrent state (``backends.StateCompute``).
+
+The engines are *step-plan factories*: ``plan()`` returns a resumable
+generator of ComputeOp/WaitOp steps (repro_torch.core.stepplan) and
+``reprefill()`` drives one plan to completion. The sim mode, chunked prefill
+and the compute-or-load planner of the JAX engine come with the slices that
+bring their callers (``SimCompute`` and the serving ``Scheduler``).
 """
 from __future__ import annotations
 
@@ -430,4 +435,86 @@ class ContiguousKVEngine(_EngineBase):
         logits = yield from self._decode_phase(decode_tokens, clock, trace, logits, s,
                                                trace.selected_per_layer, kv_suffix)
         self._sweep_data()
+        return logits
+
+
+# ---------------------------------------------------------------------------
+# state-space / hybrid families
+# ---------------------------------------------------------------------------
+class StateSpaceEngine:
+    """Step-plan factory for the SSM (falcon-mamba) and hybrid (hymba)
+    families, real mode.
+
+    There is no granular prefix KV to identify or load, so the plan has no
+    I/O legs: one ComputeOp (stage ``ssm_prefill``) runs
+    ``StateCompute.prefill`` over prefix + suffix, priced by
+    :func:`costmodel.ssm_prefill_cost`, and each decode step is one ComputeOp
+    priced by :func:`costmodel.ssm_decode_cost`, the constant recurrent state
+    instead of a growing KV read (hybrids add their attention span). The
+    request's serve state lives in a :class:`backends.StatePool` and is
+    advanced in place."""
+
+    name = "state_space"
+
+    def __init__(self, cfg, backend, executor: BaseExecutor, *, prefix_tokens=None):
+        if cfg.family not in ("ssm", "hybrid"):
+            raise ValueError(f"StateSpaceEngine serves ssm/hybrid, not {cfg.family!r}")
+        if isinstance(executor, ChannelSim):
+            raise TypeError("the engine runs real mode only; the sim mode comes "
+                            "with SimCompute")
+        self.cfg = cfg
+        self.backend = backend
+        self.ex = executor
+        self.prefix_tokens = (np.zeros(0, np.int32) if prefix_tokens is None
+                              else np.asarray(prefix_tokens, dtype=np.int32))
+        self.prefix_len = len(self.prefix_tokens)
+
+    def plan(self, suffix_tokens, request_id: int = 0,
+             decode_tokens: int = 0) -> StepPlan:
+        """Build a resumable step plan for one request (does not run it)."""
+        clock = RequestClock()
+        trace = ReprefillTrace(system=self.name)
+        gen = self._steps(np.asarray(suffix_tokens), request_id, clock, trace,
+                          decode_tokens=decode_tokens)
+        return StepPlan(request_id=request_id, gen=gen, clock=clock, trace=trace)
+
+    def reprefill(self, suffix_tokens, request_id: int = 0,
+                  decode_tokens: int = 0):
+        """Run one request's plan to completion: (logits, trace)."""
+        p = self.plan(suffix_tokens, request_id, decode_tokens=decode_tokens)
+        logits = drive_serial(self.ex, p)
+        return logits, p.trace
+
+    def _steps(self, suffix_tokens, request_id, clock, trace, decode_tokens=0):
+        cfg, be = self.cfg, self.backend
+        be.new_request(request_id)
+        t_start = clock.t
+        total = self.prefix_len + len(suffix_tokens)
+        toks = np.concatenate([self.prefix_tokens, np.asarray(suffix_tokens, np.int32)])
+        cost = CM.ssm_prefill_cost(cfg, total, attended_tokens=total)
+        logits, pool = yield ComputeOp(
+            lambda: be.prefill(toks, extra_tokens=decode_tokens + 1), flops=cost.flops,
+            hbm_bytes=cost.hbm_bytes, tag="ssm_prefill", phase="prefill", tokens=total,
+            weight_bytes=float(CM.decode_weight_bytes(cfg)))
+        trace.add_stage("ssm_prefill", clock.t - t_start)
+        trace.ttft = clock.t - t_start
+        if decode_tokens <= 0:
+            return logits
+        trace.first_token_at = clock.t
+        tok = int(np.argmax(logits[0, -1]))
+        for step in range(decode_tokens):
+            attended = ([total + step + 1] * cfg.n_layers if cfg.family == "hybrid"
+                        else None)
+            cost = CM.ssm_decode_cost(cfg, attended)
+
+            def fn(tok_now=tok):
+                lg, pool.state = be.decode_step(tok_now, pool.state)
+                return lg
+
+            logits = yield ComputeOp(fn, flops=cost.flops, hbm_bytes=cost.hbm_bytes,
+                                     tag="decode", phase="decode", tokens=1,
+                                     weight_bytes=float(CM.decode_weight_bytes(cfg)))
+            tok = int(np.argmax(logits[0, -1]))
+            trace.decode_tokens_out.append(tok)
+            trace.decode_times.append(clock.t)
         return logits

@@ -30,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 # C signature of each launcher: argument types in order (restype is int)
 SIGNATURES = {
     # q, k, out, m_stat, l_stat, m_part, l_part, partial,
@@ -41,6 +42,12 @@ SIGNATURES = {
     # q, k_pool, v_pool, table, lengths, out, mass, m_at, o_part, m_part, l_part,
     # b, n_q, n_kv, n_pages, page, n_active, d, dtype, stream
     "ckv_decode_attention": [P] * 11 + [I] * 8 + [P],
+    # q, k, v, out, b, n_q, n_kv, s_q, s_k, d, causal, window, q_offset,
+    # (batch, head, position) strides of q, k, v and out, dtype, stream
+    "ckv_flash_attention": [P] * 4 + [I] * 9 + [L] * 12 + [I, P],
+    # x, dt, A, B, C, h0, y, h_out, b, s, d_in, n, B's and C's (batch,
+    # position) strides, dtype, stream
+    "ckv_selective_scan": [P] * 8 + [I] * 9 + [P],
 }
 
 

@@ -1,8 +1,9 @@
-"""Attention: GQA prefill (block-wise, memory-bounded) and the QKV projection.
+"""Attention: GQA prefill, single-step decode over a KV cache, QKV projection.
 
-Prefill runs one query block at a time so peak score memory is
-block_q x seq_k rather than seq^2 (a 4096-token ingest at full width would
-otherwise hold a (28, 4096, 4096) float32 score tensor).
+On the card, prefill runs the flash_attention kernel. On the CPU it runs
+the JAX package's block-wise form: one query block at a time, so peak score
+memory is block_q x seq_k rather than seq^2. Decode is plain torch on both,
+as the JAX package computes it outside any kernel.
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, matmul, rms_norm
 
 NEG_INF = -1e30
@@ -47,9 +49,20 @@ def attention_prefill(
     """Causal (optionally sliding-window) attention.
 
     q: (b, s, n_q, d); k, v: (b, s, n_kv, d). `window` 0 means full causal.
-    Scores are taken in the input dtype, then softmaxed in float32.
     Returns (b, s, n_q, d).
+
+    CUDA tensors go through the flash_attention kernel, read in place through
+    their (b, s, n, d) strides: float32 scores and probabilities, output
+    rounded once. CPU tensors take the JAX package's block-wise form: scores
+    in the input dtype, softmax in float32, probabilities rounded to v's
+    dtype before the product with V.
     """
+    if q.device.type == "cuda":
+        if scale is not None:
+            raise ValueError("the flash_attention kernel scales by d ** -0.5 only")
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              causal=True, window=int(window))
+        return out.transpose(1, 2)
     b, s, n_q, d = q.shape
     scale = scale if scale is not None else d ** -0.5
     kpos = torch.arange(s, device=q.device)
@@ -65,6 +78,32 @@ def attention_prefill(
         p = torch.softmax(scores, dim=-1).to(v.dtype)
         outs.append(_grouped_out(p, v))
     return torch.cat(outs, dim=1)
+
+
+def attention_decode(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    *,
+    length: int,
+    window: int = 0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-step decode. q: (b, 1, n_q, d); caches: (b, S, n_kv, d).
+
+    `length` = number of valid cache positions (the new token's KV must already
+    be written at position length-1).
+    """
+    d = q.shape[-1]
+    scale = scale if scale is not None else d ** -0.5
+    pos = torch.arange(k_cache.shape[1], device=q.device)
+    mask = pos < length
+    if window > 0:
+        mask = mask & ((length - 1) - pos < window)
+    scores = _grouped_scores(q, k_cache).to(torch.float32) * scale  # (b, n_q, 1, S)
+    scores = torch.where(mask[None, None, None, :], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    return _grouped_out(p, v_cache)
 
 
 def qkv_project(

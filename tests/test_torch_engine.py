@@ -220,6 +220,17 @@ eng = ContiguousKVEngine(sess, RealCompute(cfg, params, device="cpu"), RealExecu
                          budget=0.5, period=1, subperiod=1)
 logits, trace = eng.reprefill(rng.integers(0, 256, 8), decode_tokens=2)
 assert np.isfinite(logits).all() and len(trace.decode_tokens_out) == 2
+import repro_torch.models.ssm, repro_torch.kernels.flash_attention.ops
+import repro_torch.kernels.selective_scan.ops
+from repro_torch.core.backends import StateCompute, StatePool
+from repro_torch.core.engine import StateSpaceEngine
+for name in ("hymba-1.5b", "falcon-mamba-7b"):
+    cfg = reduced_config(name)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    eng = StateSpaceEngine(cfg, StateCompute(cfg, params, device="cpu"), RealExecutor(),
+                           prefix_tokens=rng.integers(0, 256, 20))
+    logits, trace = eng.reprefill(rng.integers(0, 256, 4), decode_tokens=2)
+    assert np.isfinite(logits).all() and len(trace.decode_tokens_out) == 2
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
                if sys.modules[m] is not None)
 print("ISOLATED-OK")

@@ -6,7 +6,9 @@ Imports neither jax nor repro, so it runs on the machine with the card:
 
 Without a card every test skips. Tolerances: the kernels and the plain
 versions compute in float32 and sum in other orders (1e-5 relative);
-bfloat16 outputs are each one float32 result rounded once (one ulp).
+bfloat16 outputs are each one float32 result rounded once (one ulp). The
+bfloat16/float16 flash_attention multiplies P, rounded to the input dtype,
+on the tensor cores: 2^-7 of the largest output, about one bfloat16 ulp.
 """
 import numpy as np
 import pytest
@@ -18,6 +20,10 @@ from repro_torch.kernels.chunk_score import ops as cs_ops
 from repro_torch.kernels.chunk_score.ref import chunk_score_ref
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.selective_scan import ops as ss_ops
+from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -131,5 +137,114 @@ def test_engine_on_the_card_matches_the_cpu(dev):
     (lc, tc), (lg, tg) = runs["cpu"], runs["cuda"]
     for l, sel in tc.selected_per_layer.items():
         np.testing.assert_array_equal(tg.selected_per_layer[l], sel)
+    assert tg.decode_tokens_out == tc.decode_tokens_out
+    np.testing.assert_allclose(lg, lc, rtol=0, atol=1e-3 * np.abs(lc).max())
+
+
+FLASH_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -7}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,nq,nkv,s_q,s_k,d,causal,window,q_offset", [
+    (1, 10, 2, 130, 130, 64, True, 0, 0),     # group 5, ragged s
+    (2, 4, 1, 70, 70, 128, True, 0, 0),
+    (1, 10, 2, 200, 200, 64, True, 48, 0),    # sliding window
+    (1, 8, 2, 37, 157, 64, True, 0, 120),     # suffix after a prefix
+    (1, 6, 3, 65, 90, 32, False, 0, 0),
+    (1, 4, 2, 40, 40, 16, True, 0, 0),
+])
+def test_flash_attention(dev, dtype, b, nq, nkv, s_q, s_k, d, causal, window, q_offset):
+    if dtype == torch.float32 and d == 16:
+        d = 20  # float32 takes any multiple of 4
+    # the model's (b, s, n, d) projections, read through transposed views
+    q = _rand(dev, 0, (b, s_q, nq, d), dtype).transpose(1, 2)
+    k = _rand(dev, 1, (b, s_k, nkv, d), dtype).transpose(1, 2)
+    v = _rand(dev, 2, (b, s_k, nkv, d), dtype).transpose(1, 2)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    assert fa_ops.launches == before + 1 and got.dtype == dtype
+    assert got.stride() == q.stride()
+    ref = flash_attention_ref(q, k, v, **kw)
+    _close(got, ref, rel=FLASH_REL[dtype])
+    _close(fa_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), **kw), ref,
+           rel=FLASH_REL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,d_in,n", [(2, 70, 100, 8), (1, 33, 64, 16), (1, 5, 48, 4)])
+def test_selective_scan(dev, dtype, b, s, d_in, n):
+    x = _rand(dev, 0, (b, s, d_in), dtype)
+    dt = torch.nn.functional.softplus(_rand(dev, 1, (b, s)))
+    A = -torch.exp(_rand(dev, 2, (d_in, n)))
+    proj = _rand(dev, 3, (b, s, 2 * n + 1), dtype)  # B and C as slices, as the block has them
+    Bm, Cm = proj[..., :n], proj[..., n: 2 * n]
+    h0 = _rand(dev, 4, (b, d_in, n))
+    for seed in (None, h0):
+        before = ss_ops.launches
+        y, h = ss_ops.selective_scan(x, dt, A, Bm, Cm, seed)
+        assert ss_ops.launches == before + 1
+        yr, hr = selective_scan_ref(x, dt, A, Bm, Cm, seed)
+        _close(y, yr)
+        _close(h, hr)
+    # resuming from the carried state reproduces the whole run bit for bit
+    k = s // 2
+    y_full, h_full = ss_ops.selective_scan(x, dt, A, Bm, Cm)
+    _, h_mid = ss_ops.selective_scan(x[:, :k].contiguous(), dt[:, :k], A, Bm[:, :k], Cm[:, :k])
+    y_res, h_res = ss_ops.selective_scan(x[:, k:].contiguous(), dt[:, k:], A, Bm[:, k:],
+                                         Cm[:, k:], h_mid)
+    assert torch.equal(y_res, y_full[:, k:]) and torch.equal(h_res, h_full)
+
+
+def test_new_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    q = _rand(dev, 0, (1, 4, 8, 48), torch.bfloat16)
+    with pytest.raises(ValueError):  # no tensor-core tile for d = 48
+        fa_ops.flash_attention(q, q[:, :2], q[:, :2])
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q, q.float(), q.float())
+    x = _rand(dev, 0, (1, 4, 32))
+    with pytest.raises(ValueError):  # n must be a power of two
+        ss_ops.selective_scan(x, _rand(dev, 1, (1, 4)), _rand(dev, 2, (32, 3)),
+                              _rand(dev, 3, (1, 4, 3)), _rand(dev, 4, (1, 4, 3)))
+    with pytest.raises(TypeError):  # B and C must have x's dtype
+        ss_ops.selective_scan(x, _rand(dev, 1, (1, 4)), _rand(dev, 2, (32, 4)),
+                              _rand(dev, 3, (1, 4, 4), torch.bfloat16),
+                              _rand(dev, 4, (1, 4, 4), torch.bfloat16))
+
+
+def _to(tree, dev):
+    return ({k: _to(v, dev) for k, v in tree.items()} if isinstance(tree, dict)
+            else tree.to(dev))
+
+
+@pytest.mark.parametrize("name", ["hymba-1.5b", "falcon-mamba-7b"])
+def test_state_engine_on_the_card_matches_the_cpu(dev, name):
+    """The state-space path at reduced float32 size: on the card, through
+    flash_attention and selective_scan, the same greedy tokens and logits as
+    on the CPU through the plain versions."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.backends import StateCompute
+    from repro_torch.core.engine import StateSpaceEngine
+    from repro_torch.models.transformer import init_params
+    from repro_torch.storage.timing import RealExecutor
+
+    cfg = dataclasses.replace(reduced_config(name, n_layers=3), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    prefix, suffix = rng.integers(0, cfg.vocab_size, 90), rng.integers(0, cfg.vocab_size, 13)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        p = params if device == "cpu" else _to(params, dev)
+        eng = StateSpaceEngine(cfg, StateCompute(cfg, p, device=device), RealExecutor(),
+                               prefix_tokens=prefix)
+        counts = (fa_ops.launches, ss_ops.launches)
+        runs[device] = eng.reprefill(suffix, decode_tokens=8)
+        counts = (fa_ops.launches - counts[0], ss_ops.launches - counts[1])
+        L = cfg.n_layers
+        assert counts == ((0, 0) if device == "cpu" else
+                          (L if cfg.has_attention else 0, L + 8 * L))
+    (lc, tc), (lg, tg) = runs["cpu"], runs["cuda"]
     assert tg.decode_tokens_out == tc.decode_tokens_out
     np.testing.assert_allclose(lg, lc, rtol=0, atol=1e-3 * np.abs(lc).max())

@@ -22,7 +22,7 @@ from repro_torch.models import transformer as PT
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-NAMES = ["qwen2.5-7b", "qwen2.5-14b", "qwen2.5-32b"]
+NAMES = ["qwen2.5-7b", "qwen2.5-14b", "qwen2.5-32b", "hymba-1.5b", "falcon-mamba-7b"]
 
 
 def _np_tree(params):
@@ -45,8 +45,9 @@ def _pair(name, dtype, **overrides):
 @pytest.mark.parametrize("name", NAMES)
 def test_config_fields_equal(name):
     assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(jax_get_config(name))
-    assert (dataclasses.asdict(reduced_config(name, n_layers=4))
-            == dataclasses.asdict(jax_reduced_config(name, n_layers=4)))
+    for kw in ({}, {"n_layers": 4}):
+        assert (dataclasses.asdict(reduced_config(name, **kw))
+                == dataclasses.asdict(jax_reduced_config(name, **kw)))
 
 
 def test_config_registry():
