@@ -29,19 +29,23 @@ non-zero exit code:
                 run's first-token logits against the dense forward over
                 prefix + suffix;
   4. state    — flash_attention (hymba prefill, dense ingest, ragged s,
-                window, q_offset) and selective_scan (hymba prefill with a
-                ragged s, h0-seeded resume, decode at b = 1 and 2) checked
-                and timed as in phase 2; then the state-space path
+                window, q_offset) and selective_scan (hymba and falcon-mamba
+                prefill, a ragged s, resumes from the carried state at a
+                chunk boundary and a ragged cut, decode at b = 1 and 2)
+                checked and timed as in phase 2; then the state-space path
                 (StateSpaceEngine over StateCompute) on full-width
                 hymba-1.5b (32 layers, random bfloat16 weights from a
                 seeded generator): 4 requests of the same 4096-token
                 prefix + 64-token suffix with 16 decode tokens each, with
                 flash_attention and selective_scan launches asserted per
-                request, timed and profiled as above; decode's logits held
-                against a prefill over the same tokens; then one request on
+                request and per kernel variant, timed and profiled as
+                above; decode's logits held against a prefill over the
+                same tokens; then one request on
                 full-width falcon-mamba-7b (64 layers, attention-free);
   5. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
-     paths it names, its error against its plain version, and its times;
+     paths it names (per variant where a wrapper has several), its error
+     against its plain version, its times and its bound (the largest of
+     bytes, products and exponentials, named);
   6. last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
@@ -62,14 +66,21 @@ ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 
 # H100 SXM data-sheet peaks (dense). ``bound_ms`` takes the products at the
-# bfloat16/float16 tensor-core rate. The kernels run them in float32 on the
-# CUDA cores instead: the engine's queries and suffix KV are float32 from
-# layer 0's part B on, and each kernel is held to 1e-5 of its float32 plain
-# version, which bfloat16 operands (8-bit mantissa) would miss. So the line
-# also gives the bound at the float32 CUDA-core rate.
+# bfloat16/float16 tensor-core rate. chunk_score, chunk_attention and
+# decode_attention run them in float32 on the CUDA cores instead: the
+# engine's queries and suffix KV are float32 from layer 0's part B on, and
+# each kernel is held to 1e-5 of its float32 plain version, which bfloat16
+# operands (8-bit mantissa) would miss. So the line also gives the bound at
+# the float32 CUDA-core rate.
 HBM_BYTES_PER_S = 3.35e12
 TENSOR_CORE_OPS_PER_S = 989e12
 CUDA_CORE_FP32_OPS_PER_S = 67e12
+# The special-function units: 16 exponentials (ex2) per clock per SM on
+# compute capability 9.0 (CUDA C Programming Guide, arithmetic instruction
+# throughput), times the SMs, times the card's maximum SM clock as
+# nvidia-smi reads it (phase_device sets EXP_PER_S).
+SFU_EXP_PER_CLOCK_PER_SM = 16
+EXP_PER_S = None
 
 # full-width main path (serve.py's default prefix length); the state-space
 # phase serves the same request shape
@@ -141,16 +152,57 @@ def wall_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def bounds(nbytes: float, ops: float):
-    """{"tensor_core" | "cuda_core": (least ms, "bytes" | "operations")} on the
-    H100 at its data-sheet peaks: the products at either rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+def bounds(nbytes: float, ops: float, exps: float):
+    """{"tensor_core" | "cuda_core": (least ms, "bytes" | "operations", term)}
+    on the H100: the largest of the bytes over the memory rate, the products
+    at either rate, and the exponentials over the special-function units'
+    rate; ``term`` names it ("bytes", "products" or "exponentials", the last
+    two being operations)."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "exponentials": exps / EXP_PER_S * 1e3}
     out = {}
     for name, rate in (("tensor_core", TENSOR_CORE_OPS_PER_S),
                        ("cuda_core", CUDA_CORE_FP32_OPS_PER_S)):
-        t_ops = ops / rate * 1e3
-        out[name] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        t = dict(terms, products=ops / rate * 1e3)
+        term = max(t, key=t.get)
+        out[name] = (t[term], "bytes" if term == "bytes" else "operations", term)
     return out
+
+
+def bound_text(bound) -> str:
+    tc, cc = bound["tensor_core"], bound["cuda_core"]
+    return (f"bound {tc[0]:.5f} ms by {tc[2]} at the tensor-core rate, {cc[0]:.5f} ms by "
+            f"{cc[2]} at the float32 CUDA-core rate")
+
+
+def reset_counts(*mods):
+    """Set each wrapper's launch counts, total and per variant, to 0."""
+    for mod in mods:
+        mod.launches = 0
+        if hasattr(mod, "launches_by_variant"):
+            mod.launches_by_variant = dict.fromkeys(mod.launches_by_variant, 0)
+
+
+def counts(mod) -> dict:
+    """A wrapper's launches: the total, and per variant where it has several."""
+    out = {"launches": mod.launches}
+    if hasattr(mod, "launches_by_variant"):
+        out.update({k: v for k, v in mod.launches_by_variant.items() if v})
+    return out
+
+
+def host_ms(fn, reps: int = 50) -> float:
+    """Mean host time of one call of ``fn`` without a synchronize: the
+    wrapper's own cost (argument checks, tensor maps, the launch)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
 
 
 def nbytes(*tensors) -> int:
@@ -166,10 +218,21 @@ def max_err(a, b) -> float:
 
 
 def phase_device():
+    global EXP_PER_S
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    import torch
+
+    max_sm_mhz = float(clk.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    EXP_PER_S = SFU_EXP_PER_CLOCK_PER_SM * sms * max_sm_mhz * 1e6
+    print(f"device: {sms} SMs at a maximum SM clock of {max_sm_mhz:.0f} MHz: "
+          f"{EXP_PER_S / 1e12:.3f} T exponentials/s on the special-function units")
     from repro_torch.kernels import build as B
 
     t0 = time.perf_counter()
@@ -217,7 +280,7 @@ def phase_kernels(cfg):
             rows["chunk_score"] = dict(
                 err=err, ms=device_ms(lambda: chunk_score(q, kk, CHUNK)),
                 plain_ms=wall_ms(lambda: chunk_score_ref(q, kk, CHUNK)),
-                bound=bounds(nbytes(q, kk) + 4 * m, 2.0 * s * nq * n * d))
+                bound=bounds(nbytes(q, kk) + 4 * m, 2.0 * s * nq * n * d, s * nq * n))
 
     # chunk_attention: float32 q/suffix KV (layers past 0) and bfloat16 (layer 0)
     ks, vs = (rn(n_sel, CHUNK, nkv, d, dtype=torch.float16) for _ in range(2))
@@ -238,7 +301,7 @@ def phase_kernels(cfg):
                 err=err, ms=device_ms(lambda: chunk_attention(q, ks, vs, n_valid, kf, vf)),
                 plain_ms=wall_ms(lambda: chunk_attention_ref(q, ks, vs, n_valid, kf, vf)),
                 bound=bounds(nbytes(q, kf, vf, o, ms) + nbytes(ks, vs) * n_valid // n_sel,
-                             4.0 * nq * d * pairs))
+                             4.0 * nq * d * pairs, nq * pairs))
 
     # decode_attention: bfloat16 as decode runs; the last step's pool of
     # 64 resident pages + 5 tail pages, a partial last page, one pad slot
@@ -268,24 +331,25 @@ def phase_kernels(cfg):
         err=max(err_o, err_m), ms=device_ms(lambda: decode_attention(q, kp, vp, wide, lens)),
         plain_ms=wall_ms(lambda: decode_attention_ref(q, kp, vp, wide, lens)),
         bound=bounds(nbytes(q, o, pm, wide, lens) + 2 * L * nkv * d * kp.element_size(),
-                     4.0 * nq * d * L))
+                     4.0 * nq * d * L, nq * L))
     for name, r in rows.items():
-        tc, cc = r["bound"]["tensor_core"], r["bound"]["cuda_core"]
         print(f"kernels: {name}: {r['ms']:.4f} ms on the card (plain version "
-              f"{r['plain_ms']:.4f} ms, bound {tc[0]:.5f} ms by {tc[1]} at the tensor-core "
-              f"rate, {cc[0]:.5f} ms by {cc[1]} at the float32 CUDA-core rate, "
+              f"{r['plain_ms']:.4f} ms, {bound_text(r['bound'])}, "
               f"library call: none returns the per-chunk/page mass)")
     return rows
 
 
-def phase_state_kernels(hcfg, dcfg):
+def phase_state_kernels(hcfg, dcfg, fcfg):
     """flash_attention and selective_scan against their plain versions at
-    the state-space path's shapes (and flash at the dense ingest's)."""
+    the state-space path's shapes (and flash at the dense ingest's), timed;
+    the scan also at falcon-mamba's prefill and with one CTA per SM."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.selective_scan import ops as ss
     from repro_torch.kernels.selective_scan.ops import selective_scan
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
@@ -309,33 +373,39 @@ def phase_state_kernels(hcfg, dcfg):
         k = rn(1, s_k, c.n_kv_heads, c.d_head).transpose(1, 2)
         v = rn(1, s_k, c.n_kv_heads, c.d_head).transpose(1, 2)
         kw = dict(causal=True, window=window, q_offset=q_offset)
+        variant = fa.variant_for(q.dtype, c.d_head)
         got, ref = flash_attention(q, k, v, **kw), flash_attention_ref(q, k, v, **kw)
         err, tol = max_err(got, ref), FLASH_REL * ref.float().abs().max().item()
         if not err <= tol:
             fail(f"flash_attention {label}: max abs err {err} > {tol}")
         print(f"kernels: flash_attention {label} q {tuple(q.shape)} k {tuple(k.shape)} "
-              f"{dname(q)}: max abs err {err:.3g} (tol {tol:.3g})")
+              f"{dname(q)} ({variant}): max abs err {err:.3g} (tol {tol:.3g})")
         if label in ("hymba prefill", "dense ingest"):
             pairs = s_q * (s_q + 1) // 2  # causal key-query pairs of this run
-            ms = device_ms(lambda: flash_attention(q, k, v, **kw))
-            lib = device_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True))
-            r = dict(err=err, ms=ms, library_ms=lib,
+            r = dict(err=err, ms=device_ms(lambda: flash_attention(q, k, v, **kw)),
+                     library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                         q, k, v, is_causal=True, enable_gqa=True)),
+                     host_ms=host_ms(lambda: flash_attention(q, k, v, **kw)),
                      plain_ms=wall_ms(lambda: flash_attention_ref(q, k, v, **kw), reps=3),
-                     bound=bounds(nbytes(q, k, v, got), 4.0 * c.n_heads * c.d_head * pairs))
-            print(f"kernels: flash_attention {label}: {ms:.4f} ms on the card, "
-                  f"scaled_dot_product_attention {lib:.4f} ms, plain version "
-                  f"{r['plain_ms']:.2f} ms, bound {r['bound']['tensor_core'][0]:.5f} ms by "
-                  f"{r['bound']['tensor_core'][1]} at the tensor-core rate")
+                     bound=bounds(nbytes(q, k, v, got), 4.0 * c.n_heads * c.d_head * pairs,
+                                  c.n_heads * pairs))
+            print(f"kernels: flash_attention {label}: {variant} {r['ms']:.4f} ms on the card, "
+                  f"scaled_dot_product_attention {r['library_ms']:.4f} ms, plain version "
+                  f"{r['plain_ms']:.2f} ms, {bound_text(r['bound'])}; host time per call "
+                  f"{r['host_ms']:.4f} ms, its tensor maps included")
             if label == "hymba prefill":  # the kernels line's row
                 rows["flash_attention"] = r
+            else:
+                rows["flash_attention"]["dense_ingest"] = {
+                    k2: r[k2] for k2 in ("ms", "library_ms", "plain_ms")}
+                rows["flash_attention"]["dense_ingest"]["bound_ms"] = r["bound"]["tensor_core"][0]
 
     # selective_scan: bfloat16 x/B/C with bfloat16-rounded dt (prefill) or
     # float32 dt seeded with h0 (decode); B and C are slices of the (b, s,
     # 2n + 1) projection, as the block passes them
-    d_in, n = hcfg.d_inner, hcfg.ssm_state
+    n = hcfg.ssm_state
 
-    def scan_inputs(b, s, dt_dtype):
+    def scan_inputs(b, s, dt_dtype, d_in=hcfg.d_inner):
         x = rn(b, s, d_in)
         dt = F.softplus(rn(b, s, dtype=torch.float32) - 2.0).to(dt_dtype)
         A = -torch.exp(rn(d_in, n, dtype=torch.float32))
@@ -343,46 +413,74 @@ def phase_state_kernels(hcfg, dcfg):
         return x, dt, A, proj[..., :n], proj[..., n: 2 * n]
 
     def check(label, args, h0=None):
+        variant = "chunked" if args[0].shape[1] >= ss.CHUNKED_MIN_S else "sequential"
         (y, h), (yr, hr) = selective_scan(*args, h0), selective_scan_ref(*args, h0)
         err = max(max_err(y, yr), max_err(h, hr))
         tol = SCAN_REL * max(yr.abs().max().item(), hr.abs().max().item()) + 1e-6
         if not err <= tol:
             fail(f"selective_scan {label}: max abs err {err} > {tol}")
-        print(f"kernels: selective_scan {label} x {tuple(args[0].shape)} {dname(args[0])}: "
-              f"max abs err {err:.3g} on y and h (tol {tol:.3g})")
+        print(f"kernels: selective_scan {label} x {tuple(args[0].shape)} {dname(args[0])} "
+              f"({variant}): max abs err {err:.3g} on y and h (tol {tol:.3g})")
         return err, y, h
+
+    def scan_bound(args, y, h):  # bytes read and written once; one exp per
+        x = args[0]              # (t, channel, state), ~6 float32 operations each
+        b, s, d_in = x.shape
+        return bounds(nbytes(*args, y, h), 6.0 * b * s * d_in * n, b * s * d_in * n)
 
     args = scan_inputs(1, s_full, torch.bfloat16)
     err, y_full, h_full = check("hymba prefill", args)
     err = max(err, check("ragged s", scan_inputs(1, s_full - 27, torch.bfloat16))[0])
-    cut = s_full - 61  # resume mid-sequence from the carried state: bit-identical
+    # Resuming mid-sequence from the carried state. The chunked kernel
+    # re-associates the recurrence within each chunk of ss.CHUNK positions, so
+    # a cut on a chunk boundary gives the same chunks, inputs and carries as
+    # the whole scan (bit-identical), and a ragged cut the same result within
+    # rounding (SCAN_REL). Both parts run the chunked kernel.
     x, dt, A, Bm, Cm = args
-    _, _, h_mid = check("first part", (x[:, :cut].contiguous(), dt[:, :cut], A,
-                                       Bm[:, :cut], Cm[:, :cut]))
-    _, y_res, h_res = check("resumed from h0", (x[:, cut:].contiguous(), dt[:, cut:], A,
-                                                Bm[:, cut:], Cm[:, cut:]), h_mid)
-    if not (torch.equal(y_res, y_full[:, cut:]) and torch.equal(h_res, h_full)):
-        fail("selective_scan: a resumed scan differs from the whole one")
-    print(f"kernels: selective_scan resumed at {cut} of {s_full}: bit-identical to the "
-          f"whole scan")
+    for cut in ((s_full // ss.CHUNK) * ss.CHUNK, s_full - 61):
+        _, _, h_mid = check(f"first {cut}", (x[:, :cut].contiguous(), dt[:, :cut], A,
+                                             Bm[:, :cut], Cm[:, :cut]))
+        _, y_res, h_res = check(f"resumed from h0 at {cut}", (
+            x[:, cut:].contiguous(), dt[:, cut:], A, Bm[:, cut:], Cm[:, cut:]), h_mid)
+        if cut % ss.CHUNK == 0:
+            if not (torch.equal(y_res, y_full[:, cut:]) and torch.equal(h_res, h_full)):
+                fail(f"selective_scan: resumed at chunk boundary {cut}, differs from the whole")
+            print(f"kernels: selective_scan resumed at {cut} of {s_full} (a chunk boundary): "
+                  f"bit-identical to the whole scan")
+        else:
+            e2 = max(max_err(y_res, y_full[:, cut:]), max_err(h_res, h_full))
+            tol = SCAN_REL * max(y_full.abs().max().item(), h_full.abs().max().item()) + 1e-6
+            if not e2 <= tol:
+                fail(f"selective_scan: resumed at {cut}, max abs err {e2} > {tol}")
+            print(f"kernels: selective_scan resumed at {cut} of {s_full} (ragged): max abs err "
+                  f"{e2:.3g} against the whole scan (tol {tol:.3g})")
     for b in (1, 2):
         dec = scan_inputs(b, 1, torch.float32)
-        h0 = rn(b, d_in, n, dtype=torch.float32)
+        h0 = rn(b, hcfg.d_inner, n, dtype=torch.float32)
         err = max(err, check(f"decode b={b}", dec, h0)[0])
     dec = scan_inputs(1, 1, torch.float32)
-    h0 = rn(1, d_in, n, dtype=torch.float32)
-    # bytes: x, dt, B, C read and y, h written once; operations: per (t,
-    # channel, state) exp, dt * A, the two multiply-adds of h and one of y
-    # — float32 on the CUDA cores, so both bounds take that rate
-    scan_ops = 6.0 * s_full * d_in * n
+    h0 = rn(1, hcfg.d_inner, n, dtype=torch.float32)
     r = dict(err=err, ms=device_ms(lambda: selective_scan(*args)), library_ms=None,
              plain_ms=wall_ms(lambda: selective_scan_ref(*args), reps=2),
-             decode_ms=device_ms(lambda: selective_scan(*dec, h0)))
-    cc = bounds(nbytes(x, dt, A, Bm, Cm, y_full, h_full), scan_ops)["cuda_core"]
-    r["bound"] = {"tensor_core": cc, "cuda_core": cc}
-    print(f"kernels: selective_scan hymba prefill: {r['ms']:.4f} ms on the card, plain "
-          f"version {r['plain_ms']:.1f} ms, bound {cc[0]:.5f} ms by {cc[1]}; decode step "
-          f"{r['decode_ms']:.4f} ms; library call: none, no PyTorch call computes the scan")
+             decode_ms=device_ms(lambda: selective_scan(*dec, h0)),
+             bound=scan_bound(args, y_full, h_full))
+    print(f"kernels: selective_scan hymba prefill: chunked {r['ms']:.4f} ms on the card, "
+          f"plain version {r['plain_ms']:.1f} ms, {bound_text(r['bound'])}; decode step "
+          f"(sequential) {r['decode_ms']:.4f} ms; library call: none, no PyTorch call "
+          f"computes the scan")
+    # one CTA of 16 channels on each SM: the chunked kernel's latency alone
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    one = scan_inputs(1, s_full, torch.bfloat16, d_in=16 * sms)
+    r["one_cta_per_sm_ms"] = device_ms(lambda: selective_scan(*one))
+    print(f"kernels: selective_scan with one CTA per SM (d_in {16 * sms}, s {s_full}): "
+          f"{r['one_cta_per_sm_ms']:.4f} ms")
+    # falcon-mamba's prefill: d_inner 8192, the same sequence
+    fargs = scan_inputs(1, s_full, torch.bfloat16, d_in=fcfg.d_inner)
+    _, fy, fh = check("falcon-mamba prefill", fargs)
+    r["falcon_prefill"] = dict(ms=device_ms(lambda: selective_scan(*fargs)),
+                               bound_ms=scan_bound(fargs, fy, fh)["tensor_core"][0])
+    print(f"kernels: selective_scan falcon-mamba prefill (d_inner {fcfg.d_inner}): chunked "
+          f"{r['falcon_prefill']['ms']:.4f} ms, {bound_text(scan_bound(fargs, fy, fh))}")
     rows["selective_scan"] = r
     return rows
 
@@ -413,16 +511,17 @@ def phase_e2e(cfg):
           f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     prefix = rng.integers(0, cfg.vocab_size, PREFIX_LEN)
-    fa.launches = 0
+    reset_counts(fa)
     t0 = time.perf_counter()
     sess = build_real_session(cfg, params, prefix, chunk_tokens=CHUNK, in_memory=True,
                               device=DEVICE)
     ingest_s = time.perf_counter() - t0
-    ingest_flash = fa.launches
-    if ingest_flash != cfg.n_layers:
-        fail(f"ingest: {ingest_flash} flash_attention launches, expected {cfg.n_layers}")
+    ingest_flash = counts(fa)
+    if ingest_flash != {"launches": cfg.n_layers, "wgmma": cfg.n_layers}:
+        fail(f"ingest: flash_attention launches {ingest_flash}, expected {cfg.n_layers} "
+             f"of the wgmma kernel")
     print(f"e2e: ingest of {PREFIX_LEN} tokens took {ingest_s:.2f} s "
-          f"({ingest_flash} flash_attention launches)")
+          f"(flash_attention launches {ingest_flash})")
 
     ex = RealExecutor()
     eng = ContiguousKVEngine(sess, RealCompute(cfg, params, device=DEVICE), ex, budget=BUDGET,
@@ -432,8 +531,7 @@ def phase_e2e(cfg):
               "decode_attention": cfg.n_layers * DECODE_TOKENS}
     suffixes = [rng.integers(0, cfg.vocab_size, SUFFIX_LEN) for _ in range(N_REQUESTS)]
     walls = []  # request wall time: first token, then the decode tokens
-    for mod in ops.values():
-        mod.launches = 0
+    reset_counts(*ops.values())
     for i, suffix in enumerate(suffixes):
         before = {k: mod.launches for k, mod in ops.items()}
         busy = dict(ex.stage_times)
@@ -459,7 +557,7 @@ def phase_e2e(cfg):
         busy = {k: round((v - busy.get(k, 0.0)) * 1e3, 2) for k, v in ex.stage_times.items()}
         waits = {k: round(v * 1e3, 2) for k, v in trace.stages.items()}
         print(f"e2e: request {i}: compute ops ms {busy}, waits ms {waits}")
-    totals = {k: {"dense requests": mod.launches} for k, mod in ops.items()}
+    totals = {k: {"dense requests": counts(mod)} for k, mod in ops.items()}
     totals["flash_attention"] = {"dense ingest": ingest_flash}
     print(f"e2e: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     profile_request(eng, suffixes[0], statistics.mean(walls[1:]))
@@ -525,20 +623,27 @@ def phase_state_e2e(cfg, n_requests: int, check_decode: bool):
     ex = RealExecutor()
     eng = StateSpaceEngine(cfg, be, ex, prefix_tokens=prefix)
     L = cfg.n_layers
-    expect = {"flash_attention": L if cfg.has_attention else 0,
-              "selective_scan": L + L * DECODE_TOKENS}
+    # per request: one flash_attention (wgmma) per attention layer of the
+    # prefill; one chunked scan per layer of the prefill and one sequential
+    # scan per layer and decode token
+    expect = {"flash_attention": {"launches": L, "wgmma": L} if cfg.has_attention
+              else {"launches": 0},
+              "selective_scan": {"launches": L + L * DECODE_TOKENS, "chunked": L,
+                                 "sequential": L * DECODE_TOKENS}}
     walls = []
-    for mod in ops.values():
-        mod.launches = 0
+    totals = {k: {} for k in ops}
     for i, suffix in enumerate(suffixes):
-        before = {k: mod.launches for k, mod in ops.items()}
+        reset_counts(*ops.values())
         busy = dict(ex.stage_times)
         t0 = time.perf_counter()
         logits, trace = eng.reprefill(suffix, request_id=i, decode_tokens=DECODE_TOKENS)
         walls.append((time.perf_counter() - t0) * 1e3)
-        got = {k: mod.launches - before[k] for k, mod in ops.items()}
+        got = {k: counts(mod) for k, mod in ops.items()}
         if got != expect:
             fail(f"{cfg.name} request {i}: kernel launches {got}, expected {expect}")
+        for k, c in got.items():
+            for key, v in c.items():
+                totals[k][key] = totals[k].get(key, 0) + v
         toks = trace.decode_tokens_out
         if (logits.shape != (1, 1, cfg.vocab_size) or not np.isfinite(logits).all()
                 or len(toks) != DECODE_TOKENS or not all(0 <= t < cfg.vocab_size for t in toks)):
@@ -547,7 +652,6 @@ def phase_state_e2e(cfg, n_requests: int, check_decode: bool):
         print(f"state: {cfg.name} request {i}: TTFT {trace.ttft * 1e3:.2f} ms, TPOT "
               f"{trace.tpot * 1e3:.3f} ms over {trace.n_decoded} tokens, launches {got}, "
               f"compute ops ms {busy}")
-    totals = {k: mod.launches for k, mod in ops.items()}
     print(f"state: {cfg.name} peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     warm = walls[1:] if len(walls) > 1 else walls
@@ -656,12 +760,12 @@ def main() -> int:
     rows = phase_kernels(cfg)
     paths = phase_e2e(cfg)
     torch.cuda.empty_cache()  # the Qwen weights went with phase_e2e
-    rows.update(phase_state_kernels(hcfg, cfg))
+    rows.update(phase_state_kernels(hcfg, cfg, fcfg))
     for name, n in phase_state_e2e(hcfg, N_REQUESTS, check_decode=True).items():
         paths.setdefault(name, {})["hymba-1.5b requests"] = n
     torch.cuda.empty_cache()
     for name, n in phase_state_e2e(fcfg, 1, check_decode=False).items():
-        if n:
+        if n["launches"]:
             paths.setdefault(name, {})["falcon-mamba-7b request"] = n
     sources = {"chunk_score": ("src/repro_torch/csrc/chunk_score.cu",
                                "src/repro/kernels/chunk_score/kernel.py:65"),
@@ -675,18 +779,24 @@ def main() -> int:
                                   "src/repro/kernels/selective_scan/kernel.py:55")}
     kernels = []
     for name, r in rows.items():
-        launches = sum(paths[name].values())
+        launches = sum(p["launches"] for p in paths[name].values())
         if launches < 1:
             fail(f"{name} never launched on the main path")
-        kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
-                        "replaces": sources[name][1], "launches": launches,
-                        "launches_by_path": paths[name],
-                        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                        "bound_ms": r["bound"]["tensor_core"][0],
-                        "bound_by": r["bound"]["tensor_core"][1],
-                        "cuda_core_bound_ms": r["bound"]["cuda_core"][0],
-                        "cuda_core_bound_by": r["bound"]["cuda_core"][1],
-                        "library_ms": r.get("library_ms")})
+        row = {"name": name, "route": "cuda", "source": sources[name][0],
+               "replaces": sources[name][1], "launches": launches,
+               "launches_by_path": paths[name],
+               "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+               "bound_ms": r["bound"]["tensor_core"][0],
+               "bound_by": r["bound"]["tensor_core"][1],
+               "bound_term": r["bound"]["tensor_core"][2],
+               "cuda_core_bound_ms": r["bound"]["cuda_core"][0],
+               "cuda_core_bound_by": r["bound"]["cuda_core"][1],
+               "library_ms": r.get("library_ms")}
+        for key in ("host_ms", "decode_ms", "dense_ingest", "falcon_prefill",
+                    "one_cta_per_sm_ms"):
+            if key in r:
+                row[key] = r[key]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

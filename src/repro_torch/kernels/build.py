@@ -43,11 +43,11 @@ SIGNATURES = {
     # b, n_q, n_kv, n_pages, page, n_active, d, dtype, stream
     "ckv_decode_attention": [P] * 11 + [I] * 8 + [P],
     # q, k, v, out, b, n_q, n_kv, s_q, s_k, d, causal, window, q_offset,
-    # (batch, head, position) strides of q, k, v and out, dtype, stream
-    "ckv_flash_attention": [P] * 4 + [I] * 9 + [L] * 12 + [I, P],
-    # x, dt, A, B, C, h0, y, h_out, b, s, d_in, n, B's and C's (batch,
-    # position) strides, dtype, stream
-    "ckv_selective_scan": [P] * 8 + [I] * 9 + [P],
+    # (batch, head, position) strides of q, k, v and out, dtype, variant, stream
+    "ckv_flash_attention": [P] * 4 + [I] * 9 + [L] * 12 + [I, I, P],
+    # x, dt, A, B, C, h0, y, h_out, scratch, b, s, d_in, n, B's and C's
+    # (batch, position) strides, dtype, variant, stream
+    "ckv_selective_scan": [P] * 9 + [I] * 10 + [P],
 }
 
 
@@ -118,6 +118,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.ckv_error_string.argtypes = [ctypes.c_int]
     lib.ckv_error_string.restype = ctypes.c_char_p
+    lib.ckv_selective_scan_scratch.argtypes = [I] * 4
+    lib.ckv_selective_scan_scratch.restype = L
     return lib
 
 

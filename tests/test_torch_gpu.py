@@ -9,6 +9,9 @@ versions compute in float32 and sum in other orders (1e-5 relative);
 bfloat16 outputs are each one float32 result rounded once (one ulp). The
 bfloat16/float16 flash_attention multiplies P, rounded to the input dtype,
 on the tensor cores: 2^-7 of the largest output, about one bfloat16 ulp.
+The chunked selective_scan re-associates the recurrence's sums, so a scan
+resumed from its carried state is bit-identical to the whole scan only at
+a cut on a chunk boundary; elsewhere it agrees within the same 1e-5.
 """
 import numpy as np
 import pytest
@@ -23,7 +26,7 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.selective_scan import ops as ss_ops
-from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+from repro_torch.kernels.selective_scan.ref import selective_scan_chunked_ref, selective_scan_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -161,9 +164,13 @@ def test_flash_attention(dev, dtype, b, nq, nkv, s_q, s_k, d, causal, window, q_
     k = _rand(dev, 1, (b, s_k, nkv, d), dtype).transpose(1, 2)
     v = _rand(dev, 2, (b, s_k, nkv, d), dtype).transpose(1, 2)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    before = fa_ops.launches
+    variant = fa_ops.variant_for(dtype, d)
+    assert variant == ("cuda_core_f32" if dtype == torch.float32 else
+                       "wgmma" if d in (64, 128) else "mma_sync")
+    before, by_variant = fa_ops.launches, fa_ops.launches_by_variant[variant]
     got = fa_ops.flash_attention(q, k, v, **kw)
     assert fa_ops.launches == before + 1 and got.dtype == dtype
+    assert fa_ops.launches_by_variant[variant] == by_variant + 1
     assert got.stride() == q.stride()
     ref = flash_attention_ref(q, k, v, **kw)
     _close(got, ref, rel=FLASH_REL[dtype])
@@ -187,8 +194,83 @@ def test_selective_scan(dev, dtype, b, s, d_in, n):
         yr, hr = selective_scan_ref(x, dt, A, Bm, Cm, seed)
         _close(y, yr)
         _close(h, hr)
-    # resuming from the carried state reproduces the whole run bit for bit
+    # resuming from the carried state at a ragged cut: the chunked scan
+    # re-associates its sums around the cut, so the resumed run agrees with
+    # the whole one within rounding (bit for bit only at a chunk boundary,
+    # test_selective_scan_resume_at_a_chunk_boundary)
     k = s // 2
+    y_full, h_full = ss_ops.selective_scan(x, dt, A, Bm, Cm)
+    _, h_mid = ss_ops.selective_scan(x[:, :k].contiguous(), dt[:, :k], A, Bm[:, :k], Cm[:, :k])
+    y_res, h_res = ss_ops.selective_scan(x[:, k:].contiguous(), dt[:, k:], A, Bm[:, k:],
+                                         Cm[:, k:], h_mid)
+    _close(y_res, y_full[:, k:])
+    _close(h_res, h_full)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,nq,nkv,s_q,s_k,d,window,q_offset", [
+    (1, 10, 2, 700, 700, 64, 0, 0),      # group 5, six key tiles through 3 stages
+    (1, 14, 2, 700, 700, 128, 0, 0),     # group 7, six key tiles through 2 stages
+    (1, 10, 2, 520, 520, 128, 0, 0),     # group 5 at d 128
+    (1, 14, 2, 400, 400, 64, 0, 0),      # group 7 at d 64
+    (2, 10, 2, 600, 600, 64, 200, 0),    # b = 2 with a window
+    (2, 4, 1, 300, 300, 128, 130, 0),
+    (1, 10, 2, 37, 421, 64, 0, 384),     # s_q under one tile after a prefix
+    (1, 10, 2, 37, 421, 128, 100, 384),
+    (1, 10, 2, 129, 129, 64, 0, 0),      # s one past a tile boundary
+    (1, 4, 2, 257, 257, 128, 0, 0),
+])
+def test_flash_attention_wgmma_edges(dev, dtype, b, nq, nkv, s_q, s_k, d, window, q_offset):
+    q = _rand(dev, 5, (b, s_q, nq, d), dtype).transpose(1, 2)
+    k = _rand(dev, 6, (b, s_k, nkv, d), dtype).transpose(1, 2)
+    v = _rand(dev, 7, (b, s_k, nkv, d), dtype).transpose(1, 2)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    before = fa_ops.launches_by_variant["wgmma"]
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    assert fa_ops.launches_by_variant["wgmma"] == before + 1
+    _close(got, flash_attention_ref(q, k, v, **kw), rel=FLASH_REL[dtype])
+
+
+def _scan_args(dev, b, s, d_in, n, dtype, seed=0):
+    x = _rand(dev, seed, (b, s, d_in), dtype)
+    dt = torch.nn.functional.softplus(_rand(dev, seed + 1, (b, s)))
+    A = -torch.exp(_rand(dev, seed + 2, (d_in, n)))
+    proj = _rand(dev, seed + 3, (b, s, 2 * n + 1), dtype)
+    return x, dt, A, proj[..., :n], proj[..., n: 2 * n]
+
+
+CHUNK = ss_ops.CHUNK
+
+
+@pytest.mark.parametrize("s", [1, ss_ops.CHUNKED_MIN_S - 1, ss_ops.CHUNKED_MIN_S, CHUNK,
+                               CHUNK + 1, 3 * CHUNK + 5])
+@pytest.mark.parametrize("d_in,n", [(40, 16), (64, 4), (24, 8)])
+def test_selective_scan_chunk_edges(dev, s, d_in, n):
+    """Every length the variants split on, d_in not a multiple of the
+    chunked kernel's 16 channels per CTA, b = 2 seeded with h0."""
+    b = 2
+    args = _scan_args(dev, b, s, d_in, n, torch.bfloat16)
+    h0 = _rand(dev, 9, (b, d_in, n))
+    variant = "chunked" if s >= ss_ops.CHUNKED_MIN_S else "sequential"
+    before = ss_ops.launches_by_variant[variant]
+    y, h = ss_ops.selective_scan(*args, h0)
+    assert ss_ops.launches_by_variant[variant] == before + 1
+    yr, hr = selective_scan_ref(*args, h0)
+    _close(y, yr)
+    _close(h, hr)
+    if variant == "chunked":  # the decomposition it runs, in plain torch
+        yc, hc = selective_scan_chunked_ref(*args, h0, chunk=CHUNK, run=ss_ops.RUN)
+        _close(y, yc)
+        _close(h, hc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_resume_at_a_chunk_boundary(dev, dtype):
+    """Cut on a chunk boundary, the resumed scan runs the same chunks on the
+    same inputs and carries as the whole one: bit-identical."""
+    s, k = 2 * CHUNK + 70, CHUNK
+    assert s - k >= ss_ops.CHUNKED_MIN_S  # both parts take the chunked kernel
+    x, dt, A, Bm, Cm = _scan_args(dev, 1, s, 48, 16, dtype, seed=20)
     y_full, h_full = ss_ops.selective_scan(x, dt, A, Bm, Cm)
     _, h_mid = ss_ops.selective_scan(x[:, :k].contiguous(), dt[:, :k], A, Bm[:, :k], Cm[:, :k])
     y_res, h_res = ss_ops.selective_scan(x[:, k:].contiguous(), dt[:, k:], A, Bm[:, k:],

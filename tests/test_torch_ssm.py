@@ -36,7 +36,9 @@ from repro.models import transformer as JT
 from repro_torch import bridge
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.kernels.selective_scan.ops import selective_scan
+from repro_torch.kernels.selective_scan.ref import selective_scan_chunked_ref, selective_scan_ref
 from repro_torch.models import attention as PA
 from repro_torch.models import ssm as PS
 from repro_torch.models import transformer as PT
@@ -174,6 +176,49 @@ def test_selective_scan_h0_resume_matches_jax():
     yj, hj = jax_scan(*jtail, jnp.asarray(_np(h_mid)), block_s=16, block_d=32)
     _close(y_res, yj, rtol=1e-5, atol=1e-5)
     _close(h_res, hj, rtol=1e-5, atol=1e-5)
+
+
+CHUNK = scan_ops.CHUNK
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("s", [1, 7, CHUNK, 3 * CHUNK + 5])
+def test_selective_scan_chunked_decomposition_matches_jax(s, seeded):
+    """The card's chunked scan, as its plain-torch decomposition (per-run
+    folds, a scan of the runs' pairs, the carry from chunk to chunk), holds
+    the JAX kernel's recurrence and the port's sequential plain version: the
+    same float32 arithmetic re-associated, within 1e-5 of the largest value."""
+    b, d_in, n = 2, 32, 8
+    x, dt, A, B, C = _scan_inputs(30, b, s, d_in, n)
+    h0 = _rand(35, (b, d_in, n)) if seeded else None
+    targs = [_t(a) for a in (x, dt, A, B, C)] + [None if h0 is None else _t(h0)]
+    y, h = selective_scan_chunked_ref(*targs, chunk=CHUNK, run=scan_ops.RUN)
+    jargs = [jnp.asarray(a) for a in (x, dt, A, B, C)] + [None if h0 is None else jnp.asarray(h0)]
+    for yw, hw in (jax_scan(*jargs, block_s=s, block_d=d_in),  # Pallas, interpreted
+                   selective_scan_ref(*targs)):
+        yw, hw = np.asarray(yw, np.float32), np.asarray(hw, np.float32)
+        _close(y, yw, rtol=0, atol=1e-5 * np.abs(yw).max())
+        _close(h, hw, rtol=0, atol=1e-5 * np.abs(hw).max())
+
+
+def test_selective_scan_chunked_decomposition_resumes_bit_for_bit_on_a_chunk_boundary():
+    """Cut on a chunk boundary the resumed decomposition runs the same
+    chunks on the same carries: bit-identical; at a ragged cut the sums
+    re-associate, so it agrees within 1e-5."""
+    s, d_in, n = 2 * CHUNK + 40, 16, 4
+    t = [_t(a) for a in _scan_inputs(40, 1, s, d_in, n)]
+    kw = dict(chunk=CHUNK, run=scan_ops.RUN)
+    y_full, h_full = selective_scan_chunked_ref(*t, **kw)
+    for k in (CHUNK, CHUNK + 37):
+        head = [a[:, :k] if a.dim() > 2 or a is t[1] else a for a in t]
+        tail = [a[:, k:] if a.dim() > 2 or a is t[1] else a for a in t]
+        _, h_mid = selective_scan_chunked_ref(*head, **kw)
+        y_res, h_res = selective_scan_chunked_ref(*tail, h_mid, **kw)
+        if k % CHUNK == 0:
+            assert torch.equal(y_res, y_full[:, k:]) and torch.equal(h_res, h_full)
+        else:
+            _close(y_res, y_full[:, k:], rtol=0, atol=1e-5 * y_full.abs().max().item())
+            _close(h_res, h_full, rtol=0, atol=1e-5 * h_full.abs().max().item())
 
 
 # -- flash_attention ----------------------------------------------------------
