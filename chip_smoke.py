@@ -16,7 +16,11 @@ non-zero exit code:
                 (tolerances stated below), timed beside its plain version,
                 the least time the card could take (bound) and, where one
                 exists, one PyTorch call computing the same function
-                (library);
+                (library); for chunk_attention and decode_attention also the
+                wrapper's host time per call and an output-only yardstick:
+                one scaled_dot_product_attention call on pre-laid contiguous
+                inputs, which computes no mass and which the port never
+                calls;
   3. e2e      — ContiguousKV Re-Prefill then decode on full-width
                 Qwen2.5-7B (28 layers, random bfloat16 weights from a seeded
                 generator on the card): ingest a 4096-token prefix (through
@@ -25,7 +29,10 @@ non-zero exit code:
                 period 8, subperiod 4, c=16; assert read amplification 1.0
                 and each kernel's launch count per request; print where each
                 request's time goes and profile one more request (device
-                busy time, idle share, top device ops); hold a budget-1.0
+                busy time, idle share, top device ops, and the device
+                kernels each wrapper call ran: exactly one decode kernel,
+                part B's attention pass and merge, the mass pass for
+                chunk_score alone); hold a budget-1.0
                 run's first-token logits against the dense forward over
                 prefix + suffix;
   4. state    — flash_attention (hymba prefill, dense ingest, ragged s,
@@ -66,14 +73,16 @@ ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 
 # H100 SXM data-sheet peaks (dense). ``bound_ms`` takes the products at the
-# bfloat16/float16 tensor-core rate. chunk_score, chunk_attention and
-# decode_attention run them in float32 on the CUDA cores instead: the
-# engine's queries and suffix KV are float32 from layer 0's part B on, and
-# each kernel is held to 1e-5 of its float32 plain version, which bfloat16
-# operands (8-bit mantissa) would miss. So the line also gives the bound at
-# the float32 CUDA-core rate.
+# bfloat16/float16 tensor-core rate. chunk_score and decode_attention's P V
+# run float32 products on the CUDA cores instead (the engine's queries and
+# suffix KV are float32 from layer 0's part B on, and each kernel is held to
+# 1e-5 of its float32 plain version, which bfloat16 operands would miss), so
+# the line also gives the bound at the float32 CUDA-core rate; chunk_attention
+# runs its products as split-TF32 terms on the tensor cores, so its line
+# also gives the bound of those terms at the TF32 rate.
 HBM_BYTES_PER_S = 3.35e12
 TENSOR_CORE_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 CUDA_CORE_FP32_OPS_PER_S = 67e12
 # The special-function units: 16 exponentials (ex2) per clock per SM on
 # compute capability 9.0 (CUDA C Programming Guide, arithmetic instruction
@@ -152,17 +161,21 @@ def wall_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def bounds(nbytes: float, ops: float, exps: float):
-    """{"tensor_core" | "cuda_core": (least ms, "bytes" | "operations", term)}
-    on the H100: the largest of the bytes over the memory rate, the products
-    at either rate, and the exponentials over the special-function units'
-    rate; ``term`` names it ("bytes", "products" or "exponentials", the last
-    two being operations)."""
+def bounds(nbytes: float, ops: float, exps: float, tf32_ops: float | None = None):
+    """{"tensor_core" | "cuda_core" [| "tf32"]: (least ms, "bytes" |
+    "operations", term)} on the H100: the largest of the bytes over the
+    memory rate, the products at either rate, and the exponentials over the
+    special-function units' rate; ``term`` names it ("bytes", "products" or
+    "exponentials", the last two being operations). ``tf32_ops`` counts the
+    products of split-TF32 terms a kernel runs, at the TF32 rate."""
     terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "exponentials": exps / EXP_PER_S * 1e3}
     out = {}
-    for name, rate in (("tensor_core", TENSOR_CORE_OPS_PER_S),
-                       ("cuda_core", CUDA_CORE_FP32_OPS_PER_S)):
-        t = dict(terms, products=ops / rate * 1e3)
+    rates = [("tensor_core", ops, TENSOR_CORE_OPS_PER_S),
+             ("cuda_core", ops, CUDA_CORE_FP32_OPS_PER_S)]
+    if tf32_ops is not None:
+        rates.append(("tf32", tf32_ops, TF32_OPS_PER_S))
+    for name, n_ops, rate in rates:
+        t = dict(terms, products=n_ops / rate * 1e3)
         term = max(t, key=t.get)
         out[name] = (t[term], "bytes" if term == "bytes" else "operations", term)
     return out
@@ -170,8 +183,11 @@ def bounds(nbytes: float, ops: float, exps: float):
 
 def bound_text(bound) -> str:
     tc, cc = bound["tensor_core"], bound["cuda_core"]
-    return (f"bound {tc[0]:.5f} ms by {tc[2]} at the tensor-core rate, {cc[0]:.5f} ms by "
+    text = (f"bound {tc[0]:.5f} ms by {tc[2]} at the tensor-core rate, {cc[0]:.5f} ms by "
             f"{cc[2]} at the float32 CUDA-core rate")
+    if "tf32" in bound:
+        text += f", {bound['tf32'][0]:.5f} ms by {bound['tf32'][2]} for its split-TF32 terms"
+    return text
 
 
 def reset_counts(*mods):
@@ -244,6 +260,7 @@ def phase_device():
 def phase_kernels(cfg):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.kernels.chunk_attention.ops import chunk_attention
     from repro_torch.kernels.chunk_attention.ref import chunk_attention_ref
@@ -295,13 +312,38 @@ def phase_kernels(cfg):
             fail(f"chunk_attention {dname(q)} n_valid={n_valid}: err {err} > {tol}")
         print(f"kernels: chunk_attention q {dname(q)} chunks {n_valid}/{n_sel}: "
               f"max abs err {err:.3g} (tol {tol:.3g}) on out and A_j")
+        if not (torch.equal(o, chunk_attention(q, ks, vs, n_valid, kf, vf)[0])
+                and torch.equal(ms, chunk_attention(q, ks, vs, n_valid, kf, vf)[1])):
+            fail("chunk_attention is not reproducible bit for bit")
         if qdt == torch.float32 and n_valid == n_sel:
-            pairs = s * n_valid * CHUNK + s * (s + 1) // 2
+            pairs_c, pairs_s = s * n_valid * CHUNK, s * (s + 1) // 2
+            pairs = pairs_c + pairs_s
+
+            def call(q=q, kf=kf, vf=vf, n_valid=n_valid):  # this iteration's inputs
+                return chunk_attention(q, ks, vs, n_valid, kf, vf)
+            # output-only yardstick: float32 SDPA over pre-laid [chunks ; suffix]
+            # with a boolean mask (chunks visible, the suffix causal)
+            n_pre = n_valid * CHUNK
+            k_all, v_all = (torch.cat([x[:n_valid].reshape(n_pre, nkv, d).float(), y])
+                            .permute(1, 0, 2)[None].contiguous() for x, y in ((ks, kf), (vs, vf)))
+            q_t = q.permute(1, 0, 2)[None].contiguous()
+            mask = torch.ones(s, n_pre + s, dtype=torch.bool, device=dev)
+            mask[:, n_pre:] = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q_t, k_all, v_all, attn_mask=mask,
+                                                      enable_gqa=True)
+            sdpa_err = max_err(sdpa()[0].permute(1, 0, 2), o)
             rows["chunk_attention"] = dict(
-                err=err, ms=device_ms(lambda: chunk_attention(q, ks, vs, n_valid, kf, vf)),
+                err=err, ms=device_ms(call), host_ms=host_ms(call),
                 plain_ms=wall_ms(lambda: chunk_attention_ref(q, ks, vs, n_valid, kf, vf)),
+                sdpa_output_only_ms=device_ms(sdpa),
                 bound=bounds(nbytes(q, kf, vf, o, ms) + nbytes(ks, vs) * n_valid // n_sel,
-                             4.0 * nq * d * pairs, nq * pairs))
+                             4.0 * nq * d * pairs, nq * pairs,
+                             tf32_ops=4.0 * nq * d * (2 * pairs_c + 3 * pairs_s)))
+            print(f"kernels: chunk_attention output-only yardstick "
+                  f"scaled_dot_product_attention (float32, boolean mask; computes no A_j, the "
+                  f"port never calls it) agrees to {sdpa_err:.3g}")
 
     # decode_attention: bfloat16 as decode runs; the last step's pool of
     # 64 resident pages + 5 tail pages, a partial last page, one pad slot
@@ -326,16 +368,38 @@ def phase_kernels(cfg):
     print(f"kernels: decode_attention bfloat16 {n_pages - 1} pages + 1 pad slot: max abs "
           f"err out {err_o:.3g} (tol {tol_o:.3g}), mass {err_m:.3g} (tol {tol_m:.3g}); "
           f"pad slot bit-identical")
+    o2, pm2 = decode_attention(q, kp, vp, wide, lens)
+    if not (torch.equal(o, o2) and torch.equal(pm, pm2)):
+        fail("decode_attention is not reproducible bit for bit")
     L = int(lens.item())
+
+    def call(q=q):
+        return decode_attention(q, kp, vp, wide, lens)
+    # output-only yardstick: bfloat16 SDPA over the valid tokens laid out contiguously
+    k_c, v_c = (x[0, : n_pages - 1].reshape(-1, nkv, d)[:L].permute(1, 0, 2)[None].contiguous()
+                for x in (kp, vp))
+    q_c = q[:, :, None]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q_c, k_c, v_c, enable_gqa=True)
+    sdpa_err = max_err(sdpa()[:, :, 0], o)
     rows["decode_attention"] = dict(
-        err=max(err_o, err_m), ms=device_ms(lambda: decode_attention(q, kp, vp, wide, lens)),
+        err=max(err_o, err_m), ms=device_ms(call), host_ms=host_ms(call),
         plain_ms=wall_ms(lambda: decode_attention_ref(q, kp, vp, wide, lens)),
+        sdpa_output_only_ms=device_ms(sdpa),
         bound=bounds(nbytes(q, o, pm, wide, lens) + 2 * L * nkv * d * kp.element_size(),
                      4.0 * nq * d * L, nq * L))
+    print(f"kernels: decode_attention output-only yardstick scaled_dot_product_attention "
+          f"(bfloat16, enable_gqa; computes no per-page mass, the port never calls it) agrees "
+          f"to {sdpa_err:.3g}; two runs bit-identical")
     for name, r in rows.items():
+        extra = ""
+        if "host_ms" in r:
+            extra = (f"; host time per call {r['host_ms']:.4f} ms; output-only "
+                     f"scaled_dot_product_attention {r['sdpa_output_only_ms']:.4f} ms")
         print(f"kernels: {name}: {r['ms']:.4f} ms on the card (plain version "
               f"{r['plain_ms']:.4f} ms, {bound_text(r['bound'])}, "
-              f"library call: none returns the per-chunk/page mass)")
+              f"library call: none returns the per-chunk/page mass{extra})")
     return rows
 
 
@@ -460,13 +524,24 @@ def phase_state_kernels(hcfg, dcfg, fcfg):
         err = max(err, check(f"decode b={b}", dec, h0)[0])
     dec = scan_inputs(1, 1, torch.float32)
     h0 = rn(1, hcfg.d_inner, n, dtype=torch.float32)
+    fdec = scan_inputs(1, 1, torch.float32, d_in=fcfg.d_inner)
+    fh0 = rn(1, fcfg.d_inner, n, dtype=torch.float32)
+
+    def step_bound(a, h_in):  # the decode step: state (and x, dt, B, C, y) moved once
+        y, h = selective_scan(*a, h_in)
+        d_in = a[0].shape[2]
+        return bounds(nbytes(*a, h_in, y, h), 6.0 * d_in * n, d_in * n)["tensor_core"][0]
     r = dict(err=err, ms=device_ms(lambda: selective_scan(*args)), library_ms=None,
              plain_ms=wall_ms(lambda: selective_scan_ref(*args), reps=2),
              decode_ms=device_ms(lambda: selective_scan(*dec, h0)),
+             decode_bound_ms=step_bound(dec, h0),
+             falcon_decode_ms=device_ms(lambda: selective_scan(*fdec, fh0)),
              bound=scan_bound(args, y_full, h_full))
     print(f"kernels: selective_scan hymba prefill: chunked {r['ms']:.4f} ms on the card, "
           f"plain version {r['plain_ms']:.1f} ms, {bound_text(r['bound'])}; decode step "
-          f"(sequential) {r['decode_ms']:.4f} ms; library call: none, no PyTorch call "
+          f"(sequential) {r['decode_ms']:.4f} ms against a bound of "
+          f"{r['decode_bound_ms']:.5f} ms (its state read and written once), falcon-mamba's "
+          f"decode step {r['falcon_decode_ms']:.4f} ms; library call: none, no PyTorch call "
           f"computes the scan")
     # one CTA of 16 channels on each SM: the chunked kernel's latency alone
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -560,7 +635,26 @@ def phase_e2e(cfg):
     totals = {k: {"dense requests": counts(mod)} for k, mod in ops.items()}
     totals["flash_attention"] = {"dense ingest": ingest_flash}
     print(f"e2e: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    profile_request(eng, suffixes[0], statistics.mean(walls[1:]))
+    # the profiled request: each wrapper call ran exactly its device kernels
+    # (one per decode_attention call; part B's attention pass and merge, and
+    # the mass pass for chunk_score alone)
+    before = {k: mod.launches for k, mod in ops.items()}
+    ours = profile_request(eng, suffixes[0], statistics.mean(walls[1:]))
+    got = {k: mod.launches - before[k] for k, mod in ops.items()}
+    want = {"chunk_attn_kernel": got["chunk_attention"],
+            "chunk_merge_kernel": got["chunk_attention"],
+            "decode_kernel": got["decode_attention"],
+            "mass_pass_kernel": got["chunk_score"]}
+    seen = {k: ours.get(k, (0, 0.0))[0] for k in want}
+    if got != expect or seen != want:
+        fail(f"profiled request: wrapper launches {got} (expected {expect}), device "
+             f"kernels {seen} (expected {want})")
+    per_call = {"chunk_attention": {k: seen[k] / got["chunk_attention"]
+                                    for k in ("chunk_attn_kernel", "chunk_merge_kernel")},
+                "decode_attention": {"decode_kernel": seen["decode_kernel"]
+                                     / got["decode_attention"]}}
+    print(f"e2e: profiled request: device kernels per wrapper call {per_call} "
+          f"(mass_pass_kernel x{seen['mass_pass_kernel']}: chunk_score's alone)")
 
     # budget 1.0 against the dense forward over prefix + suffix
     full = ContiguousKVEngine(sess, RealCompute(cfg, params, device=DEVICE), RealExecutor(),
@@ -579,7 +673,7 @@ def phase_e2e(cfg):
     if not (rel <= DENSE_REL_TOL and cos >= DENSE_MIN_COS):
         fail("budget-1.0 first-token logits disagree with the dense forward")
     ex.shutdown()
-    return totals
+    return totals, per_call
 
 
 def logit_agreement(a, b):
@@ -709,7 +803,8 @@ def profile_request(eng, suffix, warm_wall_ms: float, tag: str = "e2e"):
     """One more request under torch.profiler: the device's busy time (sum of
     its kernels and copies, one stream), the idle share against the mean wall
     time of the warm requests run without the profiler (which slows the
-    host), and the device operations that take most of the busy time."""
+    host), and the device operations that take most of the busy time.
+    Returns {kernel of this repository: (launches, ms)}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -732,6 +827,20 @@ def profile_request(eng, suffix, warm_wall_ms: float, tag: str = "e2e"):
           f"{warm_wall_ms:.1f} ms ({100 * (1 - busy_ms / warm_wall_ms):.1f} % idle; "
           f"{wall_ms:.1f} ms under the profiler); top device ops: "
           + "; ".join(f"{k[:48]} x{n} {t / 1e3:.2f} ms" for k, n, t in top))
+    # the busy time split: this repository's kernels by name, copies, the rest
+    ours = {}
+    for k, n, t in dev:
+        if "ckv::" in k:
+            name = k.split("ckv::")[1].split("<")[0].split("(")[0]
+            c0, t0 = ours.get(name, (0, 0.0))
+            ours[name] = (c0 + n, t0 + t / 1e3)
+    copies = sum(t for k, _, t in dev if "Memcpy" in k or "Memset" in k) / 1e3
+    mine = sum(t for _, t in ours.values())
+    print(f"{tag}: profiled request: busy {busy_ms:.1f} ms = the port's kernels {mine:.2f} "
+          f"ms + copies {copies:.2f} ms + other device ops {busy_ms - mine - copies:.2f} ms; "
+          "the port's kernels (launches, ms): "
+          + ", ".join(f"{k} ({c}, {t:.2f})" for k, (c, t) in sorted(ours.items())))
+    return ours
 
 
 def main() -> int:
@@ -758,7 +867,9 @@ def main() -> int:
     # the dense phases first, so their requests run in the same process
     # state as before the state-space phases existed
     rows = phase_kernels(cfg)
-    paths = phase_e2e(cfg)
+    paths, per_call = phase_e2e(cfg)
+    for name, k in per_call.items():
+        rows[name]["device_kernels_per_call"] = k
     torch.cuda.empty_cache()  # the Qwen weights went with phase_e2e
     rows.update(phase_state_kernels(hcfg, cfg, fcfg))
     for name, n in phase_state_e2e(hcfg, N_REQUESTS, check_decode=True).items():
@@ -792,7 +903,10 @@ def main() -> int:
                "cuda_core_bound_ms": r["bound"]["cuda_core"][0],
                "cuda_core_bound_by": r["bound"]["cuda_core"][1],
                "library_ms": r.get("library_ms")}
-        for key in ("host_ms", "decode_ms", "dense_ingest", "falcon_prefill",
+        if "tf32" in r["bound"]:
+            row["tf32_bound_ms"] = r["bound"]["tf32"][0]
+        for key in ("host_ms", "sdpa_output_only_ms", "device_kernels_per_call", "decode_ms",
+                    "decode_bound_ms", "falcon_decode_ms", "dense_ingest", "falcon_prefill",
                     "one_cta_per_sm_ms"):
             if key in r:
                 row[key] = r[key]

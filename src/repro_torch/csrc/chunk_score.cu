@@ -92,10 +92,10 @@ static __global__ void merge_stats_kernel(const float* __restrict__ m_part,
 }
 
 template <typename TQ>
-static void launch_chunk_score(const void* q, const void* k, float* out, float* m_stat,
-                               float* l_stat, float* m_part, float* l_part, float* partial, int s,
-                               int n_q, int n_kv, int n, int d, int c, int keys_per_split,
-                               cudaStream_t st) {
+static cudaError_t launch_chunk_score(const void* q, const void* k, float* out, float* m_stat,
+                                      float* l_stat, float* m_part, float* l_part, float* partial,
+                                      int s, int n_q, int n_kv, int n, int d, int c,
+                                      int keys_per_split, cudaStream_t st) {
   const int rows = (n_q / n_kv) * s, n_split = (n + keys_per_split - 1) / keys_per_split;
   const size_t smem = sizeof(float) * (TR + TK) * tile_ld(d);
   cudaFuncSetAttribute(stats_split_kernel<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -106,8 +106,8 @@ static void launch_chunk_score(const void* q, const void* k, float* out, float* 
                                                   softmax_scale(d));
   merge_stats_kernel<<<(n_q * s + 255) / 256, 256, 0, st>>>(m_part, l_part, m_stat, l_stat,
                                                              n_q * s, n_split);
-  launch_mass<TQ>(q, (const __half*)k, m_stat, l_stat, partial, out, s, n_q, n_kv, n, d, c,
-                  (n + c - 1) / c, st);
+  return launch_mass<TQ>(q, (const __half*)k, m_stat, l_stat, partial, out, s, n_q, n_kv, n, d,
+                         c, (n + c - 1) / c, st);
 }
 
 }  // namespace ckv
@@ -127,19 +127,18 @@ extern "C" int ckv_chunk_score(const void* q, const void* k, float* out, float* 
   cudaStream_t st = (cudaStream_t)stream;
   switch (q_dtype) {
     case ckv::F32:
-      ckv::launch_chunk_score<float>(q, k, out, m_stat, l_stat, m_part, l_part, partial, s, n_q,
-                                     n_kv, n, d, c, keys_per_split, st);
-      break;
+      return (int)ckv::launch_chunk_score<float>(q, k, out, m_stat, l_stat, m_part, l_part,
+                                                 partial, s, n_q, n_kv, n, d, c, keys_per_split,
+                                                 st);
     case ckv::BF16:
-      ckv::launch_chunk_score<__nv_bfloat16>(q, k, out, m_stat, l_stat, m_part, l_part, partial,
-                                             s, n_q, n_kv, n, d, c, keys_per_split, st);
-      break;
+      return (int)ckv::launch_chunk_score<__nv_bfloat16>(q, k, out, m_stat, l_stat, m_part,
+                                                         l_part, partial, s, n_q, n_kv, n, d, c,
+                                                         keys_per_split, st);
     case ckv::F16:
-      ckv::launch_chunk_score<__half>(q, k, out, m_stat, l_stat, m_part, l_part, partial, s, n_q,
-                                      n_kv, n, d, c, keys_per_split, st);
-      break;
+      return (int)ckv::launch_chunk_score<__half>(q, k, out, m_stat, l_stat, m_part, l_part,
+                                                  partial, s, n_q, n_kv, n, d, c, keys_per_split,
+                                                  st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

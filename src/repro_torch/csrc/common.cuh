@@ -3,21 +3,28 @@
 // Dtype codes (must match repro_torch/kernels/build.py DTYPE_CODES):
 //   0 float32, 1 bfloat16, 2 float16.
 //
-// The kernels compute in float32 on the CUDA cores (the engine's queries are
-// float32 from the second layer on, and the reference arithmetic is float32).
-// Their common shape is a 64-row x 64-key tile per step, 256 threads, each
-// thread holding a 4 x 4 block of scores in registers: rows ty + 16 i and
-// keys tx + 16 j (ty = tid / 16, tx = tid % 16). Rows and keys sit in shared
-// memory as float32 with a row stride of d + 4 words, so that the float4
-// reads of 16 consecutive keys fall on distinct banks. Every sum runs in a
-// fixed order: no atomics, the same result on every run.
+// chunk_score's kernels compute in float32 on the CUDA cores (the engine's
+// queries are float32 from the second layer on, and the reference
+// arithmetic is float32). Their common shape is a 64-row x 64-key tile per
+// step, 256 threads, each thread holding a 4 x 4 block of scores in
+// registers: rows ty + 16 i and keys tx + 16 j (ty = tid / 16, tx = tid % 16).
+// Rows and keys sit in shared memory as float32 with a row stride of d + 4
+// words, so that the float4 reads of 16 consecutive keys fall on distinct
+// banks. chunk_attention and decode_attention run their products on the
+// tensor cores (split-TF32 where an operand is float32: the tf32 and mma
+// helpers below) and finish their cross-CTA sums in the last CTA to arrive
+// (last_to_arrive). Every sum runs in a fixed order: no float atomics, the
+// same result on every run.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
+#include <cstdint>
+#include <mutex>
 
 #define CKV_NEG_INF (-1e30f)
 #define CKV_MASKED(x) ((x) <= -1e29f)
@@ -29,6 +36,25 @@ enum DType { F32 = 0, BF16 = 1, F16 = 2 };
 constexpr int NT = 256;  // threads per CTA
 constexpr int TR = 64;   // rows per tile
 constexpr int TK = 64;   // keys per tile
+
+// Runs a host call once per device and keeps its result: for
+// cudaFuncSetAttribute, which acts on the device current when it is called.
+// One static instance per kernel instantiation.
+struct OncePerDevice {
+  static constexpr int kMaxDevices = 64;
+  std::once_flag flag[kMaxDevices];
+  cudaError_t err[kMaxDevices] = {};
+
+  template <typename F>
+  cudaError_t operator()(F&& f) {
+    int dev = 0;
+    const cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    std::call_once(flag[dev], [&] { err[dev] = f(); });
+    return err[dev];
+  }
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -68,6 +94,73 @@ __device__ __forceinline__ float half_max(float v) {
 __device__ __forceinline__ float half_sum(float v) {
   for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// 16-byte asynchronous copy global -> shared; when !valid the 16 bytes are
+// zero-filled and nothing is read (src must still be a mapped address).
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit_group() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most n of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait_groups() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// TF32 operands: an exact TF32 value is a float32 whose low 13 mantissa bits
+// are 0 (every float16 and bfloat16 value is one). A float32 x splits into
+// hi = rna(x) and lo = rna(x - hi); x - hi - lo is below 2^-22 |x|.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c (16 x 8, float32) += a (16 x 8, tf32, row) * b (8 x 8, tf32, col).
+// Fragments (g = lane / 4, t = lane % 4): a0 (g, t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g);
+// c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Called by every thread of each CTA that shares *counter once its partial
+// results are stored: true in the last CTA to arrive, which then reads the
+// others' partials (with __ldcg) and resets the counter for the next launch.
+// Which CTA comes last varies from run to run; what it computes must not.
+__device__ __forceinline__ bool last_to_arrive(int* counter, int n_arrivals, int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const bool last = atomicAdd(counter, 1) == n_arrivals - 1;
+    if (last) *counter = 0;
+    *flag = last;
+  }
+  __syncthreads();
+  const bool last = *flag;
+  if (last) __threadfence();
+  return last;
 }
 
 // Load rows [r_lo, r_hi) of d elements each into a float32 tile of row
@@ -259,21 +352,27 @@ static __global__ void reduce_heads_kernel(const float* __restrict__ partial,
 // Launch mass_pass_kernel for the dtype of q over the first n keys of k,
 // then the ordered head reduce into out (m_out chunks, zero past the valid).
 template <typename TQ>
-inline void launch_mass(const void* q, const __half* k, const float* m_stat, const float* l_stat,
-                        float* partial, float* out, int s, int n_q, int n_kv, int n, int d,
-                        int c, int m_out, cudaStream_t stream) {
+inline cudaError_t launch_mass(const void* q, const __half* k, const float* m_stat,
+                               const float* l_stat, float* partial, float* out, int s, int n_q,
+                               int n_kv, int n, int d, int c, int m_out, cudaStream_t stream) {
   const int m_valid = (n + c - 1) / c;
   if (n > 0) {
     const int bk = c * (TK / c);
     const size_t smem = sizeof(float) * ((TK + TR) * tile_ld(d) + 2 * TR + 16 * TK);
-    cudaFuncSetAttribute(mass_pass_kernel<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
+    static OncePerDevice smem_opt_in;  // at the largest d
+    const cudaError_t attr = smem_opt_in([] {
+      return cudaFuncSetAttribute(
+          mass_pass_kernel<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)(sizeof(float) * ((TK + TR) * tile_ld(128) + 2 * TR + 16 * TK)));
+    });
+    if (attr != cudaSuccess) return attr;
     dim3 grid((n + bk - 1) / bk, n_kv);
     mass_pass_kernel<TQ><<<grid, NT, smem, stream>>>(
         (const TQ*)q, k, m_stat, l_stat, partial, s, n_q, n_kv, n, d, c, bk, m_valid,
         softmax_scale(d));
   }
   reduce_heads_kernel<<<(m_out + 255) / 256, 256, 0, stream>>>(partial, out, n_kv, m_valid, m_out);
+  return cudaGetLastError();
 }
 
 }  // namespace ckv

@@ -36,12 +36,12 @@ SIGNATURES = {
     # q, k, out, m_stat, l_stat, m_part, l_part, partial,
     # s, n_q, n_kv, n, d, c, keys_per_split, q_dtype, stream
     "ckv_chunk_score": [P] * 8 + [I] * 8 + [P],
-    # q, k_sel, v_sel, k_suf, v_suf, out, mass, m_stat, l_stat, o_part, m_part,
-    # l_part, partial, s, n_q, n_kv, nb, c, n_valid, d, keys_per_split, q_dtype, stream
-    "ckv_chunk_attention": [P] * 13 + [I] * 9 + [P],
-    # q, k_pool, v_pool, table, lengths, out, mass, m_at, o_part, m_part, l_part,
+    # q, k_sel, v_sel, k_suf, v_suf, out, mass, work, work_floats, counters,
+    # s, n_q, n_kv, nb, c, n_valid, d, q_dtype, stream
+    "ckv_chunk_attention": [P] * 8 + [L, P] + [I] * 8 + [P],
+    # q, k_pool, v_pool, table, lengths, out, mass, work, work_floats, counters,
     # b, n_q, n_kv, n_pages, page, n_active, d, dtype, stream
-    "ckv_decode_attention": [P] * 11 + [I] * 8 + [P],
+    "ckv_decode_attention": [P] * 8 + [L, P] + [I] * 8 + [P],
     # q, k, v, out, b, n_q, n_kv, s_q, s_k, d, causal, window, q_offset,
     # (batch, head, position) strides of q, k, v and out, dtype, variant, stream
     "ckv_flash_attention": [P] * 4 + [I] * 9 + [L] * 12 + [I, I, P],
@@ -118,8 +118,13 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.ckv_error_string.argtypes = [ctypes.c_int]
     lib.ckv_error_string.restype = ctypes.c_char_p
-    lib.ckv_selective_scan_scratch.argtypes = [I] * 4
-    lib.ckv_selective_scan_scratch.restype = L
+    # the scratch sizes each kernel's own source computes (-1: not taken)
+    for name, n_args in (("ckv_selective_scan_scratch", 4),
+                         ("ckv_chunk_attention_work_floats", 6),
+                         ("ckv_decode_attention_work_floats", 5)):
+        fn = getattr(lib, name)
+        fn.argtypes = [I] * n_args
+        fn.restype = L
     return lib
 
 
@@ -168,6 +173,28 @@ def require(t: torch.Tensor, name: str, ndim: int, dtypes) -> None:
         raise ValueError(f"{name}: the kernel takes contiguous tensors only")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel takes 16-byte aligned tensors only")
+
+
+_WORKSPACES = {}
+
+
+def workspace(name: str, t: torch.Tensor, n_floats: int, n_ints: int):
+    """(float32 scratch of at least ``n_floats``, int32 counters of at least
+    ``n_ints``) kept for kernel ``name`` on ``t``'s device and current stream.
+
+    Kept from call to call and grown, never shrunk: a launch finds its
+    scratch without an allocation, and calls on one stream run in order, so
+    none overwrites scratch that an earlier call still reads. The counters
+    are zero when made and each launch leaves them zero (``last_to_arrive``
+    in csrc/common.cuh)."""
+    key = (name, t.device, torch.cuda.current_stream(t.device).cuda_stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws[0].numel() < n_floats or ws[1].numel() < n_ints:
+        old = ws or (torch.empty(0), torch.empty(0))
+        ws = (torch.empty(max(n_floats, old[0].numel()), dtype=torch.float32, device=t.device),
+              torch.zeros(max(n_ints, old[1].numel()), dtype=torch.int32, device=t.device))
+        _WORKSPACES[key] = ws
+    return ws
 
 
 FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16)

@@ -1,7 +1,12 @@
 """Wrapper of the chunk_attention kernel (csrc/chunk_attention.cu).
 
 A CPU tensor runs the plain version (ref.py); a CUDA tensor launches the
-kernel, or raises for what the kernel does not take.
+kernel, or raises for what the kernel does not take. One call is two device
+kernels: the attention pass, a CTA per (64-row tile, kv head, split of the
+key tiles), then the merge, a CTA per (16 rows, kv head), whose last CTA
+sums A_j. The kernel's source chooses the splits and says how much scratch
+they need; the scratch and counter are kept from call to call
+(``build.workspace``), so a call allocates one buffer for its two outputs.
 """
 from __future__ import annotations
 
@@ -13,7 +18,6 @@ from repro_torch.kernels import build as B
 from repro_torch.kernels.chunk_attention.ref import chunk_attention_ref
 
 launches = 0  # kernel launches since the count was last set to 0
-KEYS_PER_SPLIT = 256  # chunk + suffix keys per CTA of the attention pass
 
 
 def chunk_attention(q: torch.Tensor, k_sel: torch.Tensor, v_sel: torch.Tensor,
@@ -44,19 +48,17 @@ def chunk_attention(q: torch.Tensor, k_sel: torch.Tensor, v_sel: torch.Tensor,
         raise ValueError(
             f"chunk_attention: unsupported shapes q {tuple(q.shape)} "
             f"k_sel {tuple(k_sel.shape)} k_suf {tuple(k_suf.shape)} n_valid {n_valid}")
-    n_split = -(-(n_valid * c + s) // KEYS_PER_SPLIT)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    out = torch.empty(s, n_q, d, **f32)
-    mass = torch.empty(nb, **f32)
-    m_stat, l_stat = torch.empty(2, n_q * s, **f32)
-    o_part = torch.empty(n_split * n_q * s * d, **f32)
-    m_part, l_part = torch.empty(2, n_split * n_q * s, **f32)
-    partial = torch.empty(max(1, n_kv * n_valid), **f32)
-    rc = B.library().ckv_chunk_attention(
+    lib = B.library()
+    n_work = lib.ckv_chunk_attention_work_floats(s, n_q, n_kv, c, n_valid, d)
+    if n_work < 0:
+        raise RuntimeError("chunk_attention: the kernel could not lay out its work")
+    work, counters = B.workspace("chunk_attention", q, n_work, 1)
+    res = torch.empty(s * n_q * d + nb, dtype=torch.float32, device=q.device)
+    out, mass = res[: s * n_q * d].view(s, n_q, d), res[s * n_q * d:]
+    rc = lib.ckv_chunk_attention(
         q.data_ptr(), k_sel.data_ptr(), v_sel.data_ptr(), k_suf.data_ptr(), v_suf.data_ptr(),
-        out.data_ptr(), mass.data_ptr(), m_stat.data_ptr(), l_stat.data_ptr(),
-        o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), partial.data_ptr(),
-        s, n_q, n_kv, nb, c, n_valid, d, KEYS_PER_SPLIT, B.dtype_code(q), B.stream_handle(q))
+        out.data_ptr(), mass.data_ptr(), work.data_ptr(), work.numel(), counters.data_ptr(),
+        s, n_q, n_kv, nb, c, n_valid, d, B.dtype_code(q), B.stream_handle(q))
     B.check(rc, "chunk_attention")
     launches += 1
     return out, mass

@@ -1,7 +1,12 @@
 """Wrapper of the decode_attention kernel (csrc/decode_attention.cu).
 
 A CPU tensor runs the plain version (ref.py); a CUDA tensor launches the
-kernel, or raises for what the kernel does not take.
+kernel, or raises for what the kernel does not take. One call is one device
+kernel: a CTA per (request, kv head, split of whole pages), the last CTA of
+each (request, kv head) merging the splits. The kernel's source chooses the
+splits and says how much scratch they need; the scratch and counters are
+kept from call to call (``build.workspace``), so a call allocates only its
+two outputs.
 """
 from __future__ import annotations
 
@@ -43,17 +48,17 @@ def decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor
         raise ValueError(
             f"decode_attention: unsupported shapes q {tuple(q.shape)} "
             f"pool {tuple(k_pool.shape)} table {tuple(page_table.shape)}")
-    n_split = -(-n_active // (64 // page))  # one 64-key tile of whole pages per split
-    f32 = dict(dtype=torch.float32, device=q.device)
+    lib = B.library()
+    work, counters = B.workspace(
+        "decode_attention", q, lib.ckv_decode_attention_work_floats(b, n_q, n_active, page, d),
+        b * n_kv)
     out = torch.empty_like(q)
-    mass, m_at = torch.empty(2, b, n_q, n_active, **f32)
-    o_part = torch.empty(n_split * b * n_q * d, **f32)
-    m_part, l_part = torch.empty(2, n_split * b * n_q, **f32)
-    rc = B.library().ckv_decode_attention(
+    mass = torch.empty(b, n_q, n_active, dtype=torch.float32, device=q.device)
+    rc = lib.ckv_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), mass.data_ptr(), m_at.data_ptr(),
-        o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-        b, n_q, n_kv, n_pages, page, n_active, d, B.dtype_code(q), B.stream_handle(q))
+        lengths.data_ptr(), out.data_ptr(), mass.data_ptr(), work.data_ptr(), work.numel(),
+        counters.data_ptr(), b, n_q, n_kv, n_pages, page, n_active, d,
+        B.dtype_code(q), B.stream_handle(q))
     B.check(rc, "decode_attention")
     launches += 1
     return out, mass

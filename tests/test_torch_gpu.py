@@ -9,6 +9,9 @@ versions compute in float32 and sum in other orders (1e-5 relative);
 bfloat16 outputs are each one float32 result rounded once (one ulp). The
 bfloat16/float16 flash_attention multiplies P, rounded to the input dtype,
 on the tensor cores: 2^-7 of the largest output, about one bfloat16 ulp.
+chunk_attention runs its products as split-TF32 terms on the tensor cores
+(below 2^-22 of each product, inside the same 1e-5), and is also held to
+ref.chunk_attention_split_ref, which repeats those terms in plain torch.
 The chunked selective_scan re-associates the recurrence's sums, so a scan
 resumed from its carried state is bit-identical to the whole scan only at
 a cut on a chunk boundary; elsewhere it agrees within the same 1e-5.
@@ -18,7 +21,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.chunk_attention import ops as ca_ops
-from repro_torch.kernels.chunk_attention.ref import chunk_attention_ref
+from repro_torch.kernels.chunk_attention.ref import (chunk_attention_ref,
+                                                     chunk_attention_split_ref)
 from repro_torch.kernels.chunk_score import ops as cs_ops
 from repro_torch.kernels.chunk_score.ref import chunk_score_ref
 from repro_torch.kernels.decode_attention import ops as da_ops
@@ -94,6 +98,145 @@ def test_decode_attention_pad_slots_and_partial_page(dev, dtype):
     assert torch.equal(o, ow) and torch.equal(m, mw[..., : tight.shape[1]])
     assert mw[..., tight.shape[1]:].abs().max().item() == 0.0
     assert m[1, :, 4:].abs().max().item() == 0.0
+
+
+def _all_zero(t):
+    return t.numel() == 0 or t.abs().max().item() == 0.0
+
+
+def _decode_case(dev, dtype, b, nq, nkv, d, page, n_pages, n_active, lens, seed=10):
+    """Inputs of a decode call: request i's table names pages in a shuffled
+    order, then -1 pad slots up to the widest request."""
+    q = _rand(dev, seed, (b, nq, d), dtype)
+    kp, vp = (_rand(dev, seed + i, (b, n_pages, page, nkv, d), dtype) for i in (1, 2))
+    width = max(n_active)
+    tbl = np.full((b, width), -1, np.int32)
+    rng = np.random.default_rng(seed)
+    for i, n in enumerate(n_active):
+        tbl[i, :n] = rng.permutation(n_pages)[:n]
+    return (q, kp, vp, torch.from_numpy(tbl).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def _check_decode(q, kp, vp, tbl, lens):
+    """One launch per call, the plain version's results within tolerance,
+    two runs bit-identical, and a pad slot appended to every table changing
+    nothing of the real slots."""
+    before = da_ops.launches
+    o, m = da_ops.decode_attention(q, kp, vp, tbl, lens)
+    assert da_ops.launches == before + 1 and o.dtype == q.dtype
+    o2, m2 = decode_attention_ref(q, kp, vp, tbl, lens)
+    _close(o, o2, rel=1e-5 if q.dtype == torch.float32 else 2.0 ** -7)
+    _close(m, m2)
+    assert _all_zero(m[tbl[:, None, :].expand_as(m) < 0])
+    o3, m3 = da_ops.decode_attention(q, kp, vp, tbl, lens)
+    assert torch.equal(o, o3) and torch.equal(m, m3)
+    wide = torch.cat([tbl, torch.full((tbl.shape[0], 1), -1, dtype=torch.int32,
+                                      device=tbl.device)], dim=1)
+    ow, mw = da_ops.decode_attention(q, kp, vp, wide, lens)
+    assert torch.equal(o, ow) and torch.equal(m, mw[..., :-1])
+    assert mw[..., -1].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("page", [1, 8, 16, 24, 48, 64])
+@pytest.mark.parametrize("group,d", [(1, 64), (5, 128), (7, 128), (8, 64)])
+def test_decode_attention_edges(dev, page, group, d):
+    """b = 2 with different lengths, partial last pages and pad slots, at
+    every page size and group the kernel's split and tile layouts turn on
+    (pages of 24 and 48 tokens: splits of 48 keys, not 64)."""
+    nkv = 2
+    n_active = [max(3, 200 // page), max(2, 90 // page)]
+    lens = [(n_active[0] - 1) * page + max(1, page // 2), (n_active[1] - 1) * page + 1]
+    _check_decode(*_decode_case(dev, torch.bfloat16, 2, group * nkv, nkv, d, page,
+                                n_active[0] + 3, n_active, lens))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [8, 16])
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_decode_attention_split_boundaries(dev, dtype, page, delta):
+    """Tables that end one page before, on and one page past a split's end."""
+    pps = 64 // page  # the kernel's splits: as many whole pages as fit 64 keys
+    n = 3 * pps + delta
+    _check_decode(*_decode_case(dev, dtype, 1, 28, 4, 128, page, n + 2, [n],
+                                [(n - 1) * page + 3], seed=20))
+
+
+@pytest.mark.parametrize("page,n_active", [(1, 700), (16, 130), (64, 40)])
+def test_decode_attention_many_splits(dev, page, n_active):
+    """Many splits: 11 of 64 one-token pages, then 33 and 40, more than the
+    24 the merge loads in one batch; a ragged last split and a second
+    request of a third of the length."""
+    lens = [(n_active - 1) * page + 1, (n_active // 3) * page]
+    _check_decode(*_decode_case(dev, torch.bfloat16, 2, 28, 4, 128, page, n_active + 3,
+                                [n_active, n_active // 3], lens, seed=60))
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,n_valid", [(1, 0), (1, 1), (1, 8), (37, 0), (37, 1), (37, 8),
+                                       (64, 5), (130, 8)])
+def test_chunk_attention_edges(dev, qdtype, s, n_valid):
+    """n_valid 0, 1 and nb; s of 1, not a multiple of the 64-row tile, and
+    past one suffix key tile; the main path's heads and d."""
+    nq, nkv, nb, c, d = 28, 4, 8, 16, 128
+    q = _rand(dev, 30, (s, nq, d), qdtype)
+    ks, vs = (_rand(dev, i, (nb, c, nkv, d), torch.float16) for i in (31, 32))
+    kf, vf = (_rand(dev, i, (s, nkv, d), qdtype) for i in (33, 34))
+    before = ca_ops.launches
+    o, m = ca_ops.chunk_attention(q, ks, vs, n_valid, kf, vf)
+    assert ca_ops.launches == before + 1 and o.dtype == torch.float32
+    for ref in (chunk_attention_ref, chunk_attention_split_ref):
+        o2, m2 = ref(q, ks, vs, n_valid, kf, vf)
+        _close(o, o2)
+        _close(m, m2)
+    assert _all_zero(m[n_valid:])
+    o3, m3 = ca_ops.chunk_attention(q, ks, vs, n_valid, kf, vf)
+    assert torch.equal(o, o3) and torch.equal(m, m3)
+
+
+@pytest.mark.parametrize("c,group,d,nb", [(24, 5, 64, 7), (64, 1, 128, 64), (5, 7, 32, 7),
+                                          (64, 7, 128, 64)])
+def test_chunk_attention_chunk_sizes_and_splits(dev, c, group, d, nb):
+    """Chunk sizes that do not divide the 64-key tile, narrow heads, and the
+    split layouts the kernel picks: one key tile for each of 64 splits (a
+    single row tile), and three tiles per split with a ragged last one."""
+    s, nkv = 40, 2
+    q = _rand(dev, 40, (s, group * nkv, d))
+    ks, vs = (_rand(dev, i, (nb, c, nkv, d), torch.float16) for i in (41, 42))
+    kf, vf = (_rand(dev, i, (s, nkv, d)) for i in (43, 44))
+    o, m = ca_ops.chunk_attention(q, ks, vs, nb - 1, kf, vf)
+    o2, m2 = chunk_attention_ref(q, ks, vs, nb - 1, kf, vf)
+    _close(o, o2)
+    _close(m, m2)
+
+
+def _device_kernels(fn, calls=10):
+    """{device kernel name: launches per call} over ``calls`` calls of fn
+    (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("ckv::")[-1].split("<")[0].split("(")[0]: e.count / calls
+            for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def test_device_kernels_per_call(dev):
+    """decode_attention is one device kernel per call, chunk_attention two
+    (the attention pass and the merge, no mass pass)."""
+    q, kp, vp, tbl, lens = _decode_case(dev, torch.bfloat16, 1, 28, 4, 128, 16, 70, [69],
+                                        [68 * 16 + 5])
+    kern = _device_kernels(lambda: da_ops.decode_attention(q, kp, vp, tbl, lens))
+    assert kern == {"decode_kernel": 1.0}, kern
+    qa = _rand(dev, 50, (64, 28, 128))
+    ks, vs = (_rand(dev, i, (64, 16, 4, 128), torch.float16) for i in (51, 52))
+    kf, vf = (_rand(dev, i, (64, 4, 128)) for i in (53, 54))
+    kern = _device_kernels(lambda: ca_ops.chunk_attention(qa, ks, vs, 64, kf, vf))
+    assert kern == {"chunk_attn_kernel": 1.0, "chunk_merge_kernel": 1.0}, kern
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):

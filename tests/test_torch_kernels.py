@@ -20,7 +20,8 @@ from repro.kernels.chunk_score.kernel import chunk_score as pallas_chunk_score
 from repro.kernels.decode_attention.kernel import decode_attention as pallas_decode
 from repro_torch import bridge
 from repro_torch.kernels.chunk_attention import ops as ca_ops
-from repro_torch.kernels.chunk_attention.ref import chunk_attention_ref
+from repro_torch.kernels.chunk_attention.ref import (chunk_attention_ref,
+                                                     chunk_attention_split_ref, tf32_split)
 from repro_torch.kernels.chunk_score import ops as cs_ops
 from repro_torch.kernels.chunk_score.ref import chunk_score_ref
 from repro_torch.kernels.decode_attention import ops as da_ops
@@ -107,6 +108,26 @@ class TestChunkAttention:
         np.testing.assert_allclose(pm.numpy(), np.asarray(jm), **TOL)
         assert np.all(pm.numpy()[n_valid:] == 0.0)
 
+    @pytest.mark.parametrize("n_valid", [0, 1, 5, 8])
+    @pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+    def test_split_tf32_ref_matches_engine_part_b(self, n_valid, qdtype):
+        """chunk_attention_split_ref, the CUDA kernel's split-TF32 products in
+        plain torch, against the JAX engine's part B and the plain version."""
+        s, nq, nkv, nb, c, d = 12, 4, 2, 8, 16, 32
+        q, ks, vs, kf, vf = _chunk_inputs(3, s, nq, nkv, nb, c, d, qdtype)
+        valid = np.arange(nb) < n_valid
+        jo, jm = JSA.reprefill_attention(jnp.asarray(q), jnp.asarray(ks), jnp.asarray(vs),
+                                         jnp.asarray(valid), jnp.asarray(kf),
+                                         jnp.asarray(vf), chunk_tokens=c)
+        args = (_t(q), _t(ks), _t(vs), n_valid, _t(kf), _t(vf))
+        so, sm = chunk_attention_split_ref(*args)
+        po, pm = chunk_attention_ref(*args)
+        assert so.dtype == sm.dtype == torch.float32
+        np.testing.assert_allclose(so.numpy(), np.asarray(jo), **TOL)
+        np.testing.assert_allclose(sm.numpy(), np.asarray(jm), **TOL)
+        np.testing.assert_allclose(so.numpy(), po.numpy(), **TOL)
+        np.testing.assert_allclose(sm.numpy(), pm.numpy(), **TOL)
+
     def test_output_matches_pallas_kernel(self):
         """Output only: the Pallas path normalises A_j per head over the
         chunks, the engine over [chunks ; suffix]."""
@@ -175,6 +196,20 @@ class TestDecodeAttention:
         assert torch.equal(out_t, out_w)
         assert torch.equal(mass_t, mass_w[:, :, : tight.shape[1]])
         assert mass_w[:, :, tight.shape[1]:].abs().max() == 0.0
+
+
+def test_tf32_split_is_exact_to_2_pow_minus_22():
+    """hi and lo are TF32 (low 13 mantissa bits 0), x - hi - lo is below
+    2^-22 |x|, and float16 / bfloat16 values split with lo = 0."""
+    x = torch.from_numpy(_rand(7, (4096,)) * np.float32(1e3))
+    hi, lo = tf32_split(x)
+    for t in (hi, lo):
+        assert (t.view(torch.int32) & 0x1FFF).abs().max().item() == 0
+    assert ((x - hi - lo).abs() <= 2.0 ** -22 * x.abs()).all()
+    for dt in (torch.float16, torch.bfloat16):
+        e = x.to(dt).float()
+        hi, lo = tf32_split(e)
+        assert torch.equal(hi, e) and lo.abs().max().item() == 0.0
 
 
 def test_importance_matches_jax():
