@@ -16,11 +16,11 @@ non-zero exit code:
                 (tolerances stated below), timed beside its plain version,
                 the least time the card could take (bound) and, where one
                 exists, one PyTorch call computing the same function
-                (library); for chunk_attention and decode_attention also the
-                wrapper's host time per call and an output-only yardstick:
-                one scaled_dot_product_attention call on pre-laid contiguous
-                inputs, which computes no mass and which the port never
-                calls;
+                (library), and the wrapper's host time per call; for
+                chunk_attention and decode_attention also an output-only
+                yardstick: one scaled_dot_product_attention call on pre-laid
+                contiguous inputs, which computes no mass and which the port
+                never calls;
   3. e2e      — ContiguousKV Re-Prefill then decode on full-width
                 Qwen2.5-7B (28 layers, random bfloat16 weights from a seeded
                 generator on the card): ingest a 4096-token prefix (through
@@ -31,8 +31,8 @@ non-zero exit code:
                 request's time goes and profile one more request (device
                 busy time, idle share, top device ops, and the device
                 kernels each wrapper call ran: exactly one decode kernel,
-                part B's attention pass and merge, the mass pass for
-                chunk_score alone); hold a budget-1.0
+                part B's attention pass and merge, chunk_score's split pass
+                and merge); hold a budget-1.0
                 run's first-token logits against the dense forward over
                 prefix + suffix;
   4. state    — flash_attention (hymba prefill, dense ingest, ragged s,
@@ -46,8 +46,9 @@ non-zero exit code:
                 prefix + 64-token suffix with 16 decode tokens each, with
                 flash_attention and selective_scan launches asserted per
                 request and per kernel variant, timed and profiled as
-                above; decode's logits held against a prefill over the
-                same tokens; then one request on
+                above (the profiled request's scan kernels held to the
+                wrapper's counts per variant); decode's logits held
+                against a prefill over the same tokens; then one request on
                 full-width falcon-mamba-7b (64 layers, attention-free);
   5. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
      paths it names (per variant where a wrapper has several), its error
@@ -73,13 +74,14 @@ ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 
 # H100 SXM data-sheet peaks (dense). ``bound_ms`` takes the products at the
-# bfloat16/float16 tensor-core rate. chunk_score and decode_attention's P V
-# run float32 products on the CUDA cores instead (the engine's queries and
-# suffix KV are float32 from layer 0's part B on, and each kernel is held to
-# 1e-5 of its float32 plain version, which bfloat16 operands would miss), so
-# the line also gives the bound at the float32 CUDA-core rate; chunk_attention
-# runs its products as split-TF32 terms on the tensor cores, so its line
-# also gives the bound of those terms at the TF32 rate.
+# bfloat16/float16 tensor-core rate. The engine's queries and suffix KV are
+# float32 from layer 0's part B on, and each kernel is held to 1e-5 of its
+# float32 plain version, which bfloat16 operands would miss, so the line also
+# gives the bound at the float32 CUDA-core rate; chunk_attention runs its
+# products as split-TF32 terms on the tensor cores, so its line also gives the
+# bound of those terms at the TF32 rate, and chunk_score runs them as split
+# float16 terms (two a product with float32 queries), so its line gives the
+# bound of those at the float16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 TENSOR_CORE_OPS_PER_S = 989e12
 TF32_OPS_PER_S = 495e12
@@ -161,19 +163,23 @@ def wall_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def bounds(nbytes: float, ops: float, exps: float, tf32_ops: float | None = None):
-    """{"tensor_core" | "cuda_core" [| "tf32"]: (least ms, "bytes" |
-    "operations", term)} on the H100: the largest of the bytes over the
-    memory rate, the products at either rate, and the exponentials over the
-    special-function units' rate; ``term`` names it ("bytes", "products" or
-    "exponentials", the last two being operations). ``tf32_ops`` counts the
-    products of split-TF32 terms a kernel runs, at the TF32 rate."""
+def bounds(nbytes: float, ops: float, exps: float, tf32_ops: float | None = None,
+           f16_split_ops: float | None = None):
+    """{"tensor_core" | "cuda_core" [| "tf32" | "f16_split"]: (least ms,
+    "bytes" | "operations", term)} on the H100: the largest of the bytes over
+    the memory rate, the products at either rate, and the exponentials over
+    the special-function units' rate; ``term`` names it ("bytes", "products"
+    or "exponentials", the last two being operations). ``tf32_ops`` counts
+    the products of split-TF32 terms, at the TF32 rate; ``f16_split_ops``
+    those of split float16 terms, at the float16 tensor-core rate."""
     terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "exponentials": exps / EXP_PER_S * 1e3}
     out = {}
     rates = [("tensor_core", ops, TENSOR_CORE_OPS_PER_S),
              ("cuda_core", ops, CUDA_CORE_FP32_OPS_PER_S)]
     if tf32_ops is not None:
         rates.append(("tf32", tf32_ops, TF32_OPS_PER_S))
+    if f16_split_ops is not None:
+        rates.append(("f16_split", f16_split_ops, TENSOR_CORE_OPS_PER_S))
     for name, n_ops, rate in rates:
         t = dict(terms, products=n_ops / rate * 1e3)
         term = max(t, key=t.get)
@@ -185,6 +191,9 @@ def bound_text(bound) -> str:
     tc, cc = bound["tensor_core"], bound["cuda_core"]
     text = (f"bound {tc[0]:.5f} ms by {tc[2]} at the tensor-core rate, {cc[0]:.5f} ms by "
             f"{cc[2]} at the float32 CUDA-core rate")
+    if "f16_split" in bound:
+        text += (f", {bound['f16_split'][0]:.5f} ms by {bound['f16_split'][2]} for its split "
+                 f"float16 terms")
     if "tf32" in bound:
         text += f", {bound['tf32'][0]:.5f} ms by {bound['tf32'][2]} for its split-TF32 terms"
     return text
@@ -294,10 +303,13 @@ def phase_kernels(cfg):
         print(f"kernels: chunk_score q {dname(q)} n={n}: max abs err {err:.3g} "
               f"(tol {tol:.3g}), two runs bit-identical")
         if qdt == torch.float32 and n == PREFIX_LEN:
+            # float32 q: q_lo k + q_hi k, two split float16 products per term
             rows["chunk_score"] = dict(
                 err=err, ms=device_ms(lambda: chunk_score(q, kk, CHUNK)),
+                host_ms=host_ms(lambda: chunk_score(q, kk, CHUNK)),
                 plain_ms=wall_ms(lambda: chunk_score_ref(q, kk, CHUNK)),
-                bound=bounds(nbytes(q, kk) + 4 * m, 2.0 * s * nq * n * d, s * nq * n))
+                bound=bounds(nbytes(q, kk) + 4 * m, 2.0 * s * nq * n * d, s * nq * n,
+                             f16_split_ops=2 * 2.0 * s * nq * n * d))
 
     # chunk_attention: float32 q/suffix KV (layers past 0) and bfloat16 (layer 0)
     ks, vs = (rn(n_sel, CHUNK, nkv, d, dtype=torch.float16) for _ in range(2))
@@ -393,10 +405,10 @@ def phase_kernels(cfg):
           f"(bfloat16, enable_gqa; computes no per-page mass, the port never calls it) agrees "
           f"to {sdpa_err:.3g}; two runs bit-identical")
     for name, r in rows.items():
-        extra = ""
-        if "host_ms" in r:
-            extra = (f"; host time per call {r['host_ms']:.4f} ms; output-only "
-                     f"scaled_dot_product_attention {r['sdpa_output_only_ms']:.4f} ms")
+        extra = f"; host time per call {r['host_ms']:.4f} ms"
+        if "sdpa_output_only_ms" in r:
+            extra += (f"; output-only scaled_dot_product_attention "
+                      f"{r['sdpa_output_only_ms']:.4f} ms")
         print(f"kernels: {name}: {r['ms']:.4f} ms on the card (plain version "
               f"{r['plain_ms']:.4f} ms, {bound_text(r['bound'])}, "
               f"library call: none returns the per-chunk/page mass{extra})")
@@ -518,10 +530,11 @@ def phase_state_kernels(hcfg, dcfg, fcfg):
                 fail(f"selective_scan: resumed at {cut}, max abs err {e2} > {tol}")
             print(f"kernels: selective_scan resumed at {cut} of {s_full} (ragged): max abs err "
                   f"{e2:.3g} against the whole scan (tol {tol:.3g})")
-    for b in (1, 2):
-        dec = scan_inputs(b, 1, torch.float32)
-        h0 = rn(b, hcfg.d_inner, n, dtype=torch.float32)
-        err = max(err, check(f"decode b={b}", dec, h0)[0])
+    for label, d_in in (("hymba", hcfg.d_inner), ("falcon-mamba", fcfg.d_inner)):
+        for b in (1, 2):
+            dec = scan_inputs(b, 1, torch.float32, d_in=d_in)
+            h0 = rn(b, d_in, n, dtype=torch.float32)
+            err = max(err, check(f"{label} decode b={b}", dec, h0)[0])
     dec = scan_inputs(1, 1, torch.float32)
     h0 = rn(1, hcfg.d_inner, n, dtype=torch.float32)
     fdec = scan_inputs(1, 1, torch.float32, d_in=fcfg.d_inner)
@@ -532,16 +545,23 @@ def phase_state_kernels(hcfg, dcfg, fcfg):
         d_in = a[0].shape[2]
         return bounds(nbytes(*a, h_in, y, h), 6.0 * d_in * n, d_in * n)["tensor_core"][0]
     r = dict(err=err, ms=device_ms(lambda: selective_scan(*args)), library_ms=None,
+             host_ms=host_ms(lambda: selective_scan(*args)),
              plain_ms=wall_ms(lambda: selective_scan_ref(*args), reps=2),
              decode_ms=device_ms(lambda: selective_scan(*dec, h0)),
+             decode_host_ms=host_ms(lambda: selective_scan(*dec, h0)),
              decode_bound_ms=step_bound(dec, h0),
              falcon_decode_ms=device_ms(lambda: selective_scan(*fdec, fh0)),
+             falcon_decode_host_ms=host_ms(lambda: selective_scan(*fdec, fh0)),
+             falcon_decode_bound_ms=step_bound(fdec, fh0),
              bound=scan_bound(args, y_full, h_full))
     print(f"kernels: selective_scan hymba prefill: chunked {r['ms']:.4f} ms on the card, "
-          f"plain version {r['plain_ms']:.1f} ms, {bound_text(r['bound'])}; decode step "
-          f"(sequential) {r['decode_ms']:.4f} ms against a bound of "
-          f"{r['decode_bound_ms']:.5f} ms (its state read and written once), falcon-mamba's "
-          f"decode step {r['falcon_decode_ms']:.4f} ms; library call: none, no PyTorch call "
+          f"plain version {r['plain_ms']:.1f} ms, {bound_text(r['bound'])}, host time per "
+          f"call {r['host_ms']:.4f} ms; decode step (sequential) {r['decode_ms']:.4f} ms "
+          f"against a bound of {r['decode_bound_ms']:.5f} ms (its state read and written "
+          f"once), host time per call {r['decode_host_ms']:.4f} ms; falcon-mamba's decode "
+          f"step {r['falcon_decode_ms']:.4f} ms against a bound of "
+          f"{r['falcon_decode_bound_ms']:.5f} ms, host time per call "
+          f"{r['falcon_decode_host_ms']:.4f} ms; library call: none, no PyTorch call "
           f"computes the scan")
     # one CTA of 16 channels on each SM: the chunked kernel's latency alone
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -636,25 +656,21 @@ def phase_e2e(cfg):
     totals["flash_attention"] = {"dense ingest": ingest_flash}
     print(f"e2e: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     # the profiled request: each wrapper call ran exactly its device kernels
-    # (one per decode_attention call; part B's attention pass and merge, and
-    # the mass pass for chunk_score alone)
+    # (one per decode_attention call; part B's attention pass and merge;
+    # chunk_score's split pass and merge)
     before = {k: mod.launches for k, mod in ops.items()}
     ours = profile_request(eng, suffixes[0], statistics.mean(walls[1:]))
     got = {k: mod.launches - before[k] for k, mod in ops.items()}
-    want = {"chunk_attn_kernel": got["chunk_attention"],
-            "chunk_merge_kernel": got["chunk_attention"],
-            "decode_kernel": got["decode_attention"],
-            "mass_pass_kernel": got["chunk_score"]}
+    kernels_of = {"chunk_attention": ("chunk_attn_kernel", "chunk_merge_kernel"),
+                  "decode_attention": ("decode_kernel",),
+                  "chunk_score": ("chunk_score_kernel", "chunk_score_merge_kernel")}
+    want = {kn: got[w] for w, names in kernels_of.items() for kn in names}
     seen = {k: ours.get(k, (0, 0.0))[0] for k in want}
     if got != expect or seen != want:
         fail(f"profiled request: wrapper launches {got} (expected {expect}), device "
              f"kernels {seen} (expected {want})")
-    per_call = {"chunk_attention": {k: seen[k] / got["chunk_attention"]
-                                    for k in ("chunk_attn_kernel", "chunk_merge_kernel")},
-                "decode_attention": {"decode_kernel": seen["decode_kernel"]
-                                     / got["decode_attention"]}}
-    print(f"e2e: profiled request: device kernels per wrapper call {per_call} "
-          f"(mass_pass_kernel x{seen['mass_pass_kernel']}: chunk_score's alone)")
+    per_call = {w: {kn: seen[kn] / got[w] for kn in names} for w, names in kernels_of.items()}
+    print(f"e2e: profiled request: device kernels per wrapper call {per_call}")
 
     # budget 1.0 against the dense forward over prefix + suffix
     full = ContiguousKVEngine(sess, RealCompute(cfg, params, device=DEVICE), RealExecutor(),
@@ -749,7 +765,21 @@ def phase_state_e2e(cfg, n_requests: int, check_decode: bool):
     print(f"state: {cfg.name} peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     warm = walls[1:] if len(walls) > 1 else walls
-    profile_request(eng, suffixes[0], statistics.mean(warm), tag=f"state: {cfg.name}")
+    # the profiled request: the scan's device kernels, held to the wrapper's
+    # launches per variant (the step kernel per sequential launch; the pack
+    # and scan kernels per chunked one)
+    reset_counts(ss)
+    ours = profile_request(eng, suffixes[0], statistics.mean(warm), tag=f"state: {cfg.name}")
+    by_variant = dict(ss.launches_by_variant)
+    want = {"selective_scan_step_kernel": by_variant["sequential"],
+            "selective_scan_pack_kernel": by_variant["chunked"],
+            "selective_scan_chunked_kernel": by_variant["chunked"]}
+    seen = {k: ours.get(k, (0, 0.0))[0] for k in want}
+    if seen != want or by_variant != {"sequential": L * DECODE_TOKENS, "chunked": L}:
+        fail(f"{cfg.name} profiled request: scan launches {by_variant}, device kernels "
+             f"{seen} (expected {want})")
+    print(f"state: {cfg.name} profiled request: device kernels {seen}, the scan wrapper's "
+          f"launches {by_variant}: one step kernel per decode step")
 
     if check_decode:
         prompt = np.concatenate([prefix, suffixes[0]])
@@ -903,11 +933,13 @@ def main() -> int:
                "cuda_core_bound_ms": r["bound"]["cuda_core"][0],
                "cuda_core_bound_by": r["bound"]["cuda_core"][1],
                "library_ms": r.get("library_ms")}
-        if "tf32" in r["bound"]:
-            row["tf32_bound_ms"] = r["bound"]["tf32"][0]
+        for key in ("tf32", "f16_split"):
+            if key in r["bound"]:
+                row[f"{key}_bound_ms"] = r["bound"][key][0]
         for key in ("host_ms", "sdpa_output_only_ms", "device_kernels_per_call", "decode_ms",
-                    "decode_bound_ms", "falcon_decode_ms", "dense_ingest", "falcon_prefill",
-                    "one_cta_per_sm_ms"):
+                    "decode_host_ms", "decode_bound_ms", "falcon_decode_ms",
+                    "falcon_decode_host_ms", "falcon_decode_bound_ms", "dense_ingest",
+                    "falcon_prefill", "one_cta_per_sm_ms"):
             if key in r:
                 row[key] = r[key]
         kernels.append(row)

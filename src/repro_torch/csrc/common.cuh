@@ -3,16 +3,15 @@
 // Dtype codes (must match repro_torch/kernels/build.py DTYPE_CODES):
 //   0 float32, 1 bfloat16, 2 float16.
 //
-// chunk_score's kernels compute in float32 on the CUDA cores (the engine's
-// queries are float32 from the second layer on, and the reference
-// arithmetic is float32). Their common shape is a 64-row x 64-key tile per
-// step, 256 threads, each thread holding a 4 x 4 block of scores in
-// registers: rows ty + 16 i and keys tx + 16 j (ty = tid / 16, tx = tid % 16).
-// Rows and keys sit in shared memory as float32 with a row stride of d + 4
-// words, so that the float4 reads of 16 consecutive keys fall on distinct
-// banks. chunk_attention and decode_attention run their products on the
-// tensor cores (split-TF32 where an operand is float32: the tf32 and mma
-// helpers below) and finish their cross-CTA sums in the last CTA to arrive
+// flash_attention's float32 kernel computes on the CUDA cores with the tile
+// helpers below: a 64-row x 64-key tile per step, 256 threads, each thread
+// holding a 4 x 4 block of scores in registers: rows ty + 16 i and keys
+// tx + 16 j (ty = tid / 16, tx = tid % 16). Rows and keys sit in shared
+// memory as float32 with a row stride of d + 4 words, so that the float4
+// reads of 16 consecutive keys fall on distinct banks. chunk_score,
+// chunk_attention and decode_attention run their products on the tensor
+// cores (split-TF32 where an operand is float32: the tf32 and mma helpers
+// below) and finish their cross-CTA sums in the last CTA to arrive
 // (last_to_arrive). Every sum runs in a fixed order: no float atomics, the
 // same result on every run.
 #pragma once
@@ -25,6 +24,7 @@
 #include <cmath>
 #include <cstdint>
 #include <mutex>
+#include <type_traits>
 
 #define CKV_NEG_INF (-1e30f)
 #define CKV_MASKED(x) ((x) <= -1e29f)
@@ -145,6 +145,25 @@ __device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c[16x8] += a[16x16] * b[16x8] in bfloat16 or float16, float32 accumulation
+template <typename T>
+__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], uint32_t b0,
+                                          uint32_t b1) {
+  if constexpr (sizeof(T) == 2 && std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
 // Called by every thread of each CTA that shares *counter once its partial
 // results are stored: true in the last CTA to arrive, which then reads the
 // others' partials (with __ldcg) and resets the counter for the next launch.
@@ -251,128 +270,6 @@ __device__ __forceinline__ void online_softmax(float sc[4][4], float m_run[4], f
     l_run[i] = l_run[i] * alpha[i] + p;
     m_run[i] = m_new;
   }
-}
-
-// Merge per-split row statistics in split order:
-//   m = max_s m_s, l = sum_s l_s exp(m_s - m).
-__device__ __forceinline__ void merge_stats(const float* m_part, const float* l_part, int n_split,
-                                            size_t stride, size_t idx, float* m_out,
-                                            float* l_out) {
-  float m = CKV_NEG_INF;
-  for (int sp = 0; sp < n_split; ++sp) m = fmaxf(m, m_part[sp * stride + idx]);
-  float l = 0.f;
-  for (int sp = 0; sp < n_split; ++sp)
-    l += l_part[sp * stride + idx] * expf(m_part[sp * stride + idx] - m);
-  *m_out = m;
-  *l_out = l;
-}
-
-// Per (kv head, chunk) softmax mass of the query rows of that kv head:
-//   partial[h * m_valid + j] = sum over rows r of kv head h and tokens t of
-//   chunk j (t < n) of exp(scale * q_r . k_t - m_r) / max(l_r, 1e-30).
-// Rows of kv head h: r = gi * s + pos, query head qh = h * group + gi, so the
-// row's statistics sit at stat[h * group * s + r]; q is (s, n_q, d), k is
-// (n, n_kv, d) float16. Grid (ceil(n / bk), n_kv); bk = whole chunks, at most
-// 64 keys. Each CTA holds its key block and walks all rows in 64-row tiles.
-template <typename TQ>
-static __global__ void __launch_bounds__(NT) mass_pass_kernel(
-    const TQ* __restrict__ q, const __half* __restrict__ k,
-    const float* __restrict__ m_stat, const float* __restrict__ l_stat,
-    float* __restrict__ partial, int s, int n_q, int n_kv, int n, int d, int c,
-    int bk, int m_valid, float scale) {
-  extern __shared__ float smem[];
-  const int ld = tile_ld(d);
-  float* ks = smem;               // [TK][ld]
-  float* qs = ks + TK * ld;       // [TR][ld]
-  float* ms = qs + TR * ld;       // [TR]
-  float* ls = ms + TR;            // [TR]
-  float* cs = ls + TR;            // [16][TK]
-  const int h = blockIdx.y, t0 = blockIdx.x * bk, tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int group = n_q / n_kv, rows = group * s;
-  const size_t stat0 = (size_t)h * rows;
-  load_tile<__half>(ks, TK, d, [&](int kk) -> const __half* {
-    int t = t0 + kk;
-    return kk < bk && t < n ? k + ((size_t)t * n_kv + h) * d : nullptr;
-  });
-  float col[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int r0 = 0; r0 < rows; r0 += TR) {
-    __syncthreads();
-    load_tile<TQ>(qs, TR, d, [&](int rr) -> const TQ* {
-      int r = r0 + rr;
-      return r < rows ? q + ((size_t)(r % s) * n_q + h * group + r / s) * d : nullptr;
-    });
-    for (int rr = tid; rr < TR; rr += blockDim.x) {
-      int r = r0 + rr;
-      ms[rr] = r < rows ? m_stat[stat0 + r] : 0.f;
-      ls[rr] = r < rows ? fmaxf(l_stat[stat0 + r], 1e-30f) : 1.f;
-    }
-    __syncthreads();
-    float acc[4][4];
-    tile_scores(qs, ks, d, ty, tx, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int rr = ty + 16 * i;
-      if (r0 + rr >= rows) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        int kk = tx + 16 * j;
-        if (kk < bk && t0 + kk < n) col[j] += expf(acc[i][j] * scale - ms[rr]) / ls[rr];
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) cs[ty * TK + tx + 16 * j] = col[j];
-  __syncthreads();
-  const int chunks = bk / c;
-  if (tid < chunks) {
-    int j = t0 / c + tid;
-    if (j < m_valid) {
-      float tot = 0.f;
-      for (int u = tid * c; u < tid * c + c; ++u)
-        for (int y = 0; y < 16; ++y) tot += cs[y * TK + u];
-      partial[(size_t)h * m_valid + j] = tot;
-    }
-  }
-}
-
-// out[j] = sum over kv heads h = 0, 1, ... (in that order) of partial[h * m_valid + j]
-// for j < m_valid, and 0 for m_valid <= j < m_out.
-static __global__ void reduce_heads_kernel(const float* __restrict__ partial,
-                                           float* __restrict__ out, int n_kv, int m_valid,
-                                           int m_out) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= m_out) return;
-  float tot = 0.f;
-  if (j < m_valid)
-    for (int h = 0; h < n_kv; ++h) tot += partial[(size_t)h * m_valid + j];
-  out[j] = tot;
-}
-
-// Launch mass_pass_kernel for the dtype of q over the first n keys of k,
-// then the ordered head reduce into out (m_out chunks, zero past the valid).
-template <typename TQ>
-inline cudaError_t launch_mass(const void* q, const __half* k, const float* m_stat,
-                               const float* l_stat, float* partial, float* out, int s, int n_q,
-                               int n_kv, int n, int d, int c, int m_out, cudaStream_t stream) {
-  const int m_valid = (n + c - 1) / c;
-  if (n > 0) {
-    const int bk = c * (TK / c);
-    const size_t smem = sizeof(float) * ((TK + TR) * tile_ld(d) + 2 * TR + 16 * TK);
-    static OncePerDevice smem_opt_in;  // at the largest d
-    const cudaError_t attr = smem_opt_in([] {
-      return cudaFuncSetAttribute(
-          mass_pass_kernel<TQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)(sizeof(float) * ((TK + TR) * tile_ld(128) + 2 * TR + 16 * TK)));
-    });
-    if (attr != cudaSuccess) return attr;
-    dim3 grid((n + bk - 1) / bk, n_kv);
-    mass_pass_kernel<TQ><<<grid, NT, smem, stream>>>(
-        (const TQ*)q, k, m_stat, l_stat, partial, s, n_q, n_kv, n, d, c, bk, m_valid,
-        softmax_scale(d));
-  }
-  reduce_heads_kernel<<<(m_out + 255) / 256, 256, 0, stream>>>(partial, out, n_kv, m_valid, m_out);
-  return cudaGetLastError();
 }
 
 }  // namespace ckv

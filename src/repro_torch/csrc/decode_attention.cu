@@ -36,8 +36,6 @@
 // never by which CTA finished last, so two runs are bit-identical. `pps`
 // depends on the page size only, so a pad slot appended to the table adds at
 // most a split of zeros and never moves a split boundary.
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace ckv {
@@ -46,25 +44,6 @@ constexpr int DA_NT = 256;  // threads per CTA
 constexpr int DA_WARPS = DA_NT / 32;
 constexpr int DA_MAX_KEYS = 64;  // keys per split: one 8-key n-tile per warp
 constexpr int DA_SB = 24;        // splits per batch of merge loads
-
-// c[16x8] += a[16x16] * b[16x8] in bfloat16 or float16, float32 accumulation
-template <typename T>
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], uint32_t b0,
-                                          uint32_t b1) {
-  if constexpr (sizeof(T) == 2 && std::is_same<T, __nv_bfloat16>::value) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-        "{%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-        "{%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
 
 // shared-memory row stride, in elements, of q and key rows (conflict-free
 // fragment loads; the 8 columns past d are zero where a k-step reads them)

@@ -37,104 +37,159 @@
 //   rounding (within 1e-5 relative); a scan resumed from its carried state
 //   is bit-identical to the whole scan where the cut falls on a 256-position
 //   chunk boundary (the same chunks then see the same inputs and carries).
-// * sequential (s < 16: the decode step, s = 1 seeded with h0), the first
-//   version's form. One thread owns one (channel, state) element of h in a
-//   register; the n threads of a channel sum y_t by xor shuffles; x, dt, B
-//   and C are staged 32 positions at a time. At s = 1 its launch is all
-//   there is to time.
+// * sequential (s < 16: the decode step, s = 1 seeded with h0), the step
+//   kernel. One thread owns one channel of one request, with the channel's
+//   n states of h and of A log2 e in registers (loaded as 16-byte vectors; n
+//   a template parameter); it reads x, dt, B and C of each position straight
+//   from device memory (B and C, shared by all channels, as L1 broadcasts),
+//   every load of a position before any use and the next position's ahead,
+//   sums y over j in registers (no shuffles, no shared memory, no barrier)
+//   and stores h and y directly: 3200 threads a hymba request, 8192 a
+//   falcon-mamba one, in CTAs of 128. It uses the chunked kernel's
+//   exponential, ex2.approx of dt (A log2 e), and its fma order, so decode
+//   and prefill do the same arithmetic per element.
 //
 // Bound on the H100 at the hybrid prefill (s = 4160, d_in = 3200, n = 16,
 // bfloat16 x): s x d_in x n = 2.1e8 exponentials, ~0.051 ms at the
 // special-function units' 16 per clock per SM (132 SMs at 1.98 GHz), above
 // the bytes (x 27 MB read, y 53 MB written in float32: ~0.024 ms) and the
 // float32 arithmetic (~6 operations per exponential, ~0.019 ms at
-// 67 TFLOP/s). The sequential kernel took 0.97 ms there: one thread
+// 67 TFLOP/s). A sequential kernel took 0.97 ms there: one thread
 // walked all 4160 positions, each step waiting on the last through h and
 // adding a shuffle chain for y; the chunked kernel takes 0.22 ms. What holds
 // it back now is latency, not a unit's rate: one CTA alone on each SM
 // (d_in = 132 x 16) already takes 0.15 ms (two warps per scheduler, each
 // chunk's j loop a chain of dependent steps), 200 CTAs put two on 68 of the
 // 132 SMs, and 125 registers per thread allow no third (chip_smoke.py times
-// both). Decode reads and writes h (205 KB per request): launch-bound.
+// both). The decode step reads h and A and writes h once (0.63 MB a hymba
+// request, 1.6 MB a falcon-mamba one: 0.19 / 0.48 us at 3.35 TB/s); the
+// launch and one dependent round trip to memory bound it, not a unit's rate.
 #include <cstdint>
 
 #include "common.cuh"
 
 namespace ckv {
 
-constexpr int SS_THREADS = 256;
-constexpr int SS_STEPS = 32;  // positions staged in shared memory per step
+constexpr int SD_THREADS = 128;  // channels per CTA of the step kernel
+constexpr float SC_LOG2E = 1.4426950408889634f;
 
-// sequential kernel (the decode step)
+__device__ __forceinline__ float sc_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-template <typename T>
-static __global__ void __launch_bounds__(SS_THREADS) selective_scan_kernel(
-    const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
-    const T* __restrict__ Bm, const T* __restrict__ Cm, const float* __restrict__ h0,
-    float* __restrict__ y, float* __restrict__ h_out, int s, int d_in, int n, int b_sb,
-    int b_ss, int c_sb, int c_ss) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x, b = blockIdx.y;
-  const int ch_per_cta = SS_THREADS / n;
-  float* xs = smem;                         // [SS_STEPS][ch_per_cta]
-  float* ys = xs + SS_STEPS * ch_per_cta;   // [SS_STEPS][ch_per_cta]
-  float* bs = ys + SS_STEPS * ch_per_cta;   // [SS_STEPS][n]
-  float* cs = bs + SS_STEPS * n;            // [SS_STEPS][n]
-  float* dts = cs + SS_STEPS * n;           // [SS_STEPS]
-  const int c = tid / n, j = tid % n;  // channel within the CTA, state index
-  const int ch0 = blockIdx.x * ch_per_cta, ch = ch0 + c;
-  const bool live = ch < d_in;
-  const size_t hidx = ((size_t)b * d_in + ch) * n + j;
-  const float a = live ? A[(size_t)ch * n + j] : 0.f;
-  float h = (live && h0) ? h0[hidx] : 0.f;
-  const T* xb = x + (size_t)b * s * d_in;
-  const T* bb = Bm + (size_t)b * b_sb;
-  const T* cb = Cm + (size_t)b * c_sb;
-  float* yb = y + (size_t)b * s * d_in;
-  for (int t0 = 0; t0 < s; t0 += SS_STEPS) {
-    const int ts = min(SS_STEPS, s - t0);
-    __syncthreads();
-    for (int i = tid; i < ts * ch_per_cta; i += SS_THREADS) {
-      int tt = i / ch_per_cta, cc = i % ch_per_cta;
-      xs[tt * ch_per_cta + cc] =
-          ch0 + cc < d_in ? to_f32(xb[(size_t)(t0 + tt) * d_in + ch0 + cc]) : 0.f;
-    }
-    for (int i = tid; i < ts * n; i += SS_THREADS) {
-      int tt = i / n, jj = i % n;
-      bs[tt * n + jj] = to_f32(bb[(size_t)(t0 + tt) * b_ss + jj]);
-      cs[tt * n + jj] = to_f32(cb[(size_t)(t0 + tt) * c_ss + jj]);
-    }
-    for (int i = tid; i < ts; i += SS_THREADS) dts[i] = dt[(size_t)b * s + t0 + i];
-    __syncthreads();
-#pragma unroll 4
-    for (int tt = 0; tt < ts; ++tt) {
-      const float d = dts[tt];
-      h = expf(d * a) * h + (d * xs[tt * ch_per_cta + c]) * bs[tt * n + j];
-      float p = h * cs[tt * n + j];
-      for (int o = n / 2; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
-      if (j == 0) ys[tt * ch_per_cta + c] = p;
-    }
-    __syncthreads();
-    for (int i = tid; i < ts * ch_per_cta; i += SS_THREADS) {
-      int tt = i / ch_per_cta, cc = i % ch_per_cta;
-      if (ch0 + cc < d_in) yb[(size_t)(t0 + tt) * d_in + ch0 + cc] = ys[tt * ch_per_cta + cc];
+// N consecutive float32 values (a row of A or of h) as 16-byte vectors
+// (8-byte ones for N = 2); the row starts on a multiple of N floats
+template <int N>
+__device__ __forceinline__ void load_state_row(const float* src, float (&v)[N]) {
+  if constexpr (N == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(src);
+    v[0] = a.x, v[1] = a.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; j += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(src + j);
+      v[j] = a.x, v[j + 1] = a.y, v[j + 2] = a.z, v[j + 3] = a.w;
     }
   }
-  if (live) h_out[hidx] = h;
+}
+
+template <int N>
+__device__ __forceinline__ void store_state_row(float* dst, const float (&v)[N]) {
+  if constexpr (N == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; j += 4)
+      *reinterpret_cast<float4*>(dst + j) = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+  }
+}
+
+// One position's inputs of one channel: x, dt, and the n values of B and C
+// that every channel of the request shares (L1 broadcasts)
+template <typename T, int N>
+struct StepIn {
+  float x, dt, b[N], c[N];
+  __device__ __forceinline__ void load(const T* xp, const float* dtp, const T* bp,
+                                       const T* cp) {
+    x = to_f32(*xp);
+    dt = *dtp;
+#pragma unroll
+    for (int j = 0; j < N; ++j) b[j] = to_f32(bp[j]), c[j] = to_f32(cp[j]);
+  }
+};
+
+// step kernel (the decode step, s < 16): grid (ceil(d_in / SD_THREADS), b);
+// one thread per channel of one request walks the positions with the
+// channel's n states of h and of A log2 e in registers. Every load of a
+// position is started before any is used, the next position's before this
+// one's arithmetic; y sums C_j h_j over j ascending, in registers. The
+// arithmetic per element is the chunked kernel's: a = ex2(dt (A log2 e)),
+// h = fma(a, h, (dt x) B), y = fma(C, h, y).
+template <typename T, int N>
+static __global__ void __launch_bounds__(SD_THREADS) selective_scan_step_kernel(
+    const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
+    const T* __restrict__ Bm, const T* __restrict__ Cm, const float* __restrict__ h0,
+    float* __restrict__ y, float* __restrict__ h_out, int s, int d_in, int b_sb, int b_ss,
+    int c_sb, int c_ss) {
+  const int ch = blockIdx.x * SD_THREADS + threadIdx.x, b = blockIdx.y;
+  if (ch >= d_in) return;
+  const T* xb = x + (size_t)b * s * d_in + ch;
+  const float* dtb = dt + (size_t)b * s;
+  const T* bb = Bm + (size_t)b * b_sb;
+  const T* cb = Cm + (size_t)b * c_sb;
+  float* yb = y + (size_t)b * s * d_in + ch;
+  const size_t hrow = ((size_t)b * d_in + ch) * N;
+  StepIn<T, N> cur;
+  cur.load(xb, dtb, bb, cb);
+  float a2[N], h[N];
+  load_state_row<N>(A + (size_t)ch * N, a2);
+  if (h0) {
+    load_state_row<N>(h0 + hrow, h);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) h[j] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) a2[j] *= SC_LOG2E;
+  for (int t = 0; t < s; ++t) {
+    StepIn<T, N> nxt;
+    if (t + 1 < s)
+      nxt.load(xb + (size_t)(t + 1) * d_in, dtb + t + 1, bb + (size_t)(t + 1) * b_ss,
+               cb + (size_t)(t + 1) * c_ss);
+    const float dtx = cur.dt * cur.x;
+    float yv = 0.f;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      h[j] = fmaf(sc_exp2(cur.dt * a2[j]), h[j], dtx * cur.b[j]);
+      yv = fmaf(cur.c[j], h[j], yv);
+    }
+    yb[(size_t)t * d_in] = yv;
+    if (t + 1 < s) cur = nxt;
+  }
+  store_state_row<N>(h_out + hrow, h);
 }
 
 template <typename T>
-static void launch_scan(const void* x, const float* dt, const float* A, const void* Bm,
-                        const void* Cm, const float* h0, float* y, float* h_out, int b, int s,
-                        int d_in, int n, int b_sb, int b_ss, int c_sb, int c_ss,
-                        cudaStream_t st) {
-  const int ch_per_cta = SS_THREADS / n;
-  // at most 2 x 32 x 128 + 2 x 32 x 32 + 32 floats (n >= 2): under 48 KB
-  const size_t smem = sizeof(float) * SS_STEPS * (2 * ch_per_cta + 2 * n + 1);
-  dim3 grid((d_in + ch_per_cta - 1) / ch_per_cta, b);
-  selective_scan_kernel<T><<<grid, SS_THREADS, smem, st>>>(
-      (const T*)x, dt, A, (const T*)Bm, (const T*)Cm, h0, y, h_out, s, d_in, n, b_sb, b_ss,
-      c_sb, c_ss);
+static cudaError_t launch_scan_step(const void* x, const float* dt, const float* A,
+                                    const void* Bm, const void* Cm, const float* h0, float* y,
+                                    float* h_out, int b, int s, int d_in, int n, int b_sb,
+                                    int b_ss, int c_sb, int c_ss, cudaStream_t st) {
+  const dim3 grid((d_in + SD_THREADS - 1) / SD_THREADS, b);
+  auto go = [&](auto kernel) {
+    kernel<<<grid, SD_THREADS, 0, st>>>((const T*)x, dt, A, (const T*)Bm, (const T*)Cm, h0, y,
+                                        h_out, s, d_in, b_sb, b_ss, c_sb, c_ss);
+  };
+  switch (n) {
+    case 2: go(selective_scan_step_kernel<T, 2>); break;
+    case 4: go(selective_scan_step_kernel<T, 4>); break;
+    case 8: go(selective_scan_step_kernel<T, 8>); break;
+    case 16: go(selective_scan_step_kernel<T, 16>); break;
+    case 32: go(selective_scan_step_kernel<T, 32>); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 // chunked kernel (prefill)
@@ -145,7 +200,6 @@ constexpr int SC_CH = 16;                   // channels per CTA
 constexpr int SC_THREADS = SC_TPC * SC_CH;  // 256
 constexpr int SC_XRUN = SC_RUN + 1;         // float runs of x, y and dt: odd stride
 constexpr int SC_XLD = SC_TPC * SC_XRUN + 18;  // a channel's row: 290 = 2 mod 32 words
-constexpr float SC_LOG2E = 1.4426950408889634f;
 
 // A chunk's image: B and C in the input dtype, per state j a row of 16 runs
 // of 16 positions, each run padded by 16 bytes so that 8 neighbouring runs'
@@ -161,12 +215,6 @@ struct ScanImg {
   static __host__ __device__ int bc_bytes(int n) { return n * LD * (int)sizeof(T); }
   static __host__ __device__ int bytes(int n) { return 2 * bc_bytes(n) + DT_BYTES; }
 };
-
-__device__ __forceinline__ float sc_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ int sc_xpos(int t) { return (t / SC_RUN) * SC_XRUN + t % SC_RUN; }
 
@@ -366,23 +414,34 @@ static size_t scan_scratch_bytes(int b, int s, int n) {
   return (size_t)b * ((s + SC_CHUNK - 1) / SC_CHUNK) * ScanImg<T>::bytes(n);
 }
 
+// shared memory of the chunked kernel. bfloat16, n = 16: 2 x 26176 + 2 x 8192
+// + (16 x 290 + 2 x 16 x 16) x 4 bytes, ~89 KB; float32, n = 32: ~218 KB
 template <typename T>
-static void launch_scan_chunked(const void* x, const float* dt, const float* A, const void* Bm,
-                                const void* Cm, const float* h0, float* y, float* h_out,
-                                void* scratch, int b, int s, int d_in, int n, int b_sb, int b_ss,
-                                int c_sb, int c_ss, cudaStream_t st) {
+static size_t chunked_smem(int n) {
+  return 2 * (size_t)ScanImg<T>::bytes(n) + 2 * sizeof(T) * SC_CHUNK * SC_CH +
+         sizeof(float) * (SC_CH * SC_XLD + 2 * SC_CH * n);
+}
+
+template <typename T>
+static cudaError_t launch_scan_chunked(const void* x, const float* dt, const float* A,
+                                       const void* Bm, const void* Cm, const float* h0, float* y,
+                                       float* h_out, void* scratch, int b, int s, int d_in, int n,
+                                       int b_sb, int b_ss, int c_sb, int c_ss, cudaStream_t st) {
+  static OncePerDevice smem_opt_in;  // at the largest n
+  const cudaError_t attr = smem_opt_in([] {
+    return cudaFuncSetAttribute(selective_scan_chunked_kernel<T>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)chunked_smem<T>(32));
+  });
+  if (attr != cudaSuccess) return attr;
   const int n_chunks = (s + SC_CHUNK - 1) / SC_CHUNK;
   selective_scan_pack_kernel<T><<<dim3(n_chunks, b), 256, 0, st>>>(
       (const T*)Bm, (const T*)Cm, dt, (unsigned char*)scratch, s, n, b_sb, b_ss, c_sb, c_ss);
-  // bfloat16, n = 16: 2 x 26176 + 2 x 8192 + (16 x 290 + 2 x 16 x 16) x 4 bytes, ~89 KB;
-  // float32, n = 32: ~218 KB
-  const size_t smem = 2 * (size_t)ScanImg<T>::bytes(n) + 2 * sizeof(T) * SC_CHUNK * SC_CH +
-                      sizeof(float) * (SC_CH * SC_XLD + 2 * SC_CH * n);
-  cudaFuncSetAttribute(selective_scan_chunked_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const int x_vec = d_in % (16 / (int)sizeof(T)) == 0;
-  selective_scan_chunked_kernel<T><<<dim3((d_in + SC_CH - 1) / SC_CH, b), SC_THREADS, smem, st>>>(
-      (const T*)x, (const unsigned char*)scratch, A, h0, y, h_out, s, d_in, n, x_vec);
+  selective_scan_chunked_kernel<T>
+      <<<dim3((d_in + SC_CH - 1) / SC_CH, b), SC_THREADS, chunked_smem<T>(n), st>>>(
+          (const T*)x, (const unsigned char*)scratch, A, h0, y, h_out, s, d_in, n, x_vec);
+  return cudaGetLastError();
 }
 
 }  // namespace ckv
@@ -405,8 +464,8 @@ extern "C" long long ckv_selective_scan_scratch(int b, int s, int n, int dtype) 
 // B/C (b, s, n) in dtype with element strides (b_sb, b_ss) / (c_sb, c_ss) and a
 // contiguous last dim; h0 (b, d_in, n) float32 or null for zeros. Out: y
 // (b, s, d_in) float32, h_out (b, d_in, n) float32. n is a power of two,
-// 2 <= n <= 32. variant: 0 sequential (scratch unused), 1 chunked (scratch of
-// ckv_selective_scan_scratch bytes, 16-byte aligned).
+// 2 <= n <= 32. variant: 0 sequential, the step kernel (scratch unused), 1
+// chunked (scratch of ckv_selective_scan_scratch bytes, 16-byte aligned).
 extern "C" int ckv_selective_scan(const void* x, const float* dt, const float* A, const void* Bm,
                                   const void* Cm, const float* h0, float* y, float* h_out,
                                   void* scratch, int b, int s, int d_in, int n, int b_sb,
@@ -418,25 +477,20 @@ extern "C" int ckv_selective_scan(const void* x, const float* dt, const float* A
     return (int)cudaErrorInvalidValue;
   auto run = [&](auto tag) {
     using T = decltype(tag);
-    if (variant == 1)
-      ckv::launch_scan_chunked<T>(x, dt, A, Bm, Cm, h0, y, h_out, scratch, b, s, d_in, n, b_sb,
-                                  b_ss, c_sb, c_ss, st);
-    else
-      ckv::launch_scan<T>(x, dt, A, Bm, Cm, h0, y, h_out, b, s, d_in, n, b_sb, b_ss, c_sb, c_ss,
-                          st);
+    return variant == 1
+               ? ckv::launch_scan_chunked<T>(x, dt, A, Bm, Cm, h0, y, h_out, scratch, b, s, d_in,
+                                             n, b_sb, b_ss, c_sb, c_ss, st)
+               : ckv::launch_scan_step<T>(x, dt, A, Bm, Cm, h0, y, h_out, b, s, d_in, n, b_sb,
+                                          b_ss, c_sb, c_ss, st);
   };
   switch (dtype) {
     case ckv::F32:
-      run(float{});
-      break;
+      return (int)run(float{});
     case ckv::BF16:
-      run(__nv_bfloat16{});
-      break;
+      return (int)run(__nv_bfloat16{});
     case ckv::F16:
-      run(__half{});
-      break;
+      return (int)run(__half{});
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

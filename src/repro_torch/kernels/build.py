@@ -33,9 +33,8 @@ I = ctypes.c_int
 L = ctypes.c_longlong
 # C signature of each launcher: argument types in order (restype is int)
 SIGNATURES = {
-    # q, k, out, m_stat, l_stat, m_part, l_part, partial,
-    # s, n_q, n_kv, n, d, c, keys_per_split, q_dtype, stream
-    "ckv_chunk_score": [P] * 8 + [I] * 8 + [P],
+    # q, k, out, work, work_floats, counters, s, n_q, n_kv, n, d, c, q_dtype, stream
+    "ckv_chunk_score": [P] * 4 + [L, P] + [I] * 7 + [P],
     # q, k_sel, v_sel, k_suf, v_suf, out, mass, work, work_floats, counters,
     # s, n_q, n_kv, nb, c, n_valid, d, q_dtype, stream
     "ckv_chunk_attention": [P] * 8 + [L, P] + [I] * 8 + [P],
@@ -120,6 +119,7 @@ def library() -> ctypes.CDLL:
     lib.ckv_error_string.restype = ctypes.c_char_p
     # the scratch sizes each kernel's own source computes (-1: not taken)
     for name, n_args in (("ckv_selective_scan_scratch", 4),
+                         ("ckv_chunk_score_work_floats", 6),
                          ("ckv_chunk_attention_work_floats", 6),
                          ("ckv_decode_attention_work_floats", 5)):
         fn = getattr(lib, name)

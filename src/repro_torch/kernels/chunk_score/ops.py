@@ -1,7 +1,12 @@
 """Wrapper of the chunk_score kernel (csrc/chunk_score.cu).
 
 A CPU tensor runs the plain version (ref.py); a CUDA tensor launches the
-kernel, or raises for what the kernel does not take.
+kernel, or raises for what the kernel does not take. One call is two device
+kernels: the split pass, a CTA per (64-row tile, kv head, split of the key
+tiles) on the tensor cores, then the merge, whose last CTA sums A_j. The
+kernel's source chooses the splits and says how much scratch they need; the
+scratch and counter are kept from call to call (``build.workspace``), so a
+call allocates only its output.
 """
 from __future__ import annotations
 
@@ -11,7 +16,6 @@ from repro_torch.kernels import build as B
 from repro_torch.kernels.chunk_score.ref import chunk_score_ref
 
 launches = 0  # kernel launches since the count was last set to 0
-KEYS_PER_SPLIT = 512  # prefix keys per CTA of the row-statistics pass
 
 
 def chunk_score(q: torch.Tensor, k: torch.Tensor, chunk_tokens: int) -> torch.Tensor:
@@ -31,17 +35,15 @@ def chunk_score(q: torch.Tensor, k: torch.Tensor, chunk_tokens: int) -> torch.Te
         raise ValueError(f"chunk_score: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)}")
     if not 1 <= c <= 64:
         raise ValueError(f"chunk_score: chunk_tokens {c} not in [1, 64]")
-    m = -(-n // c)
-    n_split = -(-n // KEYS_PER_SPLIT)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    out = torch.empty(m, **f32)
-    m_stat, l_stat = torch.empty(2, n_q * s, **f32)
-    m_part, l_part = torch.empty(2, n_split * n_q * s, **f32)
-    partial = torch.empty(n_kv * m, **f32)
-    rc = B.library().ckv_chunk_score(
-        q.data_ptr(), k.data_ptr(), out.data_ptr(), m_stat.data_ptr(), l_stat.data_ptr(),
-        m_part.data_ptr(), l_part.data_ptr(), partial.data_ptr(),
-        s, n_q, n_kv, n, d, c, KEYS_PER_SPLIT, B.dtype_code(q), B.stream_handle(q))
+    lib = B.library()
+    n_work = lib.ckv_chunk_score_work_floats(s, n_q, n_kv, n, d, c)
+    if n_work < 0:
+        raise RuntimeError("chunk_score: the kernel could not lay out its work")
+    work, counters = B.workspace("chunk_score", q, n_work, 1)
+    out = torch.empty(-(-n // c), dtype=torch.float32, device=q.device)
+    rc = lib.ckv_chunk_score(
+        q.data_ptr(), k.data_ptr(), out.data_ptr(), work.data_ptr(), work.numel(),
+        counters.data_ptr(), s, n_q, n_kv, n, d, c, B.dtype_code(q), B.stream_handle(q))
     B.check(rc, "chunk_score")
     launches += 1
     return out

@@ -10,8 +10,9 @@ the sequence length, never because another one failed:
   buffer, then the scan); ``ref.selective_scan_chunked_ref`` is its
   decomposition in plain torch. A scan resumed from its carried state is
   bit-identical to the whole scan where the cut is a multiple of CHUNK;
-* ``sequential`` for shorter s (the decode step, s = 1): one thread per
-  (channel, state) walks the positions in order.
+* ``sequential`` for shorter s (the decode step, s = 1): one launch of the
+  step kernel, one thread per channel with the channel's states in
+  registers, walking the positions in order.
 
 ``launches`` counts every launch, ``launches_by_variant`` each kernel's.
 """

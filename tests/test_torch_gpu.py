@@ -11,7 +11,9 @@ bfloat16/float16 flash_attention multiplies P, rounded to the input dtype,
 on the tensor cores: 2^-7 of the largest output, about one bfloat16 ulp.
 chunk_attention runs its products as split-TF32 terms on the tensor cores
 (below 2^-22 of each product, inside the same 1e-5), and is also held to
-ref.chunk_attention_split_ref, which repeats those terms in plain torch.
+ref.chunk_attention_split_ref, which repeats those terms in plain torch;
+chunk_score runs its products as split float16 terms of power-of-two scaled
+query rows (the same 2^-22), inside the same 1e-5.
 The chunked selective_scan re-associates the recurrence's sums, so a scan
 resumed from its carried state is bit-identical to the whole scan only at
 a cut on a chunk boundary; elsewhere it agrees within the same 1e-5.
@@ -54,8 +56,16 @@ def _close(a, b, rel=1e-5):
     assert err <= rel * b.float().abs().max().item() + 1e-6, err
 
 
-@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,nq,nkv,n,d,c", [(20, 8, 2, 100, 32, 16), (64, 28, 4, 1030, 128, 16)])
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("s,nq,nkv,n,d,c", [
+    (20, 8, 2, 100, 32, 16), (64, 28, 4, 1030, 128, 16),
+    (5, 2, 2, 37, 64, 1),          # group 1, c = 1, n under one key tile
+    (64, 28, 4, 4100, 128, 16),    # the main path's shape, ragged: a split more
+    (16, 4, 4, 3000, 128, 64),     # group 1, c = 64
+    (33, 14, 2, 20000, 128, 16),   # group 7, ~32 splits of 10 key tiles
+    (8, 7, 1, 5000, 40, 1),        # group 7, c = 1: a split per key tile, d padded
+    (12, 4, 2, 500, 32, 24),       # c not dividing the 64-key tile
+])
 def test_chunk_score(dev, qdtype, s, nq, nkv, n, d, c):
     q, k = _rand(dev, 0, (s, nq, d), qdtype), _rand(dev, 1, (n, nkv, d), torch.float16)
     before = cs_ops.launches
@@ -63,6 +73,22 @@ def test_chunk_score(dev, qdtype, s, nq, nkv, n, d, c):
     assert cs_ops.launches == before + 1
     _close(got, chunk_score_ref(q, k, c))
     assert torch.equal(got, cs_ops.chunk_score(q, k, c))  # no atomics: reproducible
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_chunk_score_wide_row_range(dev, qdtype):
+    """The kernel scales each query row by a power of two (its largest |q|
+    to [2^14, 2^15)) before its float16 products: rows of magnitude 2^0,
+    2^-12 and 2^-30, each of whose elements fall from its largest to 2^-40 of
+    it (float16 subnormals and zeros after the scaling), still meet 1e-5."""
+    s, nq, nkv, n, d, c = 24, 8, 2, 1030, 128, 16
+    elem = torch.exp2(-torch.linspace(0.0, 40.0, d, device=dev))
+    row = torch.exp2(-torch.tensor([0.0, 12.0, 30.0], device=dev)).repeat(s // 3)
+    q = (_rand(dev, 0, (s, nq, d)) * elem * row[:, None, None]).to(qdtype)
+    k = _rand(dev, 1, (n, nkv, d), torch.float16)
+    got = cs_ops.chunk_score(q, k, c)
+    _close(got, chunk_score_ref(q, k, c))
+    assert torch.equal(got, cs_ops.chunk_score(q, k, c))
 
 
 @pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
@@ -227,7 +253,8 @@ def _device_kernels(fn, calls=10):
 
 def test_device_kernels_per_call(dev):
     """decode_attention is one device kernel per call, chunk_attention two
-    (the attention pass and the merge, no mass pass)."""
+    (the attention pass and the merge, no mass pass), chunk_score two (the
+    split pass and the merge) and the scan's decode step one."""
     q, kp, vp, tbl, lens = _decode_case(dev, torch.bfloat16, 1, 28, 4, 128, 16, 70, [69],
                                         [68 * 16 + 5])
     kern = _device_kernels(lambda: da_ops.decode_attention(q, kp, vp, tbl, lens))
@@ -237,6 +264,13 @@ def test_device_kernels_per_call(dev):
     kf, vf = (_rand(dev, i, (64, 4, 128)) for i in (53, 54))
     kern = _device_kernels(lambda: ca_ops.chunk_attention(qa, ks, vs, 64, kf, vf))
     assert kern == {"chunk_attn_kernel": 1.0, "chunk_merge_kernel": 1.0}, kern
+    kc = _rand(dev, 55, (4096, 4, 128), torch.float16)
+    kern = _device_kernels(lambda: cs_ops.chunk_score(qa, kc, 16))
+    assert kern == {"chunk_score_kernel": 1.0, "chunk_score_merge_kernel": 1.0}, kern
+    x, dt, A, Bm, Cm = _scan_args(dev, 1, 1, 3200, 16, torch.bfloat16, seed=56)
+    h0 = _rand(dev, 60, (1, 3200, 16))
+    kern = _device_kernels(lambda: ss_ops.selective_scan(x, dt, A, Bm, Cm, h0))
+    assert kern == {"selective_scan_step_kernel": 1.0}, kern
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -322,7 +356,14 @@ def test_flash_attention(dev, dtype, b, nq, nkv, s_q, s_k, d, causal, window, q_
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,d_in,n", [(2, 70, 100, 8), (1, 33, 64, 16), (1, 5, 48, 4)])
+@pytest.mark.parametrize("b,s,d_in,n", [
+    (2, 70, 100, 8), (1, 33, 64, 16), (1, 5, 48, 4),
+    # decode steps (the step kernel, s < 16): d_in not a multiple of its
+    # 128 channels per CTA, every n it is compiled for
+    (1, 1, 3201, 16), (2, 1, 100, 2), (1, 2, 96, 32), (2, 15, 3201, 8),
+    (2, 1, 3200, 16), (1, 15, 104, 32), (2, 2, 8192, 4),
+    (1, 1, 8192, 16), (2, 1, 8192, 16),  # falcon-mamba's decode step, b 1 and 2
+])
 def test_selective_scan(dev, dtype, b, s, d_in, n):
     x = _rand(dev, 0, (b, s, d_in), dtype)
     dt = torch.nn.functional.softplus(_rand(dev, 1, (b, s)))
@@ -340,7 +381,9 @@ def test_selective_scan(dev, dtype, b, s, d_in, n):
     # resuming from the carried state at a ragged cut: the chunked scan
     # re-associates its sums around the cut, so the resumed run agrees with
     # the whole one within rounding (bit for bit only at a chunk boundary,
-    # test_selective_scan_resume_at_a_chunk_boundary)
+    # test_selective_scan_resume_at_a_chunk_boundary); one position has no cut
+    if s < 2:
+        return
     k = s // 2
     y_full, h_full = ss_ops.selective_scan(x, dt, A, Bm, Cm)
     _, h_mid = ss_ops.selective_scan(x[:, :k].contiguous(), dt[:, :k], A, Bm[:, :k], Cm[:, :k])

@@ -23,7 +23,7 @@ from repro_torch.kernels.chunk_attention import ops as ca_ops
 from repro_torch.kernels.chunk_attention.ref import (chunk_attention_ref,
                                                      chunk_attention_split_ref, tf32_split)
 from repro_torch.kernels.chunk_score import ops as cs_ops
-from repro_torch.kernels.chunk_score.ref import chunk_score_ref
+from repro_torch.kernels.chunk_score.ref import chunk_score_ref, chunk_score_split_ref
 from repro_torch.kernels.decode_attention import ops as da_ops
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -52,12 +52,15 @@ def _engine_chunk_scores(q, k, c):
     return np.add.reduceat(np.pad(tok, (0, m * c - len(tok))), np.arange(0, m * c, c))
 
 
+CHUNK_SCORE_SHAPES = [
+    (8, 4, 1, 100, 16, 16),   # ragged: partial last chunk
+    (5, 4, 2, 64, 32, 16),
+    (16, 8, 2, 131, 16, 8),
+]
+
+
 class TestChunkScore:
-    @pytest.mark.parametrize("s,nq,nkv,n,d,c", [
-        (8, 4, 1, 100, 16, 16),   # ragged: partial last chunk
-        (5, 4, 2, 64, 32, 16),
-        (16, 8, 2, 131, 16, 8),
-    ])
+    @pytest.mark.parametrize("s,nq,nkv,n,d,c", CHUNK_SCORE_SHAPES)
     @pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
     def test_matches_engine_identify(self, s, nq, nkv, n, d, c, qdtype):
         q = _rand(0, (s, nq, d))
@@ -76,6 +79,56 @@ class TestChunkScore:
                                     jnp.asarray(k.transpose(1, 0, 2)), c,
                                     block_k=64, interpret=True)
         got = chunk_score_ref(_t(q), _t(k), c)
+        np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
+
+    @pytest.mark.parametrize("split_chunks", [1, 3, 32])
+    @pytest.mark.parametrize("s,nq,nkv,n,d,c", CHUNK_SCORE_SHAPES)
+    @pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+    def test_split_ref_matches_engine_identify(self, s, nq, nkv, n, d, c, qdtype,
+                                               split_chunks):
+        """chunk_score_split_ref, the CUDA kernel's float16 hi + lo products,
+        split statistics and ordered merge in plain torch, against the JAX
+        engine's identify: the same scores within 1e-5 and the same top-k
+        chunks."""
+        from repro.core import importance as JI
+        from repro_torch.core import importance as PI
+
+        q = _rand(4, (s, nq, d))
+        k = _rand(5, (n, nkv, d), np.float16)
+        jq = jnp.asarray(q) if qdtype == "float32" else _bf16(q)
+        ref = _engine_chunk_scores(jq, jnp.asarray(k), c)
+        got = chunk_score_split_ref(_t(np.asarray(jq)), _t(k), c, split_chunks)
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        np.testing.assert_allclose(got.numpy(), ref, **TOL)
+        for budget in (0.25, 0.5):
+            np.testing.assert_array_equal(PI.select_topk_chunks(got.numpy(), budget),
+                                          JI.select_topk_chunks(ref, budget))
+
+    @pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+    def test_split_ref_wide_row_range(self, qdtype):
+        """The kernel's power-of-two row scaling before its float16 products,
+        on rows of magnitude 2^0, 2^-12 and 2^-30 whose elements fall to 2^-40
+        of their largest (float16 subnormals and zeros once scaled): the same
+        scores as the JAX engine's identify within 1e-5."""
+        s, nq, nkv, n, d, c = 12, 4, 2, 100, 32, 16
+        elem = np.exp2(-np.linspace(0.0, 40.0, d))
+        row = np.tile(np.exp2(-np.array([0.0, 12.0, 30.0])), s // 3)
+        q = (_rand(6, (s, nq, d)) * elem * row[:, None, None]).astype(np.float32)
+        k = _rand(7, (n, nkv, d), np.float16)
+        jq = jnp.asarray(q) if qdtype == "float32" else _bf16(q)
+        ref = _engine_chunk_scores(jq, jnp.asarray(k), c)
+        got = chunk_score_split_ref(_t(np.asarray(jq)), _t(k), c, 3)
+        np.testing.assert_allclose(got.numpy(), ref, **TOL)
+
+    @pytest.mark.parametrize("split_chunks", [1, 32])
+    def test_split_ref_matches_pallas_kernel(self, split_chunks):
+        s, nq, nkv, n, d, c = 8, 4, 2, 128, 32, 16
+        q = _rand(2, (s, nq, d))
+        k = _rand(3, (n, nkv, d), np.float16)
+        pallas = pallas_chunk_score(jnp.asarray(q.transpose(1, 0, 2)),
+                                    jnp.asarray(k.transpose(1, 0, 2)), c,
+                                    block_k=64, interpret=True)
+        got = chunk_score_split_ref(_t(q), _t(k), c, split_chunks)
         np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
 
 
