@@ -20,7 +20,11 @@ non-zero exit code:
                 chunk_attention and decode_attention also an output-only
                 yardstick: one scaled_dot_product_attention call on pre-laid
                 contiguous inputs, which computes no mass and which the port
-                never calls;
+                never calls; then the same at the shapes the baselines give
+                them: chunk_score at one token a chunk (d 128, and d 16 for
+                IMPRESS's partial keys), chunk_attention at one token a
+                chunk over 1024 (and 4096) tokens and at one 64-token block
+                a chunk over 64 blocks, decode_attention over 66 pages of 64;
   3. e2e      — ContiguousKV Re-Prefill then decode on full-width
                 Qwen2.5-7B (28 layers, random bfloat16 weights from a seeded
                 generator on the card): ingest a 4096-token prefix (through
@@ -35,7 +39,21 @@ non-zero exit code:
                 and merge); hold a budget-1.0
                 run's first-token logits against the dense forward over
                 prefix + suffix;
-  4. state    — flash_attention (hymba prefill, dense ingest, ragged s,
+  4. baselines — on the same weights, prefix and suffixes: ingest a
+                coarse-block session (64-token blocks, flash_attention
+                launches asserted), serve 3 requests with 16 decode tokens
+                through each of AS-LRU, AS-H2O-LFU and IMPRESS (budget 0.25
+                where the engine takes one, caches of size 0) with each
+                kernel's launches per request, read amplification (1.0 for
+                AS-LRU; for the token baselines the value recomputed from
+                their selections) and tokens loaded (more than
+                ContiguousKV's on the same suffix) asserted; hold
+                ContiguousKV w/o P to the full engine bit for bit, AS-LRU
+                and a budget-1.0 AS-H2O to the dense forward; profile one
+                IMPRESS request as above; print each engine's TTFT and TPOT
+                and their TTFT beside ContiguousKV's (this card's in-memory
+                store: a record, not the paper's SSD-bound comparison);
+  5. state    — flash_attention (hymba prefill, dense ingest, ragged s,
                 window, q_offset) and selective_scan (hymba and falcon-mamba
                 prefill, a ragged s, resumes from the carried state at a
                 chunk boundary and a ragged cut, decode at b = 1 and 2)
@@ -50,11 +68,12 @@ non-zero exit code:
                 wrapper's counts per variant); decode's logits held
                 against a prefill over the same tokens; then one request on
                 full-width falcon-mamba-7b (64 layers, attention-free);
-  5. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
+  6. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
      paths it names (per variant where a wrapper has several), its error
      against its plain version, its times and its bound (the largest of
-     bytes, products and exponentials, named);
-  6. last line: ``{"ok": true, "device": {...}}``.
+     bytes, products and exponentials, named), at the main path's shapes
+     and (``baseline_shapes``) at the baselines';
+  7. last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
 outside a checkout (it builds and imports ``src/repro_torch``).
@@ -97,6 +116,9 @@ EXP_PER_S = None
 # phase serves the same request shape
 PREFIX_LEN, SUFFIX_LEN, DECODE_TOKENS, N_REQUESTS = 4096, 64, 16, 4
 BUDGET, PERIOD, SUBPERIOD, CHUNK = 0.25, 8, 4, 16
+# the baselines (AS-LRU, AS-H2O-LFU, IMPRESS): the paper's 64-token blocks,
+# IMPRESS's probe of the first d / 8 key dims, requests per engine
+BLOCK, IMPRESS_PROBE_RATIO, N_BASELINE_REQUESTS = 64, 0.125, 3
 # budget-1.0 first-token logits against the dense forward: the engine keeps
 # a float32 hidden state from layer 0's part B on and reads float16 store
 # KV, while the dense forward runs all 28 layers in bfloat16, so the two
@@ -269,7 +291,6 @@ def phase_device():
 def phase_kernels(cfg):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.chunk_attention.ops import chunk_attention
     from repro_torch.kernels.chunk_attention.ref import chunk_attention_ref
@@ -328,34 +349,8 @@ def phase_kernels(cfg):
                 and torch.equal(ms, chunk_attention(q, ks, vs, n_valid, kf, vf)[1])):
             fail("chunk_attention is not reproducible bit for bit")
         if qdt == torch.float32 and n_valid == n_sel:
-            pairs_c, pairs_s = s * n_valid * CHUNK, s * (s + 1) // 2
-            pairs = pairs_c + pairs_s
-
-            def call(q=q, kf=kf, vf=vf, n_valid=n_valid):  # this iteration's inputs
-                return chunk_attention(q, ks, vs, n_valid, kf, vf)
-            # output-only yardstick: float32 SDPA over pre-laid [chunks ; suffix]
-            # with a boolean mask (chunks visible, the suffix causal)
-            n_pre = n_valid * CHUNK
-            k_all, v_all = (torch.cat([x[:n_valid].reshape(n_pre, nkv, d).float(), y])
-                            .permute(1, 0, 2)[None].contiguous() for x, y in ((ks, kf), (vs, vf)))
-            q_t = q.permute(1, 0, 2)[None].contiguous()
-            mask = torch.ones(s, n_pre + s, dtype=torch.bool, device=dev)
-            mask[:, n_pre:] = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
-
-            def sdpa():
-                return F.scaled_dot_product_attention(q_t, k_all, v_all, attn_mask=mask,
-                                                      enable_gqa=True)
-            sdpa_err = max_err(sdpa()[0].permute(1, 0, 2), o)
-            rows["chunk_attention"] = dict(
-                err=err, ms=device_ms(call), host_ms=host_ms(call),
-                plain_ms=wall_ms(lambda: chunk_attention_ref(q, ks, vs, n_valid, kf, vf)),
-                sdpa_output_only_ms=device_ms(sdpa),
-                bound=bounds(nbytes(q, kf, vf, o, ms) + nbytes(ks, vs) * n_valid // n_sel,
-                             4.0 * nq * d * pairs, nq * pairs,
-                             tf32_ops=4.0 * nq * d * (2 * pairs_c + 3 * pairs_s)))
-            print(f"kernels: chunk_attention output-only yardstick "
-                  f"scaled_dot_product_attention (float32, boolean mask; computes no A_j, the "
-                  f"port never calls it) agrees to {sdpa_err:.3g}")
+            rows["chunk_attention"] = chunk_attention_timing(q, ks, vs, n_valid, kf, vf, o, ms,
+                                                             err)
 
     # decode_attention: bfloat16 as decode runs; the last step's pool of
     # 64 resident pages + 5 tail pages, a partial last page, one pad slot
@@ -383,27 +378,9 @@ def phase_kernels(cfg):
     o2, pm2 = decode_attention(q, kp, vp, wide, lens)
     if not (torch.equal(o, o2) and torch.equal(pm, pm2)):
         fail("decode_attention is not reproducible bit for bit")
-    L = int(lens.item())
-
-    def call(q=q):
-        return decode_attention(q, kp, vp, wide, lens)
-    # output-only yardstick: bfloat16 SDPA over the valid tokens laid out contiguously
-    k_c, v_c = (x[0, : n_pages - 1].reshape(-1, nkv, d)[:L].permute(1, 0, 2)[None].contiguous()
-                for x in (kp, vp))
-    q_c = q[:, :, None]
-
-    def sdpa():
-        return F.scaled_dot_product_attention(q_c, k_c, v_c, enable_gqa=True)
-    sdpa_err = max_err(sdpa()[:, :, 0], o)
-    rows["decode_attention"] = dict(
-        err=max(err_o, err_m), ms=device_ms(call), host_ms=host_ms(call),
-        plain_ms=wall_ms(lambda: decode_attention_ref(q, kp, vp, wide, lens)),
-        sdpa_output_only_ms=device_ms(sdpa),
-        bound=bounds(nbytes(q, o, pm, wide, lens) + 2 * L * nkv * d * kp.element_size(),
-                     4.0 * nq * d * L, nq * L))
-    print(f"kernels: decode_attention output-only yardstick scaled_dot_product_attention "
-          f"(bfloat16, enable_gqa; computes no per-page mass, the port never calls it) agrees "
-          f"to {sdpa_err:.3g}; two runs bit-identical")
+    rows["decode_attention"] = decode_attention_timing(q, kp, vp, wide, lens, o, pm,
+                                                       max(err_o, err_m))
+    print("kernels: decode_attention two runs bit-identical")
     for name, r in rows.items():
         extra = f"; host time per call {r['host_ms']:.4f} ms"
         if "sdpa_output_only_ms" in r:
@@ -413,6 +390,181 @@ def phase_kernels(cfg):
               f"{r['plain_ms']:.4f} ms, {bound_text(r['bound'])}, "
               f"library call: none returns the per-chunk/page mass{extra})")
     return rows
+
+
+def phase_baseline_kernels(cfg):
+    """The three attention kernels at the shapes the baselines give them,
+    each against its plain version with the main path's tolerances, timed:
+    chunk_score at one token a chunk over the whole prefix (AS-H2O's d 128
+    and IMPRESS's partial keys, d 16); chunk_attention at one token a chunk
+    over the budget's 1024 tokens (and all 4096, budget 1.0, checked only)
+    and at one 64-token block a chunk over all 64 blocks (AS-LRU);
+    decode_attention over AS-LRU's last decode step's pool of 64 resident
+    blocks and 2 tail pages of 64 tokens. Returns {kernel: {shape: numbers}}."""
+    import torch
+
+    from repro_torch.kernels.chunk_attention.ops import chunk_attention
+    from repro_torch.kernels.chunk_attention.ref import chunk_attention_ref
+    from repro_torch.kernels.chunk_score.ops import chunk_score
+    from repro_torch.kernels.chunk_score.ref import chunk_score_ref
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    s, nq, nkv, d = SUFFIX_LEN, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    n = PREFIX_LEN
+    out = {"chunk_score": {}, "chunk_attention": {}, "decode_attention": {}}
+    # chunk_score at c = 1: float32 q past layer 0, bfloat16 q at layer 0
+    d_probe = int(d * IMPRESS_PROBE_RATIO)
+    for dd in (d, d_probe):
+        for qdt in (torch.float32, torch.bfloat16):
+            q, kk = rn(s, nq, dd, dtype=qdt), rn(n, nkv, dd, dtype=torch.float16)
+            got, ref = chunk_score(q, kk, 1), chunk_score_ref(q, kk, 1)
+            err, tol = max_err(got, ref), 1e-5 * ref.abs().max().item() + 1e-6
+            if not err <= tol:
+                fail(f"chunk_score c=1 d={dd} {dname(q)}: max abs err {err} > {tol}")
+            if not torch.equal(got, chunk_score(q, kk, 1)):
+                fail(f"chunk_score c=1 d={dd} is not reproducible bit for bit")
+            n_ops = 2.0 * s * nq * n * dd
+            r = dict(err=err, ms=device_ms(lambda: chunk_score(q, kk, 1)),
+                     host_ms=host_ms(lambda: chunk_score(q, kk, 1)),
+                     plain_ms=wall_ms(lambda: chunk_score_ref(q, kk, 1)),
+                     bound=bounds(nbytes(q, kk) + 4 * n, n_ops, s * nq * n,
+                                  f16_split_ops=(2 if qdt == torch.float32 else 1) * n_ops))
+            out["chunk_score"][f"c1_d{dd}_{dname(q)}"] = r
+            print(f"kernels: chunk_score c=1 (token scores) d={dd} q {dname(q)}: max abs err "
+                  f"{err:.3g} (tol {tol:.3g}), two runs bit-identical; {r['ms']:.4f} ms on the "
+                  f"card (plain version {r['plain_ms']:.4f} ms, {bound_text(r['bound'])}, "
+                  f"host time per call {r['host_ms']:.4f} ms)")
+
+    # chunk_attention: the token baselines' part B (c = 1; every token at
+    # budget 1.0) and AS-LRU's (c = 64), every bucket slot valid
+    for c, nb in ((1, 1024), (1, 4096), (BLOCK, n // BLOCK)):
+        ks, vs = (rn(nb, c, nkv, d, dtype=torch.float16) for _ in range(2))
+        for qdt in (torch.float32, torch.bfloat16):
+            q, kf, vf = (rn(s, nq, d, dtype=qdt), rn(s, nkv, d, dtype=qdt),
+                         rn(s, nkv, d, dtype=qdt))
+            (o, ms), (o2, ms2) = (chunk_attention(q, ks, vs, nb, kf, vf),
+                                  chunk_attention_ref(q, ks, vs, nb, kf, vf))
+            err = max(max_err(o, o2), max_err(ms, ms2))
+            tol = 1e-5 * max(o2.abs().max().item(), ms2.abs().max().item()) + 1e-6
+            if not err <= tol:
+                fail(f"chunk_attention c={c} chunks {nb} {dname(q)}: err {err} > {tol}")
+            again = chunk_attention(q, ks, vs, nb, kf, vf)
+            if not (torch.equal(o, again[0]) and torch.equal(ms, again[1])):
+                fail(f"chunk_attention c={c} is not reproducible bit for bit")
+            print(f"kernels: chunk_attention c={c} q {dname(q)} chunks {nb}/{nb}: max abs err "
+                  f"{err:.3g} (tol {tol:.3g}) on out and A_j, two runs bit-identical")
+            if qdt == torch.float32 and nb != 4096:
+                r = chunk_attention_timing(q, ks, vs, nb, kf, vf, o, ms, err)
+                out["chunk_attention"][f"c{c}_chunks{nb}"] = r
+                print(f"kernels: chunk_attention c={c} chunks {nb}: {r['ms']:.4f} ms on the "
+                      f"card (plain version {r['plain_ms']:.4f} ms, {bound_text(r['bound'])}, "
+                      f"host time per call {r['host_ms']:.4f} ms, output-only "
+                      f"scaled_dot_product_attention {r['sdpa_output_only_ms']:.4f} ms)")
+
+    # decode_attention: AS-LRU's pool at its last decode step, bfloat16
+    n_res, n_tail = n // BLOCK, -(-(s + DECODE_TOKENS) // BLOCK)
+    q = rn(1, nq, d, dtype=torch.bfloat16)
+    kp, vp = (rn(1, n_res + n_tail, BLOCK, nkv, d, dtype=torch.bfloat16) for _ in range(2))
+    table = torch.arange(n_res + n_tail, dtype=torch.int32, device=dev)[None]
+    lens = torch.tensor([n + s + DECODE_TOKENS], dtype=torch.int32, device=dev)
+    (o, pm), (o2, pm2) = (decode_attention(q, kp, vp, table, lens),
+                          decode_attention_ref(q, kp, vp, table, lens))
+    err_o, tol_o = max_err(o, o2), 2.0 ** -7 * o2.float().abs().max().item()
+    err_m, tol_m = max_err(pm, pm2), 1e-5 * pm2.abs().max().item() + 1e-7
+    if not (err_o <= tol_o and err_m <= tol_m):
+        fail(f"decode_attention page {BLOCK}: err out {err_o} > {tol_o} or mass {err_m} > {tol_m}")
+    again = decode_attention(q, kp, vp, table, lens)
+    if not (torch.equal(o, again[0]) and torch.equal(pm, again[1])):
+        fail(f"decode_attention page {BLOCK} is not reproducible bit for bit")
+    r = decode_attention_timing(q, kp, vp, table, lens, o, pm, max(err_o, err_m))
+    out["decode_attention"][f"page{BLOCK}_pages{n_res + n_tail}"] = r
+    print(f"kernels: decode_attention bfloat16 {n_res + n_tail} pages of {BLOCK}: max abs err "
+          f"out {err_o:.3g} (tol {tol_o:.3g}), mass {err_m:.3g} (tol {tol_m:.3g}), two runs "
+          f"bit-identical; {r['ms']:.4f} ms on the card (plain version {r['plain_ms']:.4f} ms, "
+          f"{bound_text(r['bound'])}, host time per call {r['host_ms']:.4f} ms, output-only "
+          f"scaled_dot_product_attention {r['sdpa_output_only_ms']:.4f} ms)")
+    return out
+
+
+def chunk_attention_timing(q, ks, vs, n_valid, kf, vf, o, ms, err) -> dict:
+    """One chunk_attention shape's numbers for the kernels line: device, host
+    and plain times, the output-only yardstick (float32 SDPA over pre-laid
+    [chunks ; suffix] with a boolean mask: chunks visible, the suffix causal)
+    over the same keys, and the bound (float32 queries: the split-TF32 terms
+    are two a chunk product and three a suffix product)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.chunk_attention.ops import chunk_attention
+    from repro_torch.kernels.chunk_attention.ref import chunk_attention_ref
+
+    s, nq, d = q.shape
+    _, c, nkv, _ = ks.shape
+    pairs_c, pairs_s = s * n_valid * c, s * (s + 1) // 2
+    pairs = pairs_c + pairs_s
+
+    def call():
+        return chunk_attention(q, ks, vs, n_valid, kf, vf)
+    n_pre = n_valid * c
+    k_all, v_all = (torch.cat([x[:n_valid].reshape(n_pre, nkv, d).to(y.dtype), y])
+                    .permute(1, 0, 2)[None].contiguous() for x, y in ((ks, kf), (vs, vf)))
+    q_t = q.permute(1, 0, 2)[None].contiguous()
+    mask = torch.ones(s, n_pre + s, dtype=torch.bool, device=q.device)
+    mask[:, n_pre:] = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q_t, k_all, v_all, attn_mask=mask, enable_gqa=True)
+    sdpa_err = max_err(sdpa()[0].permute(1, 0, 2), o)
+    print(f"kernels: chunk_attention c={c} chunks {n_valid}: output-only yardstick "
+          f"scaled_dot_product_attention ({dname(q)}, boolean mask, {n_pre + s} keys; computes "
+          f"no A_j, the port never calls it) agrees to {sdpa_err:.3g}")
+    return dict(err=err, ms=device_ms(call), host_ms=host_ms(call),
+                plain_ms=wall_ms(lambda: chunk_attention_ref(q, ks, vs, n_valid, kf, vf)),
+                sdpa_output_only_ms=device_ms(sdpa),
+                bound=bounds(nbytes(q, kf, vf, o, ms, ks[:n_valid], vs[:n_valid]),
+                             4.0 * nq * d * pairs, nq * pairs,
+                             tf32_ops=4.0 * nq * d * (2 * pairs_c + 3 * pairs_s)))
+
+
+def decode_attention_timing(q, kp, vp, table, lens, o, pm, err) -> dict:
+    """One decode_attention shape's numbers for the kernels line: device,
+    host and plain times, the output-only yardstick (SDPA over the valid
+    tokens laid out contiguously, in q's dtype) and the bound (each valid
+    token's K and V read once)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    _, nq, d = q.shape
+    _, _, page, nkv, _ = kp.shape
+    L = int(lens.item())
+    n_full = -(-L // page)  # the table's first n_full slots hold the valid tokens in order
+
+    def call():
+        return decode_attention(q, kp, vp, table, lens)
+    k_c, v_c = (x[0, table[0, :n_full].long()].reshape(-1, nkv, d)[:L].permute(1, 0, 2)[None]
+                .contiguous() for x in (kp, vp))
+    q_c = q[:, :, None]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q_c, k_c, v_c, enable_gqa=True)
+    sdpa_err = max_err(sdpa()[:, :, 0], o)
+    print(f"kernels: decode_attention page {page}, {L} tokens: output-only yardstick "
+          f"scaled_dot_product_attention ({dname(q)}, enable_gqa; computes no per-page mass, "
+          f"the port never calls it) agrees to {sdpa_err:.3g}")
+    return dict(err=err, ms=device_ms(call), host_ms=host_ms(call),
+                plain_ms=wall_ms(lambda: decode_attention_ref(q, kp, vp, table, lens)),
+                sdpa_output_only_ms=device_ms(sdpa),
+                bound=bounds(nbytes(q, o, pm, table, lens) + 2 * L * nkv * d * kp.element_size(),
+                             4.0 * nq * d * L, nq * L))
 
 
 def phase_state_kernels(hcfg, dcfg, fcfg):
@@ -626,6 +778,7 @@ def phase_e2e(cfg):
               "decode_attention": cfg.n_layers * DECODE_TOKENS}
     suffixes = [rng.integers(0, cfg.vocab_size, SUFFIX_LEN) for _ in range(N_REQUESTS)]
     walls = []  # request wall time: first token, then the decode tokens
+    traces = []
     reset_counts(*ops.values())
     for i, suffix in enumerate(suffixes):
         before = {k: mod.launches for k, mod in ops.items()}
@@ -633,6 +786,7 @@ def phase_e2e(cfg):
         t0 = time.perf_counter()
         logits, trace = eng.reprefill(suffix, request_id=i, decode_tokens=DECODE_TOKENS)
         walls.append((time.perf_counter() - t0) * 1e3)
+        traces.append(trace)
         got = {k: mod.launches - before[k] for k, mod in ops.items()}
         if got != expect:
             fail(f"request {i}: kernel launches {got}, expected {expect}")
@@ -661,16 +815,7 @@ def phase_e2e(cfg):
     before = {k: mod.launches for k, mod in ops.items()}
     ours = profile_request(eng, suffixes[0], statistics.mean(walls[1:]))
     got = {k: mod.launches - before[k] for k, mod in ops.items()}
-    kernels_of = {"chunk_attention": ("chunk_attn_kernel", "chunk_merge_kernel"),
-                  "decode_attention": ("decode_kernel",),
-                  "chunk_score": ("chunk_score_kernel", "chunk_score_merge_kernel")}
-    want = {kn: got[w] for w, names in kernels_of.items() for kn in names}
-    seen = {k: ours.get(k, (0, 0.0))[0] for k in want}
-    if got != expect or seen != want:
-        fail(f"profiled request: wrapper launches {got} (expected {expect}), device "
-             f"kernels {seen} (expected {want})")
-    per_call = {w: {kn: seen[kn] / got[w] for kn in names} for w, names in kernels_of.items()}
-    print(f"e2e: profiled request: device kernels per wrapper call {per_call}")
+    per_call = hold_device_kernels("e2e", ours, got, expect)
 
     # budget 1.0 against the dense forward over prefix + suffix
     full = ContiguousKVEngine(sess, RealCompute(cfg, params, device=DEVICE), RealExecutor(),
@@ -678,18 +823,199 @@ def phase_e2e(cfg):
                               period=PERIOD, subperiod=SUBPERIOD)
     logits, _ = full.reprefill(suffixes[0])
     toks = torch.as_tensor(np.concatenate([prefix, suffixes[0]]), device=DEVICE)[None]
-    dense = T.forward(params, {"tokens": toks}, cfg, logits_positions="last")
-    a = torch.as_tensor(logits[0, -1], device=DEVICE)
-    b = dense[0, -1]
-    rel = ((a - b).abs().max() / b.abs().max()).item()
-    cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
-    print(f"e2e: budget 1.0 vs dense forward: max abs err / max |logit| {rel:.4f} "
-          f"(tol {DENSE_REL_TOL}), cosine {cos:.5f} (min {DENSE_MIN_COS}), argmax "
-          f"{int(a.argmax())} vs {int(b.argmax())}")
-    if not (rel <= DENSE_REL_TOL and cos >= DENSE_MIN_COS):
-        fail("budget-1.0 first-token logits disagree with the dense forward")
+    dense = T.forward(params, {"tokens": toks}, cfg, logits_positions="last")[0, -1]
+    hold_to_dense("e2e: budget 1.0", logits, dense)
+    ex.shutdown()
+    # what the baselines phase shares: the weights, the prefix and its dense
+    # session, the suffixes, the dense forward over prefix + suffixes[0] and
+    # ContiguousKV's requests on each suffix
+    ctx = dict(params=params, prefix=prefix, sess=sess, suffixes=suffixes, dense=dense,
+               ckv_traces=traces, ckv_walls=walls)
+    return totals, per_call, ctx
+
+
+def phase_baselines(cfg, ctx):
+    """The paper's baselines on the dense phase's weights, prefix and
+    suffixes: ingest a coarse-block session; serve N_BASELINE_REQUESTS
+    requests through AS-LRU, AS-H2O-LFU and IMPRESS each (budget 0.25 where
+    the engine takes one, caps 0), with launches per request, read
+    amplification and tokens loaded asserted; ContiguousKV w/o P held to the
+    full engine bit for bit; AS-LRU and budget-1.0 AS-H2O held to the dense
+    forward; one IMPRESS request profiled. Returns ({kernel: {path:
+    launches}}, {wrapper: {device kernel: per call}} of the profiled IMPRESS
+    request)."""
+    import numpy as np
+
+    from repro_torch.core.backends import RealCompute
+    from repro_torch.core.engine import (ASH2OEngine, ASLRUEngine, ContiguousKVEngine,
+                                         IMPRESSEngine)
+    from repro_torch.core.session import build_real_session
+    from repro_torch.kernels.chunk_attention import ops as ca
+    from repro_torch.kernels.chunk_score import ops as cs
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.storage.timing import RealExecutor
+
+    ops = {"chunk_score": cs, "chunk_attention": ca, "decode_attention": da}
+    params, prefix, suffixes = ctx["params"], ctx["prefix"], ctx["suffixes"]
+    L = cfg.n_layers
+    be = RealCompute(cfg, params, device=DEVICE)
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    csess = build_real_session(cfg, params, prefix, coarse_blocks=True, block_tokens=BLOCK,
+                               in_memory=True, device=DEVICE)
+    ingest_s = time.perf_counter() - t0
+    totals = {"flash_attention": {"coarse-block ingest": counts(fa)}}
+    if totals["flash_attention"]["coarse-block ingest"] != {"launches": L, "wgmma": L}:
+        fail(f"baselines: coarse ingest flash_attention launches {counts(fa)}, expected {L}")
+    layout = csess.store.layout
+    print(f"baselines: coarse-block ingest of {PREFIX_LEN} tokens ({layout.n_units} blocks of "
+          f"{BLOCK}) took {ingest_s:.2f} s (flash_attention launches {counts(fa)})")
+
+    ex = RealExecutor()
+    engines = {"as_lru": ASLRUEngine(csess, be, ex),
+               "as_h2o_lfu": ASH2OEngine(csess, be, ex, budget=BUDGET),
+               "impress": IMPRESSEngine(csess, be, ex, budget=BUDGET)}
+    summary = {}
+    for name, eng in engines.items():
+        expect = {"chunk_score": 0 if name == "as_lru" else L, "chunk_attention": L,
+                  "decode_attention": L * DECODE_TOKENS}
+        reset_counts(*ops.values())
+        rows = []
+        for i, suffix in enumerate(suffixes[:N_BASELINE_REQUESTS]):
+            before = {k: mod.launches for k, mod in ops.items()}
+            busy = dict(ex.stage_times)
+            t0 = time.perf_counter()
+            logits, trace = eng.reprefill(suffix, request_id=i, decode_tokens=DECODE_TOKENS)
+            wall = (time.perf_counter() - t0) * 1e3
+            got = {k: mod.launches - before[k] for k, mod in ops.items()}
+            if got != expect:
+                fail(f"{name} request {i}: kernel launches {got}, expected {expect}")
+            ra = trace.read_amplification
+            if name == "as_lru":
+                if ra != 1.0:
+                    fail(f"as_lru request {i}: read amplification {ra}, expected 1.0")
+            else:
+                # sum |blocks_l| B / sum |tokens_l|, from the selections alone
+                sel = list(trace.selected_per_layer.values())
+                if len(sel) != L:
+                    fail(f"{name} request {i}: selections for {len(sel)} of {L} layers")
+                blocks = [layout.units_for_tokens(t) for t in sel]
+                want = sum(map(len, blocks)) * BLOCK / sum(map(len, sel))
+                partial = any(np.any(np.bincount(t // BLOCK, minlength=layout.n_units)[b] < BLOCK)
+                              for t, b in zip(sel, blocks))
+                if ra != want or (want > 1.0) != partial:
+                    fail(f"{name} request {i}: read amplification {ra}, recomputed {want}, "
+                         f"a partly selected block: {partial}")
+            ckv_loaded = ctx["ckv_traces"][i].tokens_loaded
+            if not trace.tokens_loaded > ckv_loaded:
+                fail(f"{name} request {i}: {trace.tokens_loaded} tokens loaded, not more than "
+                     f"ContiguousKV's {ckv_loaded} on the same suffix")
+            toks = trace.decode_tokens_out
+            if (logits.shape != (1, 1, cfg.vocab_size) or not np.isfinite(logits).all()
+                    or len(toks) != DECODE_TOKENS
+                    or not all(0 <= t < cfg.vocab_size for t in toks)):
+                fail(f"{name} request {i}: bad output {logits.shape} {toks}")
+            # host clock inside the compute ops by tag (identify among them)
+            # and the waits on IO (probe_io, kv_io)
+            busy = {k: round((v - busy.get(k, 0.0)) * 1e3, 2) for k, v in ex.stage_times.items()}
+            stages = {k: round(v * 1e3, 2) for k, v in trace.stages.items()}
+            rows.append(dict(ttft=trace.ttft * 1e3, tpot=trace.tpot * 1e3, wall=wall))
+            print(f"baselines: {name} request {i}: TTFT {trace.ttft * 1e3:.2f} ms, TPOT "
+                  f"{trace.tpot * 1e3:.3f} ms, compute ops ms {busy}, waits ms {stages}, "
+                  f"tokens loaded "
+                  f"{trace.tokens_loaded} (ContiguousKV {ckv_loaded}), read amplification "
+                  f"{ra:.4f}, launches {got}")
+        for k, mod in ops.items():
+            if mod.launches:
+                totals.setdefault(k, {})[f"{name} requests"] = counts(mod)
+        warm = rows[1:]
+        summary[name] = {k: statistics.mean(r[k] for r in warm) for k in ("ttft", "tpot", "wall")}
+        print(f"baselines: {name}: warm requests' mean TTFT {summary[name]['ttft']:.2f} ms, "
+              f"TPOT {summary[name]['tpot']:.3f} ms")
+
+    # w/o P on the dense session: the same selections and first-token logits
+    ckv = {p: ContiguousKVEngine(ctx["sess"], be, ex, budget=BUDGET, period=PERIOD,
+                                 subperiod=SUBPERIOD, prefetch=p) for p in (True, False)}
+    reset_counts(*ops.values())
+    (l_full, t_full), (l_wo, t_wo) = (ckv[p].reprefill(suffixes[0]) for p in (True, False))
+    for k, mod in ops.items():
+        if mod.launches:
+            totals.setdefault(k, {})["contiguous_kv and w/o P first tokens"] = counts(mod)
+    same_sel = all(np.array_equal(t_wo.selected_per_layer[l], sel)
+                   for l, sel in t_full.selected_per_layer.items())
+    if not (same_sel and np.array_equal(l_wo, l_full) and t_wo.ssd_bytes_spec == 0):
+        fail(f"w/o P: selections equal {same_sel}, logits equal "
+             f"{np.array_equal(l_wo, l_full)}, speculative bytes {t_wo.ssd_bytes_spec}")
+    print(f"baselines: ContiguousKV w/o P: selections and first-token logits bit-identical to "
+          f"the full engine's; speculative bytes {t_wo.ssd_bytes_spec} (full engine "
+          f"{t_full.ssd_bytes_spec}); TTFT {t_wo.ttft * 1e3:.2f} ms (full engine "
+          f"{t_full.ttft * 1e3:.2f} ms)")
+
+    # against the dense forward: AS-LRU (every block, c = 64) and AS-H2O at
+    # budget 1.0 (every token, c = 1)
+    reset_counts(*ops.values())
+    logits, _ = engines["as_lru"].reprefill(suffixes[0])
+    hold_to_dense("baselines: as_lru", logits, ctx["dense"])
+    logits, _ = ASH2OEngine(csess, be, ex, budget=1.0).reprefill(suffixes[0])
+    hold_to_dense("baselines: as_h2o_lfu budget 1.0", logits, ctx["dense"])
+    for k, mod in ops.items():
+        if mod.launches:
+            totals.setdefault(k, {})["dense checks (as_lru, as_h2o_lfu budget 1.0)"] = counts(mod)
+
+    # one IMPRESS request profiled
+    before = {k: mod.launches for k, mod in ops.items()}
+    ours = profile_request(engines["impress"], suffixes[0], summary["impress"]["wall"],
+                           tag="baselines: impress")
+    got = {k: mod.launches - before[k] for k, mod in ops.items()}
+    per_call = hold_device_kernels(
+        "baselines: impress", ours, got,
+        {"chunk_score": L, "chunk_attention": L, "decode_attention": L * DECODE_TOKENS})
+
+    ckv_ttft = statistics.mean(t.ttft * 1e3 for t in ctx["ckv_traces"][1:N_BASELINE_REQUESTS])
+    print(f"baselines: warm TTFT on this card's in-memory store (compute and host work only, "
+          f"not the paper's SSD-bound regime; a record, no claim): ContiguousKV "
+          f"{ckv_ttft:.2f} ms, IMPRESS {summary['impress']['ttft']:.2f} ms "
+          f"(IMPRESS / ContiguousKV {summary['impress']['ttft'] / ckv_ttft:.3f}), AS-LRU "
+          f"{summary['as_lru']['ttft']:.2f} ms (AS-LRU / ContiguousKV "
+          f"{summary['as_lru']['ttft'] / ckv_ttft:.3f}), AS-H2O-LFU "
+          f"{summary['as_h2o_lfu']['ttft']:.2f} ms")
     ex.shutdown()
     return totals, per_call
+
+
+def hold_device_kernels(tag, ours, got, expect) -> dict:
+    """Hold a profiled request's device kernels to its wrappers' launches:
+    one decode kernel per decode_attention call, part B's attention pass and
+    merge per chunk_attention call, chunk_score's split pass and merge per
+    chunk_score call. Returns {wrapper: {device kernel: launches per call}}."""
+    kernels_of = {"chunk_attention": ("chunk_attn_kernel", "chunk_merge_kernel"),
+                  "decode_attention": ("decode_kernel",),
+                  "chunk_score": ("chunk_score_kernel", "chunk_score_merge_kernel")}
+    want = {kn: got[w] for w, names in kernels_of.items() for kn in names}
+    seen = {k: ours.get(k, (0, 0.0))[0] for k in want}
+    if got != expect or seen != want:
+        fail(f"{tag}: profiled request: wrapper launches {got} (expected {expect}), device "
+             f"kernels {seen} (expected {want})")
+    per_call = {w: {kn: seen[kn] / got[w] for kn in names}
+                for w, names in kernels_of.items() if got[w]}
+    print(f"{tag}: profiled request: device kernels per wrapper call {per_call}")
+    return per_call
+
+
+def hold_to_dense(tag, logits, dense):
+    """First-token logits (numpy, (1, 1, vocab)) against the dense forward's
+    last logits (a card tensor), to DENSE_REL_TOL / DENSE_MIN_COS."""
+    import torch
+
+    a = torch.as_tensor(logits[0, -1], device=dense.device)
+    rel = ((a - dense).abs().max() / dense.abs().max()).item()
+    cos = torch.nn.functional.cosine_similarity(a, dense, dim=0).item()
+    print(f"{tag} vs dense forward: max abs err / max |logit| {rel:.4f} "
+          f"(tol {DENSE_REL_TOL}), cosine {cos:.5f} (min {DENSE_MIN_COS}), argmax "
+          f"{int(a.argmax())} vs {int(dense.argmax())}")
+    if not (rel <= DENSE_REL_TOL and cos >= DENSE_MIN_COS):
+        fail(f"{tag}: first-token logits disagree with the dense forward")
 
 
 def logit_agreement(a, b):
@@ -897,10 +1223,18 @@ def main() -> int:
     # the dense phases first, so their requests run in the same process
     # state as before the state-space phases existed
     rows = phase_kernels(cfg)
-    paths, per_call = phase_e2e(cfg)
+    for name, shapes in phase_baseline_kernels(cfg).items():
+        rows[name]["baseline_shapes"] = shapes
+    paths, per_call, ctx = phase_e2e(cfg)
     for name, k in per_call.items():
         rows[name]["device_kernels_per_call"] = k
-    torch.cuda.empty_cache()  # the Qwen weights went with phase_e2e
+    base_paths, base_per_call = phase_baselines(cfg, ctx)
+    for name, by_path in base_paths.items():
+        paths.setdefault(name, {}).update(by_path)
+    for name, k in base_per_call.items():
+        rows[name]["device_kernels_per_call_impress"] = k
+    del ctx
+    torch.cuda.empty_cache()  # the Qwen weights went with the dense phases
     rows.update(phase_state_kernels(hcfg, cfg, fcfg))
     for name, n in phase_state_e2e(hcfg, N_REQUESTS, check_decode=True).items():
         paths.setdefault(name, {})["hymba-1.5b requests"] = n
@@ -936,7 +1270,8 @@ def main() -> int:
         for key in ("tf32", "f16_split"):
             if key in r["bound"]:
                 row[f"{key}_bound_ms"] = r["bound"][key][0]
-        for key in ("host_ms", "sdpa_output_only_ms", "device_kernels_per_call", "decode_ms",
+        for key in ("host_ms", "sdpa_output_only_ms", "device_kernels_per_call",
+                    "device_kernels_per_call_impress", "baseline_shapes", "decode_ms",
                     "decode_host_ms", "decode_bound_ms", "falcon_decode_ms",
                     "falcon_decode_host_ms", "falcon_decode_bound_ms", "dense_ingest",
                     "falcon_prefill", "one_cta_per_sm_ms"):

@@ -3,7 +3,8 @@ engine's.
 
 RealCompute runs the model layer by layer on one device (the card unless the
 caller asks for the CPU). Its three attention steps go through the port's
-kernels: identify through ``chunk_score``, part B through
+kernels: identify through ``chunk_score`` (the baselines' token scores too,
+at one token a chunk), part B through
 ``chunk_attention`` and decode through ``decode_attention``. StateCompute
 runs the SSM and hybrid families' serve path (``transformer.prefill`` and
 ``decode_step``): their prefill attention goes through ``flash_attention``
@@ -211,6 +212,18 @@ class RealCompute:
                      chunk_tokens: int) -> np.ndarray:
         """(ceil(n / c),) float32 chunk scores (Eq. 1) by the chunk_score kernel."""
         return chunk_score(q[0], self._upload(k_probe), chunk_tokens).cpu().numpy()
+
+    def token_scores(self, q, k_probe: np.ndarray, layer: int) -> np.ndarray:
+        """(n,) float32 token scores a_t (the baselines' H2O selection): the
+        chunk_score kernel at ``chunk_tokens=1``, whose chunk scores are then
+        the token scores. k_probe: (n, n_kv, d_probe) float16. Partial keys
+        (IMPRESS, d_probe < d_head) take q's first d_probe dims, so the scale
+        is d_probe^-0.5, as the JAX backend's ``probe_token_scores`` of the
+        truncated q takes it."""
+        qq = q[0]
+        if k_probe.shape[-1] != self.cfg.d_head:
+            qq = qq[..., : k_probe.shape[-1]].contiguous()
+        return chunk_score(qq, self._upload(k_probe), 1).cpu().numpy()
 
     def part_b(self, layer: int, h, q, k_suf, v_suf,
                k_sel: np.ndarray, v_sel: np.ndarray, sel_valid: np.ndarray,

@@ -1,10 +1,26 @@
-"""Re-Prefill engine: ContiguousKV (§4), real mode.
+"""Re-Prefill engines: ContiguousKV (§4) and the three baselines (§5.1), real
+mode.
 
-ContiguousKVEngine runs a real model on the card (or the CPU, if the backend
-was built there) with real chunk reads on the wall clock: chunk granularity,
-period-reused identification, intra- and inter-period prefetch and the
-attention-guided cache. Identification runs the chunk_score kernel through
-``backend.chunk_scores``, so only the (m,) chunk scores reach the host.
+Every engine runs a real model on the card (or the CPU, if the backend was
+built there) with real unit reads on the wall clock.
+
+  ContiguousKVEngine — chunk granularity, period-reused identification,
+      intra- and inter-period prefetch, attention-guided cache.
+      Identification runs the chunk_score kernel through
+      ``backend.chunk_scores``, so only the (m,) chunk scores reach the host.
+      ``prefetch=False`` (and ``inter_period=False``) turn the prefetch off
+      for the paper's w/o-P ablation.
+  ASLRUEngine        — AttentionStore: the whole prefix KV in 64-token
+      blocks, every layer submitted up front, LRU cache.
+  ASH2OEngine        — AS + per-layer H2O token selection, block loads, LFU.
+  IMPRESSEngine      — partial-key probing, token selection, block loads,
+      score-based cache, next-layer probe prefetch.
+
+The baselines run on a coarse-block session
+(``build_real_session(coarse_blocks=True)``). Their token scores run the
+chunk_score kernel at one token a chunk (``backend.token_scores``), part B
+the chunk_attention kernel at one token a chunk (AS-LRU: a block a chunk),
+and decode the decode_attention kernel over the resident blocks as pages.
 
 StateSpaceEngine serves the state-space families (hybrid hymba,
 attention-free falcon-mamba), which keep no prefix KV to identify and load:
@@ -13,9 +29,13 @@ recurrent state (``backends.StateCompute``).
 
 The engines are *step-plan factories*: ``plan()`` returns a resumable
 generator of ComputeOp/WaitOp steps (repro_torch.core.stepplan) and
-``reprefill()`` drives one plan to completion. The sim mode, chunked prefill
-and the compute-or-load planner of the JAX engine come with the slices that
-bring their callers (``SimCompute`` and the serving ``Scheduler``).
+``reprefill()`` drives one plan to completion. What the JAX engines' real
+mode has beyond this comes with the slices that bring its callers (the
+serving ``Scheduler``, ``SimCompute``, the compute-or-load planner and the
+tier store): chunked prefill (``prefill_chunk_tokens``, ``PrefillChunkCtx``),
+binding a shared backend per request (``_bound``), tenants and
+content-addressed keys, the compute-or-load re-prefill (``hybrid``) and the
+SSD tier of the cache (``hits_ssd``, ``ssd_plan``); so does the sim mode.
 """
 from __future__ import annotations
 
@@ -26,9 +46,17 @@ import numpy as np
 
 from repro_torch.core import costmodel as CM
 from repro_torch.core.backends import DeviceTailPool, TailPool
-from repro_torch.core.cache import DEVICE, HOST, AttentionGuidedCache, CachePolicy
+from repro_torch.core.cache import (
+    DEVICE,
+    HOST,
+    AttentionGuidedCache,
+    CachePolicy,
+    ImpressScoreCache,
+    LFUCache,
+    LRUCache,
+)
 from repro_torch.core.chunking import ChunkMeta
-from repro_torch.core.importance import select_topk_chunks
+from repro_torch.core.importance import select_topk_chunks, select_topk_tokens
 from repro_torch.core.periods import PeriodSchedule
 from repro_torch.core.sparse_attention import bucket_size
 from repro_torch.core.stepplan import ComputeOp, RequestClock, StepPlan, WaitOp, drive_serial
@@ -152,8 +180,14 @@ class _EngineBase:
 
     # -- I/O helpers ---------------------------------------------------------
     def _submit_units(self, layer: int, units: List[int], trace: ReprefillTrace,
-                      handles: Dict, *, speculative: bool = False) -> None:
-        """Load `units` of `layer` honoring cache tiers; records handles."""
+                      handles: Dict, *, speculative: bool = False,
+                      needed_bytes_per_unit: Optional[Dict[int, int]] = None) -> None:
+        """Load `units` of `layer` honoring cache tiers; records handles.
+
+        `needed_bytes_per_unit` maps unit -> bytes actually required from it
+        (token-granularity baselines need only the selected tokens out of a
+        block). Defaults to the whole unit (chunk granularity: aligned).
+        """
         store = self.session.store
         missing, host_hits = [], []
         for u in units:
@@ -188,7 +222,11 @@ class _EngineBase:
                 trace.ssd_bytes_spec += miss_nb
             else:
                 trace.ssd_bytes_demand += miss_nb
-                trace.needed_bytes += len(missing) * unit_bytes
+                if needed_bytes_per_unit is None:
+                    trace.needed_bytes += len(missing) * unit_bytes
+                else:
+                    trace.needed_bytes += sum(needed_bytes_per_unit.get(int(u), unit_bytes)
+                                              for u in missing)
             trace.ssd_requests += miss_nr
             trace.pcie_bytes += miss_nb
             trace.tokens_loaded += len(missing) * store.layout.unit_tokens
@@ -240,11 +278,22 @@ class _EngineBase:
         return rec
 
     # -- probe ----------------------------------------------------------------
-    def _submit_probe(self, layer: int, trace: ReprefillTrace) -> IOHandle:
-        nbytes = CM.probe_bytes(self.cfg, self.session.prefix_len)
+    def _submit_probe(self, layer: int, trace: ReprefillTrace,
+                      ratio: float = 1.0) -> IOHandle:
+        """Load `layer`'s probe keys; ``ratio`` < 1 loads only the first
+        max(1, int(d * ratio)) dims of each key (IMPRESS's partial keys)."""
+        nbytes = CM.probe_bytes(self.cfg, self.session.prefix_len, ratio)
         probe = self.session.probe
-        h = self.ex.submit_io(lambda: None if probe is None else probe[layer],
-                              nbytes=nbytes, n_requests=1, channel="ssd")
+
+        def fetch():
+            if probe is None:
+                return None
+            k = probe[layer]
+            if ratio < 1.0:
+                k = k[..., : max(1, int(k.shape[-1] * ratio))]
+            return k
+
+        h = self.ex.submit_io(fetch, nbytes=nbytes, n_requests=1, channel="ssd")
         trace.ssd_bytes_probe += nbytes
         trace.pcie_bytes += nbytes
         return h
@@ -355,12 +404,19 @@ class ContiguousKVEngine(_EngineBase):
     name = "contiguous_kv"
 
     def __init__(self, session, backend, executor, cache=None, *, budget=0.25,
-                 period: int = 8, subperiod: int = 4, device_cap: int = 0,
+                 period: int = 8, subperiod: int = 4, prefetch: bool = True,
+                 inter_period: bool = True, device_cap: int = 0,
                  host_cap: int = 0, device_tail_pool: bool = True):
+        """``prefetch=False`` (w/o P) submits each layer's chunks on demand,
+        just before its wait; ``inter_period=False`` loads each period's probe
+        lazily, with no speculative warm-up of the next period. Neither
+        changes what is computed."""
         cache = cache if cache is not None else AttentionGuidedCache(device_cap, host_cap)
         super().__init__(session, backend, executor, cache, budget=budget,
                          device_tail_pool=device_tail_pool)
         self.schedule = PeriodSchedule(self.cfg.n_layers, period, subperiod)
+        self.prefetch = prefetch
+        self.inter_period = inter_period and prefetch
         self.chunk_tokens = session.meta.chunk_tokens
 
     def _steps(self, suffix_tokens, clock, trace, decode_tokens=0):
@@ -382,6 +438,8 @@ class ContiguousKVEngine(_EngineBase):
                 lambda hh=h, l=head: be.part_a(l, hh, prefix_len),
                 flops=self._cost_part_a(s), tag="compute")
 
+            if period.index not in probe_handles:  # lazy (no inter-period)
+                probe_handles[period.index] = self._submit_probe(head, trace)
             t0 = clock.t
             probe_data = yield WaitOp(probe_handles[period.index], tag="probe_io")
             trace.add_stage("probe_io", clock.t - t0)
@@ -398,16 +456,21 @@ class ContiguousKVEngine(_EngineBase):
             # intra-period prefetch of this period's layers; inter-period:
             # the next period's probe, and its layers warmed up with the
             # current set
-            for l in period.layers:
-                self._submit_units(l, list(selected), trace, handles)
-            if period.index + 1 < len(self.schedule):
+            if self.prefetch:
+                for l in period.layers:
+                    self._submit_units(l, list(selected), trace, handles)
+                if self.inter_period and period.index + 1 < len(self.schedule):
+                    nxt = self.schedule.periods[period.index + 1]
+                    probe_handles[nxt.index] = self._submit_probe(nxt.head, trace)
+                    for l in nxt.layers:
+                        self._submit_units(l, list(selected), trace, handles,
+                                           speculative=True)
+                for l in self.schedule.gate_layers(period):
+                    yield from self._wait_keys(l, selected, handles, trace, "kv_io", clock)
+            elif period.index + 1 < len(self.schedule):
+                # w/o P: the next period's probe is still loaded, on demand
                 nxt = self.schedule.periods[period.index + 1]
                 probe_handles[nxt.index] = self._submit_probe(nxt.head, trace)
-                for l in nxt.layers:
-                    self._submit_units(l, list(selected), trace, handles,
-                                       speculative=True)
-            for l in self.schedule.gate_layers(period):
-                yield from self._wait_keys(l, selected, handles, trace, "kv_io", clock)
 
             fl, hb = self._cost_part_b(s, len(selected) * c + s)
             for l in period.layers:
@@ -415,6 +478,8 @@ class ContiguousKVEngine(_EngineBase):
                     x, q, k_suf, v_suf = yield ComputeOp(
                         lambda hh=h, ll=l: be.part_a(ll, hh, prefix_len),
                         flops=self._cost_part_a(s), tag="compute")
+                if not self.prefetch:
+                    self._submit_units(l, list(selected), trace, handles)
                 yield from self._wait_keys(l, selected, handles, trace, "kv_io", clock)
                 k_sel, v_sel, valid = self._gather_chunks(l, selected)
                 if decode_tokens > 0:
@@ -436,6 +501,191 @@ class ContiguousKVEngine(_EngineBase):
                                                trace.selected_per_layer, kv_suffix)
         self._sweep_data()
         return logits
+
+
+# ---------------------------------------------------------------------------
+# baselines
+# ---------------------------------------------------------------------------
+class _BlockBaselineEngine(_EngineBase):
+    """Per-layer serial flow over coarse blocks with H2O-style token
+    selection (AS+H2O and IMPRESS): part A, the probe wait, token scores,
+    the top ceil(budget * n) tokens and the blocks that hold them, the
+    demand load of those blocks, part B over the gathered tokens at one
+    token a chunk, then decode over the resident blocks as pages."""
+
+    probe_ratio = 1.0  # fraction of key dims loaded for probing
+    probe_prefetch = False  # IMPRESS: prefetch the next layer's probe keys
+
+    def _steps(self, suffix_tokens, clock, trace, decode_tokens=0):
+        be, cfg = self.backend, self.cfg
+        prefix_len = self.session.prefix_len
+        layout = self.session.store.layout
+        s = len(suffix_tokens)
+        t_start = clock.t
+        h = yield ComputeOp(lambda: be.embed(suffix_tokens),
+                            flops=2.0 * s * cfg.d_model, tag="compute")
+        handles: Dict = {}
+        probe_handles: Dict[int, IOHandle] = {}
+        kv_suffix: Dict[int, Tuple] = {}
+        resident: Dict[int, np.ndarray] = {}
+
+        for l in range(cfg.n_layers):
+            x, q, k_suf, v_suf = yield ComputeOp(
+                lambda hh=h, ll=l: be.part_a(ll, hh, prefix_len),
+                flops=self._cost_part_a(s), tag="compute")
+            if l not in probe_handles:  # lazy (AS+H2O: no overlap at all)
+                probe_handles[l] = self._submit_probe(l, trace, self.probe_ratio)
+            t0 = clock.t
+            probe_data = yield WaitOp(probe_handles[l], tag="probe_io")
+            trace.add_stage("probe_io", clock.t - t0)
+            if self.probe_prefetch and l + 1 < cfg.n_layers:
+                # IMPRESS overlaps the next layer's probe load with compute
+                probe_handles[l + 1] = self._submit_probe(l + 1, trace, self.probe_ratio)
+            tok_scores = yield ComputeOp(
+                lambda qq=q, pd=probe_data, ll=l: be.token_scores(qq, pd, ll),
+                flops=self._cost_identify(s) * self.probe_ratio, tag="identify")
+            tokens = select_topk_tokens(np.asarray(tok_scores), self.budget)
+            blocks = layout.units_for_tokens(tokens)
+            trace.selected_per_layer[l] = tokens
+            # read amplification source: only the selected tokens are needed
+            # out of each loaded block
+            tok_bytes = layout.geom.token_bytes
+            needed: Dict[int, int] = {}
+            for t in tokens:
+                blk = int(t) // layout.unit_tokens
+                needed[blk] = needed.get(blk, 0) + tok_bytes
+
+            self._submit_units(l, blocks, trace, handles, needed_bytes_per_unit=needed)
+            yield from self._wait_keys(l, blocks, handles, trace, "kv_io", clock)
+            k_sel, v_sel, valid = self._gather_tokens(l, tokens)
+            resident[l] = np.asarray(blocks, dtype=int)
+            if decode_tokens > 0:
+                kv_suffix[l] = (k_suf, v_suf)
+            fl, hb = self._cost_part_b(s, len(tokens) + s)
+            h, _ = yield ComputeOp(
+                lambda hh=h, ll=l, qq=q, ks=k_suf, vs=v_suf, k1=k_sel, v1=v_sel,
+                       vd=valid: be.part_b(ll, hh, qq, ks, vs, k1, v1, vd, 1),
+                flops=fl, hbm_bytes=hb, tag="compute")
+            if isinstance(self.cache, ImpressScoreCache):
+                # static importance: the fraction of each block's tokens selected
+                for blk in blocks:
+                    lo = blk * layout.unit_tokens
+                    hi = lo + layout.unit_tokens
+                    cnt = int(np.sum((tokens >= lo) & (tokens < hi)))
+                    self.cache.set_static_score(self._key(l, blk), cnt / layout.unit_tokens)
+            self._insert_cache(l, blocks)
+
+        logits = yield ComputeOp(lambda hh=h: be.logits(hh),
+                                 flops=2.0 * cfg.d_model * cfg.vocab_size, tag="compute")
+        trace.ttft = clock.t - t_start
+        logits = yield from self._decode_phase(decode_tokens, clock, trace, logits, s,
+                                               resident, kv_suffix)
+        self._sweep_data()
+        return logits
+
+    def _gather_tokens(self, layer: int, tokens: np.ndarray):
+        """Token-granular gather out of the loaded blocks (the re-assembly the
+        paper's Fig. 13 notes alignment removes): (k_sel, v_sel, valid) of
+        shape (bucket(n_tok), 1, n_kv, d) float16, zero past the tokens.
+
+        The JAX engine copies token by token; this copies each block's
+        selected tokens with one indexed read (``tokens`` is ascending), so
+        the arrays hold the same bytes."""
+        tokens = np.asarray(tokens)
+        nb = bucket_size(max(len(tokens), 1))
+        valid = np.zeros((nb,), bool)
+        valid[: len(tokens)] = True
+        layout = self.session.store.layout
+        g = layout.geom
+        k_sel = np.zeros((nb, 1, g.n_kv_heads, g.d_head), np.float16)
+        v_sel = np.zeros_like(k_sel)
+        blk = tokens // layout.unit_tokens
+        for b in np.unique(blk):
+            idx = np.flatnonzero(blk == b)
+            rec = self._unit_data(layer, int(b))  # (B, 2, n_kv, d)
+            off = tokens[idx] - b * layout.unit_tokens
+            k_sel[idx, 0] = rec[off, 0]
+            v_sel[idx, 0] = rec[off, 1]
+        return k_sel, v_sel, valid
+
+
+class ASLRUEngine(_EngineBase):
+    """AttentionStore: the whole prefix KV streamed in blocks (budget 1.0 by
+    construction), every layer's blocks submitted up front, an LRU cache.
+    Part B takes the blocks whole, a block a chunk, so read amplification is
+    1.0 by construction. (The JAX package derives it from the token
+    baselines' class and overrides their flow; here it shares only the
+    engines' machinery.)"""
+
+    name = "as_lru"
+
+    def __init__(self, session, backend, executor, *, device_cap=0, host_cap=0,
+                 device_tail_pool: bool = True):
+        super().__init__(session, backend, executor, LRUCache(device_cap, host_cap),
+                         budget=1.0, device_tail_pool=device_tail_pool)
+
+    def _steps(self, suffix_tokens, clock, trace, decode_tokens=0):
+        be, cfg = self.backend, self.cfg
+        prefix_len = self.session.prefix_len
+        layout = self.session.store.layout
+        s = len(suffix_tokens)
+        t_start = clock.t
+        kv_suffix: Dict[int, Tuple] = {}
+        h = yield ComputeOp(lambda: be.embed(suffix_tokens),
+                            flops=2.0 * s * cfg.d_model, tag="compute")
+        handles: Dict = {}
+        blocks = list(range(layout.n_units))
+        # AS prefetches all layers' KV up front (full cache streaming)
+        for l in range(cfg.n_layers):
+            self._submit_units(l, blocks, trace, handles)
+        fl, hb = self._cost_part_b(s, prefix_len + s)
+        for l in range(cfg.n_layers):
+            x, q, k_suf, v_suf = yield ComputeOp(
+                lambda hh=h, ll=l: be.part_a(ll, hh, prefix_len),
+                flops=self._cost_part_a(s), tag="compute")
+            yield from self._wait_keys(l, blocks, handles, trace, "kv_io", clock)
+            k_sel, v_sel, valid = self._gather_chunks(l, blocks)
+            if decode_tokens > 0:
+                kv_suffix[l] = (k_suf, v_suf)
+            h, _ = yield ComputeOp(
+                lambda hh=h, ll=l, qq=q, ks=k_suf, vs=v_suf, k1=k_sel, v1=v_sel,
+                       vd=valid: be.part_b(ll, hh, qq, ks, vs, k1, v1, vd,
+                                           layout.unit_tokens),
+                flops=fl, hbm_bytes=hb, tag="compute")
+            self._insert_cache(l, blocks)
+        logits = yield ComputeOp(lambda hh=h: be.logits(hh),
+                                 flops=2.0 * cfg.d_model * cfg.vocab_size, tag="compute")
+        trace.ttft = clock.t - t_start
+        resident = {l: np.asarray(blocks, dtype=int) for l in range(cfg.n_layers)}
+        logits = yield from self._decode_phase(decode_tokens, clock, trace, logits, s,
+                                               resident, kv_suffix)
+        self._sweep_data()
+        return logits
+
+
+class ASH2OEngine(_BlockBaselineEngine):
+    """AS + H2O token selection with full-width probe keys, block loads, LFU."""
+
+    name = "as_h2o_lfu"
+
+    def __init__(self, session, backend, executor, *, budget=0.25, device_cap=0,
+                 host_cap=0, device_tail_pool: bool = True):
+        super().__init__(session, backend, executor, LFUCache(device_cap, host_cap),
+                         budget=budget, device_tail_pool=device_tail_pool)
+
+
+class IMPRESSEngine(_BlockBaselineEngine):
+    """IMPRESS: partial-key probing, token selection, block loads, the
+    score-based cache and the next layer's probe prefetched."""
+
+    name = "impress"
+    probe_ratio = 0.125  # partial keys; calibrated so probe cost ~= ours (§5 note)
+    probe_prefetch = True
+
+    def __init__(self, session, backend, executor, *, budget=0.25, device_cap=0,
+                 host_cap=0, device_tail_pool: bool = True):
+        super().__init__(session, backend, executor, ImpressScoreCache(device_cap, host_cap),
+                         budget=budget, device_tail_pool=device_tail_pool)
 
 
 # ---------------------------------------------------------------------------

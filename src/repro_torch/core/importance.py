@@ -29,6 +29,17 @@ def token_attention_scores(q: torch.Tensor, k: torch.Tensor, *,
     return probs.sum(dim=(0, 1, 2))  # (sk,)
 
 
+def chunk_scores_from_token_scores(a: torch.Tensor, chunk_tokens: int) -> torch.Tensor:
+    """A_j = sum of a_i within chunk j (Eq. 1). a: (n,) -> (m,); a partial
+    last chunk is padded with zeros."""
+    n = a.shape[0]
+    m = -(-n // chunk_tokens)
+    pad = m * chunk_tokens - n
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad))
+    return a.reshape(m, chunk_tokens).sum(dim=-1)
+
+
 def select_topk_chunks(scores: np.ndarray, budget_ratio: float) -> np.ndarray:
     """Top ceil(budget*m) chunk ids, ascending order (for I/O coalescing)."""
     m = scores.shape[0]

@@ -27,7 +27,8 @@
 // value is a normal float16). Split-TF32 m16n8k8 products instead take
 // twice the mma instructions, and every warp converts each key element to
 // TF32: in the same kernel otherwise, the split pass took 0.032 ms against
-// 0.018 ms (H100 80GB HBM3, 700 W; scripts/chunk_score_variants.py). The
+// 0.018 ms (H100 80GB HBM3, 700 W; scripts/chunk_score_variants.py as of
+// commit 2d48249, which patched a copy of this file). The
 // softmax runs in log2 units (ex2.approx of logit * log2 e).
 // ref.chunk_score_split_ref repeats this arithmetic and the split
 // decomposition below in plain torch.
@@ -54,8 +55,11 @@
 //      chunk; the last CTA to finish (an int32 arrival counter) sums those
 //      partials, kv head by kv head and rows in order, into the (m,) output.
 // Any n is accepted: the ragged last key tile and the partial last chunk are
-// masked (the TPU kernel asserted n % block_k == 0); d is any multiple of 8
-// up to 128 (zero-padded to 128 in registers and shared memory), c up to 64.
+// masked (the TPU kernel asserted n % block_k == 0); d is any width up to 128
+// (zero-padded to 128 in registers and shared memory), c up to 64. A d that
+// is not a multiple of 8 (IMPRESS's partial keys, the first d / 8 dims of a
+// head narrower than 64) leaves its rows off 16-byte boundaries, so q and the
+// keys are then read element by element; every other d takes 16-byte loads.
 // d = 128 with c = 16 (the main path) is compiled with its chunk loop
 // unrolled; other shapes take a generic instance.
 #include "common.cuh"
@@ -136,15 +140,24 @@ static __global__ void __launch_bounds__(CS_NT, CS_CTAS_PER_SM) chunk_score_kern
   const int m = (n + c - 1) / c, n_tiles = (n + bk - 1) / bk;
   const int tile_lo = sp * tps, tile_hi = min(n_tiles, tile_lo + tps);
 
+  // rows of a d that is not a multiple of 8 are not 16-byte aligned
+  const bool vec = FAST || d % 8 == 0;
   // keys [t0, t0 + nk) of kv head h into buffer `buf`; zeros past nk and past d
   auto fetch = [&](int tile, int buf) {
     __half* dst = kbuf + buf * CS_KEYS * CS_KLD;
     const int t0 = tile * bk, nk = min(bk, n - t0);
     for (int i = tid; i < CS_KEYS * (CS_D / 8); i += CS_NT) {
       const int kk = i / (CS_D / 8), e = (i % (CS_D / 8)) * 8;
-      const bool ok = kk < nk && e < d;
-      cp_async16_zfill(dst + kk * CS_KLD + e,
-                       ok ? k + ((size_t)(t0 + kk) * n_kv + h) * d + e : k, ok);
+      const __half* src = k + ((size_t)(t0 + kk) * n_kv + h) * d + e;
+      if (vec) {
+        const bool ok = kk < nk && e < d;
+        cp_async16_zfill(dst + kk * CS_KLD + e, ok ? src : k, ok);
+      } else {  // element loads, stored as one 16-byte word (visible after the barrier)
+        __align__(16) __half w[8];
+#pragma unroll
+        for (int x = 0; x < 8; ++x) w[x] = kk < nk && e + x < d ? src[x] : __float2half(0.f);
+        *reinterpret_cast<uint4*>(dst + kk * CS_KLD + e) = *reinterpret_cast<const uint4*>(w);
+      }
     }
     cp_async_commit_group();
   };
@@ -166,8 +179,12 @@ static __global__ void __launch_bounds__(CS_NT, CS_CTAS_PER_SM) chunk_score_kern
       float mx = 0.f;
 #pragma unroll
       for (int gr = 0; gr < 4; ++gr) {
-        if (r < rows && 32 * gr + 8 * t < d) {
+        if (r < rows && 32 * gr + 8 * t < d && vec) {
           load8<TQ>(src + 32 * gr, v[i][gr]);
+        } else if (r < rows && 32 * gr + 8 * t < d) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            v[i][gr][e] = 32 * gr + 8 * t + e < d ? to_f32(src[32 * gr + e]) : 0.f;
         } else {
 #pragma unroll
           for (int e = 0; e < 8; ++e) v[i][gr][e] = 0.f;
@@ -437,7 +454,7 @@ struct CsLayout {
 };
 
 static cudaError_t cs_layout(int s, int n_q, int n_kv, int n, int d, int c, CsLayout* L) {
-  if (d % 8 || d > CS_D || d < 8 || c < 1 || c > CS_KEYS || s < 1 || n < 1 || n_kv < 1 ||
+  if (d > CS_D || d < 1 || c < 1 || c > CS_KEYS || s < 1 || n < 1 || n_kv < 1 ||
       n_q % n_kv)
     return cudaErrorInvalidValue;
   int dev = 0, sms = 0;
@@ -518,7 +535,7 @@ extern "C" long long ckv_chunk_score_work_floats(int s, int n_q, int n_kv, int n
 // q (s, n_q, d) in q_dtype; k (n, n_kv, d) float16; out (ceil(n / c),) float32.
 // work: float32 scratch of work_floats >= ckv_chunk_score_work_floats(...)
 // (cudaErrorInvalidValue otherwise); counters: one int32, zero before the
-// launch and zero again after it. d a multiple of 8, at most 128; c <= 64.
+// launch and zero again after it. d at most 128; c <= 64.
 extern "C" int ckv_chunk_score(const void* q, const void* k, float* out, float* work,
                                long long work_floats, int* counters, int s, int n_q, int n_kv,
                                int n, int d, int c, int q_dtype, void* stream) {

@@ -22,7 +22,8 @@ def chunk_score(q: torch.Tensor, k: torch.Tensor, chunk_tokens: int) -> torch.Te
     """ContiguousChunk scores (Eq. 1): (ceil(n / c),) float32.
 
     q: (s, n_q, d) float32/bfloat16/float16 suffix queries;
-    k: (n, n_kv, d) float16 prefix (probe) keys; any n, any c <= 64."""
+    k: (n, n_kv, d) float16 prefix (probe) keys; any n, any d <= 128 (a
+    partial-key probe passes the first d dims of q and k), any c <= 64."""
     global launches
     if B.on_cpu(q, k):
         return chunk_score_ref(q, k, chunk_tokens)
@@ -31,7 +32,7 @@ def chunk_score(q: torch.Tensor, k: torch.Tensor, chunk_tokens: int) -> torch.Te
     s, n_q, d = q.shape
     n, n_kv, dk = k.shape
     c = int(chunk_tokens)
-    if dk != d or d > B.MAX_HEAD_DIM or d % 8 or n_q % n_kv or n < 1 or s < 1:
+    if dk != d or d > B.MAX_HEAD_DIM or n_q % n_kv or n < 1 or s < 1:
         raise ValueError(f"chunk_score: unsupported shapes q {tuple(q.shape)} k {tuple(k.shape)}")
     if not 1 <= c <= 64:
         raise ValueError(f"chunk_score: chunk_tokens {c} not in [1, 64]")

@@ -65,6 +65,10 @@ def _close(a, b, rel=1e-5):
     (33, 14, 2, 20000, 128, 16),   # group 7, ~32 splits of 10 key tiles
     (8, 7, 1, 5000, 40, 1),        # group 7, c = 1: a split per key tile, d padded
     (12, 4, 2, 500, 32, 24),       # c not dividing the 64-key tile
+    (64, 28, 4, 4096, 128, 1),     # the token baselines' token scores (AS-H2O)
+    (64, 28, 4, 4096, 16, 1),      # IMPRESS's partial keys: d 16, one k-step
+    (16, 4, 1, 100, 2, 1),         # the reduced model's IMPRESS probe: 2 dims, element loads
+    (24, 14, 2, 700, 44, 16),      # d not a multiple of 8 over two 32-dim groups
 ])
 def test_chunk_score(dev, qdtype, s, nq, nkv, n, d, c):
     q, k = _rand(dev, 0, (s, nq, d), qdtype), _rand(dev, 1, (n, nkv, d), torch.float16)
@@ -221,11 +225,12 @@ def test_chunk_attention_edges(dev, qdtype, s, n_valid):
 
 
 @pytest.mark.parametrize("c,group,d,nb", [(24, 5, 64, 7), (64, 1, 128, 64), (5, 7, 32, 7),
-                                          (64, 7, 128, 64)])
+                                          (64, 7, 128, 64), (1, 7, 128, 1024)])
 def test_chunk_attention_chunk_sizes_and_splits(dev, c, group, d, nb):
     """Chunk sizes that do not divide the 64-key tile, narrow heads, and the
     split layouts the kernel picks: one key tile for each of 64 splits (a
-    single row tile), and three tiles per split with a ragged last one."""
+    single row tile), and three tiles per split with a ragged last one; and
+    the token baselines' part B, a token a chunk over 1023 valid of 1024."""
     s, nkv = 40, 2
     q = _rand(dev, 40, (s, group * nkv, d))
     ks, vs = (_rand(dev, i, (nb, c, nkv, d), torch.float16) for i in (41, 42))
@@ -277,8 +282,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = _rand(dev, 0, (4, 4, 32))
     with pytest.raises(TypeError):
         cs_ops.chunk_score(q, _rand(dev, 1, (40, 2, 32)), 16)  # keys must be float16
-    with pytest.raises(ValueError):
-        cs_ops.chunk_score(q[:, :, :30].contiguous(), _rand(dev, 1, (40, 2, 30), torch.float16), 16)
+    with pytest.raises(ValueError):  # d past 128
+        cs_ops.chunk_score(_rand(dev, 0, (4, 4, 136)), _rand(dev, 1, (40, 2, 136), torch.float16),
+                           16)
     flat = _rand(dev, 1, (40 * 2 * 32 + 1,), torch.float16)
     with pytest.raises(ValueError):  # one element off a 16-byte boundary
         cs_ops.chunk_score(q, flat[1:].view(40, 2, 32), 16)
@@ -317,6 +323,50 @@ def test_engine_on_the_card_matches_the_cpu(dev):
     (lc, tc), (lg, tg) = runs["cpu"], runs["cuda"]
     for l, sel in tc.selected_per_layer.items():
         np.testing.assert_array_equal(tg.selected_per_layer[l], sel)
+    assert tg.decode_tokens_out == tc.decode_tokens_out
+    np.testing.assert_allclose(lg, lc, rtol=0, atol=1e-3 * np.abs(lc).max())
+
+
+@pytest.mark.parametrize("name", ["as_lru", "as_h2o_lfu", "impress"])
+def test_baseline_engines_on_the_card_match_the_cpu(dev, name):
+    """The baselines at reduced float32 size on a coarse session of 32-token
+    blocks: on the card, through chunk_score at one token a chunk (IMPRESS's
+    2-dim partial keys included), chunk_attention at one token or one block a
+    chunk and decode_attention over the resident blocks, each engine selects
+    the same tokens and decodes the same greedy tokens as on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.backends import RealCompute
+    from repro_torch.core.engine import ASH2OEngine, ASLRUEngine, IMPRESSEngine
+    from repro_torch.core.session import build_real_session
+    from repro_torch.models.transformer import init_params
+    from repro_torch.storage.timing import RealExecutor
+
+    cls = {"as_lru": ASLRUEngine, "as_h2o_lfu": ASH2OEngine, "impress": IMPRESSEngine}[name]
+    cfg = dataclasses.replace(reduced_config("qwen2.5-7b", n_layers=4), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    prefix, suffix = rng.integers(0, cfg.vocab_size, 100), rng.integers(0, cfg.vocab_size, 16)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        p = params if device == "cpu" else {
+            k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict) else v.to(dev))
+            for k, v in params.items()}
+        sess = build_real_session(cfg, p, prefix, coarse_blocks=True, block_tokens=32,
+                                  in_memory=True, device=device)
+        eng = cls(sess, RealCompute(cfg, p, device=device), RealExecutor())
+        counts = (cs_ops.launches, ca_ops.launches, da_ops.launches)
+        runs[device] = eng.reprefill(suffix, decode_tokens=8)
+        counts = tuple(after - before for after, before in
+                       zip((cs_ops.launches, ca_ops.launches, da_ops.launches), counts))
+        expect = (0 if name == "as_lru" else 4, 4, 32)
+        assert counts == ((0, 0, 0) if device == "cpu" else expect)
+    (lc, tc), (lg, tg) = runs["cpu"], runs["cuda"]
+    assert sorted(tg.selected_per_layer) == sorted(tc.selected_per_layer)
+    for l, sel in tc.selected_per_layer.items():
+        np.testing.assert_array_equal(tg.selected_per_layer[l], sel)
+    assert tg.read_amplification == tc.read_amplification
     assert tg.decode_tokens_out == tc.decode_tokens_out
     np.testing.assert_allclose(lg, lc, rtol=0, atol=1e-3 * np.abs(lc).max())
 
