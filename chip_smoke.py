@@ -25,6 +25,11 @@ non-zero exit code:
                 IMPRESS's partial keys), chunk_attention at one token a
                 chunk over 1024 (and 4096) tokens and at one 64-token block
                 a chunk over 64 blocks, decode_attention over 66 pages of 64;
+                decode_attention's pools form (b = 4 ragged per-request pools,
+                16- and 64-token pages, bfloat16 and float32) against its plain
+                version and bit for bit against the stacked form on the padded
+                stack, timed beside the stacked call and the pad-and-stack it
+                saves;
   3. e2e      — ContiguousKV Re-Prefill then decode on full-width
                 Qwen2.5-7B (28 layers, random bfloat16 weights from a seeded
                 generator on the card): ingest a 4096-token prefix (through
@@ -53,7 +58,18 @@ non-zero exit code:
                 IMPRESS request as above; print each engine's TTFT and TPOT
                 and their TTFT beside ContiguousKV's (this card's in-memory
                 store: a record, not the paper's SSD-bound comparison);
-  5. state    — flash_attention (hymba prefill, dense ingest, ragged s,
+  5. serve    — the Scheduler on the dense phase's weights and session: 8
+                requests of a 64-token suffix and 16 decode tokens, all
+                arriving at 0, FCFS, chunk caches of size 0: (a) c = 4 with
+                batched decode (the pools form, one launch per layer per
+                batched step), (b) c = 4 unbatched, (c) c = 1, (d) c = 1 with
+                SLO preemption and pool swap; (c) and the preempted request
+                bit for bit against drive_serial, (a) against (b) (first-token
+                logits bit for bit, the first decode step within the dense
+                limits), launches by form, no plain version, no pool-sized
+                host-to-device copy in (a)'s decode (the torch meter); TTFT,
+                TPOT, inter-token latency, tokens/s, batch size, peak memory;
+  6. state    — flash_attention (hymba prefill, dense ingest, ragged s,
                 window, q_offset) and selective_scan (hymba and falcon-mamba
                 prefill, a ragged s, resumes from the carried state at a
                 chunk boundary and a ragged cut, decode at b = 1 and 2)
@@ -68,12 +84,12 @@ non-zero exit code:
                 wrapper's counts per variant); decode's logits held
                 against a prefill over the same tokens; then one request on
                 full-width falcon-mamba-7b (64 layers, attention-free);
-  6. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
+  7. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
      paths it names (per variant where a wrapper has several), its error
      against its plain version, its times and its bound (the largest of
      bytes, products and exponentials, named), at the main path's shapes
      and (``baseline_shapes``) at the baselines';
-  7. last line: ``{"ok": true, "device": {...}}``.
+  8. last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
 outside a checkout (it builds and imports ``src/repro_torch``).
@@ -138,6 +154,10 @@ SCAN_REL = 1e-5
 # float32 copies of the same weights, where both sides compute in float32
 # and a wrong state would show far above rounding: the dense check's limits.
 STEP_REL_TOL, STEP_MIN_COS = DENSE_REL_TOL, DENSE_MIN_COS
+# the serve phase: requests, and its preemption scenario's tight TTFT target
+# (seconds) and prefill-time floor, which make the urgent request project a
+# miss whatever the EWMA reads
+SERVE_REQUESTS, SERVE_TTFT_TARGET, SERVE_PREFILL_FLOOR = 8, 1e-6, 10.0
 # The same check as served, in bfloat16: both sides round every op to
 # bfloat16 through 32 layers in different orders (GEMV against GEMM, the
 # decode's bfloat16 scores against flash_attention's float32 ones, decode's
@@ -264,12 +284,14 @@ def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def phase_device():
+def phase_device() -> str:
+    """Prints and returns the card's name and power limit (nvidia-smi)."""
     global EXP_PER_S
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(smi_line)
     clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                           "--format=csv,noheader,nounits"], capture_output=True, text=True,
                          check=True, timeout=60)
@@ -286,6 +308,7 @@ def phase_device():
     lib = B.build()
     B.library()
     print(f"device: build of {lib.name} took {time.perf_counter() - t0:.2f} s")
+    return smi_line
 
 
 def phase_kernels(cfg):
@@ -565,6 +588,350 @@ def decode_attention_timing(q, kp, vp, table, lens, o, pm, err) -> dict:
                 sdpa_output_only_ms=device_ms(sdpa),
                 bound=bounds(nbytes(q, o, pm, table, lens) + 2 * L * nkv * d * kp.element_size(),
                              4.0 * nq * d * L, nq * L))
+
+
+def phase_pools_kernels(cfg):
+    """decode_attention's pools form at b = 4 over ragged per-request pools:
+    16-token pages at the dense path's shapes (each pool its 64 resident
+    chunk pages and up to 5 tail pages, as the serve phase's batched steps
+    give them) and 64-token pages (the baselines' blocks), bfloat16 as
+    served and float32. Each case against its plain version at the main
+    path's tolerances and bit for bit against the stacked kernel on the
+    zero-padded stack at the same table width; timed beside the stacked call
+    and the plain pad-and-stack the pools form saves. The timed call takes
+    its pointer block already on the card, as the batched decode step gives
+    it (one upload a step for every layer); a call that uploads its own
+    block (from pageable host memory, which waits for the stream) is timed
+    on the host beside it. Returns {case: numbers}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.decode_attention.ops import (PoolPointers, decode_attention,
+                                                          decode_attention_pools, pool_pointers)
+    from repro_torch.kernels.decode_attention.ref import (decode_attention_pools_ref,
+                                                          stack_pool_buffers)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    nq, nkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    n_res = math.ceil(BUDGET * (PREFIX_LEN // CHUNK))
+    cap = -(-(SUFFIX_LEN + DECODE_TOKENS) // CHUNK)
+    cases = {  # page: (pages of each pool, table slots in use)
+        CHUNK: ([n_res + cap, n_res + cap, n_res + cap - 3, n_res + cap - 9],
+                [n_res + cap - 1, n_res + cap, n_res + cap - 4, n_res + cap - 9]),
+        BLOCK: ([66, 66, 60, 50], [66, 65, 60, 49]),
+    }
+    out = {}
+    for page, (n_pages, n_active) in cases.items():
+        width = max(n_pages)
+        for dtype in (torch.bfloat16, torch.float32):
+            def rn(*shape):
+                return torch.randn(shape, generator=gen, device=dev).to(dtype)
+            q = rn(4, nq, d)
+            ks = [rn(n, page, nkv, d) for n in n_pages]
+            vs = [rn(n, page, nkv, d) for n in n_pages]
+            tbl = torch.full((4, width), -1, dtype=torch.int32, device=dev)
+            for i, n in enumerate(n_active):
+                tbl[i, :n] = torch.arange(n, dtype=torch.int32, device=dev)
+            lens = torch.tensor([(n - 1) * page + 1 + 5 * i for i, n in enumerate(n_active)],
+                                dtype=torch.int32, device=dev)
+            o, pm = decode_attention_pools(q, ks, vs, tbl, lens)
+            o2, pm2 = decode_attention_pools_ref(q, ks, vs, tbl, lens)
+            rel_o = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+            err_o, tol_o = max_err(o, o2), rel_o * o2.float().abs().max().item() + 1e-6
+            err_m, tol_m = max_err(pm, pm2), 1e-5 * pm2.abs().max().item() + 1e-7
+            if not (err_o <= tol_o and err_m <= tol_m):
+                fail(f"decode_attention_pools page {page} {dname(q)}: err out {err_o} > {tol_o} "
+                     f"or mass {err_m} > {tol_m}")
+            if pm[tbl[:, None, :].expand_as(pm) < 0].abs().max().item() != 0.0:
+                fail(f"decode_attention_pools page {page}: mass on a pad slot")
+            kp, vp = stack_pool_buffers(ks, vs)
+            os_, pms = decode_attention(q, kp, vp, tbl, lens)
+            again = decode_attention_pools(q, ks, vs, tbl, lens)
+            if not (torch.equal(o, os_) and torch.equal(pm, pms) and torch.equal(o, again[0])
+                    and torch.equal(pm, again[1])):
+                fail(f"decode_attention_pools page {page} {dname(q)}: not bit-identical to the "
+                     f"stacked kernel on the padded stack, or to itself")
+            L = int(lens.sum().item())
+            host = pool_pointers(ks, vs)
+            ptrs = PoolPointers(host, torch.from_numpy(host).to(dev))
+            r = dict(err=max(err_o, err_m),
+                     ms=device_ms(lambda: decode_attention_pools(q, ks, vs, tbl, lens, ptrs)),
+                     stacked_ms=device_ms(lambda: decode_attention(q, kp, vp, tbl, lens)),
+                     pad_stack_ms=device_ms(lambda: stack_pool_buffers(ks, vs)),
+                     host_ms=host_ms(lambda: decode_attention_pools(q, ks, vs, tbl, lens, ptrs)),
+                     own_upload_wall_ms=wall_ms(
+                         lambda: decode_attention_pools(q, ks, vs, tbl, lens)),
+                     plain_ms=wall_ms(lambda: decode_attention_pools_ref(q, ks, vs, tbl, lens)),
+                     library_ms=None,
+                     # each valid token's K and V read once, q, the table,
+                     # lengths and the pointer block read, out and mass written
+                     bound=bounds(nbytes(q, o, pm, tbl, lens) + 3 * 4 * 8
+                                  + 2 * L * nkv * d * q.element_size(), 4.0 * nq * d * L, nq * L))
+            out[f"page{page}_b4_{dname(q)}"] = r
+            print(f"kernels: decode_attention_pools b=4 page {page} {dname(q)} pools of "
+                  f"{n_pages} pages, {n_active} slots in use: max abs err out {err_o:.3g} (tol "
+                  f"{tol_o:.3g}), mass {err_m:.3g} (tol {tol_m:.3g}); bit-identical to the "
+                  f"stacked kernel on the padded stack; {r['ms']:.4f} ms on the card, stacked "
+                  f"call {r['stacked_ms']:.4f} ms + its pad-and-stack {r['pad_stack_ms']:.4f} ms,"
+                  f" plain version {r['plain_ms']:.4f} ms, {bound_text(r['bound'])}, host time "
+                  f"per call {r['host_ms']:.4f} ms (a call uploading its own pointer block: "
+                  f"{r['own_upload_wall_ms']:.4f} ms to a synchronize), library call: none "
+                  f"returns per-page mass")
+    return out
+
+
+def _tap(gen, rec, vocab):
+    """Forward a plan's generator, recording the first-token logits (the one
+    (1, 1, vocab) array sent to it) and the first decode step's logits."""
+    import numpy as np
+
+    send = None
+    while True:
+        try:
+            op = gen.send(send)
+        except StopIteration as stop:
+            return stop.value
+        send = yield op
+        if "first" not in rec:
+            if isinstance(send, np.ndarray) and send.shape == (1, 1, vocab):
+                rec["first"] = send
+        elif ("step1" not in rec and isinstance(send, tuple) and len(send) == 2
+              and isinstance(send[1], dict)):
+            rec["step1"] = send[0]
+
+
+def _tapped(eng, vocab):
+    """Have ``eng.plan`` tap every plan; returns {request_id: taps}."""
+    taps = {}
+    plan = eng.plan
+
+    def tapped(suffix, request_id=0, decode_tokens=0):
+        p = plan(suffix, request_id, decode_tokens=decode_tokens)
+        p.gen = _tap(p.gen, taps.setdefault(request_id, {}), vocab)
+        return p
+
+    eng.plan = tapped
+    return taps
+
+
+def phase_serve(cfg, ctx, smi_line):
+    """The Scheduler on the dense phase's weights and 4096-token session
+    (budget 0.25, period 8, subperiod 4, caches of size 0, so every run is
+    independent of history): SERVE_REQUESTS requests of a 64-token suffix and
+    16 decode tokens, all arriving at 0, FCFS. (a) c = 4 batched, (b) c = 4
+    unbatched, (c) c = 1, (d) c = 1 with SLO preemption and pool swap, held
+    as the module docstring says. Returns {kernel: {path: launches}}."""
+    from repro_torch.kernels.chunk_attention import ops as ca
+    from repro_torch.kernels.chunk_score import ops as cs
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.selective_scan import ops as ss
+
+    ops = {"chunk_score": cs, "chunk_attention": ca, "decode_attention": da,
+           "flash_attention": fa, "selective_scan": ss}
+    # every plain version a wrapper could run, counted for the phase
+    plain_calls = {}
+    saved = {(mod, n): getattr(mod, n) for mod in ops.values() for n in vars(mod)
+             if n.endswith("_ref")}
+    for (mod, name), f in saved.items():
+        def counted(*a, _f=f, _n=name, **kw):
+            plain_calls[_n] = plain_calls.get(_n, 0) + 1
+            return _f(*a, **kw)
+        setattr(mod, name, counted)
+    try:
+        return _serve_runs(cfg, ctx, smi_line, ops, plain_calls)
+    finally:
+        for (mod, name), f in saved.items():
+            setattr(mod, name, f)
+
+
+def _serve_runs(cfg, ctx, smi_line, ops, plain_calls):
+    import numpy as np
+    import torch
+
+    from repro_torch.core.backends import DeviceTailPool, RealCompute
+    from repro_torch.core.engine import ContiguousKVEngine
+    from repro_torch.serving import Request, Scheduler, summarize
+    from repro_torch.storage.h2d_meter import H2DMeter
+    from repro_torch.storage.timing import RealExecutor
+
+    L, V = cfg.n_layers, cfg.vocab_size
+    params, sess = ctx["params"], ctx["sess"]
+    rng = np.random.default_rng(7)
+    suffixes = [rng.integers(0, V, SUFFIX_LEN) for _ in range(SERVE_REQUESTS)]
+
+    def engine():
+        return ContiguousKVEngine(sess, RealCompute(cfg, params, device=DEVICE), RealExecutor(),
+                                  budget=BUDGET, period=PERIOD, subperiod=SUBPERIOD)
+
+    # drive_serial, the reference of (c) and (d)
+    eng = engine()
+    ref_taps = _tapped(eng, V)
+    refs = [eng.reprefill(sfx, request_id=i, decode_tokens=DECODE_TOKENS)
+            for i, sfx in enumerate(suffixes)]
+    eng.ex.shutdown()
+    pool_bytes = 2 * (len(refs[0][1].selected_per_layer[0]) + -(-(SUFFIX_LEN + DECODE_TOKENS)
+                                                                // CHUNK)) \
+        * CHUNK * cfg.n_kv_heads * cfg.d_head * 2  # K and V of one layer's pool, bfloat16
+
+    def serve(label, max_c, batch=True, n=SERVE_REQUESTS, preempt=False, meter=False):
+        eng = engine()
+        taps = _tapped(eng, V)
+        transfers = []
+        if meter:  # the decode steps' host-to-device transfers, by the torch meter
+            be = eng.backend
+            for name in ("decode_step_batch", "decode_attend"):
+                def metered(*a, _f=getattr(be, name), **kw):
+                    with H2DMeter(DEVICE) as m:
+                        out = _f(*a, **kw)
+                    transfers.extend(m.transfers)
+                    return out
+                setattr(be, name, metered)
+        reqs = [Request(request_id=i, suffix=suffixes[i], decode_tokens=DECODE_TOKENS,
+                        ttft_target=SERVE_TTFT_TARGET if preempt and i == 1 else None)
+                for i in range(n)]
+        sched = Scheduler(eng, policy="fcfs", max_concurrency=max_c, batch_decode=batch,
+                          preempt=preempt, swap_on_preempt=preempt,
+                          prefill_estimate=SERVE_PREFILL_FLOOR if preempt else None)
+        reset_counts(*ops.values())
+        plain_calls.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        done = sched.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stage_ms = {k: round(v * 1e3, 1) for k, v in eng.ex.stage_times.items()}
+        eng.ex.shutdown()
+        got = {k: counts(mod) for k, mod in ops.items()}
+        if len(done) != n or [c.request.request_id for c in done] != list(range(n)):
+            fail(f"serve {label}: {len(done)} of {n} requests completed")
+        for c in done:
+            toks = c.trace.decode_tokens_out
+            if (c.result.shape != (1, 1, V) or not np.isfinite(c.result).all()
+                    or len(toks) != DECODE_TOKENS or not all(0 <= t < V for t in toks)):
+                fail(f"serve {label} request {c.request.request_id}: bad output")
+        if plain_calls:
+            fail(f"serve {label}: plain versions ran on the card: {plain_calls}")
+        s = summarize(done)
+        sizes = [len(m) for m in sched.real_batch_log]
+        s.update(mean_batch=float(np.mean(sizes)) if sizes else 1.0,
+                 batched_iterations=len(sizes), wall_s=wall,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        print(f"serve {label}: {n} requests, p50 TTFT {s['p50_ttft'] * 1e3:.2f} ms, p95 TTFT "
+              f"{s['p95_ttft'] * 1e3:.2f} ms, mean TPOT {s['mean_tpot'] * 1e3:.3f} ms, p95 ITL "
+              f"{s['p95_itl'] * 1e3:.3f} ms, {s['decode_tok_rate']:.2f} decode tokens/s, goodput "
+              f"{s['goodput_rps']:.3f} req/s, makespan {s['makespan']:.3f} s, mean batch "
+              f"{s['mean_batch']:.2f} over {len(sizes)} batched iterations, peak device memory "
+              f"{s['peak_gib']:.2f} GiB, wall {wall:.3f} s of which compute ops ms by tag "
+              f"{stage_ms}, launches {got} ({smi_line})")
+        return done, sched, taps, got, s, transfers
+
+    paths = {}
+
+    def record(label, got):
+        for k, c in got.items():
+            if c["launches"]:
+                paths.setdefault(k, {})[f"serve {label}"] = c
+
+    # (a) batched, (b) unbatched, both metered alike
+    done_a, sched_a, taps_a, got_a, s_a, tr_a = serve("(a) c=4 batched", 4, meter=True)
+    done_b, _, taps_b, got_b, s_b, _ = serve("(b) c=4 unbatched", 4, batch=False, meter=True)
+    record("(a) c=4 batched", got_a)
+    record("(b) c=4 unbatched", got_b)
+    batches = sched_a.real_batch_log
+    if not batches or min(len(m) for m in batches) < 2:
+        fail(f"serve (a): batched iterations {[len(m) for m in batches]}")
+    members = sum(len(m) for m in batches)
+    want = {"pools": len(batches) * L,
+            "stacked": (SERVE_REQUESTS * DECODE_TOKENS - members) * L}
+    by_form = {k: got_a["decode_attention"].get(k, 0) for k in want}
+    if by_form != want:
+        fail(f"serve (a): decode_attention launches by form {by_form}, expected {want}")
+    if got_b["decode_attention"].get("pools", 0):
+        fail("serve (b): the pools form ran without batching")
+    if not tr_a or max(n for _, n in tr_a) >= pool_bytes // 2:
+        fail(f"serve (a): a decode-step host-to-device copy of {max(n for _, n in tr_a)} B, "
+             f"not below one {pool_bytes // 2} B pool buffer")
+    steps = SERVE_REQUESTS * DECODE_TOKENS
+    print(f"serve (a): {len(batches)} batched iterations of {[len(m) for m in batches]} "
+          f"members; decode_attention launches by form {by_form}; decode steps' "
+          f"host-to-device transfers by the torch meter: {len(tr_a)}, largest "
+          f"{max(n for _, n in tr_a)} B, {sum(n for _, n in tr_a) / steps:.0f} B a decode token "
+          f"(one pool buffer {pool_bytes // 2} B)")
+    agree = 0
+    worst = (0.0, 1.0)
+    for i in range(SERVE_REQUESTS):
+        ta, tb = taps_a[i], taps_b[i]
+        if not np.array_equal(ta["first"], tb["first"]):
+            fail(f"serve request {i}: first-token logits differ between (a) and (b)")
+        rel, cos = logit_agreement(ta["step1"][0, -1], tb["step1"][0, -1])
+        worst = (max(worst[0], rel), min(worst[1], cos))
+        agree += sum(x == y for x, y in zip(done_a[i].trace.decode_tokens_out,
+                                            done_b[i].trace.decode_tokens_out))
+    if not (worst[0] <= DENSE_REL_TOL and worst[1] >= DENSE_MIN_COS):
+        fail(f"serve (a) vs (b): first decode step max err / max |logit| {worst[0]}, "
+             f"cosine {worst[1]}")
+    print(f"serve (a) vs (b): first-token logits bit-identical for all {SERVE_REQUESTS}; first "
+          f"decode step, worst request: max abs err / max |logit| {worst[0]:.4f} (tol "
+          f"{DENSE_REL_TOL}), cosine {worst[1]:.5f} (min {DENSE_MIN_COS}); greedy tokens "
+          f"agreeing {agree} of {steps}")
+
+    # (c) one at a time: drive_serial's results bit for bit
+    done_c, sched_c, taps_c, got_c, s_c, _ = serve("(c) c=1", 1)
+    record("(c) c=1", got_c)
+    for i, (c, (logits, trace)) in enumerate(zip(done_c, refs)):
+        if not (np.array_equal(c.result, logits) and np.array_equal(taps_c[i]["first"],
+                                                                    ref_taps[i]["first"])
+                and c.trace.decode_tokens_out == trace.decode_tokens_out):
+            fail(f"serve (c) request {i}: differs from drive_serial")
+    if sched_c.real_batch_log:
+        fail("serve (c): a batch formed at concurrency 1")
+    print(f"serve (c): logits, first-token logits and greedy tokens of all {SERVE_REQUESTS} "
+          f"requests bit-identical to drive_serial")
+
+    # (d) preemption with pool swap
+    legs = {"out": [], "in": []}
+    real = {"out": DeviceTailPool.swap_out, "in": DeviceTailPool.swap_in}
+
+    def leg(name):
+        def wrapped(self):
+            n = real[name](self)
+            legs[name].append(n)
+            return n
+        return wrapped
+    DeviceTailPool.swap_out, DeviceTailPool.swap_in = leg("out"), leg("in")
+    try:
+        done_d, sched_d, _, got_d, _, _ = serve("(d) c=1 preempt+swap", 1, n=2, preempt=True)
+    finally:
+        DeviceTailPool.swap_out, DeviceTailPool.swap_in = real["out"], real["in"]
+    record("(d) c=1 preempt+swap", got_d)
+    victim = done_d[0]
+    per_leg = L * pool_bytes
+    if not (sched_d.preemptions >= 1 and sched_d.swaps >= 1
+            and sum(legs["out"]) == sum(legs["in"]) == sched_d.swaps * per_leg
+            and sched_d.swap_bytes == 2 * sched_d.swaps * per_leg):
+        fail(f"serve (d): preemptions {sched_d.preemptions}, swaps {sched_d.swaps}, legs out "
+             f"{sum(legs['out'])} in {sum(legs['in'])}, swap bytes {sched_d.swap_bytes}, "
+             f"expected {per_leg} a leg")
+    if not (np.array_equal(victim.result, refs[0][0])
+            and victim.trace.decode_tokens_out == refs[0][1].decode_tokens_out):
+        fail("serve (d): the preempted request differs from its uninterrupted run")
+    print(f"serve (d): {sched_d.preemptions} preemption, {sched_d.swaps} swap of "
+          f"{per_leg / 1e6:.2f} MB a leg ({L} layers' pools, both legs counted: "
+          f"{sched_d.swap_bytes / 1e6:.2f} MB); the preempted request's logits and greedy tokens "
+          f"bit-identical to its uninterrupted run")
+    ratio = s_b["mean_tpot"] / s_a["mean_tpot"]
+    print(f"serve: (a) against (b): mean TPOT {s_a['mean_tpot'] * 1e3:.3f} vs "
+          f"{s_b['mean_tpot'] * 1e3:.3f} ms ((b) / (a) {ratio:.3f}), decode tokens/s "
+          f"{s_a['decode_tok_rate']:.2f} vs {s_b['decode_tok_rate']:.2f}, makespan "
+          f"{s_a['makespan']:.3f} vs {s_b['makespan']:.3f} s; (c) mean TPOT "
+          f"{s_c['mean_tpot'] * 1e3:.3f} ms, makespan {s_c['makespan']:.3f} s ({smi_line})")
+    numbers = {k: {m: v[m] for m in ("p50_ttft", "p95_ttft", "mean_tpot", "p95_itl",
+                                     "decode_tok_rate", "goodput_rps", "makespan", "mean_batch",
+                                     "peak_gib")}
+               for k, v in (("a", s_a), ("b", s_b), ("c", s_c))}
+    return paths, numbers
 
 
 def phase_state_kernels(hcfg, dcfg, fcfg):
@@ -1219,10 +1586,11 @@ def main() -> int:
 
     cfg = get_config("qwen2.5-7b")
     hcfg, fcfg = get_config("hymba-1.5b"), get_config("falcon-mamba-7b")
-    phase_device()
+    smi_line = phase_device()
     # the dense phases first, so their requests run in the same process
     # state as before the state-space phases existed
     rows = phase_kernels(cfg)
+    rows["decode_attention"]["pools_form"] = phase_pools_kernels(cfg)
     for name, shapes in phase_baseline_kernels(cfg).items():
         rows[name]["baseline_shapes"] = shapes
     paths, per_call, ctx = phase_e2e(cfg)
@@ -1233,6 +1601,10 @@ def main() -> int:
         paths.setdefault(name, {}).update(by_path)
     for name, k in base_per_call.items():
         rows[name]["device_kernels_per_call_impress"] = k
+    serve_paths, serve_numbers = phase_serve(cfg, ctx, smi_line)
+    for name, by_path in serve_paths.items():
+        paths.setdefault(name, {}).update(by_path)
+    rows["decode_attention"]["serve"] = serve_numbers
     del ctx
     torch.cuda.empty_cache()  # the Qwen weights went with the dense phases
     rows.update(phase_state_kernels(hcfg, cfg, fcfg))
@@ -1274,7 +1646,7 @@ def main() -> int:
                     "device_kernels_per_call_impress", "baseline_shapes", "decode_ms",
                     "decode_host_ms", "decode_bound_ms", "falcon_decode_ms",
                     "falcon_decode_host_ms", "falcon_decode_bound_ms", "dense_ingest",
-                    "falcon_prefill", "one_cta_per_sm_ms"):
+                    "falcon_prefill", "one_cta_per_sm_ms", "pools_form", "serve"):
             if key in r:
                 row[key] = r[key]
         kernels.append(row)

@@ -5,7 +5,10 @@ RealCompute runs the model layer by layer on one device (the card unless the
 caller asks for the CPU). Its three attention steps go through the port's
 kernels: identify through ``chunk_score`` (the baselines' token scores too,
 at one token a chunk), part B through
-``chunk_attention`` and decode through ``decode_attention``. StateCompute
+``chunk_attention`` and decode through ``decode_attention``: one request's
+step over its pool stacked as a batch of one, a scheduler's batched step
+(``decode_step_batch``) over b requests' own pools through the kernel's
+pools form, with no pad-and-stack copy. StateCompute
 runs the SSM and hybrid families' serve path (``transformer.prefill`` and
 ``decode_step``): their prefill attention goes through ``flash_attention``
 and every mamba recurrence through ``selective_scan``. For tensors on the
@@ -20,7 +23,7 @@ in the model dtype.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +31,9 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.chunk_attention.ops import chunk_attention
 from repro_torch.kernels.chunk_score.ops import chunk_score
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ops import (PoolPointers, decode_attention,
+                                                      decode_attention_pools, pool_pointers)
+from repro_torch.kernels.decode_attention.ref import stack_pool_buffers
 from repro_torch.models.attention import qkv_project
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import matmul, rms_norm
@@ -120,9 +125,13 @@ class TailPool:
     def valid_tokens(self) -> int:
         return self.n_res * self.page + self.t
 
-    def table(self) -> np.ndarray:
-        """Page table over the full capacity: active pages, then -1 pad slots."""
-        tbl = np.full(self.n_res + self.cap_pages, -1, np.int32)
+    def table(self, width: int = 0) -> np.ndarray:
+        """Page table padded with -1 to ``width`` (default: the full capacity):
+        active pages, then pad slots."""
+        width = width or (self.n_res + self.cap_pages)
+        if width < self.n_active:
+            raise ValueError(f"table width {width} < {self.n_active} active pages")
+        tbl = np.full(width, -1, np.int32)
         tbl[: self.n_active] = np.arange(self.n_active, dtype=np.int32)
         return tbl
 
@@ -137,6 +146,20 @@ class TailPool:
                 torch.from_numpy(self.table()[None]).to(self.device),
                 self._lengths())
 
+    @property
+    def is_resident(self) -> bool:
+        return True
+
+    def swap_out(self) -> int:
+        """Snapshot the pool to host memory; returns the bytes moved. The
+        host pool lives there already: 0 (only :class:`DeviceTailPool`
+        pays)."""
+        return 0
+
+    def swap_in(self) -> int:
+        """Restore the pool after :meth:`swap_out`; returns the bytes moved."""
+        return 0
+
 
 class DeviceTailPool(TailPool):
     """Device-resident TailPool: one upload at decode start, none after.
@@ -147,9 +170,12 @@ class DeviceTailPool(TailPool):
     indexed assignment, so no pool bytes cross PCIe again. The attend hands
     the kernel the buffers themselves (``k[None]`` is a view), re-uploads the
     page table only when ``n_active`` changes, and sends the 4-byte length.
+    ``swap_out`` / ``swap_in`` move the buffers to host memory and back (a
+    preemption frees the device memory this way) and restore them bit for
+    bit; the buffers come back at new addresses.
     """
 
-    __slots__ = ("_tbl_dev", "_tbl_n")
+    __slots__ = ("_tbl_dev", "_tbl_n", "_resident")
     is_device = True
 
     def __init__(self, k_res, v_res, kv_suffix, page: int, extra_tokens: int,
@@ -158,6 +184,12 @@ class DeviceTailPool(TailPool):
                          dtype=dtype, device=device)
         self._tbl_dev = None
         self._tbl_n = -1
+        self._resident = True
+
+    def slot(self) -> Tuple[int, int]:
+        """(page, offset) the next appended token lands in."""
+        p, s = divmod(self.t, self.page)
+        return self.n_res + p, s
 
     def device_table(self) -> torch.Tensor:
         """Device page table (1, width), uploaded again only when a page
@@ -169,6 +201,95 @@ class DeviceTailPool(TailPool):
 
     def attend_args(self):
         return self.k[None], self.v[None], self.device_table(), self._lengths()
+
+    @property
+    def is_resident(self) -> bool:
+        """False while swapped out to host memory."""
+        return self._resident
+
+    @property
+    def nbytes(self) -> int:
+        return 2 * self.k.numel() * self.k.element_size()
+
+    def swap_out(self) -> int:
+        """Move K and V to host memory (the device copies go with their last
+        reference); returns the bytes moved."""
+        if not self._resident:
+            raise RuntimeError("pool already swapped out")
+        self.k = self.k.to("cpu", copy=True)
+        self.v = self.v.to("cpu", copy=True)
+        self._resident = False
+        self._tbl_dev, self._tbl_n = None, -1
+        return self.nbytes
+
+    def swap_in(self) -> int:
+        """Move K and V back to the device; returns the bytes moved."""
+        if self._resident:
+            raise RuntimeError("pool is not swapped out")
+        self.k = self.k.to(self.device, copy=True)
+        self.v = self.v.to(self.device, copy=True)
+        self._resident = True
+        return self.nbytes
+
+
+def stack_tail_pools(pools: List[TailPool]):
+    """Pack b requests' pools into one ragged decode_attention batch:
+    (k_pool, v_pool, table, lengths), the buffers zero-padded to the common
+    page count, the tables padded with -1 to the widest capacity. Host pools
+    stack in host memory (the caller uploads), device pools on their device.
+    The batched decode step does not stack device pools: it hands them to the
+    kernel's pools form."""
+    p0 = pools[0]
+    if not all(p.k.shape[1:] == p0.k.shape[1:] and p.k.dtype == p0.k.dtype
+               and p.is_device == p0.is_device and p.is_resident for p in pools):
+        raise ValueError("a ragged batch must share one page geometry, dtype and "
+                         "residency, and every pool must be resident")
+    width = max(p.n_res + p.cap_pages for p in pools)
+    table = np.stack([p.table(width) for p in pools])
+    lengths = np.array([p.valid_tokens for p in pools], np.int32)
+    home = p0.k.device
+    k, v = stack_pool_buffers([p.k for p in pools], [p.v for p in pools])
+    return (k, v, torch.from_numpy(table).to(home), torch.from_numpy(lengths).to(home))
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _pools_control(pools: List[List["DeviceTailPool"]], device):
+    """Every layer's kernel control data for one batched decode step in one
+    upload: [(PoolPointers, table (b, width) int32, lengths (b,) int32)] per
+    layer, the width being that layer's widest pool capacity. Built from the
+    pools' current buffer addresses (a swap-in moves them), after this step's
+    token is counted into each pool."""
+    host = []
+    offsets = []
+    size = 0
+    for ps in pools:
+        width = max(p.n_res + p.cap_pages for p in ps)
+        parts = (pool_pointers([p.k for p in ps], [p.v for p in ps]),
+                 np.stack([p.table(width) for p in ps]),
+                 np.array([p.valid_tokens for p in ps], np.int32))
+        host.append(parts)
+        for a in parts:
+            offsets.append(size)
+            size += _align16(a.nbytes)
+    block = np.zeros(size, np.uint8)
+    it = iter(offsets)
+    for parts in host:
+        for a in parts:
+            o = next(it)
+            block[o: o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    dev = torch.from_numpy(block).to(device)  # the step's one upload
+    out = []
+    it = iter(offsets)
+    for ptrs, table, lengths in host:
+        views = []
+        for a, dt in ((ptrs, torch.int64), (table, torch.int32), (lengths, torch.int32)):
+            o = next(it)
+            views.append(dev[o: o + a.nbytes].view(dt).view(a.shape))
+        out.append((PoolPointers(ptrs, views[0]), views[1], views[2]))
+    return out
 
 
 class RealCompute:
@@ -244,6 +365,80 @@ class RealCompute:
 
     def logits(self, h) -> np.ndarray:
         return _logits(self.params, h[:, -1:], self.cfg).cpu().numpy()
+
+    def decode_step_batch(self, ctxs) -> List[Tuple[np.ndarray, Dict[int, np.ndarray]]]:
+        """One decode position for b requests in one batched pass.
+
+        ``ctxs`` are the :class:`repro_torch.core.stepplan.DecodeBatchCtx`
+        handles the engines stamp on their decode ops: input token, absolute
+        position and per-layer pools. Each layer runs one part A, one paged
+        decode attention and one FFN for the whole ragged batch (the tables
+        padded with -1 to the layer's widest pool, ``lengths`` masking the
+        rest), streaming the weights once. Device pools take each request's
+        token KV by an indexed write in place and go to the kernel's pools
+        form as they are; the step uploads one control block (every layer's
+        tables, lengths and pool pointers) and brings the logits and masses
+        back in one copy. Host pools append on the host, stack there and
+        upload, as :class:`TailPool` does for one request. Returns one
+        (logits (1, 1, vocab), {layer: resident-page mass}) per ctx, in
+        order: what each plan's single-request step returns."""
+        cfg = self.cfg
+        b = len(ctxs)
+        pools = [[c.pools[l] for c in ctxs] for l in range(cfg.n_layers)]
+        p0 = pools[0][0]
+        if not all(p.k.shape[1:] == p0.k.shape[1:] and p.k.dtype == p0.k.dtype
+                   and p.is_device == p0.is_device and p.is_resident
+                   for ps in pools for p in ps):
+            raise ValueError("a batched decode step takes resident pools of one page "
+                             "geometry, dtype and residency")
+        toks = torch.as_tensor(np.array([c.token for c in ctxs], np.int64), device=self.device)
+        h = self.params["embed"][toks][:, None]  # (b, 1, d_model)
+        positions = np.array([[c.pos] for c in ctxs], np.int64)
+        control = slots = None
+        if p0.is_device:
+            for ps in pools:
+                for p in ps:
+                    p._check_capacity(1)
+            slots = [[p.slot() for p in ps] for ps in pools]
+            for ps in pools:
+                for p in ps:
+                    p.t += 1  # the slot is written below, in the layer's turn
+            control = _pools_control(pools, self.device)
+        masses = []
+        for l in range(cfg.n_layers):
+            _, q, k_cur, v_cur = self.part_a_at(l, h, positions)
+            if control is not None:
+                for i, p in enumerate(pools[l]):
+                    pg, off = slots[l][i]
+                    p.k[pg, off] = k_cur[i, 0]
+                    p.v[pg, off] = v_cur[i, 0]
+                pointers, table, lengths = control[l]
+                out, page_mass = decode_attention_pools(
+                    q[:, 0], [p.k for p in pools[l]], [p.v for p in pools[l]], table, lengths,
+                    pointers)
+            else:
+                k_host, v_host = k_cur.cpu(), v_cur.cpu()
+                for i, p in enumerate(pools[l]):
+                    p.append(k_host[i], v_host[i])
+                k_pool, v_pool, table, lengths = stack_tail_pools(pools[l])
+                out, page_mass = decode_attention(
+                    q[:, 0], k_pool.to(self.device), v_pool.to(self.device),
+                    table.to(self.device), lengths.to(self.device))
+            lp = layer_params(self.params, l)
+            h = h + matmul(out.reshape(b, 1, -1), lp["wo"].reshape(-1, cfg.d_model))
+            h = _ffn(h, lp, cfg)
+            masses.append(page_mass.mean(dim=1))  # (b, width): head-averaged
+        logits = _logits(self.params, h[:, -1:], cfg)  # (b, 1, vocab)
+        host = torch.cat([logits.reshape(-1)] + [m.reshape(-1) for m in masses]).cpu().numpy()
+        logits_h = host[: logits.numel()].reshape(logits.shape)
+        at = logits.numel()
+        per_layer = []
+        for m in masses:
+            per_layer.append(host[at: at + m.numel()].reshape(m.shape))
+            at += m.numel()
+        return [(logits_h[i: i + 1],
+                 {l: per_layer[l][i, : pools[l][i].n_res] for l in range(cfg.n_layers)})
+                for i in range(b)]
 
     def decode_attend(self, layer: int, h, q, tail: TailPool):
         """One decode position's sparse attention over `tail`'s paged pool.

@@ -29,13 +29,18 @@ recurrent state (``backends.StateCompute``).
 
 The engines are *step-plan factories*: ``plan()`` returns a resumable
 generator of ComputeOp/WaitOp steps (repro_torch.core.stepplan) and
-``reprefill()`` drives one plan to completion. What the JAX engines' real
-mode has beyond this comes with the slices that bring its callers (the
-serving ``Scheduler``, ``SimCompute``, the compute-or-load planner and the
-tier store): chunked prefill (``prefill_chunk_tokens``, ``PrefillChunkCtx``),
-binding a shared backend per request (``_bound``), tenants and
+``reprefill()`` drives one plan to completion; ``serving.Scheduler``
+interleaves many. Each decode op carries a ``DecodeBatchCtx`` (token,
+position, the request's pools, the backend) through which the scheduler
+batches concurrent requests' decode steps, swaps a preempted request's pools
+out and back, and moves its decode to another worker's backend. Keys are
+namespaced by the session's tenant, and every op's weight stream by the
+model's name. What the JAX engines' real mode has beyond this comes with the
+slices that bring its callers (``SimCompute``, the compute-or-load planner
+and the tier store): chunked prefill (``prefill_chunk_tokens``,
+``PrefillChunkCtx``), binding a shared backend per request (``_bound``),
 content-addressed keys, the compute-or-load re-prefill (``hybrid``) and the
-SSD tier of the cache (``hits_ssd``, ``ssd_plan``); so does the sim mode.
+SSD tier of the cache (``ssd_plan``); so does the sim mode.
 """
 from __future__ import annotations
 
@@ -59,7 +64,8 @@ from repro_torch.core.chunking import ChunkMeta
 from repro_torch.core.importance import select_topk_chunks, select_topk_tokens
 from repro_torch.core.periods import PeriodSchedule
 from repro_torch.core.sparse_attention import bucket_size
-from repro_torch.core.stepplan import ComputeOp, RequestClock, StepPlan, WaitOp, drive_serial
+from repro_torch.core.stepplan import (ComputeOp, DecodeBatchCtx, RequestClock, StepPlan,
+                                       WaitOp, drive_serial)
 from repro_torch.storage.timing import BaseExecutor, ChannelSim, IOHandle
 
 
@@ -73,6 +79,7 @@ class PrefixSession:
     meta: ChunkMeta
     store: object  # ChunkStore
     probe: Optional[np.ndarray] = None  # (L, n, n_kv, d) fp16 prefix keys
+    tenant: int = 0  # namespace for shared-cache keys (0 = single-tenant)
 
 
 @dataclasses.dataclass
@@ -90,13 +97,18 @@ class ReprefillTrace:
     tokens_loaded: int = 0
     hits_device: int = 0
     hits_host: int = 0
+    hits_ssd: int = 0  # the SSD tier's hits; 0 until the tier store is ported
     misses: int = 0
     selected_per_period: List[np.ndarray] = dataclasses.field(default_factory=list)
     selected_per_layer: Dict[int, np.ndarray] = dataclasses.field(default_factory=dict)
     # decode phase (request lifecycle past the first token)
     first_token_at: float = 0.0  # absolute clock time of the first token
     decode_times: List[float] = dataclasses.field(default_factory=list)
+    decode_selected: List[np.ndarray] = dataclasses.field(default_factory=list)  # layer 0's, per step
     decode_tokens_out: List[int] = dataclasses.field(default_factory=list)  # greedy token ids
+    # compute-or-load re-prefill; 0 until the planner is ported
+    recompute_units: int = 0
+    ssd_bytes_avoided: int = 0
 
     @property
     def read_amplification(self) -> float:
@@ -114,6 +126,12 @@ class ReprefillTrace:
         if not self.decode_times:
             return 0.0
         return (self.decode_times[-1] - self.first_token_at) / len(self.decode_times)
+
+    def inter_token_latencies(self) -> np.ndarray:
+        """Gaps between consecutive emitted tokens (first token excluded)."""
+        if not self.decode_times:
+            return np.empty(0)
+        return np.diff(np.array([self.first_token_at] + self.decode_times))
 
     def add_stage(self, tag: str, dt: float):
         self.stages[tag] = self.stages.get(tag, 0.0) + dt
@@ -148,6 +166,9 @@ class _EngineBase:
         # forced for comparison
         self.device_tail_pool = device_tail_pool
         self.cfg = session.cfg
+        self.tenant = session.tenant
+        # the model's weight stream: decode ops' weight_key is "model@<stream>"
+        self.stream = self.cfg.name
         self._data: Dict[Tuple, np.ndarray] = {}
 
     # -- plan entry points ----------------------------------------------------
@@ -174,8 +195,10 @@ class _EngineBase:
     def _steps(self, suffix_tokens, clock, trace, decode_tokens=0):
         raise NotImplementedError
 
-    @staticmethod
-    def _key(layer: int, unit: int) -> Tuple[int, int]:
+    def _key(self, layer: int, unit: int) -> Tuple:
+        """Cache/data key; tenant-namespaced when tenants share a cache."""
+        if self.tenant:
+            return (self.tenant, layer, int(unit))
         return (layer, int(unit))
 
     # -- I/O helpers ---------------------------------------------------------
@@ -194,7 +217,7 @@ class _EngineBase:
             key = self._key(layer, u)
             if key in handles:
                 continue
-            tier = self.cache.lookup(key)
+            tier = self.cache.lookup(key, tenant=self.tenant)
             if tier == DEVICE:
                 trace.hits_device += 1
                 handles[key] = IOHandle()
@@ -259,7 +282,7 @@ class _EngineBase:
     def _insert_cache(self, layer: int, units):
         for u in units:
             key = self._key(layer, u)
-            self.cache.insert(key, DEVICE, payload=self._data.get(key))
+            self.cache.insert(key, DEVICE, tenant=self.tenant, payload=self._data.get(key))
 
     def _sweep_data(self):
         live = self.cache.tiers[DEVICE] | self.cache.tiers[HOST]
@@ -347,7 +370,9 @@ class _EngineBase:
         :class:`TailPool`, re-uploaded per step. The resident units are the
         ones loaded and waited for during prefill, so decode issues no IO.
         The attention-guided cache keeps accumulating A_j (Eq. 2) from the
-        decode-time page mass.
+        decode-time page mass. Each decode op carries a
+        :class:`DecodeBatchCtx`, through which a scheduler batches it with
+        other requests' steps or swaps the pools out and in.
         """
         if decode_tokens <= 0:
             return logits
@@ -368,24 +393,31 @@ class _EngineBase:
             pools[l] = pool_cls(k_res, v_res, kv_suffix.get(l), unit_tokens,
                                 decode_tokens, dtype=compute_dtype, device=be.device)
         for step in range(decode_tokens):
+            trace.decode_selected.append(per_layer[0])
             attended = [len(per_layer[l]) * unit_tokens + suffix_len + step + 1
                         for l in range(cfg.n_layers)]
             cost = CM.decode_step_cost(cfg, attended)
             pos = self.session.prefix_len + suffix_len + step
+            ctx = DecodeBatchCtx(backend=be, token=tok, pos=pos, pools=pools)
 
-            def fn(tok_now=tok, pos=pos):
-                h = be.embed(np.array([tok_now]))
+            def fn(tok_now=tok, pos=pos, ctx=ctx):
+                # the backend comes off the ctx: a disaggregated scheduler
+                # restamps it at the handoff, and this standalone path must
+                # follow the plan to the decode worker as the batched one does
+                bk = ctx.backend
+                h = bk.embed(np.array([tok_now]))
                 masses = {}
                 for l in range(cfg.n_layers):
-                    _, q, k_cur, v_cur = be.part_a_at(l, h, [[pos]])
+                    _, q, k_cur, v_cur = bk.part_a_at(l, h, [[pos]])
                     pools[l].append(k_cur, v_cur)
-                    h, masses[l] = be.decode_attend(l, h, q, pools[l])
-                return be.logits(h), masses
+                    h, masses[l] = bk.decode_attend(l, h, q, pools[l])
+                return bk.logits(h), masses
 
             logits, masses = yield ComputeOp(fn, flops=cost.flops,
                                              hbm_bytes=cost.hbm_bytes, tag="decode",
                                              phase="decode", weight_bytes=weight_bytes,
-                                             tokens=1)
+                                             tokens=1, weight_key=f"model@{self.stream}",
+                                             batch_ctx=ctx)
             tok = int(np.argmax(logits[0, -1]))
             trace.decode_tokens_out.append(tok)
             for l, units in per_layer.items():
@@ -705,8 +737,10 @@ class StateSpaceEngine:
     advanced in place."""
 
     name = "state_space"
+    cache = None  # no prefix-unit cache: the prefill scan is always compute
 
-    def __init__(self, cfg, backend, executor: BaseExecutor, *, prefix_tokens=None):
+    def __init__(self, cfg, backend, executor: BaseExecutor, *, prefix_tokens=None,
+                 tenant: int = 0):
         if cfg.family not in ("ssm", "hybrid"):
             raise ValueError(f"StateSpaceEngine serves ssm/hybrid, not {cfg.family!r}")
         if isinstance(executor, ChannelSim):
@@ -715,6 +749,8 @@ class StateSpaceEngine:
         self.cfg = cfg
         self.backend = backend
         self.ex = executor
+        self.tenant = tenant
+        self.stream = cfg.name
         self.prefix_tokens = (np.zeros(0, np.int32) if prefix_tokens is None
                               else np.asarray(prefix_tokens, dtype=np.int32))
         self.prefix_len = len(self.prefix_tokens)
@@ -745,7 +781,7 @@ class StateSpaceEngine:
         logits, pool = yield ComputeOp(
             lambda: be.prefill(toks, extra_tokens=decode_tokens + 1), flops=cost.flops,
             hbm_bytes=cost.hbm_bytes, tag="ssm_prefill", phase="prefill", tokens=total,
-            weight_bytes=float(CM.decode_weight_bytes(cfg)))
+            weight_bytes=float(CM.decode_weight_bytes(cfg)), weight_key=f"model@{self.stream}")
         trace.add_stage("ssm_prefill", clock.t - t_start)
         trace.ttft = clock.t - t_start
         if decode_tokens <= 0:
@@ -763,7 +799,8 @@ class StateSpaceEngine:
 
             logits = yield ComputeOp(fn, flops=cost.flops, hbm_bytes=cost.hbm_bytes,
                                      tag="decode", phase="decode", tokens=1,
-                                     weight_bytes=float(CM.decode_weight_bytes(cfg)))
+                                     weight_bytes=float(CM.decode_weight_bytes(cfg)),
+                                     weight_key=f"model@{self.stream}")
             tok = int(np.argmax(logits[0, -1]))
             trace.decode_tokens_out.append(tok)
             trace.decode_times.append(clock.t)

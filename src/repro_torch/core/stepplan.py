@@ -2,9 +2,12 @@
 
 :meth:`_EngineBase.plan` returns a :class:`StepPlan` whose generator yields
 one :class:`ComputeOp` or :class:`WaitOp` per blocking point; whoever drives
-the generator decides *when* each op runs. :func:`drive_serial` runs one plan
-at a time against the executor's own clock; the serving scheduler, which
-interleaves many plans, comes with a later slice of the port.
+the generator decides *when* each op runs:
+
+  drive_serial       — one plan at a time against the executor's own clock;
+  serving.Scheduler  — many plans interleaved on the wall clock, their decode
+                       steps coalesced into one batched pass through the
+                       :class:`DecodeBatchCtx` each decode op carries.
 
 Non-blocking work (I/O submissions, numpy scoring between ops) executes
 inline inside the generator. Each plan carries a :class:`RequestClock`, the
@@ -22,13 +25,17 @@ class RequestClock:
     """Request-local virtual time (sim) / last-observed wall time (real).
 
     Drivers update ``t`` after every op; the engine reads it for stage
-    accounting.
+    accounting. ``channel`` names the accelerator channel the request's
+    compute ops occupy: the shared ``"compute"`` by default, a worker's
+    (``"compute:p0"``, ``"compute:d1"``, ...) once a disaggregated scheduler
+    routes the plan.
     """
 
-    __slots__ = ("t",)
+    __slots__ = ("t", "channel")
 
-    def __init__(self, t: float = 0.0):
+    def __init__(self, t: float = 0.0, channel: str = "compute"):
         self.t = t
+        self.channel = channel
 
     def __repr__(self):
         return f"RequestClock(t={self.t:.6f})"
@@ -45,6 +52,17 @@ class ComputeOp:
     such a batch shares (streamed model weights) and ``tokens`` the op's
     share of a batch iteration's token budget (1 for a decode step, 0 for
     ops that run alone).
+
+    ``weight_key`` names the weight stream ``weight_bytes`` refers to:
+    ``"model@<cfg.name>"`` for a decode step (every layer and the LM head).
+    Two ops share a weight read only if their streams match
+    (:func:`weight_stream`), so a batch never mixes two models.
+
+    ``batch_ctx`` (real mode) is the op's batching surface: a
+    :class:`DecodeBatchCtx` on decode steps, which a scheduler coalesces into
+    one ``backend.decode_step_batch`` pass. ``fn`` stays the standalone
+    single-request path, so a driver that ignores it (``drive_serial``) runs
+    the plan unchanged.
     """
 
     fn: Optional[Callable]
@@ -54,6 +72,28 @@ class ComputeOp:
     phase: str = "prefill"
     weight_bytes: float = 0.0
     tokens: int = 0
+    weight_key: str = ""
+    batch_ctx: Optional[object] = None  # DecodeBatchCtx
+
+
+@dataclasses.dataclass
+class DecodeBatchCtx:
+    """Batchable-op metadata for one real-mode decode ComputeOp.
+
+    ``backend`` is the :class:`repro_torch.core.backends.RealCompute` the
+    step runs on (two ops batch only if they share one; a disaggregated
+    scheduler restamps it at the prefill-to-decode handoff); ``token`` and
+    ``pos`` are this step's greedy-fed input token and absolute position;
+    ``pools`` maps layer -> the request's paged KV pool, which the batched
+    pass appends to and attends over. ``pools`` is also the preemption
+    surface: the scheduler swaps them out to host memory when it evicts the
+    plan and back in before the held op resumes.
+    """
+
+    backend: object
+    token: int
+    pos: int
+    pools: dict
 
 
 @dataclasses.dataclass
@@ -64,6 +104,14 @@ class WaitOp:
     tag: str = ""
 
 
+def weight_stream(weight_key: str) -> str:
+    """The model namespace of a ``weight_key``: the part after the last
+    ``"@"``, or ``""`` for an un-namespaced key. Ops whose streams differ
+    belong to different models and never share a weight read."""
+    _, sep, stream = weight_key.rpartition("@")
+    return stream if sep else ""
+
+
 @dataclasses.dataclass
 class StepPlan:
     """A resumable per-request execution: generator + clock + live trace."""
@@ -72,6 +120,12 @@ class StepPlan:
     gen: Generator
     clock: RequestClock
     trace: object  # ReprefillTrace (avoid circular import)
+
+    def resume_time(self, op) -> float:
+        """Earliest time the pending op can run."""
+        if isinstance(op, WaitOp):
+            return max(self.clock.t, op.handle.ready_at)
+        return self.clock.t
 
 
 def resolve_handle(handle: IOHandle):

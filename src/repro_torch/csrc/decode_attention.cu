@@ -10,6 +10,18 @@
 // (b, n_q, n_active), normalised by each head's final max and denominator —
 // the attention-guided cache's decode-time A_j.
 //
+// Two forms share one kernel body, templated on how a request's pages are
+// addressed: the stacked form reads request b's pages out of one
+// (b, n_pages, page, n_kv, d) pool; the pools form (the TPU package's
+// decode_attention_pools, src/repro/kernels/decode_attention/ops.py:38, which
+// pads and stacks b per-request buffers before the kernel) reads them
+// straight out of b separate (n_pages_b, page, n_kv, d) buffers through a
+// device block of b K and b V base pointers and b page counts, so a batched
+// decode step copies no pool byte. A page index at or past a request's own
+// page count is masked like a pad slot and read nowhere. The split layout
+// depends on n_active and page only, so the pools form is bit-identical to
+// the stacked form on the zero-padded stack at the same table width.
+//
 // Bound on the H100: bytes. At the main path's shape (69 pages of 16 tokens,
 // 4 kv heads, d = 128, bfloat16) it must read ~1.1 MB of K/V, ~0.3 us at
 // 3.35 TB/s, against ~15 MFLOP. What it costs in practice is latency: the
@@ -95,12 +107,16 @@ __device__ __forceinline__ float4 load4(const T* p) {
   return make_float4(to_f32(v[0]), to_f32(v[1]), to_f32(v[2]), to_f32(v[3]));
 }
 
-template <typename T>
+// POOLS: pool_ptrs holds [b K base pointers | b V base pointers | b page
+// counts] and k_pool / v_pool are unused; else request b's pages are the b-th
+// (n_pages, page, n_kv, d) slice of k_pool / v_pool.
+template <typename T, bool POOLS>
 static __global__ void __launch_bounds__(DA_NT) decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pool, const T* __restrict__ v_pool,
-    const int* __restrict__ table, const int* __restrict__ lengths, T* __restrict__ out,
-    float* __restrict__ mass, float* __restrict__ o_part, float* __restrict__ m_part,
-    float* __restrict__ l_part, int* __restrict__ counters, int b_total, int n_q, int n_kv,
+    const long long* __restrict__ pool_ptrs, const int* __restrict__ table,
+    const int* __restrict__ lengths, T* __restrict__ out, float* __restrict__ mass,
+    float* __restrict__ o_part, float* __restrict__ m_part, float* __restrict__ l_part,
+    int* __restrict__ counters, int b_total, int n_q, int n_kv,
     int n_pages, int page, int n_active, int d, int pps, float scale) {
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte vector
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -121,13 +137,28 @@ static __global__ void __launch_bounds__(DA_NT) decode_kernel(
   const int* tbl = table + (size_t)b * n_active;
   const size_t row0 = (size_t)b * n_q + (size_t)h * G;  // first query row of this CTA
   const int j0 = sp * pps;                               // first page slot of the split
+  // this request's K and V pages and their count
+  const T* kb;
+  const T* vb;
+  int np_b;
+  if constexpr (POOLS) {
+    kb = reinterpret_cast<const T*>(pool_ptrs[b]);
+    vb = reinterpret_cast<const T*>(pool_ptrs[b_total + b]);
+    np_b = (int)pool_ptrs[2 * b_total + b];
+  } else {
+    const size_t per_request = (size_t)n_pages * page * n_kv * d;
+    kb = k_pool + b * per_request;
+    vb = v_pool + b * per_request;
+    np_b = n_pages;
+  }
 
-  // the pool offset of key kk of this split, or ~0 where it is masked
+  // the offset of key kk of this split in the request's pages, or ~0 where
+  // it is masked
   auto key_row = [&](int kk) -> size_t {
     const int j = j0 + kk / page, ti = kk % page;
     const int p = j < n_active ? tbl[j] : -1;
-    return kk < nk && p >= 0 && p < n_pages && j * page + ti < len
-               ? ((((size_t)b * n_pages + p) * page + ti) * n_kv + h) * d
+    return kk < nk && p >= 0 && p < np_b && j * page + ti < len
+               ? (((size_t)p * page + ti) * n_kv + h) * d
                : ~(size_t)0;
   };
   // one round trip: K and V rows from the pool, the query rows, zeros elsewhere
@@ -135,8 +166,8 @@ static __global__ void __launch_bounds__(DA_NT) decode_kernel(
     const int kk = i / per_row, e = (i % per_row) * VEC;
     const size_t r = key_row(kk);
     const bool ok = r != ~(size_t)0;
-    cp_async16_zfill(ks + kk * ld + e, ok ? k_pool + r + e : k_pool, ok);
-    cp_async16_zfill(vs + kk * ld + e, ok ? v_pool + r + e : v_pool, ok);
+    cp_async16_zfill(ks + kk * ld + e, ok ? kb + r + e : q, ok);
+    cp_async16_zfill(vs + kk * ld + e, ok ? vb + r + e : q, ok);
   }
   for (int i = tid; i < QR * per_row; i += DA_NT) {
     const int gq = i / per_row, e = (i % per_row) * VEC;
@@ -319,7 +350,7 @@ static __global__ void __launch_bounds__(DA_NT) decode_kernel(
       if (i >= G * n_active) break;
       const int gq = i / n_active, j = i % n_active, p = tbl[j];
       mass[(row0 + gq) * n_active + j] =
-          (p < 0 || p >= n_pages) ? 0.f : pr[u] * expf(pw[u] - ms[gq]) * ls[gq];
+          (p < 0 || p >= np_b) ? 0.f : pr[u] * expf(pw[u] - ms[gq]) * ls[gq];
     }
   }
 }
@@ -338,11 +369,12 @@ inline size_t decode_work_floats(int b, int n_q, int n_active, int page, int d) 
   return (size_t)n_split * b * n_q * (d + 2);
 }
 
-template <typename T>
-static int launch_decode(const void* q, const void* k_pool, const void* v_pool, const int* table,
-                         const int* lengths, void* out, float* mass, float* work,
-                         long long work_floats, int* counters, int b, int n_q, int n_kv,
-                         int n_pages, int page, int n_active, int d, cudaStream_t st) {
+template <typename T, bool POOLS>
+static int launch_decode(const void* q, const void* k_pool, const void* v_pool,
+                         const long long* pool_ptrs, const int* table, const int* lengths,
+                         void* out, float* mass, float* work, long long work_floats,
+                         int* counters, int b, int n_q, int n_kv, int n_pages, int page,
+                         int n_active, int d, cudaStream_t st) {
   if (page < 1 || page > DA_MAX_KEYS || n_active < 1 || n_kv < 1 || n_q % n_kv || d % 8 ||
       d > 128 || n_q / n_kv > 32)
     return (int)cudaErrorInvalidValue;
@@ -351,7 +383,8 @@ static int launch_decode(const void* q, const void* k_pool, const void* v_pool, 
   const int G = n_q / n_kv, pps = decode_pps(page), nk = pps * page;
   static OncePerDevice smem_opt_in;  // at the largest shape taken
   const cudaError_t attr = smem_opt_in([] {
-    return cudaFuncSetAttribute(decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    return cudaFuncSetAttribute(decode_kernel<T, POOLS>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)decode_smem(32, 128, DA_MAX_KEYS, sizeof(T)));
   });
   if (attr != cudaSuccess) return (int)attr;
@@ -360,16 +393,41 @@ static int launch_decode(const void* q, const void* k_pool, const void* v_pool, 
   float* o_part = work;
   float* m_part = o_part + rows * d;
   float* l_part = m_part + rows;
-  decode_kernel<T><<<dim3(n_kv, b, n_split), DA_NT, decode_smem(G, d, nk, sizeof(T)), st>>>(
-      (const T*)q, (const T*)k_pool, (const T*)v_pool, table, lengths, (T*)out, mass, o_part,
-      m_part, l_part, counters, b, n_q, n_kv, n_pages, page, n_active, d, pps, softmax_scale(d));
+  decode_kernel<T, POOLS><<<dim3(n_kv, b, n_split), DA_NT, decode_smem(G, d, nk, sizeof(T)), st>>>(
+      (const T*)q, (const T*)k_pool, (const T*)v_pool, pool_ptrs, table, lengths, (T*)out, mass,
+      o_part, m_part, l_part, counters, b, n_q, n_kv, n_pages, page, n_active, d, pps,
+      softmax_scale(d));
   return (int)cudaGetLastError();
+}
+
+template <bool POOLS>
+static int dispatch_decode(const void* q, const void* k_pool, const void* v_pool,
+                           const long long* pool_ptrs, const int* table, const int* lengths,
+                           void* out, float* mass, float* work, long long work_floats,
+                           int* counters, int b, int n_q, int n_kv, int n_pages, int page,
+                           int n_active, int d, int dtype, cudaStream_t st) {
+  switch (dtype) {
+    case F32:
+      return launch_decode<float, POOLS>(q, k_pool, v_pool, pool_ptrs, table, lengths, out, mass,
+                                         work, work_floats, counters, b, n_q, n_kv, n_pages,
+                                         page, n_active, d, st);
+    case BF16:
+      return launch_decode<__nv_bfloat16, POOLS>(q, k_pool, v_pool, pool_ptrs, table, lengths,
+                                                 out, mass, work, work_floats, counters, b, n_q,
+                                                 n_kv, n_pages, page, n_active, d, st);
+    case F16:
+      return launch_decode<__half, POOLS>(q, k_pool, v_pool, pool_ptrs, table, lengths, out,
+                                          mass, work, work_floats, counters, b, n_q, n_kv,
+                                          n_pages, page, n_active, d, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace ckv
 
-// The float32 scratch one ckv_decode_attention call needs (its split layout
-// is chosen here and nowhere else).
+// The float32 scratch one ckv_decode_attention or ckv_decode_attention_pools
+// call needs (its split layout is chosen here and nowhere else).
 extern "C" long long ckv_decode_attention_work_floats(int b, int n_q, int n_active, int page,
                                                       int d) {
   if (page < 1 || n_active < 1) return -1;
@@ -387,21 +445,20 @@ extern "C" int ckv_decode_attention(const void* q, const void* k_pool, const voi
                                     float* work, long long work_floats, int* counters, int b,
                                     int n_q, int n_kv, int n_pages, int page, int n_active, int d,
                                     int dtype, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (dtype) {
-    case ckv::F32:
-      return ckv::launch_decode<float>(q, k_pool, v_pool, table, lengths, out, mass, work,
-                                       work_floats, counters, b, n_q, n_kv, n_pages, page,
-                                       n_active, d, st);
-    case ckv::BF16:
-      return ckv::launch_decode<__nv_bfloat16>(q, k_pool, v_pool, table, lengths, out, mass, work,
-                                               work_floats, counters, b, n_q, n_kv, n_pages, page,
-                                               n_active, d, st);
-    case ckv::F16:
-      return ckv::launch_decode<__half>(q, k_pool, v_pool, table, lengths, out, mass, work,
-                                        work_floats, counters, b, n_q, n_kv, n_pages, page,
-                                        n_active, d, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return ckv::dispatch_decode<false>(q, k_pool, v_pool, nullptr, table, lengths, out, mass, work,
+                                     work_floats, counters, b, n_q, n_kv, n_pages, page,
+                                     n_active, d, dtype, (cudaStream_t)stream);
+}
+
+// The pools form: pool_ptrs is a device block of 3 b int64 — request i's K
+// buffer, its V buffer (each (n_pages_i, page, n_kv, d) in dtype) and
+// n_pages_i; everything else as ckv_decode_attention.
+extern "C" int ckv_decode_attention_pools(const void* q, const long long* pool_ptrs,
+                                          const int* table, const int* lengths, void* out,
+                                          float* mass, float* work, long long work_floats,
+                                          int* counters, int b, int n_q, int n_kv, int page,
+                                          int n_active, int d, int dtype, void* stream) {
+  return ckv::dispatch_decode<true>(q, nullptr, nullptr, pool_ptrs, table, lengths, out, mass,
+                                    work, work_floats, counters, b, n_q, n_kv, 0, page, n_active,
+                                    d, dtype, (cudaStream_t)stream);
 }

@@ -41,6 +41,9 @@ SIGNATURES = {
     # q, k_pool, v_pool, table, lengths, out, mass, work, work_floats, counters,
     # b, n_q, n_kv, n_pages, page, n_active, d, dtype, stream
     "ckv_decode_attention": [P] * 8 + [L, P] + [I] * 8 + [P],
+    # q, pool_ptrs, table, lengths, out, mass, work, work_floats, counters,
+    # b, n_q, n_kv, page, n_active, d, dtype, stream
+    "ckv_decode_attention_pools": [P] * 7 + [L, P] + [I] * 7 + [P],
     # q, k, v, out, b, n_q, n_kv, s_q, s_k, d, causal, window, q_offset,
     # (batch, head, position) strides of q, k, v and out, dtype, variant, stream
     "ckv_flash_attention": [P] * 4 + [I] * 9 + [L] * 12 + [I, I, P],

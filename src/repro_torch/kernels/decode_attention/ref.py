@@ -1,7 +1,8 @@
-"""Plain version of the decode_attention kernel (paged decode attention)."""
+"""Plain versions of the decode_attention kernel (paged decode attention),
+over one stacked pool buffer and over per-request pool buffers."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -44,3 +45,24 @@ def decode_attention_ref(
     out = torch.einsum("bngt,btnd->bngd", p, v).to(q.dtype)
     mass = p.reshape(b, n_kv, group, n_active, page).sum(-1)
     return out.reshape(b, n_q, d), mass.reshape(b, n_q, n_active)
+
+
+def stack_pool_buffers(ks: Sequence[torch.Tensor], vs: Sequence[torch.Tensor]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero-pad b per-request ``(n_pages_i, page, n_kv, d)`` pool buffers to
+    the common page count and stack them: ``(b, n_pages, page, n_kv, d)``."""
+    n_pages = max(k.shape[0] for k in ks)
+
+    def stack(xs):
+        out = xs[0].new_zeros((len(xs), n_pages) + tuple(xs[0].shape[1:]))
+        for i, x in enumerate(xs):
+            out[i, : x.shape[0]] = x
+        return out
+
+    return stack(ks), stack(vs)
+
+
+def decode_attention_pools_ref(q, ks, vs, page_table, lengths):
+    """Paged decode attention over b per-request pool buffers: the stacked
+    plain version on their zero-padded stack."""
+    return decode_attention_ref(q, *stack_pool_buffers(ks, vs), page_table, lengths)

@@ -231,6 +231,17 @@ for name in ("hymba-1.5b", "falcon-mamba-7b"):
                            prefix_tokens=rng.integers(0, 256, 20))
     logits, trace = eng.reprefill(rng.integers(0, 256, 4), decode_tokens=2)
     assert np.isfinite(logits).all() and len(trace.decode_tokens_out) == 2
+import repro_torch.serving, repro_torch.launch.serve, repro_torch.storage.h2d_meter
+import repro_torch.data.synthetic
+from repro_torch.serving import Request, Scheduler
+cfg = reduced_config("qwen2.5-7b")
+params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+sess = build_real_session(cfg, params, rng.integers(0, 256, 48), in_memory=True, device="cpu")
+eng = ContiguousKVEngine(sess, RealCompute(cfg, params, device="cpu"), RealExecutor(),
+                         budget=0.5, period=1, subperiod=1)
+done = Scheduler(eng, max_concurrency=2).run(
+    [Request(request_id=i, suffix=rng.integers(0, 256, 8), decode_tokens=2) for i in range(2)])
+assert [len(c.trace.decode_tokens_out) for c in done] == [2, 2]
 assert not any(m == "jax" or m.startswith(("jax.", "repro.")) for m in sys.modules
                if sys.modules[m] is not None)
 print("ISOLATED-OK")

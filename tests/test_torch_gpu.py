@@ -14,6 +14,9 @@ chunk_attention runs its products as split-TF32 terms on the tensor cores
 ref.chunk_attention_split_ref, which repeats those terms in plain torch;
 chunk_score runs its products as split float16 terms of power-of-two scaled
 query rows (the same 2^-22), inside the same 1e-5.
+decode_attention's pools form (per-request buffers by base pointer) is held
+to its plain version at the same tolerances and, bit for bit, to the
+stacked form on the zero-padded stack at the same table width.
 The chunked selective_scan re-associates the recurrence's sums, so a scan
 resumed from its carried state is bit-identical to the whole scan only at
 a cut on a chunk boundary; elsewhere it agrees within the same 1e-5.
@@ -566,3 +569,157 @@ def test_state_engine_on_the_card_matches_the_cpu(dev, name):
     (lc, tc), (lg, tg) = runs["cpu"], runs["cuda"]
     assert tg.decode_tokens_out == tc.decode_tokens_out
     np.testing.assert_allclose(lg, lc, rtol=0, atol=1e-3 * np.abs(lc).max())
+
+
+# -- decode_attention over per-request pools ----------------------------------
+def _pools_case(dev, dtype, page, n_pages, n_active, nq=8, nkv=2, d=64, seed=70):
+    """b = len(n_pages) ragged pools of their own page counts, request i's
+    table naming n_active[i] of its pages in a shuffled order, then -1 up to
+    the widest request; lengths end inside each table's last page."""
+    b = len(n_pages)
+    q = _rand(dev, seed, (b, nq, d), dtype)
+    ks = [_rand(dev, seed + 1 + i, (n, page, nkv, d), dtype) for i, n in enumerate(n_pages)]
+    vs = [_rand(dev, seed + 11 + i, (n, page, nkv, d), dtype) for i, n in enumerate(n_pages)]
+    width = max(n_active)
+    tbl = np.full((b, width), -1, np.int32)
+    rng = np.random.default_rng(seed)
+    for i, n in enumerate(n_active):
+        tbl[i, :n] = rng.permutation(n_pages[i])[:n]
+    lens = [(n - 1) * page + 1 + (3 * i) % page for i, n in enumerate(n_active)]
+    return (q, ks, vs, torch.from_numpy(tbl).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5])
+def test_decode_attention_pools(dev, dtype, page, b):
+    """Ragged pools, some with fewer pages than the table is wide: the plain
+    version's results within the file's tolerances, and bit for bit the
+    stacked kernel's on the zero-padded stack at the same table width, one
+    launch counted by form each."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_pools_ref
+    from repro_torch.kernels.decode_attention.ref import stack_pool_buffers
+
+    n_pages = [max(2, (70 if page == 16 else 20) - 7 * i) for i in range(b)]
+    n_active = [n - i % 2 for i, n in enumerate(n_pages)]
+    q, ks, vs, tbl, lens = _pools_case(dev, dtype, page, n_pages, n_active, seed=70 + b)
+    before = dict(da_ops.launches_by_variant)
+    o, m = da_ops.decode_attention_pools(q, ks, vs, tbl, lens)
+    assert da_ops.launches_by_variant["pools"] == before["pools"] + 1
+    o2, m2 = decode_attention_pools_ref(q, ks, vs, tbl, lens)
+    _close(o, o2, rel=1e-5 if dtype == torch.float32 else 2.0 ** -7)
+    _close(m, m2)
+    assert _all_zero(m[tbl[:, None, :].expand_as(m) < 0])
+    kp, vp = stack_pool_buffers(ks, vs)
+    os_, ms_ = da_ops.decode_attention(q, kp, vp, tbl, lens)
+    assert da_ops.launches_by_variant["stacked"] == before["stacked"] + 1
+    assert torch.equal(o, os_) and torch.equal(m, ms_)
+    o3, m3 = da_ops.decode_attention_pools(q, ks, vs, tbl, lens)
+    assert torch.equal(o, o3) and torch.equal(m, m3)
+
+
+def test_decode_attention_pools_after_a_swap(dev):
+    """Device pools swapped out to the host and back land at new addresses:
+    a pointer block made before the swap is refused, a new one gives the
+    same results bit for bit."""
+    from repro_torch.core.backends import DeviceTailPool
+
+    rng = np.random.default_rng(80)
+    pools = []
+    for n_res in (5, 2, 4):
+        kr, vr = (rng.standard_normal((n_res, 16, 2, 64)).astype(np.float16) for _ in range(2))
+        suf = tuple(torch.from_numpy(rng.standard_normal((1, 20, 2, 64)).astype(np.float32))
+                    .to(dev).to(torch.bfloat16) for _ in range(2))
+        pools.append(DeviceTailPool(kr, vr, suf, 16, 8, device=dev))
+    width = max(p.n_res + p.cap_pages for p in pools)
+    tbl = torch.from_numpy(np.stack([p.table(width) for p in pools])).to(dev)
+    lens = torch.tensor([p.valid_tokens for p in pools], dtype=torch.int32, device=dev)
+    q = _rand(dev, 81, (3, 8, 64), torch.bfloat16)
+    stale = da_ops.PoolPointers(da_ops.pool_pointers([p.k for p in pools], [p.v for p in pools]),
+                                torch.zeros(3, 3, dtype=torch.int64, device=dev))
+    o, m = da_ops.decode_attention_pools(q, [p.k for p in pools], [p.v for p in pools], tbl, lens)
+    before = [p.k.data_ptr() for p in pools]
+    for p in pools:
+        p.swap_out()
+    with pytest.raises(ValueError, match="swapped out"):
+        da_ops.decode_attention_pools(q, [p.k for p in pools], [p.v for p in pools], tbl, lens)
+    blockers = [torch.empty(p.k.numel() * 4, dtype=p.k.dtype, device=dev) for p in pools]
+    for p in pools:
+        p.swap_in()
+    assert [p.k.data_ptr() for p in pools] != before
+    with pytest.raises(ValueError, match="moved"):
+        da_ops.decode_attention_pools(q, [p.k for p in pools], [p.v for p in pools], tbl, lens,
+                                      stale)
+    o2, m2 = da_ops.decode_attention_pools(q, [p.k for p in pools], [p.v for p in pools], tbl,
+                                           lens)
+    assert torch.equal(o, o2) and torch.equal(m, m2)
+    del blockers
+
+
+def test_decode_attention_pools_raises(dev):
+    """Mismatched page geometry, dtype, device or residency, or a batch that
+    does not match the pools: refused before any launch."""
+    q, ks, vs, tbl, lens = _pools_case(dev, torch.bfloat16, 16, [4, 3], [4, 3])
+    before = da_ops.launches
+    with pytest.raises(ValueError):  # another page size
+        da_ops.decode_attention_pools(q, [ks[0], ks[1][:, :8].contiguous()],
+                                      [vs[0], vs[1][:, :8].contiguous()], tbl, lens)
+    with pytest.raises(TypeError):  # a pool in another dtype than q
+        da_ops.decode_attention_pools(q, [ks[0], ks[1].half()], [vs[0], vs[1].half()], tbl, lens)
+    with pytest.raises(ValueError, match="swapped out"):  # a pool on the host
+        da_ops.decode_attention_pools(q, [ks[0], ks[1].cpu()], [vs[0], vs[1].cpu()], tbl, lens)
+    with pytest.raises(ValueError):  # three pools for a batch of two
+        da_ops.decode_attention_pools(q, ks + ks[:1], vs + vs[:1], tbl, lens)
+    with pytest.raises(ValueError):  # K and V of different shapes
+        da_ops.decode_attention_pools(q, ks, [vs[0], vs[1][:2].contiguous()], tbl, lens)
+    assert da_ops.launches == before
+
+
+def test_decode_step_batch_on_the_card(dev):
+    """RealCompute.decode_step_batch at reduced float32 size: device pools
+    (the pools form) bit for bit the host pools (the stacked form) on the
+    card, both within 1e-4 of the logits' scale of the CPU's plain versions
+    (float32 products on both, summed in other orders), two steps."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.backends import DeviceTailPool, RealCompute, TailPool
+    from repro_torch.core.stepplan import DecodeBatchCtx
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(reduced_config("qwen2.5-7b", n_layers=2), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(9)
+    data = [(7 * i + 1, 100 + i, [
+        tuple(rng.standard_normal((n, 16, cfg.n_kv_heads, cfg.d_head)).astype(np.float16)
+              for _ in range(2))
+        + tuple(torch.from_numpy(rng.standard_normal((1, 10 + i, cfg.n_kv_heads, cfg.d_head))
+                                 .astype(np.float32)) for _ in range(2))
+        for _ in range(cfg.n_layers)]) for i, n in enumerate((3, 1, 2))]
+
+    def run(device, pool_cls):
+        p = params if device == "cpu" else _to(params, dev)
+        be = RealCompute(cfg, p, device=device)
+        ctxs = [DecodeBatchCtx(be, tok, pos, {
+            l: pool_cls(kr, vr, (ks.to(device), vs.to(device)), 16, 6, device=device)
+            for l, (kr, vr, ks, vs) in enumerate(layers)}) for tok, pos, layers in data]
+        outs = []
+        for _ in range(2):
+            outs.append(be.decode_step_batch(ctxs))
+            for c in ctxs:
+                c.pos += 1
+        return outs
+
+    before = dict(da_ops.launches_by_variant)
+    dev_pools, host_pools, cpu = run("cuda", DeviceTailPool), run("cuda", TailPool), run(
+        "cpu", DeviceTailPool)
+    assert da_ops.launches_by_variant["pools"] - before["pools"] == 2 * cfg.n_layers
+    assert da_ops.launches_by_variant["stacked"] - before["stacked"] == 2 * cfg.n_layers
+    for step_d, step_h, step_c in zip(dev_pools, host_pools, cpu):
+        for (ld, md), (lh, mh), (lc, mc) in zip(step_d, step_h, step_c):
+            np.testing.assert_array_equal(ld, lh)
+            np.testing.assert_allclose(ld, lc, rtol=0, atol=1e-4 * np.abs(lc).max())
+            for l in mc:
+                np.testing.assert_array_equal(md[l], mh[l])
+                np.testing.assert_allclose(md[l], mc[l], rtol=0, atol=1e-4)
