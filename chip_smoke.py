@@ -30,6 +30,12 @@ non-zero exit code:
                 version and bit for bit against the stacked form on the padded
                 stack, timed beside the stacked call and the pad-and-stack it
                 saves;
+                chunk_attention's indexed form (b = 1, 2 and 4 members over
+                the stacked pool of their gathered chunks, and one member
+                over a layer's 256-chunk pool by 64 unsorted indices, 57
+                valid) against its plain version and, member by member, bit
+                for bit against the gathered call, timed beside the b
+                gathered calls it replaces and SDPA at batch b;
   3. e2e      — ContiguousKV Re-Prefill then decode on full-width
                 Qwen2.5-7B (28 layers, random bfloat16 weights from a seeded
                 generator on the card): ingest a 4096-token prefix (through
@@ -67,7 +73,13 @@ non-zero exit code:
                 bit for bit against drive_serial, (a) against (b) (first-token
                 logits bit for bit, the first decode step within the dense
                 limits), launches by form, no plain version, no pool-sized
-                host-to-device copy in (a)'s decode (the torch meter); TTFT,
+                host-to-device copy in (a)'s decode (the torch meter); then
+                part B in chunks of 16 suffix tokens at c = 4, (e) with
+                batching (each prefill-chunk batch one launch of the indexed
+                form, the rest of part B gathered calls) and (f) without:
+                (e)'s first-token logits within the dense limits of (f)'s,
+                (f) bit for bit (c); part_b_batch held directly on four
+                plans' layer-0 final chunks; TTFT,
                 TPOT, inter-token latency, tokens/s, batch size, peak memory;
   6. state    — flash_attention (hymba prefill, dense ingest, ragged s,
                 window, q_offset) and selective_scan (hymba and falcon-mamba
@@ -81,9 +93,11 @@ non-zero exit code:
                 flash_attention and selective_scan launches asserted per
                 request and per kernel variant, timed and profiled as
                 above (the profiled request's scan kernels held to the
-                wrapper's counts per variant); decode's logits held
-                against a prefill over the same tokens; then one request on
-                full-width falcon-mamba-7b (64 layers, attention-free);
+                wrapper's counts per variant); the first request again with
+                its prefill in ops of 1024 tokens, bit for bit; decode's
+                logits held against a prefill over the same tokens; then one
+                request on full-width falcon-mamba-7b (64 layers,
+                attention-free);
   7. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
      paths it names (per variant where a wrapper has several), its error
      against its plain version, its times and its bound (the largest of
@@ -158,6 +172,15 @@ STEP_REL_TOL, STEP_MIN_COS = DENSE_REL_TOL, DENSE_MIN_COS
 # (seconds) and prefill-time floor, which make the urgent request project a
 # miss whatever the EWMA reads
 SERVE_REQUESTS, SERVE_TTFT_TARGET, SERVE_PREFILL_FLOOR = 8, 1e-6, 10.0
+# chunked prefill: the serve phase's part B in ops of 16 suffix tokens, the
+# state-space request's prefill in ops of 1024 tokens; the indexed form's
+# paged case: valid chunks of the 64 indices into a layer's pool
+SERVE_PREFILL_CHUNK, STATE_PREFILL_CHUNK, INDEXED_PAGED_VALID = 16, 1024, 57
+# a batched part B's h against the single one's: the same attention bit for
+# bit, then float32 GEMMs over b * 64 rows instead of 64, which cuBLAS may
+# sum in another order (sums of 3584 and 18944 products): a few float32
+# ulps of the largest value are expected, 1e-5 of it is the kernels' limit
+PART_B_BATCH_REL = 1e-5
 # The same check as served, in bfloat16: both sides round every op to
 # bfloat16 through 32 layers in different orders (GEMV against GEMM, the
 # decode's bfloat16 scores against flash_attention's float32 ones, decode's
@@ -681,6 +704,111 @@ def phase_pools_kernels(cfg):
     return out
 
 
+def phase_indexed_kernels(cfg):
+    """chunk_attention's indexed form at the main path's shape (28/4 heads, d
+    128, s 64, 64 chunks of 16), float32 and bfloat16 q: b = 1, 2 and 4
+    members over the stacked pool of their gathered chunks (as part_b_batch
+    gives it), and the reference's paged shape (one member over a layer's
+    256-chunk pool, 64 unsorted indices, INDEXED_PAGED_VALID of them valid).
+    Each against its plain version at the main path's tolerance and, member
+    by member, bit for bit against the gathered call on pool[chunk_idx[i]];
+    timed beside the b gathered calls it replaces, with its bound, the
+    wrapper's host time and the output-only SDPA yardstick at batch b.
+    Returns {case: numbers}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.chunk_attention.ops import (chunk_attention,
+                                                         chunk_attention_indexed)
+    from repro_torch.kernels.chunk_attention.ref import chunk_attention_indexed_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    s, nq, nkv, d, c = SUFFIX_LEN, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, CHUNK
+    n_sel = math.ceil(BUDGET * (PREFIX_LEN // CHUNK))
+    cases = [(f"b{b}", b, b * n_sel) for b in (1, 2, 4)] + [("paged", 1, PREFIX_LEN // CHUNK)]
+    out = {}
+    for label, b, m in cases:
+        pool_k, pool_v = (rn(m, c, nkv, d, dtype=torch.float16) for _ in range(2))
+        if label == "paged":  # unsorted indices into the whole layer's pool
+            perm = torch.randperm(m, generator=gen, device=dev)[:n_sel]
+            idx = perm.to(torch.int32)[None].contiguous()
+            n_valid = [INDEXED_PAGED_VALID]
+        else:  # member i's chunks are rows i n_sel .. of the stacked pool
+            idx = torch.arange(b * n_sel, dtype=torch.int32, device=dev).view(b, n_sel)
+            n_valid = [n_sel] * b
+        nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+        for qdt in (torch.float32, torch.bfloat16):
+            q, kf, vf = rn(b, s, nq, d, dtype=qdt), rn(b, s, nkv, d, dtype=qdt), rn(
+                b, s, nkv, d, dtype=qdt)
+            o, ms = chunk_attention_indexed(q, pool_k, pool_v, idx, nv, kf, vf)
+            o2, ms2 = chunk_attention_indexed_ref(q, pool_k, pool_v, idx, nv, kf, vf)
+            err = max(max_err(o, o2), max_err(ms, ms2))
+            tol = 1e-5 * max(o2.abs().max().item(), ms2.abs().max().item()) + 1e-6
+            if not err <= tol or o.dtype != torch.float32:
+                fail(f"chunk_attention_indexed {label} {dname(q)}: err {err} > {tol}")
+            sel = [(pool_k[idx[i].long()].contiguous(), pool_v[idx[i].long()].contiguous())
+                   for i in range(b)]
+            for i, (ks, vs) in enumerate(sel):
+                go, gm = chunk_attention(q[i], ks, vs, n_valid[i], kf[i], vf[i])
+                if not (torch.equal(o[i], go) and torch.equal(ms[i], gm)):
+                    fail(f"chunk_attention_indexed {label} {dname(q)}: member {i} differs from "
+                         f"the gathered call on its chunks")
+            again = chunk_attention_indexed(q, pool_k, pool_v, idx, nv, kf, vf)
+            if not (torch.equal(o, again[0]) and torch.equal(ms, again[1])):
+                fail(f"chunk_attention_indexed {label} is not reproducible bit for bit")
+
+            def call():
+                return chunk_attention_indexed(q, pool_k, pool_v, idx, nv, kf, vf)
+
+            def gathered():
+                return [chunk_attention(q[i], ks, vs, n_valid[i], kf[i], vf[i])
+                        for i, (ks, vs) in enumerate(sel)]
+            n_pre = n_valid[0] * c  # every member has as many valid chunks
+            k_all, v_all = (torch.cat([torch.stack([x[:n_valid[0]].reshape(n_pre, nkv, d)
+                                                    for x in xs]).to(y.dtype), y], 1)
+                            .permute(0, 2, 1, 3).contiguous()
+                            for xs, y in (([k for k, _ in sel], kf), ([v for _, v in sel], vf)))
+            q_t = q.permute(0, 2, 1, 3).contiguous()
+            mask = torch.ones(s, n_pre + s, dtype=torch.bool, device=dev)
+            mask[:, n_pre:] = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q_t, k_all, v_all, attn_mask=mask,
+                                                      enable_gqa=True)
+            pairs_c, pairs_s = b * s * n_pre, b * s * (s + 1) // 2
+            pairs = pairs_c + pairs_s
+            # split-TF32 terms: a float32 q 2 a chunk product, 3 a suffix one
+            # (QK and PV alike); a bfloat16 q 1 a QK product, 2 a PV one
+            terms = (4.0 * nq * d * (2 * pairs_c + 3 * pairs_s) if qdt == torch.float32
+                     else 6.0 * nq * d * pairs)
+            r = dict(err=err, ms=device_ms(call), gathered_calls_ms=device_ms(gathered),
+                     host_ms=host_ms(call),
+                     plain_ms=wall_ms(lambda: chunk_attention_indexed_ref(
+                         q, pool_k, pool_v, idx, nv, kf, vf)),
+                     sdpa_output_only_ms=device_ms(sdpa), library_ms=None,
+                     # q, suffix KV, the valid chunks, indices and counts read
+                     # once; out and A_j written once
+                     bound=bounds(nbytes(q, kf, vf, o, ms, idx, nv)
+                                  + 2 * sum(n_valid) * c * nkv * d * 2,
+                                  4.0 * nq * d * pairs, nq * pairs, tf32_ops=terms))
+            out[f"{label}_{dname(q)}"] = r
+            print(f"kernels: chunk_attention_indexed {label} b={b} q {dname(q)} pool {m} chunks, "
+                  f"{n_valid} of {n_sel} valid: max abs err {err:.3g} (tol {tol:.3g}) on out and "
+                  f"A_j, each member bit-identical to the gathered call on its chunks; "
+                  f"{r['ms']:.4f} ms on the card against {r['gathered_calls_ms']:.4f} ms for the "
+                  f"{b} gathered call(s), plain version {r['plain_ms']:.4f} ms, "
+                  f"{bound_text(r['bound'])}, host time per call {r['host_ms']:.4f} ms, "
+                  f"output-only scaled_dot_product_attention at batch {b} "
+                  f"{r['sdpa_output_only_ms']:.4f} ms (agrees to "
+                  f"{max_err(sdpa().permute(0, 2, 1, 3), o):.3g})")
+    return out
+
+
 def _tap(gen, rec, vocab):
     """Forward a plan's generator, recording the first-token logits (the one
     (1, 1, vocab) array sent to it) and the first decode step's logits."""
@@ -761,9 +889,10 @@ def _serve_runs(cfg, ctx, smi_line, ops, plain_calls):
     rng = np.random.default_rng(7)
     suffixes = [rng.integers(0, V, SUFFIX_LEN) for _ in range(SERVE_REQUESTS)]
 
-    def engine():
+    def engine(chunk=None):
         return ContiguousKVEngine(sess, RealCompute(cfg, params, device=DEVICE), RealExecutor(),
-                                  budget=BUDGET, period=PERIOD, subperiod=SUBPERIOD)
+                                  budget=BUDGET, period=PERIOD, subperiod=SUBPERIOD,
+                                  prefill_chunk_tokens=chunk)
 
     # drive_serial, the reference of (c) and (d)
     eng = engine()
@@ -775,8 +904,9 @@ def _serve_runs(cfg, ctx, smi_line, ops, plain_calls):
                                                                 // CHUNK)) \
         * CHUNK * cfg.n_kv_heads * cfg.d_head * 2  # K and V of one layer's pool, bfloat16
 
-    def serve(label, max_c, batch=True, n=SERVE_REQUESTS, preempt=False, meter=False):
-        eng = engine()
+    def serve(label, max_c, batch=True, n=SERVE_REQUESTS, preempt=False, meter=False,
+              chunk=None):
+        eng = engine(chunk)
         taps = _tapped(eng, V)
         transfers = []
         if meter:  # the decode steps' host-to-device transfers, by the torch meter
@@ -927,11 +1057,125 @@ def _serve_runs(cfg, ctx, smi_line, ops, plain_calls):
           f"{s_a['decode_tok_rate']:.2f} vs {s_b['decode_tok_rate']:.2f}, makespan "
           f"{s_a['makespan']:.3f} vs {s_b['makespan']:.3f} s; (c) mean TPOT "
           f"{s_c['mean_tpot'] * 1e3:.3f} ms, makespan {s_c['makespan']:.3f} s ({smi_line})")
+    s_e, s_f = _serve_chunked(cfg, serve, record, done_c, taps_c, smi_line)
+    hold = _hold_part_b_batch(cfg, engine, suffixes)
     numbers = {k: {m: v[m] for m in ("p50_ttft", "p95_ttft", "mean_tpot", "p95_itl",
                                      "decode_tok_rate", "goodput_rps", "makespan", "mean_batch",
                                      "peak_gib")}
-               for k, v in (("a", s_a), ("b", s_b), ("c", s_c))}
+               for k, v in (("a", s_a), ("b", s_b), ("c", s_c), ("e", s_e), ("f", s_f))}
+    numbers["part_b_batch_hold"] = hold
     return paths, numbers
+
+
+def _serve_chunked(cfg, serve, record, done_c, taps_c, smi_line):
+    """(e) c = 4 with part B in chunks of SERVE_PREFILL_CHUNK tokens and
+    batching on, (f) the same with batching off: (e)'s prefill-chunk
+    batches each one launch of chunk_attention's indexed form, the rest of
+    part B gathered calls; (e)'s first-token logits within the dense limits
+    of (f)'s; (f) bit for bit (c). Returns (e)'s and (f)'s digests."""
+    import numpy as np
+
+    L = cfg.n_layers
+    done_e, sched_e, taps_e, got_e, s_e, _ = serve("(e) c=4 chunked batched", 4,
+                                                   chunk=SERVE_PREFILL_CHUNK)
+    done_f, sched_f, taps_f, got_f, s_f, _ = serve("(f) c=4 chunked unbatched", 4, batch=False,
+                                                   chunk=SERVE_PREFILL_CHUNK)
+    record("(e) c=4 chunked batched", got_e)
+    record("(f) c=4 chunked unbatched", got_f)
+    pre = [m for m in sched_e.real_batch_log if m[0][1] == "prefill"]
+    members = sum(len(m) for m in pre)
+    by_form = {k: got_e["chunk_attention"].get(k, 0) for k in ("gathered", "indexed")}
+    if any(len(m) < 2 or any(p != "prefill" for _, p, _ in m) for m in pre):
+        fail(f"serve (e): prefill-chunk batches {[len(m) for m in pre]}")
+    if by_form != {"indexed": len(pre), "gathered": L * SERVE_REQUESTS - members}:
+        fail(f"serve (e): chunk_attention launches by form {by_form} for {len(pre)} "
+             f"prefill-chunk batches of {members} members")
+    if got_f["chunk_attention"].get("indexed", 0) or sched_f.real_batch_log:
+        fail("serve (f): a batch formed with batching off")
+    if pre:
+        print(f"serve (e): {len(pre)} prefill-chunk batches of {[len(m) for m in pre]} members "
+              f"(layers' final chunks), chunk_attention launches by form {by_form}")
+    else:
+        print(f"serve (e): no prefill-chunk batch formed at full width (chunk_attention "
+              f"launches by form {by_form}); part_b_batch is held directly below")
+    worst = (0.0, 1.0)
+    for i in range(SERVE_REQUESTS):
+        rel, cos = logit_agreement(taps_e[i]["first"][0, -1], taps_f[i]["first"][0, -1])
+        worst = (max(worst[0], rel), min(worst[1], cos))
+        c, cf = done_c[i], done_f[i]
+        if not (np.array_equal(cf.result, c.result)
+                and np.array_equal(taps_f[i]["first"], taps_c[i]["first"])
+                and cf.trace.decode_tokens_out == c.trace.decode_tokens_out):
+            fail(f"serve (f) request {i}: differs from (c)")
+    if not (worst[0] <= DENSE_REL_TOL and worst[1] >= DENSE_MIN_COS):
+        fail(f"serve (e) vs (f): first-token logits max err / max |logit| {worst[0]}, cosine "
+             f"{worst[1]}")
+    print(f"serve (e) vs (f): first-token logits, worst request: max abs err / max |logit| "
+          f"{worst[0]:.4g} (tol {DENSE_REL_TOL}), cosine {worst[1]:.6f} (min {DENSE_MIN_COS}); "
+          f"(f) bit-identical to (c) in logits, first-token logits and greedy tokens of all "
+          f"{SERVE_REQUESTS} requests")
+    print(f"serve: (e) against (f): p50 TTFT {s_e['p50_ttft'] * 1e3:.2f} vs "
+          f"{s_f['p50_ttft'] * 1e3:.2f} ms, p95 TTFT {s_e['p95_ttft'] * 1e3:.2f} vs "
+          f"{s_f['p95_ttft'] * 1e3:.2f} ms, mean TPOT {s_e['mean_tpot'] * 1e3:.3f} vs "
+          f"{s_f['mean_tpot'] * 1e3:.3f} ms, makespan {s_e['makespan']:.3f} vs "
+          f"{s_f['makespan']:.3f} s ({smi_line})")
+    return s_e, s_f
+
+
+def _hold_part_b_batch(cfg, engine, suffixes, b: int = 4):
+    """part_b_batch at full width on b plans' layer-0 final chunks (each plan
+    driven up to that op): one launch of the indexed form; each member's A_j
+    bit for bit its own single part_b's (the gathered form), h within
+    PART_B_BATCH_REL of it; both timed on the host clock to a synchronize."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.stepplan import ComputeOp, PrefillChunkCtx, WaitOp, resolve_handle
+    from repro_torch.kernels.chunk_attention import ops as ca
+
+    eng = engine(SERVE_PREFILL_CHUNK)
+    plans, ctxs, fns = [], [], []
+    for i in range(b):
+        plan = eng.plan(suffixes[i], request_id=i)
+        send = None
+        while True:
+            op = plan.gen.send(send)
+            if isinstance(op, ComputeOp) and isinstance(op.batch_ctx, PrefillChunkCtx):
+                break
+            if isinstance(op, WaitOp):
+                eng.ex.wait(op.handle)
+                send = resolve_handle(op.handle)
+            else:
+                send = eng.ex.compute(op.fn, tag=op.tag)
+        plans.append(plan)
+        ctxs.append(op.batch_ctx)
+        fns.append(op.fn)
+    if len({(id(x.backend), x.shape_key()) for x in ctxs}) != 1 or ctxs[0].layer != 0:
+        fail("part_b_batch hold: the plans' final chunks do not group")
+    before = ca.launches_by_variant["indexed"]
+    batched = eng.backend.part_b_batch(ctxs)
+    torch.cuda.synchronize()
+    if ca.launches_by_variant["indexed"] != before + 1:
+        fail("part_b_batch hold: not one launch of the indexed form")
+    worst = 0.0
+    for i, (fn, (h, mass)) in enumerate(zip(fns, batched)):
+        hs, ms = fn()
+        if not np.array_equal(mass, ms):
+            fail(f"part_b_batch hold: member {i}'s A_j differs from its single part B")
+        rel = ((h - hs).abs().max() / hs.abs().max()).item()
+        worst = max(worst, rel)
+    if not worst <= PART_B_BATCH_REL:
+        fail(f"part_b_batch hold: h max err / max |h| {worst} > {PART_B_BATCH_REL}")
+    t_batch = wall_ms(lambda: eng.backend.part_b_batch(ctxs))
+    t_single = wall_ms(lambda: [fn() for fn in fns])
+    for plan in plans:
+        plan.gen.close()
+    eng.ex.shutdown()
+    print(f"serve: part_b_batch held at full width on {b} plans' layer-0 final chunks: one "
+          f"launch of the indexed form, each member's A_j bit-identical to its single part B, "
+          f"h max abs err / max |h| {worst:.3g} (tol {PART_B_BATCH_REL}); {t_batch:.3f} ms to a "
+          f"synchronize against {t_single:.3f} ms for the {b} single part B calls")
+    return dict(h_rel_err=worst, batch_wall_ms=t_batch, single_calls_wall_ms=t_single)
 
 
 def phase_state_kernels(hcfg, dcfg, fcfg):
@@ -1435,12 +1679,14 @@ def phase_state_e2e(cfg, n_requests: int, check_decode: bool):
                                  "sequential": L * DECODE_TOKENS}}
     walls = []
     totals = {k: {} for k in ops}
+    outputs = []
     for i, suffix in enumerate(suffixes):
         reset_counts(*ops.values())
         busy = dict(ex.stage_times)
         t0 = time.perf_counter()
         logits, trace = eng.reprefill(suffix, request_id=i, decode_tokens=DECODE_TOKENS)
         walls.append((time.perf_counter() - t0) * 1e3)
+        outputs.append((logits, trace.decode_tokens_out))
         got = {k: counts(mod) for k, mod in ops.items()}
         if got != expect:
             fail(f"{cfg.name} request {i}: kernel launches {got}, expected {expect}")
@@ -1475,6 +1721,30 @@ def phase_state_e2e(cfg, n_requests: int, check_decode: bool):
           f"launches {by_variant}: one step kernel per decode step")
 
     if check_decode:
+        # the prefill in ops of STATE_PREFILL_CHUNK tokens: only the last runs
+        # it, so the request equals the unchunked one bit for bit
+        chunked = StateSpaceEngine(cfg, be, ex, prefix_tokens=prefix,
+                                   prefill_chunk_tokens=STATE_PREFILL_CHUNK)
+        reset_counts(*ops.values())
+        plan = chunked.plan(suffixes[0], request_id=0, decode_tokens=DECODE_TOKENS)
+        n_pre, send = 0, None
+        try:  # drive_serial, counting the prefill ops (the plan has no waits)
+            while True:
+                op = plan.gen.send(send)
+                n_pre += op.phase == "prefill"
+                send = ex.compute(op.fn, flops=op.flops, hbm_bytes=op.hbm_bytes, tag=op.tag)
+                plan.clock.t = ex.now()
+        except StopIteration as stop:
+            logits = stop.value
+        got = {k: counts(mod) for k, mod in ops.items()}
+        want_ops = -(-(PREFIX_LEN + SUFFIX_LEN) // STATE_PREFILL_CHUNK)
+        if not (np.array_equal(logits, outputs[0][0]) and got == expect
+                and plan.trace.decode_tokens_out == outputs[0][1] and n_pre == want_ops):
+            fail(f"{cfg.name}: the prefill in chunks of {STATE_PREFILL_CHUNK} differs from the "
+                 f"unchunked request (launches {got}, prefill ops {n_pre} of {want_ops})")
+        print(f"state: {cfg.name} request 0 with its prefill in {n_pre} ops of up to "
+              f"{STATE_PREFILL_CHUNK} tokens: logits and greedy tokens bit-identical to the "
+              f"unchunked request, launches {got}")
         prompt = np.concatenate([prefix, suffixes[0]])
         decode_vs_prefill(be, prompt, STEP_BF16_REL_TOL, STEP_BF16_MIN_COS)
         cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -1591,6 +1861,7 @@ def main() -> int:
     # state as before the state-space phases existed
     rows = phase_kernels(cfg)
     rows["decode_attention"]["pools_form"] = phase_pools_kernels(cfg)
+    rows["chunk_attention"]["indexed"] = phase_indexed_kernels(cfg)
     for name, shapes in phase_baseline_kernels(cfg).items():
         rows[name]["baseline_shapes"] = shapes
     paths, per_call, ctx = phase_e2e(cfg)
@@ -1604,7 +1875,9 @@ def main() -> int:
     serve_paths, serve_numbers = phase_serve(cfg, ctx, smi_line)
     for name, by_path in serve_paths.items():
         paths.setdefault(name, {}).update(by_path)
-    rows["decode_attention"]["serve"] = serve_numbers
+    rows["decode_attention"]["serve"] = {k: serve_numbers[k] for k in "abc"}
+    rows["chunk_attention"]["serve"] = {k: serve_numbers[k]
+                                        for k in ("e", "f", "part_b_batch_hold")}
     del ctx
     torch.cuda.empty_cache()  # the Qwen weights went with the dense phases
     rows.update(phase_state_kernels(hcfg, cfg, fcfg))
@@ -1646,7 +1919,8 @@ def main() -> int:
                     "device_kernels_per_call_impress", "baseline_shapes", "decode_ms",
                     "decode_host_ms", "decode_bound_ms", "falcon_decode_ms",
                     "falcon_decode_host_ms", "falcon_decode_bound_ms", "dense_ingest",
-                    "falcon_prefill", "one_cta_per_sm_ms", "pools_form", "serve"):
+                    "falcon_prefill", "one_cta_per_sm_ms", "pools_form", "indexed",
+                    "serve"):
             if key in r:
                 row[key] = r[key]
         kernels.append(row)

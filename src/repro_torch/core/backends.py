@@ -4,8 +4,10 @@ engine's.
 RealCompute runs the model layer by layer on one device (the card unless the
 caller asks for the CPU). Its three attention steps go through the port's
 kernels: identify through ``chunk_score`` (the baselines' token scores too,
-at one token a chunk), part B through
-``chunk_attention`` and decode through ``decode_attention``: one request's
+at one token a chunk), part B through ``chunk_attention`` (one request over
+its gathered chunks; a scheduler's batched part B, ``part_b_batch``, over b
+requests' same-layer final prefill chunks in one launch of the kernel's
+indexed form) and decode through ``decode_attention``: one request's
 step over its pool stacked as a batch of one, a scheduler's batched step
 (``decode_step_batch``) over b requests' own pools through the kernel's
 pools form, with no pad-and-stack copy. StateCompute
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.chunk_attention.ops import chunk_attention
+from repro_torch.kernels.chunk_attention.ops import chunk_attention, chunk_attention_indexed
 from repro_torch.kernels.chunk_score.ops import chunk_score
 from repro_torch.kernels.decode_attention.ops import (PoolPointers, decode_attention,
                                                       decode_attention_pools, pool_pointers)
@@ -362,6 +364,59 @@ class RealCompute:
         h = h + matmul(out.reshape(1, s, -1), lp["wo"].reshape(-1, self.cfg.d_model))
         h = _ffn(h, lp, self.cfg)
         return h, mass.cpu().numpy()
+
+    def part_b_batch(self, ctxs) -> List[Tuple[torch.Tensor, np.ndarray]]:
+        """b plans' same-layer final prefill chunks in one batched pass.
+
+        ``ctxs`` are :class:`repro_torch.core.stepplan.PrefillChunkCtx`
+        handles of identical shapes (the batch former groups on
+        ``shape_key()``). The members' gathered chunks are stacked on the
+        host into one pool and go up with the kernel's control block (each
+        member's chunk indices into the pool and its valid count) in one
+        copy, from pinned memory on the card so the stream does not wait on
+        it; one launch of chunk_attention's indexed form attends for all b,
+        and the out-projection and FFN run once over the stacked (b, s)
+        rows, so the layer's weights stream once for the batch. Returns one
+        (h (1, s, d_model), A_j (nb,)) per ctx, in order: what each plan's
+        single-request ``part_b`` returns."""
+        cfg, b = self.cfg, len(ctxs)
+        c0 = ctxs[0]
+        nb, c = c0.k_sel.shape[:2]
+        if c != c0.chunk_tokens:
+            raise ValueError(f"chunks of {c} tokens, expected {c0.chunk_tokens}")
+        n_valid = np.array([np.count_nonzero(x.valid) for x in ctxs], np.int32)
+        for x, n in zip(ctxs, n_valid):
+            if not np.all(np.asarray(x.valid)[:n]):
+                raise ValueError("valid chunks must be a prefix of the bucket")
+        # one host block: K and V of every member's chunks, then the control
+        # block (chunk_idx (b, nb): member i's chunks are rows i nb .. of the
+        # pool; n_valid (b,))
+        kv_bytes = 2 * b * c0.k_sel.nbytes
+        block = torch.empty(kv_bytes + _align16(b * nb * 4) + _align16(b * 4), dtype=torch.uint8,
+                            pin_memory=self.device.type == "cuda")
+        kv = block[:kv_bytes].view(torch.float16).view(2, b * nb, *c0.k_sel.shape[1:])
+        for i, x in enumerate(ctxs):
+            kv[0, i * nb: (i + 1) * nb] = torch.from_numpy(np.asarray(x.k_sel))
+            kv[1, i * nb: (i + 1) * nb] = torch.from_numpy(np.asarray(x.v_sel))
+        idx_at = kv_bytes + _align16(b * nb * 4)
+        block[kv_bytes: kv_bytes + b * nb * 4].view(torch.int32)[:] = torch.arange(
+            b * nb, dtype=torch.int32)
+        block[idx_at: idx_at + b * 4].view(torch.int32)[:] = torch.from_numpy(n_valid)
+        dev = block.to(self.device, non_blocking=True)  # the pass's one upload
+        pools = dev[:kv_bytes].view(torch.float16).view(2, b * nb, *c0.k_sel.shape[1:])
+        chunk_idx = dev[kv_bytes: kv_bytes + b * nb * 4].view(torch.int32).view(b, nb)
+        valid = dev[idx_at: idx_at + b * 4].view(torch.int32)
+        q = torch.cat([x.q for x in ctxs])
+        k_suf = torch.cat([x.k_suf for x in ctxs])
+        v_suf = torch.cat([x.v_suf for x in ctxs])
+        out, mass = chunk_attention_indexed(q, pools[0], pools[1], chunk_idx, valid, k_suf, v_suf)
+        lp = layer_params(self.params, c0.layer)
+        s = out.shape[1]
+        h = torch.cat([x.h for x in ctxs])
+        h = h + matmul(out.reshape(b, s, -1), lp["wo"].reshape(-1, cfg.d_model))
+        h = _ffn(h, lp, cfg)
+        mass_host = mass.cpu().numpy()
+        return [(h[i: i + 1], mass_host[i]) for i in range(b)]
 
     def logits(self, h) -> np.ndarray:
         return _logits(self.params, h[:, -1:], self.cfg).cpu().numpy()

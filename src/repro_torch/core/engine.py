@@ -33,12 +33,15 @@ generator of ComputeOp/WaitOp steps (repro_torch.core.stepplan) and
 interleaves many. Each decode op carries a ``DecodeBatchCtx`` (token,
 position, the request's pools, the backend) through which the scheduler
 batches concurrent requests' decode steps, swaps a preempted request's pools
-out and back, and moves its decode to another worker's backend. Keys are
-namespaced by the session's tenant, and every op's weight stream by the
-model's name. What the JAX engines' real mode has beyond this comes with the
-slices that bring its callers (``SimCompute``, the compute-or-load planner
-and the tier store): chunked prefill (``prefill_chunk_tokens``,
-``PrefillChunkCtx``), binding a shared backend per request (``_bound``),
+out and back, and moves its decode to another worker's backend. With
+``prefill_chunk_tokens`` each layer's part B is split into chunk-granular
+ops, of which only the last runs it and carries a ``PrefillChunkCtx``,
+through which the scheduler batches concurrent requests' same-layer part B
+(``_part_b_ops``); a backend shared by concurrent plans is bound to each
+request's compute (``_bound``). Keys are namespaced by the session's tenant,
+and every op's weight stream by the model's name. What the JAX engines' real
+mode has beyond this comes with the slices that bring its callers
+(``SimCompute``, the compute-or-load planner and the tier store):
 content-addressed keys, the compute-or-load re-prefill (``hybrid``) and the
 SSD tier of the cache (``ssd_plan``); so does the sim mode.
 """
@@ -64,8 +67,8 @@ from repro_torch.core.chunking import ChunkMeta
 from repro_torch.core.importance import select_topk_chunks, select_topk_tokens
 from repro_torch.core.periods import PeriodSchedule
 from repro_torch.core.sparse_attention import bucket_size
-from repro_torch.core.stepplan import (ComputeOp, DecodeBatchCtx, RequestClock, StepPlan,
-                                       WaitOp, drive_serial)
+from repro_torch.core.stepplan import (ComputeOp, DecodeBatchCtx, PrefillChunkCtx,
+                                       RequestClock, StepPlan, WaitOp, drive_serial)
 from repro_torch.storage.timing import BaseExecutor, ChannelSim, IOHandle
 
 
@@ -152,6 +155,7 @@ class _EngineBase:
         *,
         budget: float = 0.25,
         device_tail_pool: bool = True,
+        prefill_chunk_tokens: Optional[int] = None,
     ):
         if isinstance(executor, ChannelSim):
             raise TypeError("the engine runs real mode only; the sim mode comes "
@@ -165,6 +169,8 @@ class _EngineBase:
         # start, in-place writes per token) unless the host-resident pool is
         # forced for comparison
         self.device_tail_pool = device_tail_pool
+        # part B in chunk-granular ops of this many suffix tokens (None: one op)
+        self.prefill_chunk_tokens = prefill_chunk_tokens
         self.cfg = session.cfg
         self.tenant = session.tenant
         # the model's weight stream: decode ops' weight_key is "model@<stream>"
@@ -181,7 +187,7 @@ class _EngineBase:
         """
         clock = RequestClock()
         trace = ReprefillTrace(system=self.name)
-        gen = self._steps(np.asarray(suffix_tokens), clock, trace,
+        gen = self._steps(np.asarray(suffix_tokens), request_id, clock, trace,
                           decode_tokens=decode_tokens)
         return StepPlan(request_id=request_id, gen=gen, clock=clock, trace=trace)
 
@@ -192,7 +198,7 @@ class _EngineBase:
         logits = drive_serial(self.ex, p)
         return logits, p.trace
 
-    def _steps(self, suffix_tokens, clock, trace, decode_tokens=0):
+    def _steps(self, suffix_tokens, request_id, clock, trace, decode_tokens=0):
         raise NotImplementedError
 
     def _key(self, layer: int, unit: int) -> Tuple:
@@ -200,6 +206,20 @@ class _EngineBase:
         if self.tenant:
             return (self.tenant, layer, int(unit))
         return (layer, int(unit))
+
+    def _bound(self, request_id: int, fn):
+        """Pin a shared backend to this request while ``fn`` runs (concurrent
+        plans interleave over one backend); a backend that keeps no
+        per-request state (``RealCompute``) takes ``fn`` as it is."""
+        be = self.backend
+        if not hasattr(be, "new_request"):
+            return fn
+
+        def rebind():
+            be.new_request(request_id)
+            return fn()
+
+        return rebind
 
     # -- I/O helpers ---------------------------------------------------------
     def _submit_units(self, layer: int, units: List[int], trace: ReprefillTrace,
@@ -334,6 +354,49 @@ class _EngineBase:
         a = self._cost_part_a(suffix_len)
         return lc.flops - a, lc.hbm_bytes
 
+    def _part_b_ops(self, fn, suffix_len: int, attended: int, layer: int,
+                    ctx: Optional[PrefillChunkCtx] = None):
+        """Yield one layer's part B, chunk-granular on demand; returns the
+        value of the op that runs ``fn``.
+
+        With ``prefill_chunk_tokens`` unset or >= the suffix length this is
+        the one ComputeOp of an unchunked plan. Otherwise the suffix splits
+        into ceil(s / c) ops, each priced by
+        :func:`costmodel.prefill_chunk_cost` and stamped with ``tokens``,
+        ``weight_bytes`` and the layer's ``weight_key``; only the final one
+        runs ``fn`` (earlier ones only occupy the device, so the results do
+        not change) and carries ``ctx``, through which a scheduler batches it
+        with other plans' same-layer final chunks (``part_b_batch``)."""
+        c = self.prefill_chunk_tokens
+        if not c or c >= suffix_len:
+            fl, hb = self._cost_part_b(suffix_len, attended)
+            out = yield ComputeOp(fn, flops=fl, hbm_bytes=hb, tag="compute")
+            return out
+        wb = float(CM.layer_weight_bytes(self.cfg))
+        out = None
+        done = 0
+        while done < suffix_len:
+            n_tok = min(c, suffix_len - done)
+            done += n_tok
+            final = done >= suffix_len
+            cost = CM.prefill_chunk_cost(self.cfg, n_tok, attended)
+            out = yield ComputeOp(fn if final else None, flops=cost.flops,
+                                  hbm_bytes=cost.hbm_bytes, tag="compute", phase="prefill",
+                                  tokens=n_tok, weight_bytes=wb,
+                                  weight_key=f"layer:{layer}@{self.stream}",
+                                  batch_ctx=ctx if final else None)
+        return out
+
+    def _chunk_ctx(self, layer, h, q, k_suf, v_suf, k_sel, v_sel, valid,
+                   chunk_tokens) -> Optional[PrefillChunkCtx]:
+        """The batching surface of this layer's final prefill chunk (None
+        unless chunking is on)."""
+        if not self.prefill_chunk_tokens:
+            return None
+        return PrefillChunkCtx(backend=self.backend, layer=int(layer), h=h, q=q, k_suf=k_suf,
+                               v_suf=v_suf, k_sel=k_sel, v_sel=v_sel, valid=valid,
+                               chunk_tokens=int(chunk_tokens))
+
     # -- gather ----------------------------------------------------------------
     def _unit_pages(self, layer: int, units, n_pages: int):
         """Units' KV as (n_pages, c, n_kv, d) float16 pages, zero past the units."""
@@ -438,20 +501,22 @@ class ContiguousKVEngine(_EngineBase):
     def __init__(self, session, backend, executor, cache=None, *, budget=0.25,
                  period: int = 8, subperiod: int = 4, prefetch: bool = True,
                  inter_period: bool = True, device_cap: int = 0,
-                 host_cap: int = 0, device_tail_pool: bool = True):
+                 host_cap: int = 0, device_tail_pool: bool = True,
+                 prefill_chunk_tokens: Optional[int] = None):
         """``prefetch=False`` (w/o P) submits each layer's chunks on demand,
         just before its wait; ``inter_period=False`` loads each period's probe
         lazily, with no speculative warm-up of the next period. Neither
         changes what is computed."""
         cache = cache if cache is not None else AttentionGuidedCache(device_cap, host_cap)
         super().__init__(session, backend, executor, cache, budget=budget,
-                         device_tail_pool=device_tail_pool)
+                         device_tail_pool=device_tail_pool,
+                         prefill_chunk_tokens=prefill_chunk_tokens)
         self.schedule = PeriodSchedule(self.cfg.n_layers, period, subperiod)
         self.prefetch = prefetch
         self.inter_period = inter_period and prefetch
         self.chunk_tokens = session.meta.chunk_tokens
 
-    def _steps(self, suffix_tokens, clock, trace, decode_tokens=0):
+    def _steps(self, suffix_tokens, request_id, clock, trace, decode_tokens=0):
         be, cfg = self.backend, self.cfg
         c = self.chunk_tokens
         prefix_len = self.session.prefix_len
@@ -504,7 +569,7 @@ class ContiguousKVEngine(_EngineBase):
                 nxt = self.schedule.periods[period.index + 1]
                 probe_handles[nxt.index] = self._submit_probe(nxt.head, trace)
 
-            fl, hb = self._cost_part_b(s, len(selected) * c + s)
+            n_attended = len(selected) * c + s
             for l in period.layers:
                 if l != head:
                     x, q, k_suf, v_suf = yield ComputeOp(
@@ -516,10 +581,13 @@ class ContiguousKVEngine(_EngineBase):
                 k_sel, v_sel, valid = self._gather_chunks(l, selected)
                 if decode_tokens > 0:
                     kv_suffix[l] = (k_suf, v_suf)
-                h, mass = yield ComputeOp(
-                    lambda hh=h, ll=l, qq=q, ks=k_suf, vs=v_suf, k1=k_sel, v1=v_sel,
-                           vd=valid: be.part_b(ll, hh, qq, ks, vs, k1, v1, vd, c),
-                    flops=fl, hbm_bytes=hb, tag="compute")
+                h, mass = yield from self._part_b_ops(
+                    self._bound(request_id,
+                                lambda hh=h, ll=l, qq=q, ks=k_suf, vs=v_suf, k1=k_sel,
+                                       v1=v_sel, vd=valid: be.part_b(ll, hh, qq, ks, vs, k1,
+                                                                     v1, vd, c)),
+                    s, n_attended, l,
+                    ctx=self._chunk_ctx(l, h, q, k_suf, v_suf, k_sel, v_sel, valid, c))
                 # attention-guided cache updates (Eq. 1/2)
                 if isinstance(self.cache, AttentionGuidedCache):
                     for i, u in enumerate(selected):
@@ -548,7 +616,7 @@ class _BlockBaselineEngine(_EngineBase):
     probe_ratio = 1.0  # fraction of key dims loaded for probing
     probe_prefetch = False  # IMPRESS: prefetch the next layer's probe keys
 
-    def _steps(self, suffix_tokens, clock, trace, decode_tokens=0):
+    def _steps(self, suffix_tokens, request_id, clock, trace, decode_tokens=0):
         be, cfg = self.backend, self.cfg
         prefix_len = self.session.prefix_len
         layout = self.session.store.layout
@@ -593,11 +661,12 @@ class _BlockBaselineEngine(_EngineBase):
             resident[l] = np.asarray(blocks, dtype=int)
             if decode_tokens > 0:
                 kv_suffix[l] = (k_suf, v_suf)
-            fl, hb = self._cost_part_b(s, len(tokens) + s)
-            h, _ = yield ComputeOp(
-                lambda hh=h, ll=l, qq=q, ks=k_suf, vs=v_suf, k1=k_sel, v1=v_sel,
-                       vd=valid: be.part_b(ll, hh, qq, ks, vs, k1, v1, vd, 1),
-                flops=fl, hbm_bytes=hb, tag="compute")
+            h, _ = yield from self._part_b_ops(
+                self._bound(request_id,
+                            lambda hh=h, ll=l, qq=q, ks=k_suf, vs=v_suf, k1=k_sel, v1=v_sel,
+                                   vd=valid: be.part_b(ll, hh, qq, ks, vs, k1, v1, vd, 1)),
+                s, len(tokens) + s, l,
+                ctx=self._chunk_ctx(l, h, q, k_suf, v_suf, k_sel, v_sel, valid, 1))
             if isinstance(self.cache, ImpressScoreCache):
                 # static importance: the fraction of each block's tokens selected
                 for blk in blocks:
@@ -652,11 +721,12 @@ class ASLRUEngine(_EngineBase):
     name = "as_lru"
 
     def __init__(self, session, backend, executor, *, device_cap=0, host_cap=0,
-                 device_tail_pool: bool = True):
+                 device_tail_pool: bool = True, prefill_chunk_tokens: Optional[int] = None):
         super().__init__(session, backend, executor, LRUCache(device_cap, host_cap),
-                         budget=1.0, device_tail_pool=device_tail_pool)
+                         budget=1.0, device_tail_pool=device_tail_pool,
+                         prefill_chunk_tokens=prefill_chunk_tokens)
 
-    def _steps(self, suffix_tokens, clock, trace, decode_tokens=0):
+    def _steps(self, suffix_tokens, request_id, clock, trace, decode_tokens=0):
         be, cfg = self.backend, self.cfg
         prefix_len = self.session.prefix_len
         layout = self.session.store.layout
@@ -670,7 +740,6 @@ class ASLRUEngine(_EngineBase):
         # AS prefetches all layers' KV up front (full cache streaming)
         for l in range(cfg.n_layers):
             self._submit_units(l, blocks, trace, handles)
-        fl, hb = self._cost_part_b(s, prefix_len + s)
         for l in range(cfg.n_layers):
             x, q, k_suf, v_suf = yield ComputeOp(
                 lambda hh=h, ll=l: be.part_a(ll, hh, prefix_len),
@@ -679,11 +748,14 @@ class ASLRUEngine(_EngineBase):
             k_sel, v_sel, valid = self._gather_chunks(l, blocks)
             if decode_tokens > 0:
                 kv_suffix[l] = (k_suf, v_suf)
-            h, _ = yield ComputeOp(
-                lambda hh=h, ll=l, qq=q, ks=k_suf, vs=v_suf, k1=k_sel, v1=v_sel,
-                       vd=valid: be.part_b(ll, hh, qq, ks, vs, k1, v1, vd,
-                                           layout.unit_tokens),
-                flops=fl, hbm_bytes=hb, tag="compute")
+            h, _ = yield from self._part_b_ops(
+                self._bound(request_id,
+                            lambda hh=h, ll=l, qq=q, ks=k_suf, vs=v_suf, k1=k_sel, v1=v_sel,
+                                   vd=valid: be.part_b(ll, hh, qq, ks, vs, k1, v1, vd,
+                                                       layout.unit_tokens)),
+                s, prefix_len + s, l,
+                ctx=self._chunk_ctx(l, h, q, k_suf, v_suf, k_sel, v_sel, valid,
+                                    layout.unit_tokens))
             self._insert_cache(l, blocks)
         logits = yield ComputeOp(lambda hh=h: be.logits(hh),
                                  flops=2.0 * cfg.d_model * cfg.vocab_size, tag="compute")
@@ -701,9 +773,11 @@ class ASH2OEngine(_BlockBaselineEngine):
     name = "as_h2o_lfu"
 
     def __init__(self, session, backend, executor, *, budget=0.25, device_cap=0,
-                 host_cap=0, device_tail_pool: bool = True):
+                 host_cap=0, device_tail_pool: bool = True,
+                 prefill_chunk_tokens: Optional[int] = None):
         super().__init__(session, backend, executor, LFUCache(device_cap, host_cap),
-                         budget=budget, device_tail_pool=device_tail_pool)
+                         budget=budget, device_tail_pool=device_tail_pool,
+                         prefill_chunk_tokens=prefill_chunk_tokens)
 
 
 class IMPRESSEngine(_BlockBaselineEngine):
@@ -715,9 +789,11 @@ class IMPRESSEngine(_BlockBaselineEngine):
     probe_prefetch = True
 
     def __init__(self, session, backend, executor, *, budget=0.25, device_cap=0,
-                 host_cap=0, device_tail_pool: bool = True):
+                 host_cap=0, device_tail_pool: bool = True,
+                 prefill_chunk_tokens: Optional[int] = None):
         super().__init__(session, backend, executor, ImpressScoreCache(device_cap, host_cap),
-                         budget=budget, device_tail_pool=device_tail_pool)
+                         budget=budget, device_tail_pool=device_tail_pool,
+                         prefill_chunk_tokens=prefill_chunk_tokens)
 
 
 # ---------------------------------------------------------------------------
@@ -728,9 +804,11 @@ class StateSpaceEngine:
     families, real mode.
 
     There is no granular prefix KV to identify or load, so the plan has no
-    I/O legs: one ComputeOp (stage ``ssm_prefill``) runs
-    ``StateCompute.prefill`` over prefix + suffix, priced by
-    :func:`costmodel.ssm_prefill_cost`, and each decode step is one ComputeOp
+    I/O legs: the prefill over prefix + suffix is one ComputeOp (stage
+    ``ssm_prefill``) running ``StateCompute.prefill``, priced by
+    :func:`costmodel.ssm_prefill_cost`, or with ``prefill_chunk_tokens``
+    ceil(total / c) chunk-granular ops of which only the last runs it (the
+    earlier ones only occupy the device); each decode step is one ComputeOp
     priced by :func:`costmodel.ssm_decode_cost`, the constant recurrent state
     instead of a growing KV read (hybrids add their attention span). The
     request's serve state lives in a :class:`backends.StatePool` and is
@@ -740,7 +818,7 @@ class StateSpaceEngine:
     cache = None  # no prefix-unit cache: the prefill scan is always compute
 
     def __init__(self, cfg, backend, executor: BaseExecutor, *, prefix_tokens=None,
-                 tenant: int = 0):
+                 tenant: int = 0, prefill_chunk_tokens: Optional[int] = None):
         if cfg.family not in ("ssm", "hybrid"):
             raise ValueError(f"StateSpaceEngine serves ssm/hybrid, not {cfg.family!r}")
         if isinstance(executor, ChannelSim):
@@ -754,6 +832,7 @@ class StateSpaceEngine:
         self.prefix_tokens = (np.zeros(0, np.int32) if prefix_tokens is None
                               else np.asarray(prefix_tokens, dtype=np.int32))
         self.prefix_len = len(self.prefix_tokens)
+        self.prefill_chunk_tokens = prefill_chunk_tokens
 
     def plan(self, suffix_tokens, request_id: int = 0,
              decode_tokens: int = 0) -> StepPlan:
@@ -777,11 +856,19 @@ class StateSpaceEngine:
         t_start = clock.t
         total = self.prefix_len + len(suffix_tokens)
         toks = np.concatenate([self.prefix_tokens, np.asarray(suffix_tokens, np.int32)])
-        cost = CM.ssm_prefill_cost(cfg, total, attended_tokens=total)
-        logits, pool = yield ComputeOp(
-            lambda: be.prefill(toks, extra_tokens=decode_tokens + 1), flops=cost.flops,
-            hbm_bytes=cost.hbm_bytes, tag="ssm_prefill", phase="prefill", tokens=total,
-            weight_bytes=float(CM.decode_weight_bytes(cfg)), weight_key=f"model@{self.stream}")
+        wb = float(CM.decode_weight_bytes(cfg))
+        chunk = self.prefill_chunk_tokens or total
+        done = 0
+        while done < total:
+            n_tok = min(chunk, total - done)
+            done += n_tok
+            final = done >= total
+            cost = CM.ssm_prefill_cost(cfg, n_tok, attended_tokens=done)
+            out = yield ComputeOp(
+                (lambda: be.prefill(toks, extra_tokens=decode_tokens + 1)) if final else None,
+                flops=cost.flops, hbm_bytes=cost.hbm_bytes, tag="ssm_prefill", phase="prefill",
+                tokens=n_tok, weight_bytes=wb, weight_key=f"model@{self.stream}")
+        logits, pool = out
         trace.add_stage("ssm_prefill", clock.t - t_start)
         trace.ttft = clock.t - t_start
         if decode_tokens <= 0:

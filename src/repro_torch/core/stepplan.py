@@ -7,7 +7,9 @@ the generator decides *when* each op runs:
   drive_serial       — one plan at a time against the executor's own clock;
   serving.Scheduler  — many plans interleaved on the wall clock, their decode
                        steps coalesced into one batched pass through the
-                       :class:`DecodeBatchCtx` each decode op carries.
+                       :class:`DecodeBatchCtx` each decode op carries, and
+                       their same-layer final prefill chunks through the
+                       :class:`PrefillChunkCtx` such an op carries.
 
 Non-blocking work (I/O submissions, numpy scoring between ops) executes
 inline inside the generator. Each plan carries a :class:`RequestClock`, the
@@ -60,7 +62,9 @@ class ComputeOp:
 
     ``batch_ctx`` (real mode) is the op's batching surface: a
     :class:`DecodeBatchCtx` on decode steps, which a scheduler coalesces into
-    one ``backend.decode_step_batch`` pass. ``fn`` stays the standalone
+    one ``backend.decode_step_batch`` pass, or a :class:`PrefillChunkCtx` on
+    the final chunk of a chunked part-B layer, which it coalesces into one
+    ``backend.part_b_batch`` pass. ``fn`` stays the standalone
     single-request path, so a driver that ignores it (``drive_serial``) runs
     the plan unchanged.
     """
@@ -73,7 +77,7 @@ class ComputeOp:
     weight_bytes: float = 0.0
     tokens: int = 0
     weight_key: str = ""
-    batch_ctx: Optional[object] = None  # DecodeBatchCtx
+    batch_ctx: Optional[object] = None  # DecodeBatchCtx | PrefillChunkCtx
 
 
 @dataclasses.dataclass
@@ -94,6 +98,43 @@ class DecodeBatchCtx:
     token: int
     pos: int
     pools: dict
+
+
+@dataclasses.dataclass
+class PrefillChunkCtx:
+    """Batchable-op metadata for a real-mode prefill-chunk ComputeOp.
+
+    Carried by the final chunk op of a chunked part-B layer (the one whose
+    ``fn`` runs the attention; earlier chunks only occupy the device). Two
+    ops coalesce into one ``backend.part_b_batch`` call only when they share
+    a backend, the layer and identical shapes and dtypes (``shape_key``):
+    the batched pass runs each member's part B at its own shape, so ragged
+    members cannot mix.
+    """
+
+    backend: object
+    layer: int
+    h: object  # (1, s, d_model) residual stream entering part B
+    q: object  # (1, s, n_q, d_head) rotated queries
+    k_suf: object  # (1, s, n_kv, d_head) suffix keys
+    v_suf: object  # (1, s, n_kv, d_head) suffix values
+    k_sel: object  # (nb, c, n_kv, d_head) gathered selected-chunk keys (numpy)
+    v_sel: object  # (nb, c, n_kv, d_head) gathered selected-chunk values (numpy)
+    valid: object  # (nb,) bucket-validity mask (numpy)
+    chunk_tokens: int
+
+    def shape_key(self):
+        """(layer, chunk tokens, shape and dtype of h, q, k_suf, k_sel and
+        valid). A dtype is named as numpy and jax name it ("float32"), for
+        torch tensors and numpy arrays alike."""
+        def sig(x):
+            shp = getattr(x, "shape", None)
+            dt = getattr(x, "dtype", None)
+            return (tuple(shp) if shp is not None else None,
+                    str(dt).removeprefix("torch."))
+
+        return (self.layer, int(self.chunk_tokens), sig(self.h), sig(self.q),
+                sig(self.k_suf), sig(self.k_sel), sig(self.valid))
 
 
 @dataclasses.dataclass

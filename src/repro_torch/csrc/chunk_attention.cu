@@ -14,6 +14,19 @@
 // on chunk j, summed over heads, queries and the chunk's tokens — not the
 // per-head normalisation over chunks of chunk_attention/ops.py:58-60.
 //
+// Two forms share one kernel body, templated on how a chunk is addressed.
+// The gathered form reads chunk j at k_sel + j c n_kv d. The indexed form
+// (the TPU kernel's read by index: its scalar-prefetched chunk_idx index
+// maps, kernel.py:99-100) runs b members in one launch, member i reading
+// chunk j at pool + chunk_idx[i, j] c n_kv d out of one (m, c, n_kv, d)
+// pool; a CTA loads the indices of the chunk tiles it covers into shared
+// memory once, and only indices below the member's n_valid are read, so a
+// pad slot's address is never formed. Each member takes the split layout a
+// gathered call on its own chunks would (it depends on the member's shape
+// and n_valid, never on b), its own scratch and its own last-CTA counter, so
+// it sums in the same order and equals that call bit for bit. The gathered
+// form is the indexed one at b = 1 with chunk_idx = arange(nb).
+//
 // Bound on the H100 at the main path's shape (28 query heads, 64 suffix
 // rows, 64 chunks of 16 tokens, d = 128, float32 queries): ~2 MB of float16
 // chunks and ~1 MB of suffix KV, queries and output (1.25 us at 3.35 TB/s)
@@ -36,8 +49,8 @@
 // Layout of the work: two kernels. Rows of kv head h are r = pos * group +
 // gi (position-major, so a 64-row tile spans few positions and the causal
 // mask prunes suffix tiles).
-//   - chunk_attn_kernel: one CTA of 4 warps per (64-row tile, kv head,
-//     split of the key tiles); a warp owns 16 rows. Key tiles are 64 keys:
+//   - chunk_attn_kernel: one CTA of 4 warps per (64-row tile, member and kv
+//     head, split of the key tiles); a warp owns 16 rows. Key tiles are 64 keys:
 //     chunk tiles hold whole chunks (64 / c of them), then the suffix tiles.
 //     The query rows and each tile's K and V are copied with cp.async, the
 //     float16 chunk tiles double-buffered (the next tile's copy runs under
@@ -49,9 +62,10 @@
 //     probability mass with the row's running max it was taken at, so no
 //     second pass over the chunks is needed. d = 128 is
 //     compiled with its loops unrolled; other d take a generic instance.
-//   - chunk_merge_kernel: one CTA per (16 rows, kv head) merges the splits
-//     in split order into the output and the rows' per-chunk mass, and the
-//     last CTA to finish sums those in a fixed order into A_j.
+//   - chunk_merge_kernel: one CTA per (16 rows, kv head, member) merges the
+//     splits in split order into the output and the rows' per-chunk mass,
+//     and the member's last CTA to finish sums those in a fixed order into
+//     its A_j.
 // No float atomics: two runs are bit-identical.
 #include "common.cuh"
 
@@ -81,6 +95,61 @@ __host__ __device__ __forceinline__ size_t ca_buf_bytes(int d) {  // one float16
   return 2 * (size_t)CA_KEYS * (d + 8) * 2;
 }
 inline size_t ca_smem(int d, int tq_size) { return ca_q_bytes(d, tq_size) + 2 * ca_buf_bytes(d); }
+// the indexed form's chunk indices in shared memory, past the K/V buffers
+constexpr int CA_IDX_CAP = 8192;
+
+// One member's split layout: key tiles of bk = 64 / c * c chunk keys (n_ct
+// of them) then ceil(s / 64) suffix tiles, tps key tiles per split over
+// n_split splits, `splits` being as many as fill every SM of the device
+// with CA_CTAS_PER_SM CTAs in one wave for one member. It depends on the
+// member's own shape and n_valid only, so a member of an indexed call and a
+// gathered call on its chunks split alike.
+struct CaMember {
+  int n_valid, n_ct, tps, n_split;
+};
+
+__host__ __device__ __forceinline__ CaMember ca_member(int n_valid, int s, int c, int splits) {
+  CaMember M;
+  const int bk = (CA_KEYS / c) * c;
+  M.n_valid = n_valid;
+  M.n_ct = (n_valid * c + bk - 1) / bk;
+  const int n_tiles = M.n_ct + (s + CA_KEYS - 1) / CA_KEYS;
+  M.tps = (n_tiles + splits - 1) / splits;
+  M.n_split = (n_tiles + M.tps - 1) / M.tps;
+  return M;
+}
+
+// A member's float32 scratch: split partials (output, max, denominator),
+// then the raw per-(row, chunk) mass, the max per (row, chunk tile) it was
+// taken at, and the merge CTAs' partial A_j.
+struct CaScratch {
+  float *o_part, *m_part, *l_part, *raw, *m_at, *partial;
+};
+
+__host__ __device__ __forceinline__ size_t ca_member_floats(int n_split, int n_valid, int n_ct,
+                                                            int n_kv, int rows, int n_mp, int d) {
+  return (size_t)n_split * n_kv * rows * (d + 2) + (size_t)n_kv * rows * (n_valid + n_ct) +
+         (size_t)n_kv * n_mp * n_valid;
+}
+
+__host__ __device__ __forceinline__ CaScratch ca_scratch(float* base, const CaMember& M, int n_kv,
+                                                         int rows, int d) {
+  CaScratch S;
+  const size_t part_rows = (size_t)M.n_split * n_kv * rows;
+  S.o_part = base;
+  S.m_part = S.o_part + part_rows * d;
+  S.l_part = S.m_part + part_rows;
+  S.raw = S.l_part + part_rows;
+  S.m_at = S.raw + (size_t)n_kv * rows * M.n_valid;
+  S.partial = S.m_at + (size_t)n_kv * rows * M.n_ct;
+  return S;
+}
+
+// member i's n_valid: the gathered form's scalar, or the indexed form's
+// n_valid[i] clamped to [0, nb]
+__device__ __forceinline__ int member_n_valid(const int* n_valid_of, int i, int n_valid, int nb) {
+  return n_valid_of ? min(max(__ldg(n_valid_of + i), 0), nb) : n_valid;
+}
 
 // cp.async rows [t0, t0 + 64) of a (rows, n_kv, d) tensor's head h into a
 // tile of row stride kv_ld<T>(d); rows at or past t0 + n are zeros
@@ -93,6 +162,32 @@ __device__ __forceinline__ void copy_rows_async(T* dst, const T* src, size_t row
     const int kk = i / per_row, e = (i % per_row) * VEC;
     const bool ok = kk < n;
     cp_async16_zfill(dst + kk * ld + e, ok ? src + (size_t)(t0 + kk) * row_stride + e : src, ok);
+  }
+}
+
+// copy_rows_async of chunk keys [t0, t0 + 64): the gathered form reads key t
+// at row t of src; the indexed form reads it at token t % c of chunk
+// sidx[t / c - j0] of a pool of c-token chunks. Only keys below t0 + n (all
+// of valid chunks) form an address.
+template <bool INDEXED>
+__device__ __forceinline__ void copy_chunk_rows_async(__half* dst, const __half* src,
+                                                      size_t row_stride, int t0, int n, int d,
+                                                      int c, const int* sidx, int j0) {
+  if constexpr (!INDEXED) {
+    copy_rows_async<__half>(dst, src, row_stride, t0, n, d);
+  } else {
+    constexpr int VEC = 8;
+    const int per_row = d / VEC, ld = kv_ld<__half>(d);
+    for (int i = threadIdx.x; i < CA_KEYS * per_row; i += CA_NT) {
+      const int kk = i / per_row, e = (i % per_row) * VEC;
+      const bool ok = kk < n;
+      const __half* from = src;
+      if (ok) {
+        const int key = t0 + kk, j = key / c;
+        from = src + ((size_t)sidx[j - j0] * c + (key - j * c)) * row_stride + e;
+      }
+      cp_async16_zfill(dst + kk * ld + e, from, ok);
+    }
   }
 }
 
@@ -177,33 +272,44 @@ __device__ __forceinline__ void tile_pv_tc(const float p[8][4], const VT* vs, in
   }
 }
 
-// The attention pass: one CTA per (64-row tile, kv head, split of the key
-// tiles). Stores the split's unnormalised output, max and denominator per
-// row, and per (row, chunk) the raw mass with, per (row, chunk tile), the max
-// it was taken at.
-template <int HD, typename TQ>
+// The attention pass: one CTA per (64-row tile, member and kv head, split of
+// the key tiles). Stores the split's unnormalised output, max and
+// denominator per row, and per (row, chunk) the raw mass with, per (row,
+// chunk tile), the max it was taken at, into the member's scratch at work +
+// member * member_floats. A CTA past its member's own splits exits.
+template <int HD, typename TQ, bool INDEXED>
 static __global__ void __launch_bounds__(CA_NT, CA_CTAS_PER_SM) chunk_attn_kernel(
     const TQ* __restrict__ q, const __half* __restrict__ k_sel, const __half* __restrict__ v_sel,
-    const TQ* __restrict__ k_suf, const TQ* __restrict__ v_suf, float* __restrict__ o_part,
-    float* __restrict__ m_part, float* __restrict__ l_part, float* __restrict__ raw,
-    float* __restrict__ m_at, int s, int n_q, int n_kv, int c, int n_valid, int d_rt, int tps,
-    float scale) {
+    const TQ* __restrict__ k_suf, const TQ* __restrict__ v_suf, const int* __restrict__ chunk_idx,
+    const int* __restrict__ n_valid_of, float* __restrict__ work, size_t member_floats, int s,
+    int n_q, int n_kv, int nb, int c, int n_valid_all, int d_rt, int splits, float scale) {
   constexpr bool WIDE_SUFFIX = sizeof(TQ) == 4;  // a float32 suffix tile takes both buffers
   const int d = HD ? HD : d_rt;
+  const int mem = blockIdx.y / n_kv, h = blockIdx.y % n_kv, rt = blockIdx.x, sp = blockIdx.z;
+  const CaMember M = ca_member(member_n_valid(n_valid_of, mem, n_valid_all, nb), s, c, splits);
+  if (sp >= M.n_split) return;
+  const int G = n_q / n_kv, rows = G * s, r0 = rt * CA_ROWS;
+  const CaScratch S = ca_scratch(work + mem * member_floats, M, n_kv, rows, d);
+  float* __restrict__ raw = S.raw;
+  float* __restrict__ m_at = S.m_at;
+  q += (size_t)mem * s * n_q * d;
+  k_suf += (size_t)mem * s * n_kv * d;
+  v_suf += (size_t)mem * s * n_kv * d;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   TQ* qs = reinterpret_cast<TQ*>(smem_raw);  // [64][kv_ld<TQ>(d)]
   unsigned char* kv = smem_raw + ca_q_bytes(d, sizeof(TQ));
   const size_t buf_bytes = ca_buf_bytes(d);
+  int* sidx = reinterpret_cast<int*>(kv + 2 * buf_bytes);  // the indexed form's chunk indices
 
-  const int rt = blockIdx.x, h = blockIdx.y, sp = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int G = n_q / n_kv, rows = G * s, r0 = rt * CA_ROWS;
+  const int n_valid = M.n_valid, n_ct = M.n_ct, tps = M.tps;
   const int n_pre = n_valid * c, cpt = CA_KEYS / c, bk = cpt * c;
-  const int n_ct = (n_pre + bk - 1) / bk;
   // the last suffix key any row of this tile sees: later suffix tiles are skipped
   const int last_pos = min(s - 1, (min(r0 + CA_ROWS, rows) - 1) / G);
   const int n_tiles = n_ct + last_pos / CA_KEYS + 1;
   const int tile_lo = sp * tps, tile_hi = min(n_tiles, tile_lo + tps);
+  // the chunks of this CTA's chunk tiles: [j_lo, j_hi)
+  const int j_lo = min(tile_lo * cpt, n_valid), j_hi = min(min(tile_hi, n_ct) * cpt, n_valid);
   int row[2], pos[2];  // this lane's rows (g and g + 8 of its warp); pos -1: no such row
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -221,9 +327,10 @@ static __global__ void __launch_bounds__(CA_NT, CA_CTAS_PER_SM) chunk_attn_kerne
     unsigned char* base = kv + buf * buf_bytes;
     if (tile < n_ct) {
       const int t0 = tile * bk, n = min(bk, n_pre - t0);
-      copy_rows_async<__half>((__half*)base, k_sel + (size_t)h * d, (size_t)n_kv * d, t0, n, d);
-      copy_rows_async<__half>((__half*)(base + buf_bytes / 2), v_sel + (size_t)h * d,
-                              (size_t)n_kv * d, t0, n, d);
+      copy_chunk_rows_async<INDEXED>((__half*)base, k_sel + (size_t)h * d, (size_t)n_kv * d, t0,
+                                     n, d, c, sidx, j_lo);
+      copy_chunk_rows_async<INDEXED>((__half*)(base + buf_bytes / 2), v_sel + (size_t)h * d,
+                                     (size_t)n_kv * d, t0, n, d, c, sidx, j_lo);
     } else {
       const int t0 = (tile - n_ct) * CA_KEYS, n = min(CA_KEYS, s - t0);
       const size_t half = WIDE_SUFFIX ? buf_bytes : buf_bytes / 2;
@@ -244,6 +351,11 @@ static __global__ void __launch_bounds__(CA_NT, CA_CTAS_PER_SM) chunk_attn_kerne
       cp_async16_zfill(qs + rr * ldq + e,
                        ok ? q + ((size_t)(r / G) * n_q + h * G + r % G) * d + e : q, ok);
     }
+  }
+  if (INDEXED) {  // the member's indices of this CTA's chunks, one load each
+    const int* row_idx = chunk_idx + (size_t)mem * nb;
+    for (int j = j_lo + tid; j < j_hi; j += CA_NT) sidx[j - j_lo] = __ldg(row_idx + j);
+    __syncthreads();
   }
   int buf = 0;
   if (tile_lo < tile_hi) fetch(tile_lo, 0);
@@ -348,41 +460,51 @@ static __global__ void __launch_bounds__(CA_NT, CA_CTAS_PER_SM) chunk_attn_kerne
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (pos[i] < 0) continue;
-    float* dst = o_part + (base + row[i]) * d + 2 * t;
+    float* dst = S.o_part + (base + row[i]) * d + 2 * t;
 #pragma unroll
     for (int dt = 0; dt < 16; ++dt) {
       if (HD ? dt >= HD / 8 : dt * 8 >= d) break;
       *reinterpret_cast<float2*>(dst + dt * 8) = make_float2(o[dt][2 * i], o[dt][2 * i + 1]);
     }
     if (t == 0) {
-      m_part[base + row[i]] = m_run[i];
-      l_part[base + row[i]] = l_run[i];
+      S.m_part[base + row[i]] = m_run[i];
+      S.l_part[base + row[i]] = l_run[i];
     }
   }
 }
 
-// The merge: one CTA per (16 rows, kv head). It merges the splits in split
-// order into the output rows and sums the rows' mass on each chunk (rows in
-// order, each rescaled from the max its raw mass was taken at to its final
-// max and denominator); the last CTA to finish sums those partial masses, in
-// the order of (kv head, 16 rows), into A_j. Every load the first batch needs
-// (statistics, outputs, raw masses) is started before any is used, so at the
-// main path's shape the CTA's own work is one round trip.
+// The merge: one CTA per (16 rows, kv head, member). It merges the member's
+// splits in split order into the output rows and sums the rows' mass on each
+// chunk (rows in order, each rescaled from the max its raw mass was taken at
+// to its final max and denominator); the member's last CTA to finish (its
+// own counter) sums those partial masses, in the order of (kv head, 16
+// rows), into its A_j. Every load the first batch needs (statistics,
+// outputs, raw masses) is started before any is used, so at the main path's
+// shape the CTA's own work is one round trip.
 static __global__ void __launch_bounds__(CA_MERGE_NT) chunk_merge_kernel(
-    const float* __restrict__ o_part, const float* __restrict__ m_part,
-    const float* __restrict__ l_part, const float* __restrict__ raw,
-    const float* __restrict__ m_at, float* __restrict__ partial, int* __restrict__ counter,
-    float* __restrict__ out, float* __restrict__ mass, int s, int n_q, int n_kv, int nb, int c,
-    int n_valid, int d, int n_split) {
+    float* __restrict__ work, size_t member_floats, const int* __restrict__ n_valid_of,
+    int* __restrict__ counters, float* __restrict__ out, float* __restrict__ mass, int s,
+    int n_q, int n_kv, int nb, int c, int n_valid_all, int d, int splits) {
   constexpr int SB = 12;  // splits per batch (the main path has 9)
   constexpr int RK = 2;   // output rows per thread per pass
   constexpr int R = CA_MERGE_ROWS;
   __shared__ float m_fin[R], inv_l[R], fin[CA_MERGE_NT];
   __shared__ int flag;
-  const int tid = threadIdx.x, h = blockIdx.y, part = blockIdx.x;
+  const int tid = threadIdx.x, h = blockIdx.y, part = blockIdx.x, mem = blockIdx.z;
   const int G = n_q / n_kv, rows = G * s, r0 = part * R;
   const int n_rows = min(R, rows - r0);
-  const int n_pre = n_valid * c, cpt = CA_KEYS / c, n_ct = (n_pre + cpt * c - 1) / (cpt * c);
+  const CaMember M = ca_member(member_n_valid(n_valid_of, mem, n_valid_all, nb), s, c, splits);
+  const CaScratch S = ca_scratch(work + mem * member_floats, M, n_kv, rows, d);
+  const float* __restrict__ o_part = S.o_part;
+  const float* __restrict__ m_part = S.m_part;
+  const float* __restrict__ l_part = S.l_part;
+  const float* __restrict__ raw = S.raw;
+  const float* __restrict__ m_at = S.m_at;
+  float* __restrict__ partial = S.partial;
+  int* __restrict__ counter = counters + mem;
+  out += (size_t)mem * s * n_q * d;
+  mass += (size_t)mem * nb;
+  const int n_valid = M.n_valid, n_split = M.n_split, cpt = CA_KEYS / c, n_ct = M.n_ct;
   const size_t stride = (size_t)n_kv * rows, hrow = (size_t)h * rows + r0;
   // output items: column group tid % d4 of rows tid / d4 + k * rstep
   const int d4 = d / 4, x4 = (tid % d4) * 4, rstep = CA_MERGE_NT / d4, rr0 = tid / d4;
@@ -522,37 +644,42 @@ static __global__ void __launch_bounds__(CA_MERGE_NT) chunk_merge_kernel(
   }
 }
 
-template <int HD, typename TQ>
-static cudaError_t launch_attn(dim3 grid, cudaStream_t st, const void* q, const void* k_sel,
-                               const void* v_sel, const void* k_suf, const void* v_suf,
-                               float* o_part, float* m_part, float* l_part, float* raw,
-                               float* m_at, int s, int n_q, int n_kv, int c, int n_valid, int d,
-                               int tps) {
-  static OncePerDevice smem_opt_in;  // at the largest d
+template <int HD, typename TQ, bool INDEXED>
+static cudaError_t launch_attn(dim3 grid, size_t smem, cudaStream_t st, const void* q,
+                               const void* k_sel, const void* v_sel, const void* k_suf,
+                               const void* v_suf, const int* chunk_idx, const int* n_valid_of,
+                               float* work, size_t member_floats, int s, int n_q, int n_kv,
+                               int nb, int c, int n_valid, int d, int splits) {
+  static OncePerDevice smem_opt_in;  // at the largest d (and index block)
   const cudaError_t attr = smem_opt_in([] {
-    return cudaFuncSetAttribute(chunk_attn_kernel<HD, TQ>,
+    return cudaFuncSetAttribute(chunk_attn_kernel<HD, TQ, INDEXED>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)ca_smem(128, sizeof(TQ)));
+                                (int)(ca_smem(128, sizeof(TQ)) +
+                                      (INDEXED ? CA_IDX_CAP * sizeof(int) : 0)));
   });
   if (attr != cudaSuccess) return attr;
-  chunk_attn_kernel<HD, TQ><<<grid, CA_NT, ca_smem(d, sizeof(TQ)), st>>>(
+  chunk_attn_kernel<HD, TQ, INDEXED><<<grid, CA_NT, smem, st>>>(
       (const TQ*)q, (const __half*)k_sel, (const __half*)v_sel, (const TQ*)k_suf,
-      (const TQ*)v_suf, o_part, m_part, l_part, raw, m_at, s, n_q, n_kv, c, n_valid, d, tps,
-      softmax_scale(d));
+      (const TQ*)v_suf, chunk_idx, n_valid_of, work, member_floats, s, n_q, n_kv, nb, c,
+      n_valid, d, splits, softmax_scale(d));
   return cudaGetLastError();
 }
 
-// The work of one call: rows = n_q / n_kv * s per kv head in n_rt tiles of 64;
-// key tiles of bk = 64 / c * c chunk keys (n_ct of them) then ceil(s / 64)
-// suffix tiles; as few key tiles per split (tps) as fill every SM of the
-// current device with CA_CTAS_PER_SM CTAs in one wave; and the float32
-// scratch those splits need.
+// The work of one call: rows = n_q / n_kv * s per kv head in n_rt tiles of
+// 64 and n_mp merge CTAs of 16; `splits` (ca_member) from the current
+// device's SMs; the launch's grid.z and each member's float32 scratch. A
+// gathered call takes the layout of its own n_valid. An indexed call's
+// members may have any n_valid up to nb: grid.z and the scratch each member
+// is given cover them all (no member has more than min(splits, its tiles)
+// splits, nor more chunks or chunk tiles than at n_valid = nb), and every
+// member's CTA past its own splits exits.
 struct CaLayout {
-  int rows, n_rt, n_ct, tps, n_split, n_mp;
-  size_t work_floats;
+  int rows, n_rt, n_mp, splits, n_z, idx_ints;
+  size_t member_floats;
 };
 
-static cudaError_t ca_layout(int s, int n_q, int n_kv, int c, int n_valid, int d, CaLayout* L) {
+static cudaError_t ca_layout(int s, int n_q, int n_kv, int c, int n_valid, int d, bool any_valid,
+                             CaLayout* L) {
   if (d % 8 || d > 128 || d < 8 || c < 1 || c > CA_KEYS || s < 1 || n_kv < 1 || n_q % n_kv ||
       n_valid < 0)
     return cudaErrorInvalidValue;
@@ -562,48 +689,71 @@ static cudaError_t ca_layout(int s, int n_q, int n_kv, int c, int n_valid, int d
   if (e != cudaSuccess) return e;
   L->rows = (n_q / n_kv) * s;
   L->n_rt = (L->rows + CA_ROWS - 1) / CA_ROWS;
-  const int bk = (CA_KEYS / c) * c;
-  L->n_ct = (n_valid * c + bk - 1) / bk;
-  const int n_tiles = L->n_ct + (s + CA_KEYS - 1) / CA_KEYS;
-  const int splits = std::max(1, CA_CTAS_PER_SM * sms / (L->n_rt * n_kv));
-  L->tps = (n_tiles + splits - 1) / splits;
-  L->n_split = (n_tiles + L->tps - 1) / L->tps;
   L->n_mp = (L->rows + CA_MERGE_ROWS - 1) / CA_MERGE_ROWS;  // merge CTAs per kv head
-  L->work_floats = (size_t)L->n_split * n_kv * L->rows * (d + 2) +
-                   (size_t)n_kv * L->rows * (n_valid + L->n_ct) +
-                   (size_t)n_kv * L->n_mp * n_valid;
+  L->splits = std::max(1, CA_CTAS_PER_SM * sms / (L->n_rt * n_kv));
+  const CaMember M = ca_member(n_valid, s, c, L->splits);
+  const int n_tiles = M.n_ct + (s + CA_KEYS - 1) / CA_KEYS;
+  L->n_z = any_valid ? std::min(L->splits, n_tiles) : M.n_split;
+  L->idx_ints = any_valid ? M.tps * (CA_KEYS / c) : 0;
+  L->member_floats = ca_member_floats(L->n_z, n_valid, M.n_ct, n_kv, L->rows, L->n_mp, d);
   return cudaSuccess;
 }
 
-template <typename TQ>
+// b members: q (b, s, n_q, d) and k_suf/v_suf (b, s, n_kv, d); the gathered
+// form (chunk_idx null) reads b = 1's chunks from k_sel/v_sel, the indexed
+// one from the pool through chunk_idx (b, nb) and n_valid_of (b,).
+template <typename TQ, bool INDEXED>
 static int launch_chunk_attention(const void* q, const void* k_sel, const void* v_sel,
-                                  const void* k_suf, const void* v_suf, float* out, float* mass,
-                                  float* work, long long work_floats, int* counters, int s,
-                                  int n_q, int n_kv, int nb, int c, int n_valid, int d,
-                                  cudaStream_t st) {
+                                  const void* k_suf, const void* v_suf, const int* chunk_idx,
+                                  const int* n_valid_of, float* out, float* mass, float* work,
+                                  long long work_floats, int* counters, int b, int s, int n_q,
+                                  int n_kv, int nb, int c, int n_valid, int d, cudaStream_t st) {
   CaLayout L;
-  cudaError_t e = ca_layout(s, n_q, n_kv, c, n_valid, d, &L);
+  cudaError_t e = ca_layout(s, n_q, n_kv, c, n_valid, d, INDEXED, &L);
   if (e != cudaSuccess) return (int)e;
-  if (n_valid > nb || work_floats < 0 || (size_t)work_floats < L.work_floats)
+  if (b < 1 || b > 65535 / n_kv || n_valid > nb || work_floats < 0 ||
+      (size_t)work_floats < (size_t)b * L.member_floats || L.idx_ints > CA_IDX_CAP)
     return (int)cudaErrorInvalidValue;
-  const int rows = L.rows;
-  const size_t part_rows = (size_t)L.n_split * n_kv * rows;
-  float* o_part = work;
-  float* m_part = o_part + part_rows * d;
-  float* l_part = m_part + part_rows;
-  float* raw = l_part + part_rows;
-  float* m_at = raw + (size_t)n_kv * rows * n_valid;
-  float* partial = m_at + (size_t)n_kv * rows * L.n_ct;
-  const dim3 grid(L.n_rt, n_kv, L.n_split);
-  e = d == 128 ? launch_attn<128, TQ>(grid, st, q, k_sel, v_sel, k_suf, v_suf, o_part, m_part,
-                                      l_part, raw, m_at, s, n_q, n_kv, c, n_valid, d, L.tps)
-               : launch_attn<0, TQ>(grid, st, q, k_sel, v_sel, k_suf, v_suf, o_part, m_part,
-                                    l_part, raw, m_at, s, n_q, n_kv, c, n_valid, d, L.tps);
+  const size_t smem = ca_smem(d, sizeof(TQ)) + (size_t)L.idx_ints * sizeof(int);
+  const dim3 grid(L.n_rt, n_kv * b, L.n_z);
+  e = d == 128 ? launch_attn<128, TQ, INDEXED>(grid, smem, st, q, k_sel, v_sel, k_suf, v_suf,
+                                               chunk_idx, n_valid_of, work, L.member_floats, s,
+                                               n_q, n_kv, nb, c, n_valid, d, L.splits)
+               : launch_attn<0, TQ, INDEXED>(grid, smem, st, q, k_sel, v_sel, k_suf, v_suf,
+                                             chunk_idx, n_valid_of, work, L.member_floats, s,
+                                             n_q, n_kv, nb, c, n_valid, d, L.splits);
   if (e != cudaSuccess) return (int)e;
-  chunk_merge_kernel<<<dim3(L.n_mp, n_kv), CA_MERGE_NT, 0, st>>>(
-      o_part, m_part, l_part, raw, m_at, partial, counters, out, mass, s, n_q, n_kv, nb, c,
-      n_valid, d, L.n_split);
+  chunk_merge_kernel<<<dim3(L.n_mp, n_kv, b), CA_MERGE_NT, 0, st>>>(
+      work, L.member_floats, n_valid_of, counters, out, mass, s, n_q, n_kv, nb, c, n_valid, d,
+      L.splits);
   return (int)cudaGetLastError();
+}
+
+template <bool INDEXED>
+static int dispatch_chunk_attention(const void* q, const void* k_sel, const void* v_sel,
+                                    const void* k_suf, const void* v_suf, const int* chunk_idx,
+                                    const int* n_valid_of, float* out, float* mass, float* work,
+                                    long long work_floats, int* counters, int b, int s, int n_q,
+                                    int n_kv, int nb, int c, int n_valid, int d, int q_dtype,
+                                    cudaStream_t st) {
+  switch (q_dtype) {
+    case F32:
+      return launch_chunk_attention<float, INDEXED>(q, k_sel, v_sel, k_suf, v_suf, chunk_idx,
+                                                    n_valid_of, out, mass, work, work_floats,
+                                                    counters, b, s, n_q, n_kv, nb, c, n_valid, d,
+                                                    st);
+    case BF16:
+      return launch_chunk_attention<__nv_bfloat16, INDEXED>(
+          q, k_sel, v_sel, k_suf, v_suf, chunk_idx, n_valid_of, out, mass, work, work_floats,
+          counters, b, s, n_q, n_kv, nb, c, n_valid, d, st);
+    case F16:
+      return launch_chunk_attention<__half, INDEXED>(q, k_sel, v_sel, k_suf, v_suf, chunk_idx,
+                                                     n_valid_of, out, mass, work, work_floats,
+                                                     counters, b, s, n_q, n_kv, nb, c, n_valid,
+                                                     d, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace ckv
@@ -614,8 +764,17 @@ static int launch_chunk_attention(const void* q, const void* k_sel, const void* 
 extern "C" long long ckv_chunk_attention_work_floats(int s, int n_q, int n_kv, int c,
                                                      int n_valid, int d) {
   ckv::CaLayout L;
-  if (ckv::ca_layout(s, n_q, n_kv, c, n_valid, d, &L) != cudaSuccess) return -1;
-  return (long long)L.work_floats;
+  if (ckv::ca_layout(s, n_q, n_kv, c, n_valid, d, false, &L) != cudaSuccess) return -1;
+  return (long long)L.member_floats;
+}
+
+// The float32 scratch one ckv_chunk_attention_indexed call of b members
+// with n_sel index slots each needs on the current device, or -1.
+extern "C" long long ckv_chunk_attention_indexed_work_floats(int b, int s, int n_q, int n_kv,
+                                                             int c, int n_sel, int d) {
+  ckv::CaLayout L;
+  if (b < 1 || ckv::ca_layout(s, n_q, n_kv, c, n_sel, d, true, &L) != cudaSuccess) return -1;
+  return (long long)(b * L.member_floats);
 }
 
 // q (s, n_q, d), k_suf/v_suf (s, n_kv, d) in q_dtype; k_sel/v_sel (nb, c, n_kv, d) float16
@@ -628,21 +787,26 @@ extern "C" int ckv_chunk_attention(const void* q, const void* k_sel, const void*
                                    float* work, long long work_floats, int* counters, int s,
                                    int n_q, int n_kv, int nb, int c, int n_valid, int d,
                                    int q_dtype, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (q_dtype) {
-    case ckv::F32:
-      return ckv::launch_chunk_attention<float>(q, k_sel, v_sel, k_suf, v_suf, out, mass, work,
-                                                work_floats, counters, s, n_q, n_kv, nb, c,
-                                                n_valid, d, st);
-    case ckv::BF16:
-      return ckv::launch_chunk_attention<__nv_bfloat16>(q, k_sel, v_sel, k_suf, v_suf, out, mass,
-                                                        work, work_floats, counters, s, n_q, n_kv,
-                                                        nb, c, n_valid, d, st);
-    case ckv::F16:
-      return ckv::launch_chunk_attention<__half>(q, k_sel, v_sel, k_suf, v_suf, out, mass, work,
-                                                 work_floats, counters, s, n_q, n_kv, nb, c,
-                                                 n_valid, d, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return ckv::dispatch_chunk_attention<false>(q, k_sel, v_sel, k_suf, v_suf, nullptr, nullptr,
+                                              out, mass, work, work_floats, counters, 1, s, n_q,
+                                              n_kv, nb, c, n_valid, d, q_dtype,
+                                              (cudaStream_t)stream);
+}
+
+// The indexed form over b members: q (b, s, n_q, d), k_suf/v_suf (b, s, n_kv, d) in q_dtype;
+// k_pool/v_pool (m, c, n_kv, d) float16; chunk_idx (b, n_sel) int32 in [0, m), of which
+// member i reads the first n_valid[i] (n_valid (b,) int32, clamped to [0, n_sel]); out
+// (b, s, n_q, d) float32; mass (b, n_sel) float32, 0 past n_valid[i]. work: float32 scratch
+// of work_floats >= ckv_chunk_attention_indexed_work_floats(...); counters: b int32, zero
+// before the launch and zero again after it.
+extern "C" int ckv_chunk_attention_indexed(const void* q, const void* k_pool, const void* v_pool,
+                                           const void* k_suf, const void* v_suf,
+                                           const int* chunk_idx, const int* n_valid, float* out,
+                                           float* mass, float* work, long long work_floats,
+                                           int* counters, int b, int s, int n_q, int n_kv,
+                                           int n_sel, int c, int d, int q_dtype, void* stream) {
+  return ckv::dispatch_chunk_attention<true>(q, k_pool, v_pool, k_suf, v_suf, chunk_idx, n_valid,
+                                             out, mass, work, work_floats, counters, b, s, n_q,
+                                             n_kv, n_sel, c, n_sel, d, q_dtype,
+                                             (cudaStream_t)stream);
 }

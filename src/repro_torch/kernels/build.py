@@ -38,6 +38,9 @@ SIGNATURES = {
     # q, k_sel, v_sel, k_suf, v_suf, out, mass, work, work_floats, counters,
     # s, n_q, n_kv, nb, c, n_valid, d, q_dtype, stream
     "ckv_chunk_attention": [P] * 8 + [L, P] + [I] * 8 + [P],
+    # q, k_pool, v_pool, k_suf, v_suf, chunk_idx, n_valid, out, mass, work, work_floats,
+    # counters, b, s, n_q, n_kv, n_sel, c, d, q_dtype, stream
+    "ckv_chunk_attention_indexed": [P] * 10 + [L, P] + [I] * 8 + [P],
     # q, k_pool, v_pool, table, lengths, out, mass, work, work_floats, counters,
     # b, n_q, n_kv, n_pages, page, n_active, d, dtype, stream
     "ckv_decode_attention": [P] * 8 + [L, P] + [I] * 8 + [P],
@@ -124,6 +127,7 @@ def library() -> ctypes.CDLL:
     for name, n_args in (("ckv_selective_scan_scratch", 4),
                          ("ckv_chunk_score_work_floats", 6),
                          ("ckv_chunk_attention_work_floats", 6),
+                         ("ckv_chunk_attention_indexed_work_floats", 7),
                          ("ckv_decode_attention_work_floats", 5)):
         fn = getattr(lib, name)
         fn.argtypes = [I] * n_args

@@ -2,8 +2,10 @@
 
 ``chunk_attention_ref`` is ``core/sparse_attention.py:reprefill_attention``
 with the valid chunks given as a count (a prefix of the bucket), which is how
-the engine pads them. ``chunk_attention_split_ref`` repeats the kernel's
-arithmetic: every product as the sum of split-TF32 terms.
+the engine pads them. ``chunk_attention_indexed_ref`` is the indexed form: b
+members, each reading its chunks out of one pool by index.
+``chunk_attention_split_ref`` repeats the kernel's arithmetic: every product
+as the sum of split-TF32 terms.
 """
 from __future__ import annotations
 
@@ -20,6 +22,25 @@ def chunk_attention_ref(q, k_sel, v_sel, n_valid: int, k_suf, v_suf
     valid = torch.arange(k_sel.shape[0], device=q.device) < n_valid
     return reprefill_attention(q, k_sel, v_sel, valid, k_suf, v_suf,
                                chunk_tokens=k_sel.shape[1])
+
+
+def chunk_attention_indexed_ref(q, k_pool, v_pool, chunk_idx, n_valid, k_suf, v_suf
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Member i: ``chunk_attention_ref`` over ``pool[chunk_idx[i, :n_valid[i]]]``,
+    zero-padded to the n_sel slots (n_valid[i] clamped to [0, n_sel], as the
+    kernel takes it; a pad slot's index is never read). Returns (out (b, s,
+    n_q, d) float32, chunk_mass (b, n_sel) float32)."""
+    n_sel = chunk_idx.shape[1]
+    outs, masses = [], []
+    for i in range(q.shape[0]):
+        nv = min(max(int(n_valid[i]), 0), n_sel)
+        idx = chunk_idx[i, :nv].long()
+        k_sel, v_sel = (torch.cat([p[idx], p.new_zeros((n_sel - nv,) + p.shape[1:])])
+                        for p in (k_pool, v_pool))
+        o, m = chunk_attention_ref(q[i], k_sel, v_sel, nv, k_suf[i], v_suf[i])
+        outs.append(o)
+        masses.append(m)
+    return torch.stack(outs), torch.stack(masses)
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:

@@ -19,10 +19,14 @@ move to host memory and back. ``--host-tail-pool`` forces the host-resident
 decode pools (a pool upload per step). ``--disaggregate P:D`` hands each
 plan's decode phase to one of D decode-worker backends, ``--replicas N`` to
 one of N replicas' backends, through the pools' swap round trip.
+``--prefill-chunk-tokens C`` splits each layer's part B into ops of C suffix
+tokens, and concurrent plans' same-layer final chunks run as one batched
+part B (one launch of chunk_attention's indexed form); the digest counts
+those batches beside the decode ones.
 
 Not yet in the port, each exiting at once with the slice that brings it:
 ``--mode sim``, ``--fleet``, ``--hybrid-reprefill`` other than ``off``,
-``--cache-tiers``, ``--tp-decode`` and ``--prefill-chunk-tokens``.
+``--cache-tiers`` and ``--tp-decode``.
 """
 from __future__ import annotations
 
@@ -41,8 +45,6 @@ DEFERRED = {
     "hybrid_reprefill": "--hybrid-reprefill comes with the port's compute-or-load slice",
     "cache_tiers": "--cache-tiers comes with the port's tier store, in its sim slice",
     "tp_decode": "--tp-decode comes with the port's multi-device slice",
-    "prefill_chunk_tokens": "--prefill-chunk-tokens comes with the port's chunked-prefill "
-                            "slice",
 }
 
 
@@ -50,8 +52,7 @@ def _refuse_deferred(args):
     given = {"mode": args.mode != "real", "fleet": args.fleet is not None,
              "hybrid_reprefill": args.hybrid_reprefill != "off",
              "cache_tiers": args.cache_tiers is not None,
-             "tp_decode": args.tp_decode is not None,
-             "prefill_chunk_tokens": args.prefill_chunk_tokens is not None}
+             "tp_decode": args.tp_decode is not None}
     for flag, on in given.items():
         if on:
             raise SystemExit(f"not in the port yet: {DEFERRED[flag]}")
@@ -100,6 +101,7 @@ def _real_main(args):
                               coarse_blocks=coarse, in_memory=True, device=dev)
     ex = RealExecutor()
     kw = dict(device_cap=64, host_cap=128,
+              prefill_chunk_tokens=args.prefill_chunk_tokens,
               device_tail_pool=not args.host_tail_pool)
     if args.system == "contiguous_kv":
         kw.update(budget=args.budget, period=args.period, subperiod=args.subperiod)
@@ -164,10 +166,14 @@ def _real_main(args):
         print(f"decode: mean TPOT={s['mean_tpot']*1e3:.1f}ms "
               f"ITL p95={s['p95_itl']*1e3:.1f}ms "
               f"{s['decode_tok_rate']:.1f} tok/s")
-    if sched.real_batch_log:
-        sizes = [len(b) for b in sched.real_batch_log]
-        print(f"batched iterations: {len(sizes)} "
-              f"(mean b={np.mean(sizes):.2f}, max b={max(sizes)})")
+    for phase, what in (("decode", "batched iterations"),
+                        ("prefill", "prefill-chunk batches")):
+        sizes = [len(b) for b in sched.real_batch_log if b[0][1] == phase]
+        if sizes:
+            print(f"{what}: {len(sizes)} "
+                  f"(mean b={np.mean(sizes):.2f}, max b={max(sizes)})")
+        elif phase == "prefill" and args.prefill_chunk_tokens:
+            print(f"{what}: 0")
     if args.preempt:
         pools = "host" if args.host_tail_pool else "device"
         print(f"preemptions={s['preemptions']} swaps={s['swaps']} "

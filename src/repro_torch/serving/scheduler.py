@@ -9,10 +9,13 @@ admitted only once ``now - t0 >= arrival`` (the driver sleeps through idle
 gaps). Each driver pass is an iteration: the runnable decode-phase
 ComputeOps of plans sharing one backend coalesce into one batched pass
 (``backend.decode_step_batch`` over the requests' pools, ragged page tables
-padded to a common width), while prefill and I/O ops keep the cooperative
-round-robin; ``batch_decode=False`` turns the coalescing off, and a lone
-decode step always runs the standalone path, which keeps concurrency 1 bit
-for bit equal to ``drive_serial``.
+padded to a common width), and with chunked prefill
+(``prefill_chunk_tokens``) the runnable final chunks of plans at the same
+layer and shapes coalesce into one batched part B
+(``backend.part_b_batch``), while the other prefill and I/O ops keep the
+cooperative round-robin; ``batch_decode=False`` turns the coalescing off,
+and a lone decode step or final chunk always runs the standalone path,
+which keeps concurrency 1 bit for bit equal to ``drive_serial``.
 
 Admission policies:
   fcfs        — strict arrival order;
@@ -29,8 +32,9 @@ memory and back on resume (real transfers, bytes counted on both legs); the
 resumed decode is bit-identical to an uninterrupted run. Preempted plans
 resume first, as soon as a slot frees.
 
-The discrete-event driver over a simulated executor (``ChannelSim``) and the
-batching of chunked prefill come with later slices of the port.
+The discrete-event driver over a simulated executor (``ChannelSim``), and
+with it the sim mode's mixed batches of prefill chunks and decode tokens,
+comes with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -43,8 +47,8 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 
 from repro_torch.core.cache import DEVICE, HOST
-from repro_torch.core.stepplan import (ComputeOp, DecodeBatchCtx, StepPlan, WaitOp,
-                                       resolve_handle)
+from repro_torch.core.stepplan import (ComputeOp, DecodeBatchCtx, PrefillChunkCtx, StepPlan,
+                                       WaitOp, resolve_handle)
 from repro_torch.serving.disagg import DisaggTopology
 from repro_torch.serving.replicas import ReplicaSet
 from repro_torch.storage.timing import ChannelSim
@@ -406,34 +410,20 @@ class Scheduler:
                 v.swapped_bytes = 0
             active.append(v)
 
-    def _real_decode_batch(self, active: List[_Active]) -> Optional[List[_Active]]:
-        """Assemble one batched decode iteration, or None.
-
-        Candidates are active plans whose pending op is a decode-phase
-        ComputeOp with a :class:`DecodeBatchCtx` (real decode steps are
-        always runnable). Members share one backend, one pool residency and
-        one weight stream (one model's weights stream once for the whole
-        batch); ``max_batch_tokens`` caps the batch. Candidates are aged by
-        the last iteration they batched in (``batch_stamp``), oldest first,
-        when choosing among groups and when trimming, so a plan left out now
-        joins next time. A single candidate returns None: it runs the
-        standalone ``op.fn`` path, which keeps concurrency 1 bit-identical
-        to ``drive_serial``.
-        """
-        if not self.batch_decode:
-            return None
-        cands = [a for a in active
-                 if isinstance(a.op, ComputeOp) and a.op.phase == "decode"
-                 and a.op.batch_ctx is not None]
-        if len(cands) < 2:
+    def _form_batch(self, cands: List[_Active], key) -> Optional[List[_Active]]:
+        """One batch out of ``cands``, or None. Candidates are grouped by
+        ``key(a)`` and aged by the last iteration they batched in
+        (``batch_stamp``), oldest first, when choosing among groups and when
+        trimming to ``max_batch_tokens``, so a plan left out now joins next
+        time. Fewer than two members return None: a lone op runs the
+        standalone ``op.fn`` path, which keeps concurrency 1 bit-identical to
+        ``drive_serial``."""
+        if not self.batch_decode or len(cands) < 2:
             return None
         cands.sort(key=lambda a: (a.batch_stamp, a.request.request_id))
         groups: Dict[tuple, List[_Active]] = {}
         for a in cands:
-            ctx = a.op.batch_ctx
-            key = (id(ctx.backend), bool(ctx.pools[0].is_device),
-                   a.op.weight_key)
-            groups.setdefault(key, []).append(a)
+            groups.setdefault(key(a), []).append(a)
         # the group holding the longest-waiting candidate wins; size breaks ties
         members = min(groups.values(),
                       key=lambda g: (g[0].batch_stamp, -len(g),
@@ -448,16 +438,49 @@ class Scheduler:
             members = trimmed
         return members if len(members) >= 2 else None
 
+    def _real_decode_batch(self, active: List[_Active]) -> Optional[List[_Active]]:
+        """Assemble one batched decode iteration, or None.
+
+        Candidates are active plans whose pending op is a decode-phase
+        ComputeOp with a :class:`DecodeBatchCtx` (real decode steps are
+        always runnable). Members share one backend, one pool residency and
+        one weight stream (one model's weights stream once for the whole
+        batch)."""
+        cands = [a for a in active
+                 if isinstance(a.op, ComputeOp) and a.op.phase == "decode"
+                 and a.op.batch_ctx is not None]
+        return self._form_batch(cands, lambda a: (
+            id(a.op.batch_ctx.backend), bool(a.op.batch_ctx.pools[0].is_device),
+            a.op.weight_key))
+
+    def _real_chunk_batch(self, active: List[_Active]) -> Optional[List[_Active]]:
+        """Assemble one batched prefill-chunk pass, or None: runnable final
+        chunk ops of chunked part-B layers (those carrying a
+        :class:`PrefillChunkCtx`) of different plans, sharing a backend, the
+        layer and identical shapes (``shape_key()``), since the batched pass
+        runs each member's part B at its own shape; one ``part_b_batch``
+        call streams the layer's weights once for all of them."""
+        cands = [a for a in active
+                 if isinstance(a.op, ComputeOp) and a.op.phase == "prefill"
+                 and isinstance(a.op.batch_ctx, PrefillChunkCtx)]
+        return self._form_batch(cands, lambda a: (id(a.op.batch_ctx.backend),
+                                                  a.op.batch_ctx.shape_key()))
+
     def _step_real_batch(self, members: List[_Active], active, done):
-        """One batched decode pass for ``members`` (one backend)."""
+        """One batched pass for ``members`` (one backend): a decode step
+        (``decode_step_batch``) or same-layer final prefill chunks
+        (``part_b_batch``), by the kind of their ops' ``batch_ctx``."""
         ex = self.ex
         ctxs = [a.op.batch_ctx for a in members]
         be = ctxs[0].backend
+        if isinstance(ctxs[0], PrefillChunkCtx):
+            run, tag = be.part_b_batch, f"prefill_chunk[x{len(members)}]"
+        else:
+            run, tag = be.decode_step_batch, f"decode[x{len(members)}]"
         flops = sum(a.op.flops for a in members)
         weight = max(a.op.weight_bytes for a in members)
         hbm = weight + sum(a.op.hbm_bytes - a.op.weight_bytes for a in members)
-        outs = ex.compute(lambda: be.decode_step_batch(ctxs), flops=flops,
-                          hbm_bytes=hbm, tag=f"decode[x{len(members)}]")
+        outs = ex.compute(lambda: run(ctxs), flops=flops, hbm_bytes=hbm, tag=tag)
         stamp = len(self.real_batch_log)
         for a in members:
             a.batch_stamp = stamp
@@ -509,6 +532,16 @@ class Scheduler:
                         if isinstance(a.op, ComputeOp)
                         and a.op.phase == "decode"
                         and a.op.batch_ctx is not None}
+            # same-layer final prefill chunks (disjoint from the decode
+            # batch: another phase, so no plan is in both)
+            chunk_members = self._real_chunk_batch(active)
+            if chunk_members is not None:
+                self._step_real_batch(chunk_members, active, done)
+                progressed = True
+                skip |= {id(a) for a in active
+                         if isinstance(a.op, ComputeOp)
+                         and a.op.phase == "prefill"
+                         and isinstance(a.op.batch_ctx, PrefillChunkCtx)}
             for a in list(active):
                 if id(a) in skip:
                     continue

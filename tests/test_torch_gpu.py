@@ -16,7 +16,9 @@ chunk_score runs its products as split float16 terms of power-of-two scaled
 query rows (the same 2^-22), inside the same 1e-5.
 decode_attention's pools form (per-request buffers by base pointer) is held
 to its plain version at the same tolerances and, bit for bit, to the
-stacked form on the zero-padded stack at the same table width.
+stacked form on the zero-padded stack at the same table width; likewise
+chunk_attention's indexed form (b members reading one pool by index), each
+member bit for bit the gathered form on its own chunks.
 The chunked selective_scan re-associates the recurrence's sums, so a scan
 resumed from its carried state is bit-identical to the whole scan only at
 a cut on a chunk boundary; elsewhere it agrees within the same 1e-5.
@@ -26,7 +28,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.chunk_attention import ops as ca_ops
-from repro_torch.kernels.chunk_attention.ref import (chunk_attention_ref,
+from repro_torch.kernels.chunk_attention.ref import (chunk_attention_indexed_ref,
+                                                     chunk_attention_ref,
                                                      chunk_attention_split_ref)
 from repro_torch.kernels.chunk_score import ops as cs_ops
 from repro_torch.kernels.chunk_score.ref import chunk_score_ref
@@ -723,3 +726,143 @@ def test_decode_step_batch_on_the_card(dev):
             for l in mc:
                 np.testing.assert_array_equal(md[l], mh[l])
                 np.testing.assert_allclose(md[l], mc[l], rtol=0, atol=1e-4)
+
+
+def _indexed_case(dev, seed, b, s, nq, nkv, m, c, d, n_sel, qdtype):
+    rng = np.random.default_rng(seed)
+    q = _rand(dev, seed, (b, s, nq, d), qdtype)
+    kp, vp = (_rand(dev, seed + i, (m, c, nkv, d), torch.float16) for i in (1, 2))
+    kf, vf = (_rand(dev, seed + i, (b, s, nkv, d), qdtype) for i in (3, 4))
+    idx = torch.from_numpy(np.stack([rng.permutation(m)[:n_sel] for _ in range(b)])
+                           .astype(np.int32)).to(dev)
+    return q, kp, vp, idx, kf, vf
+
+
+def _check_indexed(q, kp, vp, idx, nv, kf, vf, plain=True):
+    """The indexed call against its plain version and, member by member, bit
+    for bit against the gathered call on pool[chunk_idx[i]]."""
+    before = dict(ca_ops.launches_by_variant)
+    o, m = ca_ops.chunk_attention_indexed(q, kp, vp, idx, nv, kf, vf)
+    assert ca_ops.launches_by_variant["indexed"] == before["indexed"] + 1
+    assert o.dtype == m.dtype == torch.float32
+    if plain:
+        o2, m2 = chunk_attention_indexed_ref(q, kp, vp, idx, nv, kf, vf)
+        _close(o, o2)
+        _close(m, m2)
+    for i in range(q.shape[0]):
+        n = int(nv[i])
+        go, gm = ca_ops.chunk_attention(q[i], kp[idx[i].long()], vp[idx[i].long()], n, kf[i],
+                                        vf[i])
+        assert torch.equal(o[i], go) and torch.equal(m[i], gm), i
+        assert _all_zero(m[i, n:])
+    return o, m
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 2, 4])
+@pytest.mark.parametrize("group,nkv,d,c,m,n_sel", [(7, 4, 128, 16, 256, 64),
+                                                    (4, 2, 64, 24, 20, 7),
+                                                    (7, 4, 128, 1, 1500, 1024)])
+def test_chunk_attention_indexed(dev, qdtype, b, group, nkv, d, c, m, n_sel):
+    """The indexed form at b 1, 2 and 4: the main path's heads and d over a
+    whole layer's pool of 256 chunks with unsorted indices, a generic d with
+    chunks that do not divide the key tile, and a token a chunk; ragged
+    n_valid (all, one short, a third, none)."""
+    s = 40
+    q, kp, vp, idx, kf, vf = _indexed_case(dev, 80, b, s, group * nkv, nkv, m, c, d, n_sel,
+                                           qdtype)
+    nv = torch.tensor([n_sel, n_sel - 1, n_sel // 3, 0][:b], dtype=torch.int32, device=dev)
+    _check_indexed(q, kp, vp, idx, nv, kf, vf)
+
+
+def test_chunk_attention_indexed_alternating_b(dev):
+    """Calls at b 4, 1, 3, 1, 4, 2 in alternating dtypes and chunk counts on
+    one kept workspace: a counter a call left non-zero, or too small a
+    scratch, would break a later call's A_j or output."""
+    nq, nkv, d, c, m = 28, 4, 128, 16, 96
+    for k, b in enumerate((4, 1, 3, 1, 4, 2)):
+        qdtype = (torch.float32, torch.bfloat16)[k % 2]
+        n_sel = (64, 8, 33)[k % 3]
+        q, kp, vp, idx, kf, vf = _indexed_case(dev, 90 + k, b, 64, nq, nkv, m, c, d, n_sel,
+                                               qdtype)
+        nv = torch.tensor([n_sel - i for i in range(b)], dtype=torch.int32, device=dev)
+        _check_indexed(q, kp, vp, idx, nv, kf, vf, plain=k < 2)
+    torch.cuda.synchronize()
+
+
+def test_chunk_attention_indexed_device_kernels(dev):
+    """The indexed form is the same two device kernels as the gathered one,
+    one launch of each for the whole batch."""
+    q, kp, vp, idx, kf, vf = _indexed_case(dev, 95, 4, 64, 28, 4, 256, 16, 128, 64,
+                                           torch.float32)
+    nv = torch.full((4,), 64, dtype=torch.int32, device=dev)
+    kern = _device_kernels(lambda: ca_ops.chunk_attention_indexed(q, kp, vp, idx, nv, kf, vf))
+    assert kern == {"chunk_attn_kernel": 1.0, "chunk_merge_kernel": 1.0}, kern
+
+
+def test_chunk_attention_indexed_raises(dev):
+    """Shapes and types the kernel does not take raise on the card, and
+    nothing runs in their place."""
+    q, kp, vp, idx, kf, vf = _indexed_case(dev, 96, 2, 8, 8, 2, 12, 16, 32, 4, torch.float32)
+    nv = torch.full((2,), 4, dtype=torch.int32, device=dev)
+    before = (ca_ops.launches, dict(ca_ops.launches_by_variant))
+    bad = [
+        (ValueError, (q, kp, vp, idx[:1], nv, kf, vf)),  # chunk_idx for another batch
+        (ValueError, (q, kp[:, :, :1].contiguous(), vp[:, :, :1].contiguous(), idx, nv, kf,
+                      vf)),  # pools with another kv head count than the suffix
+        (TypeError, (q, kp.float(), vp.float(), idx, nv, kf, vf)),  # pools must be float16
+        (TypeError, (q, kp, vp, idx.long(), nv, kf, vf)),  # indices must be int32
+        (ValueError, (_rand(dev, 97, (2, 8, 8, 136)), _rand(dev, 98, (12, 16, 2, 136),
+                                                            torch.float16),
+                      _rand(dev, 99, (12, 16, 2, 136), torch.float16), idx, nv,
+                      _rand(dev, 100, (2, 8, 2, 136)), _rand(dev, 101, (2, 8, 2, 136)))),
+    ]
+    for exc, args in bad:
+        with pytest.raises(exc):
+            ca_ops.chunk_attention_indexed(*args)
+    assert (ca_ops.launches, ca_ops.launches_by_variant) == before
+
+
+def test_part_b_batch_on_the_card(dev):
+    """RealCompute.part_b_batch at reduced float32 size: one launch of the
+    indexed form for b = 3, each member's A_j bit for bit its single part B's
+    (the gathered form), h within 1e-5 of it (the batched projections may
+    take other cuBLAS algorithms), and both within 1e-4 of the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.backends import RealCompute
+    from repro_torch.core.stepplan import PrefillChunkCtx
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(reduced_config("qwen2.5-7b", n_layers=2), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(12)
+    s, nb, c, d, nkv = 16, 8, 16, cfg.d_head, cfg.n_kv_heads
+    data = []
+    for n in (8, 3, 6):
+        t = [rng.standard_normal(shape).astype(np.float32) for shape in (
+            (1, s, cfg.d_model), (1, s, cfg.n_heads, d), (1, s, nkv, d), (1, s, nkv, d))]
+        sel = [rng.standard_normal((nb, c, nkv, d)).astype(np.float16) for _ in range(2)]
+        data.append((t, sel, np.arange(nb) < n))
+    outs = {}
+    for device in ("cpu", "cuda"):
+        p = params if device == "cpu" else _to(params, dev)
+        be = RealCompute(cfg, p, device=device)
+        ctxs = [PrefillChunkCtx(be, 1, *(torch.from_numpy(x).to(device) for x in t), *sel,
+                                valid, c) for t, sel, valid in data]
+        before = dict(ca_ops.launches_by_variant)
+        batched = be.part_b_batch(ctxs)
+        if device == "cuda":
+            assert ca_ops.launches_by_variant["indexed"] == before["indexed"] + 1
+        single = [be.part_b(1, x.h, x.q, x.k_suf, x.v_suf, x.k_sel, x.v_sel, x.valid, c)
+                  for x in ctxs]
+        outs[device] = (batched, single)
+    for dev_out, cpu_out in zip(outs["cuda"], outs["cpu"]):
+        for (h, m), (hc, mc) in zip(dev_out, cpu_out):
+            np.testing.assert_allclose(h.cpu().numpy(), hc.numpy(), rtol=0,
+                                       atol=1e-4 * hc.abs().max().item())
+            np.testing.assert_allclose(m, mc, rtol=0, atol=1e-4)
+    for (h, m), (hs, ms) in zip(*outs["cuda"]):
+        np.testing.assert_array_equal(m, ms)
+        _close(h, hs)

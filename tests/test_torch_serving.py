@@ -331,7 +331,7 @@ def test_serve_cli_on_the_cpu(capsys):
     (["--hybrid-reprefill", "auto"], "compute-or-load slice"),
     (["--cache-tiers", "4:8:16"], "tier store"),
     (["--tp-decode", "0"], "multi-device slice"),
-    (["--prefill-chunk-tokens", "8"], "chunked-prefill slice"),
+    (["--hybrid-reprefill", "force-load"], "compute-or-load slice"),
 ])
 def test_serve_cli_refuses_deferred_flags(flags, slice_name):
     with pytest.raises(SystemExit, match=slice_name):
