@@ -97,19 +97,41 @@ non-zero exit code:
                 its prefill in ops of 1024 tokens, bit for bit; decode's
                 logits held against a prefill over the same tokens; then one
                 request on full-width falcon-mamba-7b (64 layers,
-                attention-free);
-  7. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
+                attention-free); the scan's decode step at b = 2 and 4, both
+                widths, held and timed against its bound;
+  7. fleet    — the heterogeneous fleet qwen2_5_7b:2,hymba_1_5b:1,
+                falcon_mamba_7b:1 on the weights the earlier phases built,
+                as serve --fleet builds it (an engine and backend per
+                tenant, tenant-namespaced sessions of one more dense ingest,
+                its flash_attention launches asserted), every prompt drawn
+                below the fleet's smallest vocab (32001): (g) c = 1, one
+                request a tenant, first-token logits, last logits and greedy
+                tokens bit for bit each engine's drive_serial run alone; (h)
+                8 requests (tenant 1 + rid % 4) at c = 8, batched, 8 decode
+                tokens: every batch one weight stream, a state-space decode
+                batch of two or more, each state-space tenant's step-kernel
+                launches = its decode executions x layers (a batched step
+                once for its members), the batched first decode steps
+                within the state-space decode's bfloat16 limits of (g)'s, no
+                plain version; (i) a falcon-mamba and a hymba decode
+                preempted with swap: logits and greedy tokens bit for bit
+                the uninterrupted run, each leg StatePool.nbytes, the meter
+                seeing the swap-in and no pool-sized copy in the decode
+                steps; TTFT, TPOT, batches by weight stream, swap bytes and
+                time, peak memory;
+  8. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
      paths it names (per variant where a wrapper has several), its error
      against its plain version, its times and its bound (the largest of
      bytes, products and exponentials, named), at the main path's shapes
      and (``baseline_shapes``) at the baselines';
-  8. last line: ``{"ok": true, "device": {...}}``.
+  9. last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
 outside a checkout (it builds and imports ``src/repro_torch``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -176,6 +198,9 @@ SERVE_REQUESTS, SERVE_TTFT_TARGET, SERVE_PREFILL_FLOOR = 8, 1e-6, 10.0
 # state-space request's prefill in ops of 1024 tokens; the indexed form's
 # paged case: valid chunks of the 64 indices into a layer's pool
 SERVE_PREFILL_CHUNK, STATE_PREFILL_CHUNK, INDEXED_PAGED_VALID = 16, 1024, 57
+# the heterogeneous fleet: tenants by model, requests (tenant 1 + rid % 4, so
+# two a tenant) and decode tokens each
+FLEET_SPEC, FLEET_REQUESTS, FLEET_DECODE = "qwen2_5_7b:2,hymba_1_5b:1,falcon_mamba_7b:1", 8, 8
 # a batched part B's h against the single one's: the same attention bit for
 # bit, then float32 GEMMs over b * 64 rows instead of 64, which cuBLAS may
 # sum in another order (sums of 3584 and 18944 products): a few float32
@@ -809,10 +834,32 @@ def phase_indexed_kernels(cfg):
     return out
 
 
+@contextlib.contextmanager
+def plain_versions_counted(ops):
+    """Count every call of a plain version a wrapper in ``ops`` could run:
+    yields {name: calls}, which the caller clears before each run."""
+    plain_calls = {}
+    saved = {(mod, n): getattr(mod, n) for mod in ops.values() for n in vars(mod)
+             if n.endswith("_ref")}
+    for (mod, name), f in saved.items():
+        def counted(*a, _f=f, _n=name, **kw):
+            plain_calls[_n] = plain_calls.get(_n, 0) + 1
+            return _f(*a, **kw)
+        setattr(mod, name, counted)
+    try:
+        yield plain_calls
+    finally:
+        for (mod, name), f in saved.items():
+            setattr(mod, name, f)
+
+
 def _tap(gen, rec, vocab):
-    """Forward a plan's generator, recording the first-token logits (the one
-    (1, 1, vocab) array sent to it) and the first decode step's logits."""
+    """Forward a plan's generator, recording its first-token logits (the
+    dense path's, or the state-space prefill's with its pool) and each
+    decode step's."""
     import numpy as np
+
+    from repro_torch.core.backends import StatePool
 
     send = None
     while True:
@@ -821,22 +868,23 @@ def _tap(gen, rec, vocab):
         except StopIteration as stop:
             return stop.value
         send = yield op
-        if "first" not in rec:
-            if isinstance(send, np.ndarray) and send.shape == (1, 1, vocab):
-                rec["first"] = send
-        elif ("step1" not in rec and isinstance(send, tuple) and len(send) == 2
-              and isinstance(send[1], dict)):
-            rec["step1"] = send[0]
+        if getattr(op, "phase", None) == "decode":
+            rec.setdefault("steps", []).append(send[0] if isinstance(send, tuple) else send)
+        elif isinstance(send, tuple) and len(send) == 2 and isinstance(send[1], StatePool):
+            rec["first"], rec["pool"] = send
+        elif ("first" not in rec and isinstance(send, np.ndarray)
+              and send.shape == (1, 1, vocab)):
+            rec["first"] = send
 
 
-def _tapped(eng, vocab):
+def _tapped(eng):
     """Have ``eng.plan`` tap every plan; returns {request_id: taps}."""
     taps = {}
     plan = eng.plan
 
     def tapped(suffix, request_id=0, decode_tokens=0):
         p = plan(suffix, request_id, decode_tokens=decode_tokens)
-        p.gen = _tap(p.gen, taps.setdefault(request_id, {}), vocab)
+        p.gen = _tap(p.gen, taps.setdefault(request_id, {}), eng.cfg.vocab_size)
         return p
 
     eng.plan = tapped
@@ -858,20 +906,8 @@ def phase_serve(cfg, ctx, smi_line):
 
     ops = {"chunk_score": cs, "chunk_attention": ca, "decode_attention": da,
            "flash_attention": fa, "selective_scan": ss}
-    # every plain version a wrapper could run, counted for the phase
-    plain_calls = {}
-    saved = {(mod, n): getattr(mod, n) for mod in ops.values() for n in vars(mod)
-             if n.endswith("_ref")}
-    for (mod, name), f in saved.items():
-        def counted(*a, _f=f, _n=name, **kw):
-            plain_calls[_n] = plain_calls.get(_n, 0) + 1
-            return _f(*a, **kw)
-        setattr(mod, name, counted)
-    try:
+    with plain_versions_counted(ops) as plain_calls:
         return _serve_runs(cfg, ctx, smi_line, ops, plain_calls)
-    finally:
-        for (mod, name), f in saved.items():
-            setattr(mod, name, f)
 
 
 def _serve_runs(cfg, ctx, smi_line, ops, plain_calls):
@@ -896,7 +932,7 @@ def _serve_runs(cfg, ctx, smi_line, ops, plain_calls):
 
     # drive_serial, the reference of (c) and (d)
     eng = engine()
-    ref_taps = _tapped(eng, V)
+    ref_taps = _tapped(eng)
     refs = [eng.reprefill(sfx, request_id=i, decode_tokens=DECODE_TOKENS)
             for i, sfx in enumerate(suffixes)]
     eng.ex.shutdown()
@@ -907,7 +943,7 @@ def _serve_runs(cfg, ctx, smi_line, ops, plain_calls):
     def serve(label, max_c, batch=True, n=SERVE_REQUESTS, preempt=False, meter=False,
               chunk=None):
         eng = engine(chunk)
-        taps = _tapped(eng, V)
+        taps = _tapped(eng)
         transfers = []
         if meter:  # the decode steps' host-to-device transfers, by the torch meter
             be = eng.backend
@@ -995,7 +1031,7 @@ def _serve_runs(cfg, ctx, smi_line, ops, plain_calls):
         ta, tb = taps_a[i], taps_b[i]
         if not np.array_equal(ta["first"], tb["first"]):
             fail(f"serve request {i}: first-token logits differ between (a) and (b)")
-        rel, cos = logit_agreement(ta["step1"][0, -1], tb["step1"][0, -1])
+        rel, cos = logit_agreement(ta["steps"][0][0, -1], tb["steps"][0][0, -1])
         worst = (max(worst[0], rel), min(worst[1], cos))
         agree += sum(x == y for x, y in zip(done_a[i].trace.decode_tokens_out,
                                             done_b[i].trace.decode_tokens_out))
@@ -1293,11 +1329,15 @@ def phase_state_kernels(hcfg, dcfg, fcfg):
                 fail(f"selective_scan: resumed at {cut}, max abs err {e2} > {tol}")
             print(f"kernels: selective_scan resumed at {cut} of {s_full} (ragged): max abs err "
                   f"{e2:.3g} against the whole scan (tol {tol:.3g})")
-    for label, d_in in (("hymba", hcfg.d_inner), ("falcon-mamba", fcfg.d_inner)):
+    widths = (("hymba", hcfg.d_inner), ("falcon-mamba", fcfg.d_inner))
+    steps = {}  # the decode step's batched inputs by (width, b)
+    for label, d_in in widths:
         for b in (1, 2):
             dec = scan_inputs(b, 1, torch.float32, d_in=d_in)
             h0 = rn(b, d_in, n, dtype=torch.float32)
-            err = max(err, check(f"{label} decode b={b}", dec, h0)[0])
+            e, _, _ = check(f"{label} decode b={b}", dec, h0)
+            err = max(err, e)
+            steps[label, b] = (dec, h0, e)
     dec = scan_inputs(1, 1, torch.float32)
     h0 = rn(1, hcfg.d_inner, n, dtype=torch.float32)
     fdec = scan_inputs(1, 1, torch.float32, d_in=fcfg.d_inner)
@@ -1305,17 +1345,17 @@ def phase_state_kernels(hcfg, dcfg, fcfg):
 
     def step_bound(a, h_in):  # the decode step: state (and x, dt, B, C, y) moved once
         y, h = selective_scan(*a, h_in)
-        d_in = a[0].shape[2]
-        return bounds(nbytes(*a, h_in, y, h), 6.0 * d_in * n, d_in * n)["tensor_core"][0]
+        b, _, d_in = a[0].shape
+        return bounds(nbytes(*a, h_in, y, h), 6.0 * b * d_in * n, b * d_in * n)["tensor_core"]
     r = dict(err=err, ms=device_ms(lambda: selective_scan(*args)), library_ms=None,
              host_ms=host_ms(lambda: selective_scan(*args)),
              plain_ms=wall_ms(lambda: selective_scan_ref(*args), reps=2),
              decode_ms=device_ms(lambda: selective_scan(*dec, h0)),
              decode_host_ms=host_ms(lambda: selective_scan(*dec, h0)),
-             decode_bound_ms=step_bound(dec, h0),
+             decode_bound_ms=step_bound(dec, h0)[0],
              falcon_decode_ms=device_ms(lambda: selective_scan(*fdec, fh0)),
              falcon_decode_host_ms=host_ms(lambda: selective_scan(*fdec, fh0)),
-             falcon_decode_bound_ms=step_bound(fdec, fh0),
+             falcon_decode_bound_ms=step_bound(fdec, fh0)[0],
              bound=scan_bound(args, y_full, h_full))
     print(f"kernels: selective_scan hymba prefill: chunked {r['ms']:.4f} ms on the card, "
           f"plain version {r['plain_ms']:.1f} ms, {bound_text(r['bound'])}, host time per "
@@ -1326,6 +1366,7 @@ def phase_state_kernels(hcfg, dcfg, fcfg):
           f"{r['falcon_decode_bound_ms']:.5f} ms, host time per call "
           f"{r['falcon_decode_host_ms']:.4f} ms; library call: none, no PyTorch call "
           f"computes the scan")
+    r["decode_batched"] = {}
     # one CTA of 16 channels on each SM: the chunked kernel's latency alone
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     one = scan_inputs(1, s_full, torch.bfloat16, d_in=16 * sms)
@@ -1339,6 +1380,27 @@ def phase_state_kernels(hcfg, dcfg, fcfg):
                                bound_ms=scan_bound(fargs, fy, fh)["tensor_core"][0])
     print(f"kernels: selective_scan falcon-mamba prefill (d_inner {fcfg.d_inner}): chunked "
           f"{r['falcon_prefill']['ms']:.4f} ms, {bound_text(scan_bound(fargs, fy, fh))}")
+    # the decode step batched: b = 2, the fleet's state-space batches of two
+    # requests, and b = 4 (drawn last, so every input above is as before)
+    for label, d_in in widths:
+        dec = scan_inputs(4, 1, torch.float32, d_in=d_in)
+        h0 = rn(4, d_in, n, dtype=torch.float32)
+        e, _, _ = check(f"{label} decode b=4", dec, h0)
+        r["err"] = max(r["err"], e)
+        steps[label, 4] = (dec, h0, e)
+    for (label, b), (a, h_in, e) in steps.items():
+        if b == 1:
+            continue
+        bound = step_bound(a, h_in)
+        row = dict(max_abs_err=e, ms=device_ms(lambda: selective_scan(*a, h_in)),
+                   bound_ms=bound[0], bound_by=bound[1],
+                   host_ms=host_ms(lambda: selective_scan(*a, h_in)),
+                   plain_ms=wall_ms(lambda: selective_scan_ref(*a, h_in), reps=3))
+        r["decode_batched"].setdefault(label, {})[str(b)] = row
+        print(f"kernels: selective_scan {label} decode step b={b} (sequential): "
+              f"{row['ms']:.4f} ms on the card against a bound of {bound[0]:.5f} ms by "
+              f"{bound[2]} (b states read and written once), plain version "
+              f"{row['plain_ms']:.3f} ms, host time per call {row['host_ms']:.4f} ms")
     rows["selective_scan"] = r
     return rows
 
@@ -1642,7 +1704,7 @@ def phase_state_e2e(cfg, n_requests: int, check_decode: bool):
     """StateSpaceEngine on a full-width state-space config: per-request
     launch counts asserted, TTFT/TPOT, compute-op host times, peak memory,
     one profiled request; decode's logits against a prefill over the same
-    tokens. Returns {kernel: launches} over the requests."""
+    tokens. Returns ({kernel: launches} over the requests, the weights)."""
     import numpy as np
     import torch
 
@@ -1655,6 +1717,7 @@ def phase_state_e2e(cfg, n_requests: int, check_decode: bool):
 
     ops = {"flash_attention": fa, "selective_scan": ss}
     torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2 ** 30  # earlier phases' weights
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
     torch.cuda.synchronize()
@@ -1702,7 +1765,8 @@ def phase_state_e2e(cfg, n_requests: int, check_decode: bool):
               f"{trace.tpot * 1e3:.3f} ms over {trace.n_decoded} tokens, launches {got}, "
               f"compute ops ms {busy}")
     print(f"state: {cfg.name} peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({held_gib:.1f} GiB of other "
+          f"models' weights held when the phase began)")
     warm = walls[1:] if len(walls) > 1 else walls
     # the profiled request: the scan's device kernels, held to the wrapper's
     # launches per variant (the step kernel per sequential launch; the pack
@@ -1753,7 +1817,349 @@ def phase_state_e2e(cfg, n_requests: int, check_decode: bool):
                           STEP_REL_TOL, STEP_MIN_COS)
         del params32
     ex.shutdown()
-    return totals
+    return totals, params
+
+
+def phase_fleet(cfgs, params, smi_line):
+    """The heterogeneous fleet on the earlier phases' full-width weights
+    (``cfgs`` and ``params`` by model name), as serve --fleet builds it: one
+    engine and backend per tenant of FLEET_SPEC, tenant-namespaced sessions of
+    one dense ingest, every prompt below the fleet's smallest vocab. (g) c = 1
+    against each engine's drive_serial alone, (h) c = 8 batched, (i)
+    preemption with swap of a falcon-mamba and a hymba decode, held as the
+    module docstring says. Returns ({kernel: {path: launches}}, numbers)."""
+    from repro_torch.kernels.chunk_attention import ops as ca
+    from repro_torch.kernels.chunk_score import ops as cs
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.selective_scan import ops as ss
+
+    ops = {"chunk_score": cs, "chunk_attention": ca, "decode_attention": da,
+           "flash_attention": fa, "selective_scan": ss}
+    with plain_versions_counted(ops) as plain_calls:
+        return _fleet_runs(cfgs, params, smi_line, ops, plain_calls)
+
+
+def _fleet_runs(cfgs, params, smi_line, ops, plain_calls):
+    import numpy as np
+    import torch
+
+    from repro_torch.core.backends import RealCompute, StateCompute, StatePool, _stack_states
+    from repro_torch.core.engine import ContiguousKVEngine, StateSpaceEngine
+    from repro_torch.core.session import build_real_session
+    from repro_torch.models.transformer import STATE_FAMILIES
+    from repro_torch.serving import Request, Scheduler, parse_fleet_spec, summarize
+    from repro_torch.storage.h2d_meter import H2DMeter
+    from repro_torch.storage.timing import RealExecutor
+
+    ss = ops["selective_scan"]
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    roster = [name for name, n in parse_fleet_spec(FLEET_SPEC) for _ in range(n)]
+    tenants = list(range(1, len(roster) + 1))
+    tcfg = {t: cfgs[name] for t, name in zip(tenants, roster)}
+    # the full-width vocabs differ (152064, 32001, 65024): every tenant reads
+    # the same prompts, so they are drawn below the smallest
+    vocab = min(c.vocab_size for c in tcfg.values())
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(0, vocab, PREFIX_LEN)
+    suffixes = [rng.integers(0, vocab, SUFFIX_LEN) for _ in range(FLEET_REQUESTS)]
+    dcfg = next(c for c in tcfg.values() if c.family not in STATE_FAMILIES)
+    reset_counts(*ops.values())
+    t0 = time.perf_counter()
+    sess = build_real_session(dcfg, params[dcfg.name], prefix, chunk_tokens=CHUNK,
+                              in_memory=True, device=DEVICE)
+    ingest = counts(ops["flash_attention"])
+    if ingest != {"launches": dcfg.n_layers, "wgmma": dcfg.n_layers}:
+        fail(f"fleet ingest: flash_attention launches {ingest}, expected {dcfg.n_layers}")
+    paths = {"flash_attention": {"fleet ingest": ingest}}
+    print(f"fleet: {FLEET_SPEC}: tenants "
+          + ", ".join(f"t{t}={c.name}[{c.family}, vocab {c.vocab_size}]"
+                      for t, c in tcfg.items())
+          + f"; prompts drawn below vocab {vocab}; ingest of the {PREFIX_LEN}-token prefix "
+          f"for the dense tenants {time.perf_counter() - t0:.2f} s (flash_attention "
+          f"launches {ingest})")
+
+    def engine(t, ex):
+        """Tenant t's engine over a backend of its own, as serve --fleet
+        builds them."""
+        c = tcfg[t]
+        if c.family in STATE_FAMILIES:
+            return StateSpaceEngine(c, StateCompute(c, params[c.name], device=DEVICE), ex,
+                                    prefix_tokens=prefix, tenant=t)
+        return ContiguousKVEngine(dataclasses.replace(sess, tenant=t),
+                                  RealCompute(c, params[c.name], device=DEVICE), ex,
+                                  budget=BUDGET, period=PERIOD, subperiod=SUBPERIOD)
+
+    def engines(ex):
+        return {t: engine(t, ex) for t in tenants}
+
+    def tenant_of(rid):
+        return 1 + rid % len(tenants)
+
+    def requests(n, **kw):
+        return [Request(request_id=r, suffix=suffixes[r], tenant=tenant_of(r),
+                        decode_tokens=FLEET_DECODE, **kw) for r in range(n)]
+
+    def record(label, got):
+        for k, c in got.items():
+            if c["launches"]:
+                paths.setdefault(k, {})[f"fleet {label}"] = c
+
+    def check_done(label, done, n):
+        if [c.request.request_id for c in done] != list(range(n)):
+            fail(f"fleet {label}: {len(done)} of {n} requests completed")
+        for c in done:
+            V = tcfg[c.request.tenant].vocab_size
+            toks = c.trace.decode_tokens_out
+            if (c.result.shape != (1, 1, V) or not np.isfinite(c.result).all()
+                    or len(toks) != FLEET_DECODE or not all(0 <= t < V for t in toks)):
+                fail(f"fleet {label} request {c.request.request_id}: bad output")
+        if plain_calls:
+            fail(f"fleet {label}: plain versions ran on the card: {plain_calls}")
+
+    # (g) c = 1: each tenant's request bit for bit its engine's drive_serial
+    # run alone
+    ex = RealExecutor()
+    eng_g = engines(ex)
+    taps_g = {t: _tapped(e) for t, e in eng_g.items()}
+    n_g = len(tenants)
+    alone = {}
+    for r in range(n_g):
+        logits, trace = eng_g[tenant_of(r)].reprefill(suffixes[r], request_id=r,
+                                                      decode_tokens=FLEET_DECODE)
+        alone[r] = (logits, trace.decode_tokens_out, taps_g[tenant_of(r)].pop(r))
+    reset_counts(*ops.values())
+    plain_calls.clear()
+    sched = Scheduler(eng_g, max_concurrency=1)
+    done_g = sched.run(requests(n_g))
+    torch.cuda.synchronize()
+    got = {k: counts(mod) for k, mod in ops.items()}
+    record("(g) c=1", got)
+    check_done("(g) c=1", done_g, n_g)
+    if sched.real_batch_log:
+        fail("fleet (g): a batch formed at concurrency 1")
+    for c in done_g:
+        r, t = c.request.request_id, c.request.tenant
+        logits, toks, tap = alone[r]
+        if not (np.array_equal(c.result, logits) and c.trace.decode_tokens_out == toks
+                and np.array_equal(taps_g[t][r]["first"], tap["first"])):
+            fail(f"fleet (g) request {r} ({tcfg[t].name}): differs from its engine alone")
+    print(f"fleet (g) c=1: {n_g} requests, one a tenant: first-token logits, last logits and "
+          f"greedy tokens bit-identical to each engine's drive_serial run alone; launches "
+          f"{got}")
+
+    # (h) c = 8 batched: per-tenant scan launches around every decode call of
+    # the state backends (a batched step counted once), and each batched
+    # state-space step's members
+    ex = RealExecutor()
+    eng_h = engines(ex)
+    taps_h = {t: _tapped(e) for t, e in eng_h.items()}
+    seq_by_tenant = dict.fromkeys(tenants, 0)
+    batched_steps = []  # (tenant, [(pool, pos, logits)])
+    depth = [0]
+    for t, e in eng_h.items():
+        if not isinstance(e.backend, StateCompute):
+            continue
+        be = e.backend
+        for name in ("decode_step", "decode_step_batch"):
+            def metered(arg, *a, _f=getattr(be, name), _t=t, _batch=name.endswith("batch")):
+                outer = depth[0] == 0
+                depth[0] += 1
+                n0 = ss.launches_by_variant["sequential"]
+                try:
+                    out = _f(arg, *a)
+                finally:
+                    depth[0] -= 1
+                if outer:
+                    seq_by_tenant[_t] += ss.launches_by_variant["sequential"] - n0
+                if _batch:
+                    batched_steps.append((_t, [(c.pools[0], c.pos, lg)
+                                               for c, lg in zip(arg, out)]))
+                return out
+            setattr(be, name, metered)
+    reset_counts(*ops.values())
+    plain_calls.clear()
+    sched = Scheduler(eng_h, policy="fcfs", max_concurrency=FLEET_REQUESTS)
+    t0 = time.perf_counter()
+    done_h = sched.run(requests(FLEET_REQUESTS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stage_ms = {k: round(v * 1e3, 1) for k, v in ex.stage_times.items()}
+    ex.shutdown()
+    got = {k: counts(mod) for k, mod in ops.items()}
+    record("(h) c=8 batched", got)
+    check_done("(h) c=8 batched", done_h, FLEET_REQUESTS)
+    log = sched.real_batch_log
+    for m in log:
+        if len({wk for _, _, wk in m}) != 1:
+            fail(f"fleet (h): a batch spans weight streams: {m}")
+    by_stream = {}
+    for m in log:
+        by_stream.setdefault(m[0][2], []).append(len(m))
+    state_keys = {f"model@{c.name}" for c in tcfg.values() if c.family in STATE_FAMILIES}
+    if not any(n >= 2 for k in state_keys for n in by_stream.get(k, [])):
+        fail(f"fleet (h): no state-space decode batch of two or more: {by_stream}")
+    # the scan's step kernel: one launch per layer per decode execution, a
+    # batched step once for all its members
+    for t, c in tcfg.items():
+        if c.family not in STATE_FAMILIES:
+            continue
+        rids = [r for r in range(FLEET_REQUESTS) if tenant_of(r) == t]
+        shared = sum(len(m) - 1 for m in log if m[0][0] in rids and m[0][1] == "decode")
+        want = c.n_layers * (len(rids) * FLEET_DECODE - shared)
+        if seq_by_tenant[t] != want:
+            fail(f"fleet (h) tenant {t} ({c.name}): selective_scan sequential launches "
+                 f"{seq_by_tenant[t]}, expected {want}")
+    if sum(seq_by_tenant.values()) != got["selective_scan"].get("sequential", 0):
+        fail(f"fleet (h): sequential launches {got['selective_scan']} against the tenants' "
+             f"{seq_by_tenant}")
+    # a batched step's logits against (g)'s unbatched ones for the same suffix
+    # and step (the first decode step, fed the same token)
+    total = PREFIX_LEN + SUFFIX_LEN
+    held, worst = 0, (0.0, 1.0)
+    for t, members in batched_steps:
+        for pool, pos, lg in members:
+            r = next(r for r, tap in taps_h[t].items() if tap.get("pool") is pool)
+            if pos != total or r >= n_g:
+                continue
+            rel, cos = logit_agreement(lg[0, -1], taps_g[t][r]["steps"][0][0, -1])
+            worst = (max(worst[0], rel), min(worst[1], cos))
+            held += 1
+    if not held or not (worst[0] <= STEP_BF16_REL_TOL and worst[1] >= STEP_BF16_MIN_COS):
+        fail(f"fleet (h): {held} batched first decode steps held against (g), worst max "
+             f"err / max |logit| {worst[0]}, cosine {worst[1]}")
+    # what the batched step adds per member: the stack of the members' states
+    # and the copy of each member's slice back into its own tensors, on two
+    # finished pools of each state-space tenant
+    stack_ms = {}
+    for t, c in tcfg.items():
+        if c.family not in STATE_FAMILIES:
+            continue
+        states = [tap["pool"].state for tap in taps_h[t].values()][:2]
+        stacked = _stack_states(states)
+
+        def copy_back():
+            for i, st in enumerate(states):
+                for key, v in stacked.items():
+                    if key != "length":
+                        st[key].copy_(v[:, i: i + 1])
+        moved = 2 * sum(v.numel() * v.element_size() for v in stacked.values()
+                        if isinstance(v, torch.Tensor))  # each of the two: read, written
+        stack_ms[c.name] = dict(stack_ms=device_ms(lambda: _stack_states(states), reps=10),
+                                copy_back_ms=device_ms(copy_back, reps=10),
+                                bound_ms=moved / HBM_BYTES_PER_S * 1e3)
+        del stacked
+        print(f"fleet (h) {c.name}: a batched step of two stacks the members' states in "
+              f"{stack_ms[c.name]['stack_ms']:.4f} ms and copies them back in "
+              f"{stack_ms[c.name]['copy_back_ms']:.4f} ms ({moved / 2 / 1e6:.1f} MB read and "
+              f"written by each: a bound of {stack_ms[c.name]['bound_ms']:.4f} ms each)")
+    s_h = summarize(done_h)
+    print(f"fleet (h) c={FLEET_REQUESTS} batched: {FLEET_REQUESTS} requests (tenant 1 + rid % "
+          f"{len(tenants)}), p50 TTFT {s_h['p50_ttft'] * 1e3:.2f} ms, p95 TTFT "
+          f"{s_h['p95_ttft'] * 1e3:.2f} ms, mean TPOT {s_h['mean_tpot'] * 1e3:.3f} ms, p95 ITL "
+          f"{s_h['p95_itl'] * 1e3:.3f} ms, {s_h['decode_tok_rate']:.2f} decode tokens/s, "
+          f"makespan {s_h['makespan']:.3f} s, wall {wall:.3f} s of which compute ops ms by tag "
+          f"{stage_ms}; launches {got} ({smi_line})")
+    for t, c in tcfg.items():
+        mine = [d for d in done_h if d.request.tenant == t]
+        print(f"fleet (h) tenant {t} {c.name}: TTFT "
+              + ", ".join(f"{d.ttft * 1e3:.2f}" for d in mine) + " ms, TPOT "
+              + ", ".join(f"{d.trace.tpot * 1e3:.3f}" for d in mine) + " ms"
+              + (f", selective_scan sequential launches {seq_by_tenant[t]}"
+                 if c.family in STATE_FAMILIES else ""))
+    print(f"fleet (h): batches by weight stream (sizes): {by_stream}; {held} batched first "
+          f"decode steps against (g)'s unbatched: worst max abs err / max |logit| "
+          f"{worst[0]:.4f} (tol {STEP_BF16_REL_TOL}), cosine {worst[1]:.5f} (min "
+          f"{STEP_BF16_MIN_COS}); every batch one weight stream")
+
+    # (i) preemption with swap of a falcon-mamba and a hymba decode: the
+    # victim's greedy tokens bit for bit its uninterrupted (g) run, each leg
+    # StatePool.nbytes, the meter seeing the swap-in and no pool-sized copy
+    # in the decode steps
+    legs = []  # (leg, bytes, ms, metered bytes)
+    real = {"out": StatePool.swap_out, "in": StatePool.swap_in}
+
+    def leg(name):
+        def wrapped(pool):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with H2DMeter(DEVICE) as m:
+                n = real[name](pool)
+            torch.cuda.synchronize()
+            legs.append((name, n, (time.perf_counter() - t0) * 1e3, m.total, pool.nbytes))
+            return n
+        return wrapped
+    swaps = {}
+    StatePool.swap_out, StatePool.swap_in = leg("out"), leg("in")
+    try:
+        for t, c in tcfg.items():
+            if c.family not in STATE_FAMILIES:
+                continue
+            r = t - 1  # (g)'s request of this tenant
+            eng = engine(t, RealExecutor())
+            transfers = []
+            be = eng.backend
+
+            def metered_step(*a, _f=be.decode_step):
+                with H2DMeter(DEVICE) as m:
+                    out = _f(*a)
+                transfers.extend(n for _, n in m.transfers)
+                return out
+            be.decode_step = metered_step
+            del legs[:]
+            reset_counts(*ops.values())
+            plain_calls.clear()
+            sched = Scheduler(eng, max_concurrency=1, preempt=True, swap_on_preempt=True,
+                              prefill_estimate=1e3)
+            done = sched.run([
+                Request(request_id=0, suffix=suffixes[r], tenant=t, decode_tokens=FLEET_DECODE),
+                Request(request_id=1, suffix=suffixes[n_g + r], tenant=t, decode_tokens=1,
+                        ttft_target=SERVE_TTFT_TARGET)])
+            eng.ex.shutdown()
+            got = {k: counts(mod) for k, mod in ops.items()}
+            record(f"(i) {c.name} preempt+swap", got)
+            if plain_calls:
+                fail(f"fleet (i) {c.name}: plain versions ran on the card: {plain_calls}")
+            L, d_in, n = c.n_layers, c.d_inner, c.ssm_state
+            want = L * (d_in * n * 4 + (c.ssm_conv - 1) * d_in * 2)  # ssm_h, ssm_conv
+            if c.has_attention:  # hybrid: the preallocated KV buffers
+                want += 2 * L * (total + FLEET_DECODE + 1) * c.n_kv_heads * c.d_head * 2
+            victim = done[0]
+            outs, ins = [x for x in legs if x[0] == "out"], [x for x in legs if x[0] == "in"]
+            if not (sched.preemptions >= 1 and sched.swaps >= 1 and len(outs) == len(ins)
+                    == sched.swaps and all(x[1] == x[4] == want for x in legs)
+                    and all(x[3] == want for x in ins) and sched.swap_bytes == 2 * sum(
+                        x[1] for x in outs)):
+                fail(f"fleet (i) {c.name}: preemptions {sched.preemptions}, swaps "
+                     f"{sched.swaps}, legs {legs}, swap bytes {sched.swap_bytes}, expected "
+                     f"{want} a leg")
+            if not transfers or max(transfers) >= want // L:
+                fail(f"fleet (i) {c.name}: a decode-step host-to-device copy of "
+                     f"{max(transfers, default=0)} B, not below one layer's state")
+            if not (victim.trace.decode_tokens_out == alone[r][1]
+                    and np.array_equal(victim.result, alone[r][0])):
+                fail(f"fleet (i) {c.name}: the preempted request differs from its "
+                     f"uninterrupted run")
+            swaps[c.name] = dict(bytes_per_leg=want, swaps=sched.swaps,
+                                 out_ms=[x[2] for x in outs], in_ms=[x[2] for x in ins])
+            print(f"fleet (i) {c.name}: {sched.preemptions} preemption, {sched.swaps} swap of "
+                  f"{want / 1e6:.2f} MB a leg (StatePool.nbytes; both legs counted: "
+                  f"{sched.swap_bytes / 1e6:.2f} MB), swap-out "
+                  + ", ".join(f"{x[2]:.2f}" for x in outs) + " ms, swap-in "
+                  + ", ".join(f"{x[2]:.2f}" for x in ins) + f" ms; the meter saw the swap-in "
+                  f"({ins[0][3]} B) and {len(transfers)} decode-step copies of at most "
+                  f"{max(transfers)} B; logits and greedy tokens bit-identical to the uninterrupted "
+                  f"run")
+    finally:
+        StatePool.swap_out, StatePool.swap_in = real["out"], real["in"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"fleet: peak device memory {peak:.2f} GiB ({base_gib:.2f} GiB held when the phase "
+          f"began: the three models' weights and the dense phases' sessions)")
+    numbers = {m: s_h[m] for m in ("p50_ttft", "p95_ttft", "mean_tpot", "p95_itl",
+                                   "decode_tok_rate", "makespan")}
+    numbers.update(batches=by_stream, swaps=swaps, stack=stack_ms, peak_gib=peak)
+    return paths, numbers
 
 
 def decode_vs_prefill(be, prompt, rel_tol: float, min_cos: float):
@@ -1878,15 +2284,24 @@ def main() -> int:
     rows["decode_attention"]["serve"] = {k: serve_numbers[k] for k in "abc"}
     rows["chunk_attention"]["serve"] = {k: serve_numbers[k]
                                         for k in ("e", "f", "part_b_batch_hold")}
+    # the Qwen weights stay for the fleet phase, the other sessions go
+    weights = {cfg.name: ctx["params"]}
     del ctx
-    torch.cuda.empty_cache()  # the Qwen weights went with the dense phases
+    torch.cuda.empty_cache()
     rows.update(phase_state_kernels(hcfg, cfg, fcfg))
-    for name, n in phase_state_e2e(hcfg, N_REQUESTS, check_decode=True).items():
+    totals, weights[hcfg.name] = phase_state_e2e(hcfg, N_REQUESTS, check_decode=True)
+    for name, n in totals.items():
         paths.setdefault(name, {})["hymba-1.5b requests"] = n
     torch.cuda.empty_cache()
-    for name, n in phase_state_e2e(fcfg, 1, check_decode=False).items():
+    totals, weights[fcfg.name] = phase_state_e2e(fcfg, 1, check_decode=False)
+    for name, n in totals.items():
         if n["launches"]:
             paths.setdefault(name, {})["falcon-mamba-7b request"] = n
+    fleet_paths, fleet_numbers = phase_fleet({c.name: c for c in (cfg, hcfg, fcfg)}, weights,
+                                             smi_line)
+    for name, by_path in fleet_paths.items():
+        paths.setdefault(name, {}).update(by_path)
+    rows["selective_scan"]["fleet"] = fleet_numbers
     sources = {"chunk_score": ("src/repro_torch/csrc/chunk_score.cu",
                                "src/repro/kernels/chunk_score/kernel.py:65"),
                "chunk_attention": ("src/repro_torch/csrc/chunk_attention.cu",
@@ -1920,7 +2335,7 @@ def main() -> int:
                     "decode_host_ms", "decode_bound_ms", "falcon_decode_ms",
                     "falcon_decode_host_ms", "falcon_decode_bound_ms", "dense_ingest",
                     "falcon_prefill", "one_cta_per_sm_ms", "pools_form", "indexed",
-                    "serve"):
+                    "serve", "decode_batched", "fleet"):
             if key in r:
                 row[key] = r[key]
         kernels.append(row)

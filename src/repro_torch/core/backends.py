@@ -13,8 +13,10 @@ step over its pool stacked as a batch of one, a scheduler's batched step
 pools form, with no pad-and-stack copy. StateCompute
 runs the SSM and hybrid families' serve path (``transformer.prefill`` and
 ``decode_step``): their prefill attention goes through ``flash_attention``
-and every mamba recurrence through ``selective_scan``. For tensors on the
-CPU the kernels' wrappers run their plain versions.
+and every mamba recurrence through ``selective_scan``; a scheduler's batched
+step (``decode_step_batch``) stacks b requests' states and runs one step at
+batch b, one scan launch per layer for all of them. For tensors on the CPU
+the kernels' wrappers run their plain versions.
 
 dtypes follow the JAX package, which promotes where torch would refuse:
 part B joins float16 store chunks with the suffix KV in float32, so the
@@ -520,14 +522,27 @@ class StatePool:
     recurrence ``ssm_h`` and conv window ``ssm_conv`` (plus the attention KV
     buffers ``k``/``v`` for hybrid models, preallocated to the decode
     capacity). A decode step rewrites the state in place, so ``nbytes`` never
-    grows with the decoded length. The state stays where it was made; swapping
-    it to the host comes with the serving scheduler."""
+    grows with the decoded length.
 
-    __slots__ = ("state",)
+    It speaks the preemption contract of :class:`DeviceTailPool`:
+    ``swap_out`` moves every tensor to host memory and returns the bytes
+    moved, ``swap_in`` restores them bit for bit to the pool's home device
+    (where the state was when the pool was built) and returns the same
+    count. ``is_device`` says whether the pool is a device pool and does not
+    change while it is swapped out, so the scheduler's batch former keys it
+    the same; by default it is a device pool when its state lives on a CUDA
+    device. A host pool (``device=False``) moves 0 bytes, as in the JAX
+    package. Both legs go through ``Tensor.to``, one of the transfer doors
+    that :mod:`repro_torch.storage.h2d_meter` counts."""
 
-    def __init__(self, state: Dict):
+    __slots__ = ("state", "home", "is_device", "_resident")
+
+    def __init__(self, state: Dict, *, device: Optional[bool] = None):
         """``state``: keys length, ssm_h, ssm_conv[, k, v]."""
         self.state = state
+        self.home = state["ssm_h"].device
+        self.is_device = self.home.type == "cuda" if device is None else bool(device)
+        self._resident = True
 
     @property
     def nbytes(self) -> int:
@@ -539,16 +554,42 @@ class StatePool:
         return int(self.state["length"])
 
     @property
-    def is_device(self) -> bool:
-        return self.state["ssm_h"].device.type == "cuda"
-
-    @property
     def is_resident(self) -> bool:
-        return True
+        """False while swapped out to host memory."""
+        return self._resident
+
+    def _move(self, device) -> int:
+        for key, t in self.state.items():
+            if isinstance(t, torch.Tensor):
+                self.state[key] = t.to(device, copy=True)
+        return self.nbytes
+
+    def swap_out(self) -> int:
+        """Move the state to host memory (the device copies go with their
+        last reference); returns the bytes moved."""
+        if not self._resident:
+            raise RuntimeError("state pool already swapped out")
+        self._resident = False
+        return self._move("cpu") if self.is_device else 0
+
+    def swap_in(self) -> int:
+        """Move the state back to its home device; returns the bytes moved."""
+        if self._resident:
+            raise RuntimeError("state pool is not swapped out")
+        self._resident = True
+        return self._move(self.home) if self.is_device else 0
+
+
+def _stack_states(states: List[Dict]) -> Dict:
+    """Stack per-request serve states along the batch axis (axis 1 of every
+    tensor; ``length`` is shared and must already agree)."""
+    return {key: (states[0][key] if key == "length"
+                  else torch.cat([st[key] for st in states], dim=1))
+            for key in states[0]}
 
 
 class StateCompute:
-    """Real whole-model backend for the SSM/hybrid families; batch = 1 request.
+    """Real whole-model backend for the SSM/hybrid families.
 
     :class:`RealCompute` decomposes attention models into part-A/part-B passes
     around a paged KV pool; the state-space families instead run the serve
@@ -556,7 +597,10 @@ class StateCompute:
     a fixed-size serve state (per-layer float32 recurrence and conv window,
     plus attention KV for hybrid) wrapped in a :class:`StatePool`, and each
     ``decode_step`` advances that state in place, every layer's recurrence
-    through the selective_scan kernel."""
+    through the selective_scan kernel. ``decode_step_batch`` is the fleet's
+    batching surface: members whose states share one geometry and length
+    stack along the batch axis and run one step, one scan launch per layer
+    for all of them."""
 
     def __init__(self, cfg: ModelConfig, params, *, device="cuda"):
         if cfg.family not in T.STATE_FAMILIES:
@@ -588,3 +632,31 @@ class StateCompute:
         tok = torch.tensor([[int(token)]], device=self.device)
         logits, state = T.decode_step(self.params, tok, self.cfg, state)
         return logits.cpu().numpy(), state
+
+    def decode_step_batch(self, ctxs) -> List[np.ndarray]:
+        """One batched decode pass over ``ctxs``' StatePools; returns one
+        (1, 1, vocab) logits array per ctx.
+
+        States that share every tensor's shape and the length stack along
+        the batch axis into one ``decode_step``; a ragged batch falls back to
+        per-request steps (still one scheduler iteration). JAX hands each
+        member a slice of the new stacked state; here each member's slice is
+        copied back into its own tensors instead, so the pools keep their
+        dicts, tensors and storage (a view would keep the whole stack alive
+        and tie the members together: swapping one out would free nothing)."""
+        states = [c.pools[0].state for c in ctxs]
+        lengths = {int(st["length"]) for st in states}
+        shapes = {tuple((k, tuple(v.shape)) for k, v in sorted(st.items()) if k != "length")
+                  for st in states}
+        if len(lengths) > 1 or len(shapes) > 1:
+            return [self.decode_step(c.token, c.pools[0].state)[0] for c in ctxs]
+        toks = torch.tensor([[int(c.token)] for c in ctxs], device=self.device)
+        logits, stacked = T.decode_step(self.params, toks, self.cfg, _stack_states(states))
+        for i, st in enumerate(states):
+            for key, t in stacked.items():
+                if key == "length":
+                    st[key] = t
+                else:
+                    st[key].copy_(t[:, i: i + 1])
+        logits = logits.cpu().numpy()
+        return [logits[i: i + 1] for i in range(len(ctxs))]

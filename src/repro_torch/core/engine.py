@@ -801,7 +801,8 @@ class IMPRESSEngine(_BlockBaselineEngine):
 # ---------------------------------------------------------------------------
 class StateSpaceEngine:
     """Step-plan factory for the SSM (falcon-mamba) and hybrid (hymba)
-    families, real mode.
+    families, real mode: the heterogeneous fleet's counterpart of the KV
+    engines.
 
     There is no granular prefix KV to identify or load, so the plan has no
     I/O legs: the prefill over prefix + suffix is one ComputeOp (stage
@@ -811,10 +812,18 @@ class StateSpaceEngine:
     earlier ones only occupy the device); each decode step is one ComputeOp
     priced by :func:`costmodel.ssm_decode_cost`, the constant recurrent state
     instead of a growing KV read (hybrids add their attention span). The
-    request's serve state lives in a :class:`backends.StatePool` and is
-    advanced in place."""
+    request's serve state lives in a :class:`backends.StatePool`, advanced in
+    place, and each decode op carries a ``DecodeBatchCtx`` over it: the
+    scheduler's batching, preemption and handoff surface. Every op's
+    ``weight_key`` is ``"model@<cfg.name>"``, so a mixed fleet's batch former
+    never amortizes one model's weights against another family's ops.
+
+    The JAX scheduler's sim-mode swap and handoff pricing asks the engine
+    through :meth:`swap_bytes_of` / :meth:`handoff_payload` (the KV engines'
+    resident-unit accounting does not apply here)."""
 
     name = "state_space"
+    hybrid = None  # no compute-or-load planner: there is no stored KV to load
     cache = None  # no prefix-unit cache: the prefill scan is always compute
 
     def __init__(self, cfg, backend, executor: BaseExecutor, *, prefix_tokens=None,
@@ -850,6 +859,28 @@ class StateSpaceEngine:
         logits = drive_serial(self.ex, p)
         return logits, p.trace
 
+    # -- scheduler pricing hooks ----------------------------------------------
+    def _state_bytes(self, suffix_len: int, decoded: int) -> int:
+        """Bytes a swap or handoff of one request's live state must move: the
+        constant per-layer recurrent state, plus the attention KV written so
+        far for hybrid models."""
+        cfg = self.cfg
+        n = cfg.n_layers * CM.ssm_state_bytes(cfg)
+        if cfg.family == "hybrid":
+            tokens = self.prefix_len + suffix_len + decoded
+            n += tokens * CM.token_kv_bytes(cfg) * cfg.n_layers
+        return int(n)
+
+    def swap_bytes_of(self, a) -> int:
+        return self._state_bytes(len(a.request.suffix), len(a.plan.trace.decode_times))
+
+    def handoff_payload(self, a):
+        """(bytes, tokens) a prefill-to-decode handoff must move or recompute."""
+        suffix_len = len(a.request.suffix)
+        nbytes = self._state_bytes(suffix_len, len(a.plan.trace.decode_times))
+        return nbytes, self.prefix_len + suffix_len
+
+    # -- the plan -------------------------------------------------------------
     def _steps(self, suffix_tokens, request_id, clock, trace, decode_tokens=0):
         cfg, be = self.cfg, self.backend
         be.new_request(request_id)
@@ -879,15 +910,17 @@ class StateSpaceEngine:
             attended = ([total + step + 1] * cfg.n_layers if cfg.family == "hybrid"
                         else None)
             cost = CM.ssm_decode_cost(cfg, attended)
+            ctx = DecodeBatchCtx(backend=be, token=tok, pos=total + step, pools={0: pool})
 
-            def fn(tok_now=tok):
-                lg, pool.state = be.decode_step(tok_now, pool.state)
+            def fn(ctx=ctx):
+                # the backend comes off the ctx (a disaggregated scheduler
+                # restamps it at the handoff); the state advances in place
+                lg, ctx.pools[0].state = ctx.backend.decode_step(ctx.token, ctx.pools[0].state)
                 return lg
 
             logits = yield ComputeOp(fn, flops=cost.flops, hbm_bytes=cost.hbm_bytes,
-                                     tag="decode", phase="decode", tokens=1,
-                                     weight_bytes=float(CM.decode_weight_bytes(cfg)),
-                                     weight_key=f"model@{self.stream}")
+                                     tag="decode", phase="decode", tokens=1, weight_bytes=wb,
+                                     weight_key=f"model@{self.stream}", batch_ctx=ctx)
             tok = int(np.argmax(logits[0, -1]))
             trace.decode_tokens_out.append(tok)
             trace.decode_times.append(clock.t)

@@ -3,12 +3,13 @@
   arrivals  — Poisson / burst / uniform arrival processes;
   scheduler — Scheduler and admission policies (FCFS, cache-aware, SLO-aware),
               Request / CompletedRequest, run summaries;
-  tenancy   — the engine classes by system name;
+  tenancy   — the engine classes by system name, fleet specs
+              (``parse_fleet_spec``) and the fleet record (``TenantFleet``);
   disagg    — prefill/decode worker topology and KV handoff;
   replicas  — data-parallel engine replicas behind one Scheduler.
 
-The discrete-event sim mode and the multi-tenant fleets (`build_sim_fleet`,
-`TenantFleet`) come with later slices.
+The discrete-event sim mode and its fleets (`build_sim_fleet`) come with a
+later slice.
 """
 from repro_torch.serving.arrivals import (
     burst_arrivals,
@@ -28,7 +29,7 @@ from repro_torch.serving.scheduler import (
     SLOAwarePolicy,
     summarize,
 )
-from repro_torch.serving.tenancy import ENGINE_CLASSES
+from repro_torch.serving.tenancy import ENGINE_CLASSES, TenantFleet, parse_fleet_spec
 
 __all__ = [
     "burst_arrivals",
@@ -48,4 +49,6 @@ __all__ = [
     "SLOAwarePolicy",
     "summarize",
     "ENGINE_CLASSES",
+    "TenantFleet",
+    "parse_fleet_spec",
 ]

@@ -866,3 +866,86 @@ def test_part_b_batch_on_the_card(dev):
     for (h, m), (hs, ms) in zip(*outs["cuda"]):
         np.testing.assert_array_equal(m, ms)
         _close(h, hs)
+
+
+# -- the state-space batched decode step and StatePool swap -------------------
+def _state_members(dev, name, dtype, b=3):
+    """A reduced state-space backend on the card and b requests' pools of one
+    length, each with the greedy token its prefill gives."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.backends import StateCompute
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(reduced_config(name, n_layers=3), dtype=dtype)
+    be = StateCompute(cfg, init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev),
+                      device=dev)
+    rng = np.random.default_rng(5)
+    members = []
+    for _ in range(b):
+        logits, pool = be.prefill(rng.integers(0, cfg.vocab_size, 70), extra_tokens=4)
+        members.append((int(np.argmax(logits[0, -1])), pool))
+    return cfg, be, members
+
+
+def _clone_state(state):
+    return {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in state.items()}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", ["hymba-1.5b", "falcon-mamba-7b"])
+def test_state_decode_step_batch_on_the_card(dev, name, dtype):
+    """StateCompute.decode_step_batch at b = 3 on the card: one step kernel
+    launch per layer for the batch, each member's logits against its own
+    single step (bfloat16: within 0.1 of the largest logit and cosine 0.998,
+    the state-space decode's bfloat16 limits; float32: 1e-4 of the scale),
+    each member's state in its own tensors."""
+    from repro_torch.core.stepplan import DecodeBatchCtx
+
+    cfg, be, members = _state_members(dev, name, dtype)
+    singles = [be.decode_step(tok, _clone_state(pool.state)) for tok, pool in members]
+    ptrs = [{k: v.untyped_storage().data_ptr() for k, v in pool.state.items()
+             if isinstance(v, torch.Tensor)} for _, pool in members]
+    ctxs = [DecodeBatchCtx(be, tok, pool.valid_tokens, {0: pool}) for tok, pool in members]
+    before = dict(ss_ops.launches_by_variant)
+    outs = be.decode_step_batch(ctxs)
+    assert ss_ops.launches_by_variant["sequential"] - before["sequential"] == cfg.n_layers
+    for out, (lg, st), (_, pool), ptr in zip(outs, singles, members, ptrs):
+        assert out.shape == lg.shape == (1, 1, cfg.vocab_size)
+        a, r = out[0, -1].astype(np.float64), lg[0, -1].astype(np.float64)
+        if dtype == "bfloat16":
+            cos = a @ r / (np.linalg.norm(a) * np.linalg.norm(r))
+            assert np.abs(a - r).max() <= 0.1 * np.abs(r).max() and cos >= 0.998
+        else:
+            np.testing.assert_allclose(a, r, rtol=0, atol=1e-4 * np.abs(r).max())
+            for k, v in st.items():
+                if isinstance(v, torch.Tensor):
+                    _close(pool.state[k], v, rel=1e-4)
+        assert pool.valid_tokens == st["length"]
+        assert {k: v.untyped_storage().data_ptr() for k, v in pool.state.items()
+                if isinstance(v, torch.Tensor)} == ptr
+
+
+@pytest.mark.parametrize("name", ["hymba-1.5b", "falcon-mamba-7b"])
+def test_state_pool_swap_on_the_card(dev, name):
+    """A CUDA state's swap round trip: nbytes each leg, the state on the host
+    between them, back on the card bit for bit, the meter seeing the
+    swap-in, and the next step as without the swap."""
+    from repro_torch.storage.h2d_meter import H2DMeter
+
+    _, be, [(tok, pool)] = _state_members(dev, name, "bfloat16", b=1)
+    ref = be.decode_step(tok, _clone_state(pool.state))[0]
+    before = _clone_state(pool.state)
+    assert pool.is_device and pool.home.type == "cuda"
+    n = pool.swap_out()
+    assert n == pool.nbytes > 0 and not pool.is_resident and pool.is_device
+    assert all(v.device.type == "cpu" for v in pool.state.values()
+               if isinstance(v, torch.Tensor))
+    with H2DMeter(dev) as meter:
+        assert pool.swap_in() == n
+    assert meter.total == n and pool.is_resident
+    for k, v in before.items():
+        if isinstance(v, torch.Tensor):
+            assert pool.state[k].device == pool.home and torch.equal(pool.state[k], v)
+    np.testing.assert_array_equal(be.decode_step(tok, pool.state)[0], ref)

@@ -327,7 +327,7 @@ def test_serve_cli_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("flags,slice_name", [
     (["--mode", "sim"], "sim slice"),
-    (["--fleet", "qwen2_5_7b:1"], "fleet slice"),
+    (["--hybrid-reprefill", "force-compute"], "compute-or-load slice"),
     (["--hybrid-reprefill", "auto"], "compute-or-load slice"),
     (["--cache-tiers", "4:8:16"], "tier store"),
     (["--tp-decode", "0"], "multi-device slice"),
