@@ -81,7 +81,36 @@ non-zero exit code:
                 (f) bit for bit (c); part_b_batch held directly on four
                 plans' layer-0 final chunks; TTFT,
                 TPOT, inter-token latency, tokens/s, batch size, peak memory;
-  6. state    — flash_attention (hymba prefill, dense ingest, ragged s,
+  6. hybrid   — compute-or-load Re-Prefill and the three-tier prefix store
+                on the dense phase's weights and sessions (caches of size 0
+                unless named): a reference run of ContiguousKV without a
+                planner; (j) force-compute, 2 requests: units recomputed,
+                one flash_attention launch a layer at s = end on top of the
+                plan's launches, fewer SSD bytes than the reference, the
+                recomputed KV against the store (the share bit-identical and
+                the largest difference), logits within the dense limits of
+                the reference up to the first differing greedy token, the
+                recompute op's host time, recompute_prefix_kv's, and
+                flash_attention at s = end against its plain version, SDPA and
+                its bound, the copy to the host timed, one more request
+                profiled (device busy time, idle share), and the recomputed
+                KV at ends 1024, 2048 and 4080 held to the store too (the
+                share printed); (k) force-load bit for
+                bit the reference; (l) auto, its HybridDecision and io_scale
+                printed, held as (j) or (k) by what it chose; (m) AS-LRU
+                force-compute on the coarse session over the whole prefix,
+                held as (j) against AS-LRU without a planner; (n) ContiguousKV
+                over a TieredPrefixStore in memory mode (HBM:DRAM:SSD 256:512:
+                1024 units), 4 requests bit for bit the reference, every
+                request after the first hitting all three tiers, units
+                dropping out of the SSD tier and compaction moving others
+                while its reads are in flight, then two tenants of one prompt
+                on one store (the second hits the first's units, one payload
+                copy); then serve's CLI with --hybrid-reprefill auto
+                --cache-tiers 4:8:16 at concurrency 1 (2 layers, tier hits
+                asserted); every run of the phase with its launches asserted
+                and no plain version run;
+  7. state    — flash_attention (hymba prefill, dense ingest, ragged s,
                 window, q_offset) and selective_scan (hymba and falcon-mamba
                 prefill, a ragged s, resumes from the carried state at a
                 chunk boundary and a ragged cut, decode at b = 1 and 2)
@@ -99,7 +128,7 @@ non-zero exit code:
                 request on full-width falcon-mamba-7b (64 layers,
                 attention-free); the scan's decode step at b = 2 and 4, both
                 widths, held and timed against its bound;
-  7. fleet    — the heterogeneous fleet qwen2_5_7b:2,hymba_1_5b:1,
+  8. fleet    — the heterogeneous fleet qwen2_5_7b:2,hymba_1_5b:1,
                 falcon_mamba_7b:1 on the weights the earlier phases built,
                 as serve --fleet builds it (an engine and backend per
                 tenant, tenant-namespaced sessions of one more dense ingest,
@@ -119,12 +148,12 @@ non-zero exit code:
                 seeing the swap-in and no pool-sized copy in the decode
                 steps; TTFT, TPOT, batches by weight stream, swap bytes and
                 time, peak memory;
-  8. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
+  9. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
      paths it names (per variant where a wrapper has several), its error
      against its plain version, its times and its bound (the largest of
      bytes, products and exponentials, named), at the main path's shapes
      and (``baseline_shapes``) at the baselines';
-  9. last line: ``{"ok": true, "device": {...}}``.
+  10. last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
 outside a checkout (it builds and imports ``src/repro_torch``).
@@ -198,6 +227,17 @@ SERVE_REQUESTS, SERVE_TTFT_TARGET, SERVE_PREFILL_FLOOR = 8, 1e-6, 10.0
 # state-space request's prefill in ops of 1024 tokens; the indexed form's
 # paged case: valid chunks of the 64 indices into a layer's pool
 SERVE_PREFILL_CHUNK, STATE_PREFILL_CHUNK, INDEXED_PAGED_VALID = 16, 1024, 57
+# compute-or-load: requests of each planner run; the tier store's HBM:DRAM:SSD
+# capacities in units (one request selects 64 chunks x 28 layers = 1792, so
+# its units spill past HBM and DRAM into the SSD tier, which overflows: units
+# drop out of the log and compaction moves the survivors while reads of the
+# SSD tier are in flight), and the two tenants' store, whose HBM holds one
+# request's units; serve's CLI on the card: its tier capacities and requests
+HYBRID_REQUESTS, TIER_CAPS, SHARED_TIER_CAPS = 2, (256, 512, 1024), (2048, 0, 0)
+CLI_TIER_CAPS, CLI_REQUESTS = "4:8:16", 4
+# frontiers below the prefix length at which the recomputed KV is also held
+# to the store (GEMMs over fewer rows than the ingest's)
+KV_CHECK_ENDS = (1024, 2048, 4080)
 # the heterogeneous fleet: tenants by model, requests (tenant 1 + rid % 4, so
 # two a tenant) and decode tokens each
 FLEET_SPEC, FLEET_REQUESTS, FLEET_DECODE = "qwen2_5_7b:2,hymba_1_5b:1,falcon_mamba_7b:1", 8, 8
@@ -1214,6 +1254,448 @@ def _hold_part_b_batch(cfg, engine, suffixes, b: int = 4):
     return dict(h_rel_err=worst, batch_wall_ms=t_batch, single_calls_wall_ms=t_single)
 
 
+def flash_held(label, q, k, v, **kw):
+    """flash_attention against its plain version on the same card inputs,
+    to FLASH_REL of the largest output: returns (output, err, tol)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    got, ref = flash_attention(q, k, v, **kw), flash_attention_ref(q, k, v, **kw)
+    err, tol = max_err(got, ref), FLASH_REL * ref.float().abs().max().item()
+    if not err <= tol:
+        fail(f"flash_attention {label}: max abs err {err} > {tol}")
+    return got, err, tol
+
+
+def flash_timed(q, k, v, got, **kw) -> dict:
+    """A causal self-attention call's device, SDPA, host and plain times and
+    its bound (s_q = s_k, no offset: s(s + 1) / 2 key-query pairs a head)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    n_heads, s, d = q.shape[1:]
+    pairs = s * (s + 1) // 2
+    return dict(ms=device_ms(lambda: flash_attention(q, k, v, **kw)),
+                library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)),
+                host_ms=host_ms(lambda: flash_attention(q, k, v, **kw)),
+                plain_ms=wall_ms(lambda: flash_attention_ref(q, k, v, **kw), reps=3),
+                bound=bounds(nbytes(q, k, v, got), 4.0 * n_heads * d * pairs, n_heads * pairs))
+
+
+def phase_hybrid(cfg, ctx, smi_line):
+    """Compute-or-load Re-Prefill and the three-tier prefix store on the dense
+    phase's weights and sessions, caches of size 0 unless named: (j) force-
+    compute, (k) force-load, (l) auto (ContiguousKV, HYBRID_REQUESTS requests
+    with 16 decode tokens), (m) AS-LRU force-compute on the coarse session,
+    (n) ContiguousKV over a TieredPrefixStore and two tenants of one prompt,
+    then serve's CLI with both flags; held as the module docstring says.
+    Returns ({kernel: {path: launches}}, numbers)."""
+    from repro_torch.kernels.chunk_attention import ops as ca
+    from repro_torch.kernels.chunk_score import ops as cs
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.selective_scan import ops as ss
+
+    ops = {"chunk_score": cs, "chunk_attention": ca, "decode_attention": da,
+           "flash_attention": fa, "selective_scan": ss}
+    with plain_versions_counted(ops) as plain_calls:
+        return _hybrid_runs(cfg, ctx, smi_line, ops, plain_calls)
+
+
+def _hybrid_runs(cfg, ctx, smi_line, ops, plain_calls):
+    import numpy as np
+    import torch
+
+    from repro_torch.core.backends import RealCompute
+    from repro_torch.core.engine import ASLRUEngine, ContiguousKVEngine
+    from repro_torch.core.hybrid import HybridPlanner
+    from repro_torch.storage.tierstore import TieredPrefixStore
+    from repro_torch.storage.timing import RealExecutor
+
+    L, V = cfg.n_layers, cfg.vocab_size
+    params, sess, csess = ctx["params"], ctx["sess"], ctx["csess"]
+    suffixes = ctx["suffixes"][:N_REQUESTS]
+    n_periods = -(-L // PERIOD)
+    plain_path = {"chunk_score": n_periods, "chunk_attention": L,
+                  "decode_attention": L * DECODE_TOKENS}
+    paths, numbers, walls = {}, {}, {}
+
+    def run(label, eng, sfx, n, expect_flash=None):
+        """n requests through ``eng`` (drive_serial), launches per request
+        asserted (the plan's, plus expect_flash flash_attention launches,
+        None: 0), no plain version; returns [(logits, trace, taps, recompute
+        op host ms)]."""
+        taps = _tapped(eng)
+        out = []
+        reset_counts(*ops.values())
+        plain_calls.clear()
+        for i in range(n):
+            before = {k: mod.launches for k, mod in ops.items()}
+            busy = eng.ex.stage_times.get("recompute", 0.0)
+            t0 = time.perf_counter()
+            logits, trace = eng.reprefill(sfx[i], request_id=i, decode_tokens=DECODE_TOKENS)
+            walls.setdefault(label, []).append((time.perf_counter() - t0) * 1e3)
+            got = {k: mod.launches - before[k] for k, mod in ops.items()}
+            want = dict(plain_path if isinstance(eng, ContiguousKVEngine) else
+                        {"chunk_score": 0, "chunk_attention": L,
+                         "decode_attention": L * DECODE_TOKENS},
+                        flash_attention=expect_flash(trace) if expect_flash else 0,
+                        selective_scan=0)
+            if got != want:
+                fail(f"hybrid {label} request {i}: launches {got}, expected {want}")
+            toks = trace.decode_tokens_out
+            if (logits.shape != (1, 1, V) or not np.isfinite(logits).all()
+                    or len(toks) != DECODE_TOKENS or not all(0 <= t < V for t in toks)):
+                fail(f"hybrid {label} request {i}: bad output")
+            out.append((logits, trace, taps[i],
+                        (eng.ex.stage_times.get("recompute", 0.0) - busy) * 1e3))
+        if plain_calls:
+            fail(f"hybrid {label}: plain versions ran on the card: {plain_calls}")
+        for k, mod in ops.items():
+            if mod.launches:
+                paths.setdefault(k, {})[f"hybrid {label}"] = counts(mod)
+        eng.ex.shutdown()
+        return out
+
+    def checked(label, want, fn):
+        """``fn()`` outside ``run``: the launches it makes are ``want``'s
+        (absent kernels: 0; a callable is given the count), and no plain
+        version ran."""
+        before = {k: mod.launches for k, mod in ops.items()}
+        plain_before = dict(plain_calls)
+        out = fn()
+        got = {k: mod.launches - before[k] for k, mod in ops.items()}
+        bad = [k for k in ops if not (want[k](got[k]) if callable(want.get(k))
+                                      else got[k] == want.get(k, 0))]
+        if bad:
+            fail(f"hybrid {label}: launches {got}, expected {want}")
+        if plain_calls != plain_before:
+            fail(f"hybrid {label}: plain versions ran on the card: {plain_calls} "
+                 f"(before: {plain_before})")
+        return out
+
+    def hold(label, got, ref, exact):
+        """Each request's first-token logits and decode steps against the
+        reference run's: bit for bit (``exact``), else within the dense
+        limits up to the first step whose input token differs."""
+        worst, agree = (0.0, 1.0), 0
+        for i, ((lg, tg, pg, _), (lr, tr, pr, _)) in enumerate(zip(got, ref)):
+            same = (np.array_equal(pg["first"], pr["first"]) and np.array_equal(lg, lr)
+                    and tg.decode_tokens_out == tr.decode_tokens_out)
+            if exact and not same:
+                fail(f"hybrid {label} request {i}: not bit-identical to its reference")
+            pairs = [(pg["first"], pr["first"])]
+            for step, (a, b) in enumerate(zip(pg["steps"], pr["steps"])):
+                pairs.append((a, b))
+                if tg.decode_tokens_out[step] != tr.decode_tokens_out[step]:
+                    break
+            for a, b in pairs:
+                rel, cos = logit_agreement(a[0, -1], b[0, -1])
+                worst = (max(worst[0], rel), min(worst[1], cos))
+            agree += sum(x == y for x, y in zip(tg.decode_tokens_out, tr.decode_tokens_out))
+        if not (worst[0] <= DENSE_REL_TOL and worst[1] >= DENSE_MIN_COS):
+            fail(f"hybrid {label}: logits max err / max |logit| {worst[0]}, cosine {worst[1]}")
+        n_tok = len(got) * DECODE_TOKENS
+        print(f"hybrid {label}: logits against the reference, worst over first tokens and the "
+              f"decode steps up to a differing token: max abs err / max |logit| {worst[0]:.4g} "
+              f"(tol {DENSE_REL_TOL}), cosine {worst[1]:.6f} (min {DENSE_MIN_COS}); greedy "
+              f"tokens agreeing {agree} of {n_tok}; bit-identical: "
+              f"{all(np.array_equal(a[0], b[0]) for a, b in zip(got, ref))}")
+        return dict(max_rel_err=worst[0], min_cos=worst[1], tokens_agreeing=agree,
+                    tokens=n_tok)
+
+    def engine(hybrid=None, cache=None):
+        return ContiguousKVEngine(sess, RealCompute(cfg, params, device=DEVICE), RealExecutor(),
+                                  budget=BUDGET, period=PERIOD, subperiod=SUBPERIOD,
+                                  cache=cache, hybrid=hybrid)
+
+    # the reference: ContiguousKV without a planner on caches of size 0
+    ref = run("reference (no planner)", engine(), suffixes, N_REQUESTS)
+
+    def recorded(be, recs):
+        """Have ``be.recompute_prefix_kv`` append its outputs and host time
+        (forward and copy to the host) to ``recs``."""
+        recompute = be.recompute_prefix_kv
+
+        def timed(tokens, end, block_q):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            k, v = recompute(tokens, end, block_q)  # ends with the copy to the host
+            recs.append(dict(end=end, k=k, v=v, ms=(time.perf_counter() - t0) * 1e3))
+            return k, v
+        be.recompute_prefix_kv = timed
+
+    # (j) force-compute, the recompute's outputs recorded beside the store
+    eng = engine(HybridPlanner("force-compute"))
+    recs = []
+    recorded(eng.backend, recs)
+    got_j = run("(j) force-compute", eng, suffixes, HYBRID_REQUESTS,
+                expect_flash=lambda tr: L if tr.recompute_units else 0)
+    c = sess.meta.chunk_tokens
+    kv_equal = kv_total = 0
+    kv_err = 0.0
+    for i, (_, tr, _, op_ms) in enumerate(got_j):
+        r, (_, t0, _, _) = recs[i], ref[i]
+        d = tr.hybrid_decision
+        if not (tr.recompute_units > 0 and r["end"] == tr.recompute_tokens
+                and tr.ssd_bytes < t0.ssd_bytes):
+            fail(f"hybrid (j) request {i}: recompute_units {tr.recompute_units}, end "
+                 f"{r['end']}, ssd_bytes {tr.ssd_bytes} against {t0.ssd_bytes}")
+        for l in range(L):
+            stored = sess.store.read_units(l, list(d.recompute_units))
+            for u in d.recompute_units:
+                lo = u * c
+                a = np.stack([r["k"][l, lo: lo + c], r["v"][l, lo: lo + c]], axis=1)
+                kv_total += 1
+                kv_equal += np.array_equal(a, stored[u])
+                kv_err = max(kv_err, float(np.abs(a.astype(np.float32)
+                                                  - stored[u].astype(np.float32)).max()))
+        print(f"hybrid (j) request {i}: {tr.recompute_units} units recomputed over [0, "
+              f"{tr.recompute_tokens}) ({len(d.load_units)} left to load), TTFT "
+              f"{tr.ttft * 1e3:.2f} ms (no planner {t0.ttft * 1e3:.2f} ms), ssd_bytes "
+              f"{tr.ssd_bytes} (no planner {t0.ssd_bytes}), ssd_bytes_avoided "
+              f"{tr.ssd_bytes_avoided}; recompute op {op_ms:.2f} ms on the host, of which "
+              f"recompute_prefix_kv (forward and copy to the host) {r['ms']:.2f} ms; stages ms "
+              f"{ {k: round(v * 1e3, 2) for k, v in tr.stages.items()} }")
+    end = recs[0]["end"]
+    kv_share = kv_equal / kv_total
+    print(f"hybrid (j): recomputed KV against the store, by unit and layer: {kv_equal} of "
+          f"{kv_total} bit-identical ({100 * kv_share:.2f} %), max abs difference {kv_err:.4g} "
+          f"(the ingest ran its GEMMs over {PREFIX_LEN} rows, the recompute over {end})")
+    # the same check at frontiers below the prefix length, where the
+    # recompute's GEMMs run over fewer rows than the ingest's (a record)
+    shorter = {}
+    be = RealCompute(cfg, params, device=DEVICE)
+    for e in KV_CHECK_ENDS:
+        k_e, v_e = checked(f"recompute_prefix_kv at end {e}", {"flash_attention": L},
+                           lambda e=e: be.recompute_prefix_kv(sess.tokens, e,
+                                                              block_q=min(512, PREFIX_LEN)))
+        eq = tot = 0
+        diff = 0.0
+        for l in range(L):
+            stored = sess.store.read_units(l, list(range(e // c)))
+            for u, rec in stored.items():
+                a = np.stack([k_e[l, u * c: (u + 1) * c], v_e[l, u * c: (u + 1) * c]], axis=1)
+                tot += 1
+                eq += np.array_equal(a, rec)
+                diff = max(diff, float(np.abs(a.astype(np.float32) - rec.astype(np.float32)).max()))
+        shorter[e] = dict(bit_equal=eq, units=tot, max_abs_diff=diff)
+        print(f"hybrid (j): recompute_prefix_kv at end {e} against the store: {eq} of {tot} "
+              f"(unit, layer) records bit-identical ({100 * eq / tot:.2f} %), max abs "
+              f"difference {diff:.4g}")
+    del k_e, v_e
+    numbers["j"] = dict(hold(f"(j) force-compute vs no planner", got_j, ref, exact=False),
+                        kv_at_shorter_ends=shorter,
+                        kv_bit_equal=kv_equal, kv_units=kv_total, kv_max_abs_diff=kv_err,
+                        end=end, ttft_ms=[t.ttft * 1e3 for _, t, _, _ in got_j],
+                        ttft_no_planner_ms=[t.ttft * 1e3 for _, t, _, _ in ref[:HYBRID_REQUESTS]],
+                        recompute_op_host_ms=[g[3] for g in got_j],
+                        recompute_prefix_kv_ms=[r["ms"] for r in recs],
+                        ssd_bytes=[t.ssd_bytes for _, t, _, _ in got_j],
+                        ssd_bytes_no_planner=[t.ssd_bytes for _, t, _, _ in ref[:HYBRID_REQUESTS]],
+                        ssd_bytes_avoided=[t.ssd_bytes_avoided for _, t, _, _ in got_j])
+    del recs
+    # one more force-compute request under the profiler: the device's busy
+    # time and idle share with the recompute in the request
+    eng = engine(HybridPlanner("force-compute"))
+    ours = checked("(j) profiled request", dict(plain_path, flash_attention=L),
+                   lambda: profile_request(eng, suffixes[0],
+                                           statistics.mean(walls["(j) force-compute"]),
+                                           tag="hybrid (j) force-compute"))
+    eng.ex.shutdown()
+    numbers["j"]["profiled_kernels"] = {k: list(v) for k, v in ours.items()}
+    numbers["flash_at_end"] = _flash_at(cfg, end, smi_line)
+    numbers["copy_to_host"] = _copy_to_host(cfg, end)
+
+    # (k) force-load: the plan without a planner, bit for bit
+    got_k = run("(k) force-load", engine(HybridPlanner("force-load")), suffixes, HYBRID_REQUESTS)
+    if any(t.recompute_units for _, t, _, _ in got_k):
+        fail("hybrid (k): force-load recomputed")
+    hold("(k) force-load vs no planner", got_k, ref, exact=True)
+
+    # (l) auto: the decision as it comes
+    eng = engine(HybridPlanner("auto"))
+    got_l = run("(l) auto", eng, suffixes, HYBRID_REQUESTS,
+                expect_flash=lambda tr: L if tr.recompute_units else 0)
+    decisions = []
+    for i, (_, tr, _, _) in enumerate(got_l):
+        d = tr.hybrid_decision
+        decisions.append(dict(t_hybrid=d.t_hybrid, t_force_load=d.t_force_load,
+                              t_force_compute=d.t_force_compute,
+                              recompute_units=len(d.recompute_units),
+                              load_units=len(d.load_units), end=d.recompute_tokens))
+        print(f"hybrid (l) request {i}: HybridDecision t_hybrid {d.t_hybrid * 1e3:.4f} ms, "
+              f"t_force_load {d.t_force_load * 1e3:.4f} ms, t_force_compute "
+              f"{d.t_force_compute * 1e3:.4f} ms (modelled with the default DeviceModel); cut "
+              f"after {len(d.recompute_units)} of {len(d.recompute_units) + len(d.load_units)} "
+              f"missing units, end {d.recompute_tokens}; TTFT {tr.ttft * 1e3:.2f} ms")
+    hp = eng.hybrid
+    print(f"hybrid (l): io_scale {hp.io_scale:.4g} after {hp.io_observations} timed fetches "
+          f"(measured over modelled IO time)")
+    numbers["l"] = dict(hold("(l) auto vs no planner", got_l, ref,
+                             exact=not any(t.recompute_units for _, t, _, _ in got_l)),
+                        decisions=decisions, io_scale=hp.io_scale,
+                        io_observations=hp.io_observations)
+
+    # (m) AS-LRU force-compute on the coarse session: the whole prefix
+    lru = [ASLRUEngine(csess, RealCompute(cfg, params, device=DEVICE), RealExecutor(),
+                       hybrid=h) for h in (None, HybridPlanner("force-compute"))]
+    ref_m = run("(m) as_lru reference (no planner)", lru[0], suffixes, 1)
+    recs_m = []
+    recorded(lru[1].backend, recs_m)
+    got_m = run("(m) as_lru force-compute", lru[1], suffixes, 1, expect_flash=lambda tr: L)
+    tr = got_m[0][1]
+    if tr.recompute_tokens != PREFIX_LEN or tr.ssd_bytes != 0:
+        fail(f"hybrid (m): recompute over [0, {tr.recompute_tokens}), ssd_bytes {tr.ssd_bytes}")
+    print(f"hybrid (m): as_lru recomputed {tr.recompute_units} blocks over [0, "
+          f"{tr.recompute_tokens}), TTFT {tr.ttft * 1e3:.2f} ms (no planner "
+          f"{ref_m[0][1].ttft * 1e3:.2f} ms), recompute op {got_m[0][3]:.2f} ms on the host, "
+          f"of which recompute_prefix_kv {recs_m[0]['ms']:.2f} ms; ssd_bytes_avoided "
+          f"{tr.ssd_bytes_avoided}")
+    numbers["m"] = dict(hold("(m) as_lru force-compute vs no planner", got_m, ref_m,
+                             exact=False), ttft_ms=tr.ttft * 1e3,
+                        ttft_no_planner_ms=ref_m[0][1].ttft * 1e3, recompute_op_host_ms=got_m[0][3],
+                        recompute_prefix_kv_ms=recs_m[0]["ms"])
+    del recs_m
+
+    # (n) the three-tier store: hits in every tier, drops out of the log and
+    # compaction under the SSD tier's reads, the reference's bytes
+    layout = sess.store.layout
+    store = TieredPrefixStore(*TIER_CAPS, unit_bytes=layout.unit_bytes, payload_mode="memory",
+                              unit_shape=sess.store.unit_shape)
+    drops = [0]
+    on_drop = store._on_drop
+
+    def dropped(key, tier):
+        drops[0] += tier == "ssd"
+        on_drop(key, tier)
+    store._on_drop = dropped
+    got_n = run("(n) tiered store", engine(cache=store), suffixes, N_REQUESTS)
+    hold("(n) tiered store vs caches of size 0", got_n, ref, exact=True)
+    tiers = [(t.hits_device, t.hits_host, t.hits_ssd, t.misses) for _, t, _, _ in got_n]
+    moved = store.ssd.compaction.units_read
+    if not all(min(x[:3]) > 0 for x in tiers[1:]):
+        fail(f"hybrid (n): hits (device, host, ssd, misses) by request {tiers}")
+    if not (drops[0] > 0 and moved > 0 and store.ssd.pending_discards == 0):
+        fail(f"hybrid (n): {drops[0]} units dropped out of the SSD tier, compaction moved "
+             f"{moved}, {store.ssd.pending_discards} drops still waiting on a read")
+    for i, (_, t, _, _) in enumerate(got_n):
+        print(f"hybrid (n) request {i}: hits device {t.hits_device}, host {t.hits_host}, ssd "
+              f"{t.hits_ssd}, misses {t.misses}; TTFT {t.ttft * 1e3:.2f} ms (caches of size 0 "
+              f"{ref[i][1].ttft * 1e3:.2f} ms), ssd_bytes {t.ssd_bytes}")
+    occ = store.tier_occupancy()
+    print(f"hybrid (n): HBM:DRAM:SSD capacities {':'.join(map(str, TIER_CAPS))} units "
+          f"({layout.unit_bytes} B a unit); resident {occ}; SSD-tier read amplification "
+          f"{store.read_amplification():.4f}; {drops[0]} units dropped out of the SSD tier, "
+          f"compaction moved {moved} units, {store.ssd.deferred_discards} drops waited on an SSD "
+          f"read in flight; payload {store.payload_bytes() / 1e6:.2f} MB in host memory")
+    numbers["n"] = dict(caps=list(TIER_CAPS), hits=tiers, read_amplification=store.read_amplification(),
+                        ssd_drops=drops[0], compaction_moved=moved,
+                        deferred_discards=store.ssd.deferred_discards,
+                        ttft_ms=[t.ttft * 1e3 for _, t, _, _ in got_n])
+    # two tenants of one prompt on one store: one copy of each unit
+    shared = TieredPrefixStore(*SHARED_TIER_CAPS, unit_bytes=layout.unit_bytes,
+                               payload_mode="memory", unit_shape=sess.store.unit_shape)
+    tenants = [ContiguousKVEngine(dataclasses.replace(sess, tenant=t),
+                                  RealCompute(cfg, params, device=DEVICE), RealExecutor(),
+                                  budget=BUDGET, period=PERIOD, subperiod=SUBPERIOD, cache=shared)
+               for t in (1, 2)]
+    tenant_path = dict(plain_path, decode_attention=0)
+    l1, t1 = checked("(n) first tenant", tenant_path,
+                     lambda: tenants[0].reprefill(suffixes[0], request_id=0))
+    resident = len(shared.tiers["device"])  # what the first tenant's request left
+    l2, t2 = checked("(n) second tenant", tenant_path,
+                     lambda: tenants[1].reprefill(suffixes[0], request_id=1))
+    for e in tenants:
+        e.ex.shutdown()
+    # the second tenant misses only units its prefetch warms up speculatively
+    # and the selection then passes over, which nobody inserted
+    if not (resident > 0 and t2.hits_device == resident and t2.ssd_bytes_demand == 0
+            and np.array_equal(l1, l2) and shared.dedup_saved_units() == resident
+            and shared.payload_bytes() == resident * layout.unit_bytes):
+        fail(f"hybrid (n) two tenants: {resident} units resident after the first, the second's "
+             f"device hits {t2.hits_device}, demand bytes {t2.ssd_bytes_demand}, dedup saved "
+             f"{shared.dedup_saved_units()}, payload {shared.payload_bytes()} B")
+    print(f"hybrid (n) two tenants of one prompt: the second tenant's first request hit all "
+          f"{t2.hits_device} units the first tenant's left resident (no demand read), logits "
+          f"bit-identical; dedup saved {shared.dedup_saved_units()} units, payload "
+          f"{shared.payload_bytes() / 1e6:.2f} MB = one copy")
+    numbers["n"]["dedup_saved_units"] = shared.dedup_saved_units()
+
+    # serve's CLI on the card with both flags (reduced layers)
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    positive = {"chunk_score": bool, "chunk_attention": bool, "decode_attention": bool,
+                "flash_attention": lambda n: n >= 0}
+    with contextlib.redirect_stdout(buf):
+        done = checked("serve's CLI", positive, lambda: serve.main(
+            ["--arch", cfg.name, "--n-layers", "2", "--requests", str(CLI_REQUESTS),
+             "--concurrency", "1", "--decode-tokens", "2", "--hybrid-reprefill", "auto",
+             "--cache-tiers", CLI_TIER_CAPS]))
+    out = buf.getvalue()
+    caps = dict(zip(("HBM", "DRAM", "SSD"), CLI_TIER_CAPS.split(":")))
+    hits = sum(c.trace.hits_device + c.trace.hits_host + c.trace.hits_ssd for c in done)
+    if (len(done) != CLI_REQUESTS or hits == 0
+            or "tiered prefix store: " + " ".join(f"{k}={v}" for k, v in caps.items()) not in out
+            or "tier store: hits" not in out
+            or any(c.trace.hybrid_decision is None for c in done[:1])):
+        fail(f"hybrid: serve --hybrid-reprefill auto --cache-tiers on the card ({hits} tier "
+             f"hits):\n{out}")
+    print(f"hybrid: serve --hybrid-reprefill auto --cache-tiers {CLI_TIER_CAPS} --concurrency 1 "
+          f"on the card (2 layers): " + " | ".join(
+              line for line in out.splitlines()
+              if line.startswith(("tier", "ssd log", "hybrid", "concurr"))))
+    return paths, numbers
+
+
+def _flash_at(cfg, end, smi_line):
+    """flash_attention at the recompute's shape (s_q = s_k = end, bfloat16,
+    through the projections' transposed views) against its plain version,
+    timed beside SDPA and its bound."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+
+    q = rn(1, end, cfg.n_heads, cfg.d_head).transpose(1, 2)
+    k = rn(1, end, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
+    v = rn(1, end, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
+    got, err, tol = flash_held(f"at s = {end}", q, k, v)
+    r = dict(s=end, err=err, **flash_timed(q, k, v, got))
+    print(f"hybrid: flash_attention at the recompute's s = {end} "
+          f"({fa.variant_for(q.dtype, cfg.d_head)}): max abs err {err:.3g} (tol {tol:.3g}); "
+          f"{r['ms']:.4f} ms on the card, scaled_dot_product_attention {r['library_ms']:.4f} ms, "
+          f"plain version {r['plain_ms']:.2f} ms, {bound_text(r['bound'])}; host time per call "
+          f"{r['host_ms']:.4f} ms ({smi_line})")
+    r["bound_ms"] = r.pop("bound")["tensor_core"][0]
+    return r
+
+
+def _copy_to_host(cfg, end) -> dict:
+    """The recompute's copy back: (L, end, n_kv, d) K and V, bfloat16 on the
+    card, as float16 numpy arrays on the host."""
+    import torch
+
+    kv = torch.randn(2, cfg.n_layers, end, cfg.n_kv_heads, cfg.d_head, device=DEVICE,
+                     dtype=torch.bfloat16)
+    ms = wall_ms(lambda: kv.to(torch.float16).cpu().numpy(), reps=3)
+    nb = kv.numel() * 2
+    print(f"hybrid: the recompute's copy to the host of {nb / 1e6:.1f} MB of K and V (float16): "
+          f"{ms:.2f} ms to a synchronize ({nb / ms / 1e6:.2f} GB/s)")
+    return dict(bytes=nb, ms=ms)
+
+
 def phase_state_kernels(hcfg, dcfg, fcfg):
     """flash_attention and selective_scan against their plain versions at
     the state-space path's shapes (and flash at the dense ingest's), timed;
@@ -1222,8 +1704,6 @@ def phase_state_kernels(hcfg, dcfg, fcfg):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.selective_scan import ops as ss
     from repro_torch.kernels.selective_scan.ops import selective_scan
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
@@ -1249,21 +1729,11 @@ def phase_state_kernels(hcfg, dcfg, fcfg):
         v = rn(1, s_k, c.n_kv_heads, c.d_head).transpose(1, 2)
         kw = dict(causal=True, window=window, q_offset=q_offset)
         variant = fa.variant_for(q.dtype, c.d_head)
-        got, ref = flash_attention(q, k, v, **kw), flash_attention_ref(q, k, v, **kw)
-        err, tol = max_err(got, ref), FLASH_REL * ref.float().abs().max().item()
-        if not err <= tol:
-            fail(f"flash_attention {label}: max abs err {err} > {tol}")
+        got, err, tol = flash_held(label, q, k, v, **kw)
         print(f"kernels: flash_attention {label} q {tuple(q.shape)} k {tuple(k.shape)} "
               f"{dname(q)} ({variant}): max abs err {err:.3g} (tol {tol:.3g})")
         if label in ("hymba prefill", "dense ingest"):
-            pairs = s_q * (s_q + 1) // 2  # causal key-query pairs of this run
-            r = dict(err=err, ms=device_ms(lambda: flash_attention(q, k, v, **kw)),
-                     library_ms=device_ms(lambda: F.scaled_dot_product_attention(
-                         q, k, v, is_causal=True, enable_gqa=True)),
-                     host_ms=host_ms(lambda: flash_attention(q, k, v, **kw)),
-                     plain_ms=wall_ms(lambda: flash_attention_ref(q, k, v, **kw), reps=3),
-                     bound=bounds(nbytes(q, k, v, got), 4.0 * c.n_heads * c.d_head * pairs,
-                                  c.n_heads * pairs))
+            r = dict(err=err, **flash_timed(q, k, v, got, **kw))
             print(f"kernels: flash_attention {label}: {variant} {r['ms']:.4f} ms on the card, "
                   f"scaled_dot_product_attention {r['library_ms']:.4f} ms, plain version "
                   f"{r['plain_ms']:.2f} ms, {bound_text(r['bound'])}; host time per call "
@@ -1654,6 +2124,7 @@ def phase_baselines(cfg, ctx):
           f"{summary['as_lru']['ttft'] / ckv_ttft:.3f}), AS-H2O-LFU "
           f"{summary['as_h2o_lfu']['ttft']:.2f} ms")
     ex.shutdown()
+    ctx["csess"] = csess  # the hybrid phase's AS-LRU request reads it
     return totals, per_call
 
 
@@ -2284,11 +2755,15 @@ def main() -> int:
     rows["decode_attention"]["serve"] = {k: serve_numbers[k] for k in "abc"}
     rows["chunk_attention"]["serve"] = {k: serve_numbers[k]
                                         for k in ("e", "f", "part_b_batch_hold")}
+    hybrid_paths, hybrid_numbers = phase_hybrid(cfg, ctx, smi_line)
+    for name, by_path in hybrid_paths.items():
+        paths.setdefault(name, {}).update(by_path)
     # the Qwen weights stay for the fleet phase, the other sessions go
     weights = {cfg.name: ctx["params"]}
     del ctx
     torch.cuda.empty_cache()
     rows.update(phase_state_kernels(hcfg, cfg, fcfg))
+    rows["flash_attention"]["hybrid"] = hybrid_numbers
     totals, weights[hcfg.name] = phase_state_e2e(hcfg, N_REQUESTS, check_decode=True)
     for name, n in totals.items():
         paths.setdefault(name, {})["hymba-1.5b requests"] = n
@@ -2335,7 +2810,7 @@ def main() -> int:
                     "decode_host_ms", "decode_bound_ms", "falcon_decode_ms",
                     "falcon_decode_host_ms", "falcon_decode_bound_ms", "dense_ingest",
                     "falcon_prefill", "one_cta_per_sm_ms", "pools_form", "indexed",
-                    "serve", "decode_batched", "fleet"):
+                    "serve", "decode_batched", "fleet", "hybrid"):
             if key in r:
                 row[key] = r[key]
         kernels.append(row)

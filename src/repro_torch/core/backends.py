@@ -420,6 +420,23 @@ class RealCompute:
         mass_host = mass.cpu().numpy()
         return [(h[i: i + 1], mass_host[i]) for i in range(b)]
 
+    def recompute_prefix_kv(self, prefix_tokens: np.ndarray, end: int,
+                            block_q: int) -> Tuple[np.ndarray, np.ndarray]:
+        """KV of the prefix head ``[0, end)``, recomputed from its tokens.
+
+        The ingest's causal forward (``transformer.forward`` with
+        ``return_kv=True``, on the card through flash_attention) over the
+        first ``end`` tokens: causal attention over a head never sees the
+        tail, so each position's KV is the ingested one up to the rounding
+        of GEMMs over ``end`` rows instead of the prefix's. The tokens go up
+        through ``torch.as_tensor(device=)``, a door the H2D meter counts.
+        Returns (k, v), each (L, end, n_kv, d) float16 on the host."""
+        toks = torch.as_tensor(np.asarray(prefix_tokens[:end]), device=self.device)[None]
+        _, (k, v) = T.forward(self.params, {"tokens": toks}, self.cfg, block_q=block_q,
+                              logits_positions="last", return_kv=True)
+        return (k[:, 0].to(torch.float16).cpu().numpy(),
+                v[:, 0].to(torch.float16).cpu().numpy())
+
     def logits(self, h) -> np.ndarray:
         return _logits(self.params, h[:, -1:], self.cfg).cpu().numpy()
 

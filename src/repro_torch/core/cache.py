@@ -3,9 +3,8 @@
 Score S_j = I_j x F_j: cumulative attention-based importance times access
 frequency. Lazy min-heaps per tier evict the lowest-scored ContiguousChunk;
 evictions cascade down the tier chain (device -> host by default; the
-JAX package's three-tier store, ``repro.storage.tierstore``, appends an SSD
-tier, and comes to the port with its sim slice) when the
-victim's score beats the destination minimum, else the victim is dropped out
+three-tier store in ``repro_torch.storage.tierstore`` appends an SSD tier)
+when the victim's score beats the destination minimum, else the victim is dropped out
 the bottom. Scores persist in an in-memory table even after eviction (the
 paper stores them "including those evicted from memory").
 

@@ -39,11 +39,14 @@ ops, of which only the last runs it and carries a ``PrefillChunkCtx``,
 through which the scheduler batches concurrent requests' same-layer part B
 (``_part_b_ops``); a backend shared by concurrent plans is bound to each
 request's compute (``_bound``). Keys are namespaced by the session's tenant,
-and every op's weight stream by the model's name. What the JAX engines' real
-mode has beyond this comes with the slices that bring its callers
-(``SimCompute``, the compute-or-load planner and the tier store):
-content-addressed keys, the compute-or-load re-prefill (``hybrid``) and the
-SSD tier of the cache (``ssd_plan``); so does the sim mode.
+or content-addressed by the prefix's digest when the cache is a
+content-addressed ``TieredPrefixStore`` (its SSD tier's hits read the
+store's log), and every op's weight stream by the model's name. With a
+``HybridPlanner`` (``hybrid``) the four KV engines decide once per request,
+at the first selection, which missing head of the prefix to recompute by one
+truncated causal forward (``RealCompute.recompute_prefix_kv``) instead of
+loading it (``_hybrid_reprefill``). The JAX engines' sim mode comes with the
+port's sim slice (``SimCompute``).
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ from repro_torch.core.backends import DeviceTailPool, TailPool
 from repro_torch.core.cache import (
     DEVICE,
     HOST,
+    SSD,
     AttentionGuidedCache,
     CachePolicy,
     ImpressScoreCache,
@@ -64,6 +68,7 @@ from repro_torch.core.cache import (
     LRUCache,
 )
 from repro_torch.core.chunking import ChunkMeta
+from repro_torch.core.hybrid import TOKEN_BYTES, HybridPlanner
 from repro_torch.core.importance import select_topk_chunks, select_topk_tokens
 from repro_torch.core.periods import PeriodSchedule
 from repro_torch.core.sparse_attention import bucket_size
@@ -83,6 +88,13 @@ class PrefixSession:
     store: object  # ChunkStore
     probe: Optional[np.ndarray] = None  # (L, n, n_kv, d) fp16 prefix keys
     tenant: int = 0  # namespace for shared-cache keys (0 = single-tenant)
+    # prefix token ids: what the compute-or-load planner recomputes KV from;
+    # None disables the recompute
+    tokens: Optional[np.ndarray] = None
+    # content address of the prefix (sha256 of its token ids): engines over a
+    # content-addressed store key units (digest, layer, unit), so identical
+    # prompts across tenants dedupe to one entry; None keeps tenant keys
+    digest: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -100,7 +112,7 @@ class ReprefillTrace:
     tokens_loaded: int = 0
     hits_device: int = 0
     hits_host: int = 0
-    hits_ssd: int = 0  # the SSD tier's hits; 0 until the tier store is ported
+    hits_ssd: int = 0  # resident in the tier store's SSD log (not a miss)
     misses: int = 0
     selected_per_period: List[np.ndarray] = dataclasses.field(default_factory=list)
     selected_per_layer: Dict[int, np.ndarray] = dataclasses.field(default_factory=dict)
@@ -109,9 +121,11 @@ class ReprefillTrace:
     decode_times: List[float] = dataclasses.field(default_factory=list)
     decode_selected: List[np.ndarray] = dataclasses.field(default_factory=list)  # layer 0's, per step
     decode_tokens_out: List[int] = dataclasses.field(default_factory=list)  # greedy token ids
-    # compute-or-load re-prefill; 0 until the planner is ported
-    recompute_units: int = 0
-    ssd_bytes_avoided: int = 0
+    # compute-or-load re-prefill: the planner's outcome for the request
+    recompute_units: int = 0  # units recomputed instead of loaded
+    recompute_tokens: int = 0  # the recompute's causal frontier: it covers [0, end)
+    ssd_bytes_avoided: int = 0  # SSD bytes (all layers) the recompute saved
+    hybrid_decision: object = None  # core.hybrid.HybridDecision, or None
 
     @property
     def read_amplification(self) -> float:
@@ -156,6 +170,7 @@ class _EngineBase:
         budget: float = 0.25,
         device_tail_pool: bool = True,
         prefill_chunk_tokens: Optional[int] = None,
+        hybrid: Optional[HybridPlanner] = None,
     ):
         if isinstance(executor, ChannelSim):
             raise TypeError("the engine runs real mode only; the sim mode comes "
@@ -171,10 +186,18 @@ class _EngineBase:
         self.device_tail_pool = device_tail_pool
         # part B in chunk-granular ops of this many suffix tokens (None: one op)
         self.prefill_chunk_tokens = prefill_chunk_tokens
+        # the compute-or-load planner; None or mode "off" keeps the load-only
+        # plan op for op
+        self.hybrid = hybrid
         self.cfg = session.cfg
         self.tenant = session.tenant
         # the model's weight stream: decode ops' weight_key is "model@<stream>"
         self.stream = self.cfg.name
+        # content-addressed keys only when both ends opt in: the session has
+        # a prefix digest and the cache dedupes across tenants (a flat cache
+        # keeps tenant-namespaced keys)
+        self._digest = (session.digest if session.digest is not None
+                        and getattr(cache, "content_addressed", False) else None)
         self._data: Dict[Tuple, np.ndarray] = {}
 
     # -- plan entry points ----------------------------------------------------
@@ -202,7 +225,11 @@ class _EngineBase:
         raise NotImplementedError
 
     def _key(self, layer: int, unit: int) -> Tuple:
-        """Cache/data key; tenant-namespaced when tenants share a cache."""
+        """Cache/data key: content-addressed (digest-keyed) when the store
+        dedupes across tenants, tenant-namespaced when tenants share a flat
+        cache."""
+        if self._digest is not None:
+            return (self._digest, layer, int(unit))
         if self.tenant:
             return (self.tenant, layer, int(unit))
         return (layer, int(unit))
@@ -232,7 +259,7 @@ class _EngineBase:
         block). Defaults to the whole unit (chunk granularity: aligned).
         """
         store = self.session.store
-        missing, host_hits = [], []
+        missing, host_hits, ssd_hits = [], [], []
         for u in units:
             key = self._key(layer, u)
             if key in handles:
@@ -245,10 +272,38 @@ class _EngineBase:
             elif tier == HOST:
                 trace.hits_host += 1
                 host_hits.append(u)
+            elif tier == SSD:
+                trace.hits_ssd += 1
+                ssd_hits.append(u)
             else:
                 trace.misses += 1
                 missing.append(u)
         unit_bytes = store.layout.unit_bytes
+
+        def account_ssd_leg(nbytes, nreq, needed):
+            trace.ssd_bytes += nbytes
+            if speculative:
+                trace.ssd_bytes_spec += nbytes
+            else:
+                trace.ssd_bytes_demand += nbytes
+                trace.needed_bytes += needed
+            trace.ssd_requests += nreq
+            trace.pcie_bytes += nbytes
+
+        if ssd_hits:
+            # resident in the tier store's SSD log: read its gap-merged runs;
+            # the insert after the wait promotes the units back to the device
+            # tier
+            ssd_keys = tuple(self._key(layer, u) for u in ssd_hits)
+            ssd_nb, ssd_nr, ssd_live = self.cache.ssd_plan(ssd_keys)
+            # the IO thread reads them later, while inserts here may drop or
+            # compact them: their slots stay until the fetch has read them
+            self.cache.ssd_pin(ssd_keys)
+            h = self.ex.submit_io(lambda ks=ssd_keys: self._fetch_cache_ssd(ks),
+                                  nbytes=ssd_nb, n_requests=ssd_nr, channel="ssd")
+            account_ssd_leg(ssd_nb, ssd_nr, ssd_live)
+            for key in ssd_keys:
+                handles[key] = h
         if host_hits:
             nbytes = len(host_hits) * unit_bytes
             h = self.ex.submit_io(self._mk_fetch(layer, host_hits, from_host=True),
@@ -258,20 +313,16 @@ class _EngineBase:
                 handles[self._key(layer, u)] = h
         if missing:
             miss_nb, miss_nr = store.run_plan(layer, missing)
-            h = self.ex.submit_io(self._mk_fetch(layer, missing, from_host=False),
-                                  nbytes=miss_nb, n_requests=miss_nr, channel="ssd")
-            trace.ssd_bytes += miss_nb
-            if speculative:
-                trace.ssd_bytes_spec += miss_nb
+            fetch = self._mk_fetch(layer, missing, from_host=False)
+            if self.hybrid is not None:
+                # the planner's EWMA of measured against modelled IO time
+                fetch = self.hybrid.timed_fetch(fetch, miss_nb, miss_nr)
+            h = self.ex.submit_io(fetch, nbytes=miss_nb, n_requests=miss_nr, channel="ssd")
+            if needed_bytes_per_unit is None:
+                needed = len(missing) * unit_bytes
             else:
-                trace.ssd_bytes_demand += miss_nb
-                if needed_bytes_per_unit is None:
-                    trace.needed_bytes += len(missing) * unit_bytes
-                else:
-                    trace.needed_bytes += sum(needed_bytes_per_unit.get(int(u), unit_bytes)
-                                              for u in missing)
-            trace.ssd_requests += miss_nr
-            trace.pcie_bytes += miss_nb
+                needed = sum(needed_bytes_per_unit.get(int(u), unit_bytes) for u in missing)
+            account_ssd_leg(miss_nb, miss_nr, needed)
             trace.tokens_loaded += len(missing) * store.layout.unit_tokens
             for u in missing:
                 handles[self._key(layer, u)] = h
@@ -299,6 +350,13 @@ class _EngineBase:
                 yield WaitOp(h, tag=tag)
         trace.add_stage(tag, clock.t - t0)
 
+    def _fetch_cache_ssd(self, keys):
+        """Pull SSD-tier payloads out of the tier store's log."""
+        got = self.cache.ssd_fetch(keys)
+        for k, arr in got.items():
+            self._data[k] = np.asarray(arr)
+        return got
+
     def _insert_cache(self, layer: int, units):
         for u in units:
             key = self._key(layer, u)
@@ -311,14 +369,92 @@ class _EngineBase:
                 del self._data[key]
 
     def _unit_data(self, layer: int, unit: int) -> np.ndarray:
-        """KV payload of one unit; re-read from the store if the sweep at the
-        end of an earlier request dropped it."""
+        """KV payload of one unit; falls back to the tier store's canonical
+        copy (content-addressed dedup), then to a store re-read if the sweep
+        at the end of an earlier request dropped it."""
         key = self._key(layer, unit)
         rec = self._data.get(key)
+        if rec is None and hasattr(self.cache, "payload_of"):
+            rec = self.cache.payload_of(key)
         if rec is None:
             rec = self.session.store.read_units(layer, [int(unit)])[int(unit)]
         self._data[key] = rec
         return rec
+
+    # -- compute-or-load re-prefill -------------------------------------------
+    def _hybrid_reprefill(self, request_id: int, selected, trace: ReprefillTrace, handles,
+                          clock: RequestClock, suffix_len: int = 0, attended: int = 0,
+                          extra_overlap_flops: float = 0.0):
+        """Generator: the recompute-or-load split over the first selection.
+
+        Consulted once per request, where the important units are first
+        known (period 0, layer 0). The planner prices a cut over the units
+        the cache misses; the head ``[0, end)`` of the prefix is then
+        recomputed by one truncated causal forward over every layer, which
+        reproduces the ingested float16 KV, and its units become device-tier
+        residents with ready handles, so every later ``_submit_units`` finds
+        hits instead of SSD reads. The tail stays on the load path. With no
+        planner, mode "off", or no cut (force-load) this yields nothing, so
+        the plan is the load-only plan op for op.
+        """
+        hp = self.hybrid
+        if hp is None or hp.mode == "off" or self.session.tokens is None:
+            return
+        # `contains`, not `lookup`: a planning probe leaves hit counts and
+        # recency untouched, so a declined decision (force-load) stays bit
+        # for bit the run without a planner
+        missing = sorted(int(u) for u in selected
+                         if self._key(0, int(u)) not in handles
+                         and self.cache.contains(self._key(0, int(u))) is None)
+        if not missing:
+            return
+        # real form: no executor, so the IO leg is scaled by the planner's
+        # measured EWMA and neither clock nor channel enters the price
+        d = hp.decide(cfg=self.cfg, store=self.session.store, missing_units=missing,
+                      prefix_len=self.session.prefix_len, suffix_len=suffix_len,
+                      attended_tokens=attended, extra_overlap_flops=extra_overlap_flops)
+        trace.hybrid_decision = d
+        if not d.recompute_units:
+            return
+        t0 = clock.t
+        end = int(d.recompute_tokens)
+        layout = self.session.store.layout
+        cfg = self.cfg
+        # the prefix tokens are host-resident (the prompt): an upload only,
+        # never the SSD queue the recompute avoids
+        h_tok = self.ex.submit_io(lambda: None, nbytes=TOKEN_BYTES * end, n_requests=1,
+                                  channel="pcie")
+        yield WaitOp(h_tok, tag="recompute_io")
+        cost = CM.chunk_recompute_cost(cfg, end, 0)
+        units = [int(u) for u in d.recompute_units]
+
+        def fn():
+            k_all, v_all = self.backend.recompute_prefix_kv(
+                self.session.tokens, end, block_q=min(512, max(16, self.session.prefix_len)))
+            ut, g = layout.unit_tokens, layout.geom
+            for u in units:
+                lo, hi = u * ut, min((u + 1) * ut, end)
+                for l in range(cfg.n_layers):
+                    rec = np.zeros((ut, 2, g.n_kv_heads, g.d_head), np.float16)
+                    rec[: hi - lo, 0] = k_all[l, lo:hi]
+                    rec[: hi - lo, 1] = v_all[l, lo:hi]
+                    self._data[self._key(l, u)] = rec
+
+        yield ComputeOp(self._bound(request_id, fn), flops=cost.flops,
+                        hbm_bytes=cost.hbm_bytes, tag="recompute", phase="prefill",
+                        tokens=end, weight_bytes=float(cfg.n_layers * CM.layer_weight_bytes(cfg)),
+                        weight_key=f"model@{self.stream}")
+        # recomputed KV takes the pages loaded KV would: ready handles and
+        # device-tier entries for every layer's head units
+        for u in units:
+            for l in range(cfg.n_layers):
+                key = self._key(l, u)
+                handles[key] = IOHandle()
+                self.cache.insert(key, DEVICE, tenant=self.tenant, payload=self._data.get(key))
+        trace.recompute_units += len(units)
+        trace.recompute_tokens += end
+        trace.ssd_bytes_avoided += d.ssd_bytes_avoided
+        trace.add_stage("recompute", clock.t - t0)
 
     # -- probe ----------------------------------------------------------------
     def _submit_probe(self, layer: int, trace: ReprefillTrace,
@@ -502,7 +638,8 @@ class ContiguousKVEngine(_EngineBase):
                  period: int = 8, subperiod: int = 4, prefetch: bool = True,
                  inter_period: bool = True, device_cap: int = 0,
                  host_cap: int = 0, device_tail_pool: bool = True,
-                 prefill_chunk_tokens: Optional[int] = None):
+                 prefill_chunk_tokens: Optional[int] = None,
+                 hybrid: Optional[HybridPlanner] = None):
         """``prefetch=False`` (w/o P) submits each layer's chunks on demand,
         just before its wait; ``inter_period=False`` loads each period's probe
         lazily, with no speculative warm-up of the next period. Neither
@@ -510,7 +647,7 @@ class ContiguousKVEngine(_EngineBase):
         cache = cache if cache is not None else AttentionGuidedCache(device_cap, host_cap)
         super().__init__(session, backend, executor, cache, budget=budget,
                          device_tail_pool=device_tail_pool,
-                         prefill_chunk_tokens=prefill_chunk_tokens)
+                         prefill_chunk_tokens=prefill_chunk_tokens, hybrid=hybrid)
         self.schedule = PeriodSchedule(self.cfg.n_layers, period, subperiod)
         self.prefetch = prefetch
         self.inter_period = inter_period and prefetch
@@ -549,6 +686,11 @@ class ContiguousKVEngine(_EngineBase):
             trace.selected_per_period.append(selected)
             for l in period.layers:
                 trace.selected_per_layer[l] = selected
+            if period.index == 0:
+                yield from self._hybrid_reprefill(
+                    request_id, selected, trace, handles, clock, suffix_len=s,
+                    attended=len(selected) * c + s,
+                    extra_overlap_flops=len(self.schedule) * self._cost_identify(s))
 
             # intra-period prefetch of this period's layers; inter-period:
             # the next period's probe, and its layers warmed up with the
@@ -654,6 +796,12 @@ class _BlockBaselineEngine(_EngineBase):
             for t in tokens:
                 blk = int(t) // layout.unit_tokens
                 needed[blk] = needed.get(blk, 0) + tok_bytes
+            if l == 0:
+                yield from self._hybrid_reprefill(
+                    request_id, blocks, trace, handles, clock, suffix_len=s,
+                    attended=len(tokens) + s,
+                    extra_overlap_flops=(cfg.n_layers * self._cost_identify(s)
+                                         * self.probe_ratio))
 
             self._submit_units(l, blocks, trace, handles, needed_bytes_per_unit=needed)
             yield from self._wait_keys(l, blocks, handles, trace, "kv_io", clock)
@@ -721,10 +869,11 @@ class ASLRUEngine(_EngineBase):
     name = "as_lru"
 
     def __init__(self, session, backend, executor, *, device_cap=0, host_cap=0,
-                 device_tail_pool: bool = True, prefill_chunk_tokens: Optional[int] = None):
+                 device_tail_pool: bool = True, prefill_chunk_tokens: Optional[int] = None,
+                 hybrid: Optional[HybridPlanner] = None):
         super().__init__(session, backend, executor, LRUCache(device_cap, host_cap),
                          budget=1.0, device_tail_pool=device_tail_pool,
-                         prefill_chunk_tokens=prefill_chunk_tokens)
+                         prefill_chunk_tokens=prefill_chunk_tokens, hybrid=hybrid)
 
     def _steps(self, suffix_tokens, request_id, clock, trace, decode_tokens=0):
         be, cfg = self.backend, self.cfg
@@ -737,6 +886,8 @@ class ASLRUEngine(_EngineBase):
                             flops=2.0 * s * cfg.d_model, tag="compute")
         handles: Dict = {}
         blocks = list(range(layout.n_units))
+        yield from self._hybrid_reprefill(request_id, blocks, trace, handles, clock,
+                                          suffix_len=s, attended=prefix_len + s)
         # AS prefetches all layers' KV up front (full cache streaming)
         for l in range(cfg.n_layers):
             self._submit_units(l, blocks, trace, handles)
@@ -774,10 +925,11 @@ class ASH2OEngine(_BlockBaselineEngine):
 
     def __init__(self, session, backend, executor, *, budget=0.25, device_cap=0,
                  host_cap=0, device_tail_pool: bool = True,
-                 prefill_chunk_tokens: Optional[int] = None):
+                 prefill_chunk_tokens: Optional[int] = None,
+                 hybrid: Optional[HybridPlanner] = None):
         super().__init__(session, backend, executor, LFUCache(device_cap, host_cap),
                          budget=budget, device_tail_pool=device_tail_pool,
-                         prefill_chunk_tokens=prefill_chunk_tokens)
+                         prefill_chunk_tokens=prefill_chunk_tokens, hybrid=hybrid)
 
 
 class IMPRESSEngine(_BlockBaselineEngine):
@@ -790,10 +942,11 @@ class IMPRESSEngine(_BlockBaselineEngine):
 
     def __init__(self, session, backend, executor, *, budget=0.25, device_cap=0,
                  host_cap=0, device_tail_pool: bool = True,
-                 prefill_chunk_tokens: Optional[int] = None):
+                 prefill_chunk_tokens: Optional[int] = None,
+                 hybrid: Optional[HybridPlanner] = None):
         super().__init__(session, backend, executor, ImpressScoreCache(device_cap, host_cap),
                          budget=budget, device_tail_pool=device_tail_pool,
-                         prefill_chunk_tokens=prefill_chunk_tokens)
+                         prefill_chunk_tokens=prefill_chunk_tokens, hybrid=hybrid)
 
 
 # ---------------------------------------------------------------------------

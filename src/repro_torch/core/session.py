@@ -7,6 +7,8 @@ baseline engines, coarse blocks.
 """
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import torch
 
@@ -21,6 +23,14 @@ from repro_torch.storage.ssd import ChunkStore
 
 def _geometry(cfg: ModelConfig) -> KVGeometry:
     return KVGeometry(n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, bytes_per_el=2)
+
+
+def prefix_digest(prefix_tokens: np.ndarray) -> str:
+    """Content address of a prefix: sha256 over its token ids. Identical
+    system prompts, whatever tenant submits them, digest identically, which
+    is what lets the tier store dedupe them to one resident entry."""
+    toks = np.ascontiguousarray(np.asarray(prefix_tokens, dtype=np.int64))
+    return hashlib.sha256(toks.tobytes()).hexdigest()[:16]
 
 
 def build_real_session(
@@ -59,4 +69,8 @@ def build_real_session(
     # the pruning/storage unit: the chunk, or the block of a coarse session
     meta = ChunkMeta(n_tokens=n,
                      chunk_tokens=block_tokens if coarse_blocks else chunk_tokens)
-    return PrefixSession(cfg=cfg, prefix_len=n, meta=meta, store=store, probe=k_all)
+    # the prefix tokens stay with the session: the compute-or-load planner
+    # recomputes a head of the prefix KV from them instead of loading it
+    return PrefixSession(cfg=cfg, prefix_len=n, meta=meta, store=store, probe=k_all,
+                         tokens=np.asarray(prefix_tokens),
+                         digest=prefix_digest(prefix_tokens))

@@ -32,11 +32,22 @@ fixed-size recurrent state per request, whose concurrent decode steps run
 as one batched step). Every op's weight stream is namespaced per model, so
 iterations interleave across families but a batch never amortizes one
 model's weights against another's. It does not compose with
-``--disaggregate``, ``--replicas`` or ``--tp-decode``.
+``--disaggregate``, ``--replicas``, ``--tp-decode``, ``--hybrid-reprefill`` or
+``--cache-tiers``.
+
+``--hybrid-reprefill auto|force-compute|force-load`` gives every engine a
+compute-or-load planner: per request, a missing head of the prefix is
+recomputed by one truncated causal forward (flash_attention on the card)
+instead of loaded; the digest counts the units recomputed.
+``--cache-tiers HBM:DRAM:SSD`` (unit capacities, contiguous_kv only) makes
+the engine's cache the content-addressed three-tier ``TieredPrefixStore``:
+host-DRAM victims demote into a log-structured SSD segment tier (held in
+memory) and promote back on access, and keys become (prefix digest, layer,
+unit); the digest prints hits by tier, the log's read amplification and the
+units dedup saved.
 
 Not yet in the port, each exiting at once with the slice that brings it:
-``--mode sim``, ``--hybrid-reprefill`` other than ``off``, ``--cache-tiers``
-and ``--tp-decode``.
+``--mode sim`` and ``--tp-decode``.
 """
 from __future__ import annotations
 
@@ -51,20 +62,48 @@ from repro_torch.serving.tenancy import ENGINE_CLASSES, parse_fleet_spec
 # flags of the JAX package's driver that wait for a later slice of the port
 DEFERRED = {
     "mode": "--mode sim comes with the port's sim slice",
-    "hybrid_reprefill": "--hybrid-reprefill comes with the port's compute-or-load slice",
-    "cache_tiers": "--cache-tiers comes with the port's tier store, in its sim slice",
     "tp_decode": "--tp-decode comes with the port's multi-device slice",
 }
 
 
 def _refuse_deferred(args):
     given = {"mode": args.mode != "real",
-             "hybrid_reprefill": args.hybrid_reprefill != "off",
-             "cache_tiers": args.cache_tiers is not None,
              "tp_decode": args.tp_decode is not None}
     for flag, on in given.items():
         if on:
             raise SystemExit(f"not in the port yet: {DEFERRED[flag]}")
+
+
+def _parse_cache_tiers(spec: str):
+    """"HBM:DRAM:SSD" unit capacities -> (device_cap, host_cap, ssd_cap)."""
+    parts = spec.split(":")
+    if len(parts) != 3:
+        raise SystemExit(f"--cache-tiers wants HBM:DRAM:SSD, got {spec!r}")
+    try:
+        caps = tuple(int(p) for p in parts)
+    except ValueError:
+        raise SystemExit(f"--cache-tiers capacities must be ints: {spec!r}")
+    if caps[0] < 1 or caps[1] < 0 or caps[2] < 0:
+        raise SystemExit(f"--cache-tiers capacities out of range: {spec!r}")
+    return caps
+
+
+def _print_tier_digest(cache):
+    if not hasattr(cache, "ssd"):
+        return
+    h = cache.hits
+    total = sum(h.values()) + cache.misses
+    occ = cache.tier_occupancy()
+    print(f"tier store: hits device={h['device']} host={h['host']} "
+          f"ssd={h['ssd']} misses={cache.misses} "
+          f"(hit rate {100 * (total - cache.misses) / max(total, 1):.1f}%) "
+          f"resident d/h/s={occ['device']}/{occ['host']}/{occ['ssd']}")
+    lay = cache.ssd.layout
+    print(f"ssd log: {lay.live_units()} live units in "
+          f"{len(lay.segments)} segments ({lay.total_bytes/1e6:.2f}MB), "
+          f"read_amp={cache.read_amplification():.3f}, "
+          f"compaction moved {cache.ssd.compaction.units_read} units; "
+          f"dedup saved {cache.dedup_saved_units()} resident units")
 
 
 def _print_replica_digest(sched):
@@ -116,12 +155,16 @@ def _real_main(args):
 
     from repro_torch.configs import reduced_config
     from repro_torch.core.backends import RealCompute
+    from repro_torch.core.hybrid import HybridPlanner
     from repro_torch.core.session import build_real_session
     from repro_torch.data.synthetic import make_task
     from repro_torch.device import resolve_device
     from repro_torch.models import transformer as T
+    from repro_torch.storage.tierstore import TieredPrefixStore
     from repro_torch.storage.timing import RealExecutor
 
+    if args.cache_tiers and args.system != "contiguous_kv":
+        raise SystemExit("--cache-tiers needs --system contiguous_kv")
     dev = resolve_device(args.device)
     cfg = reduced_config(args.arch, n_layers=args.n_layers)
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
@@ -133,11 +176,20 @@ def _real_main(args):
                               chunk_tokens=args.chunk_tokens,
                               coarse_blocks=coarse, in_memory=True, device=dev)
     ex = RealExecutor()
+    hybrid = (None if args.hybrid_reprefill == "off"
+              else HybridPlanner(args.hybrid_reprefill))
     kw = dict(device_cap=64, host_cap=128,
               prefill_chunk_tokens=args.prefill_chunk_tokens,
-              device_tail_pool=not args.host_tail_pool)
+              device_tail_pool=not args.host_tail_pool, hybrid=hybrid)
     if args.system == "contiguous_kv":
         kw.update(budget=args.budget, period=args.period, subperiod=args.subperiod)
+        if args.cache_tiers:
+            dcap, hcap, scap = _parse_cache_tiers(args.cache_tiers)
+            kw["cache"] = TieredPrefixStore(
+                dcap, hcap, scap, unit_bytes=sess.store.layout.unit_bytes,
+                payload_mode="memory", unit_shape=sess.store.unit_shape)
+            print(f"tiered prefix store: HBM={dcap} DRAM={hcap} SSD={scap} "
+                  f"units, digest={sess.digest}")
     elif args.system != "as_lru":
         kw.update(budget=args.budget)
     eng = ENGINE_CLASSES[args.system](sess, RealCompute(cfg, params, device=dev), ex, **kw)
@@ -192,6 +244,12 @@ def _real_main(args):
               f"amp={tr.read_amplification:5.2f} hits(d/h)={tr.hits_device}/{tr.hits_host}"
               f"{dec}")
     _print_serve_digest(sched, completed, args)
+    rec_units = sum(c.trace.recompute_units for c in completed)
+    if rec_units:
+        avoided = sum(c.trace.ssd_bytes_avoided for c in completed)
+        print(f"hybrid re-prefill: {rec_units} units recomputed, "
+              f"{avoided/1e6:.2f}MB SSD reads avoided")
+    _print_tier_digest(eng.cache)
     _print_replica_digest(sched)
     _print_handoff_digest(sched)
     if args.decode_tokens == 0:
@@ -222,6 +280,9 @@ def _real_fleet_main(args):
         raise SystemExit("--fleet in real mode does not compose with "
                          "--disaggregate/--replicas/--tp-decode (per-model "
                          "worker backends are not wired)")
+    if args.hybrid_reprefill != "off" or args.cache_tiers:
+        # the JAX driver's fleet takes neither flag either (it ignores them)
+        raise SystemExit("--fleet does not compose with --hybrid-reprefill/--cache-tiers")
     dev = resolve_device(args.device)
     entries = parse_fleet_spec(args.fleet)
     ex = RealExecutor()

@@ -15,7 +15,9 @@ layer and shapes coalesce into one batched part B
 (``backend.part_b_batch``), while the other prefill and I/O ops keep the
 cooperative round-robin; ``batch_decode=False`` turns the coalescing off,
 and a lone decode step or final chunk always runs the standalone path,
-which keeps concurrency 1 bit for bit equal to ``drive_serial``.
+which keeps concurrency 1 bit for bit equal to ``drive_serial``. A
+compute-or-load recompute op (tag ``recompute``) carries no batching
+context, so it always runs alone.
 
 Admission policies:
   fcfs        — strict arrival order;
@@ -251,6 +253,13 @@ class Scheduler:
 
     def run(self, requests: Sequence[Request]) -> List[CompletedRequest]:
         requests = list(requests)
+        # each run starts the engines' compute-or-load planners afresh (one
+        # planner may be shared by a fleet's engines); the real-mode IO
+        # calibration survives, as wall-clock IO does not restart
+        for hp in {id(hp): hp for hp in (getattr(e, "hybrid", None)
+                                         for e in self.engines.values())
+                   if hp is not None}.values():
+            hp.reset()
         if isinstance(self.ex, ChannelSim):
             raise NotImplementedError(
                 "the discrete-event driver over a ChannelSim comes with the port's sim "

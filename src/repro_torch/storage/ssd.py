@@ -6,9 +6,11 @@ coalescing behaviour are measured, not asserted. The store records every read
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import tempfile
+import threading
 import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -150,6 +152,13 @@ class SegmentStore:
     Compaction relocates live slots of low-occupancy sealed segments and
     charges its traffic to a separate ``compaction`` IOStats so foreground
     amplification stays measurable on its own.
+
+    Reads may run on I/O threads while the owner appends, discards and
+    compacts: every method that touches the log holds ``lock``, so a read
+    sees one consistent set of offsets. ``pin`` holds keys whose read is
+    queued: a discard of a pinned key only takes effect once ``read`` has
+    returned its bytes, so its slot is neither recycled nor missing when
+    the read runs (compaction may still move it, under the lock).
     """
 
     def __init__(self, layout: SegmentLayout, mode: str = "plan",
@@ -164,6 +173,10 @@ class SegmentStore:
             assert int(np.prod(unit_shape)) * self.dtype.itemsize == layout.unit_bytes
         self.stats = IOStats()
         self.compaction = IOStats()
+        self.lock = threading.RLock()
+        self._pins: collections.Counter = collections.Counter()
+        self._deferred: set = set()  # pinned keys discarded by the owner
+        self.deferred_discards = 0
         self._buf = bytearray() if mode == "memory" else None
         self._f = None
         self._finalizer = None
@@ -205,27 +218,66 @@ class SegmentStore:
 
     def put(self, key, data: Optional[np.ndarray] = None):
         """Append `key` to the log (idempotent) and store its payload."""
-        self.layout.append(key)
-        if self.mode == "plan" or data is None:
-            return
-        raw = np.ascontiguousarray(data, dtype=self.dtype).tobytes()
-        assert len(raw) == self.layout.unit_bytes, (len(raw), self.layout.unit_bytes)
-        self._write_at(self.layout.offset_of(key), raw)
+        with self.lock:
+            # re-demoted before its pending read ran: it stays resident
+            self._deferred.discard(key)
+            self.layout.append(key)
+            if self.mode == "plan" or data is None:
+                return
+            raw = np.ascontiguousarray(data, dtype=self.dtype).tobytes()
+            assert len(raw) == self.layout.unit_bytes, (len(raw), self.layout.unit_bytes)
+            self._write_at(self.layout.offset_of(key), raw)
 
     def discard(self, key) -> bool:
-        return self.layout.discard(key)
+        with self.lock:
+            if self._pins[key] and key in self.layout.index:
+                self._deferred.add(key)
+                self.deferred_discards += 1
+                return True
+            return self.layout.discard(key)
+
+    def pin(self, keys: Sequence):
+        """Hold `keys`' slots until a ``read`` of them returns."""
+        with self.lock:
+            self._pins.update(keys)
+
+    def _unpin(self, keys: Sequence):
+        """Release one pin of each of `keys`; a discard that was waiting on
+        the last pin takes effect."""
+        for k in keys:
+            if not self._pins[k]:
+                continue
+            self._pins[k] -= 1
+            if not self._pins[k]:
+                del self._pins[k]
+                if k in self._deferred:
+                    self._deferred.discard(k)
+                    self.layout.discard(k)
 
     # -- reads ----------------------------------------------------------------
     def plan(self, keys: Sequence) -> Tuple[int, int, int]:
         """(loaded_bytes, requests, live_bytes) a read of `keys` would cost,
         without charging stats (sim pricing / planners)."""
-        runs = self.layout.plan_read(keys)
+        with self.lock:
+            runs = self.layout.plan_read(keys)
         return (sum(r.nbytes for r in runs), len(runs),
                 sum(r.live_bytes for r in runs))
 
     def read(self, keys: Sequence) -> Dict[object, np.ndarray]:
         """Read `keys` via gap-merged coalesced runs, charging IOStats;
-        returns payloads (empty dict in plan mode)."""
+        returns payloads (empty dict in plan mode) and releases one pin of
+        each key."""
+        with self.lock:
+            out = self._read_locked(keys)
+            self._unpin(keys)
+        return out
+
+    @property
+    def pending_discards(self) -> int:
+        """Discards waiting on a pinned read."""
+        return len(self._deferred)
+
+    def _read_locked(self, keys: Sequence) -> Dict[object, np.ndarray]:
         runs = self.layout.plan_read(keys)
         out: Dict[object, np.ndarray] = {}
         ub = self.layout.unit_bytes
@@ -253,15 +305,16 @@ class SegmentStore:
         """Rewrite low-occupancy sealed segments; returns units moved.
         Payload copies follow the layout's move order (all reads from a
         reclaimed segment precede any write into its recycled slots)."""
-        moves = self.layout.compact(max_occupancy)
-        ub = self.layout.unit_bytes
-        for key, old, new in moves:
-            if self.mode != "plan":
-                self._write_at(new, self._read_at(old, ub))
-            self.compaction.bytes_read += ub
-            self.compaction.requests += 1
-            self.compaction.units_read += 1
-        return len(moves)
+        with self.lock:
+            moves = self.layout.compact(max_occupancy)
+            ub = self.layout.unit_bytes
+            for key, old, new in moves:
+                if self.mode != "plan":
+                    self._write_at(new, self._read_at(old, ub))
+                self.compaction.bytes_read += ub
+                self.compaction.requests += 1
+                self.compaction.units_read += 1
+            return len(moves)
 
     def close(self):
         f, self._f = self._f, None

@@ -453,5 +453,8 @@ def test_serve_cli_fleet_on_the_cpu(capsys):
     assert "falcon-mamba-7b-smoke: ttft=" in out
     with pytest.raises(SystemExit, match="does not compose"):
         serve.main(["--device", "cpu", "--fleet", "hymba_1_5b:1", "--disaggregate", "1:1"])
+    for flags in (["--hybrid-reprefill", "auto"], ["--cache-tiers", "4:8:16"]):
+        with pytest.raises(SystemExit, match="does not compose"):
+            serve.main(["--device", "cpu", "--fleet", "hymba_1_5b:1"] + flags)
     with pytest.raises(KeyError, match="available"):
         serve.main(["--device", "cpu", "--fleet", "granite_moe_3b_a800m:1"])

@@ -377,6 +377,70 @@ def test_baseline_engines_on_the_card_match_the_cpu(dev, name):
     np.testing.assert_allclose(lg, lc, rtol=0, atol=1e-3 * np.abs(lc).max())
 
 
+def _reduced_session_on_card(dev, n_layers=4, prefix_len=128):
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.session import build_real_session
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(reduced_config("qwen2.5-7b", n_layers=n_layers), dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    prefix = np.random.default_rng(0).integers(0, cfg.vocab_size, prefix_len)
+    return cfg, params, build_real_session(cfg, params, prefix, in_memory=True, device=dev)
+
+
+@pytest.mark.parametrize("end", [16, 64, 128])
+def test_recompute_prefix_kv_on_the_card(dev, end):
+    """The compute-or-load recompute on the card: one flash_attention launch
+    a layer at s = end, and KV within one float16 rounding of the ingested
+    store (GEMMs over end rows may round otherwise than over the prefix's)."""
+    from repro_torch.core.backends import RealCompute
+
+    cfg, params, sess = _reduced_session_on_card(dev)
+    be = RealCompute(cfg, params, device=dev)
+    before = fa_ops.launches
+    k, v = be.recompute_prefix_kv(sess.tokens, end, block_q=128)
+    assert fa_ops.launches - before == cfg.n_layers
+    assert k.shape == v.shape == (cfg.n_layers, end, cfg.n_kv_heads, cfg.d_head)
+    assert k.dtype == v.dtype == np.float16
+    c = sess.meta.chunk_tokens
+    for l in range(cfg.n_layers):
+        recs = sess.store.read_units(l, list(range(end // c)))
+        stored = np.concatenate([recs[u] for u in range(end // c)])  # (end, 2, n_kv, d)
+        for got, ref in ((k[l], stored[:, 0]), (v[l], stored[:, 1])):
+            np.testing.assert_allclose(got.astype(np.float32), ref.astype(np.float32),
+                                       rtol=2.0 ** -10, atol=2.0 ** -14)
+
+
+def test_force_compute_on_the_card_matches_no_planner(dev):
+    """ContiguousKV with a force-compute planner on the card: the head of the
+    prefix recomputed through flash_attention (a launch a layer), the same
+    selections and greedy tokens as without a planner, logits within 1e-3 of
+    their scale, fewer SSD bytes."""
+    from repro_torch.core.backends import RealCompute
+    from repro_torch.core.engine import ContiguousKVEngine
+    from repro_torch.core.hybrid import HybridPlanner
+    from repro_torch.storage.timing import RealExecutor
+
+    cfg, params, sess = _reduced_session_on_card(dev)
+    suffix = np.random.default_rng(1).integers(0, cfg.vocab_size, 16)
+    runs = {}
+    for mode in (None, "force-compute"):
+        eng = ContiguousKVEngine(sess, RealCompute(cfg, params, device=dev), RealExecutor(),
+                                 budget=0.25, period=2, subperiod=1,
+                                 hybrid=HybridPlanner(mode) if mode else None)
+        before = fa_ops.launches
+        runs[mode] = eng.reprefill(suffix, decode_tokens=8)
+        assert fa_ops.launches - before == (cfg.n_layers if mode else 0)
+    (l0, t0), (l1, t1) = runs[None], runs["force-compute"]
+    assert t1.recompute_units > 0 and t1.ssd_bytes < t0.ssd_bytes
+    for l, sel in t0.selected_per_layer.items():
+        np.testing.assert_array_equal(t1.selected_per_layer[l], sel)
+    assert t1.decode_tokens_out == t0.decode_tokens_out
+    np.testing.assert_allclose(l1, l0, rtol=0, atol=1e-3 * np.abs(l0).max())
+
+
 FLASH_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -7}
 
 

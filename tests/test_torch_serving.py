@@ -327,12 +327,40 @@ def test_serve_cli_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("flags,slice_name", [
     (["--mode", "sim"], "sim slice"),
-    (["--hybrid-reprefill", "force-compute"], "compute-or-load slice"),
-    (["--hybrid-reprefill", "auto"], "compute-or-load slice"),
-    (["--cache-tiers", "4:8:16"], "tier store"),
     (["--tp-decode", "0"], "multi-device slice"),
-    (["--hybrid-reprefill", "force-load"], "compute-or-load slice"),
 ])
 def test_serve_cli_refuses_deferred_flags(flags, slice_name):
     with pytest.raises(SystemExit, match=slice_name):
         serve.main(["--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--hybrid-reprefill", "force-compute"],
+    ["--hybrid-reprefill", "auto"],
+    ["--cache-tiers", "4:8:16"],
+    ["--hybrid-reprefill", "force-load"],
+])
+def test_serve_cli_runs_hybrid_and_tiers(flags, capsys):
+    """--hybrid-reprefill gives the engine a planner that decides on every
+    request's first selection (force-compute recomputes, force-load never
+    does); --cache-tiers serves through the tiered prefix store and prints
+    its digest."""
+    done = serve.main(["--device", "cpu", "--arch", "qwen2.5-7b", "--n-layers", "2",
+                       "--requests", "3", "--concurrency", "1", "--decode-tokens", "1",
+                       "--period", "2", "--subperiod", "1"] + flags)
+    out = capsys.readouterr().out
+    assert len(done) == 3 and all(len(c.trace.decode_tokens_out) == 1 for c in done)
+    recomputed = sum(c.trace.recompute_units for c in done)
+    if flags[0] == "--cache-tiers":
+        assert "tiered prefix store: HBM=4 DRAM=8 SSD=16 units, digest=" in out
+        assert "tier store: hits device=" in out and "ssd log: " in out
+        assert sum(c.trace.hits_ssd for c in done) > 0
+        assert done[0].trace.hybrid_decision is None and recomputed == 0
+        return
+    assert done[0].trace.hybrid_decision is not None
+    assert ("hybrid re-prefill: " in out) == (recomputed > 0)
+    if flags[1] == "force-compute":
+        assert recomputed > 0
+    elif flags[1] == "force-load":
+        assert recomputed == 0 and done[0].trace.hybrid_decision.load_units
+    assert "tier store: hits" not in out
