@@ -148,12 +148,24 @@ non-zero exit code:
                 seeing the swap-in and no pool-sized copy in the decode
                 steps; TTFT, TPOT, batches by weight stream, swap bytes and
                 time, peak memory;
-  9. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
+  9. sim      — the discrete-event sim mode on the card's host (no tensor,
+                no launch): (a) both golden timelines of tests/golden/
+                reproduced event for event; (b) the headline ordering's
+                modelled TTFTs at a 6000-token prefix (ContiguousKV, AS-LRU,
+                AS-H2O-LFU, IMPRESS) and their ratios; (c) the e2e phase's
+                request shape priced by DeviceModel() and by the H100 preset
+                (DeviceModel.h100_sxm5()): modelled TTFT, TPOT and channel
+                time by tag, printed beside the e2e phase's measured TTFT,
+                TPOT and host time by tag (a reading); (d) the modelled
+                plan of that shape against the e2e phase's real one: the
+                same ops up to the first token, periods, chunks selected per
+                period and probe loads;
+  10. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
      paths it names (per variant where a wrapper has several), its error
      against its plain version, its times and its bound (the largest of
      bytes, products and exponentials, named), at the main path's shapes
      and (``baseline_shapes``) at the baselines';
-  10. last line: ``{"ok": true, "device": {...}}``.
+  11. last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
 outside a checkout (it builds and imports ``src/repro_torch``).
@@ -1922,6 +1934,8 @@ def phase_e2e(cfg):
     suffixes = [rng.integers(0, cfg.vocab_size, SUFFIX_LEN) for _ in range(N_REQUESTS)]
     walls = []  # request wall time: first token, then the decode tokens
     traces = []
+    busies = []  # host ms inside the compute ops, by tag, per request
+    op_seq = _record_ops(eng)  # request 0's ops, for the sim phase's (d)
     reset_counts(*ops.values())
     for i, suffix in enumerate(suffixes):
         before = {k: mod.launches for k, mod in ops.items()}
@@ -1947,6 +1961,7 @@ def phase_e2e(cfg):
         # sync) by tag, and the engine's waits on IO; the rest of a request's
         # time is the engine's own bookkeeping
         busy = {k: round((v - busy.get(k, 0.0)) * 1e3, 2) for k, v in ex.stage_times.items()}
+        busies.append(busy)
         waits = {k: round(v * 1e3, 2) for k, v in trace.stages.items()}
         print(f"e2e: request {i}: compute ops ms {busy}, waits ms {waits}")
     totals = {k: {"dense requests": counts(mod)} for k, mod in ops.items()}
@@ -1973,8 +1988,36 @@ def phase_e2e(cfg):
     # session, the suffixes, the dense forward over prefix + suffixes[0] and
     # ContiguousKV's requests on each suffix
     ctx = dict(params=params, prefix=prefix, sess=sess, suffixes=suffixes, dense=dense,
-               ckv_traces=traces, ckv_walls=walls)
+               ckv_traces=traces, ckv_walls=walls, ckv_busy=busies, ckv_ops=op_seq)
     return totals, per_call, ctx
+
+
+def _record_ops(eng):
+    """Have ``eng``'s next plan record (kind, tag, phase) of each op it
+    yields into the returned list; later plans are left alone."""
+    seq = []
+    plan = eng.plan
+
+    def recording(*a, **kw):
+        eng.plan = plan
+        p = plan(*a, **kw)
+        gen = p.gen
+
+        def tapped():
+            send = None
+            while True:
+                try:
+                    op = gen.send(send)
+                except StopIteration as stop:
+                    return stop.value
+                seq.append((type(op).__name__, op.tag, getattr(op, "phase", "")))
+                send = yield op
+
+        p.gen = tapped()
+        return p
+
+    eng.plan = recording
+    return seq
 
 
 def phase_baselines(cfg, ctx):
@@ -2713,6 +2756,214 @@ def profile_request(eng, suffix, warm_wall_ms: float, tag: str = "e2e"):
     return ours
 
 
+SIM_ROUND = 9  # the golden files' resolution (tests/test_golden_trace.py)
+SIM_HEADLINE_PREFIX = 6000  # tests/test_system.py's headline ordering
+
+
+def _golden_scenario(mixed: bool):
+    """tests/test_golden_trace.py's scenarios through the port's sim mode:
+    2 requests at concurrency 2 with 2 decode tokens, or chunked prefill
+    mixed into decode with one forced SLO preemption and swap. Returns the
+    fixture's fields at its rounding."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.backends import SimCompute
+    from repro_torch.core.engine import ContiguousKVEngine
+    from repro_torch.core.session import SyntheticWorkload, build_sim_session
+    from repro_torch.serving import Request, Scheduler
+    from repro_torch.storage.timing import ChannelSim, DeviceModel
+
+    cfg = get_config("qwen2.5-7b")
+    ex = ChannelSim(DeviceModel())
+    eng = ContiguousKVEngine(build_sim_session(cfg, 512),
+                             SimCompute(cfg, SyntheticWorkload(512, cfg.n_layers, seed=3)), ex,
+                             budget=0.25, device_cap=64, host_cap=128,
+                             prefill_chunk_tokens=16 if mixed else None)
+    sfx = lambda rid: np.zeros(32, np.int64) + rid  # noqa: E731
+    if mixed:
+        reqs = [Request(request_id=r, suffix=sfx(r), arrival=0.0, decode_tokens=8)
+                for r in range(3)]
+        reqs.append(Request(request_id=3, suffix=sfx(3), arrival=0.05, ttft_target=1e-3))
+        sched = Scheduler(eng, policy="slo_aware", max_concurrency=3, max_batch_tokens=64,
+                          preempt=True, swap_on_preempt=True, prefill_estimate=10.0)
+    else:
+        reqs = [Request(request_id=r, suffix=sfx(r), arrival=0.0, decode_tokens=2)
+                for r in range(2)]
+        sched = Scheduler(eng, max_concurrency=2)
+    done = sched.run(reqs)
+    r = lambda x: round(x, SIM_ROUND)  # noqa: E731
+    out = {"events": [[r(a), r(b), res, tag] for a, b, res, tag in ex.events],
+           "ttft": {str(c.request.request_id): r(c.ttft if mixed else c.trace.ttft)
+                    for c in done},
+           "finish": {str(c.request.request_id): r(c.finish) for c in done}}
+    if mixed:
+        out.update(preemptions=sched.preemptions, swaps=sched.swaps)
+    return out
+
+
+def _sim_requests(model, n: int, decode: int, hybrid=None):
+    """The e2e phase's request shape priced in sim mode: ContiguousKV on
+    Qwen2.5-7B over a PREFIX_LEN-token prefix in CHUNK-token chunks, BUDGET,
+    PERIOD / SUBPERIOD, caches of size 0, ``n`` SUFFIX_LEN-token requests in
+    a row with ``decode`` tokens each, with the compute-or-load planner
+    ``hybrid`` if given. Returns (traces, per-request modelled channel ms by
+    event tag, the op sequence of request 0)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.backends import SimCompute
+    from repro_torch.core.engine import ContiguousKVEngine
+    from repro_torch.core.session import SyntheticWorkload, build_sim_session
+    from repro_torch.storage.timing import SimExecutor
+
+    cfg = get_config("qwen2.5-7b")
+    ex = SimExecutor(model)
+    eng = ContiguousKVEngine(build_sim_session(cfg, PREFIX_LEN, chunk_tokens=CHUNK),
+                             SimCompute(cfg, SyntheticWorkload(PREFIX_LEN, cfg.n_layers)), ex,
+                             budget=BUDGET, period=PERIOD, subperiod=SUBPERIOD, hybrid=hybrid)
+    seq = _record_ops(eng)
+    rng = np.random.default_rng(0)
+    traces, by_tag = [], []
+    for i in range(n):
+        first = len(ex.events)
+        _, tr = eng.reprefill(rng.integers(0, cfg.vocab_size, SUFFIX_LEN), request_id=i,
+                              decode_tokens=decode)
+        tags = {}
+        for a, b, _, tag in ex.events[first:]:
+            tags[tag] = tags.get(tag, 0.0) + (b - a) * 1e3
+        traces.append(tr)
+        by_tag.append(tags)
+    return traces, by_tag, seq
+
+
+def _mean_tags(dicts) -> dict:
+    keys = sorted({k for d in dicts for k in d})
+    return {k: round(sum(d.get(k, 0.0) for d in dicts) / len(dicts), 3) for k in keys}
+
+
+def phase_sim(ref, smi_line):
+    """The sim mode on the card's host: no tensor, no launch. (a) both golden
+    timelines event for event; (b) the headline ordering's modelled TTFTs;
+    (c) the e2e phase's request shape priced by DeviceModel() and by the
+    H100 preset beside the e2e phase's measured times; (d) that modelled
+    plan against the e2e phase's real one, op for op."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import costmodel as CM
+    from repro_torch.core.backends import SimCompute
+    from repro_torch.core.engine import (ASH2OEngine, ASLRUEngine, ContiguousKVEngine,
+                                         IMPRESSEngine)
+    from repro_torch.core.hybrid import HybridPlanner
+    from repro_torch.core.session import SyntheticWorkload, build_sim_session
+    from repro_torch.storage.timing import DeviceModel, SimExecutor
+
+    t_phase = time.perf_counter()
+    # (a) the committed golden timelines, event for event
+    for mixed, name in ((False, "ckv_sim_timeline.json"), (True, "ckv_mixed_timeline.json")):
+        want = json.loads((ROOT / "tests" / "golden" / name).read_text())
+        got = _golden_scenario(mixed)
+        if len(got["events"]) != len(want["events"]):
+            fail(f"sim (a) {name}: {len(got['events'])} events, the fixture has "
+                 f"{len(want['events'])}")
+        for i, (g, w) in enumerate(zip(got["events"], want["events"])):
+            if g != w:
+                fail(f"sim (a) {name}: event {i} is {g}, the fixture's {w}")
+        for key in ("ttft", "finish", "preemptions", "swaps"):
+            if key in want and got[key] != want[key]:
+                fail(f"sim (a) {name}: {key} {got[key]}, the fixture's {want[key]}")
+        print(f"sim (a): {name}: {len(got['events'])} events, TTFTs and finishes equal to the "
+              f"fixture's at 1e-{SIM_ROUND} s")
+
+    # (b) the headline ordering (tests/test_system.py), modelled
+    cfg = get_config("qwen2.5-7b")
+    wl = SyntheticWorkload(SIM_HEADLINE_PREFIX, cfg.n_layers, seed=0)
+    ttft = {}
+    for name, cls, coarse, kw in [("ContiguousKV", ContiguousKVEngine, False, {"budget": 0.05}),
+                                  ("AS-LRU", ASLRUEngine, True, {}),
+                                  ("AS-H2O-LFU", ASH2OEngine, True, {"budget": 0.05}),
+                                  ("IMPRESS", IMPRESSEngine, True, {"budget": 0.05})]:
+        eng = cls(build_sim_session(cfg, SIM_HEADLINE_PREFIX, coarse_blocks=coarse),
+                  SimCompute(cfg, wl), SimExecutor(DeviceModel()), device_cap=500,
+                  host_cap=2000, **kw)
+        ttft[name] = eng.reprefill(np.zeros(64, np.int64))[1].ttft
+    ckv = ttft["ContiguousKV"]
+    if not (ckv < ttft["IMPRESS"] < ttft["AS-H2O-LFU"] and ckv < ttft["AS-LRU"]
+            and ttft["IMPRESS"] / ckv > 2.0):
+        fail(f"sim (b): the headline ordering does not hold: {ttft}")
+    print(f"sim (b): headline ordering at a {SIM_HEADLINE_PREFIX}-token prefix, 5 % budget "
+          f"(modelled, DeviceModel()): TTFT "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in ttft.items())
+          + "; against ContiguousKV "
+          + ", ".join(f"{k} {v / ckv:.2f}x" for k, v in ttft.items() if k != "ContiguousKV"))
+
+    # (c) the e2e phase's request shape, modelled under two device models,
+    # beside the card's measured times (a reading: nothing is asserted)
+    real = ref["ckv_traces"]
+    n, decode = len(real), real[0].n_decoded
+    warm = slice(1, n) if n > 1 else slice(0, n)
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    waits = lambda ts: _mean_tags([{k: v * 1e3 for k, v in t.stages.items()}  # noqa: E731
+                                   for t in ts])
+    print(f"sim (c): measured on the card ({smi_line}), the e2e phase's {n} requests "
+          f"(warm: 1..{n - 1}): TTFT "
+          + ", ".join(f"{t.ttft * 1e3:.2f}" for t in real) + " ms, TPOT "
+          + ", ".join(f"{t.tpot * 1e3:.3f}" for t in real) + " ms; warm mean TTFT "
+          f"{mean([t.ttft for t in real[warm]]) * 1e3:.2f} ms, TPOT "
+          f"{mean([t.tpot for t in real[warm]]) * 1e3:.3f} ms; host ms in compute ops by tag "
+          f"(warm mean) {_mean_tags(ref['ckv_busy'][warm])}; waits ms (warm mean) "
+          f"{waits(real[warm])}")
+    modelled = []
+    for label, model in (("DeviceModel() (TPU v5e compute and HBM)", DeviceModel()),
+                         ("DeviceModel.h100_sxm5() (data sheet)", DeviceModel.h100_sxm5())):
+        traces, by_tag, seq = _sim_requests(model, n, decode)
+        modelled.append((traces, seq))
+        print(f"sim (c): modelled, {label}: TTFT {traces[0].ttft * 1e3:.3f} ms (request 0), "
+              f"{mean([t.ttft for t in traces[warm]]) * 1e3:.3f} ms (warm mean), TPOT "
+              f"{mean([t.tpot for t in traces[warm]]) * 1e3:.4f} ms (warm mean); channel busy "
+              f"ms by tag (warm mean) {_mean_tags(by_tag[warm])}; waits ms (warm mean) "
+              f"{waits(traces[warm])}")
+        # compute-or-load's price of that request's prefix (the phase hybrid
+        # measures the recompute op itself)
+        d = _sim_requests(model, 1, 0, HybridPlanner("force-compute", device_model=model)
+                          )[0][0].hybrid_decision
+        print(f"sim (c): modelled, {label}: compute-or-load prices recomputing the head "
+              f"[0, {d.recompute_tokens}) at t_force_compute {d.t_force_compute * 1e3:.3f} ms "
+              f"against t_force_load {d.t_force_load * 1e3:.3f} ms")
+
+    # (d) the modelled plan against the card's: the same ops up to the first
+    # token (part A and B, identify, the probe and kv waits), the same
+    # periods, chunks selected per period and probe loads; decode differs by
+    # design (sim decode drifts its selection and demand-fetches its misses)
+    (traces, seq), real_seq = modelled[0], ref["ckv_ops"]
+    sim_tr, real_tr = traces[0], real[0]
+    prefill = lambda q: q[:next(i for i, op in enumerate(q)  # noqa: E731
+                                if op[1].startswith("decode"))]
+    ps, pr = prefill(seq), prefill(real_seq)
+    if ps != pr:
+        at = next((i for i, (a, b) in enumerate(zip(ps, pr)) if a != b), min(len(ps), len(pr)))
+        fail(f"sim (d): the modelled prefill ops differ from the card's at op {at} "
+             f"({ps[at:at + 1]} against {pr[at:at + 1]}; {len(ps)} and {len(pr)} ops)")
+    shape = lambda t, c: ([len(p) for p in t.selected_per_period],  # noqa: E731
+                          t.ssd_bytes_probe // CM.probe_bytes(c, PREFIX_LEN, 1.0),
+                          len(t.decode_times))
+    got, want = shape(sim_tr, cfg), shape(real_tr, ref["cfg"])
+    if got != want:
+        fail(f"sim (d): (chunks per period, probe loads, decode steps) {got} against the "
+             f"card's {want}")
+    kinds = {}
+    for op in ps:
+        kinds[op[:2]] = kinds.get(op[:2], 0) + 1
+    print(f"sim (d): request 0's modelled plan equals the card's op for op up to the first "
+          f"token ({len(ps)} ops: " + ", ".join(f"{k} {t} x{c}" for (k, t), c in kinds.items())
+          + f"); chunks selected per period {got[0]}, probe loads {got[1]}, decode steps "
+          f"{got[2]}; tokens loaded "
+          f"{sim_tr.tokens_loaded} modelled against the card's {real_tr.tokens_loaded} "
+          f"(the workload model's selections against the model's)")
+    print(f"sim: phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -2758,8 +3009,11 @@ def main() -> int:
     hybrid_paths, hybrid_numbers = phase_hybrid(cfg, ctx, smi_line)
     for name, by_path in hybrid_paths.items():
         paths.setdefault(name, {}).update(by_path)
-    # the Qwen weights stay for the fleet phase, the other sessions go
+    # the Qwen weights stay for the fleet phase, the other sessions go; the
+    # sim phase keeps the e2e requests' traces, compute times and op sequence
     weights = {cfg.name: ctx["params"]}
+    sim_ref = {k: ctx[k] for k in ("ckv_traces", "ckv_busy", "ckv_ops")}
+    sim_ref["cfg"] = cfg
     del ctx
     torch.cuda.empty_cache()
     rows.update(phase_state_kernels(hcfg, cfg, fcfg))
@@ -2777,6 +3031,7 @@ def main() -> int:
     for name, by_path in fleet_paths.items():
         paths.setdefault(name, {}).update(by_path)
     rows["selective_scan"]["fleet"] = fleet_numbers
+    phase_sim(sim_ref, smi_line)
     sources = {"chunk_score": ("src/repro_torch/csrc/chunk_score.cu",
                                "src/repro/kernels/chunk_score/kernel.py:65"),
                "chunk_attention": ("src/repro_torch/csrc/chunk_attention.cu",

@@ -1,5 +1,5 @@
-"""Compute backends, real mode: the Re-Prefill engine's and the state-space
-engine's.
+"""Compute backends: the Re-Prefill engine's and the state-space engine's,
+real mode, and the sim mode's workload-driven ``SimCompute``.
 
 RealCompute runs the model layer by layer on one device (the card unless the
 caller asks for the CPU). Its three attention steps go through the port's
@@ -24,6 +24,10 @@ hidden state is float32 from the first layer's part B on, and every later
 projection multiplies float32 activations by the model's weights in float32
 (``models.layers.matmul``). Decode starts from a fresh embedding and stays
 in the model dtype.
+
+SimCompute stands in for RealCompute on a simulated executor: it computes
+nothing and allocates no tensor, and its token scores, chunk scores and
+per-chunk mass come from a ``session.SyntheticWorkload``.
 """
 from __future__ import annotations
 
@@ -529,6 +533,54 @@ class RealCompute:
         h = _ffn(h, lp, cfg)
         mass = page_mass[0].mean(dim=0)[: tail.n_res]  # head-avg, resident
         return h, mass.cpu().numpy()
+
+
+class SimCompute:
+    """Paper-scale simulation: no arrays, selection from a workload model.
+
+    ``workload`` provides ``token_scores(request, layer)``,
+    ``decode_token_scores(request, step)`` and ``chunk_mass``; the request
+    is the one the engine bound last (``new_request``)."""
+
+    def __init__(self, cfg: ModelConfig, workload):
+        self.cfg = cfg
+        self.workload = workload
+        self._request_id = 0
+
+    def new_request(self, request_id: int):
+        self._request_id = request_id
+
+    def embed(self, suffix_tokens):
+        return None
+
+    def part_a(self, layer, h, prefix_len):
+        return None, None, None, None
+
+    def token_scores(self, q, k_probe, layer: int) -> np.ndarray:
+        return self.workload.token_scores(self._request_id, layer)
+
+    def chunk_scores(self, q, k_probe, layer: int, chunk_tokens: int) -> np.ndarray:
+        """(m,) chunk scores: the token field zero-padded to whole chunks and
+        summed chunk by chunk in float64, as the JAX engine reduces the
+        token scores it gets from a backend."""
+        tok = self.token_scores(q, k_probe, layer)
+        span = -(-len(tok) // chunk_tokens) * chunk_tokens
+        return np.asarray(np.add.reduceat(np.pad(tok, (0, span - len(tok))),
+                                          np.arange(0, span, chunk_tokens)))
+
+    def part_b(self, layer, h, q, k_suf, v_suf, k_sel, v_sel, sel_valid, chunk_tokens):
+        return None, self.workload.chunk_mass(self._request_id, layer, sel_valid)
+
+    def logits(self, h):
+        return None
+
+    def decode_scores(self, request_id: int, step: int) -> np.ndarray:
+        """Token-importance field for decode position `step`."""
+        return self.workload.decode_token_scores(request_id, step)
+
+    def decode_mass(self, request_id: int, layer: int, n_units: int) -> np.ndarray:
+        """Per-attended-unit attention mass for the decode-time cache updates."""
+        return self.workload.chunk_mass(request_id, layer, np.ones(n_units, bool))
 
 
 class StatePool:

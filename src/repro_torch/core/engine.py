@@ -1,8 +1,12 @@
-"""Re-Prefill engines: ContiguousKV (§4) and the three baselines (§5.1), real
-mode.
+"""Re-Prefill engines: ContiguousKV (§4) and the three baselines (§5.1).
 
-Every engine runs a real model on the card (or the CPU, if the backend was
-built there) with real unit reads on the wall clock.
+One orchestration skeleton runs in two modes:
+  real — a real model on the card (or the CPU, if the backend was built
+         there) with real unit reads on the wall clock (``RealExecutor``);
+  sim  — paper-scale configs on a discrete-event timeline (``ChannelSim`` /
+         ``SimExecutor``): no tensors, selections from a workload model
+         (``backends.SimCompute``), every IO leg and op priced by the device
+         model. Its timelines equal the JAX package's to the last bit.
 
   ContiguousKVEngine — chunk granularity, period-reused identification,
       intra- and inter-period prefetch, attention-guided cache.
@@ -45,8 +49,7 @@ store's log), and every op's weight stream by the model's name. With a
 ``HybridPlanner`` (``hybrid``) the four KV engines decide once per request,
 at the first selection, which missing head of the prefix to recompute by one
 truncated causal forward (``RealCompute.recompute_prefix_kv``) instead of
-loading it (``_hybrid_reprefill``). The JAX engines' sim mode comes with the
-port's sim slice (``SimCompute``).
+loading it (``_hybrid_reprefill``).
 """
 from __future__ import annotations
 
@@ -85,11 +88,11 @@ class PrefixSession:
     cfg: object
     prefix_len: int
     meta: ChunkMeta
-    store: object  # ChunkStore
+    store: object  # ChunkStore, or PlanStore in sim mode
     probe: Optional[np.ndarray] = None  # (L, n, n_kv, d) fp16 prefix keys
     tenant: int = 0  # namespace for shared-cache keys (0 = single-tenant)
     # prefix token ids: what the compute-or-load planner recomputes KV from;
-    # None disables the recompute
+    # None disables the recompute in real mode
     tokens: Optional[np.ndarray] = None
     # content address of the prefix (sha256 of its token ids): engines over a
     # content-addressed store key units (digest, layer, unit), so identical
@@ -154,6 +157,20 @@ class ReprefillTrace:
         self.stages[tag] = self.stages.get(tag, 0.0) + dt
 
 
+class PlanStore:
+    """Timing-only store for sim mode: layout math without a backing file."""
+
+    def __init__(self, layout):
+        self.layout = layout
+
+    def run_plan(self, layer: int, units) -> Tuple[int, int]:
+        runs = self.layout.coalesce(layer, units)
+        return sum(r.nbytes for r in runs), len(runs)
+
+    def read_units(self, layer, units):
+        return {int(u): None for u in units}
+
+
 # ---------------------------------------------------------------------------
 # shared machinery
 # ---------------------------------------------------------------------------
@@ -172,9 +189,6 @@ class _EngineBase:
         prefill_chunk_tokens: Optional[int] = None,
         hybrid: Optional[HybridPlanner] = None,
     ):
-        if isinstance(executor, ChannelSim):
-            raise TypeError("the engine runs real mode only; the sim mode comes "
-                            "with SimCompute")
         self.session = session
         self.backend = backend
         self.ex = executor
@@ -190,6 +204,7 @@ class _EngineBase:
         # plan op for op
         self.hybrid = hybrid
         self.cfg = session.cfg
+        self.sim = isinstance(executor, ChannelSim)
         self.tenant = session.tenant
         # the model's weight stream: decode ops' weight_key is "model@<stream>"
         self.stream = self.cfg.name
@@ -201,14 +216,15 @@ class _EngineBase:
         self._data: Dict[Tuple, np.ndarray] = {}
 
     # -- plan entry points ----------------------------------------------------
-    def plan(self, suffix_tokens, request_id: int = 0,
+    def plan(self, suffix_tokens, request_id: int = 0, arrival: float = 0.0,
              decode_tokens: int = 0) -> StepPlan:
         """Build a resumable step plan for one request (does not run it).
 
         With ``decode_tokens=N`` the plan continues past the first token with
-        one decode step (phase="decode") per token.
+        one decode step (phase="decode") per token. ``arrival`` starts the
+        request's clock (the sim scheduler's admission time).
         """
-        clock = RequestClock()
+        clock = RequestClock(arrival)
         trace = ReprefillTrace(system=self.name)
         gen = self._steps(np.asarray(suffix_tokens), request_id, clock, trace,
                           decode_tokens=decode_tokens)
@@ -236,8 +252,9 @@ class _EngineBase:
 
     def _bound(self, request_id: int, fn):
         """Pin a shared backend to this request while ``fn`` runs (concurrent
-        plans interleave over one backend); a backend that keeps no
-        per-request state (``RealCompute``) takes ``fn`` as it is."""
+        plans interleave over one backend; ``SimCompute``'s workload is keyed
+        by the current request id); a backend that keeps no per-request state
+        (``RealCompute``) takes ``fn`` as it is."""
         be = self.backend
         if not hasattr(be, "new_request"):
             return fn
@@ -249,14 +266,25 @@ class _EngineBase:
         return rebind
 
     # -- I/O helpers ---------------------------------------------------------
+    def _io(self, clock: RequestClock, fn, *, nbytes: int, n_requests: int,
+            channel: str, after: Optional[IOHandle] = None) -> IOHandle:
+        """Submit a transfer: in sim mode no earlier than the request's own
+        clock (and after ``after``), in real mode now."""
+        if self.sim:
+            return self.ex.submit_io_at(fn, nbytes=nbytes, n_requests=n_requests,
+                                        channel=channel, at=clock.t, after=after)
+        return self.ex.submit_io(fn, nbytes=nbytes, n_requests=n_requests, channel=channel)
+
     def _submit_units(self, layer: int, units: List[int], trace: ReprefillTrace,
-                      handles: Dict, *, speculative: bool = False,
+                      handles: Dict, clock: RequestClock, *, speculative: bool = False,
                       needed_bytes_per_unit: Optional[Dict[int, int]] = None) -> None:
         """Load `units` of `layer` honoring cache tiers; records handles.
 
         `needed_bytes_per_unit` maps unit -> bytes actually required from it
         (token-granularity baselines need only the selected tokens out of a
         block). Defaults to the whole unit (chunk granularity: aligned).
+        In sim mode every SSD leg is followed by its PCIe leg up, and a
+        layer's tier-store hits and prefix-store misses share one submission.
         """
         store = self.session.store
         missing, host_hits, ssd_hits = [], [], []
@@ -267,7 +295,7 @@ class _EngineBase:
             tier = self.cache.lookup(key, tenant=self.tenant)
             if tier == DEVICE:
                 trace.hits_device += 1
-                handles[key] = IOHandle()
+                handles[key] = IOHandle(ready_at=clock.t)
                 handles[key].result = self._data.get(key)
             elif tier == HOST:
                 trace.hits_host += 1
@@ -279,6 +307,18 @@ class _EngineBase:
                 trace.misses += 1
                 missing.append(u)
         unit_bytes = store.layout.unit_bytes
+        ssd_keys = tuple(self._key(layer, u) for u in ssd_hits)
+        if ssd_hits:
+            # sim mode books the log read into the store's stats here: it
+            # has no ssd_fetch to do it
+            ssd_nb, ssd_nr, ssd_live = self.cache.ssd_plan(ssd_keys, charge=self.sim)
+        if missing:
+            miss_nb, miss_nr = store.run_plan(layer, missing)
+            if needed_bytes_per_unit is None:
+                miss_needed = len(missing) * unit_bytes
+            else:
+                miss_needed = sum(needed_bytes_per_unit.get(int(u), unit_bytes)
+                                  for u in missing)
 
         def account_ssd_leg(nbytes, nreq, needed):
             trace.ssd_bytes += nbytes
@@ -290,44 +330,63 @@ class _EngineBase:
             trace.ssd_requests += nreq
             trace.pcie_bytes += nbytes
 
-        if ssd_hits:
+        def ssd_then_pcie(fetch, nbytes, nreq):
+            h = self._io(clock, fetch, nbytes=nbytes, n_requests=nreq, channel="ssd")
+            if self.sim:
+                h = self._io(clock, None, nbytes=nbytes, n_requests=1, channel="pcie",
+                             after=h)
+            return h
+
+        combined = self.sim and bool(ssd_hits) and bool(missing)
+        if combined:
+            # the tier store's log and the prefix store share one physical
+            # SSD, so a layer's two read sets ride one submission batch (one
+            # fixed latency) and one PCIe leg up
+            h = ssd_then_pcie(None, ssd_nb + miss_nb, ssd_nr + miss_nr)
+            for key in ssd_keys:
+                handles[key] = h
+            for u in missing:
+                handles[self._key(layer, u)] = h
+            account_ssd_leg(ssd_nb, ssd_nr, ssd_live)
+            account_ssd_leg(miss_nb, miss_nr, miss_needed)
+            trace.tokens_loaded += len(missing) * store.layout.unit_tokens
+        elif ssd_hits:
             # resident in the tier store's SSD log: read its gap-merged runs;
             # the insert after the wait promotes the units back to the device
             # tier
-            ssd_keys = tuple(self._key(layer, u) for u in ssd_hits)
-            ssd_nb, ssd_nr, ssd_live = self.cache.ssd_plan(ssd_keys)
-            # the IO thread reads them later, while inserts here may drop or
-            # compact them: their slots stay until the fetch has read them
-            self.cache.ssd_pin(ssd_keys)
-            h = self.ex.submit_io(lambda ks=ssd_keys: self._fetch_cache_ssd(ks),
-                                  nbytes=ssd_nb, n_requests=ssd_nr, channel="ssd")
+            fetch = None
+            if not self.sim:
+                # the IO thread reads them later, while inserts here may drop
+                # or compact them: their slots stay until the fetch has read
+                # them
+                self.cache.ssd_pin(ssd_keys)
+                fetch = lambda ks=ssd_keys: self._fetch_cache_ssd(ks)  # noqa: E731
+            h = ssd_then_pcie(fetch, ssd_nb, ssd_nr)
             account_ssd_leg(ssd_nb, ssd_nr, ssd_live)
             for key in ssd_keys:
                 handles[key] = h
         if host_hits:
             nbytes = len(host_hits) * unit_bytes
-            h = self.ex.submit_io(self._mk_fetch(layer, host_hits, from_host=True),
-                                  nbytes=nbytes, n_requests=1, channel="pcie")
+            h = self._io(clock, self._mk_fetch(layer, host_hits, from_host=True),
+                         nbytes=nbytes, n_requests=1, channel="pcie")
             trace.pcie_bytes += nbytes
             for u in host_hits:
                 handles[self._key(layer, u)] = h
-        if missing:
-            miss_nb, miss_nr = store.run_plan(layer, missing)
+        if missing and not combined:
             fetch = self._mk_fetch(layer, missing, from_host=False)
-            if self.hybrid is not None:
+            if fetch is not None and self.hybrid is not None:
                 # the planner's EWMA of measured against modelled IO time
                 fetch = self.hybrid.timed_fetch(fetch, miss_nb, miss_nr)
-            h = self.ex.submit_io(fetch, nbytes=miss_nb, n_requests=miss_nr, channel="ssd")
-            if needed_bytes_per_unit is None:
-                needed = len(missing) * unit_bytes
-            else:
-                needed = sum(needed_bytes_per_unit.get(int(u), unit_bytes) for u in missing)
-            account_ssd_leg(miss_nb, miss_nr, needed)
+            h = ssd_then_pcie(fetch, miss_nb, miss_nr)
+            account_ssd_leg(miss_nb, miss_nr, miss_needed)
             trace.tokens_loaded += len(missing) * store.layout.unit_tokens
             for u in missing:
                 handles[self._key(layer, u)] = h
 
     def _mk_fetch(self, layer: int, units: List[int], from_host: bool):
+        """The real-mode read of `units`; None in sim mode (nothing to read)."""
+        if self.sim:
+            return None
         store = self.session.store
 
         def fetch():
@@ -395,11 +454,15 @@ class _EngineBase:
         residents with ready handles, so every later ``_submit_units`` finds
         hits instead of SSD reads. The tail stays on the load path. With no
         planner, mode "off", or no cut (force-load) this yields nothing, so
-        the plan is the load-only plan op for op.
+        the plan is the load-only plan op for op. In sim mode the planner
+        prices both legs against the channels' backlog, and the recompute is
+        an op that only occupies the device.
         """
         hp = self.hybrid
-        if hp is None or hp.mode == "off" or self.session.tokens is None:
+        if hp is None or hp.mode == "off":
             return
+        if not self.sim and self.session.tokens is None:
+            return  # no prefix tokens kept: nothing to recompute from
         # `contains`, not `lookup`: a planning probe leaves hit counts and
         # recency untouched, so a declined decision (force-load) stays bit
         # for bit the run without a planner
@@ -408,11 +471,15 @@ class _EngineBase:
                          and self.cache.contains(self._key(0, int(u))) is None)
         if not missing:
             return
-        # real form: no executor, so the IO leg is scaled by the planner's
-        # measured EWMA and neither clock nor channel enters the price
+        # sim form: priced against the channels' backlog at the request's
+        # clock; real form: no executor, so the IO leg is scaled by the
+        # planner's measured EWMA and neither clock nor channel enters the price
         d = hp.decide(cfg=self.cfg, store=self.session.store, missing_units=missing,
-                      prefix_len=self.session.prefix_len, suffix_len=suffix_len,
-                      attended_tokens=attended, extra_overlap_flops=extra_overlap_flops)
+                      prefix_len=self.session.prefix_len, clock_t=clock.t,
+                      executor=self.ex if self.sim else None,
+                      suffix_len=suffix_len, attended_tokens=attended,
+                      extra_overlap_flops=extra_overlap_flops,
+                      compute_channel=clock.channel)
         trace.hybrid_decision = d
         if not d.recompute_units:
             return
@@ -422,8 +489,8 @@ class _EngineBase:
         cfg = self.cfg
         # the prefix tokens are host-resident (the prompt): an upload only,
         # never the SSD queue the recompute avoids
-        h_tok = self.ex.submit_io(lambda: None, nbytes=TOKEN_BYTES * end, n_requests=1,
-                                  channel="pcie")
+        h_tok = self._io(clock, None if self.sim else (lambda: None),
+                         nbytes=TOKEN_BYTES * end, n_requests=1, channel="pcie")
         yield WaitOp(h_tok, tag="recompute_io")
         cost = CM.chunk_recompute_cost(cfg, end, 0)
         units = [int(u) for u in d.recompute_units]
@@ -440,7 +507,8 @@ class _EngineBase:
                     rec[: hi - lo, 1] = v_all[l, lo:hi]
                     self._data[self._key(l, u)] = rec
 
-        yield ComputeOp(self._bound(request_id, fn), flops=cost.flops,
+        yield ComputeOp(None if self.sim else self._bound(request_id, fn),
+                        flops=cost.flops,
                         hbm_bytes=cost.hbm_bytes, tag="recompute", phase="prefill",
                         tokens=end, weight_bytes=float(cfg.n_layers * CM.layer_weight_bytes(cfg)),
                         weight_key=f"model@{self.stream}")
@@ -449,7 +517,7 @@ class _EngineBase:
         for u in units:
             for l in range(cfg.n_layers):
                 key = self._key(l, u)
-                handles[key] = IOHandle()
+                handles[key] = IOHandle(ready_at=clock.t)
                 self.cache.insert(key, DEVICE, tenant=self.tenant, payload=self._data.get(key))
         trace.recompute_units += len(units)
         trace.recompute_tokens += end
@@ -457,7 +525,7 @@ class _EngineBase:
         trace.add_stage("recompute", clock.t - t0)
 
     # -- probe ----------------------------------------------------------------
-    def _submit_probe(self, layer: int, trace: ReprefillTrace,
+    def _submit_probe(self, layer: int, trace: ReprefillTrace, clock: RequestClock,
                       ratio: float = 1.0) -> IOHandle:
         """Load `layer`'s probe keys; ``ratio`` < 1 loads only the first
         max(1, int(d * ratio)) dims of each key (IMPRESS's partial keys)."""
@@ -472,7 +540,9 @@ class _EngineBase:
                 k = k[..., : max(1, int(k.shape[-1] * ratio))]
             return k
 
-        h = self.ex.submit_io(fetch, nbytes=nbytes, n_requests=1, channel="ssd")
+        h = self._io(clock, fetch, nbytes=nbytes, n_requests=1, channel="ssd")
+        if self.sim:  # the PCIe leg up, after the SSD leg
+            h = self._io(clock, None, nbytes=nbytes, n_requests=1, channel="pcie", after=h)
         trace.ssd_bytes_probe += nbytes
         trace.pcie_bytes += nbytes
         return h
@@ -526,8 +596,8 @@ class _EngineBase:
     def _chunk_ctx(self, layer, h, q, k_suf, v_suf, k_sel, v_sel, valid,
                    chunk_tokens) -> Optional[PrefillChunkCtx]:
         """The batching surface of this layer's final prefill chunk (None
-        unless chunking is on)."""
-        if not self.prefill_chunk_tokens:
+        unless chunking is on in real mode)."""
+        if self.sim or not self.prefill_chunk_tokens:
             return None
         return PrefillChunkCtx(backend=self.backend, layer=int(layer), h=h, q=q, k_suf=k_suf,
                                v_suf=v_suf, k_sel=k_sel, v_sel=v_sel, valid=valid,
@@ -547,24 +617,28 @@ class _EngineBase:
         return k, v
 
     def _gather_chunks(self, layer: int, units: np.ndarray):
-        """-> (k_sel, v_sel, valid), padded to the bucket size."""
+        """-> (k_sel, v_sel, valid), padded to the bucket size; sim mode
+        gathers nothing (Nones)."""
         nb = bucket_size(max(len(units), 1))
         valid = np.zeros((nb,), bool)
         valid[: len(units)] = True
+        if self.sim:
+            return None, None, valid
         k_sel, v_sel = self._unit_pages(layer, units, nb)
         return k_sel, v_sel, valid
 
     # -- decode phase ----------------------------------------------------------
-    def _decode_phase(self, decode_tokens, clock, trace, logits, suffix_len,
-                      resident, kv_suffix):
+    def _decode_phase(self, decode_tokens, request_id, clock, trace, logits, suffix_len,
+                      resident, handles, kv_suffix):
         """Per-token decode steps after the first token (phase="decode").
 
-        Sparse decode attention (the decode_attention kernel) over a
-        preallocated per-layer pool built once at decode start: the resident
-        unit pages and the suffix KV are paged in, and each decoded token's
-        KV is written into its page slot in place; greedy next-token
-        feedback. By default the pool is a :class:`DeviceTailPool` (pages in
-        device memory, no pool bytes over H2D after the start);
+        Sim mode: :meth:`_sim_decode_phase`. Real mode: sparse decode
+        attention (the decode_attention kernel) over a preallocated
+        per-layer pool built once at decode start: the resident unit pages
+        and the suffix KV are paged in, and each decoded token's KV is
+        written into its page slot in place; greedy next-token feedback.
+        By default the pool is a :class:`DeviceTailPool` (pages in device
+        memory, no pool bytes over H2D after the start);
         ``device_tail_pool=False`` forces the host-resident
         :class:`TailPool`, re-uploaded per step. The resident units are the
         ones loaded and waited for during prefill, so decode issues no IO.
@@ -575,9 +649,12 @@ class _EngineBase:
         """
         if decode_tokens <= 0:
             return logits
+        trace.first_token_at = clock.t
+        if self.sim:
+            return (yield from self._sim_decode_phase(decode_tokens, request_id, clock, trace,
+                                                      suffix_len, handles))
         be, cfg = self.backend, self.cfg
         unit_tokens = self.session.store.layout.unit_tokens
-        trace.first_token_at = clock.t
         weight_bytes = CM.decode_weight_bytes(cfg)
         tok = int(np.argmax(logits[0, -1]))
         per_layer = {l: np.asarray(resident.get(l, []), dtype=int)
@@ -627,6 +704,54 @@ class _EngineBase:
             trace.decode_times.append(clock.t)
         return logits
 
+    def _sim_decode_phase(self, decode_tokens, request_id, clock, trace, suffix_len, handles):
+        """Sim mode's decode steps: each token's selection drifts (the
+        workload's decode score field at the engine's own unit granularity,
+        the same for every layer), its cache misses become demand fetches
+        (WaitOps), and the token is one costmodel-priced ComputeOp a
+        scheduler may batch with other requests' steps. The
+        attention-guided cache keeps accumulating the workload's mass."""
+        be, cfg = self.backend, self.cfg
+        layout = self.session.store.layout
+        unit_tokens = layout.unit_tokens
+        span = layout.n_units * unit_tokens
+        weight_bytes = CM.decode_weight_bytes(cfg)
+        for step in range(decode_tokens):
+            scores = be.decode_scores(request_id, step)
+            cs = np.add.reduceat(np.pad(scores, (0, span - len(scores))),
+                                 np.arange(0, span, unit_tokens))
+            selected = select_topk_chunks(cs, self.budget)
+            per_layer = {l: selected for l in range(cfg.n_layers)}
+            trace.decode_selected.append(selected)
+            for l, units in per_layer.items():
+                self._submit_units(l, list(units), trace, handles, clock)
+            # wait on the transfers still in flight, each handle once
+            t0 = clock.t
+            waited = set()
+            for l, units in per_layer.items():
+                for u in units:
+                    h = handles.get(self._key(l, u))
+                    if h is None or id(h) in waited:
+                        continue
+                    if h.ready_at > clock.t:
+                        waited.add(id(h))
+                        yield WaitOp(h, tag="decode_io")
+            trace.add_stage("decode_io", clock.t - t0)
+            attended = [len(per_layer[l]) * unit_tokens + suffix_len + step + 1
+                        for l in range(cfg.n_layers)]
+            cost = CM.decode_step_cost(cfg, attended)
+            yield ComputeOp(None, flops=cost.flops, hbm_bytes=cost.hbm_bytes, tag="decode",
+                            phase="decode", weight_bytes=weight_bytes, tokens=1,
+                            weight_key=f"model@{self.stream}")
+            for l, units in per_layer.items():
+                if isinstance(self.cache, AttentionGuidedCache) and len(units):
+                    m = be.decode_mass(request_id, l, len(units))
+                    for i, u in enumerate(units):
+                        self.cache.update_importance(self._key(l, u), float(m[i]))
+                self._insert_cache(l, units)
+            trace.decode_times.append(clock.t)
+        return None
+
 
 # ---------------------------------------------------------------------------
 # ContiguousKV
@@ -655,16 +780,19 @@ class ContiguousKVEngine(_EngineBase):
 
     def _steps(self, suffix_tokens, request_id, clock, trace, decode_tokens=0):
         be, cfg = self.backend, self.cfg
+        if hasattr(be, "new_request"):
+            be.new_request(request_id)
         c = self.chunk_tokens
         prefix_len = self.session.prefix_len
         s = len(suffix_tokens)
         t_start = clock.t
         kv_suffix: Dict[int, Tuple] = {}
+        keep_suffix_kv = decode_tokens > 0 and not self.sim
 
         h = yield ComputeOp(lambda: be.embed(suffix_tokens),
                             flops=2.0 * s * cfg.d_model, tag="compute")
         handles: Dict = {}
-        probe_handles: Dict[int, IOHandle] = {0: self._submit_probe(0, trace)}
+        probe_handles: Dict[int, IOHandle] = {0: self._submit_probe(0, trace, clock)}
 
         for period in self.schedule:
             head = period.head
@@ -673,15 +801,17 @@ class ContiguousKVEngine(_EngineBase):
                 flops=self._cost_part_a(s), tag="compute")
 
             if period.index not in probe_handles:  # lazy (no inter-period)
-                probe_handles[period.index] = self._submit_probe(head, trace)
+                probe_handles[period.index] = self._submit_probe(head, trace, clock)
             t0 = clock.t
             probe_data = yield WaitOp(probe_handles[period.index], tag="probe_io")
             trace.add_stage("probe_io", clock.t - t0)
 
             # (m,) chunk scores straight from the chunk_score kernel: the
             # token scores never leave the device
-            cs = yield ComputeOp(lambda qq=q, pd=probe_data, l=head: be.chunk_scores(qq, pd, l, c),
-                                 flops=self._cost_identify(s), tag="identify")
+            cs = yield ComputeOp(
+                self._bound(request_id,
+                            lambda qq=q, pd=probe_data, l=head: be.chunk_scores(qq, pd, l, c)),
+                flops=self._cost_identify(s), tag="identify")
             selected = select_topk_chunks(cs, self.budget)
             trace.selected_per_period.append(selected)
             for l in period.layers:
@@ -697,19 +827,19 @@ class ContiguousKVEngine(_EngineBase):
             # current set
             if self.prefetch:
                 for l in period.layers:
-                    self._submit_units(l, list(selected), trace, handles)
+                    self._submit_units(l, list(selected), trace, handles, clock)
                 if self.inter_period and period.index + 1 < len(self.schedule):
                     nxt = self.schedule.periods[period.index + 1]
-                    probe_handles[nxt.index] = self._submit_probe(nxt.head, trace)
+                    probe_handles[nxt.index] = self._submit_probe(nxt.head, trace, clock)
                     for l in nxt.layers:
-                        self._submit_units(l, list(selected), trace, handles,
+                        self._submit_units(l, list(selected), trace, handles, clock,
                                            speculative=True)
                 for l in self.schedule.gate_layers(period):
                     yield from self._wait_keys(l, selected, handles, trace, "kv_io", clock)
             elif period.index + 1 < len(self.schedule):
                 # w/o P: the next period's probe is still loaded, on demand
                 nxt = self.schedule.periods[period.index + 1]
-                probe_handles[nxt.index] = self._submit_probe(nxt.head, trace)
+                probe_handles[nxt.index] = self._submit_probe(nxt.head, trace, clock)
 
             n_attended = len(selected) * c + s
             for l in period.layers:
@@ -718,10 +848,10 @@ class ContiguousKVEngine(_EngineBase):
                         lambda hh=h, ll=l: be.part_a(ll, hh, prefix_len),
                         flops=self._cost_part_a(s), tag="compute")
                 if not self.prefetch:
-                    self._submit_units(l, list(selected), trace, handles)
+                    self._submit_units(l, list(selected), trace, handles, clock)
                 yield from self._wait_keys(l, selected, handles, trace, "kv_io", clock)
                 k_sel, v_sel, valid = self._gather_chunks(l, selected)
-                if decode_tokens > 0:
+                if keep_suffix_kv:
                     kv_suffix[l] = (k_suf, v_suf)
                 h, mass = yield from self._part_b_ops(
                     self._bound(request_id,
@@ -739,8 +869,8 @@ class ContiguousKVEngine(_EngineBase):
         logits = yield ComputeOp(lambda hh=h: be.logits(hh),
                                  flops=2.0 * cfg.d_model * cfg.vocab_size, tag="compute")
         trace.ttft = clock.t - t_start
-        logits = yield from self._decode_phase(decode_tokens, clock, trace, logits, s,
-                                               trace.selected_per_layer, kv_suffix)
+        logits = yield from self._decode_phase(decode_tokens, request_id, clock, trace, logits,
+                                               s, trace.selected_per_layer, handles, kv_suffix)
         self._sweep_data()
         return logits
 
@@ -760,6 +890,8 @@ class _BlockBaselineEngine(_EngineBase):
 
     def _steps(self, suffix_tokens, request_id, clock, trace, decode_tokens=0):
         be, cfg = self.backend, self.cfg
+        if hasattr(be, "new_request"):
+            be.new_request(request_id)
         prefix_len = self.session.prefix_len
         layout = self.session.store.layout
         s = len(suffix_tokens)
@@ -770,21 +902,24 @@ class _BlockBaselineEngine(_EngineBase):
         probe_handles: Dict[int, IOHandle] = {}
         kv_suffix: Dict[int, Tuple] = {}
         resident: Dict[int, np.ndarray] = {}
+        keep_suffix_kv = decode_tokens > 0 and not self.sim
 
         for l in range(cfg.n_layers):
             x, q, k_suf, v_suf = yield ComputeOp(
                 lambda hh=h, ll=l: be.part_a(ll, hh, prefix_len),
                 flops=self._cost_part_a(s), tag="compute")
             if l not in probe_handles:  # lazy (AS+H2O: no overlap at all)
-                probe_handles[l] = self._submit_probe(l, trace, self.probe_ratio)
+                probe_handles[l] = self._submit_probe(l, trace, clock, self.probe_ratio)
             t0 = clock.t
             probe_data = yield WaitOp(probe_handles[l], tag="probe_io")
             trace.add_stage("probe_io", clock.t - t0)
             if self.probe_prefetch and l + 1 < cfg.n_layers:
                 # IMPRESS overlaps the next layer's probe load with compute
-                probe_handles[l + 1] = self._submit_probe(l + 1, trace, self.probe_ratio)
+                probe_handles[l + 1] = self._submit_probe(l + 1, trace, clock,
+                                                          self.probe_ratio)
             tok_scores = yield ComputeOp(
-                lambda qq=q, pd=probe_data, ll=l: be.token_scores(qq, pd, ll),
+                self._bound(request_id,
+                            lambda qq=q, pd=probe_data, ll=l: be.token_scores(qq, pd, ll)),
                 flops=self._cost_identify(s) * self.probe_ratio, tag="identify")
             tokens = select_topk_tokens(np.asarray(tok_scores), self.budget)
             blocks = layout.units_for_tokens(tokens)
@@ -803,11 +938,11 @@ class _BlockBaselineEngine(_EngineBase):
                     extra_overlap_flops=(cfg.n_layers * self._cost_identify(s)
                                          * self.probe_ratio))
 
-            self._submit_units(l, blocks, trace, handles, needed_bytes_per_unit=needed)
+            self._submit_units(l, blocks, trace, handles, clock, needed_bytes_per_unit=needed)
             yield from self._wait_keys(l, blocks, handles, trace, "kv_io", clock)
             k_sel, v_sel, valid = self._gather_tokens(l, tokens)
             resident[l] = np.asarray(blocks, dtype=int)
-            if decode_tokens > 0:
+            if keep_suffix_kv:
                 kv_suffix[l] = (k_suf, v_suf)
             h, _ = yield from self._part_b_ops(
                 self._bound(request_id,
@@ -827,15 +962,16 @@ class _BlockBaselineEngine(_EngineBase):
         logits = yield ComputeOp(lambda hh=h: be.logits(hh),
                                  flops=2.0 * cfg.d_model * cfg.vocab_size, tag="compute")
         trace.ttft = clock.t - t_start
-        logits = yield from self._decode_phase(decode_tokens, clock, trace, logits, s,
-                                               resident, kv_suffix)
+        logits = yield from self._decode_phase(decode_tokens, request_id, clock, trace, logits,
+                                               s, resident, handles, kv_suffix)
         self._sweep_data()
         return logits
 
     def _gather_tokens(self, layer: int, tokens: np.ndarray):
         """Token-granular gather out of the loaded blocks (the re-assembly the
         paper's Fig. 13 notes alignment removes): (k_sel, v_sel, valid) of
-        shape (bucket(n_tok), 1, n_kv, d) float16, zero past the tokens.
+        shape (bucket(n_tok), 1, n_kv, d) float16, zero past the tokens;
+        sim mode gathers nothing (Nones).
 
         The JAX engine copies token by token; this copies each block's
         selected tokens with one indexed read (``tokens`` is ascending), so
@@ -844,6 +980,8 @@ class _BlockBaselineEngine(_EngineBase):
         nb = bucket_size(max(len(tokens), 1))
         valid = np.zeros((nb,), bool)
         valid[: len(tokens)] = True
+        if self.sim:
+            return None, None, valid
         layout = self.session.store.layout
         g = layout.geom
         k_sel = np.zeros((nb, 1, g.n_kv_heads, g.d_head), np.float16)
@@ -877,11 +1015,14 @@ class ASLRUEngine(_EngineBase):
 
     def _steps(self, suffix_tokens, request_id, clock, trace, decode_tokens=0):
         be, cfg = self.backend, self.cfg
+        if hasattr(be, "new_request"):
+            be.new_request(request_id)
         prefix_len = self.session.prefix_len
         layout = self.session.store.layout
         s = len(suffix_tokens)
         t_start = clock.t
         kv_suffix: Dict[int, Tuple] = {}
+        keep_suffix_kv = decode_tokens > 0 and not self.sim
         h = yield ComputeOp(lambda: be.embed(suffix_tokens),
                             flops=2.0 * s * cfg.d_model, tag="compute")
         handles: Dict = {}
@@ -890,14 +1031,14 @@ class ASLRUEngine(_EngineBase):
                                           suffix_len=s, attended=prefix_len + s)
         # AS prefetches all layers' KV up front (full cache streaming)
         for l in range(cfg.n_layers):
-            self._submit_units(l, blocks, trace, handles)
+            self._submit_units(l, blocks, trace, handles, clock)
         for l in range(cfg.n_layers):
             x, q, k_suf, v_suf = yield ComputeOp(
                 lambda hh=h, ll=l: be.part_a(ll, hh, prefix_len),
                 flops=self._cost_part_a(s), tag="compute")
             yield from self._wait_keys(l, blocks, handles, trace, "kv_io", clock)
             k_sel, v_sel, valid = self._gather_chunks(l, blocks)
-            if decode_tokens > 0:
+            if keep_suffix_kv:
                 kv_suffix[l] = (k_suf, v_suf)
             h, _ = yield from self._part_b_ops(
                 self._bound(request_id,
@@ -912,8 +1053,8 @@ class ASLRUEngine(_EngineBase):
                                  flops=2.0 * cfg.d_model * cfg.vocab_size, tag="compute")
         trace.ttft = clock.t - t_start
         resident = {l: np.asarray(blocks, dtype=int) for l in range(cfg.n_layers)}
-        logits = yield from self._decode_phase(decode_tokens, clock, trace, logits, s,
-                                               resident, kv_suffix)
+        logits = yield from self._decode_phase(decode_tokens, request_id, clock, trace, logits,
+                                               s, resident, handles, kv_suffix)
         self._sweep_data()
         return logits
 
@@ -954,8 +1095,7 @@ class IMPRESSEngine(_BlockBaselineEngine):
 # ---------------------------------------------------------------------------
 class StateSpaceEngine:
     """Step-plan factory for the SSM (falcon-mamba) and hybrid (hymba)
-    families, real mode: the heterogeneous fleet's counterpart of the KV
-    engines.
+    families: the heterogeneous fleet's counterpart of the KV engines.
 
     There is no granular prefix KV to identify or load, so the plan has no
     I/O legs: the prefill over prefix + suffix is one ComputeOp (stage
@@ -967,11 +1107,13 @@ class StateSpaceEngine:
     instead of a growing KV read (hybrids add their attention span). The
     request's serve state lives in a :class:`backends.StatePool`, advanced in
     place, and each decode op carries a ``DecodeBatchCtx`` over it: the
-    scheduler's batching, preemption and handoff surface. Every op's
+    scheduler's batching, preemption and handoff surface. In sim mode
+    (``ChannelSim``) no op runs anything, the backend may be None and
+    ``prefix_len`` stands in for the prefix tokens. Every op's
     ``weight_key`` is ``"model@<cfg.name>"``, so a mixed fleet's batch former
     never amortizes one model's weights against another family's ops.
 
-    The JAX scheduler's sim-mode swap and handoff pricing asks the engine
+    The scheduler's sim-mode swap and handoff pricing asks the engine
     through :meth:`swap_bytes_of` / :meth:`handoff_payload` (the KV engines'
     resident-unit accounting does not apply here)."""
 
@@ -980,26 +1122,28 @@ class StateSpaceEngine:
     cache = None  # no prefix-unit cache: the prefill scan is always compute
 
     def __init__(self, cfg, backend, executor: BaseExecutor, *, prefix_tokens=None,
-                 tenant: int = 0, prefill_chunk_tokens: Optional[int] = None):
+                 prefix_len: int = 0, tenant: int = 0,
+                 prefill_chunk_tokens: Optional[int] = None):
         if cfg.family not in ("ssm", "hybrid"):
             raise ValueError(f"StateSpaceEngine serves ssm/hybrid, not {cfg.family!r}")
-        if isinstance(executor, ChannelSim):
-            raise TypeError("the engine runs real mode only; the sim mode comes "
-                            "with SimCompute")
         self.cfg = cfg
         self.backend = backend
         self.ex = executor
+        self.sim = isinstance(executor, ChannelSim)
         self.tenant = tenant
         self.stream = cfg.name
-        self.prefix_tokens = (np.zeros(0, np.int32) if prefix_tokens is None
-                              else np.asarray(prefix_tokens, dtype=np.int32))
-        self.prefix_len = len(self.prefix_tokens)
+        if prefix_tokens is not None or not self.sim:
+            prefix_tokens = (np.zeros(0, np.int32) if prefix_tokens is None
+                             else np.asarray(prefix_tokens, dtype=np.int32))
+            prefix_len = len(prefix_tokens)
+        self.prefix_tokens = prefix_tokens
+        self.prefix_len = int(prefix_len)
         self.prefill_chunk_tokens = prefill_chunk_tokens
 
-    def plan(self, suffix_tokens, request_id: int = 0,
+    def plan(self, suffix_tokens, request_id: int = 0, arrival: float = 0.0,
              decode_tokens: int = 0) -> StepPlan:
         """Build a resumable step plan for one request (does not run it)."""
-        clock = RequestClock()
+        clock = RequestClock(arrival)
         trace = ReprefillTrace(system=self.name)
         gen = self._steps(np.asarray(suffix_tokens), request_id, clock, trace,
                           decode_tokens=decode_tokens)
@@ -1036,12 +1180,16 @@ class StateSpaceEngine:
     # -- the plan -------------------------------------------------------------
     def _steps(self, suffix_tokens, request_id, clock, trace, decode_tokens=0):
         cfg, be = self.cfg, self.backend
-        be.new_request(request_id)
+        if hasattr(be, "new_request"):
+            be.new_request(request_id)
         t_start = clock.t
         total = self.prefix_len + len(suffix_tokens)
-        toks = np.concatenate([self.prefix_tokens, np.asarray(suffix_tokens, np.int32)])
         wb = float(CM.decode_weight_bytes(cfg))
         chunk = self.prefill_chunk_tokens or total
+        prefill = None
+        if not self.sim:
+            toks = np.concatenate([self.prefix_tokens, np.asarray(suffix_tokens, np.int32)])
+            prefill = lambda: be.prefill(toks, extra_tokens=decode_tokens + 1)  # noqa: E731
         done = 0
         while done < total:
             n_tok = min(chunk, total - done)
@@ -1049,15 +1197,17 @@ class StateSpaceEngine:
             final = done >= total
             cost = CM.ssm_prefill_cost(cfg, n_tok, attended_tokens=done)
             out = yield ComputeOp(
-                (lambda: be.prefill(toks, extra_tokens=decode_tokens + 1)) if final else None,
+                prefill if final else None,
                 flops=cost.flops, hbm_bytes=cost.hbm_bytes, tag="ssm_prefill", phase="prefill",
                 tokens=n_tok, weight_bytes=wb, weight_key=f"model@{self.stream}")
-        logits, pool = out
+        logits, pool = (None, None) if self.sim else out
         trace.add_stage("ssm_prefill", clock.t - t_start)
         trace.ttft = clock.t - t_start
         if decode_tokens <= 0:
             return logits
         trace.first_token_at = clock.t
+        if self.sim:
+            return (yield from self._sim_decode(decode_tokens, clock, trace, total, wb))
         tok = int(np.argmax(logits[0, -1]))
         for step in range(decode_tokens):
             attended = ([total + step + 1] * cfg.n_layers if cfg.family == "hybrid"
@@ -1078,3 +1228,16 @@ class StateSpaceEngine:
             trace.decode_tokens_out.append(tok)
             trace.decode_times.append(clock.t)
         return logits
+
+    def _sim_decode(self, decode_tokens, clock, trace, total, wb):
+        """Sim mode's decode steps: one priced ComputeOp per token."""
+        cfg = self.cfg
+        for step in range(decode_tokens):
+            attended = ([total + step + 1] * cfg.n_layers if cfg.family == "hybrid"
+                        else None)
+            cost = CM.ssm_decode_cost(cfg, attended)
+            yield ComputeOp(None, flops=cost.flops, hbm_bytes=cost.hbm_bytes, tag="decode",
+                            phase="decode", tokens=1, weight_bytes=wb,
+                            weight_key=f"model@{self.stream}")
+            trace.decode_times.append(clock.t)
+        return None

@@ -1,13 +1,31 @@
-"""Serving driver, real mode: concurrent request streams through the scheduler.
+"""Serving driver: concurrent request streams through the scheduler.
 
-Ingests a shared prefix into a reduced real model once (random weights from
-seed 0), then serves a stream of requests concurrently on the card: plans
-multiplex over the executor's I/O threads, so one request's chunk reads
-overlap another's compute, and concurrent decode steps run as one batched
-pass.
+Real mode (default) ingests a shared prefix into a reduced real model once
+(random weights from seed 0), then serves a stream of requests concurrently
+on the card: plans multiplex over the executor's I/O threads, so one
+request's chunk reads overlap another's compute, and concurrent decode steps
+run as one batched pass.
 
   python -m repro_torch.launch.serve --arch qwen2.5-14b \\
       --system contiguous_kv --budget 0.25 --requests 8 --concurrency 4
+
+Sim mode runs paper-scale multi-tenant serving on the discrete-event
+channels of a ``ChannelSim`` (the default ``DeviceModel``) with Poisson,
+burst or uniform arrivals and prints the latency/goodput digest, the same
+as the JAX package's ``--mode sim`` for the same arguments; it allocates no
+tensor and needs no card:
+
+  python -m repro_torch.launch.serve --mode sim --model qwen2.5-7b \\
+      --tenants 4 --requests 32 --concurrency 4 --policy cache_aware
+
+In sim mode ``--disaggregate P:D`` gives each worker its own FIFO compute
+channel plus one shared interconnect, ``--replicas N`` each replica its own
+compute channel, ``--fleet`` composes with both (and with
+``--hybrid-reprefill`` and ``--cache-tiers``), ``--prefill-chunk-tokens C``
+mixes C-token prefill chunks into decode iterations under
+``--max-batch-tokens``, ``--preempt --swap-on-preempt`` prices the swap over
+PCIe, and ``--shared-prefix K`` makes the first K tenants serve one
+identical system prompt (one content digest).
 
 ``--device cpu`` runs it on the CPU (the kernels' plain versions).
 ``--decode-tokens N`` extends every request past the first token, and the
@@ -46,8 +64,8 @@ memory) and promote back on access, and keys become (prefix digest, layer,
 unit); the digest prints hits by tier, the log's read amplification and the
 units dedup saved.
 
-Not yet in the port, each exiting at once with the slice that brings it:
-``--mode sim`` and ``--tp-decode``.
+Not yet in the port, exiting at once with the slice that brings it:
+``--tp-decode``.
 """
 from __future__ import annotations
 
@@ -56,19 +74,17 @@ import argparse
 import numpy as np
 
 from repro_torch.serving import (POLICIES, DisaggTopology, ReplicaSet, Request,
-                                 Scheduler, summarize)
-from repro_torch.serving.tenancy import ENGINE_CLASSES, parse_fleet_spec
+                                 Scheduler, make_arrivals, summarize)
+from repro_torch.serving.tenancy import ENGINE_CLASSES, build_sim_fleet, parse_fleet_spec
 
 # flags of the JAX package's driver that wait for a later slice of the port
 DEFERRED = {
-    "mode": "--mode sim comes with the port's sim slice",
     "tp_decode": "--tp-decode comes with the port's multi-device slice",
 }
 
 
 def _refuse_deferred(args):
-    given = {"mode": args.mode != "real",
-             "tp_decode": args.tp_decode is not None}
+    given = {"tp_decode": args.tp_decode is not None}
     for flag, on in given.items():
         if on:
             raise SystemExit(f"not in the port yet: {DEFERRED[flag]}")
@@ -123,7 +139,12 @@ def _print_handoff_digest(sched):
         return
     print(f"disaggregated {topo.n_prefill}P:{topo.n_decode}D: "
           f"handoffs={sched.handoffs} "
-          f"kv_bytes={sched.handoff_bytes/1e6:.2f}MB")
+          f"kv_bytes={sched.handoff_bytes/1e6:.2f}MB", end="")
+    if sched.handoff_recomputes:
+        print(f" (+{sched.handoff_recomputes} priced as decode-side "
+              f"recompute, {sched.handoff_bytes_avoided/1e6:.2f}MB "
+              f"interconnect avoided)", end="")
+    print()
 
 
 def _print_serve_digest(sched, completed, args):
@@ -348,6 +369,104 @@ def _real_fleet_main(args):
     return completed
 
 
+def _sim_main(args):
+    """Sim mode: the JAX package's ``_sim_main``, over the port's engines."""
+    topology = (DisaggTopology.parse(args.disaggregate)
+                if args.disaggregate else None)
+    replicas = ReplicaSet.parse(args.replicas) if args.replicas else None
+    if args.cache_tiers:
+        if args.system != "contiguous_kv":
+            raise SystemExit("--cache-tiers needs --system contiguous_kv")
+        device_cap, host_cap, ssd_cap = _parse_cache_tiers(args.cache_tiers)
+    else:
+        device_cap, host_cap, ssd_cap = args.device_cap, args.host_cap, 0
+    digests = None
+    if args.shared_prefix > 1:
+        # the first K tenants serve one identical system prompt (one content
+        # digest -> one deduped resident copy in a content-addressed store);
+        # the rest each get their own distinct digest
+        k = min(args.shared_prefix, args.tenants)
+        digests = {t: "prompt-shared" for t in range(1, k + 1)}
+        digests.update({t: f"prompt-t{t}" for t in range(k + 1, args.tenants + 1)})
+    fleet = build_sim_fleet(args.system, args.model, n_tenants=args.tenants,
+                            prefix_len=args.prefix_len, budget=args.budget,
+                            period=args.period, subperiod=args.subperiod,
+                            device_cap=device_cap, host_cap=host_cap,
+                            ssd_cap=ssd_cap,
+                            prefill_chunk_tokens=args.prefill_chunk_tokens,
+                            hybrid_reprefill=args.hybrid_reprefill,
+                            topology=topology, replicas=replicas,
+                            prefix_digests=digests, fleet=args.fleet)
+    n_tenants = len(fleet.engines)
+    if args.fleet:
+        roster = ", ".join(f"t{t}={cfg.name}[{cfg.family}]"
+                           for t, cfg in sorted(fleet.configs.items()))
+        print(f"heterogeneous fleet: {roster}")
+    arrivals = make_arrivals(args.arrival, args.rate, args.requests, seed=0)
+    rng = np.random.default_rng(0)
+    requests = [
+        Request(request_id=i, suffix=rng.integers(0, 1000, 64),
+                arrival=float(arrivals[i]),
+                tenant=1 + i % n_tenants,
+                decode_tokens=args.decode_tokens,
+                ttft_target=args.ttft_slo)
+        for i in range(args.requests)
+    ]
+    sched = Scheduler(fleet.engines, policy=args.policy,
+                      max_concurrency=args.concurrency,
+                      batch_decode=not args.no_batch_decode,
+                      max_batch_tokens=args.max_batch_tokens,
+                      preempt=args.preempt,
+                      swap_on_preempt=args.swap_on_preempt,
+                      prefill_estimate=args.prefill_estimate,
+                      topology=topology, replicas=replicas)
+    completed = sched.run(requests)
+    for c in completed:
+        tr = c.trace
+        dec = (f" tpot={tr.tpot*1e3:6.1f}ms" if tr.decode_times else "")
+        hits = f"hits(d/h)={tr.hits_device}/{tr.hits_host}"
+        if args.cache_tiers:
+            hits = (f"hits(d/h/s)={tr.hits_device}/{tr.hits_host}"
+                    f"/{tr.hits_ssd}")
+        print(f"req {c.request.request_id:3d} tenant={c.request.tenant} "
+              f"arr={c.request.arrival*1e3:8.1f}ms queue={c.queue_delay*1e3:7.1f}ms "
+              f"ttft={c.ttft*1e3:8.1f}ms {hits}{dec}")
+    s = summarize(completed)
+    print(f"\n{args.system} tenants={n_tenants} load={args.rate:.1f} req/s "
+          f"concurrency={args.concurrency} policy={args.policy}")
+    print(f"p50={s['p50_ttft']*1e3:.1f}ms p95={s['p95_ttft']*1e3:.1f}ms "
+          f"goodput={s['goodput_rps']:.2f} req/s "
+          f"mean_queue={s['mean_queue_delay']*1e3:.1f}ms")
+    if "mean_tpot" in s:
+        batched = "off" if args.no_batch_decode else "on"
+        print(f"decode: {s['decode_tokens']} tokens, mean TPOT={s['mean_tpot']*1e3:.1f}ms "
+              f"ITL p50/p95={s['p50_itl']*1e3:.1f}/{s['p95_itl']*1e3:.1f}ms "
+              f"{s['decode_tok_rate']:.1f} tok/s (continuous batching {batched})")
+    if "slo_attainment" in s:
+        print(f"SLO attainment (ttft <= {args.ttft_slo*1e3:.0f}ms): "
+              f"{100*s['slo_attainment']:.1f}%")
+    if args.preempt:
+        print(f"preemptions={s['preemptions']} swaps={s['swaps']} "
+              f"swap_bytes={sched.swap_bytes/1e6:.1f}MB")
+    rec_units = sum(c.trace.recompute_units for c in completed)
+    if rec_units:
+        avoided = sum(c.trace.ssd_bytes_avoided for c in completed)
+        print(f"hybrid re-prefill: {rec_units} units recomputed, "
+              f"{avoided/1e6:.2f}MB SSD reads avoided")
+    if fleet.cache is not None:  # None: an all-SSM fleet has no KV cache
+        _print_tier_digest(fleet.cache)
+    _print_replica_digest(sched)
+    _print_handoff_digest(sched)
+    if fleet.cache is not None:
+        usage = fleet.cache.tenant_usage()
+        for tenant in sorted(usage):
+            u = usage[tenant]
+            ssd = f" ssd={u['ssd']}" if "ssd" in u else ""
+            print(f"tenant {tenant}: cache device={u['device']} "
+                  f"host={u['host']}{ssd} units")
+    return completed
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     p.add_argument("--mode", default="real", choices=("real", "sim"))
@@ -392,15 +511,30 @@ def main(argv=None):
     p.add_argument("--arch", default="qwen2.5-14b")
     p.add_argument("--dataset", default="rte")
     p.add_argument("--n-layers", type=int, default=4)
+    # sim mode
+    p.add_argument("--model", default="qwen2.5-7b")
+    p.add_argument("--tenants", type=int, default=1)
+    p.add_argument("--prefix-len", type=int, default=4096)
+    p.add_argument("--rate", type=float, default=16.0, help="offered load, req/s")
+    p.add_argument("--arrival", default="poisson", choices=("poisson", "burst", "uniform"))
+    p.add_argument("--device-cap", type=int, default=256)
+    p.add_argument("--host-cap", type=int, default=1024)
     p.add_argument("--cache-tiers", default=None, metavar="HBM:DRAM:SSD")
     p.add_argument("--fleet", default=None, metavar="MODEL:N,MODEL:N",
                    help="heterogeneous fleet: per-model tenant counts (KV engines for "
                         "attention models, StateSpaceEngine for ssm/hybrid) behind one "
-                        "Scheduler; overrides --arch")
+                        "Scheduler; overrides --arch (real) and --model/--tenants (sim)")
+    p.add_argument("--shared-prefix", type=int, default=0, metavar="K",
+                   help="sim: the first K tenants serve one identical system prompt "
+                        "(one content digest)")
     args = p.parse_args(argv)
+    if args.tenants < 1:
+        p.error("--tenants must be >= 1")
     if args.concurrency < 1:
         p.error("--concurrency must be >= 1")
     _refuse_deferred(args)
+    if args.mode == "sim":
+        return _sim_main(args)
     if args.fleet:
         return _real_fleet_main(args)
     return _real_main(args)

@@ -1,15 +1,14 @@
-"""Serving, real mode: schedulable step plans on the wall clock.
+"""Serving: schedulable step plans over shared channels (sim) or on the wall
+clock (real).
 
   arrivals  — Poisson / burst / uniform arrival processes;
   scheduler — Scheduler and admission policies (FCFS, cache-aware, SLO-aware),
               Request / CompletedRequest, run summaries;
   tenancy   — the engine classes by system name, fleet specs
-              (``parse_fleet_spec``) and the fleet record (``TenantFleet``);
+              (``parse_fleet_spec``), the fleet record (``TenantFleet``) and
+              the sim mode's fleets over one ChannelSim (``build_sim_fleet``);
   disagg    — prefill/decode worker topology and KV handoff;
   replicas  — data-parallel engine replicas behind one Scheduler.
-
-The discrete-event sim mode and its fleets (`build_sim_fleet`) come with a
-later slice.
 """
 from repro_torch.serving.arrivals import (
     burst_arrivals,
@@ -29,7 +28,12 @@ from repro_torch.serving.scheduler import (
     SLOAwarePolicy,
     summarize,
 )
-from repro_torch.serving.tenancy import ENGINE_CLASSES, TenantFleet, parse_fleet_spec
+from repro_torch.serving.tenancy import (
+    ENGINE_CLASSES,
+    TenantFleet,
+    build_sim_fleet,
+    parse_fleet_spec,
+)
 
 __all__ = [
     "burst_arrivals",
@@ -50,5 +54,6 @@ __all__ = [
     "summarize",
     "ENGINE_CLASSES",
     "TenantFleet",
+    "build_sim_fleet",
     "parse_fleet_spec",
 ]

@@ -4,21 +4,29 @@ A :class:`ReplicaSet` scales the serving tier horizontally: N replicas (or
 N disaggregated worker groups) serve one admission queue, the Scheduler
 staying the single control point.
 
+Sim mode: each replica is one more FIFO compute channel ("compute:r0",
+"compute:r1", ...) on the shared ``ChannelSim``; ssd and pcie stay global.
+Admission routes every plan to the least-backlogged replica, and the batch
+former scopes per replica, since a sim iteration only coalesces plans pinned
+to the same ``RequestClock.channel``. With a per-replica
+:class:`DisaggTopology`, replica ``r`` owns its worker channels
+("compute:r{r}:p{j}", "compute:r{r}:d{j}") and handoffs stay within it; the
+interconnect FIFO stays fleet-global.
+
 Real mode: ``backends`` carries one worker-backend list per replica (one
 :class:`repro_torch.core.backends.RealCompute` without disaggregation, D of
 them with). A plan is assigned the least-loaded replica at admission, and
 its decode phase moves to the replica's backend at the first decode op
 through the pools' ``swap_out`` / ``swap_in`` handoff; the batch former
-groups by backend, so every batch stays within one replica. The simulated
-replicas (one FIFO compute channel each) come with the sim slice; the
-channel names are fixed here.
+groups by backend, so every batch stays within one replica.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import List, Optional
 
-from repro_torch.serving.disagg import DisaggTopology
+from repro_torch.serving.disagg import INTERCONNECT, DisaggTopology
+from repro_torch.storage.timing import ChannelSim
 
 
 def replica_channel(r: int) -> str:
@@ -85,7 +93,13 @@ class ReplicaSet:
                     names.append(c)
         return names
 
-    def attach_sim(self, ex):
-        """Register the replicas' channels on a simulated executor: the sim
-        slice of the port brings it."""
-        raise NotImplementedError("the simulated replicas come with the port's sim slice")
+    def attach_sim(self, ex: ChannelSim):
+        """Register the per-replica compute channels (and the interconnect
+        FIFO when a per-replica topology splits phases) on a ChannelSim;
+        idempotent, and the base ssd/pcie/compute stay as they are, so a
+        colocated timeline is the same with a ReplicaSet registered but
+        unused."""
+        for name in self.all_channels:
+            ex.add_channel(name)
+        if self.topology is not None:
+            ex.add_channel(INTERCONNECT)

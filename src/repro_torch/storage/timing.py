@@ -4,7 +4,7 @@ The Re-Prefill engine issues the *same* sequence of I/O submissions, waits and
 compute calls in both modes:
 
   RealExecutor — thread-pool async I/O over a file-backed store, wall clock,
-                 compute = actually calling the jitted function.
+                 compute = actually calling the function.
   SimExecutor  — discrete-event timeline with separate resources (SSD channel,
                  PCIe channel, accelerator), virtual clock; compute advances
                  the accelerator timeline by a cost-model duration.
@@ -79,6 +79,30 @@ class DeviceModel:
         t_flops = flops / (self.compute_flops * self.compute_efficiency)
         t_mem = hbm_bytes / self.hbm_bandwidth
         return max(t_flops, t_mem)
+
+    @classmethod
+    def h100_sxm5(cls) -> "DeviceModel":
+        """The H100 SXM5 80GB card of this port's chip runs, in data-sheet
+        values: none of them is measured or calibrated on the card yet.
+
+        The default stays the paper's testbed with the JAX package's TPU v5e
+        compute and HBM constants, so sim timelines keep equal to the JAX
+        package's; this preset is for pricing the card (``ChannelSim(
+        DeviceModel.h100_sxm5())``). Sources, all NVIDIA data sheets:
+
+        - ``compute_flops`` 989e12: H100 SXM5 dense bfloat16 tensor-core peak
+          (1979 TFLOP/s with 2:4 sparsity); ``compute_efficiency`` keeps the
+          default's 0.45, a modelling assumption, not a card figure;
+        - ``hbm_bandwidth`` 3.35e12 B/s: H100 SXM5 80GB HBM3;
+        - ``pcie_bandwidth`` 64e9 B/s: the host link, PCIe Gen5 x16, nominal
+          per direction (128 GB/s both ways); latency as the default;
+        - ``interconnect_bandwidth`` 450e9 B/s: fourth-generation NVLink,
+          900 GB/s both ways, nominal per direction; latency as the default.
+
+        The SSD constants are the default's (the paper's testbed) and are
+        not measured on the card's machine."""
+        return cls(compute_flops=989e12, hbm_bandwidth=3.35e12, pcie_bandwidth=64e9,
+                   interconnect_bandwidth=450e9)
 
 
 class IOHandle:

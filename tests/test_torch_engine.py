@@ -147,12 +147,21 @@ def test_cache_tiers_across_requests_match_jax(fp32, device_cap, host_cap):
 
 
 def test_engine_runs_real_mode_only(fp32):
-    from repro_torch.storage.timing import ChannelSim, DeviceModel
+    """The executor sets the mode: a RealExecutor engine runs real mode
+    only, and a ChannelSim one is a sim engine whose plan runs no model."""
+    from repro_torch.core.backends import SimCompute
+    from repro_torch.core.session import SyntheticWorkload, build_sim_session
+    from repro_torch.storage.timing import ChannelSim, DeviceModel, SimExecutor
 
     _, pcfg, _, tparams, *_, psess = fp32
-    with pytest.raises(TypeError, match="real mode"):
-        ContiguousKVEngine(psess, RealCompute(pcfg, tparams, device="cpu"),
-                           ChannelSim(DeviceModel()))
+    real = ContiguousKVEngine(psess, RealCompute(pcfg, tparams, device="cpu"), RealExecutor())
+    assert real.sim is False
+    sess = build_sim_session(pcfg, 100)
+    sim = ContiguousKVEngine(sess, SimCompute(pcfg, SyntheticWorkload(100, pcfg.n_layers)),
+                             SimExecutor(DeviceModel()), period=2, subperiod=1)
+    assert sim.sim is True and isinstance(sim.ex, ChannelSim)
+    logits, trace = sim.reprefill(np.zeros(16, np.int64), decode_tokens=2)
+    assert logits is None and trace.ttft > 0 and len(trace.decode_times) == 2
 
 
 def test_host_pool_decodes_like_device_pool(fp32):

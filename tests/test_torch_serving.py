@@ -49,6 +49,8 @@ from repro_torch.data.synthetic import make_task
 from repro_torch.launch import serve
 from repro_torch.serving import (ENGINE_CLASSES, CompletedRequest, DisaggTopology, ReplicaSet,
                                  Request, Scheduler, arrivals, summarize)
+from repro_torch.core.backends import SimCompute
+from repro_torch.core.session import SyntheticWorkload, build_sim_session
 from repro_torch.storage.timing import ChannelSim, DeviceModel, RealExecutor
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -268,10 +270,16 @@ def test_missing_backends_and_sim_raise(stack):
     with pytest.raises(ValueError, match="ReplicaSet.backends"):
         Scheduler(_engine("contiguous_kv", stack), max_concurrency=1,
                   replicas=ReplicaSet(n_replicas=2)).run(_requests(cfg, 1))
-    eng = _engine("contiguous_kv", stack)
-    eng.ex = ChannelSim(DeviceModel())
-    with pytest.raises(NotImplementedError, match="sim slice"):
-        Scheduler(eng).run(_requests(cfg, 1))
+    # the sim driver needs no worker backends: the same topology runs over
+    # a ChannelSim, its channels registered by the Scheduler
+    pcfg, sim = stack[1], ChannelSim(DeviceModel())
+    eng = ENGINE_CLASSES["contiguous_kv"](
+        build_sim_session(pcfg, 64), SimCompute(pcfg, SyntheticWorkload(64, pcfg.n_layers)),
+        sim, period=2, subperiod=1)
+    sched = Scheduler(eng, max_concurrency=1, topology=DisaggTopology.parse("1:1"))
+    done = sched.run(_requests(cfg, 1))
+    assert len(done) == 1 and done[0].result is None and sched.handoffs == 1
+    assert "interconnect" in sim.free_at
     with pytest.raises(ValueError):
         DisaggTopology.parse("2")
 
@@ -326,7 +334,7 @@ def test_serve_cli_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--mode", "sim"], "sim slice"),
+    (["--mode", "sim", "--tp-decode", "0"], "multi-device slice"),
     (["--tp-decode", "0"], "multi-device slice"),
 ])
 def test_serve_cli_refuses_deferred_flags(flags, slice_name):

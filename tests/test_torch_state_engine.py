@@ -106,8 +106,12 @@ def test_state_engine_plan_prices_ops_like_jax():
 def test_state_engine_runs_real_mode_only():
     _, pcfg, _, tparams, prefix, _ = _setup("falcon-mamba-7b")
     be = StateCompute(pcfg, tparams, device="cpu")
-    with pytest.raises(TypeError, match="real mode only"):
-        StateSpaceEngine(pcfg, be, ChannelSim(DeviceModel()), prefix_tokens=prefix)
+    assert StateSpaceEngine(pcfg, be, RealExecutor(), prefix_tokens=prefix).sim is False
+    # over a ChannelSim the engine is a sim engine: its ops run nothing
+    sim = StateSpaceEngine(pcfg, be, ChannelSim(DeviceModel()), prefix_tokens=prefix)
+    plan = sim.plan(np.zeros(4, np.int32), decode_tokens=1)
+    ops = [plan.gen.send(None), plan.gen.send(None)]  # the prefill, one decode step
+    assert sim.sim and all(op.fn is None for op in ops)
     dense = reduced_config("qwen2.5-7b")
     with pytest.raises(ValueError):
         StateSpaceEngine(dense, be, RealExecutor())
