@@ -148,7 +148,39 @@ non-zero exit code:
                 seeing the swap-in and no pool-sized copy in the decode
                 steps; TTFT, TPOT, batches by weight stream, swap bytes and
                 time, peak memory;
-  9. sim      — the discrete-event sim mode on the card's host (no tensor,
+  9. wide     — (o) the four attention kernels at head dim 256, gemma3-4b's
+                shapes (8 query heads over 4 kv heads): flash_attention over
+                4096 tokens with window 0 and 1024 (the mma_sync kernel's
+                256-wide instance), chunk_score over the prefix and
+                chunk_attention over 64 chunks of 16 under a 64-token suffix
+                (float32 queries; the indexed form at b = 2 bit for bit the
+                gathered), decode_attention over 16-token pages (bfloat16;
+                the pools form at b = 2 bit for bit the stacked), each held
+                against its plain version and timed beside it, its bound,
+                scaled_dot_product_attention at d 256 and its host time;
+  10. moe     — (p) granite-moe-3b-a800m at full width (32 layers, 40
+                experts top 8, random bfloat16 weights from a seeded
+                generator): the e2e phase's request shape through
+                ContiguousKVEngine, launches per request and read
+                amplification asserted, TTFT / TPOT, a profiled request, the
+                expert assignments the ingest dropped at capacity factor
+                1.25, and a budget-1.0 request against the dense forward on
+                the config made dropless (capacity factor E / k: the ingest
+                drops at capacity, part B does not); (q) served: 8 requests
+                in a burst at c = 4 with batched decode and part B in chunks
+                of 16 (launches by form asserted, no plain version), then 2
+                at c = 1 bit for bit the engine's serial run;
+  11. swa     — (r) gemma3-4b at full width (34 layers, 5:1 SWA-1024, d 256):
+                its ingest through flash_attention's d 256 kernel with the
+                window, the e2e request shape with every kernel's launches at
+                d 256 asserted, a profiled request; the budget-1.0 agreement
+                on the config without its window (the reference's Re-Prefill
+                and tail decode ignore it);
+  12. audio   — (s) musicgen-large at full width: prefill over 1024 frame
+                embeddings (flash_attention at d 64, n_q = n_kv), 8
+                decode_steps on embeds, held against forward over the same
+                embeds (the dense limits);
+  13. sim     — the discrete-event sim mode on the card's host (no tensor,
                 no launch): (a) both golden timelines of tests/golden/
                 reproduced event for event; (b) the headline ordering's
                 modelled TTFTs at a 6000-token prefix (ContiguousKV, AS-LRU,
@@ -160,12 +192,13 @@ non-zero exit code:
                 plan of that shape against the e2e phase's real one: the
                 same ops up to the first token, periods, chunks selected per
                 period and probe loads;
-  10. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
+  14. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
      paths it names (per variant where a wrapper has several), its error
      against its plain version, its times and its bound (the largest of
-     bytes, products and exponentials, named), at the main path's shapes
-     and (``baseline_shapes``) at the baselines';
-  11. last line: ``{"ok": true, "device": {...}}``.
+     bytes, products and exponentials, named), at the main path's shapes,
+     (``baseline_shapes``) at the baselines' and (``head_dim_256``) at
+     gemma3-4b's, with its launches there;
+  15. last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
 outside a checkout (it builds and imports ``src/repro_torch``).
@@ -265,6 +298,10 @@ PART_B_BATCH_REL = 1e-5
 # random walk: ~0.05 of the largest logit. An H100 run measured 0.0517 and
 # cosine 0.99904 at step 1; the limits leave about 2x room
 STEP_BF16_REL_TOL, STEP_BF16_MIN_COS = 0.1, 0.998
+# the new families: granite-moe-3b-a800m served (requests of its burst at
+# c = 4), gemma3-4b's d 256 heads, musicgen-large's frame embeddings
+MOE_NAME, SWA_NAME, AUDIO_NAME = "granite-moe-3b-a800m", "gemma3-4b", "musicgen-large"
+MOE_SERVE_REQUESTS, AUDIO_FRAMES, AUDIO_DECODE = 8, 1024, 8
 
 
 def fail(msg: str):
@@ -2756,6 +2793,545 @@ def profile_request(eng, suffix, warm_wall_ms: float, tag: str = "e2e"):
     return ours
 
 
+# ---------------------------------------------------------------------------
+# the MoE and frontend families, and head dim 256 (phases o-s)
+
+
+def phase_wide_kernels(cfg, smi_line):
+    """(o) The four attention kernels at head dim 256 (gemma3-4b: 8 query
+    heads over 4 kv heads), each against its plain version at the main
+    path's tolerances: flash_attention (bfloat16, s = PREFIX_LEN, window 0
+    and the local layers' window), chunk_score over the prefix and
+    chunk_attention over the budget's chunks of 16 tokens under a 64-token
+    suffix (float32 queries, as past layer 0; the indexed form at b = 2
+    bit for bit the gathered one), decode_attention over 16-token pages
+    (bfloat16; the pools form at b = 2 bit for bit the stacked one). Each
+    timed beside its plain version, its bound, scaled_dot_product_attention
+    at d 256 and the wrapper's host time. Returns {kernel: numbers}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.chunk_attention import ops as ca
+    from repro_torch.kernels.chunk_attention.ref import (chunk_attention_indexed_ref,
+                                                         chunk_attention_ref)
+    from repro_torch.kernels.chunk_score import ops as cs
+    from repro_torch.kernels.chunk_score.ref import chunk_score_ref
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref, stack_pool_buffers
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(256)
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    s, nq, nkv, d = SUFFIX_LEN, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if d != 256:
+        fail(f"wide kernels: {cfg.name} has d_head {d}, not 256")
+    rows = {}
+
+    # flash_attention: the ingest's shape, whole causal and windowed
+    S = PREFIX_LEN
+    q = rn(1, S, nq, d, dtype=torch.bfloat16).transpose(1, 2)
+    k, v = (rn(1, S, nkv, d, dtype=torch.bfloat16).transpose(1, 2) for _ in range(2))
+    pos = torch.arange(S, device=dev)
+    flash = {}
+    for window in (0, cfg.sliding_window):
+        before = fa.launches_by_variant["mma_sync"]
+        got, err, tol = flash_held(f"d={d} window={window}", q, k, v, causal=True,
+                                   window=window)
+        if fa.launches_by_variant["mma_sync"] != before + 1:
+            fail("flash_attention at d 256 did not run the mma_sync kernel")
+        if not torch.equal(got, fa.flash_attention(q, k, v, window=window)):
+            fail("flash_attention at d 256 is not reproducible bit for bit")
+        pairs = sum(min(i + 1, window or i + 1) for i in range(S))
+        mask = (pos[None, :] <= pos[:, None]) & (
+            (pos[:, None] - pos[None, :] < window) if window else True)
+
+        def sdpa(mask=mask, window=window):
+            if not window:
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+        flash[f"window_{window}"] = dict(
+            err=err, ms=device_ms(lambda w=window: fa.flash_attention(q, k, v, window=w)),
+            library_ms=device_ms(sdpa),
+            host_ms=host_ms(lambda w=window: fa.flash_attention(q, k, v, window=w)),
+            plain_ms=wall_ms(lambda w=window: flash_attention_ref(q, k, v, window=w), reps=3),
+            bound=bounds(nbytes(q, k, v, got), 4.0 * nq * d * pairs, nq * pairs))
+        r = flash[f"window_{window}"]
+        print(f"wide (o): flash_attention d={d} s={S} window={window}: max abs err {err:.3g} "
+              f"(tol {tol:.3g}), two runs bit-identical; {r['ms']:.4f} ms on the card, "
+              f"scaled_dot_product_attention {r['library_ms']:.4f} ms, plain version "
+              f"{r['plain_ms']:.2f} ms, host {r['host_ms']:.4f} ms, {bound_text(r['bound'])} "
+              f"({smi_line})")
+    rows["flash_attention"] = dict(flash["window_0"], windowed=flash[f"window_{cfg.sliding_window}"])
+
+    # chunk_score over the prefix's keys, float32 queries
+    m = -(-PREFIX_LEN // CHUNK)
+    n_sel = math.ceil(BUDGET * m)
+    qs, kk = rn(s, nq, d), rn(PREFIX_LEN, nkv, d, dtype=torch.float16)
+    got, ref = cs.chunk_score(qs, kk, CHUNK), chunk_score_ref(qs, kk, CHUNK)
+    err, tol = max_err(got, ref), 1e-5 * ref.abs().max().item() + 1e-6
+    if not err <= tol or not torch.equal(got, cs.chunk_score(qs, kk, CHUNK)):
+        fail(f"chunk_score d={d}: max abs err {err} > {tol}, or not reproducible")
+    r = rows["chunk_score"] = dict(
+        err=err, ms=device_ms(lambda: cs.chunk_score(qs, kk, CHUNK)),
+        host_ms=host_ms(lambda: cs.chunk_score(qs, kk, CHUNK)),
+        plain_ms=wall_ms(lambda: chunk_score_ref(qs, kk, CHUNK)),
+        bound=bounds(nbytes(qs, kk) + 4 * m, 2.0 * s * nq * PREFIX_LEN * d, s * nq * PREFIX_LEN,
+                     f16_split_ops=2 * 2.0 * s * nq * PREFIX_LEN * d))
+    print(f"wide (o): chunk_score d={d} n={PREFIX_LEN} c={CHUNK}: max abs err {err:.3g} (tol "
+          f"{tol:.3g}), two runs bit-identical; {r['ms']:.4f} ms on the card, plain version "
+          f"{r['plain_ms']:.4f} ms, host {r['host_ms']:.4f} ms, {bound_text(r['bound'])} "
+          f"({smi_line})")
+
+    # chunk_attention: the budget's chunks under the suffix, gathered and indexed
+    ks, vs = (rn(n_sel, CHUNK, nkv, d, dtype=torch.float16) for _ in range(2))
+    kf, vf = rn(s, nkv, d), rn(s, nkv, d)
+    o, ms = ca.chunk_attention(qs, ks, vs, n_sel, kf, vf)
+    o2, ms2 = chunk_attention_ref(qs, ks, vs, n_sel, kf, vf)
+    err = max(max_err(o, o2), max_err(ms, ms2))
+    tol = 1e-5 * max(o2.abs().max().item(), ms2.abs().max().item()) + 1e-6
+    again = ca.chunk_attention(qs, ks, vs, n_sel, kf, vf)
+    if not (err <= tol and torch.equal(o, again[0]) and torch.equal(ms, again[1])):
+        fail(f"chunk_attention d={d}: err {err} > {tol}, or not reproducible")
+    r = rows["chunk_attention"] = chunk_attention_timing(qs, ks, vs, n_sel, kf, vf, o, ms, err)
+    print(f"wide (o): chunk_attention d={d} {n_sel} chunks of {CHUNK} + {s} suffix tokens: max "
+          f"abs err {err:.3g} (tol {tol:.3g}), two runs bit-identical; {r['ms']:.4f} ms on the "
+          f"card, output-only scaled_dot_product_attention {r['sdpa_output_only_ms']:.4f} ms, "
+          f"plain version {r['plain_ms']:.4f} ms, host {r['host_ms']:.4f} ms, "
+          f"{bound_text(r['bound'])} ({smi_line})")
+    b, pool_m = 2, 4 * n_sel
+    kp, vp = (rn(pool_m, CHUNK, nkv, d, dtype=torch.float16) for _ in range(2))
+    idx = torch.stack([torch.randperm(pool_m, generator=gen, device=dev)[:n_sel]
+                       for _ in range(b)]).to(torch.int32)
+    nv = torch.tensor([n_sel, n_sel - 9], dtype=torch.int32, device=dev)
+    qb, kfb, vfb = rn(b, s, nq, d), rn(b, s, nkv, d), rn(b, s, nkv, d)
+    oi, mi = ca.chunk_attention_indexed(qb, kp, vp, idx, nv, kfb, vfb)
+    oi2, mi2 = chunk_attention_indexed_ref(qb, kp, vp, idx, nv, kfb, vfb)
+    err_i = max(max_err(oi, oi2), max_err(mi, mi2))
+    tol_i = 1e-5 * max(oi2.abs().max().item(), mi2.abs().max().item()) + 1e-6
+    if not err_i <= tol_i:
+        fail(f"chunk_attention_indexed d={d}: err {err_i} > {tol_i}")
+    for i in range(b):
+        go, gm = ca.chunk_attention(qb[i], kp[idx[i].long()], vp[idx[i].long()], int(nv[i]),
+                                    kfb[i], vfb[i])
+        if not (torch.equal(oi[i], go) and torch.equal(mi[i], gm)):
+            fail(f"chunk_attention_indexed d={d}: member {i} differs from the gathered call")
+    r["indexed_b2"] = dict(err=err_i, ms=device_ms(
+        lambda: ca.chunk_attention_indexed(qb, kp, vp, idx, nv, kfb, vfb)))
+    print(f"wide (o): chunk_attention_indexed d={d} b={b} over a {pool_m}-chunk pool: max abs "
+          f"err {err_i:.3g} (tol {tol_i:.3g}), each member bit-identical to the gathered call; "
+          f"{r['indexed_b2']['ms']:.4f} ms on the card ({smi_line})")
+
+    # decode_attention: the last decode step's pool (resident pages, the tail)
+    # with a partial last page and a pad slot; then the pools form at b = 2
+    n_pages = n_sel + -(-(s + DECODE_TOKENS) // CHUNK)
+    qd = rn(1, nq, d, dtype=torch.bfloat16)
+    kpd, vpd = (rn(1, n_pages, CHUNK, nkv, d, dtype=torch.bfloat16) for _ in range(2))
+    table = torch.cat([torch.arange(n_pages - 1, dtype=torch.int32, device=dev),
+                       torch.full((1,), -1, dtype=torch.int32, device=dev)])[None]
+    lens = torch.tensor([(n_pages - 2) * CHUNK + 5], dtype=torch.int32, device=dev)
+    od, pmd = da.decode_attention(qd, kpd, vpd, table, lens)
+    od2, pmd2 = decode_attention_ref(qd, kpd, vpd, table, lens)
+    err_o, tol_o = max_err(od, od2), 2.0 ** -7 * od2.float().abs().max().item()
+    err_m, tol_m = max_err(pmd, pmd2), 1e-5 * pmd2.abs().max().item() + 1e-7
+    again = da.decode_attention(qd, kpd, vpd, table, lens)
+    if not (err_o <= tol_o and err_m <= tol_m and torch.equal(od, again[0])
+            and torch.equal(pmd, again[1]) and pmd[..., -1].abs().max().item() == 0.0):
+        fail(f"decode_attention d={d}: err out {err_o} > {tol_o} or mass {err_m} > {tol_m}, "
+             f"or not reproducible, or mass on the pad slot")
+    r = rows["decode_attention"] = decode_attention_timing(qd, kpd, vpd, table, lens, od, pmd,
+                                                            max(err_o, err_m))
+    print(f"wide (o): decode_attention d={d} bfloat16 {n_pages - 1} pages of {CHUNK} + a pad "
+          f"slot: max abs err out {err_o:.3g} (tol {tol_o:.3g}), mass {err_m:.3g} (tol "
+          f"{tol_m:.3g}), two runs bit-identical; {r['ms']:.4f} ms on the card, output-only "
+          f"scaled_dot_product_attention {r['sdpa_output_only_ms']:.4f} ms, plain version "
+          f"{r['plain_ms']:.4f} ms, host {r['host_ms']:.4f} ms, {bound_text(r['bound'])} "
+          f"({smi_line})")
+    n2 = max(2, n_pages // 2)  # the second request's pool: its own page count
+    pk = [kpd[0], rn(n2, CHUNK, nkv, d, dtype=torch.bfloat16)]
+    pv = [vpd[0], rn(n2, CHUNK, nkv, d, dtype=torch.bfloat16)]
+    qp = rn(2, nq, d, dtype=torch.bfloat16)
+    tp = table.repeat(2, 1)
+    tp[1, n2 - 1:] = -1
+    lp = torch.tensor([int(lens), (n2 - 2) * CHUNK + 3], dtype=torch.int32, device=dev)
+    op, pmp = da.decode_attention_pools(qp, pk, pv, tp, lp)
+    ks_, vs_ = stack_pool_buffers(pk, pv)
+    if not all(torch.equal(a, b_) for a, b_ in zip((op, pmp), da.decode_attention(
+            qp, ks_, vs_, tp, lp))):
+        fail(f"decode_attention_pools d={d}: differs from the stacked form on the stack")
+    r["pools_b2_ms"] = device_ms(lambda: da.decode_attention_pools(qp, pk, pv, tp, lp))
+    print(f"wide (o): decode_attention_pools d={d} b=2: bit-identical to the stacked form on "
+          f"the padded stack; {r['pools_b2_ms']:.4f} ms on the card ({smi_line})")
+    return rows
+
+
+def _family_ingest(cfg, params, prefix, expect_variant):
+    """A session of ``prefix`` (flash_attention launches asserted: one a
+    layer, of ``expect_variant``) and its wall time."""
+    import torch
+
+    from repro_torch.core.session import build_real_session
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    sess = build_real_session(cfg, params, prefix, chunk_tokens=CHUNK, in_memory=True,
+                              device=DEVICE)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    got = counts(fa)
+    if got != {"launches": cfg.n_layers, expect_variant: cfg.n_layers}:
+        fail(f"{cfg.name} ingest: flash_attention launches {got}, expected {cfg.n_layers} of "
+             f"the {expect_variant} kernel")
+    return sess, got, took
+
+
+def _init_weights(tag, cfg):
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    extra = (f", {cfg.n_experts} experts top {cfg.top_k} of d_ff {cfg.moe_d_ff}"
+             if cfg.family == "moe" else "")
+    windows = sorted({int(w) for w in cfg.window_sizes()})
+    print(f"{tag}: {cfg.name} ({cfg.family}) {cfg.n_layers} layers d_model {cfg.d_model} "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads d_head {cfg.d_head} d_ff {cfg.d_ff} vocab "
+          f"{cfg.vocab_size}{extra}, windows {windows}: {n_params / 1e9:.2f} B random "
+          f"{cfg.dtype} weights in {time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def _family_requests(tag, cfg, sess, params, suffixes, expect, smi_line):
+    """N_REQUESTS ContiguousKV requests on ``sess`` with each kernel's
+    launches per request asserted, read amplification 1.0, TTFT / TPOT
+    printed; then one more request profiled, its device kernels held to the
+    wrappers' launches. Returns (engine, {kernel: launches}, numbers)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.backends import RealCompute
+    from repro_torch.core.engine import ContiguousKVEngine
+    from repro_torch.kernels.chunk_attention import ops as ca
+    from repro_torch.kernels.chunk_score import ops as cs
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.storage.timing import RealExecutor
+
+    ops = {"chunk_score": cs, "chunk_attention": ca, "decode_attention": da}
+    V = cfg.vocab_size
+    eng = ContiguousKVEngine(sess, RealCompute(cfg, params, device=DEVICE), RealExecutor(),
+                             budget=BUDGET, period=PERIOD, subperiod=SUBPERIOD)
+    reset_counts(*ops.values())
+    walls, traces = [], []
+    for i, suffix in enumerate(suffixes):
+        before = {k: mod.launches for k, mod in ops.items()}
+        t0 = time.perf_counter()
+        logits, trace = eng.reprefill(suffix, request_id=i, decode_tokens=DECODE_TOKENS)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        traces.append(trace)
+        got = {k: mod.launches - before[k] for k, mod in ops.items()}
+        toks = trace.decode_tokens_out
+        if got != expect:
+            fail(f"{tag} request {i}: kernel launches {got}, expected {expect}")
+        if trace.read_amplification != 1.0:
+            fail(f"{tag} request {i}: read amplification {trace.read_amplification}")
+        if (logits.shape != (1, 1, V) or not np.isfinite(logits).all()
+                or len(toks) != DECODE_TOKENS or not all(0 <= t < V for t in toks)):
+            fail(f"{tag} request {i}: bad output {logits.shape} {toks}")
+        print(f"{tag}: request {i}: TTFT {trace.ttft * 1e3:.2f} ms, TPOT "
+              f"{trace.tpot * 1e3:.3f} ms over {trace.n_decoded} tokens, read amplification "
+              f"{trace.read_amplification}, {len(trace.selected_per_layer[0])} of "
+              f"{sess.meta.n_chunks} chunks, launches {got} ({smi_line})")
+    paths = {k: counts(mod) for k, mod in ops.items()}
+    before = {k: mod.launches for k, mod in ops.items()}
+    ours = profile_request(eng, suffixes[0], statistics.mean(walls[1:]), tag=tag)
+    got = {k: mod.launches - before[k] for k, mod in ops.items()}
+    hold_device_kernels(tag, ours, got, expect)
+    print(f"{tag}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    numbers = dict(ttft_ms=[t.ttft * 1e3 for t in traces], tpot_ms=[t.tpot * 1e3 for t in traces],
+                   wall_ms=walls)
+    return eng, paths, numbers
+
+
+def _hold_budget_one(tag, cfg, params, prefix, suffix):
+    """A budget-1.0 request on a session ingested under ``cfg`` against
+    ``cfg``'s dense forward over prefix + suffix (the dense limits)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.backends import RealCompute
+    from repro_torch.core.engine import ContiguousKVEngine
+    from repro_torch.core.session import build_real_session
+    from repro_torch.models import transformer as T
+    from repro_torch.storage.timing import RealExecutor
+
+    sess = build_real_session(cfg, params, prefix, chunk_tokens=CHUNK, in_memory=True,
+                              device=DEVICE)
+    full = ContiguousKVEngine(sess, RealCompute(cfg, params, device=DEVICE), RealExecutor(),
+                              budget=1.0, period=PERIOD, subperiod=SUBPERIOD)
+    logits, _ = full.reprefill(suffix)
+    full.ex.shutdown()
+    toks = torch.as_tensor(np.concatenate([prefix, suffix]), device=DEVICE)[None]
+    dense = T.forward(params, {"tokens": toks}, cfg, logits_positions="last")[0, -1]
+    hold_to_dense(tag, logits, dense)
+
+
+def phase_moe(cfg, smi_line):
+    """(p) granite-moe-3b-a800m at full width through ContiguousKVEngine:
+    the dense cell's request shape, each kernel's launches per request, read
+    amplification 1.0, TTFT and TPOT, a profiled request, the assignments
+    the ingest dropped at capacity, and a budget-1.0 request against the
+    dense forward on the config made dropless (capacity factor E / k);
+    then (q) the Scheduler: SERVE_REQUESTS requests in a burst at c = 4
+    with batched decode and part B in chunks of SERVE_PREFILL_CHUNK, and 2
+    of them at c = 1 bit for bit the engine's serial run. Returns
+    ({kernel: {path: launches}}, numbers)."""
+    import numpy as np
+
+    from repro_torch.models import moe as PM
+
+    params = _init_weights("moe (p)", cfg)
+    rng = np.random.default_rng(11)
+    prefix = rng.integers(0, cfg.vocab_size, PREFIX_LEN)
+    PM.drop_log = []
+    try:
+        sess, ingest, took = _family_ingest(cfg, params, prefix, "wgmma")
+        by_layer = [int(t) for t in PM.drop_log]
+        dropped = sum(by_layer)
+    finally:
+        PM.drop_log = None
+    assigned = cfg.n_layers * PREFIX_LEN * cfg.top_k
+    cap = PM.capacity(PREFIX_LEN, cfg.n_experts, cfg.top_k, cfg.moe_capacity_factor, False)
+    print(f"moe (p): ingest of {PREFIX_LEN} tokens took {took:.2f} s (flash_attention launches "
+          f"{ingest}); at capacity factor {cfg.moe_capacity_factor} ({cap} slots an expert) it "
+          f"dropped {dropped} of {assigned} expert assignments ({100 * dropped / assigned:.2f} "
+          f"%) over {cfg.n_layers} layers; by layer (of {PREFIX_LEN * cfg.top_k} each) "
+          f"{by_layer}")
+    suffixes = [rng.integers(0, cfg.vocab_size, SUFFIX_LEN) for _ in range(N_REQUESTS)]
+    expect = {"chunk_score": -(-cfg.n_layers // PERIOD), "chunk_attention": cfg.n_layers,
+              "decode_attention": cfg.n_layers * DECODE_TOKENS}
+    eng, req_paths, numbers = _family_requests("moe (p)", cfg, sess, params, suffixes, expect,
+                                               smi_line)
+    eng.ex.shutdown()
+    dcfg = dataclasses.replace(cfg, moe_capacity_factor=cfg.n_experts / cfg.top_k)
+    _hold_budget_one(f"moe (p): budget 1.0 at capacity factor {dcfg.moe_capacity_factor}",
+                     dcfg, params, prefix, suffixes[0])
+    paths = {k: {"granite-moe-3b-a800m requests": c} for k, c in req_paths.items()}
+    paths["flash_attention"] = {"granite-moe-3b-a800m ingest": ingest}
+    numbers.update(dropped=dropped, assignments=assigned, dropped_by_layer=by_layer)
+    serve_paths, numbers["serve"] = _moe_serve(cfg, params, sess, smi_line)
+    for k, by in serve_paths.items():
+        paths.setdefault(k, {}).update(by)
+    return paths, numbers
+
+
+def _moe_serve(cfg, params, sess, smi_line):
+    """(q): the burst at c = 4 and the c = 1 hold (phase_moe's docstring)."""
+    from repro_torch.kernels.chunk_attention import ops as ca
+    from repro_torch.kernels.chunk_score import ops as cs
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    ops = {"chunk_score": cs, "chunk_attention": ca, "decode_attention": da,
+           "flash_attention": fa}
+    with plain_versions_counted(ops) as plain_calls:
+        return _moe_serve_runs(cfg, params, sess, smi_line, ops, plain_calls)
+
+
+def _moe_serve_runs(cfg, params, sess, smi_line, ops, plain_calls):
+    import numpy as np
+    import torch
+
+    from repro_torch.core.backends import RealCompute
+    from repro_torch.core.engine import ContiguousKVEngine
+    from repro_torch.serving import Request, Scheduler, summarize
+    from repro_torch.storage.timing import RealExecutor
+
+    L, V = cfg.n_layers, cfg.vocab_size
+    rng = np.random.default_rng(12)
+    suffixes = [rng.integers(0, V, SUFFIX_LEN) for _ in range(MOE_SERVE_REQUESTS)]
+
+    def engine(chunk=None):
+        return ContiguousKVEngine(sess, RealCompute(cfg, params, device=DEVICE), RealExecutor(),
+                                  budget=BUDGET, period=PERIOD, subperiod=SUBPERIOD,
+                                  prefill_chunk_tokens=chunk)
+
+    eng = engine()
+    refs = [eng.reprefill(suffixes[i], request_id=i, decode_tokens=DECODE_TOKENS)
+            for i in range(2)]
+    eng.ex.shutdown()
+
+    def run(label, max_c, n, chunk):
+        eng = engine(chunk)
+        sched = Scheduler(eng, policy="fcfs", max_concurrency=max_c, batch_decode=True)
+        reqs = [Request(request_id=i, suffix=suffixes[i], decode_tokens=DECODE_TOKENS)
+                for i in range(n)]
+        reset_counts(*ops.values())
+        plain_calls.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        done = sched.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eng.ex.shutdown()
+        got = {k: counts(mod) for k, mod in ops.items()}
+        if [c.request.request_id for c in done] != list(range(n)):
+            fail(f"moe serve {label}: {len(done)} of {n} requests completed")
+        for c in done:
+            toks = c.trace.decode_tokens_out
+            if (c.result.shape != (1, 1, V) or not np.isfinite(c.result).all()
+                    or len(toks) != DECODE_TOKENS or not all(0 <= t < V for t in toks)):
+                fail(f"moe serve {label} request {c.request.request_id}: bad output")
+        if plain_calls:
+            fail(f"moe serve {label}: plain versions ran on the card: {plain_calls}")
+        s = summarize(done)
+        s.update(wall_s=wall, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        print(f"moe serve {label}: {n} requests, p50 TTFT {s['p50_ttft'] * 1e3:.2f} ms, p95 "
+              f"TTFT {s['p95_ttft'] * 1e3:.2f} ms, mean TPOT {s['mean_tpot'] * 1e3:.3f} ms, p95 "
+              f"ITL {s['p95_itl'] * 1e3:.3f} ms, {s['decode_tok_rate']:.2f} decode tokens/s, "
+              f"makespan {s['makespan']:.3f} s, peak device memory {s['peak_gib']:.2f} GiB, "
+              f"launches {got} ({smi_line})")
+        return done, sched, got, s
+
+    n = MOE_SERVE_REQUESTS
+    done, sched, got, s = run("(q) c=4 batched, part B in chunks", 4, n, SERVE_PREFILL_CHUNK)
+    dec = [m for m in sched.real_batch_log if m[0][1] == "decode"]
+    pre = [m for m in sched.real_batch_log if m[0][1] == "prefill"]
+    if not dec or min(len(m) for m in dec) < 2:
+        fail(f"moe serve (q): batched decode iterations {[len(m) for m in dec]}")
+    want = {"pools": len(dec) * L, "stacked": (n * DECODE_TOKENS - sum(map(len, dec))) * L,
+            "indexed": len(pre), "gathered": L * n - sum(map(len, pre))}
+    have = {k: got["decode_attention" if k in ("pools", "stacked") else "chunk_attention"]
+            .get(k, 0) for k in want}
+    if have != want:
+        fail(f"moe serve (q): launches by form {have}, expected {want}")
+    print(f"moe serve (q): {len(dec)} batched decode iterations (mean b "
+          f"{np.mean([len(m) for m in dec]):.2f}), {len(pre)} prefill-chunk batches; launches "
+          f"by form {have}; no plain version")
+    paths = {}
+    for k, c in got.items():
+        if c["launches"]:
+            paths.setdefault(k, {})["granite-moe-3b-a800m serve (q) c=4"] = c
+    done1, sched1, got1, s1 = run("(q) c=1", 1, 2, None)
+    if sched1.real_batch_log:
+        fail("moe serve (q) c=1: a batch formed")
+    for i, (c, (logits, trace)) in enumerate(zip(done1, refs)):
+        if not (np.array_equal(c.result, logits)
+                and c.trace.decode_tokens_out == trace.decode_tokens_out):
+            fail(f"moe serve (q) c=1 request {i}: differs from the engine's serial run")
+    for k, c in got1.items():
+        if c["launches"]:
+            paths.setdefault(k, {})["granite-moe-3b-a800m serve (q) c=1"] = c
+    print("moe serve (q) c=1: logits and greedy tokens of both requests bit-identical to the "
+          "engine's serial run (the MoE combine is deterministic)")
+    keys = ("p50_ttft", "p95_ttft", "mean_tpot", "p95_itl", "decode_tok_rate", "makespan",
+            "peak_gib")
+    return paths, {"c4": {k: s[k] for k in keys}, "c1": {k: s1[k] for k in keys},
+                   "decode_batches": len(dec), "prefill_batches": len(pre)}
+
+
+def phase_swa(cfg, smi_line):
+    """(r) gemma3-4b at full width through ContiguousKVEngine: its 5:1 local
+    (SWA-1024) and global layers ingested through flash_attention's d 256
+    kernel (launches asserted, windows included), the dense cell's requests
+    with every kernel's launches at d 256 asserted, TTFT / TPOT, a profiled
+    request; the budget-1.0 agreement on the config without its window (the
+    reference's Re-Prefill and tail decode take no window). Returns
+    ({kernel: {path: launches}}, numbers)."""
+    import numpy as np
+
+    params = _init_weights("swa (r)", cfg)
+    rng = np.random.default_rng(13)
+    prefix = rng.integers(0, cfg.vocab_size, PREFIX_LEN)
+    sess, ingest, took = _family_ingest(cfg, params, prefix, "mma_sync")
+    n_local = int((cfg.window_sizes() > 0).sum())
+    print(f"swa (r): ingest of {PREFIX_LEN} tokens took {took:.2f} s (flash_attention launches "
+          f"at d {cfg.d_head} {ingest}: {n_local} local layers with window "
+          f"{cfg.sliding_window}, {cfg.n_layers - n_local} global)")
+    suffixes = [rng.integers(0, cfg.vocab_size, SUFFIX_LEN) for _ in range(N_REQUESTS)]
+    expect = {"chunk_score": -(-cfg.n_layers // PERIOD), "chunk_attention": cfg.n_layers,
+              "decode_attention": cfg.n_layers * DECODE_TOKENS}
+    eng, req_paths, numbers = _family_requests("swa (r)", cfg, sess, params, suffixes, expect,
+                                               smi_line)
+    eng.ex.shutdown()
+    del eng, sess
+    _hold_budget_one("swa (r): budget 1.0 without the sliding window",
+                     dataclasses.replace(cfg, sliding_window=None), params, prefix, suffixes[0])
+    paths = {k: {"gemma3-4b requests (d 256)": c} for k, c in req_paths.items()}
+    paths["flash_attention"] = {"gemma3-4b ingest (d 256)": ingest}
+    return paths, numbers
+
+
+def phase_audio(cfg, smi_line):
+    """(s) musicgen-large at full width on the embeds path: ``prefill`` over
+    AUDIO_FRAMES frame embeddings (flash_attention at d 64, n_q = n_kv, one
+    launch a layer asserted), then AUDIO_DECODE ``decode_step``s on embeds,
+    each step's logits held against ``forward`` over the same embeds (the
+    dense limits). Returns ({kernel: {path: launches}}, numbers)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import transformer as T
+    from repro_torch.models.frontends import make_frontend_embeds
+
+    params = _init_weights("audio (s)", cfg)
+    F_, D_ = AUDIO_FRAMES, AUDIO_DECODE
+    e = make_frontend_embeds(cfg, 1, F_ + D_, torch.Generator(device=DEVICE).manual_seed(14),
+                             DEVICE)
+    state = T.init_serve_state(cfg, 1, F_ + D_, device=DEVICE)
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    first, state = T.prefill(params, {"embeds": e[:, :F_]}, cfg, state)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    got = counts(fa)
+    if got != {"launches": cfg.n_layers, "wgmma": cfg.n_layers}:
+        fail(f"audio (s): prefill flash_attention launches {got}, expected {cfg.n_layers} of "
+             f"the wgmma kernel")
+    steps, step_ms = [], []
+    for i in range(D_):
+        t0 = time.perf_counter()
+        logits, state = T.decode_step(params, e[:, F_ + i: F_ + i + 1], cfg, state)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        steps.append(logits[0, -1])
+    full = T.forward(params, {"embeds": e}, cfg)[0]
+    worst = (0.0, 1.0)
+    for i, a in enumerate([first[0, -1]] + steps[:-1]):
+        rel, cos = logit_agreement(a, full[F_ - 1 + i])
+        worst = (max(worst[0], rel), min(worst[1], cos))
+    rel, cos = logit_agreement(steps[-1], full[-1])  # the last step's own next frame
+    worst = (max(worst[0], rel), min(worst[1], cos))
+    if not (worst[0] <= DENSE_REL_TOL and worst[1] >= DENSE_MIN_COS
+            and torch.isfinite(torch.stack(steps)).all()):
+        fail(f"audio (s): prefill / decode logits against forward: max err / max |logit| "
+             f"{worst[0]}, cosine {worst[1]}")
+    print(f"audio (s): prefill of {F_} frame embeddings {prefill_ms:.2f} ms (flash_attention "
+          f"launches {got}), {D_} decode steps on embeds, mean {statistics.mean(step_ms):.3f} ms "
+          f"a step; prefill and every step against forward over the same embeds, worst: max "
+          f"abs err / max |logit| {worst[0]:.4f} (tol {DENSE_REL_TOL}), cosine {worst[1]:.5f} "
+          f"(min {DENSE_MIN_COS}) ({smi_line})")
+    return ({"flash_attention": {"musicgen-large prefill": got}},
+            dict(prefill_ms=prefill_ms, step_ms=step_ms, rel=worst[0], cos=worst[1]))
+
+
+def free_weights():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 SIM_ROUND = 9  # the golden files' resolution (tests/test_golden_trace.py)
 SIM_HEADLINE_PREFIX = 6000  # tests/test_system.py's headline ordering
 
@@ -3031,6 +3607,31 @@ def main() -> int:
     for name, by_path in fleet_paths.items():
         paths.setdefault(name, {}).update(by_path)
     rows["selective_scan"]["fleet"] = fleet_numbers
+    # the new families, each model's weights freed before the next loads
+    del weights
+    free_weights()
+    mcfg, gcfg, acfg = get_config(MOE_NAME), get_config(SWA_NAME), get_config(AUDIO_NAME)
+    wide = phase_wide_kernels(gcfg, smi_line)
+    for phase, c in ((phase_moe, mcfg), (phase_swa, gcfg), (phase_audio, acfg)):
+        new_paths, _ = phase(c, smi_line)
+        for name, by_path in new_paths.items():
+            paths.setdefault(name, {}).update(by_path)
+        free_weights()
+    for name, r in wide.items():
+        w = {"max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound"]["tensor_core"][0], "bound_by": r["bound"]["tensor_core"][1],
+             "library_ms": r.get("library_ms", r.get("sdpa_output_only_ms")),
+             "host_ms": r["host_ms"],
+             "launches": sum(p["launches"] for k, p in paths[name].items() if "d 256" in k)}
+        if "windowed" in r:
+            w["window_1024"] = {"ms": r["windowed"]["ms"],
+                                "library_ms": r["windowed"]["library_ms"],
+                                "plain_ms": r["windowed"]["plain_ms"],
+                                "bound_ms": r["windowed"]["bound"]["tensor_core"][0],
+                                "max_abs_err": r["windowed"]["err"]}
+        if w["launches"] < 1:
+            fail(f"{name} never launched at d 256 on gemma3-4b's path")
+        rows[name]["head_dim_256"] = w
     phase_sim(sim_ref, smi_line)
     sources = {"chunk_score": ("src/repro_torch/csrc/chunk_score.cu",
                                "src/repro/kernels/chunk_score/kernel.py:65"),
@@ -3065,7 +3666,7 @@ def main() -> int:
                     "decode_host_ms", "decode_bound_ms", "falcon_decode_ms",
                     "falcon_decode_host_ms", "falcon_decode_bound_ms", "dense_ingest",
                     "falcon_prefill", "one_cta_per_sm_ms", "pools_form", "indexed",
-                    "serve", "decode_batched", "fleet", "hybrid"):
+                    "serve", "decode_batched", "fleet", "hybrid", "head_dim_256"):
             if key in r:
                 row[key] = r[key]
         kernels.append(row)

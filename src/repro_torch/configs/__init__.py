@@ -1,9 +1,8 @@
 """Architecture config registry: ``get_config(name)``.
 
-The dense Qwen2.5 evaluation scales of the paper and the two state-space
-families (hybrid hymba-1.5b, attention-free falcon-mamba-7b). Sources are
-cited per entry in each module; the other families join the registry with
-their model code.
+The ten assigned architectures and the paper's own Qwen2.5 evaluation
+scales, as the JAX package registers them. Sources are cited per entry in
+each module.
 """
 from __future__ import annotations
 
@@ -14,15 +13,48 @@ from typing import Dict, List
 from repro_torch.models.common import ModelConfig
 
 from repro_torch.configs.falcon_mamba_7b import CONFIG as _falcon_mamba_7b
+from repro_torch.configs.gemma3_4b import CONFIG as _gemma3_4b
+from repro_torch.configs.granite_moe_3b_a800m import CONFIG as _granite_moe
 from repro_torch.configs.hymba_1_5b import CONFIG as _hymba_1_5b
+from repro_torch.configs.internvl2_76b import CONFIG as _internvl2_76b
+from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral_8x22b
+from repro_torch.configs.musicgen_large import CONFIG as _musicgen_large
 from repro_torch.configs.qwen2_5_7b import CONFIG as _qwen2_5_7b
 from repro_torch.configs.qwen2_5_14b import CONFIG as _qwen2_5_14b
 from repro_torch.configs.qwen2_5_32b import CONFIG as _qwen2_5_32b
+from repro_torch.configs.qwen3_1_7b import CONFIG as _qwen3_1_7b
+from repro_torch.configs.yi_34b import CONFIG as _yi_34b
 
 _REGISTRY: Dict[str, ModelConfig] = {
-    c.name: c for c in [_hymba_1_5b, _qwen2_5_14b, _falcon_mamba_7b, _qwen2_5_7b,
-                        _qwen2_5_32b]
+    c.name: c
+    for c in [
+        _musicgen_large,
+        _hymba_1_5b,
+        _qwen3_1_7b,
+        _qwen2_5_14b,
+        _gemma3_4b,
+        _yi_34b,
+        _falcon_mamba_7b,
+        _internvl2_76b,
+        _granite_moe,
+        _mixtral_8x22b,
+        _qwen2_5_7b,
+        _qwen2_5_32b,
+    ]
 }
+
+ASSIGNED: List[str] = [
+    "musicgen-large",
+    "hymba-1.5b",
+    "qwen3-1.7b",
+    "qwen2.5-14b",
+    "gemma3-4b",
+    "yi-34b",
+    "falcon-mamba-7b",
+    "internvl2-76b",
+    "granite-moe-3b-a800m",
+    "mixtral-8x22b",
+]
 
 
 def resolve_config_name(name: str) -> str:

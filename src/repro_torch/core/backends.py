@@ -18,6 +18,10 @@ step (``decode_step_batch``) stacks b requests' states and runs one step at
 batch b, one scan launch per layer for all of them. For tensors on the CPU
 the kernels' wrappers run their plain versions.
 
+An MoE model's part B and decode run their FFN dropless, as the JAX
+backend's do; the ingest and ``recompute_prefix_kv`` (``transformer.forward``)
+keep the config's capacity.
+
 dtypes follow the JAX package, which promotes where torch would refuse:
 part B joins float16 store chunks with the suffix KV in float32, so the
 hidden state is float32 from the first layer's part B on, and every later
@@ -368,7 +372,7 @@ class RealCompute:
         lp = layer_params(self.params, layer)
         s = out.shape[0]
         h = h + matmul(out.reshape(1, s, -1), lp["wo"].reshape(-1, self.cfg.d_model))
-        h = _ffn(h, lp, self.cfg)
+        h = _ffn(h, lp, self.cfg, dropless=True)
         return h, mass.cpu().numpy()
 
     def part_b_batch(self, ctxs) -> List[Tuple[torch.Tensor, np.ndarray]]:
@@ -420,7 +424,7 @@ class RealCompute:
         s = out.shape[1]
         h = torch.cat([x.h for x in ctxs])
         h = h + matmul(out.reshape(b, s, -1), lp["wo"].reshape(-1, cfg.d_model))
-        h = _ffn(h, lp, cfg)
+        h = _ffn(h, lp, cfg, dropless=True)
         mass_host = mass.cpu().numpy()
         return [(h[i: i + 1], mass_host[i]) for i in range(b)]
 
@@ -504,7 +508,7 @@ class RealCompute:
                     table.to(self.device), lengths.to(self.device))
             lp = layer_params(self.params, l)
             h = h + matmul(out.reshape(b, 1, -1), lp["wo"].reshape(-1, cfg.d_model))
-            h = _ffn(h, lp, cfg)
+            h = _ffn(h, lp, cfg, dropless=True)
             masses.append(page_mass.mean(dim=1))  # (b, width): head-averaged
         logits = _logits(self.params, h[:, -1:], cfg)  # (b, 1, vocab)
         host = torch.cat([logits.reshape(-1)] + [m.reshape(-1) for m in masses]).cpu().numpy()
@@ -530,7 +534,7 @@ class RealCompute:
         out, page_mass = decode_attention(q[:, 0], *tail.attend_args())
         lp = layer_params(self.params, layer)
         h = h + matmul(out.reshape(1, 1, -1), lp["wo"].reshape(-1, cfg.d_model))
-        h = _ffn(h, lp, cfg)
+        h = _ffn(h, lp, cfg, dropless=True)
         mass = page_mass[0].mean(dim=0)[: tail.n_res]  # head-avg, resident
         return h, mass.cpu().numpy()
 

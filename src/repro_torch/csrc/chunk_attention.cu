@@ -60,8 +60,11 @@
 //     as the A fragment's k and k + 4, and V's rows are read in the same
 //     order). For each (row, chunk) the CTA stores the chunk's raw
 //     probability mass with the row's running max it was taken at, so no
-//     second pass over the chunks is needed. d = 128 is
-//     compiled with its loops unrolled; other d take a generic instance.
+//     second pass over the chunks is needed. d = 128 and d = 256
+//     (gemma3-4b's heads) are compiled with their loops unrolled; other d up
+//     to 128 take a generic instance. At d = 256 a thread's output fragment
+//     is 128 floats and the tiles take ~197 KB (float32 queries), so that
+//     instance runs one CTA a SM with up to 255 registers a thread.
 //   - chunk_merge_kernel: one CTA per (16 rows, kv head, member) merges the
 //     splits in split order into the output and the rows' per-chunk mass,
 //     and the member's last CTA to finish sums those in a fixed order into
@@ -76,7 +79,11 @@ constexpr int CA_ROWS = 64;
 constexpr int CA_KEYS = 64;
 constexpr int CA_MERGE_ROWS = 16;  // rows per CTA of the merge kernel
 constexpr int CA_MERGE_NT = 256;
-constexpr int CA_CTAS_PER_SM = 2;  // the attention kernel's launch bounds (~103 KB at d 128)
+// the attention kernel's launch bounds: CTAs a SM (~103 KB at d 128, ~197 KB at 256)
+__host__ __device__ constexpr int ca_ctas_per_sm(int d) { return d > 128 ? 1 : 2; }
+// the output fragment's 8-column tiles a thread holds: HD = 0 (d at run time) up to 128
+__host__ __device__ constexpr int ca_out_tiles(int HD) { return HD > 128 ? HD / 8 : 16; }
+constexpr int CA_SMEM_MAX = 232448;  // what a CTA may opt in to on the H100
 
 // shared-memory row stride, in elements, of a tile of T (conflict-free
 // fragment loads)
@@ -88,20 +95,22 @@ __host__ __device__ __forceinline__ int kv_ld(int d) {
 // Shared memory: the query tile in q's dtype, then a key region holding two
 // float16 K/V buffers (double-buffered chunk tiles) or one float32 suffix
 // K/V buffer, which fits in the same bytes.
-__host__ __device__ __forceinline__ size_t ca_q_bytes(int d, int tq_size) {
+__host__ __device__ constexpr size_t ca_q_bytes(int d, int tq_size) {
   return (size_t)CA_ROWS * (tq_size == 4 ? d + 4 : d + 8) * tq_size;
 }
-__host__ __device__ __forceinline__ size_t ca_buf_bytes(int d) {  // one float16 K/V buffer
+__host__ __device__ constexpr size_t ca_buf_bytes(int d) {  // one float16 K/V buffer
   return 2 * (size_t)CA_KEYS * (d + 8) * 2;
 }
-inline size_t ca_smem(int d, int tq_size) { return ca_q_bytes(d, tq_size) + 2 * ca_buf_bytes(d); }
+__host__ __device__ constexpr size_t ca_smem(int d, int tq_size) {
+  return ca_q_bytes(d, tq_size) + 2 * ca_buf_bytes(d);
+}
 // the indexed form's chunk indices in shared memory, past the K/V buffers
 constexpr int CA_IDX_CAP = 8192;
 
 // One member's split layout: key tiles of bk = 64 / c * c chunk keys (n_ct
 // of them) then ceil(s / 64) suffix tiles, tps key tiles per split over
 // n_split splits, `splits` being as many as fill every SM of the device
-// with CA_CTAS_PER_SM CTAs in one wave for one member. It depends on the
+// with ca_ctas_per_sm(d) CTAs in one wave for one member. It depends on the
 // member's own shape and n_valid only, so a member of an indexed call and a
 // gathered call on its chunks split alike.
 struct CaMember {
@@ -242,7 +251,8 @@ __device__ __forceinline__ void tile_scores_tc(const TQ* qs, const KT* ks, int d
 // o += P (this warp's 16 rows x the tile's 64 keys) . V
 template <int HD, typename VT>
 __device__ __forceinline__ void tile_pv_tc(const float p[8][4], const VT* vs, int d, int g, int t,
-                                           float o[16][4]) {
+                                           float o[ca_out_tiles(HD)][4]) {
+  constexpr int ODT = ca_out_tiles(HD);
   const int D = HD ? HD : d, ldv = kv_ld<VT>(D);
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
@@ -254,7 +264,7 @@ __device__ __forceinline__ void tile_pv_tc(const float p[8][4], const VT* vs, in
     tf32_split(p[nt][3], ph[3], pl[3]);
     const VT* v0 = vs + (nt * 8 + 2 * t) * ldv + g;
 #pragma unroll
-    for (int dt = 0; dt < 16; ++dt) {
+    for (int dt = 0; dt < ODT; ++dt) {
       if (HD ? dt >= HD / 8 : dt * 8 >= d) break;
       const float b0 = to_f32(v0[dt * 8]), b1 = to_f32(v0[ldv + dt * 8]);
       if (sizeof(VT) == 4) {
@@ -278,12 +288,13 @@ __device__ __forceinline__ void tile_pv_tc(const float p[8][4], const VT* vs, in
 // chunk tile), the max it was taken at, into the member's scratch at work +
 // member * member_floats. A CTA past its member's own splits exits.
 template <int HD, typename TQ, bool INDEXED>
-static __global__ void __launch_bounds__(CA_NT, CA_CTAS_PER_SM) chunk_attn_kernel(
+static __global__ void __launch_bounds__(CA_NT, ca_ctas_per_sm(HD)) chunk_attn_kernel(
     const TQ* __restrict__ q, const __half* __restrict__ k_sel, const __half* __restrict__ v_sel,
     const TQ* __restrict__ k_suf, const TQ* __restrict__ v_suf, const int* __restrict__ chunk_idx,
     const int* __restrict__ n_valid_of, float* __restrict__ work, size_t member_floats, int s,
     int n_q, int n_kv, int nb, int c, int n_valid_all, int d_rt, int splits, float scale) {
   constexpr bool WIDE_SUFFIX = sizeof(TQ) == 4;  // a float32 suffix tile takes both buffers
+  constexpr int ODT = ca_out_tiles(HD);
   const int d = HD ? HD : d_rt;
   const int mem = blockIdx.y / n_kv, h = blockIdx.y % n_kv, rt = blockIdx.x, sp = blockIdx.z;
   const CaMember M = ca_member(member_n_valid(n_valid_of, mem, n_valid_all, nb), s, c, splits);
@@ -361,9 +372,9 @@ static __global__ void __launch_bounds__(CA_NT, CA_CTAS_PER_SM) chunk_attn_kerne
   if (tile_lo < tile_hi) fetch(tile_lo, 0);
   const TQ* qw = qs + warp * 16 * kv_ld<TQ>(d);
 
-  float o[16][4], m_run[2] = {CKV_NEG_INF, CKV_NEG_INF}, l_run[2] = {0.f, 0.f};
+  float o[ODT][4], m_run[2] = {CKV_NEG_INF, CKV_NEG_INF}, l_run[2] = {0.f, 0.f};
 #pragma unroll
-  for (int dt = 0; dt < 16; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  for (int dt = 0; dt < ODT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
 
   for (int tile = tile_lo; tile < tile_hi; ++tile) {
     const bool chunk = tile < n_ct;
@@ -418,7 +429,7 @@ static __global__ void __launch_bounds__(CA_NT, CA_CTAS_PER_SM) chunk_attn_kerne
       m_run[i] = m_new;
     }
 #pragma unroll
-    for (int dt = 0; dt < 16; ++dt) {
+    for (int dt = 0; dt < ODT; ++dt) {
       o[dt][0] *= alpha[0];
       o[dt][1] *= alpha[0];
       o[dt][2] *= alpha[1];
@@ -462,7 +473,7 @@ static __global__ void __launch_bounds__(CA_NT, CA_CTAS_PER_SM) chunk_attn_kerne
     if (pos[i] < 0) continue;
     float* dst = S.o_part + (base + row[i]) * d + 2 * t;
 #pragma unroll
-    for (int dt = 0; dt < 16; ++dt) {
+    for (int dt = 0; dt < ODT; ++dt) {
       if (HD ? dt >= HD / 8 : dt * 8 >= d) break;
       *reinterpret_cast<float2*>(dst + dt * 8) = make_float2(o[dt][2 * i], o[dt][2 * i + 1]);
     }
@@ -650,12 +661,15 @@ static cudaError_t launch_attn(dim3 grid, size_t smem, cudaStream_t st, const vo
                                const void* v_suf, const int* chunk_idx, const int* n_valid_of,
                                float* work, size_t member_floats, int s, int n_q, int n_kv,
                                int nb, int c, int n_valid, int d, int splits) {
-  static OncePerDevice smem_opt_in;  // at the largest d (and index block)
+  // at the instance's largest d (and index block), as far as a CTA may have
+  constexpr size_t max_smem = std::min<size_t>(
+      ca_smem(HD > 128 ? HD : 128, sizeof(TQ)) + (INDEXED ? CA_IDX_CAP * sizeof(int) : 0),
+      CA_SMEM_MAX);
+  if (smem > max_smem) return cudaErrorInvalidValue;
+  static OncePerDevice smem_opt_in;
   const cudaError_t attr = smem_opt_in([] {
     return cudaFuncSetAttribute(chunk_attn_kernel<HD, TQ, INDEXED>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)(ca_smem(128, sizeof(TQ)) +
-                                      (INDEXED ? CA_IDX_CAP * sizeof(int) : 0)));
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)max_smem);
   });
   if (attr != cudaSuccess) return attr;
   chunk_attn_kernel<HD, TQ, INDEXED><<<grid, CA_NT, smem, st>>>(
@@ -680,7 +694,7 @@ struct CaLayout {
 
 static cudaError_t ca_layout(int s, int n_q, int n_kv, int c, int n_valid, int d, bool any_valid,
                              CaLayout* L) {
-  if (d % 8 || d > 128 || d < 8 || c < 1 || c > CA_KEYS || s < 1 || n_kv < 1 || n_q % n_kv ||
+  if (d % 8 || (d > 128 && d != 256) || d < 8 || c < 1 || c > CA_KEYS || s < 1 || n_kv < 1 || n_q % n_kv ||
       n_valid < 0)
     return cudaErrorInvalidValue;
   int dev = 0, sms = 0;
@@ -690,7 +704,7 @@ static cudaError_t ca_layout(int s, int n_q, int n_kv, int c, int n_valid, int d
   L->rows = (n_q / n_kv) * s;
   L->n_rt = (L->rows + CA_ROWS - 1) / CA_ROWS;
   L->n_mp = (L->rows + CA_MERGE_ROWS - 1) / CA_MERGE_ROWS;  // merge CTAs per kv head
-  L->splits = std::max(1, CA_CTAS_PER_SM * sms / (L->n_rt * n_kv));
+  L->splits = std::max(1, ca_ctas_per_sm(d) * sms / (L->n_rt * n_kv));
   const CaMember M = ca_member(n_valid, s, c, L->splits);
   const int n_tiles = M.n_ct + (s + CA_KEYS - 1) / CA_KEYS;
   L->n_z = any_valid ? std::min(L->splits, n_tiles) : M.n_split;
@@ -716,12 +730,13 @@ static int launch_chunk_attention(const void* q, const void* k_sel, const void* 
     return (int)cudaErrorInvalidValue;
   const size_t smem = ca_smem(d, sizeof(TQ)) + (size_t)L.idx_ints * sizeof(int);
   const dim3 grid(L.n_rt, n_kv * b, L.n_z);
-  e = d == 128 ? launch_attn<128, TQ, INDEXED>(grid, smem, st, q, k_sel, v_sel, k_suf, v_suf,
-                                               chunk_idx, n_valid_of, work, L.member_floats, s,
-                                               n_q, n_kv, nb, c, n_valid, d, L.splits)
-               : launch_attn<0, TQ, INDEXED>(grid, smem, st, q, k_sel, v_sel, k_suf, v_suf,
-                                             chunk_idx, n_valid_of, work, L.member_floats, s,
-                                             n_q, n_kv, nb, c, n_valid, d, L.splits);
+  auto attn = [&](auto fn) {
+    return fn(grid, smem, st, q, k_sel, v_sel, k_suf, v_suf, chunk_idx, n_valid_of, work,
+              L.member_floats, s, n_q, n_kv, nb, c, n_valid, d, L.splits);
+  };
+  e = d == 256   ? attn(launch_attn<256, TQ, INDEXED>)
+      : d == 128 ? attn(launch_attn<128, TQ, INDEXED>)
+                 : attn(launch_attn<0, TQ, INDEXED>);
   if (e != cudaSuccess) return (int)e;
   chunk_merge_kernel<<<dim3(L.n_mp, n_kv, b), CA_MERGE_NT, 0, st>>>(
       work, L.member_floats, n_valid_of, counters, out, mass, s, n_q, n_kv, nb, c, n_valid, d,
@@ -779,6 +794,7 @@ extern "C" long long ckv_chunk_attention_indexed_work_floats(int b, int s, int n
 
 // q (s, n_q, d), k_suf/v_suf (s, n_kv, d) in q_dtype; k_sel/v_sel (nb, c, n_kv, d) float16
 // with the first n_valid chunks valid; out (s, n_q, d) float32; mass (nb,) float32.
+// d: a multiple of 8 up to 128, or 256.
 // work: float32 scratch of work_floats >= ckv_chunk_attention_work_floats(...)
 // (cudaErrorInvalidValue otherwise); counters: one int32, zero before the
 // launch and zero again after it.

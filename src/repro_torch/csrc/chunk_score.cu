@@ -55,13 +55,17 @@
 //      chunk; the last CTA to finish (an int32 arrival counter) sums those
 //      partials, kv head by kv head and rows in order, into the (m,) output.
 // Any n is accepted: the ragged last key tile and the partial last chunk are
-// masked (the TPU kernel asserted n % block_k == 0); d is any width up to 128
-// (zero-padded to 128 in registers and shared memory), c up to 64. A d that
+// masked (the TPU kernel asserted n % block_k == 0); d is any width up to 256
+// (zero-padded to 128, or past 128 to 256, in registers and shared memory), c
+// up to 64. A d that
 // is not a multiple of 8 (IMPRESS's partial keys, the first d / 8 dims of a
 // head narrower than 64) leaves its rows off 16-byte boundaries, so q and the
 // keys are then read element by element; every other d takes 16-byte loads.
-// d = 128 with c = 16 (the main path) is compiled with its chunk loop
-// unrolled; other shapes take a generic instance.
+// d = 128 and d = 256 (gemma3-4b's heads) with c = 16 (the main path) are
+// compiled with their chunk loop unrolled; other shapes take a generic
+// instance of their padded width. At 256 the split query fragments are 128
+// registers a thread, so that instance runs two CTAs a SM (255 registers)
+// and its key tiles take 72 KB of shared memory.
 #include "common.cuh"
 
 namespace ckv {
@@ -69,18 +73,21 @@ namespace ckv {
 constexpr int CS_NT = 128;  // threads per CTA: 4 warps of 16 rows
 constexpr int CS_ROWS = 64;
 constexpr int CS_KEYS = 64;
-constexpr int CS_D = 128;          // head dims are zero-padded to this
-constexpr int CS_KLD = CS_D + 32;  // key row stride, halves: 320 bytes = 64 mod 128
 constexpr int CS_CPS_MAX = 128;    // chunks per split held in shared memory
-constexpr int CS_CTAS_PER_SM = 3;  // split-kernel CTAs a SM: at most 168 registers a thread
+// head dims are zero-padded to DP = 128, or 256 past 128; key rows are DP + 32
+// halves apart (320 or 576 bytes, both 64 mod 128: conflict-free fragments)
+__host__ __device__ constexpr int cs_kld(int DP) { return DP + 32; }
+__host__ __device__ constexpr int cs_dp(int d) { return d > 128 ? 256 : 128; }
+// split-kernel CTAs a SM: at most 168 registers a thread at DP 128, 255 at 256
+__host__ __device__ constexpr int cs_ctas_per_sm(int DP) { return DP > 128 ? 2 : 3; }
 constexpr int CS_MERGE_ROWS = 32;  // rows per CTA of the merge kernel
 constexpr int CS_MERGE_NT = 256;
 
 // Shared memory of the split kernel: two float16 key buffers, then per row
 // the split's raw chunk masses [64][cps], the max each tile's masses were
 // taken at [64][tps], and the row's final max [64].
-__host__ __device__ __forceinline__ size_t cs_smem(int cps, int tps) {
-  return 2 * (size_t)CS_KEYS * CS_KLD * sizeof(__half) +
+__host__ __device__ __forceinline__ size_t cs_smem(int cps, int tps, int DP) {
+  return 2 * (size_t)CS_KEYS * cs_kld(DP) * sizeof(__half) +
          sizeof(float) * (size_t)CS_ROWS * (cps + tps + 1);
 }
 
@@ -118,19 +125,21 @@ __device__ __forceinline__ void load8(const TQ* src, float v[8]) {
   }
 }
 
-// FAST: d = 128 and c = 16 fixed at compile time; otherwise d and c are read
-// at run time (d's padding groups skipped, chunks found per column).
-template <typename TQ, bool FAST>
-static __global__ void __launch_bounds__(CS_NT, CS_CTAS_PER_SM) chunk_score_kernel(
+// FAST: d = DP and c = 16 fixed at compile time; otherwise d (at most DP)
+// and c are read at run time (d's padding groups skipped, chunks found per
+// column).
+template <typename TQ, int DP, bool FAST>
+static __global__ void __launch_bounds__(CS_NT, cs_ctas_per_sm(DP)) chunk_score_kernel(
     const TQ* __restrict__ q, const __half* __restrict__ k, float* __restrict__ m_part,
     float* __restrict__ l_part, float* __restrict__ raw, int s, int n_q, int n_kv, int n,
     int d_rt, int c_rt, int tps, float scale2) {
   constexpr bool Q_SPLIT = sizeof(TQ) == 4;
-  const int d = FAST ? CS_D : d_rt, c = FAST ? 16 : c_rt;
+  constexpr int KLD = cs_kld(DP), NG = DP / 32;  // key row stride; 32-wide d groups
+  const int d = FAST ? DP : d_rt, c = FAST ? 16 : c_rt;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __half* kbuf = reinterpret_cast<__half*>(smem_raw);  // [2][64][CS_KLD]
+  __half* kbuf = reinterpret_cast<__half*>(smem_raw);  // [2][64][KLD]
   const int cpt = CS_KEYS / c, bk = cpt * c, cps = tps * cpt;
-  float* raw_s = reinterpret_cast<float*>(smem_raw + 2 * CS_KEYS * CS_KLD * sizeof(__half));
+  float* raw_s = reinterpret_cast<float*>(smem_raw + 2 * CS_KEYS * KLD * sizeof(__half));
   float* m_at_s = raw_s + CS_ROWS * cps;  // [64][tps]
   float* m_fin_s = m_at_s + CS_ROWS * tps;  // [64]
 
@@ -144,19 +153,19 @@ static __global__ void __launch_bounds__(CS_NT, CS_CTAS_PER_SM) chunk_score_kern
   const bool vec = FAST || d % 8 == 0;
   // keys [t0, t0 + nk) of kv head h into buffer `buf`; zeros past nk and past d
   auto fetch = [&](int tile, int buf) {
-    __half* dst = kbuf + buf * CS_KEYS * CS_KLD;
+    __half* dst = kbuf + buf * CS_KEYS * KLD;
     const int t0 = tile * bk, nk = min(bk, n - t0);
-    for (int i = tid; i < CS_KEYS * (CS_D / 8); i += CS_NT) {
-      const int kk = i / (CS_D / 8), e = (i % (CS_D / 8)) * 8;
+    for (int i = tid; i < CS_KEYS * (DP / 8); i += CS_NT) {
+      const int kk = i / (DP / 8), e = (i % (DP / 8)) * 8;
       const __half* src = k + ((size_t)(t0 + kk) * n_kv + h) * d + e;
       if (vec) {
         const bool ok = kk < nk && e < d;
-        cp_async16_zfill(dst + kk * CS_KLD + e, ok ? src : k, ok);
+        cp_async16_zfill(dst + kk * KLD + e, ok ? src : k, ok);
       } else {  // element loads, stored as one 16-byte word (visible after the barrier)
         __align__(16) __half w[8];
 #pragma unroll
         for (int x = 0; x < 8; ++x) w[x] = kk < nk && e + x < d ? src[x] : __float2half(0.f);
-        *reinterpret_cast<uint4*>(dst + kk * CS_KLD + e) = *reinterpret_cast<const uint4*>(w);
+        *reinterpret_cast<uint4*>(dst + kk * KLD + e) = *reinterpret_cast<const uint4*>(w);
       }
     }
     cp_async_commit_group();
@@ -168,9 +177,9 @@ static __global__ void __launch_bounds__(CS_NT, CS_CTAS_PER_SM) chunk_score_kern
   // row_scale[i] turns a product back into a logit in log2 units
   int lrow[2];
   float row_scale[2];
-  uint32_t qh[4][2][4], ql[4][2][4];  // [d group][k-step][fragment register]
+  uint32_t qh[NG][2][4], ql[NG][2][4];  // [d group][k-step][fragment register]
   {
-    float v[2][4][8];
+    float v[2][NG][8];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       lrow[i] = warp * 16 + g + 8 * i;
@@ -178,7 +187,7 @@ static __global__ void __launch_bounds__(CS_NT, CS_CTAS_PER_SM) chunk_score_kern
       const TQ* src = q + ((size_t)(r / G) * n_q + h * G + r % G) * d + 8 * t;
       float mx = 0.f;
 #pragma unroll
-      for (int gr = 0; gr < 4; ++gr) {
+      for (int gr = 0; gr < NG; ++gr) {
         if (r < rows && 32 * gr + 8 * t < d && vec) {
           load8<TQ>(src + 32 * gr, v[i][gr]);
         } else if (r < rows && 32 * gr + 8 * t < d) {
@@ -200,12 +209,12 @@ static __global__ void __launch_bounds__(CS_NT, CS_CTAS_PER_SM) chunk_score_kern
       const float up = __uint_as_float((uint32_t)(268 - E) << 23);
       row_scale[i] = scale2 * __uint_as_float((uint32_t)(E - 14) << 23);
 #pragma unroll
-      for (int gr = 0; gr < 4; ++gr)
+      for (int gr = 0; gr < NG; ++gr)
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[i][gr][e] *= up;
     }
 #pragma unroll
-    for (int gr = 0; gr < 4; ++gr)
+    for (int gr = 0; gr < NG; ++gr)
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         // a0 (row g), a1 (row g + 8): slots 2t, 2t + 1; a2, a3: slots 2t + 8, 2t + 9
@@ -215,7 +224,7 @@ static __global__ void __launch_bounds__(CS_NT, CS_CTAS_PER_SM) chunk_score_kern
         f16_split(v[1][gr][4 * u + 2], v[1][gr][4 * u + 3], qh[gr][u][3], ql[gr][u][3]);
       }
   }
-  const int n_grp = FAST ? 4 : (d + 31) / 32;
+  const int n_grp = FAST ? NG : (d + 31) / 32;
 
   float m_run[2] = {CKV_NEG_INF, CKV_NEG_INF}, l_run[2] = {0.f, 0.f};
   int buf = 0;
@@ -227,17 +236,17 @@ static __global__ void __launch_bounds__(CS_NT, CS_CTAS_PER_SM) chunk_score_kern
       cp_async_wait_groups<0>();
     }
     __syncthreads();
-    const __half* kb = kbuf + buf * CS_KEYS * CS_KLD;
+    const __half* kb = kbuf + buf * CS_KEYS * KLD;
     float sc[8][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
 #pragma unroll
-    for (int gr = 0; gr < 4; ++gr) {
+    for (int gr = 0; gr < NG; ++gr) {
       if (!FAST && gr >= n_grp) break;
       uint4 kw[8];
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
-        kw[nt] = *reinterpret_cast<const uint4*>(kb + (nt * 8 + g) * CS_KLD + 32 * gr + 8 * t);
+        kw[nt] = *reinterpret_cast<const uint4*>(kb + (nt * 8 + g) * KLD + 32 * gr + 8 * t);
       // the 8 n-tiles' products are independent: each k-step and term starts
       // all 8 before the next depends on them
 #pragma unroll
@@ -445,16 +454,16 @@ static __global__ void __launch_bounds__(CS_MERGE_NT) chunk_score_merge_kernel(
 
 // The work of one call: rows = n_q / n_kv * s per kv head in n_rt tiles of
 // 64; key tiles of bk = 64 / c * c keys (n_tiles of them); as few tiles per
-// split (tps) as fill every SM of the current device with CS_CTAS_PER_SM
-// CTAs in one wave, at most CS_CPS_MAX chunks a split; and the float32
-// scratch those splits need.
+// split (tps) as fill every SM of the current device with cs_ctas_per_sm
+// CTAs of d's padded width in one wave, at most CS_CPS_MAX chunks a split;
+// and the float32 scratch those splits need.
 struct CsLayout {
   int rows, n_rt, m, cpt, n_tiles, tps, n_split, n_mp;
   size_t work_floats;
 };
 
 static cudaError_t cs_layout(int s, int n_q, int n_kv, int n, int d, int c, CsLayout* L) {
-  if (d > CS_D || d < 1 || c < 1 || c > CS_KEYS || s < 1 || n < 1 || n_kv < 1 ||
+  if (d > 256 || d < 1 || c < 1 || c > CS_KEYS || s < 1 || n < 1 || n_kv < 1 ||
       n_q % n_kv)
     return cudaErrorInvalidValue;
   int dev = 0, sms = 0;
@@ -466,7 +475,7 @@ static cudaError_t cs_layout(int s, int n_q, int n_kv, int n, int d, int c, CsLa
   L->m = (n + c - 1) / c;
   L->cpt = CS_KEYS / c;
   L->n_tiles = (n + L->cpt * c - 1) / (L->cpt * c);
-  const int splits = std::max(1, CS_CTAS_PER_SM * sms / (L->n_rt * n_kv));
+  const int splits = std::max(1, cs_ctas_per_sm(cs_dp(d)) * sms / (L->n_rt * n_kv));
   L->tps = std::min((L->n_tiles + splits - 1) / splits, std::max(1, CS_CPS_MAX / L->cpt));
   L->n_split = (L->n_tiles + L->tps - 1) / L->tps;
   L->n_mp = (L->rows + CS_MERGE_ROWS - 1) / CS_MERGE_ROWS;  // merge CTAs per kv head
@@ -475,18 +484,18 @@ static cudaError_t cs_layout(int s, int n_q, int n_kv, int n, int d, int c, CsLa
   return cudaSuccess;
 }
 
-template <typename TQ, bool FAST>
+template <typename TQ, int DP, bool FAST>
 static cudaError_t launch_split(dim3 grid, cudaStream_t st, const void* q, const void* k,
                                 float* m_part, float* l_part, float* raw, int s, int n_q,
                                 int n_kv, int n, int d, int c, int tps, int cpt) {
   static OncePerDevice smem_opt_in;  // at the most chunks and tiles a split holds
   const cudaError_t attr = smem_opt_in([] {
-    return cudaFuncSetAttribute(chunk_score_kernel<TQ, FAST>,
+    return cudaFuncSetAttribute(chunk_score_kernel<TQ, DP, FAST>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)cs_smem(CS_CPS_MAX, CS_CPS_MAX));
+                                (int)cs_smem(CS_CPS_MAX, CS_CPS_MAX, DP));
   });
   if (attr != cudaSuccess) return attr;
-  chunk_score_kernel<TQ, FAST><<<grid, CS_NT, cs_smem(tps * cpt, tps), st>>>(
+  chunk_score_kernel<TQ, DP, FAST><<<grid, CS_NT, cs_smem(tps * cpt, tps, DP), st>>>(
       (const TQ*)q, (const __half*)k, m_part, l_part, raw, s, n_q, n_kv, n, d, c, tps,
       (float)(std::pow((double)d, -0.5) * 1.4426950408889634));
   return cudaGetLastError();
@@ -506,11 +515,15 @@ static int launch_chunk_score(const void* q, const void* k, float* out, float* w
   float* raw = l_part + stat;
   float* partial = raw + (size_t)n_kv * L.rows * L.m;
   const dim3 grid(L.n_rt, n_kv, L.n_split);
-  e = d == CS_D && c == 16
-          ? launch_split<TQ, true>(grid, st, q, k, m_part, l_part, raw, s, n_q, n_kv, n, d, c,
-                                   L.tps, L.cpt)
-          : launch_split<TQ, false>(grid, st, q, k, m_part, l_part, raw, s, n_q, n_kv, n, d, c,
-                                    L.tps, L.cpt);
+  auto split = [&](auto fn) {
+    return fn(grid, st, q, k, m_part, l_part, raw, s, n_q, n_kv, n, d, c, L.tps, L.cpt);
+  };
+  if (d > 128)
+    e = d == 256 && c == 16 ? split(launch_split<TQ, 256, true>)
+                            : split(launch_split<TQ, 256, false>);
+  else
+    e = d == 128 && c == 16 ? split(launch_split<TQ, 128, true>)
+                            : split(launch_split<TQ, 128, false>);
   if (e != cudaSuccess) return (int)e;
   chunk_score_merge_kernel<<<dim3(L.n_mp, n_kv), CS_MERGE_NT, 0, st>>>(
       m_part, l_part, raw, partial, counters, out, L.rows, n_kv, L.m, L.tps * L.cpt, L.n_split);
@@ -535,7 +548,7 @@ extern "C" long long ckv_chunk_score_work_floats(int s, int n_q, int n_kv, int n
 // q (s, n_q, d) in q_dtype; k (n, n_kv, d) float16; out (ceil(n / c),) float32.
 // work: float32 scratch of work_floats >= ckv_chunk_score_work_floats(...)
 // (cudaErrorInvalidValue otherwise); counters: one int32, zero before the
-// launch and zero again after it. d at most 128; c <= 64.
+// launch and zero again after it. d at most 256; c <= 64.
 extern "C" int ckv_chunk_score(const void* q, const void* k, float* out, float* work,
                                long long work_floats, int* counters, int s, int n_q, int n_kv,
                                int n, int d, int c, int q_dtype, void* stream) {

@@ -26,7 +26,9 @@
 // 4 kv heads, d = 128, bfloat16) it must read ~1.1 MB of K/V, ~0.3 us at
 // 3.35 TB/s, against ~15 MFLOP. What it costs in practice is latency: the
 // chain of dependent steps from the first load to the last store, and the
-// launch.
+// launch. No register array is sized by d: a wider head (gemma3-4b's 256)
+// only takes more shared memory, its q, K and V rows (~171 KB at float32,
+// 32 query heads a kv head and 64 keys, ~91 KB at 16 bits).
 //
 // Layout of the work: one launch. One CTA of 256 threads per (request, kv
 // head, split of `pps` whole pages, at most 64 keys) serves the `group` query
@@ -376,16 +378,16 @@ static int launch_decode(const void* q, const void* k_pool, const void* v_pool,
                          int* counters, int b, int n_q, int n_kv, int n_pages, int page,
                          int n_active, int d, cudaStream_t st) {
   if (page < 1 || page > DA_MAX_KEYS || n_active < 1 || n_kv < 1 || n_q % n_kv || d % 8 ||
-      d > 128 || n_q / n_kv > 32)
+      d > 256 || n_q / n_kv > 32)
     return (int)cudaErrorInvalidValue;
   if (work_floats < 0 || (size_t)work_floats < decode_work_floats(b, n_q, n_active, page, d))
     return (int)cudaErrorInvalidValue;
   const int G = n_q / n_kv, pps = decode_pps(page), nk = pps * page;
-  static OncePerDevice smem_opt_in;  // at the largest shape taken
+  static OncePerDevice smem_opt_in;  // at the largest shape taken: ~171 KB in float32
   const cudaError_t attr = smem_opt_in([] {
     return cudaFuncSetAttribute(decode_kernel<T, POOLS>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)decode_smem(32, 128, DA_MAX_KEYS, sizeof(T)));
+                                (int)decode_smem(32, 256, DA_MAX_KEYS, sizeof(T)));
   });
   if (attr != cudaSuccess) return (int)attr;
   const int n_split = (n_active + pps - 1) / pps;
@@ -436,7 +438,7 @@ extern "C" long long ckv_decode_attention_work_floats(int b, int n_q, int n_acti
 
 // q (b, n_q, d), k_pool/v_pool (b, n_pages, page, n_kv, d) and out (b, n_q, d) in dtype;
 // table (b, n_active) int32, lengths (b,) int32; mass (b, n_q, n_active) float32.
-// Splits of max(1, 64 / page) whole pages. work: float32 scratch of
+// Splits of max(1, 64 / page) whole pages; d a multiple of 8 up to 256. work: float32 scratch of
 // work_floats >= ckv_decode_attention_work_floats(...) (cudaErrorInvalidValue
 // otherwise); counters: b * n_kv int32, zero before the launch and zero again
 // after it.

@@ -41,16 +41,23 @@
 //   ptxas kept every build to the launch bound's 168 registers per thread,
 //   though setmaxnreg grants the consumers 240 at run time, and spilled
 //   the orders that hold two tiles' scores.
-// * mma_sync (bfloat16 / float16, d in {16, 32}: the tests' small heads,
-//   which the 128-byte swizzled tiles do not take; the first tensor-core
-//   version): one CTA of 4 warps per 64 query rows; mma.sync m16n8k16 fed
-//   by ldmatrix from padded tiles, K and V by cp.async, one 64-key tile per
-//   step. P is rounded to the input dtype as the A operand of P V in both
+// * mma_sync (bfloat16 / float16, d in {16, 32, 256}: the tests' small
+//   heads, which the 128-byte swizzled tiles do not take, and gemma3-4b's
+//   256; the first tensor-core version): one CTA of 4 warps per 64 query
+//   rows; mma.sync m16n8k16 fed by ldmatrix from padded tiles, K and V by
+//   cp.async, one 64-key tile per step. At d = 256 a thread's output
+//   fragment is 128 floats, so Q's fragments are read again from shared
+//   memory per key tile instead of living in registers (64 more), and the
+//   three tiles take 99 KB. The wgmma kernel's 128-key tiles at d = 256
+//   would hold 128 output floats and 64 scores a thread under the 168
+//   registers its launch bound leaves, and fit one stage in shared memory.
+//   P is rounded to the input dtype as the A operand of P V in both
 //   tensor-core kernels (the TPU kernel kept P in float32: the output
 //   differs from a float32 P by about one ulp of the output dtype).
 // * float32: the same work on the CUDA cores in float32 (64 x 64 tiles,
 //   4 x 4 scores per thread, common.cuh), so a float32 model keeps float32
-//   scores and products.
+//   scores and products; d up to 128, or 256 in an instance that holds
+//   twice the output columns a thread (217 KB of shared memory).
 //
 // Bound on the H100 at the hybrid prefill (25 query heads over 5 kv heads,
 // s = 4160, d = 64, bfloat16): 4 x 25 x 64 x 4160 x 4161 / 2 = 5.5e10
@@ -179,11 +186,14 @@ static __global__ void __launch_bounds__(128) flash_tc_kernel(
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[KT][4];
+  // Q's A fragments: in registers for the whole CTA up to d = 128; past it
+  // read from the Q tile (which nothing overwrites) at each use
+  constexpr bool Q_REG = HD <= 128;
+  const T* q_frag = qs + (warp * 16 + (lane % 8) + 8 * ((lane / 8) % 2)) * LD + 8 * (lane / 16);
+  uint32_t qf[Q_REG ? KT : 1][4];
+  if constexpr (Q_REG)
 #pragma unroll
-  for (int kk = 0; kk < KT; ++kk)
-    ldsm_x4(qf[kk], qs + (warp * 16 + (lane % 8) + 8 * ((lane / 8) % 2)) * LD + kk * 16 +
-                        8 * (lane / 16));
+    for (int kk = 0; kk < KT; ++kk) ldsm_x4(qf[kk], q_frag + kk * 16);
 
   float o[DT8][4];
 #pragma unroll
@@ -207,15 +217,22 @@ static __global__ void __launch_bounds__(128) flash_tc_kernel(
 #pragma unroll
     for (int j = 0; j < NT8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KT; ++kk)
+    for (int kk = 0; kk < KT; ++kk) {
+      uint32_t q_tmp[4];
+      const uint32_t* qa = q_tmp;
+      if constexpr (Q_REG)
+        qa = qf[kk];
+      else
+        ldsm_x4(q_tmp, q_frag + kk * 16);
 #pragma unroll
       for (int j2 = 0; j2 < NT8 / 2; ++j2) {
         uint32_t bf[4];
         ldsm_x4(bf, ks + (j2 * 16 + (lane % 8) + 8 * (lane / 16)) * LD + kk * 16 +
                         8 * ((lane / 8) % 2));
-        mma16816<T>(sc[2 * j2], qf[kk], bf[0], bf[1]);
-        mma16816<T>(sc[2 * j2 + 1], qf[kk], bf[2], bf[3]);
+        mma16816<T>(sc[2 * j2], qa, bf[0], bf[1]);
+        mma16816<T>(sc[2 * j2 + 1], qa, bf[2], bf[3]);
       }
+    }
 
     // mask and scale (scores in log2 units), then the online softmax per row
 #pragma unroll
@@ -287,7 +304,8 @@ static __global__ void __launch_bounds__(128) flash_tc_kernel(
 }
 
 // float32: 256 threads, 64 rows x 64 keys per step, 4 x 4 scores and a
-// 4-row x 8-column block of the output per thread (d <= 128).
+// 4-row x 4 OC-column block of the output per thread (d <= 64 OC).
+template <int OC>
 static __global__ void __launch_bounds__(NT) flash_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ out, int n_q, int n_kv, int s_q, int s_k, int d, int causal, int window,
@@ -317,13 +335,14 @@ static __global__ void __launch_bounds__(NT) flash_f32_kernel(
   bool ok[4];
   int pos[4];
   float m_run[4], l_run[4], alpha[4];
-  float4 o[4][2];
+  float4 o[4][OC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     ok[i] = m0 + ty + 16 * i < s_q;
     pos[i] = q_offset + m0 + ty + 16 * i;
     m_run[i] = CKV_NEG_INF, l_run[i] = 0.f;
-    o[i][0] = o[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int c = 0; c < OC; ++c) o[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   for (int n0 = (k_begin / TK) * TK; n0 < k_end; n0 += TK) {
     __syncthreads();
@@ -353,7 +372,7 @@ static __global__ void __launch_bounds__(NT) flash_f32_kernel(
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
+      for (int c = 0; c < OC; ++c) {
         o[i][c].x *= alpha[i];
         o[i][c].y *= alpha[i];
         o[i][c].z *= alpha[i];
@@ -364,7 +383,7 @@ static __global__ void __launch_bounds__(NT) flash_f32_kernel(
 #pragma unroll
       for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * LP + kk];
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
+      for (int c = 0; c < OC; ++c) {
         int x = tx * 4 + 64 * c;
         if (x >= d) break;
         float4 vv = *reinterpret_cast<const float4*>(vs + kk * ld + x);
@@ -384,7 +403,7 @@ static __global__ void __launch_bounds__(NT) flash_f32_kernel(
     const float inv = 1.f / fmaxf(l_run[i], 1e-30f);
     float* orow = out + b * o_sb + qh * o_sh + (long long)(m0 + ty + 16 * i) * o_ss;
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
+    for (int c = 0; c < OC; ++c) {
       int x = tx * 4 + 64 * c;
       if (x < d)
         *reinterpret_cast<float4*>(orow + x) =
@@ -768,6 +787,10 @@ static int launch_flash_16(const void* q, const void* k, const void* v, void* ou
       launch_flash_tc<T, 32>(q, k, v, out, b, n_q, n_kv, s_q, s_k, causal, window, q_offset, st,
                              stream);
       break;
+    case 256:
+      launch_flash_tc<T, 256>(q, k, v, out, b, n_q, n_kv, s_q, s_k, causal, window, q_offset,
+                              st, stream);
+      break;
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -779,7 +802,7 @@ static int launch_flash_16(const void* q, const void* k, const void* v, void* ou
 // q/out (b, n_q, s_q, d), k/v (b, n_kv, s_k, d) in dtype, each with element
 // strides (batch, head, position) and a contiguous head dim; rows 16-byte
 // aligned. variant: 0 the float32 CUDA-core kernel (float32, d any multiple
-// of 4 up to 128), 1 mma_sync (bfloat16/float16, d in {16, 32}), 2 wgmma
+// of 4 up to 256), 1 mma_sync (bfloat16/float16, d in {16, 32, 256}), 2 wgmma
 // (bfloat16/float16, d in {64, 128}).
 extern "C" int ckv_flash_attention(const void* q, const void* k, const void* v, void* out, int b,
                                    int n_q, int n_kv, int s_q, int s_k, int d, int causal,
@@ -794,13 +817,13 @@ extern "C" int ckv_flash_attention(const void* q, const void* k, const void* v, 
   int rc = 0;
   switch (dtype) {
     case ckv::F32: {
-      if (variant != 0 || d % 4 || d > 128) return (int)cudaErrorInvalidValue;
+      if (variant != 0 || d % 4 || d > 256) return (int)cudaErrorInvalidValue;
       const int ld = ckv::tile_ld(d);
       const size_t smem = sizeof(float) * (3 * ckv::TR * ld + ckv::TR * (ckv::TK + 4));
-      cudaFuncSetAttribute(ckv::flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+      auto kernel = d > 128 ? ckv::flash_f32_kernel<4> : ckv::flash_f32_kernel<2>;
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       dim3 grid((s_q + ckv::TR - 1) / ckv::TR, n_q, b);
-      ckv::flash_f32_kernel<<<grid, ckv::NT, smem, st>>>(
+      kernel<<<grid, ckv::NT, smem, st>>>(
           (const float*)q, (const float*)k, (const float*)v, (float*)out, n_q, n_kv, s_q, s_k, d,
           causal, window, q_offset, ckv::softmax_scale(d), q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
           v_sb, v_sh, v_ss, o_sb, o_sh, o_ss);

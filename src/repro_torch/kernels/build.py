@@ -205,4 +205,4 @@ def workspace(name: str, t: torch.Tensor, n_floats: int, n_ints: int):
 
 
 FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16)
-MAX_HEAD_DIM = 128  # and multiples of 8 (16-byte rows), but for chunk_score
+MAX_HEAD_DIM = 256  # and multiples of 8 (16-byte rows), but for chunk_score

@@ -29,7 +29,9 @@ launches_by_variant = {"gathered": 0, "indexed": 0}
 
 
 def _check_geometry(name, s, n_q, d, c, n_kv, dk, shapes):
-    if (dk != d or d > B.MAX_HEAD_DIM or d % 8 or n_q % n_kv or not 1 <= c <= 64 or s < 1):
+    # d: a multiple of 8 up to 128, or the kernel's wide instance at MAX_HEAD_DIM
+    if (dk != d or (d > 128 and d != B.MAX_HEAD_DIM) or d % 8 or n_q % n_kv
+            or not 1 <= c <= 64 or s < 1):
         raise ValueError(f"{name}: unsupported shapes {shapes}")
 
 
@@ -38,8 +40,9 @@ def chunk_attention(q: torch.Tensor, k_sel: torch.Tensor, v_sel: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Re-Prefill attention over [selected chunks ; causal suffix].
 
-    q: (s, n_q, d) and k_suf/v_suf: (s, n_kv, d), all of one float dtype;
-    k_sel/v_sel: (nb, c, n_kv, d) float16, of which the first ``n_valid``
+    q: (s, n_q, d) and k_suf/v_suf: (s, n_kv, d), all of one float dtype,
+    d a multiple of 8 up to 128, or 256; k_sel/v_sel: (nb, c, n_kv, d)
+    float16, of which the first ``n_valid``
     chunks are valid. Returns (out (s, n_q, d) float32, A_j (nb,) float32):
     A_j is the probability mass over [chunks ; suffix] landing on chunk j,
     summed over heads, queries and the chunk's tokens (0 for padding)."""

@@ -22,7 +22,7 @@ def chunk_score(q: torch.Tensor, k: torch.Tensor, chunk_tokens: int) -> torch.Te
     """ContiguousChunk scores (Eq. 1): (ceil(n / c),) float32.
 
     q: (s, n_q, d) float32/bfloat16/float16 suffix queries;
-    k: (n, n_kv, d) float16 prefix (probe) keys; any n, any d <= 128 (a
+    k: (n, n_kv, d) float16 prefix (probe) keys; any n, any d <= 256 (a
     partial-key probe passes the first d dims of q and k), any c <= 64."""
     global launches
     if B.on_cpu(q, k):

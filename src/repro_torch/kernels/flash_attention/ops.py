@@ -5,10 +5,10 @@ kernel, or raises for what the kernels do not take. The kernel is chosen by
 dtype and head dim, never because another one failed:
 
 * ``wgmma``: bfloat16/float16 with d in {64, 128} (every model the port
-  runs): TMA loads into a ring of stages, wgmma products, warp-specialised;
-* ``mma_sync``: bfloat16/float16 with d in {16, 32}, which the wgmma tiles
-  do not take: mma.sync m16n8k16 tiles;
-* ``cuda_core_f32``: float32, any d that is a multiple of 4 up to 128.
+  runs but gemma3-4b): TMA loads into a ring of stages, wgmma products, warp-specialised;
+* ``mma_sync``: bfloat16/float16 with d in {16, 32, 256}, which the wgmma
+  tiles do not take (256: gemma3-4b's heads): mma.sync m16n8k16 tiles;
+* ``cuda_core_f32``: float32, any d that is a multiple of 4 up to 256.
 
 ``launches`` counts every launch, ``launches_by_variant`` each kernel's.
 """
@@ -22,7 +22,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 # the C launcher's variant codes
 VARIANTS = {"cuda_core_f32": 0, "mma_sync": 1, "wgmma": 2}
 WGMMA_HEAD_DIMS = (64, 128)
-MMA_SYNC_HEAD_DIMS = (16, 32)
+MMA_SYNC_HEAD_DIMS = (16, 32, 256)
 
 launches = 0  # kernel launches since the count was last set to 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)

@@ -1,9 +1,12 @@
-"""Decoder-only LM: the dense, ssm and hybrid families.
+"""Decoder-only LM covering every assigned family.
 
 Families:
   dense   — GQA attention + SwiGLU
+  moe     — GQA attention + top-k MoE FFN (models/moe.py)
   ssm     — mamba-1 mixer only (falcon-mamba)
   hybrid  — parallel attention + mamba heads, then SwiGLU (hymba)
+  audio / vlm — dense backbone; inputs are precomputed frame/patch
+           embeddings (models/frontends.py), ``{"embeds": (b, s, d_model)}``
 
 Layers are stacked (leading axis = layer) in the params dict, with the JAX
 package's keys, and run one after another in a Python loop.
@@ -18,6 +21,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import attention_decode, attention_prefill, qkv_project
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import matmul, rms_norm, swiglu
+from repro_torch.models.moe import init_moe_params, moe_ffn
 from repro_torch.models.ssm import (
     init_mamba_params,
     init_mamba_state,
@@ -27,6 +31,7 @@ from repro_torch.models.ssm import (
 
 Params = Dict[str, Any]
 STATE_FAMILIES = ("ssm", "hybrid")
+FAMILIES = ("dense", "moe", "audio", "vlm") + STATE_FAMILIES
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -36,8 +41,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``generator`` must live on ``device``. Each layer is drawn in float32 and
     cast into its slot of the stacked tensor, so the float32 transient stays
     one layer's tensor at full width."""
-    if cfg.family not in ("dense",) + STATE_FAMILIES:
-        raise NotImplementedError(f"{cfg.family!r} family is not ported yet")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
     dev = resolve_device(device)
     dtype = cfg.activation_dtype()
     d, L = cfg.d_model, cfg.n_layers
@@ -73,7 +78,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     layers["attn_norm"] = zeros((L, d))  # pre-mixer norm of every family
     if cfg.family in STATE_FAMILIES:
         layers["mamba"] = init_mamba_params(cfg, generator, dtype, dev, L)
-    if cfg.d_ff and cfg.family != "ssm":
+    if cfg.family == "moe":
+        layers["moe"] = init_moe_params(cfg, generator, dtype, dev, L)
+        layers["ffn_norm"] = zeros((L, d))
+    elif cfg.d_ff and cfg.family != "ssm":
         f = cfg.d_ff
         layers["w_gate"] = stacked((d, f), s_in)
         layers["w_up"] = stacked((d, f), s_in)
@@ -95,11 +103,24 @@ def layer_params(params: Params, l: int) -> Params:
             for k, v in params["layers"].items()}
 
 
-def _ffn(h: torch.Tensor, lp: Params, cfg: ModelConfig) -> torch.Tensor:
+def _ffn(h: torch.Tensor, lp: Params, cfg: ModelConfig, *,
+         dropless: bool = False) -> torch.Tensor:
+    """The FFN sublayer with its residual. An MoE layer drops assignments
+    past its experts' capacity unless ``dropless`` (decode, part B)."""
+    if cfg.family == "moe":
+        x = rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
+        return h + moe_ffn(x, lp["moe"], n_experts=cfg.n_experts, top_k=cfg.top_k,
+                           capacity_factor=cfg.moe_capacity_factor, dropless=dropless)
     if "w_gate" in lp:
         x = rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
         return h + swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
     return h
+
+
+def _inputs_to_h(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    if "embeds" in batch:  # the audio / vlm stub frontends supply embeddings
+        return batch["embeds"].to(cfg.activation_dtype())
+    return params["embed"][batch["tokens"]]
 
 
 def _logits(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -138,11 +159,12 @@ def forward(
     logits_positions: str = "all",  # "all" (training) | "last" (prefill)
     return_kv: bool = False,
 ):
-    """Full causal forward over ``batch["tokens"]`` (b, s).
+    """Full causal forward over ``batch["tokens"]`` (b, s), or
+    ``batch["embeds"]`` (b, s, d_model) for the frontend families.
 
     Returns logits (and per-layer KV, each (L, b, s, n_kv, d_head), if asked;
     None for the attention-free family)."""
-    h = params["embed"][batch["tokens"]]
+    h = _inputs_to_h(params, batch, cfg)
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device).expand(b, s)
     windows = cfg.window_sizes()
@@ -193,7 +215,7 @@ def prefill(
     """Process the prompt, fill the serve state, return first-token logits.
 
     The state's buffers are written in place and the same dict is returned."""
-    h = params["embed"][batch["tokens"]]
+    h = _inputs_to_h(params, batch, cfg)
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device).expand(b, s)
     windows = cfg.window_sizes()
@@ -212,15 +234,16 @@ def prefill(
 
 def decode_step(
     params: Params,
-    token: torch.Tensor,  # (b, 1) integer
+    token: torch.Tensor,  # (b, 1) integer, or (b, 1, d_model) embeds for the stub frontends
     cfg: ModelConfig,
     state: Dict[str, Any],
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One autoregressive step: append the token's KV, attend over the cache,
     advance the mamba state (through the selective_scan kernel at s = 1).
 
-    The state's buffers are updated in place and the same dict is returned."""
-    h = params["embed"][token]
+    An MoE layer runs dropless. The state's buffers are updated in place and
+    the same dict is returned."""
+    h = token.to(cfg.activation_dtype()) if token.dim() == 3 else params["embed"][token]
     b = h.shape[0]
     length = int(state["length"])  # valid positions already in the cache
     positions = torch.full((b, 1), length, dtype=torch.long, device=h.device)
@@ -241,6 +264,6 @@ def decode_step(
             state["ssm_h"][l] = h_s
             state["ssm_conv"][l] = conv_s
             out = s_out if cfg.family == "ssm" else 0.5 * (out + s_out)
-        h = _ffn(h + out, lp, cfg)
+        h = _ffn(h + out, lp, cfg, dropless=True)
     state["length"] = length + 1
     return _logits(params, h, cfg), state

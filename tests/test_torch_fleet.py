@@ -1,8 +1,9 @@
 """The port's heterogeneous fleet on the CPU, against its own serial runs
 and against the JAX package (the port's half of tests/test_fleet.py).
 
-Reduced float32 Qwen2.5-7B (dense), hymba-1.5b (hybrid) and falcon-mamba-7b
-(ssm) on the JAX package's weights (``bridge.params_from_numpy``):
+Reduced float32 Qwen2.5-7B (dense), hymba-1.5b (hybrid), falcon-mamba-7b
+(ssm) and granite-moe-3b-a800m (moe) on the JAX package's weights
+(``bridge.params_from_numpy``):
 
 - ``parse_fleet_spec`` against the JAX package's, and its refusals;
 - ``StatePool`` swap: a device pool's round trip bit for bit with the bytes
@@ -23,7 +24,13 @@ Reduced float32 Qwen2.5-7B (dense), hymba-1.5b (hybrid) and falcon-mamba-7b
   alone, and with the JAX Scheduler's greedy tokens on the same fleet; at
   concurrency 4 every batch holds one weight stream and the state-space
   members batch; an SSM decode survives preemption with swap and a
-  disaggregated handoff bit for bit; ``launch.serve --fleet`` on the CPU.
+  disaggregated handoff bit for bit; ``launch.serve --fleet`` on the CPU;
+- tests/test_fleet.py's NEW_FAMILIES (ssm, hybrid, moe) each through
+  Scheduler(max_concurrency=1) bit for bit its ``drive_serial`` run, and its
+  MIXED_SPEC (two dense tenants, an ssm and an MoE one): in sim the JAX
+  fleet's timeline event for event and ``serve --mode sim`` output character
+  for character; in real mode at c = 1 each family alone bit for bit and the
+  JAX Scheduler's greedy tokens, at c = 4 batched as unbatched.
 """
 import dataclasses
 import types
@@ -56,13 +63,19 @@ from repro_torch.launch import serve
 from repro_torch.serving import DisaggTopology, Request, Scheduler, TenantFleet, parse_fleet_spec
 from repro_torch.storage.h2d_meter import H2DMeter
 from repro_torch.storage.timing import RealExecutor
+from test_torch_sim import JAX, PORT, assert_same
+from test_torch_sim_serving import fleet_run
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 DENSE, HYBRID, SSM = "qwen2.5-7b", "hymba-1.5b", "falcon-mamba-7b"
+MOE = "granite-moe-3b-a800m"
 STATE_NAMES = [HYBRID, SSM]
 FLEET = [DENSE, HYBRID, SSM]
+NEW_FAMILIES = [SSM, HYBRID, MOE]  # tests/test_fleet.py's
+MIXED_SPEC = "qwen2_5_7b:2,falcon_mamba_7b:1,granite_moe_3b_a800m:1"  # tests/test_fleet.py's
+MIXED = [DENSE, DENSE, SSM, MOE]
 PREFIX, SUFFIX, DECODE = 96, 16, 4
 
 
@@ -70,7 +83,7 @@ PREFIX, SUFFIX, DECODE = 96, 16, 4
 def models():
     """name -> (JAX cfg, port cfg, JAX params, port params), float32."""
     out = {}
-    for name in FLEET:
+    for name in FLEET + [MOE]:
         cfg = dataclasses.replace(jax_reduced_config(name), dtype="float32")
         pcfg = dataclasses.replace(reduced_config(name), dtype="float32")
         params = JT.init_params(jax.random.PRNGKey(0), cfg)
@@ -131,10 +144,12 @@ def test_parse_fleet_spec_malformed_raises(bad):
 
 
 def test_parse_fleet_spec_unported_architecture():
-    # known to the JAX package's registry, not yet to the port's
-    assert jax_parse_fleet_spec("granite_moe_3b_a800m") == [("granite-moe-3b-a800m", 1)]
+    # the port's registry is the JAX package's: an MoE tenant parses alike,
+    # and an architecture neither knows raises a KeyError naming the registry
+    assert (parse_fleet_spec(MIXED_SPEC) == jax_parse_fleet_spec(MIXED_SPEC)
+            == [("qwen2.5-7b", 2), ("falcon-mamba-7b", 1), ("granite-moe-3b-a800m", 1)])
     with pytest.raises(KeyError, match="available.*hymba-1.5b"):
-        parse_fleet_spec("qwen2_5_7b:1,granite_moe_3b_a800m:1")
+        parse_fleet_spec("qwen2_5_7b:1,no_such_model:1")
     assert parse_fleet_spec("qwen2_5_7b:2,falcon_mamba_7b") == [("qwen2.5-7b", 2),
                                                                  ("falcon-mamba-7b", 1)]
 
@@ -318,7 +333,7 @@ def test_decode_ctx_backend_is_read_at_run_time(models):
 def serial(models):
     """name -> [(logits, greedy tokens)] of drive_serial alone, 2 requests."""
     out = {}
-    for name in FLEET:
+    for name in FLEET + [MOE]:
         eng = _engine(models, name, RealExecutor())
         out[name] = []
         for rid in range(2):
@@ -456,5 +471,97 @@ def test_serve_cli_fleet_on_the_cpu(capsys):
     for flags in (["--hybrid-reprefill", "auto"], ["--cache-tiers", "4:8:16"]):
         with pytest.raises(SystemExit, match="does not compose"):
             serve.main(["--device", "cpu", "--fleet", "hymba_1_5b:1"] + flags)
-    with pytest.raises(KeyError, match="available"):
-        serve.main(["--device", "cpu", "--fleet", "granite_moe_3b_a800m:1"])
+    done = serve.main(["--device", "cpu", "--fleet", "granite_moe_3b_a800m:1", "--requests", "2",
+                       "--concurrency", "2", "--decode-tokens", "2"])
+    out = capsys.readouterr().out
+    assert "heterogeneous fleet: t1=granite-moe-3b-a800m-smoke[moe]" in out
+    assert len(done) == 2 and all(len(c.trace.decode_tokens_out) == 2 for c in done)
+
+
+# ---------------------------------------------------------------------------
+# the MoE family in the fleet (tests/test_fleet.py's NEW_FAMILIES, MIXED_SPEC)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name", NEW_FAMILIES)
+def test_new_family_c1_scheduler_bit_identical_to_serial(name, models, serial):
+    sched = Scheduler(_engine(models, name, RealExecutor()), max_concurrency=1)
+    done = sched.run([Request(request_id=rid, suffix=_suffix(rid), decode_tokens=DECODE)
+                      for rid in range(2)])
+    for rid, c in enumerate(done):
+        ref_logits, ref_toks = serial[name][rid]
+        np.testing.assert_array_equal(c.result, ref_logits)
+        assert c.trace.decode_tokens_out == ref_toks
+
+
+def test_mixed_spec_real_c1_matches_each_family_alone_and_jax(models, serial):
+    ex, jex = RealExecutor(), JaxExecutor()
+    engines = {t: _engine(models, name, ex, tenant=t) for t, name in enumerate(MIXED, 1)}
+    jengines = {t: _jax_engine(models, name, jex, tenant=t) for t, name in enumerate(MIXED, 1)}
+    done = Scheduler(engines, max_concurrency=1).run(_fleet_requests(8, 4))
+    jdone = JaxScheduler(jengines, max_concurrency=1).run(_fleet_requests(8, 4, JaxRequest))
+    for c, jc in zip(done, jdone):
+        name = MIXED[c.request.tenant - 1]
+        ref_logits, ref_toks = serial[name][c.request.request_id % 2]
+        np.testing.assert_array_equal(c.result, ref_logits)
+        assert c.trace.decode_tokens_out == ref_toks == jc.trace.decode_tokens_out
+        ref = np.asarray(jc.result)
+        rel = 1e-4 if name == SSM else 1e-3  # tests/test_torch_serving.py's dense bound
+        np.testing.assert_allclose(c.result, ref, **_scale_tol(ref, rel))
+
+
+def test_mixed_spec_real_c4_batches_per_model(models, serial):
+    """At c = 4, with half the requests the MoE tenant's, its decode steps
+    batch with no other model's, and the batched run decodes the tokens of
+    the unbatched one."""
+    tenants = [4, 4, 1, 4, 2, 4, 3, 4]
+    runs = {}
+    for batched in (True, False):
+        ex = RealExecutor()
+        engines = {t: _engine(models, name, ex, tenant=t) for t, name in enumerate(MIXED, 1)}
+        sched = Scheduler(engines, max_concurrency=4, batch_decode=batched)
+        reqs = [Request(request_id=rid, suffix=_suffix(rid % 2), tenant=t, decode_tokens=DECODE)
+                for rid, t in enumerate(tenants)]
+        runs[batched] = (sched.run(reqs), sched)
+    (done, sched), (done_u, _) = runs[True], runs[False]
+    assert sched.real_batch_log, "no batch formed"
+    for members in sched.real_batch_log:
+        assert len({weight_stream(wk) for _, _, wk in members}) == 1
+    assert max(len(m) for m in sched.real_batch_log) >= 2
+    for c, cu in zip(done, done_u):
+        name = MIXED[c.request.tenant - 1]
+        assert c.trace.decode_tokens_out == cu.trace.decode_tokens_out
+        assert c.trace.decode_tokens_out == serial[name][c.request.request_id % 2][1]
+        np.testing.assert_allclose(c.result, cu.result, **_scale_tol(cu.result, 1e-5))
+
+
+def test_mixed_spec_sim_matches_jax():
+    """The sim fleet of MIXED_SPEC: the same timeline event for event (the
+    MoE tenant's decode priced by its active experts), every batch one
+    model's weight stream."""
+    got = fleet_run(PORT, n=8, fleet=MIXED_SPEC)
+    assert_same(got, fleet_run(JAX, n=8, fleet=MIXED_SPEC))
+    for batch in got["sim_batch_log"]:
+        assert len({key.rpartition("@")[2] for _, _, key in batch}) == 1, batch
+
+
+def test_mixed_spec_serve_sim_cli_matches_jax(monkeypatch, capsys):
+    import sys
+
+    from repro.launch import serve as jax_serve
+
+    args = ["--mode", "sim", "--fleet", MIXED_SPEC, "--decode-tokens", "3"]
+    monkeypatch.setattr(sys, "argv", ["serve"] + args)
+    jax_serve.main()
+    want = capsys.readouterr().out
+    serve.main(args)
+    assert capsys.readouterr().out == want
+    assert "t4=granite-moe-3b-a800m[moe]" in want
+
+
+def test_mixed_spec_serve_cli_on_the_cpu(capsys):
+    done = serve.main(["--device", "cpu", "--fleet", MIXED_SPEC, "--requests", "8",
+                       "--concurrency", "4", "--decode-tokens", "3"])
+    out = capsys.readouterr().out
+    assert ("heterogeneous fleet: t1=qwen2.5-7b-smoke[dense], t2=qwen2.5-7b-smoke[dense], "
+            "t3=falcon-mamba-7b-smoke[ssm], t4=granite-moe-3b-a800m-smoke[moe]") in out
+    assert len(done) == 8 and all(len(c.trace.decode_tokens_out) == 3 for c in done)
+    assert "granite-moe-3b-a800m-smoke: ttft=" in out

@@ -75,6 +75,8 @@ def _close(a, b, rel=1e-5):
     (64, 28, 4, 4096, 16, 1),      # IMPRESS's partial keys: d 16, one k-step
     (16, 4, 1, 100, 2, 1),         # the reduced model's IMPRESS probe: 2 dims, element loads
     (24, 14, 2, 700, 44, 16),      # d not a multiple of 8 over two 32-dim groups
+    (64, 8, 4, 1024, 256, 16),     # gemma3-4b's heads: the 256-wide instance, c = 16
+    (20, 6, 2, 300, 200, 24),      # a d past 128 padded to 256, c not dividing the tile
 ])
 def test_chunk_score(dev, qdtype, s, nq, nkv, n, d, c):
     q, k = _rand(dev, 0, (s, nq, d), qdtype), _rand(dev, 1, (n, nkv, d), torch.float16)
@@ -310,8 +312,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = _rand(dev, 0, (4, 4, 32))
     with pytest.raises(TypeError):
         cs_ops.chunk_score(q, _rand(dev, 1, (40, 2, 32)), 16)  # keys must be float16
-    with pytest.raises(ValueError):  # d past 128
-        cs_ops.chunk_score(_rand(dev, 0, (4, 4, 136)), _rand(dev, 1, (40, 2, 136), torch.float16),
+    with pytest.raises(ValueError):  # d past 256
+        cs_ops.chunk_score(_rand(dev, 0, (4, 4, 264)), _rand(dev, 1, (40, 2, 264), torch.float16),
                            16)
     flat = _rand(dev, 1, (40 * 2 * 32 + 1,), torch.float16)
     with pytest.raises(ValueError):  # one element off a 16-byte boundary
@@ -848,7 +850,8 @@ def _check_indexed(q, kp, vp, idx, nv, kf, vf, plain=True):
 @pytest.mark.parametrize("b", [1, 2, 4])
 @pytest.mark.parametrize("group,nkv,d,c,m,n_sel", [(7, 4, 128, 16, 256, 64),
                                                     (4, 2, 64, 24, 20, 7),
-                                                    (7, 4, 128, 1, 1500, 1024)])
+                                                    (7, 4, 128, 1, 1500, 1024),
+                                                    (2, 4, 256, 16, 256, 64)])
 def test_chunk_attention_indexed(dev, qdtype, b, group, nkv, d, c, m, n_sel):
     """The indexed form at b 1, 2 and 4: the main path's heads and d over a
     whole layer's pool of 256 chunks with unsorted indices, a generic d with
@@ -1035,3 +1038,128 @@ def test_state_pool_swap_on_the_card(dev, name):
         if isinstance(v, torch.Tensor):
             assert pool.state[k].device == pool.home and torch.equal(pool.state[k], v)
     np.testing.assert_array_equal(be.decode_step(tok, pool.state)[0], ref)
+
+
+# ---------------------------------------------------------------------------
+# head dim 256 (gemma3-4b: 8 query heads over 4 kv heads)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("s,window,q_offset", [(1100, 0, 0), (1100, 1024, 0), (70, 1024, 1050)])
+def test_flash_attention_head_dim_256(dev, dtype, s, window, q_offset):
+    """d = 256 with gemma3-4b's group, whole causal and under its 1024-token
+    window, and a suffix past the window after a prefix: the mma_sync
+    kernel's 256-wide instance (float32: the CUDA-core one)."""
+    nq, nkv, d = 8, 4, 256
+    s_k = s + q_offset
+    q = _rand(dev, 110, (1, s, nq, d), dtype).transpose(1, 2)
+    k = _rand(dev, 111, (1, s_k, nkv, d), dtype).transpose(1, 2)
+    v = _rand(dev, 112, (1, s_k, nkv, d), dtype).transpose(1, 2)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    variant = fa_ops.variant_for(dtype, d)
+    assert variant == ("cuda_core_f32" if dtype == torch.float32 else "mma_sync")
+    before = fa_ops.launches_by_variant[variant]
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    assert fa_ops.launches_by_variant[variant] == before + 1
+    _close(got, flash_attention_ref(q, k, v, **kw), rel=FLASH_REL[dtype])
+    assert torch.equal(got, fa_ops.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,n_valid", [(64, 64), (37, 5), (130, 0)])
+def test_chunk_attention_head_dim_256(dev, qdtype, s, n_valid):
+    """The gathered form at d = 256: the main path's 64 chunks of 16 tokens
+    under a 64-token suffix, a ragged suffix over a few chunks, and a suffix
+    past one key tile alone; held to both plain versions, bit for bit
+    reproducible."""
+    nq, nkv, nb, c, d = 8, 4, 64, 16, 256
+    q = _rand(dev, 120, (s, nq, d), qdtype)
+    ks, vs = (_rand(dev, i, (nb, c, nkv, d), torch.float16) for i in (121, 122))
+    kf, vf = (_rand(dev, i, (s, nkv, d), qdtype) for i in (123, 124))
+    before = ca_ops.launches_by_variant["gathered"]
+    o, m = ca_ops.chunk_attention(q, ks, vs, n_valid, kf, vf)
+    assert ca_ops.launches_by_variant["gathered"] == before + 1
+    for ref in (chunk_attention_ref, chunk_attention_split_ref):
+        o2, m2 = ref(q, ks, vs, n_valid, kf, vf)
+        _close(o, o2)
+        _close(m, m2)
+    assert _all_zero(m[n_valid:])
+    o3, m3 = ca_ops.chunk_attention(q, ks, vs, n_valid, kf, vf)
+    assert torch.equal(o, o3) and torch.equal(m, m3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [16, 64])
+def test_decode_attention_head_dim_256(dev, dtype, page):
+    """Both forms at d = 256: the stacked form (pad slots, partial pages,
+    bit for bit under a wider table) and the pools form over ragged
+    per-request buffers, bit for bit the stacked form on their stack."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_pools_ref
+    from repro_torch.kernels.decode_attention.ref import stack_pool_buffers
+
+    n_active = [1100 // page, 300 // page]
+    lens = [(n_active[0] - 1) * page + 3, (n_active[1] - 1) * page + page]
+    _check_decode(*_decode_case(dev, dtype, 2, 8, 4, 256, page, n_active[0] + 2, n_active, lens,
+                                seed=130))
+    n_pages = [1100 // page, 700 // page, 130 // page]
+    q, ks, vs, tbl, lens = _pools_case(dev, dtype, page, n_pages, [n - 1 for n in n_pages],
+                                       nq=8, nkv=4, d=256, seed=140)
+    o, m = da_ops.decode_attention_pools(q, ks, vs, tbl, lens)
+    o2, m2 = decode_attention_pools_ref(q, ks, vs, tbl, lens)
+    _close(o, o2, rel=1e-5 if dtype == torch.float32 else 2.0 ** -7)
+    _close(m, m2)
+    kp, vp = stack_pool_buffers(ks, vs)
+    os_, ms_ = da_ops.decode_attention(q, kp, vp, tbl, lens)
+    assert torch.equal(o, os_) and torch.equal(m, ms_)
+
+
+def test_head_dims_past_the_kernels_raise(dev):
+    """Past 256, and for chunk_attention between 128 and 256, the wrappers
+    raise before any launch; flash at 16 bits takes no d but its tiles'."""
+    before = (cs_ops.launches, ca_ops.launches, da_ops.launches, fa_ops.launches)
+    with pytest.raises(ValueError):
+        ca_ops.chunk_attention(_rand(dev, 0, (4, 4, 192)),
+                               _rand(dev, 1, (2, 16, 2, 192), torch.float16),
+                               _rand(dev, 2, (2, 16, 2, 192), torch.float16), 2,
+                               _rand(dev, 3, (4, 2, 192)), _rand(dev, 4, (4, 2, 192)))
+    with pytest.raises(ValueError):
+        q, kp, vp, tbl, lens = _decode_case(dev, torch.bfloat16, 1, 4, 2, 264, 16, 3, [2], [20])
+        da_ops.decode_attention(q, kp, vp, tbl, lens)
+    with pytest.raises(ValueError):
+        x = _rand(dev, 5, (1, 4, 8, 264))
+        fa_ops.flash_attention(x, x[:, :2], x[:, :2])
+    with pytest.raises(ValueError):
+        x = _rand(dev, 6, (1, 4, 8, 192), torch.bfloat16)
+        fa_ops.flash_attention(x, x[:, :2], x[:, :2])
+    assert (cs_ops.launches, ca_ops.launches, da_ops.launches, fa_ops.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the MoE FFN (plain torch on the card: gather, batched products, combine)
+
+
+@pytest.mark.parametrize("dropless", [False, True])
+def test_moe_ffn_on_the_card_matches_the_cpu(dev, dropless):
+    """granite-moe-3b-a800m's routing (40 experts, top 8) at capacity factor
+    1.25 (assignments dropped) and dropless, bfloat16: the same routing as
+    the CPU, outputs within 2e-2 of the largest (bfloat16 products rounded in
+    other places), and two runs on the card the same bits (the combine adds
+    each token's experts in a fixed order, no atomics)."""
+    from repro_torch.models import moe as PM
+
+    T, d, f, E, k = 512, 256, 64, 40, 8
+    rng = np.random.default_rng(150)
+    x = torch.from_numpy(rng.standard_normal((T, d)).astype(np.float32)).to(torch.bfloat16)
+    p = {name: torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32))
+         .to(torch.bfloat16)
+         for name, shape, std in (("w_router", (d, E), d ** -0.5), ("w_gate", (E, d, f), d ** -0.5),
+                                  ("w_up", (E, d, f), d ** -0.5), ("w_down", (E, f, d), f ** -0.5))}
+    kw = dict(n_experts=E, top_k=k, capacity_factor=1.25, dropless=dropless)
+    pd = {name: t.to(dev) for name, t in p.items()}
+    got = PM.moe_ffn(x.to(dev), pd, **kw)
+    assert torch.equal(got, PM.moe_ffn(x.to(dev), pd, **kw))
+    idx_d, _ = PM._router(x.to(dev), pd["w_router"], k)
+    idx_c, _ = PM._router(x, p["w_router"], k)
+    assert torch.equal(idx_d.cpu(), idx_c)
+    want = PM.moe_ffn(x, p, **kw)
+    _close(got.cpu(), want, rel=2e-2)

@@ -12,17 +12,22 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ASSIGNED as JAX_ASSIGNED
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_configs as jax_list_configs
 from repro.configs import reduced_config as jax_reduced_config
 from repro.models import transformer as JT
 from repro_torch import bridge
-from repro_torch.configs import get_config, list_configs, reduced_config, resolve_config_name
+from repro_torch.configs import (ASSIGNED, get_config, list_configs, reduced_config,
+                                 resolve_config_name)
 from repro_torch.models import transformer as PT
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-NAMES = ["qwen2.5-7b", "qwen2.5-14b", "qwen2.5-32b", "hymba-1.5b", "falcon-mamba-7b"]
+NAMES = ["qwen2.5-7b", "qwen2.5-14b", "qwen2.5-32b", "hymba-1.5b", "falcon-mamba-7b",
+         "gemma3-4b", "granite-moe-3b-a800m", "internvl2-76b", "mixtral-8x22b",
+         "musicgen-large", "qwen3-1.7b", "yi-34b"]
 
 
 def _np_tree(params):
@@ -51,7 +56,8 @@ def test_config_fields_equal(name):
 
 
 def test_config_registry():
-    assert list_configs() == sorted(NAMES)
+    assert list_configs() == sorted(NAMES) == jax_list_configs()
+    assert ASSIGNED == JAX_ASSIGNED
     assert resolve_config_name("qwen2_5_7b") == "qwen2.5-7b"
     assert get_config("qwen2.5-7b").activation_dtype() is torch.bfloat16
     with pytest.raises(KeyError):
