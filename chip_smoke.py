@@ -180,7 +180,28 @@ non-zero exit code:
                 embeddings (flash_attention at d 64, n_q = n_kv), 8
                 decode_steps on embeds, held against forward over the same
                 embeds (the dense limits);
-  13. sim     — the discrete-event sim mode on the card's host (no tensor,
+  13. train   — qwen3-1.7b at full width (28 layers, d_model 2048, 16 / 8
+                heads of 128, vocab 151936, qk_norm), every earlier model
+                freed: (t1) flash_attention's backward kernel against its
+                plain version at the training shape (bfloat16, s 4096,
+                causal), with window 1024, and in float32 at d 16, two runs
+                bit for bit, timed beside its bound, SDPA's backward, the
+                plain version and its host time; (t2) make_train_step
+                (grad_accum 2, no remat, lr 3e-4) on seeded bfloat16 weights
+                over one fixed numpy-seeded batch of 2 x 4096 tokens for 5
+                steps: the loss falls, 2 x 28 flash forward and backward
+                launches a step, step time, tokens/s, model-FLOPs
+                utilisation, peak memory, one more step profiled (the
+                backward kernels' share); (u) a cold and a warm ContiguousKV
+                request of the dense shape on the trained weights (TTFT,
+                TPOT); (t3) at full width cut to 4 layers: the kernel path's
+                loss and gradients against the plain path (block-wise
+                attention through autograd), remat against none, grad_accum
+                2 against 1, one int8-compressed step; (t4) the train CLI at
+                --preset 100m resuming at step 6, and a FailureInjector
+                restart bit for bit an uninterrupted run; (t5) a reduced
+                hymba under grad raises the scan wrapper's error;
+  14. sim     — the discrete-event sim mode on the card's host (no tensor,
                 no launch): (a) both golden timelines of tests/golden/
                 reproduced event for event; (b) the headline ordering's
                 modelled TTFTs at a 6000-token prefix (ContiguousKV, AS-LRU,
@@ -192,13 +213,15 @@ non-zero exit code:
                 plan of that shape against the e2e phase's real one: the
                 same ops up to the first token, periods, chunks selected per
                 period and probe loads;
-  14. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
+  15. a ``{"kernels": [...]}`` JSON line with each kernel's launches on the
      paths it names (per variant where a wrapper has several), its error
      against its plain version, its times and its bound (the largest of
      bytes, products and exponentials, named), at the main path's shapes,
      (``baseline_shapes``) at the baselines' and (``head_dim_256``) at
-     gemma3-4b's, with its launches there;
-  15. last line: ``{"ok": true, "device": {...}}``.
+     gemma3-4b's, with its launches there; and flash_attention's backward
+     kernel as its own entry (``flash_attention_bwd``, its launches over the
+     5 train steps);
+  16. last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
 outside a checkout (it builds and imports ``src/repro_torch``).
@@ -302,6 +325,33 @@ STEP_BF16_REL_TOL, STEP_BF16_MIN_COS = 0.1, 0.998
 # c = 4), gemma3-4b's d 256 heads, musicgen-large's frame embeddings
 MOE_NAME, SWA_NAME, AUDIO_NAME = "granite-moe-3b-a800m", "gemma3-4b", "musicgen-large"
 MOE_SERVE_REQUESTS, AUDIO_FRAMES, AUDIO_DECODE = 8, 1024, 8
+# training (phase t): qwen3-1.7b at full width, make_train_step over one
+# fixed batch of TRAIN_BATCH x TRAIN_SEQ tokens in TRAIN_ACCUM microbatches;
+# the backward kernel also with a sliding window of BWD_WINDOW
+TRAIN_NAME, TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = "qwen3-1.7b", 2, 4096, 2
+TRAIN_STEPS, TRAIN_LR, BWD_WINDOW = 5, 3e-4, 1024
+# the backward kernel in float32 against its plain version: the same float32
+# sums in other orders (1e-5 of each gradient's largest element); 16-bit
+# inputs FLASH_REL: each gradient one float32 result rounded once
+BWD_F32_REL = 1e-5
+# (t3) the kernel path against the plain path in bfloat16 at full width, 4
+# layers: the plain path rounds the scores to bfloat16 before its float32
+# softmax and P to bfloat16 before P V, the kernels keep both in float32 and
+# round each gradient once, so the two differ by bfloat16 rounding through 4
+# layers' backward. An H100 run measured the loss 1.5e-5 apart, cosine
+# >= 0.99976 and ||g_k - g_p|| / ||g_p|| <= 0.0221 on every leaf; the
+# limits: the loss within 1e-4 relative, each leaf at cosine >= 0.99 (a cut
+# graph gives 0 on wq, wk, wv) and within 0.05 in that norm ratio, which
+# also sees a gradient off by a constant factor (cosine 1)
+AGREE_LAYERS, AGREE_LOSS_REL, AGREE_MIN_COS, AGREE_MAX_REL_NORM = 4, 1e-4, 0.99, 0.05
+# grad_accum 2 against 1 on one batch: the same kernels, GEMMs over half the
+# rows (cuBLAS may sum in another order) and bfloat16 gradients summed in
+# float32 instead of one bfloat16 rounding of the whole batch's
+ACCUM_LOSS_REL, ACCUM_MIN_COS = 1e-3, 0.999
+# (t4) the restart check's model: qwen3's head dim and bfloat16, 4 layers
+RESTART_ARCH = "qwen3-1.7b"
+RESTART_OVERRIDES = dict(n_layers=4, d_model=512, d_ff=1536, vocab_size=4096, n_heads=4,
+                         n_kv_heads=2, d_head=128, dtype="bfloat16")
 
 
 def fail(msg: str):
@@ -448,8 +498,9 @@ def phase_device() -> str:
     return smi_line
 
 
-def phase_kernels(cfg):
-    """Each kernel against its plain version at the main path's shapes."""
+def phase_kernels(cfg, tag: str = "kernels"):
+    """Each kernel against its plain version at the main path's shapes
+    (``cfg``'s heads), printed under ``tag``."""
     import torch
 
     from repro_torch.kernels.chunk_attention.ops import chunk_attention
@@ -459,7 +510,7 @@ def phase_kernels(cfg):
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def rn(*shape, dtype=torch.float32):
@@ -478,10 +529,10 @@ def phase_kernels(cfg):
         got, ref = chunk_score(q, kk, CHUNK), chunk_score_ref(q, kk, CHUNK)
         err, tol = max_err(got, ref), 1e-5 * ref.abs().max().item() + 1e-6
         if not err <= tol:
-            fail(f"chunk_score {dname(q)} n={n}: max abs err {err} > {tol}")
+            fail(f"{tag}: chunk_score {dname(q)} n={n}: max abs err {err} > {tol}")
         if not torch.equal(got, chunk_score(q, kk, CHUNK)):
-            fail("chunk_score is not reproducible bit for bit")
-        print(f"kernels: chunk_score q {dname(q)} n={n}: max abs err {err:.3g} "
+            fail(f"{tag}: chunk_score is not reproducible bit for bit")
+        print(f"{tag}: chunk_score q {dname(q)} n={n}: max abs err {err:.3g} "
               f"(tol {tol:.3g}), two runs bit-identical")
         if qdt == torch.float32 and n == PREFIX_LEN:
             # float32 q: q_lo k + q_hi k, two split float16 products per term
@@ -502,12 +553,12 @@ def phase_kernels(cfg):
         err = max(max_err(o, o2), max_err(ms, ms2))
         tol = 1e-5 * max(o2.abs().max().item(), ms2.abs().max().item()) + 1e-6
         if not err <= tol or o.dtype != torch.float32:
-            fail(f"chunk_attention {dname(q)} n_valid={n_valid}: err {err} > {tol}")
-        print(f"kernels: chunk_attention q {dname(q)} chunks {n_valid}/{n_sel}: "
+            fail(f"{tag}: chunk_attention {dname(q)} n_valid={n_valid}: err {err} > {tol}")
+        print(f"{tag}: chunk_attention q {dname(q)} chunks {n_valid}/{n_sel}: "
               f"max abs err {err:.3g} (tol {tol:.3g}) on out and A_j")
         if not (torch.equal(o, chunk_attention(q, ks, vs, n_valid, kf, vf)[0])
                 and torch.equal(ms, chunk_attention(q, ks, vs, n_valid, kf, vf)[1])):
-            fail("chunk_attention is not reproducible bit for bit")
+            fail(f"{tag}: chunk_attention is not reproducible bit for bit")
         if qdt == torch.float32 and n_valid == n_sel:
             rows["chunk_attention"] = chunk_attention_timing(q, ks, vs, n_valid, kf, vf, o, ms,
                                                              err)
@@ -526,27 +577,27 @@ def phase_kernels(cfg):
     o_t, pm_t = decode_attention(q, kp, vp, tight, lens)
     if not (torch.equal(o, o_t) and torch.equal(pm[..., :-1], pm_t)
             and pm[..., -1].abs().max().item() == 0.0):
-        fail("decode_attention: a pad slot changed the real pages' results")
+        fail(f"{tag}: decode_attention: a pad slot changed the real pages' results")
     # bfloat16 output: both round one float32 result, so one bfloat16 ulp
     err_o, tol_o = max_err(o, o2), 2.0 ** -7 * o2.float().abs().max().item()
     err_m, tol_m = max_err(pm, pm2), 1e-5 * pm2.abs().max().item() + 1e-7
     if not (err_o <= tol_o and err_m <= tol_m):
-        fail(f"decode_attention: err out {err_o} > {tol_o} or mass {err_m} > {tol_m}")
-    print(f"kernels: decode_attention bfloat16 {n_pages - 1} pages + 1 pad slot: max abs "
+        fail(f"{tag}: decode_attention: err out {err_o} > {tol_o} or mass {err_m} > {tol_m}")
+    print(f"{tag}: decode_attention bfloat16 {n_pages - 1} pages + 1 pad slot: max abs "
           f"err out {err_o:.3g} (tol {tol_o:.3g}), mass {err_m:.3g} (tol {tol_m:.3g}); "
           f"pad slot bit-identical")
     o2, pm2 = decode_attention(q, kp, vp, wide, lens)
     if not (torch.equal(o, o2) and torch.equal(pm, pm2)):
-        fail("decode_attention is not reproducible bit for bit")
+        fail(f"{tag}: decode_attention is not reproducible bit for bit")
     rows["decode_attention"] = decode_attention_timing(q, kp, vp, wide, lens, o, pm,
                                                        max(err_o, err_m))
-    print("kernels: decode_attention two runs bit-identical")
+    print(f"{tag}: decode_attention two runs bit-identical")
     for name, r in rows.items():
         extra = f"; host time per call {r['host_ms']:.4f} ms"
         if "sdpa_output_only_ms" in r:
             extra += (f"; output-only scaled_dot_product_attention "
                       f"{r['sdpa_output_only_ms']:.4f} ms")
-        print(f"kernels: {name}: {r['ms']:.4f} ms on the card (plain version "
+        print(f"{tag}: {name}: {r['ms']:.4f} ms on the card (plain version "
               f"{r['plain_ms']:.4f} ms, {bound_text(r['bound'])}, "
               f"library call: none returns the per-chunk/page mass{extra})")
     return rows
@@ -1935,6 +1986,7 @@ def phase_e2e(cfg):
     from repro_torch.kernels.chunk_score import ops as cs
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.models import transformer as T
+    from repro_torch.models.common import count_params
     from repro_torch.storage.timing import RealExecutor
 
     from repro_torch.kernels.flash_attention import ops as fa
@@ -1943,7 +1995,7 @@ def phase_e2e(cfg):
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = count_params(params)
     print(f"e2e: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads d_ff {cfg.d_ff} vocab {cfg.vocab_size}: "
           f"{n_params / 1e9:.2f} B random {cfg.dtype} weights in "
@@ -2264,7 +2316,9 @@ def phase_state_e2e(cfg, n_requests: int, check_decode: bool):
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.selective_scan import ops as ss
     from repro_torch.models import transformer as T
+    from repro_torch.models.common import count_params
     from repro_torch.storage.timing import RealExecutor
+    from repro_torch.tree import tree_map
 
     ops = {"flash_attention": fa, "selective_scan": ss}
     torch.cuda.reset_peak_memory_stats()
@@ -2272,7 +2326,7 @@ def phase_state_e2e(cfg, n_requests: int, check_decode: bool):
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = count_params(params)
     print(f"state: {cfg.name} ({cfg.family}) {cfg.n_layers} layers d_model {cfg.d_model} "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads d_inner {cfg.d_inner} ssm_state "
           f"{cfg.ssm_state} d_ff {cfg.d_ff} vocab {cfg.vocab_size}: {n_params / 1e9:.2f} B "
@@ -2363,7 +2417,7 @@ def phase_state_e2e(cfg, n_requests: int, check_decode: bool):
         prompt = np.concatenate([prefix, suffixes[0]])
         decode_vs_prefill(be, prompt, STEP_BF16_REL_TOL, STEP_BF16_MIN_COS)
         cfg32 = dataclasses.replace(cfg, dtype="float32")
-        params32 = _tree_map(params, lambda t: t.to(torch.float32))
+        params32 = tree_map(lambda t: t.to(torch.float32), params)
         decode_vs_prefill(StateCompute(cfg32, params32, device=DEVICE), prompt,
                           STEP_REL_TOL, STEP_MIN_COS)
         del params32
@@ -2735,20 +2789,6 @@ def decode_vs_prefill(be, prompt, rel_tol: float, min_cos: float):
             fail(f"{be.cfg.name} {be.cfg.dtype}: decode step {k} disagrees with the prefill")
 
 
-def _tree_map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _tree_map(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def profile_request(eng, suffix, warm_wall_ms: float, tag: str = "e2e"):
     """One more request under torch.profiler: the device's busy time (sum of
     its kernels and copies, one stream), the idle share against the mean wall
@@ -2994,12 +3034,13 @@ def _init_weights(tag, cfg):
     import torch
 
     from repro_torch.models import transformer as T
+    from repro_torch.models.common import count_params
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = count_params(params)
     extra = (f", {cfg.n_experts} experts top {cfg.top_k} of d_ff {cfg.moe_d_ff}"
              if cfg.family == "moe" else "")
     windows = sorted({int(w) for w in cfg.window_sizes()})
@@ -3332,6 +3373,521 @@ def free_weights():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# training: qwen3-1.7b at full width (phase t)
+
+
+def _visible_pairs(s: int, window: int) -> int:
+    """Key-query pairs of causal self-attention over s positions, the window
+    (if any) included."""
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def _sdpa_bwd(q, k, v, do, window):
+    """A function timing the backward of one scaled_dot_product_attention
+    call on the same inputs (the window as a boolean mask): the yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    s = q.shape[2]
+    if window > 0:
+        pos = torch.arange(s, device=q.device)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window)
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, enable_gqa=True)
+    else:
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
+def phase_train_kernel(cfg, smi_line):
+    """(t1) flash_attention's backward kernel against its plain version at
+    the training step's shape (bfloat16, causal), with sliding window 1024,
+    and in float32 at the tiny preset's d 16 (the forward's output, which
+    the backward reads, first held to its plain version): each gradient's error and two
+    runs bit for bit, timed beside its bound, SDPA's backward, the plain
+    version and the wrapper's host time. Returns {label: numbers}."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+
+    def rn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+    s, nq, nkv, d = TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    shapes = (("main", torch.bfloat16, s, nq, nkv, d, 0),
+              ("window_1024", torch.bfloat16, s, nq, nkv, d, BWD_WINDOW),
+              ("float32_tiny", torch.float32, 128, 4, 2, 16, 0))
+    out_rows = {}
+    for label, dtype, s_, nq_, nkv_, d_, window in shapes:
+        # the model's (b, s, n, d) projections, read through transposed views
+        q = rn((1, s_, nq_, d_), dtype).transpose(1, 2)
+        k = rn((1, s_, nkv_, d_), dtype).transpose(1, 2)
+        v = rn((1, s_, nkv_, d_), dtype).transpose(1, 2)
+        do = rn((1, s_, nq_, d_), dtype).transpose(1, 2)
+        with torch.no_grad():  # the forward at this shape, held to its plain version
+            out, f_err, f_tol = flash_held(f"train (t1) {label}", q, k, v, window=window)
+        args, kw = (q, k, v, out, do), dict(window=window)
+        got = fa.flash_attention_bwd(*args, **kw)
+        same = all(torch.equal(a, b) for a, b in zip(got, fa.flash_attention_bwd(*args, **kw)))
+        want = flash_attention_bwd_ref(*args, **kw)
+        rel = BWD_F32_REL if dtype == torch.float32 else FLASH_REL
+        errs = {n: max_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        tols = {n: rel * w.float().abs().max().item() for n, w in zip(("dq", "dk", "dv"), want)}
+        if not same or any(errs[n] > tols[n] for n in errs):
+            fail(f"flash_attention_bwd {label}: errors {errs} (tolerances {tols}), two runs "
+                 f"bit-identical: {same}")
+        pairs = _visible_pairs(s_, window)
+        r = dict(err=max(errs.values()), errs=errs, bit_identical=same, forward_err=f_err,
+                 ms=device_ms(lambda: fa.flash_attention_bwd(*args, **kw), reps=10),
+                 library_ms=device_ms(_sdpa_bwd(q, k, v, do, window), reps=10),
+                 host_ms=host_ms(lambda: fa.flash_attention_bwd(*args, **kw), reps=10),
+                 plain_ms=wall_ms(lambda: flash_attention_bwd_ref(*args, **kw), reps=3),
+                 bound=bounds(nbytes(q, k, v, out, do, *got), 5 * 2.0 * pairs * d_ * nq_,
+                              nq_ * pairs))
+        print(f"train (t1): flash_attention_bwd {label} ({dname(q)}, 1 x {nq_}/{nkv_} heads, "
+              f"s {s_}, d {d_}, window {window}): the forward's output max abs err "
+              f"{f_err:.3g} (tol {f_tol:.3g}); max abs err dq {errs['dq']:.3g} dk "
+              f"{errs['dk']:.3g} dv {errs['dv']:.3g} (tol {tols['dq']:.3g}, {tols['dk']:.3g}, "
+              f"{tols['dv']:.3g}), two runs bit-identical; {r['ms']:.4f} ms on the card, "
+              f"SDPA's backward {r['library_ms']:.4f} ms, plain version {r['plain_ms']:.2f} ms, "
+              f"{bound_text(r['bound'])}; host time per call {r['host_ms']:.4f} ms ({smi_line})")
+        out_rows[label] = r
+        del q, k, v, do, out, got, want, args
+        free_weights()
+    return out_rows
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's prefill attention as the block-wise plain torch form (the
+    CPU path's), on the card: autograd differentiates it as it is."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import attention_prefill_blockwise
+
+    saved = T.attention_prefill
+    T.attention_prefill = lambda q, k, v, *, window=0, block_q=512: attention_prefill_blockwise(
+        q, k, v, window=window, block_q=block_q)
+    try:
+        yield
+    finally:
+        T.attention_prefill = saved
+
+
+def _train_batch(cfg, b, s, seed):
+    """Next-token pairs of b rows of s + 1 numpy-seeded tokens, on the card."""
+    import numpy as np
+    import torch
+
+    seq = np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s + 1))
+    return {"tokens": torch.as_tensor(seq[:, :-1], device=DEVICE),
+            "labels": torch.as_tensor(seq[:, 1:], device=DEVICE)}
+
+
+def _train_flops(cfg, n_params: int, b: int, s: int) -> float:
+    """Model FLOPs of one training step: 6 N T for the N parameters that
+    multiply (all but the input embedding's gather) over T = b s tokens, plus
+    the attention products: forward 2 x 2 x pairs x d x n_q a layer and
+    sequence, backward twice that."""
+    return (6.0 * n_params * b * s
+            + 3 * 4.0 * _visible_pairs(s, 0) * cfg.d_head * cfg.n_heads * cfg.n_layers * b)
+
+
+def phase_train_step(cfg, smi_line):
+    """(t2) make_train_step(grad_accum=2, remat=False, lr=3e-4) on full-width
+    qwen3-1.7b (seeded bfloat16 weights) over one fixed batch of 2 x 4096
+    numpy-seeded tokens for TRAIN_STEPS steps: the loss falls; each step's
+    flash forward and backward launches (2 x 28 each) asserted; step time,
+    tokens/s, model-FLOPs utilisation, peak memory; one more step profiled
+    (the backward kernels' share of its device time). Returns (params,
+    {path: launches}, numbers)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import count_params, param_bytes
+    from repro_torch.train.optimizer import adamw_init
+
+    params = _init_weights("train (t2)", cfg)
+    opt = adamw_init(params)
+    print(f"train (t2): params {param_bytes(params) / 1e9:.2f} GB, AdamW moments "
+          f"{param_bytes({'m': opt['m'], 'v': opt['v']}) / 1e9:.2f} GB")
+    batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 23)
+    step = make_train_step(cfg, grad_accum=TRAIN_ACCUM, remat=False, lr=TRAIN_LR)
+    expect = TRAIN_ACCUM * cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)
+    fa.bwd_launches = fa.dout_copies = 0
+    losses, step_ms = [], []
+    for i in range(TRAIN_STEPS):
+        f0, b0 = fa.launches, fa.bwd_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        got = (fa.launches - f0, fa.bwd_launches - b0)
+        if got != (expect, expect) or not math.isfinite(losses[-1]):
+            fail(f"train (t2) step {i}: loss {losses[-1]}, flash forward / backward launches "
+                 f"{got}, expected {expect} each")
+        print(f"train (t2): step {i}: loss {losses[-1]:.4f}, {step_ms[-1]:.1f} ms, flash "
+              f"launches forward {got[0]} backward {got[1]} ({smi_line})")
+    if not losses[-1] < losses[0]:
+        fail(f"train (t2): the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    launches = {"flash_attention": counts(fa),
+                "flash_attention_bwd": {"launches": fa.bwd_launches}}
+    n_mult = count_params(params) - params["embed"].numel()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    warm = statistics.median(step_ms[1:])
+    flops = _train_flops(cfg, n_mult, TRAIN_BATCH, TRAIN_SEQ)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train (t2): loss {losses[0]:.4f} -> {losses[-1]:.4f} over {TRAIN_STEPS} steps; warm "
+          f"step {warm:.1f} ms (median of steps 1-{TRAIN_STEPS - 1}), {tokens / warm * 1e3:,.0f} "
+          f"tokens/s; {flops / 1e12:.1f} TFLOP a step (6 x {n_mult / 1e9:.3f} B params x "
+          f"{tokens} tokens + attention), model-FLOPs utilisation "
+          f"{100 * flops / (warm / 1e3) / TENSOR_CORE_OPS_PER_S:.1f} % of 989 TFLOP/s; peak "
+          f"device memory {peak:.1f} GiB; dout copies {fa.dout_copies} ({smi_line})")
+    params, opt, prof = profile_train_step(step, params, opt, batch, warm)
+    del opt, metrics
+    free_weights()
+    numbers = dict(losses=losses, step_ms=step_ms, warm_step_ms=warm,
+                   tokens_per_s=tokens / warm * 1e3, mfu=flops / (warm / 1e3) / TENSOR_CORE_OPS_PER_S,
+                   peak_gib=peak, dout_copies=fa.dout_copies, **prof)
+    return params, launches, numbers
+
+
+def profile_train_step(step, params, opt, batch, warm_ms: float):
+    """One more train step under torch.profiler: the device's busy time, its
+    idle share against a warm step's wall time, the flash backward kernels'
+    share and the top device ops. Returns (params, opt, numbers)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        params, opt, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+
+    def device_us(e):  # the attribute's name changed across torch versions
+        t = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if t is None else t
+
+    dev = [(e.key, e.count, device_us(e)) for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(t for _, _, t in dev) / 1e3
+    bwd = sum(t for k, _, t in dev if "fa_bwd" in k) / 1e3
+    fwd = sum(t for k, _, t in dev if "flash_" in k and "fa_bwd" not in k) / 1e3
+    if busy <= 0 or bwd <= 0:
+        fail(f"train (t2): the profiler saw busy {busy} ms, backward kernels {bwd} ms")
+    top = sorted(dev, key=lambda x: -x[2])[:8]
+    print(f"train (t2): profiled step: device busy {busy:.1f} ms of a warm step's {warm_ms:.1f} "
+          f"ms ({100 * (1 - busy / warm_ms):.1f} % idle): flash backward kernels {bwd:.1f} ms "
+          f"({100 * bwd / busy:.1f} %), flash forward {fwd:.2f} ms; top device ops: "
+          + "; ".join(f"{k[:48]} x{n} {t / 1e3:.2f} ms" for k, n, t in top))
+    return params, opt, dict(busy_ms=busy, bwd_kernels_ms=bwd, fwd_kernels_ms=fwd)
+
+
+def phase_train_serve(cfg, params, smi_line):
+    """(u) ContiguousKV on the weights (t2) trained: the dense cell's request
+    shape (a 4096-token prefix ingested through flash_attention, c = 16, a
+    64-token suffix, 16 decode tokens, budget 0.25), a cold and a warm
+    request, launches a request and read amplification asserted; TTFT, TPOT.
+    First each kernel the requests run is held to its plain version at
+    qwen3-1.7b's shapes (16 query heads over 8 kv heads of 128). Returns
+    ({kernel: {path: launches}}, {kernel: numbers of that hold})."""
+    import numpy as np
+
+    from repro_torch.core.backends import RealCompute
+    from repro_torch.core.engine import ContiguousKVEngine
+    from repro_torch.kernels.chunk_attention import ops as ca
+    from repro_torch.kernels.chunk_score import ops as cs
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.storage.timing import RealExecutor
+
+    held = phase_kernels(cfg, tag=f"train (u) {cfg.name} kernels")
+    rng = np.random.default_rng(29)
+    prefix = rng.integers(0, cfg.vocab_size, PREFIX_LEN)
+    sess, ingest, took = _family_ingest(cfg, params, prefix, fa_variant(cfg))
+    ops = {"chunk_score": cs, "chunk_attention": ca, "decode_attention": da}
+    expect = {"chunk_score": -(-cfg.n_layers // PERIOD), "chunk_attention": cfg.n_layers,
+              "decode_attention": cfg.n_layers * DECODE_TOKENS}
+    eng = ContiguousKVEngine(sess, RealCompute(cfg, params, device=DEVICE), RealExecutor(),
+                             budget=BUDGET, period=PERIOD, subperiod=SUBPERIOD)
+    reset_counts(*ops.values())
+    for i in range(2):
+        before = {k: mod.launches for k, mod in ops.items()}
+        logits, trace = eng.reprefill(rng.integers(0, cfg.vocab_size, SUFFIX_LEN), request_id=i,
+                                      decode_tokens=DECODE_TOKENS)
+        got = {k: mod.launches - before[k] for k, mod in ops.items()}
+        toks = trace.decode_tokens_out
+        if (got != expect or trace.read_amplification != 1.0 or not np.isfinite(logits).all()
+                or len(toks) != DECODE_TOKENS):
+            fail(f"train (u) request {i}: launches {got} (expected {expect}), read amplification "
+                 f"{trace.read_amplification}, {len(toks)} tokens")
+        print(f"train (u): request {i} ({'cold' if i == 0 else 'warm'}) on the trained weights: "
+              f"TTFT {trace.ttft * 1e3:.2f} ms, TPOT {trace.tpot * 1e3:.3f} ms over "
+              f"{trace.n_decoded} tokens, read amplification {trace.read_amplification}, "
+              f"launches {got}; ingest {took:.2f} s ({smi_line})")
+    eng.ex.shutdown()
+    paths = {k: {"qwen3-1.7b requests on trained weights": counts(mod)}
+             for k, mod in ops.items()}
+    paths["flash_attention"] = {"qwen3-1.7b ingest on trained weights": ingest}
+    return paths, held
+
+
+def fa_variant(cfg) -> str:
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    return fa.variant_for(cfg.activation_dtype(), cfg.d_head)
+
+
+def _cosines(a, b):
+    """{leaf: cosine} of two gradient trees in float32, and the smallest."""
+    import torch
+
+    from repro_torch.tree import path_key, tree_flatten_with_path, tree_leaves
+
+    out = {path_key(p): torch.nn.functional.cosine_similarity(
+        x.float().reshape(-1), y.float().reshape(-1), dim=0).item()
+        for (p, x), y in zip(tree_flatten_with_path(a), tree_leaves(b))}
+    return out, min(out.items(), key=lambda kv: kv[1])
+
+
+def _rel_norms(a, b):
+    """{leaf: ||a - b|| / ||b||} of two gradient trees in float32, and the
+    largest."""
+    from repro_torch.tree import path_key, tree_flatten_with_path, tree_leaves
+
+    out = {path_key(p): ((x.float() - y.float()).norm() / y.float().norm()).item()
+           for (p, x), y in zip(tree_flatten_with_path(a), tree_leaves(b))}
+    return out, max(out.items(), key=lambda kv: kv[1])
+
+
+def phase_train_agree(cfg, smi_line):
+    """(t3) at full width cut to AGREE_LAYERS layers, bfloat16, one 4096-token
+    row: the kernel path's loss and gradients against the card's plain path
+    (block-wise attention through autograd); remat True and "dots" against False;
+    grad_accum 2 against 1 on a batch of two rows; one int8-compressed step
+    against AdamW on the gradients quantized by hand."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.steps import make_train_step, make_value_and_grad
+    from repro_torch.train.compression import quantize_dequantize_tree
+    from repro_torch.train.optimizer import adamw_init, adamw_update
+    from repro_torch.tree import path_key, tree_flatten_with_path, tree_leaves
+
+    cfg4 = dataclasses.replace(cfg, n_layers=AGREE_LAYERS)
+    params = _init_weights("train (t3)", cfg4)
+    one = _train_batch(cfg4, 1, TRAIN_SEQ, 31)
+    two = _train_batch(cfg4, 2, TRAIN_SEQ, 37)
+    vg = make_value_and_grad(cfg4, remat=False)
+    l_k, g_k = vg(params, one)
+    before = (fa.launches, fa.bwd_launches)
+    with plain_attention():
+        l_p, g_p = vg(params, one)
+    if (fa.launches, fa.bwd_launches) != before:
+        fail("train (t3): the plain path launched a flash kernel")
+    rel = abs(l_k.item() - l_p.item()) / abs(l_p.item())
+    cos, (worst, wc) = _cosines(g_k, g_p)
+    norms, (worst_n, wn) = _rel_norms(g_k, g_p)
+    print(f"train (t3): kernel path against the plain path, {AGREE_LAYERS} layers: loss "
+          f"{l_k.item():.6f} vs {l_p.item():.6f} (relative {rel:.2e}, limit {AGREE_LOSS_REL}); "
+          f"gradient cosine per leaf >= {wc:.6f} ({worst}; limit {AGREE_MIN_COS}); "
+          f"||g_k - g_p|| / ||g_p|| per leaf <= {wn:.3e} ({worst_n}; limit "
+          f"{AGREE_MAX_REL_NORM}): " + ", ".join(f"{k} {v:.2e}" for k, v in norms.items()))
+    if not (rel <= AGREE_LOSS_REL and wc >= AGREE_MIN_COS and wn <= AGREE_MAX_REL_NORM):
+        fail("train (t3): the kernel path's loss or gradients disagree with the plain path")
+    rdiff = {}
+    for remat in (True, "dots"):
+        l_r, g_r = make_value_and_grad(cfg4, remat=remat)(params, one)
+        differ = [(path_key(p), (x.float() - y.float()).abs().max().item())
+                  for (p, x), y in zip(tree_flatten_with_path(g_r), tree_leaves(g_k))
+                  if not torch.equal(x, y)]
+        rcos = min(_cosines(g_r, g_k)[0].values())
+        print(f"train (t3): remat {remat!r} against False: loss bit for bit "
+              f"{torch.equal(l_r, l_k)}, {len(tree_leaves(g_k)) - len(differ)} of "
+              f"{len(tree_leaves(g_k))} gradient leaves bit for bit"
+              + (f"; first differing leaf {differ[0][0]}, largest difference "
+                 f"{max(d for _, d in differ):.3g}" if differ else ""))
+        if rcos < AGREE_MIN_COS:
+            fail(f"train (t3): remat {remat!r}'s gradients disagree (cosine {rcos})")
+        rdiff[str(remat)] = len(differ)
+        del g_r
+    l_1, g_1 = make_value_and_grad(cfg4, grad_accum=1, remat=False)(params, two)
+    l_2, g_2 = make_value_and_grad(cfg4, grad_accum=2, remat=False)(params, two)
+    rel2 = abs(l_2.item() - l_1.item()) / abs(l_1.item())
+    _, (worst2, wc2) = _cosines(g_2, g_1)
+    print(f"train (t3): grad_accum 2 against 1 on 2 x {TRAIN_SEQ} tokens: loss {l_2.item():.6f} "
+          f"vs {l_1.item():.6f} (relative {rel2:.2e}, limit {ACCUM_LOSS_REL}); gradient cosine "
+          f"per leaf >= {wc2:.6f} ({worst2}; limit {ACCUM_MIN_COS}); accumulators "
+          f"{tree_leaves(g_2)[0].dtype}")
+    if not (rel2 <= ACCUM_LOSS_REL and wc2 >= ACCUM_MIN_COS):
+        fail("train (t3): grad_accum 2 disagrees with 1")
+    del g_p, g_1, g_2
+    opt = adamw_init(params)
+    p_c, _, m_c = make_train_step(cfg4, remat=False, lr=TRAIN_LR,
+                                  grad_compression="int8")(params, opt, one)
+    q = quantize_dequantize_tree(g_k)
+    p_h, _ = adamw_update(q, opt, params, lr=TRAIN_LR)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(p_c), tree_leaves(p_h)))
+    qerr = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+               for a, b in zip(tree_leaves(q), tree_leaves(g_k)))
+    # half an int8 level, then the dequantized value rounded to the gradient's dtype
+    qtol = 0.5 / 127 + torch.finfo(cfg.activation_dtype()).eps / 2
+    print(f"train (t3): int8-compressed step: loss {m_c['loss'].item():.6f} (bit for bit the "
+          f"kernel path's {torch.equal(m_c['loss'], l_k)}), params bit for bit AdamW on the "
+          f"hand-quantized gradients {same}, largest quantization error {qerr:.4f} of a leaf's "
+          f"largest gradient (limit {qtol:.4f}: half a level and half an ulp)")
+    if not (same and torch.equal(m_c["loss"], l_k) and qerr <= qtol):
+        fail("train (t3): the int8-compressed step disagrees")
+    del params, opt, p_c, p_h, q, g_k
+    free_weights()
+    return dict(loss_rel=rel, min_cos=wc, max_rel_norm=wn, remat_leaves_differing=rdiff,
+                accum_loss_rel=rel2, accum_min_cos=wc2)
+
+
+def phase_train_restart(smi_line):
+    """(t4) the train CLI at --preset 100m: 6 steps with a checkpoint every 3,
+    then a rerun to 9 that resumes at step 6; then make_train_step with a
+    FailureInjector on a bfloat16 model at qwen3's head dim (a checkpoint each
+    step, a failure at step 3, a restart from the newest checkpoint): the
+    params and moments bit for bit an uninterrupted run's."""
+    import io
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import train as ptrain
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.ft import FailureInjector
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.tree import tree_leaves
+
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = []
+        for steps in (6, 9):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                ptrain.main(["--preset", "100m", "--steps", str(steps), "--ckpt-dir", tmp,
+                             "--ckpt-every", "3", "--log-every", "3", "--device", DEVICE])
+            outs.append(buf.getvalue())
+            for line in buf.getvalue().splitlines():
+                print(f"train (t4): cli --steps {steps}: {line}")
+        if ("restored checkpoint" in outs[0]
+                or "restored checkpoint, resuming at step 6" not in outs[1]):
+            fail("train (t4): the CLI did not resume at step 6")
+    cfg = reduced_config(RESTART_ARCH, **RESTART_OVERRIDES)
+    params = T.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    opt = adamw_init(params)
+    batch = _train_batch(cfg, 4, 256, 41)
+    step_fn = make_train_step(cfg, remat=False, lr=1e-3)
+    injector = FailureInjector(fail_at=[3])
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, keep=2)
+
+        def run(p, o, start, save=True):
+            for s in range(start, 6):
+                if save:
+                    injector.maybe_fail(s)
+                p, o, _ = step_fn(p, o, batch)
+                if save:
+                    mgr.save(s, {"params": p, "opt": o}, blocking=True)
+            return p, o
+
+        try:
+            run(params, opt, 0)
+            fail("train (t4): the injected failure did not fire")
+        except RuntimeError as e:
+            if "injected node failure at step 3" not in str(e):
+                raise
+        latest = mgr.latest()
+        restored = mgr.restore({"params": params, "opt": opt})
+        p, o = run(restored["params"], restored["opt"], latest + 1)
+        p2, o2 = run(params, opt, 0, save=False)
+    a, b = tree_leaves({"params": p, "opt": o}), tree_leaves({"params": p2, "opt": o2})
+    same = all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+    print(f"train (t4): {cfg.name} ({cfg.dtype}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}): failed at step 3, resumed at "
+          f"step {latest + 1} from the checkpoint of step {latest}; params and moments after step "
+          f"5 bit for bit the uninterrupted run's: {same} ({len(a)} leaves)")
+    if latest != 2 or not same:
+        fail("train (t4): the restarted run differs from the uninterrupted one")
+    free_weights()
+
+
+def phase_train_ssm_raises(smi_line):
+    """(t5) a reduced hymba on the card: its loss under grad raises the scan
+    wrapper's error (no selective_scan backward yet)."""
+    import torch
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.steps import make_value_and_grad
+    from repro_torch.models import transformer as T
+
+    cfg = reduced_config("hymba-1.5b", dtype="bfloat16", d_head=64)
+    params = T.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    try:
+        make_value_and_grad(cfg, remat=False)(params, _train_batch(cfg, 1, 64, 43))
+    except RuntimeError as e:
+        if "selective_scan" not in str(e):
+            raise
+        print(f"train (t5): {cfg.name} under grad on the card raises: {e}")
+        return
+    fail("train (t5): the state-space family trained on the card without a scan backward")
+
+
+def phase_train(smi_line):
+    """Phase t on full-width qwen3-1.7b: (t1)-(t5) and (u). Returns
+    ({kernel: {path: launches}}, the backward kernel's row, {kernel: its
+    hold at qwen3-1.7b's shapes})."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(TRAIN_NAME)
+    kern = phase_train_kernel(cfg, smi_line)
+    params, launches, step = phase_train_step(cfg, smi_line)
+    paths, held = phase_train_serve(cfg, params, smi_line)
+    del params
+    free_weights()
+    agree = phase_train_agree(cfg, smi_line)
+    phase_train_restart(smi_line)
+    phase_train_ssm_raises(smi_line)
+    paths.setdefault("flash_attention", {})[
+        f"qwen3-1.7b {TRAIN_STEPS} train steps (forward)"] = launches["flash_attention"]
+    r = kern["main"]
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
+           "launches": launches["flash_attention_bwd"]["launches"],
+           "launches_by_path": {f"qwen3-1.7b {TRAIN_STEPS} train steps":
+                                launches["flash_attention_bwd"]},
+           "launches_per_training_step": TRAIN_ACCUM * cfg.n_layers,
+           "max_abs_err": r["err"], "errs": r["errs"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+           "bound_ms": r["bound"]["tensor_core"][0], "bound_by": r["bound"]["tensor_core"][1],
+           "bound_term": r["bound"]["tensor_core"][2],
+           "cuda_core_bound_ms": r["bound"]["cuda_core"][0],
+           "cuda_core_bound_by": r["bound"]["cuda_core"][1],
+           "library_ms": r["library_ms"], "host_ms": r["host_ms"],
+           "train_step": step, "agreement": agree}
+    for label in ("window_1024", "float32_tiny"):
+        x = kern[label]
+        row[label] = {"ms": x["ms"], "library_ms": x["library_ms"], "plain_ms": x["plain_ms"],
+                      "host_ms": x["host_ms"], "bound_ms": x["bound"]["tensor_core"][0],
+                      "cuda_core_bound_ms": x["bound"]["cuda_core"][0], "max_abs_err": x["err"]}
+    if row["launches"] < 1:
+        fail("flash_attention_bwd never launched on the training path")
+    held["flash_attention"] = {"err": r["forward_err"]}
+    return paths, row, held
+
+
 SIM_ROUND = 9  # the golden files' resolution (tests/test_golden_trace.py)
 SIM_HEADLINE_PREFIX = 6000  # tests/test_system.py's headline ordering
 
@@ -3632,6 +4188,13 @@ def main() -> int:
         if w["launches"] < 1:
             fail(f"{name} never launched at d 256 on gemma3-4b's path")
         rows[name]["head_dim_256"] = w
+    train_paths, bwd_row, train_held = phase_train(smi_line)
+    for name, by_path in train_paths.items():
+        paths.setdefault(name, {}).update(by_path)
+    for name, r in train_held.items():
+        rows[name]["qwen3_1_7b"] = {k: (r[k]["tensor_core"][0] if k == "bound" else r[k])
+                                    for k in ("err", "ms", "plain_ms", "host_ms", "bound")
+                                    if k in r}
     phase_sim(sim_ref, smi_line)
     sources = {"chunk_score": ("src/repro_torch/csrc/chunk_score.cu",
                                "src/repro/kernels/chunk_score/kernel.py:65"),
@@ -3666,10 +4229,12 @@ def main() -> int:
                     "decode_host_ms", "decode_bound_ms", "falcon_decode_ms",
                     "falcon_decode_host_ms", "falcon_decode_bound_ms", "dense_ingest",
                     "falcon_prefill", "one_cta_per_sm_ms", "pools_form", "indexed",
-                    "serve", "decode_batched", "fleet", "hybrid", "head_dim_256"):
+                    "serve", "decode_batched", "fleet", "hybrid", "head_dim_256",
+                    "qwen3_1_7b"):
             if key in r:
                 row[key] = r[key]
         kernels.append(row)
+    kernels.append(bwd_row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

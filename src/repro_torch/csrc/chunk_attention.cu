@@ -709,7 +709,10 @@ static cudaError_t ca_layout(int s, int n_q, int n_kv, int c, int n_valid, int d
   const int n_tiles = M.n_ct + (s + CA_KEYS - 1) / CA_KEYS;
   L->n_z = any_valid ? std::min(L->splits, n_tiles) : M.n_split;
   L->idx_ints = any_valid ? M.tps * (CA_KEYS / c) : 0;
-  L->member_floats = ca_member_floats(L->n_z, n_valid, M.n_ct, n_kv, L->rows, L->n_mp, d);
+  // rounded to 4 floats: the next member's split partials start 16-byte
+  // aligned, as the merge's float4 reads of them need
+  L->member_floats =
+      (ca_member_floats(L->n_z, n_valid, M.n_ct, n_kv, L->rows, L->n_mp, d) + 3) / 4 * 4;
   return cudaSuccess;
 }
 

@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
+LP = ctypes.POINTER(ctypes.c_longlong)
 # C signature of each launcher: argument types in order (restype is int)
 SIGNATURES = {
     # q, k, out, work, work_floats, counters, s, n_q, n_kv, n, d, c, q_dtype, stream
@@ -50,6 +51,9 @@ SIGNATURES = {
     # q, k, v, out, b, n_q, n_kv, s_q, s_k, d, causal, window, q_offset,
     # (batch, head, position) strides of q, k, v and out, dtype, variant, stream
     "ckv_flash_attention": [P] * 4 + [I] * 9 + [L] * 12 + [I, I, P],
+    # q, k, v, out, dout, dq, dk, dv, lse, dsum, b, n_q, n_kv, s_q, s_k, d, causal,
+    # window, q_offset, the 8 tensors' (batch, head, position) strides, dtype, stream
+    "ckv_flash_attention_bwd": [P] * 10 + [I] * 9 + [LP, I, P],
     # x, dt, A, B, C, h0, y, h_out, scratch, b, s, d_in, n, B's and C's
     # (batch, position) strides, dtype, variant, stream
     "ckv_selective_scan": [P] * 9 + [I] * 10 + [P],
@@ -167,6 +171,17 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {dev}")
     return dev.type == "cpu"
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise for a CUDA call that autograd would have to differentiate: a
+    kernel's output carries no graph, so the gradients of its inputs would be
+    cut without a word. Runs under ``torch.no_grad()``, or on inputs that do
+    not require grad, are taken."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, so autograd cannot differentiate "
+            "this call; run it under torch.no_grad() or on inputs that do not require grad")
 
 
 def require(t: torch.Tensor, name: str, ndim: int, dtypes) -> None:

@@ -49,6 +49,7 @@ def chunk_attention(q: torch.Tensor, k_sel: torch.Tensor, v_sel: torch.Tensor,
     global launches
     if B.on_cpu(q, k_sel, v_sel, k_suf, v_suf):
         return chunk_attention_ref(q, k_sel, v_sel, n_valid, k_suf, v_suf)
+    B.refuse_grad("chunk_attention", q, k_sel, v_sel, k_suf, v_suf)
     B.require(q, "q", 3, B.FLOAT_TYPES)
     for name, t in (("k_suf", k_suf), ("v_suf", v_suf)):
         B.require(t, name, 3, (q.dtype,))
@@ -98,6 +99,7 @@ def chunk_attention_indexed(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch
     global launches
     if B.on_cpu(q, k_pool, v_pool, chunk_idx, n_valid, k_suf, v_suf):
         return chunk_attention_indexed_ref(q, k_pool, v_pool, chunk_idx, n_valid, k_suf, v_suf)
+    B.refuse_grad("chunk_attention_indexed", q, k_pool, v_pool, k_suf, v_suf)
     B.require(q, "q", 4, B.FLOAT_TYPES)
     for name, t in (("k_suf", k_suf), ("v_suf", v_suf)):
         B.require(t, name, 4, (q.dtype,))

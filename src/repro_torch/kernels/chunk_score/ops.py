@@ -27,6 +27,7 @@ def chunk_score(q: torch.Tensor, k: torch.Tensor, chunk_tokens: int) -> torch.Te
     global launches
     if B.on_cpu(q, k):
         return chunk_score_ref(q, k, chunk_tokens)
+    B.refuse_grad("chunk_score", q, k)
     B.require(q, "q", 3, B.FLOAT_TYPES)
     B.require(k, "k", 3, (torch.float16,))
     s, n_q, d = q.shape

@@ -64,6 +64,7 @@ def decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor
     global launches
     if B.on_cpu(q, k_pool, v_pool, page_table, lengths):
         return decode_attention_ref(q, k_pool, v_pool, page_table, lengths)
+    B.refuse_grad("decode_attention", q, k_pool, v_pool)
     B.require(q, "q", 3, B.FLOAT_TYPES)
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
         B.require(t, name, 5, (q.dtype,))
@@ -132,6 +133,7 @@ def decode_attention_pools(q: torch.Tensor, ks: Sequence[torch.Tensor],
                     f"{q.device} (a pool swapped out to the host must be swapped in first)")
     if B.on_cpu(q, *ks, *vs, page_table, lengths):
         return decode_attention_pools_ref(q, ks, vs, page_table, lengths)
+    B.refuse_grad("decode_attention_pools", q, *ks, *vs)
     B.require(q, "q", 3, B.FLOAT_TYPES)
     for i, (k, v) in enumerate(zip(ks, vs)):
         B.require(k, f"ks[{i}]", 4, (q.dtype,))

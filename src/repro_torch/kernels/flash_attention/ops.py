@@ -11,13 +11,23 @@ dtype and head dim, never because another one failed:
 * ``cuda_core_f32``: float32, any d that is a multiple of 4 up to 256.
 
 ``launches`` counts every launch, ``launches_by_variant`` each kernel's.
+
+The backward (csrc/flash_attention_bwd.cu: a stats pass, a dK/dV pass and a
+dQ pass, float32 on the CUDA cores, no atomics) takes float32, bfloat16 and
+float16 at d in {16, 32, 64, 128}; ``flash_attention_bwd`` launches it and
+``FlashAttentionFn`` puts the two kernels under autograd. ``bwd_launches``
+counts its calls, ``dout_copies`` the output gradients it had to copy into a
+layout the kernel reads. The forward wrapper itself refuses inputs that
+require grad under grad mode: its output has no graph.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import build as B
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
 
 # the C launcher's variant codes
 VARIANTS = {"cuda_core_f32": 0, "mma_sync": 1, "wgmma": 2}
@@ -26,6 +36,9 @@ MMA_SYNC_HEAD_DIMS = (16, 32, 256)
 
 launches = 0  # kernel launches since the count was last set to 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
+BWD_HEAD_DIMS = (16, 32, 64, 128)  # d 256 (gemma3-4b) waits for a later kernel
+bwd_launches = 0  # backward calls since the count was last set to 0
+dout_copies = 0  # output gradients copied into a layout the backward reads
 
 
 def variant_for(dtype: torch.dtype, d: int) -> str:
@@ -35,14 +48,17 @@ def variant_for(dtype: torch.dtype, d: int) -> str:
     return "wgmma" if d in WGMMA_HEAD_DIMS else "mma_sync"
 
 
+def _rows_aligned(t: torch.Tensor, align: int) -> bool:
+    return (t.stride(3) == 1 and not any(st % align for st in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
 def _strides(t: torch.Tensor, name: str, align: int):
     """(batch, head, position) strides in elements; the head dim must be
     contiguous and each row start on a 16-byte boundary."""
-    if t.stride(3) != 1 or any(st % align for st in t.stride()[:3]):
-        raise ValueError(f"{name}: strides {t.stride()} do not give contiguous, "
-                         f"16-byte aligned rows")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: the kernel takes 16-byte aligned tensors only")
+    if not _rows_aligned(t, align):
+        raise ValueError(f"{name}: strides {t.stride()} (at offset {t.data_ptr() % 16} of 16 "
+                         f"bytes) do not give contiguous, 16-byte aligned rows")
     return t.stride()[:3]
 
 
@@ -58,6 +74,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     global launches
     if B.on_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    B.refuse_grad("flash_attention (use FlashAttentionFn to train)", q, k, v)
     if q.dtype not in B.FLOAT_TYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -85,3 +102,88 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launches += 1
     launches_by_variant[variant] += 1
     return out
+
+
+def _check_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
+               q_offset: int) -> None:
+    """Raise for a CUDA call the backward kernel does not take."""
+    if q.dtype not in B.FLOAT_TYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention_bwd: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    b, n_q, s_q, d = q.shape
+    _, n_kv, s_k, dk = k.shape
+    if (k.shape[0] != b or dk != d or d not in BWD_HEAD_DIMS or n_kv < 1 or n_q % n_kv
+            or s_q < 1 or s_k < 1 or window < 0 or q_offset < 0):
+        raise ValueError(f"flash_attention_bwd: unsupported shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} window {window} q_offset {q_offset} (head dims "
+                         f"{BWD_HEAD_DIMS})")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0):
+    """The gradients (dq, dk, dv) of ``flash_attention(q, k, v, ...)`` at
+    output ``out`` for the output gradient ``dout``.
+
+    Shapes and strides as ``flash_attention`` takes them (out and dout like
+    q); each gradient has its input's dtype and, for a dense input, its
+    strides. A ``dout`` whose rows the kernel cannot read in place (not
+    16-byte aligned, or a head dim that is not contiguous) is copied once
+    into a fresh contiguous tensor and counted in ``dout_copies``."""
+    global bwd_launches, dout_copies
+    if B.on_cpu(q, k, v, out, dout):
+        return flash_attention_bwd_ref(q, k, v, out, dout, causal=causal, window=window,
+                                       q_offset=q_offset)
+    _check_bwd(q, k, v, window, q_offset)
+    if out.shape != q.shape or dout.shape != q.shape or {out.dtype, dout.dtype} != {q.dtype}:
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)} {out.dtype}, dout "
+                         f"{tuple(dout.shape)} {dout.dtype} against q {tuple(q.shape)} {q.dtype}")
+    b, n_q, s_q, d = q.shape
+    n_kv, s_k = k.shape[1], k.shape[2]
+    align = 4 if q.dtype == torch.float32 else 8
+    if not _rows_aligned(dout, align):
+        # a fresh allocation: .contiguous() would hand back a contiguous tensor
+        # that starts off a 16-byte boundary as it is
+        dout = dout.clone(memory_format=torch.contiguous_format)
+        dout_copies += 1
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty((b, n_q, s_q), dtype=torch.float32, device=q.device)
+    dsum = torch.empty_like(lse)
+    tensors = (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout), ("dq", dq),
+               ("dk", dk), ("dv", dv))
+    strides = (ctypes.c_longlong * 24)(*[st for name, t in tensors
+                                         for st in _strides(t, name, align)])
+    rc = B.library().ckv_flash_attention_bwd(
+        *(t.data_ptr() for _, t in tensors), lse.data_ptr(), dsum.data_ptr(),
+        b, n_q, n_kv, s_q, s_k, d, int(causal), int(window), int(q_offset), strides,
+        B.dtype_code(q), B.stream_handle(q))
+    B.check(rc, "flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` under autograd: the forward kernel, then the
+    backward kernel (``flash_attention_bwd``) for the gradients of q, k and v.
+    Saves q, k, v and the output. On CPU tensors both are the plain
+    versions. A CUDA call the backward does not take raises here, before the
+    forward runs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = True, window: int = 0, q_offset: int = 0):
+        if not B.on_cpu(q, k, v):
+            _check_bwd(q, k, v, window, q_offset)
+        out = flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window,
+                                         q_offset=q_offset)
+        return dq, dk, dv, None, None, None

@@ -55,6 +55,8 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch
     tensors = [x, dt, A, Bm, Cm] + ([] if h0 is None else [h0])
     if B.on_cpu(*tensors):
         return selective_scan_ref(x, dt, A, Bm, Cm, h0)
+    # ssm and hybrid training on the card waits for a backward kernel
+    B.refuse_grad("selective_scan", *tensors)
     B.require(x, "x", 3, B.FLOAT_TYPES)
     B.require(A, "A", 2, (torch.float32,))
     for name, t in (("B", Bm), ("C", Cm)):

@@ -1,9 +1,11 @@
 """Attention: GQA prefill, single-step decode over a KV cache, QKV projection.
 
-On the card, prefill runs the flash_attention kernel. On the CPU it runs
-the JAX package's block-wise form: one query block at a time, so peak score
-memory is block_q x seq_k rather than seq^2. Decode is plain torch on both,
-as the JAX package computes it outside any kernel.
+On the card, prefill runs the flash_attention kernel, and under autograd
+its backward kernel too (``FlashAttentionFn``). On the CPU it runs the JAX
+package's block-wise form (``attention_prefill_blockwise``): one query block
+at a time, so peak score memory is block_q x seq_k rather than seq^2, and
+autograd differentiates it as it is. Decode is plain torch on both, as the
+JAX package computes it outside any kernel.
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import FlashAttentionFn, flash_attention
 from repro_torch.models.layers import apply_rope, matmul, rms_norm
 
 NEG_INF = -1e30
@@ -53,16 +55,36 @@ def attention_prefill(
 
     CUDA tensors go through the flash_attention kernel, read in place through
     their (b, s, n, d) strides: float32 scores and probabilities, output
-    rounded once. CPU tensors take the JAX package's block-wise form: scores
-    in the input dtype, softmax in float32, probabilities rounded to v's
-    dtype before the product with V.
+    rounded once. When grad mode is on and an input requires grad, the call
+    goes through ``FlashAttentionFn``, whose backward is the flash_attention
+    backward kernel; without grad the forward kernel alone runs. CPU tensors
+    take ``attention_prefill_blockwise``.
     """
     if q.device.type == "cuda":
         if scale is not None:
             raise ValueError("the flash_attention kernel scales by d ** -0.5 only")
-        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                              causal=True, window=int(window))
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            out = FlashAttentionFn.apply(qt, kt, vt, True, int(window), 0)
+        else:
+            out = flash_attention(qt, kt, vt, causal=True, window=int(window))
         return out.transpose(1, 2)
+    return attention_prefill_blockwise(q, k, v, window=window, block_q=block_q, scale=scale)
+
+
+def attention_prefill_blockwise(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    window: int = 0,
+    block_q: int = 512,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The JAX package's block-wise causal attention in plain torch, on any
+    device: scores in the input dtype, softmax in float32, probabilities
+    rounded to v's dtype before the product with V. Shapes as
+    ``attention_prefill``."""
     b, s, n_q, d = q.shape
     scale = scale if scale is not None else d ** -0.5
     kpos = torch.arange(s, device=q.device)

@@ -12,6 +12,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_leaves
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -146,3 +148,13 @@ class ModelConfig:
         moe_all = c.n_layers * c.n_experts * 3 * c.d_model * c.moe_d_ff
         moe_active = c.n_layers * c.top_k * 3 * c.d_model * c.moe_d_ff
         return full - moe_all + moe_active
+
+
+def param_bytes(tree) -> int:
+    """Bytes of every tensor leaf of a params (or optimizer-state) tree."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def count_params(tree) -> int:
+    """Elements of every tensor leaf of a params tree."""
+    return sum(x.numel() for x in tree_leaves(tree))

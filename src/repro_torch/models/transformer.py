@@ -9,13 +9,18 @@ Families:
            embeddings (models/frontends.py), ``{"embeds": (b, s, d_model)}``
 
 Layers are stacked (leading axis = layer) in the params dict, with the JAX
-package's keys, and run one after another in a Python loop.
+package's keys, and run one after another in a Python loop. ``forward``
+takes the JAX package's ``remat`` (per-layer activation checkpointing) and
+``loss_fn`` is its next-token cross entropy, for training.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import functools
+from typing import Any, Dict, List, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import attention_decode, attention_prefill, qkv_project
@@ -98,9 +103,36 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def layer_params(params: Params, l: int) -> Params:
-    """Layer ``l``'s slice of the stacked per-layer tensors (views)."""
+    """Layer ``l``'s slice of the stacked per-layer tensors (views), for
+    callers that touch one layer at a time without grad (prefill, decode,
+    the serving backends). A loop over every layer under autograd uses
+    ``unstacked_layers``."""
     return {k: ({kk: vv[l] for kk, vv in v.items()} if isinstance(v, dict) else v[l])
             for k, v in params["layers"].items()}
+
+
+def unstacked_layers(params: Params, n_layers: int) -> List[Params]:
+    """Every layer's views of the stacked tensors, made with one ``unbind``
+    per tensor: under autograd the layers' gradients are then stacked once,
+    where indexing each layer would add a stacked-size gradient per layer."""
+    def split(tree):
+        if isinstance(tree, dict):
+            parts = {k: split(v) for k, v in tree.items()}
+            return [{k: p[l] for k, p in parts.items()} for l in range(n_layers)]
+        return tree.unbind(0)
+
+    return split(params["layers"])
+
+
+# remat="dots": the matrix products without batch dims (the projections, the
+# FFN, the unembedding: aten.mm / addmm) are saved and the rest is
+# recomputed, as jax.checkpoint_policies.dots_with_no_batch_dims_saveable
+# saves dot_generals without batch dims
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _ffn(h: torch.Tensor, lp: Params, cfg: ModelConfig, *,
@@ -158,9 +190,15 @@ def forward(
     block_q: int = 512,
     logits_positions: str = "all",  # "all" (training) | "last" (prefill)
     return_kv: bool = False,
+    remat: Union[bool, str] = False,
 ):
     """Full causal forward over ``batch["tokens"]`` (b, s), or
     ``batch["embeds"]`` (b, s, d_model) for the frontend families.
+
+    ``remat`` checkpoints each layer (``torch.utils.checkpoint``,
+    non-reentrant): True saves nothing inside it and recomputes the layer in
+    the backward pass; "dots" saves its matrix products without batch dims
+    (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``).
 
     Returns logits (and per-layer KV, each (L, b, s, n_kv, d_head), if asked;
     None for the attention-free family)."""
@@ -168,10 +206,18 @@ def forward(
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device).expand(b, s)
     windows = cfg.window_sizes()
+
+    def layer(h, lp, window):
+        return _layer_prefill(h, lp, window, positions, cfg, block_q)
+
+    if remat == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+        layer = functools.partial(checkpoint, layer, use_reentrant=False, context_fn=context_fn)
+    elif remat:
+        layer = functools.partial(checkpoint, layer, use_reentrant=False)
     ks, vs = [], []
-    for l in range(cfg.n_layers):
-        h, kv, _ = _layer_prefill(h, layer_params(params, l), int(windows[l]), positions,
-                                  cfg, block_q)
+    for l, lp in enumerate(unstacked_layers(params, cfg.n_layers)):
+        h, kv, _ = layer(h, lp, int(windows[l]))
         if return_kv and kv is not None:
             ks.append(kv[0])
             vs.append(kv[1])
@@ -179,6 +225,20 @@ def forward(
     if return_kv:
         return logits, ((torch.stack(ks), torch.stack(vs)) if ks else None)
     return logits
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            block_q: int = 512, remat: Union[bool, str] = False) -> torch.Tensor:
+    """Next-token cross entropy. ``batch`` needs tokens or embeds, and
+    labels; an optional ``loss_mask`` weights the positions."""
+    logits = forward(params, batch, cfg, block_q=block_q, remat=remat)
+    labels = batch["labels"]
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,70 @@
+"""Nested dicts (and lists / tuples) of tensors as the JAX package's pytrees.
+
+JAX flattens a dict in sorted key order. The optimizer's global norm, the
+checkpoint's keys and the tests' leaf-by-leaf comparisons follow that order,
+whatever order the port's dicts were built in.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+Path = Tuple[Any, ...]
+
+
+def tree_flatten_with_path(tree: Any, prefix: Path = ()) -> List[Tuple[Path, Any]]:
+    """(path, leaf) pairs in JAX's order: dict keys sorted, sequences in order."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree) for pl in tree_flatten_with_path(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, x in enumerate(tree) for pl in tree_flatten_with_path(x, prefix + (i,))]
+    return [(prefix, tree)]
+
+
+def tree_leaves(tree: Any) -> list:
+    return [leaf for _, leaf in tree_flatten_with_path(tree)]
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` and the matching leaves of ``rest``,
+    in a tree of ``tree``'s structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_replace_leaves(tree: Any, leaves: list) -> Any:
+    """A tree of ``tree``'s structure whose leaves, in JAX's order, are ``leaves``."""
+    it = iter(leaves)
+    order = {path: next(it) for path, _ in tree_flatten_with_path(tree)}
+
+    def rebuild(t, prefix):
+        if isinstance(t, dict):
+            return {k: rebuild(v, prefix + (k,)) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(rebuild(v, prefix + (i,)) for i, v in enumerate(t))
+        return order[prefix]
+
+    return rebuild(tree, ())
+
+
+def path_key(path: Path) -> str:
+    """The checkpoint key of a leaf: its path's keys joined by "/"."""
+    return "/".join(str(p) for p in path)
+
+
+def treedef_str(tree: Any) -> str:
+    """``str(jax.tree_util.tree_structure(tree))`` for a tree of dicts,
+    lists and tuples, e.g. ``PyTreeDef({'a': *, 'b': [*, *]})``."""
+    def render(t):
+        if isinstance(t, dict):
+            return "{" + ", ".join(f"{k!r}: {render(t[k])}" for k in sorted(t)) + "}"
+        if isinstance(t, list):
+            return "[" + ", ".join(render(v) for v in t) + "]"
+        if isinstance(t, tuple):
+            inner = ", ".join(render(v) for v in t)
+            return "(" + inner + ("," if len(t) == 1 else "") + ")"
+        return "*"
+
+    return f"PyTreeDef({render(tree)})"

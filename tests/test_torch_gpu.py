@@ -864,6 +864,18 @@ def test_chunk_attention_indexed(dev, qdtype, b, group, nkv, d, c, m, n_sel):
     _check_indexed(q, kp, vp, idx, nv, kf, vf)
 
 
+def test_chunk_attention_indexed_member_scratch_alignment(dev):
+    """A member scratch that is not a multiple of 4 floats (here its partial
+    A_j, 2 kv heads x 5 merge CTAs x 7 chunks = 70 floats, left member 1's
+    split partials 8 bytes off a 16-byte boundary): the layout rounds it,
+    so the merge's float4 reads stay aligned (this shape faulted with a
+    misaligned address before)."""
+    q, kp, vp, idx, kf, vf = _indexed_case(dev, 240, 2, 20, 8, 2, 20, 16, 32, 7, torch.float32)
+    nv = torch.tensor([7, 3], dtype=torch.int32, device=dev)
+    _check_indexed(q, kp, vp, idx, nv, kf, vf)
+    torch.cuda.synchronize()
+
+
 def test_chunk_attention_indexed_alternating_b(dev):
     """Calls at b 4, 1, 3, 1, 4, 2 in alternating dtypes and chunk counts on
     one kept workspace: a counter a call left non-zero, or too small a
@@ -1163,3 +1175,189 @@ def test_moe_ffn_on_the_card_matches_the_cpu(dev, dropless):
     assert torch.equal(idx_d.cpu(), idx_c)
     want = PM.moe_ffn(x, p, **kw)
     _close(got.cpu(), want, rel=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# training: flash_attention's backward kernel, and no silent graph cut
+
+
+def _bwd_inputs(dev, dtype, b, nq, nkv, s_q, s_k, d, transposed, seed=200):
+    """q, k, v, the forward kernel's output and an output gradient; with
+    ``transposed`` the model's (b, s, n, d) tensors read as (b, n, s, d)."""
+    if transposed:
+        q = _rand(dev, seed, (b, s_q, nq, d), dtype).transpose(1, 2)
+        k = _rand(dev, seed + 1, (b, s_k, nkv, d), dtype).transpose(1, 2)
+        v = _rand(dev, seed + 2, (b, s_k, nkv, d), dtype).transpose(1, 2)
+    else:
+        q = _rand(dev, seed, (b, nq, s_q, d), dtype)
+        k, v = (_rand(dev, seed + i, (b, nkv, s_k, d), dtype) for i in (1, 2))
+    return q, k, v, _rand(dev, seed + 3, (b, nq, s_q, d), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("group,window,q_offset,transposed", [
+    (1, 0, 0, False), (2, 0, 0, True), (4, 0, 0, False),
+    (2, 40, 0, True), (4, 17, 0, False),  # sliding windows
+    (2, 0, 50, True), (1, 30, 50, False),  # queries after a prefix
+])
+def test_flash_attention_bwd(dev, dtype, d, group, window, q_offset, transposed):
+    """The backward kernel against its plain version (float32 1e-5 of each
+    gradient's largest element: the same float32 sums in other orders; 16-bit
+    2^-7: each gradient one float32 result rounded once), one launch a call,
+    each gradient with its input's dtype and strides, and two runs the same
+    bits (no atomics)."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    b, nkv, s_q = 2, 2, 130
+    q, k, v, do = _bwd_inputs(dev, dtype, b, group * nkv, nkv, s_q, s_q + q_offset, d,
+                              transposed)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    before = fa_ops.bwd_launches
+    got = fa_ops.flash_attention_bwd(q, k, v, out, do, **kw)
+    assert fa_ops.bwd_launches == before + 1
+    want = flash_attention_bwd_ref(q, k, v, out, do, **kw)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.stride() == x.stride()
+        _close(g, w, rel=FLASH_REL[dtype])
+    again = fa_ops.flash_attention_bwd(q, k, v, out, do, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+def test_flash_attention_fn_through_attention_prefill(dev):
+    """Under grad, attention_prefill on the card runs FlashAttentionFn: one
+    forward and one backward launch, gradients within the plain backward's
+    tolerance of autograd through the plain forward; under no_grad only the
+    forward kernel runs and the output has no graph."""
+    from repro_torch.models.attention import attention_prefill
+
+    q = _rand(dev, 210, (2, 70, 8, 64)).requires_grad_()
+    k = _rand(dev, 211, (2, 70, 2, 64)).requires_grad_()
+    v = _rand(dev, 212, (2, 70, 2, 64)).requires_grad_()
+    do = _rand(dev, 213, (2, 70, 8, 64))
+    f0, b0 = fa_ops.launches, fa_ops.bwd_launches
+    out = attention_prefill(q, k, v, window=20)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert (fa_ops.launches, fa_ops.bwd_launches) == (f0 + 1, b0 + 1)
+    ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window=20)
+    want = torch.autograd.grad(ref.transpose(1, 2), (q, k, v), do)
+    for g, w in zip(got, want):
+        _close(g, w)
+    with torch.no_grad():
+        assert attention_prefill(q, k, v).grad_fn is None
+    assert fa_ops.bwd_launches == b0 + 1
+
+
+def test_flash_attention_bwd_copies_an_unaligned_dout(dev):
+    """An output gradient whose rows the kernel cannot read in place is
+    copied once, counted, and gives the same gradients."""
+    q, k, v, do = _bwd_inputs(dev, torch.bfloat16, 1, 4, 2, 40, 40, 64, False)
+    out = fa_ops.flash_attention(q, k, v)
+    want = fa_ops.flash_attention_bwd(q, k, v, out, do)
+    flat = torch.empty(do.numel() + 1, dtype=do.dtype, device=dev)
+    odd = flat[1:].view(do.shape)  # 2 bytes off a 16-byte boundary
+    odd.copy_(do)
+    before = fa_ops.dout_copies
+    got = fa_ops.flash_attention_bwd(q, k, v, out, odd)
+    assert fa_ops.dout_copies == before + 1
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+
+
+def test_flash_attention_bwd_raises_on_what_it_does_not_take(dev):
+    """d 256 (gemma3-4b) and the fp32 kernel's other head dims raise, before
+    the forward runs under FlashAttentionFn; nothing falls back."""
+    before = (fa_ops.launches, fa_ops.bwd_launches)
+    for d, dtype in ((256, torch.bfloat16), (20, torch.float32)):
+        q = _rand(dev, 220, (1, 4, 32, d), dtype).requires_grad_()
+        kv = _rand(dev, 221, (1, 2, 32, d), dtype).requires_grad_()
+        with pytest.raises(ValueError):
+            fa_ops.FlashAttentionFn.apply(q, kv, kv, True, 0, 0)
+        with pytest.raises(ValueError):
+            fa_ops.flash_attention_bwd(q.detach(), kv.detach(), kv.detach(), q.detach(),
+                                       q.detach())
+    assert (fa_ops.launches, fa_ops.bwd_launches) == before
+
+
+def _grad_inputs(*tensors):
+    return [t.detach().clone().requires_grad_() if t.is_floating_point() else t
+            for t in tensors]
+
+
+def test_wrappers_refuse_grad(dev):
+    """Each kernel without a backward raises for CUDA inputs that require
+    grad under grad mode (its output would carry no graph), and launches as
+    before under no_grad."""
+    cases = {}
+    q, k = _rand(dev, 230, (20, 8, 32)), _rand(dev, 231, (100, 2, 32), torch.float16)
+    cases["chunk_score"] = (cs_ops.chunk_score, (q, k, 16), (0,))
+    ks, vs = (_rand(dev, 232 + i, (8, 16, 2, 32), torch.float16) for i in (0, 1))
+    kf, vf = (_rand(dev, 234 + i, (20, 2, 32)) for i in (0, 1))
+    cases["chunk_attention"] = (ca_ops.chunk_attention, (q, ks, vs, 5, kf, vf), (0, 4, 5))
+    qi, kp, vp, idx, kfi, vfi = _indexed_case(dev, 240, 2, 20, 8, 2, 20, 16, 32, 7,
+                                              torch.float32)
+    nv = torch.tensor([7, 3], dtype=torch.int32, device=dev)
+    cases["chunk_attention_indexed"] = (ca_ops.chunk_attention_indexed,
+                                        (qi, kp, vp, idx, nv, kfi, vfi), (0, 5, 6))
+    qd, kpd, vpd, tbl, lens = _decode_case(dev, torch.float32, 2, 8, 2, 64, 16, 6, [5, 3],
+                                           [70, 40])
+    cases["decode_attention"] = (da_ops.decode_attention, (qd, kpd, vpd, tbl, lens), (0, 1, 2))
+    qp, kps, vps, tblp, lensp = _pools_case(dev, torch.float32, 16, [6, 4], [5, 3])
+    cases["decode_attention_pools"] = (
+        lambda q_, k0, k1, v0, v1, t, l: da_ops.decode_attention_pools(q_, [k0, k1], [v0, v1],
+                                                                        t, l),
+        (qp, kps[0], kps[1], vps[0], vps[1], tblp, lensp), (0, 1, 3))
+    x = _rand(dev, 250, (1, 40, 32))
+    cases["selective_scan"] = (
+        ss_ops.selective_scan,
+        (x, _rand(dev, 251, (1, 40)).abs(), -_rand(dev, 252, (32, 4)).abs(),
+         _rand(dev, 253, (1, 40, 4)), _rand(dev, 254, (1, 40, 4))), (0, 1, 3))
+    for name, (fn, args, grad_at) in cases.items():
+        for i in grad_at:
+            tracked = list(args)
+            tracked[i] = _grad_inputs(args[i])[0]
+            with pytest.raises(RuntimeError, match="no backward"):
+                fn(*tracked)
+            with torch.no_grad():
+                fn(*tracked)
+        fn(*args)  # inputs that need no grad launch under grad mode too
+    q, k, v, _ = _bwd_inputs(dev, torch.bfloat16, 1, 4, 2, 40, 40, 64, False)
+    with pytest.raises(RuntimeError, match="FlashAttentionFn"):
+        fa_ops.flash_attention(q.requires_grad_(), k, v)
+
+
+def test_training_on_the_card_matches_the_cpu(dev):
+    """make_value_and_grad on reduced float32 qwen3-1.7b (d 16) on the card,
+    through both flash kernels: the loss within 1e-5 and every gradient leaf
+    within 1e-4 of its largest element of the CPU's (the plain path in
+    float32: float32 GEMMs and attention summed in other orders); remat True
+    and "dots" (selective checkpointing around FlashAttentionFn) the same
+    bits as False; 2 forward and 2 backward launches a step."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.steps import make_value_and_grad
+    from repro_torch.models import transformer as PT
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves
+
+    cfg = dataclasses.replace(reduced_config("qwen3-1.7b"), dtype="float32")
+    params = PT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(260)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 96)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 96)).astype(np.int32)}
+    want_l, want_g = make_value_and_grad(cfg, remat=False)(params, batch)
+    on_card = _to(params, dev)
+    f0, b0 = fa_ops.launches, fa_ops.bwd_launches
+    got_l, got_g = make_value_and_grad(cfg, remat=False)(on_card, batch)
+    assert (fa_ops.launches - f0, fa_ops.bwd_launches - b0) == (cfg.n_layers, cfg.n_layers)
+    assert abs(got_l.item() - want_l.item()) <= 1e-5 * abs(want_l.item())
+    for (path, g), w in zip(tree_flatten_with_path(got_g), tree_leaves(want_g)):
+        _close(g.cpu(), w, rel=1e-4)
+    for remat in (True, "dots"):
+        f0, b0 = fa_ops.launches, fa_ops.bwd_launches
+        rl, rg = make_value_and_grad(cfg, remat=remat)(on_card, batch)
+        # the recomputed forward launches the kernel again
+        assert (fa_ops.launches - f0, fa_ops.bwd_launches - b0) == (2 * cfg.n_layers,
+                                                                    cfg.n_layers)
+        assert torch.equal(rl, got_l)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(rg), tree_leaves(got_g)))
