@@ -185,14 +185,18 @@ non-zero exit code:
                 freed: (t1) flash_attention's backward kernel against its
                 plain version at the training shape (bfloat16, s 4096,
                 causal), with window 1024, and in float32 at d 16, two runs
-                bit for bit, timed beside its bound, SDPA's backward, the
-                plain version and its host time; (t2) make_train_step
-                (grad_accum 2, no remat, lr 3e-4) on seeded bfloat16 weights
-                over one fixed numpy-seeded batch of 2 x 4096 tokens for 5
-                steps: the loss falls, 2 x 28 flash forward and backward
-                launches a step, step time, tokens/s, model-FLOPs
-                utilisation, peak memory, one more step profiled (the
-                backward kernels' share); (u) a cold and a warm ContiguousKV
+                bit for bit, the variant that ran (wgmma at bfloat16 d 128:
+                the forward's logsumexp held to its plain version and its
+                output the same bits with and without it), timed beside its
+                bound (five products; the variant's own work beside it),
+                SDPA's backward, the plain version and its host time; (t2)
+                make_train_step (grad_accum 2, no remat, lr 3e-4) on seeded
+                bfloat16 weights over one fixed numpy-seeded batch of 2 x
+                4096 tokens for 5 steps: the loss falls, 2 x 28 flash
+                forward and backward launches a step, step time, tokens/s,
+                model-FLOPs utilisation, peak memory, one more step profiled
+                (the backward kernels' share, each by name: preprocess,
+                dK/dV, dQ); (u) a cold and a warm ContiguousKV
                 request of the dense shape on the trained weights (TTFT,
                 TPOT); (t3) at full width cut to 4 layers: the kernel path's
                 loss and gradients against the plain path (block-wise
@@ -220,7 +224,7 @@ non-zero exit code:
      (``baseline_shapes``) at the baselines' and (``head_dim_256``) at
      gemma3-4b's, with its launches there; and flash_attention's backward
      kernel as its own entry (``flash_attention_bwd``, its launches over the
-     5 train steps);
+     5 train steps, per variant);
   16. last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
@@ -332,8 +336,21 @@ TRAIN_NAME, TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = "qwen3-1.7b", 2, 4096, 2
 TRAIN_STEPS, TRAIN_LR, BWD_WINDOW = 5, 3e-4, 1024
 # the backward kernel in float32 against its plain version: the same float32
 # sums in other orders (1e-5 of each gradient's largest element); 16-bit
-# inputs FLASH_REL: each gradient one float32 result rounded once
+# inputs FLASH_REL: cuda_core_f32 rounds each gradient's float32 result once,
+# wgmma also rounds P and dS to 16 bits before its dV, dK and dQ products
+# (on an H100 one bfloat16 ulp of the largest gradient: 0.58-0.68 of the
+# limit causal, 0.45-0.8 with window 1024, dq the closest)
 BWD_F32_REL = 1e-5
+# the wgmma forward's logsumexp (log2 units) against its plain version:
+# float32 sums of up to 4096 exponentials in another order, ex2.approx and
+# log2f; 2e-5 is a relative 1.4e-5 on each P (an H100 run measured 1.9e-6)
+LSE_TOL = 2e-5
+# the backward's work over the visible pairs: (products, exponentials) of
+# the function, S, dP, dV, dK and dQ with one exponential a pair (the
+# bound), and of each variant's design (``design_bound_ms``): wgmma computes
+# S and P in both of its gradient kernels, cuda_core_f32 in its stats pass too
+BWD_WORK = (5, 1)
+BWD_DESIGN_WORK = {"wgmma": (7, 2), "cuda_core_f32": (8, 3)}
 # (t3) the kernel path against the plain path in bfloat16 at full width, 4
 # layers: the plain path rounds the scores to bfloat16 before its float32
 # softmax and P to bfloat16 before P V, the kernels keep both in float32 and
@@ -465,6 +482,25 @@ def nbytes(*tensors) -> int:
 
 def dname(t) -> str:
     return str(t.dtype).removeprefix("torch.")
+
+
+def device_events(prof):
+    """[(key, calls, device us)] of a torch.profiler session's device events
+    (the time attribute's name changed across torch versions)."""
+    import torch
+
+    out = []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            out.append((e.key, e.count, e.self_cuda_time_total if t is None else t))
+    return out
+
+
+def kernel_name(key: str) -> str:
+    """A kernel's own name in its profiler key, without namespace, template
+    arguments and parameters (which may name ckv:: types too)."""
+    return key.split("(")[0].split("ckv::")[-1].split("<")[0]
 
 
 def max_err(a, b) -> float:
@@ -2803,12 +2839,7 @@ def profile_request(eng, suffix, warm_wall_ms: float, tag: str = "e2e"):
         eng.reprefill(suffix, request_id=N_REQUESTS, decode_tokens=DECODE_TOKENS)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    def device_us(e):  # the attribute's name changed across torch versions
-        t = getattr(e, "self_device_time_total", None)
-        return e.self_cuda_time_total if t is None else t
-
-    dev = [(e.key, e.count, device_us(e)) for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = device_events(prof)
     busy_ms = sum(t for _, _, t in dev) / 1e3
     if busy_ms <= 0:
         fail("the profiler saw no device time")
@@ -2821,7 +2852,7 @@ def profile_request(eng, suffix, warm_wall_ms: float, tag: str = "e2e"):
     ours = {}
     for k, n, t in dev:
         if "ckv::" in k:
-            name = k.split("ckv::")[1].split("<")[0].split("(")[0]
+            name = kernel_name(k)
             c0, t0 = ours.get(name, (0, 0.0))
             ours[name] = (c0 + n, t0 + t / 1e3)
     copies = sum(t for k, _, t in dev if "Memcpy" in k or "Memset" in k) / 1e3
@@ -3406,13 +3437,18 @@ def phase_train_kernel(cfg, smi_line):
     """(t1) flash_attention's backward kernel against its plain version at
     the training step's shape (bfloat16, causal), with sliding window 1024,
     and in float32 at the tiny preset's d 16 (the forward's output, which
-    the backward reads, first held to its plain version): each gradient's error and two
-    runs bit for bit, timed beside its bound, SDPA's backward, the plain
+    the backward reads, first held to its plain version; where the
+    backward's variant is wgmma, the forward run again with its logsumexp
+    output, the same bits, and that lse held to its plain version): each
+    gradient's error and two runs bit for bit, the variant that ran, timed
+    beside its bound (the function's five products; the products the
+    variant runs as ``design_bound``), SDPA's backward, the plain
     version and the wrapper's host time. Returns {label: numbers}."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                         flash_attention_lse_ref)
 
     gen = torch.Generator(device=DEVICE).manual_seed(23)
 
@@ -3430,35 +3466,57 @@ def phase_train_kernel(cfg, smi_line):
         k = rn((1, s_, nkv_, d_), dtype).transpose(1, 2)
         v = rn((1, s_, nkv_, d_), dtype).transpose(1, 2)
         do = rn((1, s_, nq_, d_), dtype).transpose(1, 2)
+        variant = fa.bwd_variant_for(dtype, d_)
         with torch.no_grad():  # the forward at this shape, held to its plain version
             out, f_err, f_tol = flash_held(f"train (t1) {label}", q, k, v, window=window)
-        args, kw = (q, k, v, out, do), dict(window=window)
+            lse, lse_err = None, None
+            if variant == "wgmma":  # the same forward writing the lse the backward reads
+                lse = fa.lse_buffer(q)
+                again = fa.flash_attention(q, k, v, window=window, lse=lse)
+                lse_err = max_err(lse[..., :s_], flash_attention_lse_ref(q, k, window=window))
+                if not torch.equal(again, out) or not lse_err <= LSE_TOL:
+                    fail(f"flash_attention {label}: the output with lse the same bits: "
+                         f"{torch.equal(again, out)}; lse max abs err {lse_err} > {LSE_TOL}")
+                del again
+        args, kw = (q, k, v, out, do), dict(window=window, lse=lse)
+        before = dict(fa.bwd_launches_by_variant)
         got = fa.flash_attention_bwd(*args, **kw)
+        ran = [v_ for v_, n in fa.bwd_launches_by_variant.items() if n != before[v_]]
+        if ran != [variant]:
+            fail(f"flash_attention_bwd {label}: ran {ran}, expected {variant}")
         same = all(torch.equal(a, b) for a, b in zip(got, fa.flash_attention_bwd(*args, **kw)))
-        want = flash_attention_bwd_ref(*args, **kw)
+        want = flash_attention_bwd_ref(*args, window=window)
         rel = BWD_F32_REL if dtype == torch.float32 else FLASH_REL
         errs = {n: max_err(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
         tols = {n: rel * w.float().abs().max().item() for n, w in zip(("dq", "dk", "dv"), want)}
         if not same or any(errs[n] > tols[n] for n in errs):
             fail(f"flash_attention_bwd {label}: errors {errs} (tolerances {tols}), two runs "
                  f"bit-identical: {same}")
-        pairs = _visible_pairs(s_, window)
+        pairs, moved = _visible_pairs(s_, window), nbytes(q, k, v, out, do, *got)
+
+        def work_bound(work):
+            return bounds(moved, work[0] * 2.0 * pairs * d_ * nq_, work[1] * nq_ * pairs)
+
+        n_prod = BWD_DESIGN_WORK[variant][0]
         r = dict(err=max(errs.values()), errs=errs, bit_identical=same, forward_err=f_err,
+                 lse_err=lse_err, variant=variant, products=n_prod,
                  ms=device_ms(lambda: fa.flash_attention_bwd(*args, **kw), reps=10),
                  library_ms=device_ms(_sdpa_bwd(q, k, v, do, window), reps=10),
                  host_ms=host_ms(lambda: fa.flash_attention_bwd(*args, **kw), reps=10),
-                 plain_ms=wall_ms(lambda: flash_attention_bwd_ref(*args, **kw), reps=3),
-                 bound=bounds(nbytes(q, k, v, out, do, *got), 5 * 2.0 * pairs * d_ * nq_,
-                              nq_ * pairs))
+                 plain_ms=wall_ms(lambda: flash_attention_bwd_ref(*args, window=window), reps=3),
+                 bound=work_bound(BWD_WORK), design_bound=work_bound(BWD_DESIGN_WORK[variant]))
+        lse_text = "" if lse_err is None else f"; its lse max abs err {lse_err:.3g} (tol {LSE_TOL})"
         print(f"train (t1): flash_attention_bwd {label} ({dname(q)}, 1 x {nq_}/{nkv_} heads, "
-              f"s {s_}, d {d_}, window {window}): the forward's output max abs err "
-              f"{f_err:.3g} (tol {f_tol:.3g}); max abs err dq {errs['dq']:.3g} dk "
+              f"s {s_}, d {d_}, window {window}, variant {variant}): the forward's output max abs "
+              f"err {f_err:.3g} (tol {f_tol:.3g}){lse_text}; max abs err dq {errs['dq']:.3g} dk "
               f"{errs['dk']:.3g} dv {errs['dv']:.3g} (tol {tols['dq']:.3g}, {tols['dk']:.3g}, "
               f"{tols['dv']:.3g}), two runs bit-identical; {r['ms']:.4f} ms on the card, "
               f"SDPA's backward {r['library_ms']:.4f} ms, plain version {r['plain_ms']:.2f} ms, "
-              f"{bound_text(r['bound'])}; host time per call {r['host_ms']:.4f} ms ({smi_line})")
+              f"{bound_text(r['bound'])} ({BWD_WORK[0]} products); the {n_prod} products "
+              f"{variant} runs: {r['design_bound']['tensor_core'][0]:.5f} ms; host time per call "
+              f"{r['host_ms']:.4f} ms ({smi_line})")
         out_rows[label] = r
-        del q, k, v, do, out, got, want, args
+        del q, k, v, do, out, got, want, args, kw, lse
         free_weights()
     return out_rows
 
@@ -3523,6 +3581,7 @@ def phase_train_step(cfg, smi_line):
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fa)
     fa.bwd_launches = fa.dout_copies = 0
+    fa.bwd_launches_by_variant = dict.fromkeys(fa.bwd_launches_by_variant, 0)
     losses, step_ms = [], []
     for i in range(TRAIN_STEPS):
         f0, b0 = fa.launches, fa.bwd_launches
@@ -3541,7 +3600,9 @@ def phase_train_step(cfg, smi_line):
     if not losses[-1] < losses[0]:
         fail(f"train (t2): the loss did not fall over {TRAIN_STEPS} steps: {losses}")
     launches = {"flash_attention": counts(fa),
-                "flash_attention_bwd": {"launches": fa.bwd_launches}}
+                "flash_attention_bwd": {"launches": fa.bwd_launches,
+                                        **{k: n for k, n in fa.bwd_launches_by_variant.items()
+                                           if n}}}
     n_mult = count_params(params) - params["embed"].numel()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     warm = statistics.median(step_ms[1:])
@@ -3565,7 +3626,8 @@ def phase_train_step(cfg, smi_line):
 def profile_train_step(step, params, opt, batch, warm_ms: float):
     """One more train step under torch.profiler: the device's busy time, its
     idle share against a warm step's wall time, the flash backward kernels'
-    share and the top device ops. Returns (params, opt, numbers)."""
+    share, each of them by its own time and calls, and the top device ops.
+    Returns (params, opt, numbers)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3573,23 +3635,29 @@ def profile_train_step(step, params, opt, batch, warm_ms: float):
         params, opt, _ = step(params, opt, batch)
         torch.cuda.synchronize()
 
-    def device_us(e):  # the attribute's name changed across torch versions
-        t = getattr(e, "self_device_time_total", None)
-        return e.self_cuda_time_total if t is None else t
-
-    dev = [(e.key, e.count, device_us(e)) for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = device_events(prof)
     busy = sum(t for _, _, t in dev) / 1e3
-    bwd = sum(t for k, _, t in dev if "fa_bwd" in k) / 1e3
+    by_kernel = {}  # each backward kernel by name: [calls, ms]
+    for k, n, t in dev:
+        if "fa_bwd" in k:
+            name = kernel_name(k)
+            by_kernel.setdefault(name, [0, 0.0])
+            by_kernel[name][0] += n
+            by_kernel[name][1] += t / 1e3
+    bwd = sum(ms for _, ms in by_kernel.values())
     fwd = sum(t for k, _, t in dev if "flash_" in k and "fa_bwd" not in k) / 1e3
     if busy <= 0 or bwd <= 0:
         fail(f"train (t2): the profiler saw busy {busy} ms, backward kernels {bwd} ms")
     top = sorted(dev, key=lambda x: -x[2])[:8]
     print(f"train (t2): profiled step: device busy {busy:.1f} ms of a warm step's {warm_ms:.1f} "
           f"ms ({100 * (1 - busy / warm_ms):.1f} % idle): flash backward kernels {bwd:.1f} ms "
-          f"({100 * bwd / busy:.1f} %), flash forward {fwd:.2f} ms; top device ops: "
+          f"({100 * bwd / busy:.1f} %: "
+          + ", ".join(f"{k} x{n} {ms:.2f} ms" for k, (n, ms) in sorted(by_kernel.items()))
+          + f"), flash forward {fwd:.2f} ms; top device ops: "
           + "; ".join(f"{k[:48]} x{n} {t / 1e3:.2f} ms" for k, n, t in top))
-    return params, opt, dict(busy_ms=busy, bwd_kernels_ms=bwd, fwd_kernels_ms=fwd)
+    return params, opt, dict(busy_ms=busy, bwd_kernels_ms=bwd, fwd_kernels_ms=fwd,
+                             bwd_kernels={k: {"calls": n, "ms": ms}
+                                          for k, (n, ms) in by_kernel.items()})
 
 
 def phase_train_serve(cfg, params, smi_line):
@@ -3869,19 +3937,27 @@ def phase_train(smi_line):
            "launches": launches["flash_attention_bwd"]["launches"],
            "launches_by_path": {f"qwen3-1.7b {TRAIN_STEPS} train steps":
                                 launches["flash_attention_bwd"]},
+           "launches_by_variant": {k: n for k, n in launches["flash_attention_bwd"].items()
+                                   if k != "launches"},
+           "variant": r["variant"], "lse_err": r["lse_err"],
            "launches_per_training_step": TRAIN_ACCUM * cfg.n_layers,
            "max_abs_err": r["err"], "errs": r["errs"], "ms": r["ms"], "plain_ms": r["plain_ms"],
            "bound_ms": r["bound"]["tensor_core"][0], "bound_by": r["bound"]["tensor_core"][1],
            "bound_term": r["bound"]["tensor_core"][2],
            "cuda_core_bound_ms": r["bound"]["cuda_core"][0],
            "cuda_core_bound_by": r["bound"]["cuda_core"][1],
+           "design_bound_ms": r["design_bound"]["tensor_core"][0],
+           "design_products": r["products"],
            "library_ms": r["library_ms"], "host_ms": r["host_ms"],
            "train_step": step, "agreement": agree}
     for label in ("window_1024", "float32_tiny"):
         x = kern[label]
         row[label] = {"ms": x["ms"], "library_ms": x["library_ms"], "plain_ms": x["plain_ms"],
                       "host_ms": x["host_ms"], "bound_ms": x["bound"]["tensor_core"][0],
-                      "cuda_core_bound_ms": x["bound"]["cuda_core"][0], "max_abs_err": x["err"]}
+                      "cuda_core_bound_ms": x["bound"]["cuda_core"][0], "max_abs_err": x["err"],
+                      "variant": x["variant"],
+                      "design_bound_ms": x["design_bound"]["tensor_core"][0],
+                      "design_products": x["products"]}
     if row["launches"] < 1:
         fail("flash_attention_bwd never launched on the training path")
     held["flash_attention"] = {"err": r["forward_err"]}

@@ -3,10 +3,14 @@
 main path's shapes (full-width Qwen2.5-7B: 28/4 heads, d 128; identify over
 a 4096-token prefix with float32 queries; part B over 64 chunks of 16 tokens
 and a 64-token float32 suffix; decode over 68 bfloat16 pages of 16 tokens
-and one pad slot), and selective_scan's decode step at hymba-1.5b's and
+and one pad slot), selective_scan's decode step at hymba-1.5b's and
 falcon-mamba-7b's widths (d_inner 3200 and 8192, n 16, bfloat16 x, seeded),
-on one CUDA card, without the rest of chip_smoke.py. Run from the root of a
-checkout:
+and flash_attention at the dense ingest (1 x 28/4 heads, s 4096, d 128,
+bfloat16, causal) and at full-width qwen3-1.7b's training shape (1 x 16/8
+heads): the forward with and without the logsumexp its backward reads, and
+the backward causal and with window 1024, each on the model's (b, s, n, d)
+tensors read through transposed views; on one CUDA card, without the rest
+of chip_smoke.py. Run from the root of a checkout:
 
     python3 scripts/bench_attention_kernels.py
 
@@ -21,6 +25,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -29,24 +34,23 @@ ROOT = Path(__file__).resolve().parents[1]
 def kernel_ms(fn, calls: int = 20) -> dict:
     """{device kernel: its own device time per call, ms} over ``calls`` calls
     of fn under torch.profiler (the kernels' durations, without the gaps
-    between launches that the CUDA-event time of a call includes)."""
+    between launches that the CUDA-event time of a call includes); the
+    session idles 20 ms after it starts and before it stops, as a bare one
+    can drop kernels near its edges."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import device_events, kernel_name
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            t = getattr(e, "self_device_time_total", None)
-            t = e.self_cuda_time_total if t is None else t
-            name = e.key.split("ckv::")[-1].split("<")[0].split("(")[0]
-            out[name] = round(t / 1e3 / calls, 5)
-    return out
+        time.sleep(0.02)
+    return {kernel_name(k): round(t / 1e3 / calls, 5) for k, _, t in device_events(prof)}
 
 
 def main() -> int:
@@ -61,6 +65,7 @@ def main() -> int:
     from repro_torch.kernels.chunk_attention import ops as ca
     from repro_torch.kernels.chunk_score import ops as cs
     from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.selective_scan import ops as ss
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -90,11 +95,27 @@ def main() -> int:
                 torch.nn.functional.softplus(rn(1, 1) - 2.0), -torch.exp(rn(d_in, n)),
                 proj[..., :n], proj[..., n: 2 * n], rn(1, d_in, n))
         return lambda: ss.selective_scan(*args)
+
+    def bshd(s_, n):  # a (b, s, n, d) projection read as (b, n, s, d)
+        return rn(1, s_, n, d, dtype=torch.bfloat16).transpose(1, 2)
+    qi, ki, vi = bshd(4096, nq), bshd(4096, nkv), bshd(4096, nkv)
+    qt, kt, vt, dot = bshd(4096, 16), bshd(4096, 8), bshd(4096, 8), bshd(4096, 16)
+    lse = {w: fa.lse_buffer(qt) for w in (0, 1024)}
+    out = {w: fa.flash_attention(qt, kt, vt, window=w, lse=lse[w]) for w in (0, 1024)}
+
+    def backward(w):  # as FlashAttentionFn calls it, on the lse its forward wrote
+        return lambda: fa.flash_attention_bwd(qt, kt, vt, out[w], dot, window=w, lse=lse[w])
     calls = {"chunk_score": lambda: cs.chunk_score(q, kc, c),
              "chunk_attention": lambda: ca.chunk_attention(q, ks, vs, nb, kf, vf),
              "decode_attention": lambda: da.decode_attention(qd, kp, vp, tbl, lens),
              "selective_scan decode step, hymba": scan_step(3200),
-             "selective_scan decode step, falcon-mamba": scan_step(8192)}
+             "selective_scan decode step, falcon-mamba": scan_step(8192),
+             "flash_attention, dense ingest": lambda: fa.flash_attention(qi, ki, vi),
+             "flash_attention, training shape": lambda: fa.flash_attention(qt, kt, vt),
+             "flash_attention with lse, training shape":
+                 lambda: fa.flash_attention(qt, kt, vt, lse=lse[0]),
+             "flash_attention_bwd, training shape": backward(0),
+             "flash_attention_bwd, training shape, window 1024": backward(1024)}
     res = {"card": smi}
     one = torch.zeros(1, device=dev)
     res["floor_ms"] = device_ms(lambda: one.add_(1.0))

@@ -35,7 +35,12 @@
 //   host per launch (cuTensorMapEncodeTiled, reached through
 //   cudaGetDriverEntryPoint so the library needs no -lcuda) over the
 //   strided (d, position, head, batch) view; the copy fills rows past s
-//   with zeros. Tried on the H100 and slower (PERF.md): issuing Q K^T (i)
+//   with zeros. Given an lse pointer (training: FlashAttentionFn), the
+//   epilogue also writes each row's logsumexp, m + log2 l in the log2 units
+//   of its scores, for the backward (flash_attention_bwd.cu); serving
+//   passes none, and the output is the same bits either way. The TMA and
+//   mbarrier helpers live in hopper.cuh, shared with the backward. Tried
+//   on the H100 and slower (PERF.md): issuing Q K^T (i)
 //   with P V (i - 1) so that the softmax runs under a product, with or
 //   without named-barrier turns between the warpgroups, and 64-key tiles:
 //   ptxas kept every build to the launch bound's 168 registers per thread,
@@ -77,18 +82,13 @@
 #include <cuda.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "wgmma.cuh"
 
 namespace ckv {
 
 constexpr int FA_BM = 64;  // query rows per CTA (16 per warp)
 constexpr int FA_BN = 64;  // keys per tile
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -118,17 +118,6 @@ __device__ __forceinline__ void mma16816(float d[4], const uint32_t a[4], uint32
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
   }
-}
-
-// two floats as one register of two 16-bit values, the first in the low half
-template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
-template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // 16-byte asynchronous copy; a false predicate fills the 16 bytes with zeros
@@ -433,69 +422,15 @@ struct WgCfg {
   static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 3 * STAGES);  // + alignment slack
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done;
-}
-// returns once the phase of parity `parity` has completed; a pipeline that
-// never completes it traps after ~8 s of clocks instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity))
-    if (clock64() - t0 > (1ll << 34)) __trap();
-}
-// TMA: the box at (c0, c1, c2, c3) of a 4-d tensor map into shared memory
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Coordinates of (column, position, head, batch) in a tensor map whose outer
-// dims are (position, head, batch) when pos_inner, else (head, position,
-// batch): the host orders them by stride.
-struct MapCoord {
-  int pos_inner;
-  __device__ __forceinline__ void load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                       int col, int pos, int head, int batch) const {
-    if (pos_inner)
-      tma_load_4d(dst, map, bar, col, pos, head, batch);
-    else
-      tma_load_4d(dst, map, bar, col, head, pos, batch);
-  }
-};
-
-template <typename T, int HD>
+// LSE: the instance that also writes each row's logsumexp (training); the
+// serving instance compiles without that store, which the 168-register
+// kernel otherwise pays for in its main loop's code (PERF.md)
+template <typename T, int HD, bool LSE>
 static __global__ void __launch_bounds__(WG_THREADS, 1) flash_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, T* __restrict__ out, int n_q, int n_kv, int s_q,
     int s_k, int causal, int window, int q_offset, float scale_log2, MapCoord cq, MapCoord ckv,
-    long long o_sb, long long o_sh, long long o_ss) {
+    long long o_sb, long long o_sh, long long o_ss, float* __restrict__ lse, int lse_row) {
   using C = WgCfg<HD>;
   constexpr int BN = WG_BN, STAGES = C::STAGES, SUB = C::SUB;
   extern __shared__ unsigned char wg_smem[];
@@ -674,79 +609,36 @@ static __global__ void __launch_bounds__(WG_THREADS, 1) flash_wgmma_kernel(
         for (int j = 0; j < NO / 4; ++j)
           *reinterpret_cast<uint32_t*>(orow + c * 64 + j * 8 + 2 * t4) =
               pack2<T>(o[c][4 * j + 2 * r] * inv, o[c][4 * j + 2 * r + 1] * inv);
+      // the row's logsumexp for the backward, log2 units of the scaled
+      // scores: P = exp2(scale_log2 s - lse); 0 for a row that sees no key
+      if constexpr (LSE)
+        if (t4 == 0)
+          lse[((long long)b * n_q + qh) * lse_row + row + 8 * r] =
+              l_run[r] > 0.f ? m_run[r] + log2f(l_run[r]) : 0.f;
     }
   }
-}
-
-// cuTensorMapEncodeTiled, found at run time
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t rc = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                      cudaEnableDefault, &found);
-#else
-    cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                             &found);
-#endif
-    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess ? (EncodeTiled)p : nullptr;
-  }();
-  return fn;
-}
-
-// A 4-d map over the (d, position, head, batch) view of a strided tensor,
-// outer dims ordered by stride, boxes of 64
-// columns x `rows` positions with the 128-byte swizzle; rows past s_len
-// read as zeros.
-static bool encode_map(CUtensorMap* map, const void* ptr, bool bf16, int d, int s_len, int heads,
-                       int batch, long long ss, long long sh, long long sb, int rows,
-                       MapCoord* coord) {
-  EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
-  const bool pos_inner = ss <= sh;
-  coord->pos_inner = pos_inner;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)(pos_inner ? s_len : heads),
-                              (cuuint64_t)(pos_inner ? heads : s_len), (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)(2 * (pos_inner ? ss : sh)),
-                                 (cuuint64_t)(2 * (pos_inner ? sh : ss)), (cuuint64_t)(2 * sb)};
-  const cuuint32_t box[4] = {64, (cuuint32_t)(pos_inner ? rows : 1),
-                             (cuuint32_t)(pos_inner ? 1 : rows), 1};
-  const cuuint32_t estride[4] = {1, 1, 1, 1};
-  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 4,
-            const_cast<void*>(ptr), dims, strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T, int HD>
 static int launch_flash_wgmma(const void* q, const void* k, const void* v, void* out, int b,
                               int n_q, int n_kv, int s_q, int s_k, int causal, int window,
-                              int q_offset, const long long* st, cudaStream_t stream) {
+                              int q_offset, const long long* st, float* lse, int lse_row,
+                              cudaStream_t stream) {
   constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
   CUtensorMap tq, tk, tv;
   MapCoord cq, ck, cv;
-  // a batch of one never steps the batch coordinate: any aligned stride will do
-  const long long q_sb = b > 1 ? st[0] : st[2] * s_q + st[1] * n_q;
-  const long long k_sb = b > 1 ? st[3] : st[5] * s_k + st[4] * n_kv;
-  const long long v_sb = b > 1 ? st[6] : st[8] * s_k + st[7] * n_kv;
-  if (!encode_map(&tq, q, BF, HD, s_q, n_q, b, st[2], st[1], q_sb, 64, &cq) ||
-      !encode_map(&tk, k, BF, HD, s_k, n_kv, b, st[5], st[4], k_sb, WG_BN, &ck) ||
-      !encode_map(&tv, v, BF, HD, s_k, n_kv, b, st[8], st[7], v_sb, WG_BN, &cv) ||
+  if (!encode_map(&tq, q, BF, HD, s_q, n_q, b, st[2], st[1], st[0], 64, &cq) ||
+      !encode_map(&tk, k, BF, HD, s_k, n_kv, b, st[5], st[4], st[3], WG_BN, &ck) ||
+      !encode_map(&tv, v, BF, HD, s_k, n_kv, b, st[8], st[7], st[6], WG_BN, &cv) ||
       ck.pos_inner != cv.pos_inner)
     return (int)cudaErrorInvalidValue;
   const int smem = WgCfg<HD>::SMEM;
-  cudaFuncSetAttribute(flash_wgmma_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem);
+  auto kernel = lse ? flash_wgmma_kernel<T, HD, true> : flash_wgmma_kernel<T, HD, false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   dim3 grid((s_q + WG_BM - 1) / WG_BM, n_q, b);
-  flash_wgmma_kernel<T, HD><<<grid, WG_THREADS, smem, stream>>>(
-      tq, tk, tv, (T*)out, n_q, n_kv, s_q, s_k, causal, window, q_offset,
-      softmax_scale(HD) * LOG2E, cq, ck, st[9], st[10], st[11]);
+  kernel<<<grid, WG_THREADS, smem, stream>>>(tq, tk, tv, (T*)out, n_q, n_kv, s_q, s_k, causal,
+                                             window, q_offset, softmax_scale(HD) * LOG2E, cq, ck,
+                                             st[9], st[10], st[11], lse, lse_row);
   return 0;
 }
 
@@ -767,17 +659,18 @@ static void launch_flash_tc(const void* q, const void* k, const void* v, void* o
 template <typename T>
 static int launch_flash_16(const void* q, const void* k, const void* v, void* out, int b,
                            int n_q, int n_kv, int s_q, int s_k, int d, int causal, int window,
-                           int q_offset, int variant, const long long* st, cudaStream_t stream) {
+                           int q_offset, int variant, const long long* st, float* lse,
+                           int lse_row, cudaStream_t stream) {
   if (variant == 2) {  // wgmma
     if (d == 64)
       return launch_flash_wgmma<T, 64>(q, k, v, out, b, n_q, n_kv, s_q, s_k, causal, window,
-                                       q_offset, st, stream);
+                                       q_offset, st, lse, lse_row, stream);
     if (d == 128)
       return launch_flash_wgmma<T, 128>(q, k, v, out, b, n_q, n_kv, s_q, s_k, causal, window,
-                                        q_offset, st, stream);
+                                        q_offset, st, lse, lse_row, stream);
     return (int)cudaErrorInvalidValue;
   }
-  if (variant != 1) return (int)cudaErrorInvalidValue;
+  if (variant != 1 || lse) return (int)cudaErrorInvalidValue;
   switch (d) {  // mma_sync
     case 16:
       launch_flash_tc<T, 16>(q, k, v, out, b, n_q, n_kv, s_q, s_k, causal, window, q_offset, st,
@@ -803,21 +696,24 @@ static int launch_flash_16(const void* q, const void* k, const void* v, void* ou
 // strides (batch, head, position) and a contiguous head dim; rows 16-byte
 // aligned. variant: 0 the float32 CUDA-core kernel (float32, d any multiple
 // of 4 up to 256), 1 mma_sync (bfloat16/float16, d in {16, 32, 256}), 2 wgmma
-// (bfloat16/float16, d in {64, 128}).
+// (bfloat16/float16, d in {64, 128}). lse: null, or (wgmma only) float32
+// (b, n_q, s_q) with rows lse_row >= s_q floats apart, which the kernel fills
+// with each query row's logsumexp in log2 units (flash_wgmma_kernel's
+// epilogue) for the backward; the output is the same either way.
 extern "C" int ckv_flash_attention(const void* q, const void* k, const void* v, void* out, int b,
                                    int n_q, int n_kv, int s_q, int s_k, int d, int causal,
                                    int window, int q_offset, long long q_sb, long long q_sh,
                                    long long q_ss, long long k_sb, long long k_sh, long long k_ss,
                                    long long v_sb, long long v_sh, long long v_ss,
-                                   long long o_sb, long long o_sh, long long o_ss, int dtype,
-                                   int variant, void* stream) {
+                                   long long o_sb, long long o_sh, long long o_ss, void* lse,
+                                   int lse_row, int dtype, int variant, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const long long strides[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                                  v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
   int rc = 0;
   switch (dtype) {
     case ckv::F32: {
-      if (variant != 0 || d % 4 || d > 256) return (int)cudaErrorInvalidValue;
+      if (variant != 0 || lse || d % 4 || d > 256) return (int)cudaErrorInvalidValue;
       const int ld = ckv::tile_ld(d);
       const size_t smem = sizeof(float) * (3 * ckv::TR * ld + ckv::TR * (ckv::TK + 4));
       auto kernel = d > 128 ? ckv::flash_f32_kernel<4> : ckv::flash_f32_kernel<2>;
@@ -831,11 +727,12 @@ extern "C" int ckv_flash_attention(const void* q, const void* k, const void* v, 
     }
     case ckv::BF16:
       rc = ckv::launch_flash_16<__nv_bfloat16>(q, k, v, out, b, n_q, n_kv, s_q, s_k, d, causal,
-                                               window, q_offset, variant, strides, st);
+                                               window, q_offset, variant, strides, (float*)lse,
+                                               lse_row, st);
       break;
     case ckv::F16:
       rc = ckv::launch_flash_16<__half>(q, k, v, out, b, n_q, n_kv, s_q, s_k, d, causal, window,
-                                        q_offset, variant, strides, st);
+                                        q_offset, variant, strides, (float*)lse, lse_row, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -49,11 +49,13 @@ SIGNATURES = {
     # b, n_q, n_kv, page, n_active, d, dtype, stream
     "ckv_decode_attention_pools": [P] * 7 + [L, P] + [I] * 7 + [P],
     # q, k, v, out, b, n_q, n_kv, s_q, s_k, d, causal, window, q_offset,
-    # (batch, head, position) strides of q, k, v and out, dtype, variant, stream
-    "ckv_flash_attention": [P] * 4 + [I] * 9 + [L] * 12 + [I, I, P],
+    # (batch, head, position) strides of q, k, v and out, lse (or null), lse's
+    # row length, dtype, variant, stream
+    "ckv_flash_attention": [P] * 4 + [I] * 9 + [L] * 12 + [P, I] + [I, I, P],
     # q, k, v, out, dout, dq, dk, dv, lse, dsum, b, n_q, n_kv, s_q, s_k, d, causal,
-    # window, q_offset, the 8 tensors' (batch, head, position) strides, dtype, stream
-    "ckv_flash_attention_bwd": [P] * 10 + [I] * 9 + [LP, I, P],
+    # window, q_offset, lse's row length, the 8 tensors' (batch, head, position)
+    # strides, dtype, variant, stream
+    "ckv_flash_attention_bwd": [P] * 10 + [I] * 10 + [LP, I, I, P],
     # x, dt, A, B, C, h0, y, h_out, scratch, b, s, d_in, n, B's and C's
     # (batch, position) strides, dtype, variant, stream
     "ckv_selective_scan": [P] * 9 + [I] * 10 + [P],

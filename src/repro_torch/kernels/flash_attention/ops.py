@@ -12,13 +12,22 @@ dtype and head dim, never because another one failed:
 
 ``launches`` counts every launch, ``launches_by_variant`` each kernel's.
 
-The backward (csrc/flash_attention_bwd.cu: a stats pass, a dK/dV pass and a
-dQ pass, float32 on the CUDA cores, no atomics) takes float32, bfloat16 and
-float16 at d in {16, 32, 64, 128}; ``flash_attention_bwd`` launches it and
-``FlashAttentionFn`` puts the two kernels under autograd. ``bwd_launches``
-counts its calls, ``dout_copies`` the output gradients it had to copy into a
-layout the kernel reads. The forward wrapper itself refuses inputs that
-require grad under grad mode: its output has no graph.
+The backward (csrc/flash_attention_bwd.cu, no atomics) takes float32,
+bfloat16 and float16 at d in {16, 32, 64, 128}; its variant follows the
+forward's (``bwd_variant_for``):
+
+* ``wgmma``: bfloat16/float16 with d in {64, 128}: a preprocess kernel (D),
+  then a dK/dV and a dQ kernel on wgmma with TMA-fed stages, reading the
+  logsumexp the wgmma forward saved (``lse``, log2 units);
+* ``cuda_core_f32``: everything else (float32, and 16-bit at d 16 / 32): a
+  stats pass, a dK/dV pass and a dQ pass in float32 on the CUDA cores.
+
+``flash_attention_bwd`` launches it and ``FlashAttentionFn`` puts the
+forward and the backward under autograd. ``bwd_launches`` counts its calls,
+``bwd_launches_by_variant`` each variant's, ``dout_copies`` the output
+gradients it had to copy into a layout the kernel reads. The forward wrapper
+itself refuses inputs that require grad under grad mode: its output has no
+graph.
 """
 from __future__ import annotations
 
@@ -29,15 +38,20 @@ import torch
 from repro_torch.kernels import build as B
 from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
 
-# the C launcher's variant codes
+# the C launchers' variant codes
 VARIANTS = {"cuda_core_f32": 0, "mma_sync": 1, "wgmma": 2}
+BWD_VARIANTS = ("cuda_core_f32", "wgmma")
 WGMMA_HEAD_DIMS = (64, 128)
 MMA_SYNC_HEAD_DIMS = (16, 32, 256)
+# rows of the logsumexp buffer: s_q rounded up to the wgmma kernels' 128-row
+# CTAs, so each 64-row stage of it is one aligned bulk copy
+LSE_ROW_ALIGN = 128
 
 launches = 0  # kernel launches since the count was last set to 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
 BWD_HEAD_DIMS = (16, 32, 64, 128)  # d 256 (gemma3-4b) waits for a later kernel
 bwd_launches = 0  # backward calls since the count was last set to 0
+bwd_launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
 dout_copies = 0  # output gradients copied into a layout the backward reads
 
 
@@ -46,6 +60,29 @@ def variant_for(dtype: torch.dtype, d: int) -> str:
     if dtype == torch.float32:
         return "cuda_core_f32"
     return "wgmma" if d in WGMMA_HEAD_DIMS else "mma_sync"
+
+
+def bwd_variant_for(dtype: torch.dtype, d: int) -> str:
+    """The backward kernels that run a CUDA call of this dtype and head dim:
+    wgmma where the forward runs wgmma (it saves the logsumexp they read)."""
+    return "wgmma" if variant_for(dtype, d) == "wgmma" else "cuda_core_f32"
+
+
+def lse_buffer(q: torch.Tensor) -> torch.Tensor:
+    """An uninitialised float32 (b, n_q, s_q rounded up to LSE_ROW_ALIGN)
+    buffer for the logsumexp of ``flash_attention(..., lse=...)``."""
+    b, n_q, s_q = q.shape[:3]
+    rows = -(-s_q // LSE_ROW_ALIGN) * LSE_ROW_ALIGN
+    return torch.empty((b, n_q, rows), dtype=torch.float32, device=q.device)
+
+
+def _check_lse(lse: torch.Tensor, q: torch.Tensor) -> None:
+    b, n_q, s_q = q.shape[:3]
+    if (lse.dtype != torch.float32 or lse.device != q.device or lse.dim() != 3
+            or tuple(lse.shape[:2]) != (b, n_q) or lse.shape[2] < s_q
+            or lse.shape[2] % LSE_ROW_ALIGN or not lse.is_contiguous()):
+        raise ValueError(f"lse: {tuple(lse.shape)} {lse.dtype} on {lse.device} is not a "
+                         f"lse_buffer for q {tuple(q.shape)}")
 
 
 def _rows_aligned(t: torch.Tensor, align: int) -> bool:
@@ -63,16 +100,24 @@ def _strides(t: torch.Tensor, name: str, align: int):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0, q_offset: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    lse: torch.Tensor | None = None) -> torch.Tensor:
     """Causal (optionally sliding-window) GQA attention.
 
     q: (b, n_q, s_q, d); k/v: (b, n_kv, s_k, d), all of one float dtype; any
     strides with a contiguous head dim (a (b, s, n, d) tensor's
     ``transpose(1, 2)`` is taken as is). Query i sits at position
     ``q_offset + i``. Returns (b, n_q, s_q, d) in q's dtype, laid out with
-    q's strides."""
+    q's strides.
+
+    ``lse`` (wgmma variant only, CUDA): a ``lse_buffer(q)`` that the kernel
+    fills with each query row's logsumexp in log2 units of the scaled scores
+    (``flash_attention_lse_ref``'s), for the backward; the output is the
+    same bits with or without it."""
     global launches
     if B.on_cpu(q, k, v):
+        if lse is not None:
+            raise ValueError("flash_attention: lse is written by the CUDA wgmma kernel only")
         return flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
     B.refuse_grad("flash_attention (use FlashAttentionFn to train)", q, k, v)
     if q.dtype not in B.FLOAT_TYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -90,12 +135,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 else d not in WGMMA_HEAD_DIMS + MMA_SYNC_HEAD_DIMS)):
         raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} window {window} q_offset {q_offset}")
+    if lse is not None:
+        if variant != "wgmma":
+            raise ValueError(f"flash_attention: the {variant} kernel writes no lse")
+        _check_lse(lse, q)
     align = 4 if f32 else 8
     out = torch.empty_like(q)  # q's strides: (b, s, n, d) storage stays so
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, n_q, n_kv, s_q, s_k, d, int(causal), int(window), int(q_offset)]
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         args += _strides(t, name, align)
+    args += [None if lse is None else lse.data_ptr(), 0 if lse is None else lse.shape[2]]
     rc = B.library().ckv_flash_attention(*args, B.dtype_code(q), VARIANTS[variant],
                                          B.stream_handle(q))
     B.check(rc, f"flash_attention {variant}")
@@ -123,7 +173,7 @@ def _check_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True, window: int = 0,
-                        q_offset: int = 0):
+                        q_offset: int = 0, lse: torch.Tensor | None = None):
     """The gradients (dq, dk, dv) of ``flash_attention(q, k, v, ...)`` at
     output ``out`` for the output gradient ``dout``.
 
@@ -131,9 +181,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     q); each gradient has its input's dtype and, for a dense input, its
     strides. A ``dout`` whose rows the kernel cannot read in place (not
     16-byte aligned, or a head dim that is not contiguous) is copied once
-    into a fresh contiguous tensor and counted in ``dout_copies``."""
+    into a fresh contiguous tensor and counted in ``dout_copies``.
+
+    ``lse``: the wgmma variant's input, the logsumexp its forward wrote
+    (``FlashAttentionFn`` passes the one it saved); that variant raises
+    without it. The cuda_core_f32 variant takes none: its stats pass computes
+    its own."""
     global bwd_launches, dout_copies
     if B.on_cpu(q, k, v, out, dout):
+        if lse is not None:
+            raise ValueError("flash_attention_bwd: lse is read by the CUDA wgmma kernels only")
         return flash_attention_bwd_ref(q, k, v, out, dout, causal=causal, window=window,
                                        q_offset=q_offset)
     _check_bwd(q, k, v, window, q_offset)
@@ -142,6 +199,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
                          f"{tuple(dout.shape)} {dout.dtype} against q {tuple(q.shape)} {q.dtype}")
     b, n_q, s_q, d = q.shape
     n_kv, s_k = k.shape[1], k.shape[2]
+    variant = bwd_variant_for(q.dtype, d)
+    if variant == "wgmma":
+        if lse is None:
+            raise ValueError("flash_attention_bwd: the wgmma kernels read the lse that "
+                             "flash_attention(..., lse=lse_buffer(q)) wrote; none was given")
+        _check_lse(lse, q)
+    elif lse is not None:
+        raise ValueError(f"flash_attention_bwd: the {variant} kernels read no lse")
+    else:
+        lse = lse_buffer(q)  # scratch of the stats pass
     align = 4 if q.dtype == torch.float32 else 8
     if not _rows_aligned(dout, align):
         # a fresh allocation: .contiguous() would hand back a contiguous tensor
@@ -149,7 +216,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
         dout = dout.clone(memory_format=torch.contiguous_format)
         dout_copies += 1
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty((b, n_q, s_q), dtype=torch.float32, device=q.device)
     dsum = torch.empty_like(lse)
     tensors = (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout), ("dq", dq),
                ("dk", dk), ("dv", dv))
@@ -157,33 +223,38 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
                                          for st in _strides(t, name, align)])
     rc = B.library().ckv_flash_attention_bwd(
         *(t.data_ptr() for _, t in tensors), lse.data_ptr(), dsum.data_ptr(),
-        b, n_q, n_kv, s_q, s_k, d, int(causal), int(window), int(q_offset), strides,
-        B.dtype_code(q), B.stream_handle(q))
-    B.check(rc, "flash_attention_bwd")
+        b, n_q, n_kv, s_q, s_k, d, int(causal), int(window), int(q_offset), lse.shape[2],
+        strides, B.dtype_code(q), VARIANTS[variant], B.stream_handle(q))
+    B.check(rc, f"flash_attention_bwd {variant}")
     bwd_launches += 1
+    bwd_launches_by_variant[variant] += 1
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` under autograd: the forward kernel, then the
-    backward kernel (``flash_attention_bwd``) for the gradients of q, k and v.
-    Saves q, k, v and the output. On CPU tensors both are the plain
+    backward kernels (``flash_attention_bwd``) for the gradients of q, k and
+    v. Saves q, k, v, the output and, where the backward's variant is wgmma,
+    the logsumexp the forward wrote. On CPU tensors both are the plain
     versions. A CUDA call the backward does not take raises here, before the
     forward runs."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True, window: int = 0, q_offset: int = 0):
+        lse = None
         if not B.on_cpu(q, k, v):
             _check_bwd(q, k, v, window, q_offset)
-        out = flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
-        ctx.save_for_backward(q, k, v, out)
+            if bwd_variant_for(q.dtype, q.shape[-1]) == "wgmma":
+                lse = lse_buffer(q)
+        out = flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset, lse=lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, window, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         causal, window, q_offset = ctx.mask
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window,
-                                         q_offset=q_offset)
+                                         q_offset=q_offset, lse=lse)
         return dq, dk, dv, None, None, None

@@ -1,6 +1,8 @@
-"""Plain versions of the flash_attention kernel (causal GQA attention) and of
-its backward."""
+"""Plain versions of the flash_attention kernel (causal GQA attention), of
+the logsumexp its wgmma form saves for the backward, and of its backward."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -55,6 +57,37 @@ def flash_attention_ref(
         o = torch.einsum("bngst,bntd->bngsd", p, vf) / l.clamp_min(1e-30)
         out[:, :, lo: lo + sq] = o.reshape(b, n_q, sq, d).to(q.dtype)
     return out
+
+
+def flash_attention_lse_ref(
+    q: torch.Tensor,  # (b, n_q, s_q, d)
+    k: torch.Tensor,  # (b, n_kv, s_k, d)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+    block_q: int = 512,
+) -> torch.Tensor:
+    """Each query row's logsumexp over its visible keys, in the kernel's
+    units: log2 of the sum of exp2(log2(e) d ** -0.5 q.k), i.e. the natural
+    logsumexp of the scaled scores times log2(e), so that the backward's
+    P = exp2(log2(e) d ** -0.5 q.k - lse). 0 for a row that sees no key.
+    Float32 throughout; returns (b, n_q, s_q) float32."""
+    b, n_q, s_q, d = q.shape
+    n_kv, s_k = k.shape[1], k.shape[2]
+    group = n_q // n_kv
+    kf = k.to(torch.float32)
+    lse = torch.empty((b, n_q, s_q), dtype=torch.float32, device=q.device)
+    for lo in range(0, s_q, block_q):
+        qb = q[:, :, lo: lo + block_q].to(torch.float32)
+        sq = qb.shape[2]
+        sc = torch.einsum("bngsd,bntd->bngst", qb.reshape(b, n_kv, group, sq, d), kf) * d ** -0.5
+        mask = _visible(sq, s_k, causal, window, q_offset, lo, q.device)
+        sc = sc.masked_fill(~mask, float("-inf"))
+        row = torch.logsumexp(sc, dim=-1) * (1.0 / math.log(2.0))
+        row = torch.where(mask.any(dim=-1), row, torch.zeros_like(row))
+        lse[:, :, lo: lo + sq] = row.reshape(b, n_q, sq)
+    return lse
 
 
 def flash_attention_bwd_ref(

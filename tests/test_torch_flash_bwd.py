@@ -8,6 +8,10 @@ has no autodiff). float32 inputs made with numpy from a seed; each gradient
 within 1e-5 of its largest element (float32 sums of at most a few hundred
 terms in other orders). ``FlashAttentionFn`` on CPU tensors runs the plain
 forward and backward, so its gradients equal the plain version's.
+``flash_attention_lse_ref`` (the logsumexp the wgmma forward saves for the
+backward, in log2 units) is held against ``jax.nn.logsumexp`` of the same
+masked, scaled float32 scores times log2(e), within 1e-5 of the largest
+|lse| (float32 sums in other orders).
 """
 import jax
 import jax.numpy as jnp
@@ -17,7 +21,8 @@ import torch
 
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_ref
 from repro_torch.kernels.flash_attention import ops as fa
-from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_lse_ref, flash_attention_ref)
 
 REL = 1e-5
 
@@ -101,3 +106,32 @@ def test_bwd_ref_keeps_input_dtypes():
     got = flash_attention_bwd_ref(q, k, v, out, do)
     assert [g.dtype for g in got] == [torch.bfloat16] * 3
     assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
+
+
+@pytest.mark.parametrize("causal,window,q_offset,s_q,s_k", [
+    (True, 0, 0, 37, 37),
+    (True, 5, 0, 37, 37),
+    (True, 0, 13, 19, 32),
+    (True, 6, 13, 19, 32),
+    (False, 0, 0, 23, 23),
+    (True, 5, 0, 19, 8),  # rows 12 on see no key: lse 0
+])
+def test_lse_ref_matches_jax_logsumexp(causal, window, q_offset, s_q, s_k):
+    q, k, _, _ = _inputs(4, 2, 4, 2, s_q, s_k, 32)
+    got = flash_attention_lse_ref(torch.from_numpy(q), torch.from_numpy(k), causal=causal,
+                                  window=window, q_offset=q_offset, block_q=16)
+    assert got.dtype == torch.float32 and got.shape == (2, 4, s_q)
+    sc = jnp.einsum("bngsd,bntd->bngst", jnp.asarray(q).reshape(2, 2, 2, s_q, 32),
+                    jnp.asarray(k)) * 32 ** -0.5
+    i = q_offset + jnp.arange(s_q)[:, None]
+    t = jnp.arange(s_k)[None, :]
+    vis = jnp.ones((s_q, s_k), bool)
+    if causal:
+        vis &= t <= i
+    if window > 0:
+        vis &= i - t < window
+    lse = jax.nn.logsumexp(jnp.where(vis, sc, -jnp.inf), axis=-1) / np.log(2.0)
+    want = np.where(vis.any(-1), np.asarray(lse), 0.0).reshape(2, 4, s_q)
+    _close(got.numpy(), want)
+    if s_k == 8:
+        assert (got[..., 12:] == 0).all()

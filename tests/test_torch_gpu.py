@@ -36,7 +36,7 @@ from repro_torch.kernels.chunk_score.ref import chunk_score_ref
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import flash_attention_lse_ref, flash_attention_ref
 from repro_torch.kernels.selective_scan import ops as ss_ops
 from repro_torch.kernels.selective_scan.ref import selective_scan_chunked_ref, selective_scan_ref
 
@@ -262,9 +262,12 @@ def _device_kernels(fn, calls=10):
     session of 500 keep none and another keep 9 of its 10. The session
     therefore idles PROFILER_PAD_S after it starts and before it stops
     (every padded session kept all its kernels), and a session that still
-    kept no device event is run again, up to PROFILER_SESSIONS in all: fn
-    launches kernels on every call, so only a lost trace is empty, and a
-    wrapper that launches nothing stays empty every time."""
+    kept no device event, or in which some kernel's launches over
+    ``calls`` are not a whole number, is run again, up to PROFILER_SESSIONS
+    in all: fn launches the same kernels on every call, so only a lost or
+    cut trace is empty or fractional (one session read 9 of 10
+    chunk_attn_kernel launches), and a wrapper that launches nothing, or
+    another set of kernels, reads so every time."""
     import time
 
     from torch.profiler import ProfilerActivity, profile
@@ -278,10 +281,11 @@ def _device_kernels(fn, calls=10):
                 fn()
             torch.cuda.synchronize()
             time.sleep(PROFILER_PAD_S)
-        got = {e.key.split("ckv::")[-1].split("<")[0].split("(")[0]: e.count / calls
+        # the kernel's name: its parameter types may name ckv:: types too
+        got = {e.key.split("(")[0].split("ckv::")[-1].split("<")[0]: e.count / calls
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA}
-        if got:
+        if got and all(float(n).is_integer() for n in got.values()):
             return got
     return got
 
@@ -1194,6 +1198,15 @@ def _bwd_inputs(dev, dtype, b, nq, nkv, s_q, s_k, d, transposed, seed=200):
     return q, k, v, _rand(dev, seed + 3, (b, nq, s_q, d), dtype)
 
 
+def _forward_for_bwd(q, k, v, **kw):
+    """The forward kernel's output and, where the backward's variant is
+    wgmma, the logsumexp it wrote for that backward (None otherwise), as
+    FlashAttentionFn saves them."""
+    lse = (fa_ops.lse_buffer(q) if fa_ops.bwd_variant_for(q.dtype, q.shape[-1]) == "wgmma"
+           else None)
+    return fa_ops.flash_attention(q, k, v, lse=lse, **kw), lse
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("group,window,q_offset,transposed", [
@@ -1204,7 +1217,10 @@ def _bwd_inputs(dev, dtype, b, nq, nkv, s_q, s_k, d, transposed, seed=200):
 def test_flash_attention_bwd(dev, dtype, d, group, window, q_offset, transposed):
     """The backward kernel against its plain version (float32 1e-5 of each
     gradient's largest element: the same float32 sums in other orders; 16-bit
-    2^-7: each gradient one float32 result rounded once), one launch a call,
+    2^-7: cuda_core_f32 rounds each gradient's float32 result once; wgmma
+    also rounds P and dS to the input dtype before its dV, dK and dQ
+    products, which at chip_smoke.py's (t1) shapes came to one bfloat16 ulp
+    of the largest gradient, 0.45-0.8 of this limit), one launch a call,
     each gradient with its input's dtype and strides, and two runs the same
     bits (no atomics)."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
@@ -1213,15 +1229,15 @@ def test_flash_attention_bwd(dev, dtype, d, group, window, q_offset, transposed)
     q, k, v, do = _bwd_inputs(dev, dtype, b, group * nkv, nkv, s_q, s_q + q_offset, d,
                               transposed)
     kw = dict(causal=True, window=window, q_offset=q_offset)
-    out = fa_ops.flash_attention(q, k, v, **kw)
+    out, lse = _forward_for_bwd(q, k, v, **kw)
     before = fa_ops.bwd_launches
-    got = fa_ops.flash_attention_bwd(q, k, v, out, do, **kw)
+    got = fa_ops.flash_attention_bwd(q, k, v, out, do, lse=lse, **kw)
     assert fa_ops.bwd_launches == before + 1
     want = flash_attention_bwd_ref(q, k, v, out, do, **kw)
     for g, w, x in zip(got, want, (q, k, v)):
         assert g.dtype == dtype and g.stride() == x.stride()
         _close(g, w, rel=FLASH_REL[dtype])
-    again = fa_ops.flash_attention_bwd(q, k, v, out, do, **kw)
+    again = fa_ops.flash_attention_bwd(q, k, v, out, do, lse=lse, **kw)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
@@ -1253,13 +1269,13 @@ def test_flash_attention_bwd_copies_an_unaligned_dout(dev):
     """An output gradient whose rows the kernel cannot read in place is
     copied once, counted, and gives the same gradients."""
     q, k, v, do = _bwd_inputs(dev, torch.bfloat16, 1, 4, 2, 40, 40, 64, False)
-    out = fa_ops.flash_attention(q, k, v)
-    want = fa_ops.flash_attention_bwd(q, k, v, out, do)
+    out, lse = _forward_for_bwd(q, k, v)
+    want = fa_ops.flash_attention_bwd(q, k, v, out, do, lse=lse)
     flat = torch.empty(do.numel() + 1, dtype=do.dtype, device=dev)
     odd = flat[1:].view(do.shape)  # 2 bytes off a 16-byte boundary
     odd.copy_(do)
     before = fa_ops.dout_copies
-    got = fa_ops.flash_attention_bwd(q, k, v, out, odd)
+    got = fa_ops.flash_attention_bwd(q, k, v, out, odd, lse=lse)
     assert fa_ops.dout_copies == before + 1
     assert all(torch.equal(a, c) for a, c in zip(got, want))
 
@@ -1277,6 +1293,99 @@ def test_flash_attention_bwd_raises_on_what_it_does_not_take(dev):
             fa_ops.flash_attention_bwd(q.detach(), kv.detach(), kv.detach(), q.detach(),
                                        q.detach())
     assert (fa_ops.launches, fa_ops.bwd_launches) == before
+
+
+# the wgmma forward's logsumexp (log2 units) against its plain version:
+# float32 sums in another order, ex2.approx and log2f (an H100 run measured
+# 1.9e-6 at s 4096); 2e-5 is a relative 1.4e-5 on each P
+LSE_TOL = 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s_q,s_k,window,q_offset", [
+    (130, 130, 0, 0),  # a ragged last tile
+    (130, 180, 17, 50),  # a window, queries after a prefix
+    (130, 40, 20, 0),  # rows 59 on see no key
+])
+def test_flash_attention_lse(dev, dtype, d, s_q, s_k, window, q_offset):
+    """The wgmma forward's logsumexp against flash_attention_lse_ref within
+    LSE_TOL, 0 on a row that sees no key; the output the same bits with and
+    without the lse pointer."""
+    q = _rand(dev, 300, (2, s_q, 4, d), dtype).transpose(1, 2)
+    k = _rand(dev, 301, (2, s_k, 2, d), dtype).transpose(1, 2)
+    v = _rand(dev, 302, (2, s_k, 2, d), dtype).transpose(1, 2)
+    kw = dict(window=window, q_offset=q_offset)
+    plain = fa_ops.flash_attention(q, k, v, **kw)
+    lse = fa_ops.lse_buffer(q)
+    before = fa_ops.launches_by_variant["wgmma"]
+    out = fa_ops.flash_attention(q, k, v, lse=lse, **kw)
+    assert fa_ops.launches_by_variant["wgmma"] == before + 1
+    assert torch.equal(out, plain)
+    want = flash_attention_lse_ref(q, k, **kw)
+    err = (lse[..., :s_q] - want).abs().max().item()
+    assert err <= LSE_TOL, err
+    if s_k == 40:
+        assert (want[..., 59:] == 0).all() and (lse[..., 59:s_q] == 0).all()
+
+
+def test_flash_attention_bwd_variants(dev):
+    """bwd_launches_by_variant: bfloat16 at d 128 and float16 at d 64 run
+    wgmma, float32 and bfloat16 at d 16 cuda_core_f32, one call counted once
+    under its variant; wgmma raises without the forward's lse, and no forward
+    or backward but wgmma takes one."""
+    for dtype, d, variant in ((torch.bfloat16, 128, "wgmma"), (torch.float16, 64, "wgmma"),
+                              (torch.float32, 128, "cuda_core_f32"),
+                              (torch.bfloat16, 16, "cuda_core_f32")):
+        q, k, v, do = _bwd_inputs(dev, dtype, 1, 4, 2, 70, 70, d, True)
+        out, lse = _forward_for_bwd(q, k, v)
+        before = dict(fa_ops.bwd_launches_by_variant)
+        fa_ops.flash_attention_bwd(q, k, v, out, do, lse=lse)
+        after = fa_ops.bwd_launches_by_variant
+        assert {n: after[n] - before[n] for n in after} == {n: int(n == variant) for n in after}
+        assert fa_ops.bwd_variant_for(dtype, d) == variant
+        if variant == "wgmma":
+            f0, b0 = fa_ops.launches, fa_ops.bwd_launches
+            with pytest.raises(ValueError):
+                fa_ops.flash_attention_bwd(q, k, v, out, do)
+            assert (fa_ops.launches, fa_ops.bwd_launches) == (f0, b0)
+        else:
+            with pytest.raises(ValueError):
+                fa_ops.flash_attention(q, k, v, lse=fa_ops.lse_buffer(q))
+            with pytest.raises(ValueError):
+                fa_ops.flash_attention_bwd(q, k, v, out, do, lse=fa_ops.lse_buffer(q))
+
+
+def test_flash_attention_fn_saves_the_lse(dev):
+    """FlashAttentionFn saves the wgmma forward's lse: its backward launches
+    no forward kernel and gives the same bits as flash_attention_bwd handed
+    the lse of a forward run apart."""
+    q, k, v, do = _bwd_inputs(dev, torch.bfloat16, 2, 8, 2, 100, 100, 128, True)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fa_ops.FlashAttentionFn.apply(*leaves, True, 30, 0)
+    f0 = fa_ops.launches
+    got = torch.autograd.grad(out, leaves, do)
+    assert fa_ops.launches == f0
+    again, lse = _forward_for_bwd(q, k, v, window=30)
+    assert torch.equal(again, out)
+    want = fa_ops.flash_attention_bwd(q, k, v, again, do, window=30, lse=lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_flash_attention_bwd_device_kernels(dev):
+    """One wgmma backward call is three device kernels: the preprocess (D),
+    dK/dV and dQ, and no stats pass; a cuda_core_f32 call is its stats,
+    dK/dV and dQ passes."""
+    q, k, v, do = _bwd_inputs(dev, torch.bfloat16, 1, 16, 8, 512, 512, 128, True)
+    out, lse = _forward_for_bwd(q, k, v)
+    kern = _device_kernels(lambda: fa_ops.flash_attention_bwd(q, k, v, out, do, lse=lse))
+    assert kern == {"fa_bwd_pre_kernel": 1.0, "fa_bwd_dkdv_wgmma_kernel": 1.0,
+                    "fa_bwd_dq_wgmma_kernel": 1.0}, kern
+    q, k, v, do = _bwd_inputs(dev, torch.float32, 1, 4, 2, 128, 128, 16, True)
+    out = fa_ops.flash_attention(q, k, v)
+    kern = _device_kernels(lambda: fa_ops.flash_attention_bwd(q, k, v, out, do))
+    assert kern == {"fa_bwd_stats_kernel": 1.0, "fa_bwd_dkdv_kernel": 1.0,
+                    "fa_bwd_dq_kernel": 1.0}, kern
 
 
 def _grad_inputs(*tensors):
