@@ -49,6 +49,10 @@
 //   exponential, ex2.approx of dt (A log2 e), and its fma order, so decode
 //   and prefill do the same arithmetic per element.
 //
+// The backward (training, below): a pack launch as above, then a kernel in
+// the chunked kernel's layout that walks the chunks from last to first from
+// the carries the forward saved, then a reduction of its per-CTA partials.
+//
 // Bound on the H100 at the hybrid prefill (s = 4160, d_in = 3200, n = 16,
 // bfloat16 x): s x d_in x n = 2.1e8 exponentials, ~0.051 ms at the
 // special-function units' 16 per clock per SM (132 SMs at 1.98 GHz), above
@@ -266,12 +270,16 @@ static __global__ void __launch_bounds__(256) selective_scan_pack_kernel(
 }
 
 // grid (ceil(d_in / 16), b), 256 threads; x_vec: x's rows of 16 channels
-// are whole 16-byte vectors (d_in a multiple of 16 / sizeof(T))
-template <typename T>
+// are whole 16-byte vectors (d_in a multiple of 16 / sizeof(T)). SAVE (the
+// training forward's instance): also store h at the start of every chunk
+// into carries (b, n_chunks, d_in, n) float32, for the backward kernel;
+// serving's instance (SAVE false) has no such store.
+template <typename T, bool SAVE>
 static __global__ void __launch_bounds__(SC_THREADS, 2) selective_scan_chunked_kernel(
     const T* __restrict__ x, const unsigned char* __restrict__ img,
     const float* __restrict__ A, const float* __restrict__ h0, float* __restrict__ y,
-    float* __restrict__ h_out, int s, int d_in, int n, int x_vec) {
+    float* __restrict__ h_out, float* __restrict__ carries, int s, int d_in, int n,
+    int x_vec) {
   using I = ScanImg<T>;
   constexpr int XV = SC_CH * (int)sizeof(T) / 16;  // 16-byte vectors per x row
   extern __shared__ __align__(16) unsigned char sc_smem[];
@@ -327,6 +335,13 @@ static __global__ void __launch_bounds__(SC_THREADS, 2) selective_scan_chunked_k
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     }
     __syncthreads();  // chunk k's copies have landed; the last chunk's y has left xs
+    if constexpr (SAVE) {  // h at chunk k's start; the j loop rewrites carry after a barrier
+      float* ck = carries + ((size_t)b * n_chunks + k) * d_in * n;
+      for (int i = tid; i < SC_CH * n; i += SC_THREADS) {
+        const int ch = ch0 + i / n;
+        if (ch < d_in) ck[(size_t)ch * n + i % n] = carry[i];
+      }
+    }
     // x to float32 runs per channel; positions past s are zeros, and dt = 0
     // there makes them (a, b) = (1, 0), which leaves h exactly as it was
     if (x_vec) {
@@ -422,25 +437,368 @@ static size_t chunked_smem(int n) {
          sizeof(float) * (SC_CH * SC_XLD + 2 * SC_CH * n);
 }
 
-template <typename T>
-static cudaError_t launch_scan_chunked(const void* x, const float* dt, const float* A,
-                                       const void* Bm, const void* Cm, const float* h0, float* y,
-                                       float* h_out, void* scratch, int b, int s, int d_in, int n,
-                                       int b_sb, int b_ss, int c_sb, int c_ss, cudaStream_t st) {
+template <typename T, bool SAVE>
+static cudaError_t launch_chunked_instance(const void* x, const float* A, const float* h0,
+                                          float* y, float* h_out, float* carries,
+                                          const void* scratch, int b, int s, int d_in, int n,
+                                          cudaStream_t st) {
   static OncePerDevice smem_opt_in;  // at the largest n
   const cudaError_t attr = smem_opt_in([] {
-    return cudaFuncSetAttribute(selective_scan_chunked_kernel<T>,
+    return cudaFuncSetAttribute(selective_scan_chunked_kernel<T, SAVE>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)chunked_smem<T>(32));
   });
   if (attr != cudaSuccess) return attr;
+  const int x_vec = d_in % (16 / (int)sizeof(T)) == 0;
+  selective_scan_chunked_kernel<T, SAVE>
+      <<<dim3((d_in + SC_CH - 1) / SC_CH, b), SC_THREADS, chunked_smem<T>(n), st>>>(
+          (const T*)x, (const unsigned char*)scratch, A, h0, y, h_out, carries, s, d_in, n,
+          x_vec);
+  return cudaGetLastError();
+}
+
+template <typename T>
+static cudaError_t launch_scan_chunked(const void* x, const float* dt, const float* A,
+                                       const void* Bm, const void* Cm, const float* h0, float* y,
+                                       float* h_out, float* carries, void* scratch, int b, int s,
+                                       int d_in, int n, int b_sb, int b_ss, int c_sb, int c_ss,
+                                       cudaStream_t st) {
   const int n_chunks = (s + SC_CHUNK - 1) / SC_CHUNK;
   selective_scan_pack_kernel<T><<<dim3(n_chunks, b), 256, 0, st>>>(
       (const T*)Bm, (const T*)Cm, dt, (unsigned char*)scratch, s, n, b_sb, b_ss, c_sb, c_ss);
-  const int x_vec = d_in % (16 / (int)sizeof(T)) == 0;
-  selective_scan_chunked_kernel<T>
-      <<<dim3((d_in + SC_CH - 1) / SC_CH, b), SC_THREADS, chunked_smem<T>(n), st>>>(
-          (const T*)x, (const unsigned char*)scratch, A, h0, y, h_out, s, d_in, n, x_vec);
+  return carries ? launch_chunked_instance<T, true>(x, A, h0, y, h_out, carries, scratch, b, s,
+                                                    d_in, n, st)
+                 : launch_chunked_instance<T, false>(x, A, h0, y, h_out, nullptr, scratch, b, s,
+                                                     d_in, n, st);
+}
+
+// ---------------------------------------------------------------------------
+// The backward (training): no TPU kernel to replace; the JAX package
+// differentiates its jnp chunked scan (src/repro/models/ssm.py:
+// _selective_scan_chunked). With a_t = exp(dt_t A), u_t = dt_t x_t and
+// q_t = a_t g_t, where g_t = dL/dh_t = dy_t C_t + q_{t+1} (q_s = dh_final):
+//   q_t = a_t (dy_t C_t + q_{t+1}),           dh0 = q_0,
+//   dC_t = sum_d dy_t h_t,   dB_t = sum_d u_t g_t,   dx_t = dt_t sum_n B_t g_t,
+//   ddt_t = sum_{d,n} (x_t B_t + A a_t h_{t-1}) g_t,  dA = sum_{b,t} dt_t a_t h_{t-1} g_t.
+// q's recurrence runs backwards with elements (a_t, a_t dy_t C_t) that are
+// local to position t, so it decomposes as the forward's does.
+//
+// selective_scan_bwd_kernel: the forward's layout (grid (ceil(d_in / 16),
+// b), 256 threads, 16 channels of one request per CTA, a run of 16 positions
+// per thread), walking the 256-position chunks from last to first. Per
+// chunk it reads the chunk image the pack kernel wrote, x and dy, and h at
+// the chunk's start (``carries``, saved by the forward's SAVE instance). Per
+// state index j a thread computes a_t once, recomputes its run's h_t with the
+// forward's arithmetic (the same bits), folds its run's (prod a, local q)
+// backwards from a zero state, and the 16 threads of a channel scan those
+// pairs with four shuffles down; seeded with the q carried from the later
+// chunk (shared memory per (channel, state)) that gives q after the run, and
+// a walk back over the run gives every g_t. dx, ddt's per-channel part
+// (x_t sum_j B g + sum_j A_j a h_{t-1} g) and dA (per (channel, j), reduced
+// over the channel's threads with shuffles) accumulate in registers and
+// shared memory. dB and dC sum over channels: per j, each pair of channels
+// in a warp adds with one shuffle, the 8 warps' sums go through shared
+// memory (double-buffered by j, one barrier per j), and one thread per
+// position adds them in warp order into a per-CTA partial (cta, b, 2, n, s)
+// in device memory; ddt's channel sums likewise, once per chunk, into
+// (cta, b, s). selective_scan_bwd_reduce_kernel then adds the partials over
+// the CTAs, and dA over b, each in index order. No atomics: every run gives
+// the same bits.
+//
+// Bound on the H100 at hymba's training shape (b 1, s 4096, d_in 3200,
+// n 16, bfloat16 x): s d_in n = 2.1e8 exponentials, ~0.050 ms at the
+// special-function units' rate, above the bytes the function moves (x and
+// dx 26 MB each, dy 52 MB in float32: ~0.031 ms). The kernel also moves
+// its partials (dB and dC: 200 CTAs x 4096 x 16 x 2 x 4 bytes = 105 MB
+// written and read again) and, like the forward, is held back by the
+// latency of each chunk's dependent steps, not by a unit's rate.
+constexpr int SB_RED_LD = SC_TPC * SC_XRUN;       // a warp's row of positions: 272 words
+constexpr int SB_RED_Q = (SC_CH / 2) * SB_RED_LD + 16;  // dB's rows, then dC's at 16 mod 32
+constexpr int SB_RED = 2 * SB_RED_Q;              // one j parity
+
+// floats of the backward's workspace: dB and dC partials (cta, b, 2, n, s),
+// ddt partials (cta, b, s), dA per request (b, d_in, n)
+static size_t scan_bwd_work_floats(int b, int s, int d_in, int n) {
+  const size_t n_cta = (d_in + SC_CH - 1) / SC_CH;
+  return n_cta * b * ((size_t)2 * n * s + s) + (size_t)b * d_in * n;
+}
+
+template <typename T>
+static size_t bwd_smem(int n) {
+  return ScanImg<T>::bytes(n) + sizeof(float) * (2 * SC_CH * SC_XLD + 2 * SB_RED + 5 * SC_CH * n);
+}
+
+template <typename T>
+static __global__ void __launch_bounds__(SC_THREADS, 1) selective_scan_bwd_kernel(
+    const T* __restrict__ x, const unsigned char* __restrict__ img,
+    const float* __restrict__ A, const float* __restrict__ carries, const float* __restrict__ dy,
+    const float* __restrict__ dh_final, T* __restrict__ dx, float* __restrict__ part_bc,
+    float* __restrict__ part_dt, float* __restrict__ dA_req, float* __restrict__ dh0, int s,
+    int d_in, int n) {
+  using I = ScanImg<T>;
+  extern __shared__ __align__(16) unsigned char sc_smem[];
+  const int img_bytes = I::bytes(n), n_chunks = (s + SC_CHUNK - 1) / SC_CHUNK;
+  const int tid = threadIdx.x, b = blockIdx.y, n_b = gridDim.y, cta = blockIdx.x;
+  const int c = tid / SC_TPC, p = tid % SC_TPC, w = tid / 32;
+  const int ch0 = cta * SC_CH;
+  float* xs = reinterpret_cast<float*>(sc_smem + img_bytes);  // [SC_CH][SC_XLD] x, then dx
+  float* dys = xs + SC_CH * SC_XLD;                           // [SC_CH][SC_XLD] dy, then ddt
+  float* red = dys + SC_CH * SC_XLD;                          // [2][SB_RED]: dB, dC by warp
+  float* a2s = red + 2 * SB_RED;                              // [SC_CH][n]: A log2 e
+  float* as_ = a2s + SC_CH * n;                               // [SC_CH][n]: A
+  float* hcar = as_ + SC_CH * n;                              // [SC_CH][n]: h at the chunk's start
+  float* gcar = hcar + SC_CH * n;                             // [SC_CH][n]: q after the chunk
+  float* sda = gcar + SC_CH * n;                              // [SC_CH][n]: dA of this request
+  for (int i = tid; i < SC_CH * n; i += SC_THREADS) {
+    const int ch = ch0 + i / n, j = i % n;
+    const bool live = ch < d_in;
+    const float av = live ? A[(size_t)ch * n + j] : 0.f;
+    a2s[i] = av * SC_LOG2E;
+    as_[i] = av;
+    gcar[i] = live && dh_final ? dh_final[((size_t)b * d_in + ch) * n + j] : 0.f;
+    sda[i] = 0.f;
+  }
+  const T* xb = x + (size_t)b * s * d_in;
+  const float* dyb = dy + (size_t)b * s * d_in;
+  const unsigned char* imb = img + (size_t)b * n_chunks * img_bytes;
+  T* dxb = dx + (size_t)b * s * d_in;
+  float* pbc = part_bc + ((size_t)cta * n_b + b) * 2 * n * s;
+  float* pdt = part_dt + ((size_t)cta * n_b + b) * s;
+  const float* xrow = xs + c * SC_XLD + p * SC_XRUN;  // this thread's run
+  const float* dyrow = dys + c * SC_XLD + p * SC_XRUN;
+  const int brun = p * I::RUN;
+  const int rpos = (tid / SC_RUN) * SC_XRUN + tid % SC_RUN;  // position tid in a warp's row
+
+  for (int k = n_chunks - 1; k >= 0; --k) {
+    const int t0 = k * SC_CHUNK, ts = min(SC_CHUNK, s - t0);
+    __syncthreads();  // the later chunk's readers are done with every buffer
+    {
+      const uint4* src = reinterpret_cast<const uint4*>(imb + (size_t)k * img_bytes);
+      uint4* dst = reinterpret_cast<uint4*>(sc_smem);
+      for (int v = tid; v < img_bytes / 16; v += SC_THREADS) dst[v] = src[v];
+    }
+    // x and dy as float32 runs per channel; zeros past s (where dt = 0 too,
+    // so a = 1 and nothing flows in or out)
+    for (int i = tid; i < SC_CHUNK * SC_CH; i += SC_THREADS) {
+      const int tt = i / SC_CH, cc = i % SC_CH, ch = ch0 + cc;
+      const bool in = tt < ts && ch < d_in;
+      const size_t off = (size_t)(t0 + tt) * d_in + ch;
+      xs[cc * SC_XLD + sc_xpos(tt)] = in ? to_f32(xb[off]) : 0.f;
+      dys[cc * SC_XLD + sc_xpos(tt)] = in ? dyb[off] : 0.f;
+    }
+    {
+      const float* ck = carries + ((size_t)b * n_chunks + k) * d_in * n;
+      for (int i = tid; i < SC_CH * n; i += SC_THREADS) {
+        const int ch = ch0 + i / n;
+        hcar[i] = ch < d_in ? ck[(size_t)ch * n + i % n] : 0.f;
+      }
+    }
+    __syncthreads();
+
+    const T* bs = reinterpret_cast<const T*>(sc_smem);
+    const T* cs = bs + n * I::LD;
+    const float* dts = reinterpret_cast<const float*>(sc_smem + 2 * I::bc_bytes(n));
+    float dxs[SC_RUN], dda[SC_RUN];  // per position: sum_j B g, sum_j A_j a h_{t-1} g
+#pragma unroll
+    for (int r = 0; r < SC_RUN; ++r) dxs[r] = dda[r] = 0.f;
+#pragma unroll 1
+    for (int j = 0; j < n; ++j) {
+      const float a2 = a2s[c * n + j], h_in = hcar[c * n + j], q_after = gcar[c * n + j];
+      float av[SC_RUN], hv[SC_RUN], bv[SC_RUN];
+      load_run<T>(bs + j * I::LD + brun, bv);
+      float h_start;
+      {  // h over the run, as the forward computes it
+        float pr[SC_RUN];
+        float pc = 1.f, h = 0.f;
+#pragma unroll
+        for (int r = 0; r < SC_RUN; ++r) {
+          const float dtr = dts[p * SC_XRUN + r];
+          const float a = sc_exp2(dtr * a2);
+          h = fmaf(a, h, (dtr * xrow[r]) * bv[r]);
+          pc *= a;
+          pr[r] = pc;
+          hv[r] = h;
+          av[r] = a;
+        }
+        float ag = pc, bg = h;
+#pragma unroll
+        for (int o = 1; o < SC_TPC; o <<= 1) {
+          const float au = __shfl_up_sync(0xffffffffu, ag, o, SC_TPC);
+          const float bu = __shfl_up_sync(0xffffffffu, bg, o, SC_TPC);
+          if (p >= o) {
+            bg = fmaf(ag, bu, bg);
+            ag *= au;
+          }
+        }
+        float ae = __shfl_up_sync(0xffffffffu, ag, 1, SC_TPC);
+        float be = __shfl_up_sync(0xffffffffu, bg, 1, SC_TPC);
+        if (p == 0) ae = 1.f, be = 0.f;
+        h_start = fmaf(ae, h_in, be);
+#pragma unroll
+        for (int r = 0; r < SC_RUN; ++r) hv[r] = fmaf(pr[r], h_start, hv[r]);
+      }
+      float cv[SC_RUN];
+      load_run<T>(cs + j * I::LD + brun, cv);
+      float q_in;
+      {  // the run's (prod a, q at its first position) from a zero q after it,
+         // then the channel's suffix scan over runs, shifted by one run
+        float pq = 1.f, ql = 0.f;
+#pragma unroll
+        for (int r = SC_RUN - 1; r >= 0; --r) {
+          ql = av[r] * fmaf(dyrow[r], cv[r], ql);
+          pq *= av[r];
+        }
+        float ag = pq, bg = ql;
+#pragma unroll
+        for (int o = 1; o < SC_TPC; o <<= 1) {
+          const float ad = __shfl_down_sync(0xffffffffu, ag, o, SC_TPC);
+          const float bd = __shfl_down_sync(0xffffffffu, bg, o, SC_TPC);
+          if (p + o < SC_TPC) {
+            bg = fmaf(ag, bd, bg);
+            ag *= ad;
+          }
+        }
+        float ae = __shfl_down_sync(0xffffffffu, ag, 1, SC_TPC);
+        float be = __shfl_down_sync(0xffffffffu, bg, 1, SC_TPC);
+        if (p == SC_TPC - 1) ae = 1.f, be = 0.f;
+        q_in = fmaf(ae, q_after, be);
+      }
+      // walk back over the run: g_t, and every gradient term of (t, channel, j)
+      const float aj = as_[c * n + j];
+      float* rb = red + (j & 1) * SB_RED + (c & 1) * SB_RED_Q + w * SB_RED_LD + p * SC_XRUN;
+      float qn = q_in, da = 0.f;
+#pragma unroll
+      for (int r = SC_RUN - 1; r >= 0; --r) {
+        const float dtr = dts[p * SC_XRUN + r];
+        const float g = fmaf(dyrow[r], cv[r], qn);
+        const float hp = r ? hv[r - 1] : h_start;
+        const float wv = av[r] * hp * g;
+        qn = av[r] * g;
+        dxs[r] = fmaf(bv[r], g, dxs[r]);
+        dda[r] = fmaf(aj, wv, dda[r]);
+        da = fmaf(dtr, wv, da);
+        // dB's term on even channels' lanes, dC's on odd ones', each the sum
+        // of the warp's two channels
+        const float db = (dtr * xrow[r]) * g, dc = dyrow[r] * hv[r];
+        const float mine = c & 1 ? dc : db, other = c & 1 ? db : dc;
+        rb[r] = mine + __shfl_xor_sync(0xffffffffu, other, 16);
+      }
+#pragma unroll
+      for (int o = SC_TPC / 2; o > 0; o >>= 1) da += __shfl_xor_sync(0xffffffffu, da, o, SC_TPC);
+      __syncwarp();  // every lane of the channel has read q_after
+      if (p == 0) {
+        gcar[c * n + j] = qn;  // q at the chunk's first position
+        sda[c * n + j] += da;
+      }
+      __syncthreads();  // this j's warp sums are in; j + 1 writes the other parity
+      if (tid < ts) {
+        const float* rj = red + (j & 1) * SB_RED;
+        float sb = 0.f, sc = 0.f;
+#pragma unroll
+        for (int v = 0; v < SC_CH / 2; ++v) {
+          sb += rj[v * SB_RED_LD + rpos];
+          sc += rj[SB_RED_Q + v * SB_RED_LD + rpos];
+        }
+        pbc[(size_t)j * s + t0 + tid] = sb;
+        pbc[(size_t)(n + j) * s + t0 + tid] = sc;
+      }
+    }
+    // dx = dt sum_j B g into xs, and ddt's channel sums through dys; the last
+    // j's barrier has passed, so every thread is done reading both
+#pragma unroll
+    for (int r = 0; r < SC_RUN; ++r) {
+      const float dtr = dts[p * SC_XRUN + r];
+      float* xr = xs + c * SC_XLD + p * SC_XRUN + r;
+      const float ddt = fmaf(*xr, dxs[r], dda[r]);
+      *xr = dtr * dxs[r];
+      const float both = ddt + __shfl_xor_sync(0xffffffffu, ddt, 16);
+      if (!(c & 1)) dys[w * SB_RED_LD + p * SC_XRUN + r] = both;
+    }
+    __syncthreads();
+    if (tid < ts) {
+      float sum = 0.f;
+#pragma unroll
+      for (int v = 0; v < SC_CH / 2; ++v) sum += dys[v * SB_RED_LD + rpos];
+      pdt[t0 + tid] = sum;
+    }
+    for (int i = tid; i < ts * SC_CH; i += SC_THREADS) {
+      const int tt = i / SC_CH, cc = i % SC_CH;
+      if (ch0 + cc < d_in)
+        dxb[(size_t)(t0 + tt) * d_in + ch0 + cc] = from_f32<T>(xs[cc * SC_XLD + sc_xpos(tt)]);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < SC_CH * n; i += SC_THREADS) {
+    const int ch = ch0 + i / n;
+    if (ch < d_in) {
+      const size_t o = ((size_t)b * d_in + ch) * n + i % n;
+      dh0[o] = gcar[i];
+      dA_req[o] = sda[i];
+    }
+  }
+}
+
+// The sums over CTAs (dB, dC, ddt) and over requests (dA), each in index
+// order. blockIdx.y: 0 dB and dC (rounded to T), 1 ddt, 2 dA (float32).
+template <typename T>
+static __global__ void __launch_bounds__(256) selective_scan_bwd_reduce_kernel(
+    const float* __restrict__ part_bc, const float* __restrict__ part_dt,
+    const float* __restrict__ dA_req, T* __restrict__ dB, T* __restrict__ dC,
+    float* __restrict__ ddt, float* __restrict__ dA, int n_cta, int n_b, int s, int d_in,
+    int n) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  const size_t i0 = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (blockIdx.y == 0) {
+    const size_t per_cta = (size_t)n_b * 2 * n * s;
+    for (size_t i = i0; i < per_cta; i += stride) {
+      float sum = 0.f;
+      for (int v = 0; v < n_cta; ++v) sum += part_bc[v * per_cta + i];
+      const size_t t = i % s, qj = i / s % (2 * n), bb = i / s / (2 * n);
+      const int j = (int)(qj % n);
+      T* out = qj < (size_t)n ? dB : dC;
+      out[(bb * s + t) * n + j] = from_f32<T>(sum);
+    }
+  } else if (blockIdx.y == 1) {
+    const size_t per_cta = (size_t)n_b * s;
+    for (size_t i = i0; i < per_cta; i += stride) {
+      float sum = 0.f;
+      for (int v = 0; v < n_cta; ++v) sum += part_dt[v * per_cta + i];
+      ddt[i] = sum;
+    }
+  } else {
+    const size_t per_b = (size_t)d_in * n;
+    for (size_t i = i0; i < per_b; i += stride) {
+      float sum = 0.f;
+      for (int v = 0; v < n_b; ++v) sum += dA_req[v * per_b + i];
+      dA[i] = sum;
+    }
+  }
+}
+
+template <typename T>
+static cudaError_t launch_scan_bwd(const void* x, const float* dt, const float* A,
+                                   const void* Bm, const void* Cm, const float* carries,
+                                   const float* dy, const float* dh_final, void* dx, void* dB,
+                                   void* dC, float* ddt, float* dA, float* dh0, void* scratch,
+                                   float* work, int b, int s, int d_in, int n, int b_sb, int b_ss,
+                                   int c_sb, int c_ss, cudaStream_t st) {
+  static OncePerDevice smem_opt_in;  // at the largest n
+  const cudaError_t attr = smem_opt_in([] {
+    return cudaFuncSetAttribute(selective_scan_bwd_kernel<T>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bwd_smem<T>(32));
+  });
+  if (attr != cudaSuccess) return attr;
+  const int n_chunks = (s + SC_CHUNK - 1) / SC_CHUNK, n_cta = (d_in + SC_CH - 1) / SC_CH;
+  selective_scan_pack_kernel<T><<<dim3(n_chunks, b), 256, 0, st>>>(
+      (const T*)Bm, (const T*)Cm, dt, (unsigned char*)scratch, s, n, b_sb, b_ss, c_sb, c_ss);
+  float* part_bc = work;
+  float* part_dt = part_bc + (size_t)n_cta * b * 2 * n * s;
+  float* dA_req = part_dt + (size_t)n_cta * b * s;
+  selective_scan_bwd_kernel<T><<<dim3(n_cta, b), SC_THREADS, bwd_smem<T>(n), st>>>(
+      (const T*)x, (const unsigned char*)scratch, A, carries, dy, dh_final, (T*)dx, part_bc,
+      part_dt, dA_req, dh0, s, d_in, n);
+  selective_scan_bwd_reduce_kernel<T><<<dim3(264, 3), 256, 0, st>>>(
+      part_bc, part_dt, dA_req, (T*)dB, (T*)dC, ddt, dA, n_cta, b, s, d_in, n);
   return cudaGetLastError();
 }
 
@@ -460,28 +818,71 @@ extern "C" long long ckv_selective_scan_scratch(int b, int s, int n, int dtype) 
   }
 }
 
+// Floats of the workspace the backward needs (its per-CTA partials).
+extern "C" long long ckv_selective_scan_bwd_work_floats(int b, int s, int d_in, int n) {
+  return (long long)ckv::scan_bwd_work_floats(b, s, d_in, n);
+}
+
 // x (b, s, d_in) contiguous in dtype; dt (b, s) float32; A (d_in, n) float32;
 // B/C (b, s, n) in dtype with element strides (b_sb, b_ss) / (c_sb, c_ss) and a
 // contiguous last dim; h0 (b, d_in, n) float32 or null for zeros. Out: y
 // (b, s, d_in) float32, h_out (b, d_in, n) float32. n is a power of two,
 // 2 <= n <= 32. variant: 0 sequential, the step kernel (scratch unused), 1
 // chunked (scratch of ckv_selective_scan_scratch bytes, 16-byte aligned).
+// carries (chunked only, else null): (b, ceil(s / 256), d_in, n) float32,
+// h at the start of every 256-position chunk, for the backward.
 extern "C" int ckv_selective_scan(const void* x, const float* dt, const float* A, const void* Bm,
                                   const void* Cm, const float* h0, float* y, float* h_out,
-                                  void* scratch, int b, int s, int d_in, int n, int b_sb,
-                                  int b_ss, int c_sb, int c_ss, int dtype, int variant,
+                                  float* carries, void* scratch, int b, int s, int d_in, int n,
+                                  int b_sb, int b_ss, int c_sb, int c_ss, int dtype, int variant,
                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n < 2 || n > 32 || (n & (n - 1)) || variant < 0 || variant > 1 ||
-      (variant == 1 && !scratch))
+      (variant == 1 && !scratch) || (variant == 0 && carries))
     return (int)cudaErrorInvalidValue;
   auto run = [&](auto tag) {
     using T = decltype(tag);
     return variant == 1
-               ? ckv::launch_scan_chunked<T>(x, dt, A, Bm, Cm, h0, y, h_out, scratch, b, s, d_in,
-                                             n, b_sb, b_ss, c_sb, c_ss, st)
+               ? ckv::launch_scan_chunked<T>(x, dt, A, Bm, Cm, h0, y, h_out, carries, scratch, b,
+                                             s, d_in, n, b_sb, b_ss, c_sb, c_ss, st)
                : ckv::launch_scan_step<T>(x, dt, A, Bm, Cm, h0, y, h_out, b, s, d_in, n, b_sb,
                                           b_ss, c_sb, c_ss, st);
+  };
+  switch (dtype) {
+    case ckv::F32:
+      return (int)run(float{});
+    case ckv::BF16:
+      return (int)run(__nv_bfloat16{});
+    case ckv::F16:
+      return (int)run(__half{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The backward of ckv_selective_scan at output gradients dy (b, s, d_in)
+// float32 contiguous and dh_final (b, d_in, n) float32 or null for zeros,
+// from the forward's inputs (x, dt, A, B, C as ckv_selective_scan takes
+// them) and its carries (b, ceil(s / 256), d_in, n) float32: h at the start
+// of every chunk, h0 or zeros at the first. Out: dx (b, s, d_in) in x's
+// dtype, dB and dC (b, s, n) contiguous in x's dtype, ddt (b, s), dA
+// (d_in, n) and dh0 (b, d_in, n) float32. scratch: ckv_selective_scan_scratch
+// bytes; work: ckv_selective_scan_bwd_work_floats floats. Three launches: the
+// pack, the backward and the reduction over CTAs.
+extern "C" int ckv_selective_scan_bwd(const void* x, const float* dt, const float* A,
+                                      const void* Bm, const void* Cm, const float* carries,
+                                      const float* dy, const float* dh_final, void* dx, void* dB,
+                                      void* dC, float* ddt, float* dA, float* dh0, void* scratch,
+                                      float* work, int b, int s, int d_in, int n, int b_sb,
+                                      int b_ss, int c_sb, int c_ss, int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n < 2 || n > 32 || (n & (n - 1)) || !scratch || !work || !carries || b < 1 || s < 1 ||
+      d_in < 1)
+    return (int)cudaErrorInvalidValue;
+  auto run = [&](auto tag) {
+    using T = decltype(tag);
+    return ckv::launch_scan_bwd<T>(x, dt, A, Bm, Cm, carries, dy, dh_final, dx, dB, dC, ddt, dA,
+                                   dh0, scratch, work, b, s, d_in, n, b_sb, b_ss, c_sb, c_ss, st);
   };
   switch (dtype) {
     case ckv::F32:

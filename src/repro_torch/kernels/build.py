@@ -56,9 +56,12 @@ SIGNATURES = {
     # window, q_offset, lse's row length, the 8 tensors' (batch, head, position)
     # strides, dtype, variant, stream
     "ckv_flash_attention_bwd": [P] * 10 + [I] * 10 + [LP, I, I, P],
-    # x, dt, A, B, C, h0, y, h_out, scratch, b, s, d_in, n, B's and C's
-    # (batch, position) strides, dtype, variant, stream
-    "ckv_selective_scan": [P] * 9 + [I] * 10 + [P],
+    # x, dt, A, B, C, h0, y, h_out, carries, scratch, b, s, d_in, n, B's and
+    # C's (batch, position) strides, dtype, variant, stream
+    "ckv_selective_scan": [P] * 10 + [I] * 10 + [P],
+    # x, dt, A, B, C, carries, dy, dh_final, dx, dB, dC, ddt, dA, dh0, scratch,
+    # work, b, s, d_in, n, B's and C's (batch, position) strides, dtype, stream
+    "ckv_selective_scan_bwd": [P] * 16 + [I] * 9 + [P],
 }
 
 
@@ -131,6 +134,7 @@ def library() -> ctypes.CDLL:
     lib.ckv_error_string.restype = ctypes.c_char_p
     # the scratch sizes each kernel's own source computes (-1: not taken)
     for name, n_args in (("ckv_selective_scan_scratch", 4),
+                         ("ckv_selective_scan_bwd_work_floats", 4),
                          ("ckv_chunk_score_work_floats", 6),
                          ("ckv_chunk_attention_work_floats", 6),
                          ("ckv_chunk_attention_indexed_work_floats", 7),

@@ -15,6 +15,18 @@ the sequence length, never because another one failed:
   registers, walking the positions in order.
 
 ``launches`` counts every launch, ``launches_by_variant`` each kernel's.
+
+The backward (``selective_scan_bwd``: the pack kernel, then a kernel in the
+chunked kernel's layout that walks the chunks from last to first, then a
+reduction of its per-CTA partials in a fixed order, no atomics) takes what
+the forward takes. It reads h at the start of every chunk: the chunked
+forward stores it when given ``carries=carries_buffer(x, n)``, in a kernel
+instance of its own, so serving's launches keep their code. A sequence of
+one chunk needs none (its carry is h0). ``ref.selective_scan_bwd_chunked_ref``
+is its decomposition in plain torch. ``SelectiveScanFn`` puts the forward and
+the backward under autograd; ``bwd_launches`` counts the backward's calls.
+The forward wrapper itself refuses inputs that require grad under grad
+mode: its output has no graph.
 """
 from __future__ import annotations
 
@@ -23,7 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build as B
-from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref, selective_scan_ref
 
 VARIANTS = {"sequential": 0, "chunked": 1}  # the C launcher's variant codes
 CHUNKED_MIN_S = 16
@@ -31,6 +43,7 @@ CHUNK, RUN = 256, 16  # positions per chunk and per thread (SC_CHUNK, SC_RUN in 
 
 launches = 0  # kernel launches since the count was last set to 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
+bwd_launches = 0  # backward calls since the count was last set to 0
 
 
 def _row_strides(t: torch.Tensor, name: str) -> Tuple[int, int]:
@@ -42,38 +55,77 @@ def _row_strides(t: torch.Tensor, name: str) -> Tuple[int, int]:
     return t.stride(0), t.stride(1)
 
 
+def _check(x, dt, A, Bm, Cm, h0, name: str) -> Tuple[int, int, int, int]:
+    """(b, s, d_in, n) of a CUDA call; raises for what the kernels do not take."""
+    B.require(x, "x", 3, B.FLOAT_TYPES)
+    B.require(A, "A", 2, (torch.float32,))
+    for arg, t in (("B", Bm), ("C", Cm)):
+        if t.dtype != x.dtype:
+            raise TypeError(f"{arg}: dtype {t.dtype}, expected x's {x.dtype}")
+    b, s, d_in = x.shape
+    n = A.shape[1]
+    if (A.shape[0] != d_in or n not in (2, 4, 8, 16, 32) or dt.shape != (b, s)
+            or Bm.shape != (b, s, n) or Cm.shape != (b, s, n) or b < 1 or s < 1):
+        raise ValueError(
+            f"{name}: unsupported shapes x {tuple(x.shape)} dt {tuple(dt.shape)} "
+            f"A {tuple(A.shape)} B {tuple(Bm.shape)} C {tuple(Cm.shape)}")
+    if h0 is not None:
+        B.require(h0, "h0", 3, (torch.float32,))
+        if h0.shape != (b, d_in, n):
+            raise ValueError(f"h0: shape {tuple(h0.shape)}, expected {(b, d_in, n)}")
+    return b, s, d_in, n
+
+
+def variant_for(s: int) -> str:
+    """The forward kernel that runs a CUDA call of s positions."""
+    return "chunked" if s >= CHUNKED_MIN_S else "sequential"
+
+
+def carries_buffer(x: torch.Tensor, n: int) -> torch.Tensor:
+    """An uninitialised float32 (b, ceil(s / CHUNK), d_in, n) buffer for h at
+    the start of every chunk, which ``selective_scan(..., carries=...)``
+    fills for the backward."""
+    b, s, d_in = x.shape
+    return torch.empty((b, -(-s // CHUNK), d_in, n), dtype=torch.float32, device=x.device)
+
+
+def _check_carries(carries: torch.Tensor, x: torch.Tensor, n: int) -> None:
+    b, s, d_in = x.shape
+    want = (b, -(-s // CHUNK), d_in, n)
+    if (carries.dtype != torch.float32 or carries.device != x.device
+            or tuple(carries.shape) != want or not carries.is_contiguous()
+            or carries.data_ptr() % 16):
+        raise ValueError(f"carries: {tuple(carries.shape)} {carries.dtype} on {carries.device} "
+                         f"is not a carries_buffer for x {tuple(x.shape)} and n {n}")
+
+
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
-                   Cm: torch.Tensor, h0: Optional[torch.Tensor] = None
+                   Cm: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
+                   carries: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba-1 recurrence with a scalar dt per position.
 
     x: (b, s, d_in); dt: (b, s); A: (d_in, n) float32; B/C: (b, s, n) of x's
     dtype (float32, bfloat16 or float16), slices of a wider tensor allowed;
     h0: optional (b, d_in, n) initial state. Returns (y (b, s, d_in)
-    float32, h_final (b, d_in, n) float32)."""
+    float32, h_final (b, d_in, n) float32).
+
+    ``carries`` (the chunked kernel only, CUDA): a ``carries_buffer(x, n)``
+    that the kernel fills with h at the start of every chunk, for the
+    backward; y and h_final are the same bits with or without it."""
     global launches
     tensors = [x, dt, A, Bm, Cm] + ([] if h0 is None else [h0])
     if B.on_cpu(*tensors):
+        if carries is not None:
+            raise ValueError("selective_scan: carries are written by the CUDA chunked kernel only")
         return selective_scan_ref(x, dt, A, Bm, Cm, h0)
-    # ssm and hybrid training on the card waits for a backward kernel
-    B.refuse_grad("selective_scan", *tensors)
-    B.require(x, "x", 3, B.FLOAT_TYPES)
-    B.require(A, "A", 2, (torch.float32,))
-    for name, t in (("B", Bm), ("C", Cm)):
-        if t.dtype != x.dtype:
-            raise TypeError(f"{name}: dtype {t.dtype}, expected x's {x.dtype}")
-    b, s, d_in = x.shape
-    n = A.shape[1]
-    if (A.shape[0] != d_in or n not in (2, 4, 8, 16, 32) or dt.shape != (b, s)
-            or Bm.shape != (b, s, n) or Cm.shape != (b, s, n) or b < 1 or s < 1):
-        raise ValueError(
-            f"selective_scan: unsupported shapes x {tuple(x.shape)} dt {tuple(dt.shape)} "
-            f"A {tuple(A.shape)} B {tuple(Bm.shape)} C {tuple(Cm.shape)}")
-    if h0 is not None:
-        B.require(h0, "h0", 3, (torch.float32,))
-        if h0.shape != (b, d_in, n):
-            raise ValueError(f"h0: shape {tuple(h0.shape)}, expected {(b, d_in, n)}")
-    variant = "chunked" if s >= CHUNKED_MIN_S else "sequential"
+    B.refuse_grad("selective_scan (use SelectiveScanFn to train)", *tensors)
+    b, s, d_in, n = _check(x, dt, A, Bm, Cm, h0, "selective_scan")
+    variant = variant_for(s)
+    if carries is not None:
+        if variant != "chunked":
+            raise ValueError(f"selective_scan: the {variant} kernel writes no carries")
+        _check_carries(carries, x, n)
     dt32 = dt.to(torch.float32).contiguous()  # bfloat16 -> float32 is exact
     b_sb, b_ss = _row_strides(Bm, "B")
     c_sb, c_ss = _row_strides(Cm, "C")
@@ -87,6 +139,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch
     rc = lib.ckv_selective_scan(
         x.data_ptr(), dt32.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         0 if h0 is None else h0.data_ptr(), y.data_ptr(), h.data_ptr(),
+        0 if carries is None else carries.data_ptr(),
         0 if scratch is None else scratch.data_ptr(),
         b, s, d_in, n, b_sb, b_ss, c_sb, c_ss, B.dtype_code(x), VARIANTS[variant],
         B.stream_handle(x))
@@ -94,3 +147,94 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch
     launches += 1
     launches_by_variant[variant] += 1
     return y, h
+
+
+def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                       Cm: torch.Tensor, h0: Optional[torch.Tensor], dy: torch.Tensor,
+                       dh_final: Optional[torch.Tensor] = None, *,
+                       carries: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+    """The gradients (dx, ddt, dA, dB, dC, dh0) of ``selective_scan(x, dt, A,
+    Bm, Cm, h0)`` for the gradients dy of y (b, s, d_in) and dh_final of
+    h_final (b, d_in, n, or None for zeros).
+
+    Inputs as ``selective_scan`` takes them. dx, ddt, dB and dC have their
+    inputs' dtypes (dB and dC contiguous), dA and dh0 are float32; dh0 is
+    returned whether h0 was given or not. ``carries``: the buffer the
+    chunked forward filled (``SelectiveScanFn`` passes the one it saved); a
+    CUDA call of more than one chunk raises without it."""
+    global bwd_launches
+    tensors = [x, dt, A, Bm, Cm, dy] + [t for t in (h0, dh_final) if t is not None]
+    if B.on_cpu(*tensors):
+        if carries is not None:
+            raise ValueError("selective_scan_bwd: carries are read by the CUDA kernel only")
+        return selective_scan_bwd_ref(x, dt, A, Bm, Cm, h0, dy, dh_final)
+    b, s, d_in, n = _check(x, dt, A, Bm, Cm, h0, "selective_scan_bwd")
+    B.require(dy, "dy", 3, (torch.float32,))
+    if dy.shape != (b, s, d_in):
+        raise ValueError(f"dy: shape {tuple(dy.shape)}, expected {(b, s, d_in)}")
+    if dh_final is not None:
+        B.require(dh_final, "dh_final", 3, (torch.float32,))
+        if dh_final.shape != (b, d_in, n):
+            raise ValueError(f"dh_final: shape {tuple(dh_final.shape)}, expected {(b, d_in, n)}")
+    if carries is None:
+        if s > CHUNK:
+            raise ValueError("selective_scan_bwd: a sequence of more than one chunk needs the "
+                             "carries its forward wrote (selective_scan(..., carries=...))")
+        carries = (torch.zeros((b, 1, d_in, n), dtype=torch.float32, device=x.device)
+                   if h0 is None else h0[:, None])
+    else:
+        _check_carries(carries, x, n)
+    dt32 = dt.to(torch.float32).contiguous()
+    b_sb, b_ss = _row_strides(Bm, "B")
+    c_sb, c_ss = _row_strides(Cm, "C")
+    dev = x.device
+    dx = torch.empty_like(x)
+    dB = torch.empty((b, s, n), dtype=x.dtype, device=dev)
+    dC = torch.empty((b, s, n), dtype=x.dtype, device=dev)
+    ddt = torch.empty((b, s), dtype=torch.float32, device=dev)
+    dA = torch.empty((d_in, n), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((b, d_in, n), dtype=torch.float32, device=dev)
+    lib = B.library()
+    scratch = torch.empty(lib.ckv_selective_scan_scratch(b, s, n, B.dtype_code(x)),
+                          dtype=torch.uint8, device=dev)
+    work = torch.empty(lib.ckv_selective_scan_bwd_work_floats(b, s, d_in, n),
+                       dtype=torch.float32, device=dev)
+    rc = lib.ckv_selective_scan_bwd(
+        x.data_ptr(), dt32.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        carries.data_ptr(), dy.data_ptr(), 0 if dh_final is None else dh_final.data_ptr(),
+        dx.data_ptr(), dB.data_ptr(), dC.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+        dh0.data_ptr(), scratch.data_ptr(), work.data_ptr(),
+        b, s, d_in, n, b_sb, b_ss, c_sb, c_ss, B.dtype_code(x), B.stream_handle(x))
+    B.check(rc, "selective_scan_bwd")
+    bwd_launches += 1
+    return dx, ddt.to(dt.dtype), dA, dB, dC, dh0
+
+
+class SelectiveScanFn(torch.autograd.Function):
+    """``selective_scan`` under autograd: the forward kernel (the chunked
+    one storing its carries where s >= CHUNKED_MIN_S), then the backward
+    kernels (``selective_scan_bwd``) for the gradients of x, dt, A, B, C and
+    h0; inputs that need none get None. Saves the inputs and the carries. On
+    CPU tensors both are the plain versions. A CUDA call the backward does
+    not take raises here, before the forward runs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, h0=None):
+        ctx.set_materialize_grads(False)
+        carries = None
+        if not B.on_cpu(*[t for t in (x, dt, A, Bm, Cm, h0) if t is not None]):
+            _check(x, dt, A, Bm, Cm, h0, "SelectiveScanFn")
+            if variant_for(x.shape[1]) == "chunked":
+                carries = carries_buffer(x, A.shape[1])
+        y, h = selective_scan(x, dt, A, Bm, Cm, h0, carries=carries)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, h0, carries)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, A, Bm, Cm, h0, carries = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        grads = selective_scan_bwd(x, dt, A, Bm, Cm, h0, dy.contiguous(),
+                                   None if dh is None else dh.contiguous(), carries=carries)
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))

@@ -2,7 +2,11 @@
 
 Prefill and the per-token decode step both run the recurrence through
 ``kernels.selective_scan``: on the card that launches the CUDA kernel, on the
-CPU it runs the kernel's plain version. The rounding points follow the JAX
+CPU it runs the kernel's plain version. Under grad mode, with inputs that
+require grad (training), ``mamba_block`` calls ``SelectiveScanFn`` instead on
+both devices: on the card the forward kernel that also saves its chunk
+carries and the backward kernel, on the CPU the plain forward and backward.
+Decode and prefill without grad call the wrapper as before. The rounding points follow the JAX
 package's block: the depthwise conv and the projections in the model dtype,
 softplus in float32, prefill's dt rounded to the model dtype before the scan,
 decode's dt kept in float32.
@@ -14,7 +18,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.selective_scan.ops import selective_scan
+from repro_torch.kernels.selective_scan.ops import SelectiveScanFn, selective_scan
 from repro_torch.models.layers import matmul
 
 
@@ -56,7 +60,11 @@ def mamba_block(x: torch.Tensor, p: dict, cfg, *, return_state: bool = False):
     Bv, Cv, dt_raw = proj[..., :n], proj[..., n: 2 * n], proj[..., 2 * n:]
     dt = _softplus(dt_raw.to(torch.float32) + p["dt_bias"]).to(x.dtype)
     A = -torch.exp(p["A_log"].to(torch.float32))  # (d_in, n)
-    y, h_final = selective_scan(xi, dt[..., 0], A, Bv, Cv)
+    args = (xi, dt[..., 0], A, Bv, Cv)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        y, h_final = SelectiveScanFn.apply(*args)
+    else:
+        y, h_final = selective_scan(*args)
     y = y + xi.to(torch.float32) * p["D"].to(torch.float32)
     y = y.to(x.dtype) * _silu(z)
     out = matmul(y, p["w_out"])

@@ -38,7 +38,9 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_lse_ref, flash_attention_ref
 from repro_torch.kernels.selective_scan import ops as ss_ops
-from repro_torch.kernels.selective_scan.ref import selective_scan_chunked_ref, selective_scan_ref
+from repro_torch.kernels.selective_scan.ref import (selective_scan_bwd_chunked_ref,
+                                                   selective_scan_bwd_ref,
+                                                   selective_scan_chunked_ref, selective_scan_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -267,7 +269,12 @@ def _device_kernels(fn, calls=10):
     in all: fn launches the same kernels on every call, so only a lost or
     cut trace is empty or fractional (one session read 9 of 10
     chunk_attn_kernel launches), and a wrapper that launches nothing, or
-    another set of kernels, reads so every time."""
+    another set of kernels, reads so every time. Padded sessions have also
+    lost the first launch of a session: three sessions running read 9 of 10
+    launches of fn's first kernel (fa_bwd_pre_kernel in one test,
+    selective_scan_pack_kernel in another) and all of the rest. So each
+    session first launches a short spin kernel (``torch.cuda._sleep``),
+    which is not counted."""
     import time
 
     from torch.profiler import ProfilerActivity, profile
@@ -277,6 +284,7 @@ def _device_kernels(fn, calls=10):
     for _ in range(PROFILER_SESSIONS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILER_PAD_S)
+            torch.cuda._sleep(1000)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -284,7 +292,8 @@ def _device_kernels(fn, calls=10):
         # the kernel's name: its parameter types may name ckv:: types too
         got = {e.key.split("(")[0].split("ckv::")[-1].split("<")[0]: e.count / calls
                for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA}
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "spin_kernel" not in e.key}
         if got and all(float(n).is_integer() for n in got.values()):
             return got
     return got
@@ -1417,15 +1426,16 @@ def test_wrappers_refuse_grad(dev):
                                                                         t, l),
         (qp, kps[0], kps[1], vps[0], vps[1], tblp, lensp), (0, 1, 3))
     x = _rand(dev, 250, (1, 40, 32))
-    cases["selective_scan"] = (
-        ss_ops.selective_scan,
-        (x, _rand(dev, 251, (1, 40)).abs(), -_rand(dev, 252, (32, 4)).abs(),
-         _rand(dev, 253, (1, 40, 4)), _rand(dev, 254, (1, 40, 4))), (0, 1, 3))
-    for name, (fn, args, grad_at) in cases.items():
+    # the scan's wrapper names the autograd Function that trains through it
+    scan = (ss_ops.selective_scan,
+            (x, _rand(dev, 251, (1, 40)).abs(), -_rand(dev, 252, (32, 4)).abs(),
+             _rand(dev, 253, (1, 40, 4)), _rand(dev, 254, (1, 40, 4))), (0, 1, 3))
+    for name, (fn, args, grad_at) in [*cases.items(), ("selective_scan", scan)]:
         for i in grad_at:
             tracked = list(args)
             tracked[i] = _grad_inputs(args[i])[0]
-            with pytest.raises(RuntimeError, match="no backward"):
+            match = "SelectiveScanFn" if name == "selective_scan" else "no backward"
+            with pytest.raises(RuntimeError, match=match):
                 fn(*tracked)
             with torch.no_grad():
                 fn(*tracked)
@@ -1470,3 +1480,174 @@ def test_training_on_the_card_matches_the_cpu(dev):
                                                                     cfg.n_layers)
         assert torch.equal(rl, got_l)
         assert all(torch.equal(a, b) for a, b in zip(tree_leaves(rg), tree_leaves(got_g)))
+
+
+# The scan's backward against its plain version: float32 results (dA and
+# dh0 always, every output of a float32 call) within 1e-5 of each
+# gradient's largest element (the same float32 recurrence and sums in other
+# orders); the 16-bit outputs (dx, ddt, dB, dC of bfloat16 / float16 inputs)
+# within one ulp of the largest element: each is a float32 result rounded
+# once, as the plain version's is, so the two round at most one ulp apart.
+SCAN_BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+SCAN_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+
+
+def _scan_bwd_close(got, want, dtype):
+    for name, g, w in zip(SCAN_GRADS, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        rel = SCAN_BWD_REL[dtype] if name in ("dx", "ddt", "dB", "dC") else 1e-5
+        _close(g, w, rel=rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,s,d_in,n", [
+    (1, 1, 40, 16), (2, 5, 24, 8), (1, 15, 100, 4),  # sequential forwards: no carries
+    (2, 16, 48, 16), (1, 255, 40, 32), (2, 257, 100, 16),  # one chunk, one past it
+    (1, 700, 64, 2), (2, 3 * CHUNK + 5, 200, 16),  # ragged last chunks, d_in of 13 CTAs
+])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_selective_scan_bwd(dev, dtype, b, s, d_in, n, seeded):
+    """The backward kernel against its plain version (and, where the forward
+    is chunked, the plain form of its own decomposition) at ragged s, d_in
+    not a multiple of 16, B and C strided slices of the projection, dt in
+    x's dtype as the model passes it, with and without h0 and dh_final; one
+    call counted; two runs the same bits (no atomics)."""
+    x, dt, A, Bm, Cm = _scan_args(dev, b, s, d_in, n, dtype, seed=400)
+    dt = dt.to(dtype)
+    h0 = _rand(dev, 405, (b, d_in, n)) if seeded else None
+    dh = _rand(dev, 406, (b, d_in, n)) if seeded else None
+    dy = _rand(dev, 407, (b, s, d_in))
+    chunked = ss_ops.variant_for(s) == "chunked"
+    carries = ss_ops.carries_buffer(x, n) if chunked else None
+    ss_ops.selective_scan(x, dt, A, Bm, Cm, h0, carries=carries)
+    before = ss_ops.bwd_launches
+    got = ss_ops.selective_scan_bwd(x, dt, A, Bm, Cm, h0, dy, dh, carries=carries)
+    assert ss_ops.bwd_launches == before + 1
+    _scan_bwd_close(got, selective_scan_bwd_ref(x, dt, A, Bm, Cm, h0, dy, dh), dtype)
+    if chunked:
+        _scan_bwd_close(got, selective_scan_bwd_chunked_ref(x, dt, A, Bm, Cm, h0, dy, dh,
+                                                            chunk=CHUNK, run=ss_ops.RUN), dtype)
+    again = ss_ops.selective_scan_bwd(x, dt, A, Bm, Cm, h0, dy, dh, carries=carries)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [ss_ops.CHUNKED_MIN_S, CHUNK, 2 * CHUNK + 70])
+def test_selective_scan_forward_with_carries(dev, dtype, s):
+    """The chunked forward with its carries stores is the same bits as
+    without them, counted under the same variant; carry k is h0 at k = 0 and
+    the h_final of the first k chunks alone (bit for bit: a scan cut on a
+    chunk boundary runs the same chunks)."""
+    x, dt, A, Bm, Cm = _scan_args(dev, 2, s, 48, 16, dtype, seed=420)
+    h0 = _rand(dev, 425, (2, 48, 16))
+    y0, hf0 = ss_ops.selective_scan(x, dt, A, Bm, Cm, h0)
+    carries = ss_ops.carries_buffer(x, 16)
+    before = ss_ops.launches_by_variant["chunked"]
+    y1, hf1 = ss_ops.selective_scan(x, dt, A, Bm, Cm, h0, carries=carries)
+    assert ss_ops.launches_by_variant["chunked"] == before + 1
+    assert torch.equal(y0, y1) and torch.equal(hf0, hf1)
+    assert carries.shape == (2, -(-s // CHUNK), 48, 16) and torch.equal(carries[:, 0], h0)
+    for k in range(1, carries.shape[1]):
+        cut = k * CHUNK
+        _, h_cut = ss_ops.selective_scan(x[:, :cut].contiguous(), dt[:, :cut], A, Bm[:, :cut],
+                                         Cm[:, :cut], h0)
+        assert torch.equal(carries[:, k], h_cut)
+
+
+def test_selective_scan_fn_against_autograd_of_the_plain_scan(dev):
+    """SelectiveScanFn's gradients (x, dt, A, the projection that B and C
+    slice, h0) against autograd through selective_scan_ref, for y and
+    h_final at once, chunked and sequential; inputs that need no grad get
+    None; one forward and one backward call each."""
+    for dtype, s in ((torch.float32, 300), (torch.bfloat16, 300), (torch.float32, 7)):
+        b, d_in, n = 2, 40, 16
+        x, dt, A, _, _ = _scan_args(dev, b, s, d_in, n, dtype, seed=440)
+        proj = _rand(dev, 443, (b, s, 2 * n + 1), dtype)
+        h0 = _rand(dev, 444, (b, d_in, n))
+        dy, dh = _rand(dev, 445, (b, s, d_in)), _rand(dev, 446, (b, d_in, n))
+
+        def run(fn, leaves):
+            x_, dt_, A_, p_, h_ = leaves
+            return fn(x_, dt_, A_, p_[..., :n], p_[..., n: 2 * n], h_)
+
+        leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, proj, h0)]
+        f0, b0 = ss_ops.launches, ss_ops.bwd_launches
+        got = torch.autograd.grad(run(ss_ops.SelectiveScanFn.apply, leaves), leaves, (dy, dh))
+        assert (ss_ops.launches - f0, ss_ops.bwd_launches - b0) == (1, 1)
+        ref_leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, proj, h0)]
+        want = torch.autograd.grad(run(selective_scan_ref, ref_leaves), ref_leaves, (dy, dh))
+        for name, g, w in zip(("x", "dt", "A", "proj", "h0"), got, want):
+            rel = SCAN_BWD_REL[dtype] if name in ("x", "proj") else 1e-5
+            _close(g, w, rel=rel)
+        only_x = [x.detach().clone().requires_grad_(), dt, A, proj, h0]
+        (gx,) = torch.autograd.grad(run(ss_ops.SelectiveScanFn.apply, only_x), only_x[:1],
+                                    (dy, dh))
+        _close(gx, want[0], rel=SCAN_BWD_REL[dtype])
+
+
+def test_selective_scan_bwd_raises_on_what_it_does_not_take(dev):
+    """A sequence past one chunk without the forward's carries, n off the
+    compiled sizes, a dy of the wrong dtype: each raises, and
+    SelectiveScanFn raises before its forward launches."""
+    x, dt, A, Bm, Cm = _scan_args(dev, 1, CHUNK + 1, 32, 4, torch.bfloat16, seed=460)
+    dy = _rand(dev, 465, (1, CHUNK + 1, 32))
+    with pytest.raises(ValueError, match="carries"):
+        ss_ops.selective_scan_bwd(x, dt, A, Bm, Cm, None, dy)
+    with pytest.raises(TypeError):
+        ss_ops.selective_scan_bwd(x, dt, A, Bm, Cm, None, dy.to(torch.bfloat16),
+                                  carries=ss_ops.carries_buffer(x, 4))
+    with pytest.raises(ValueError):  # the step kernel writes no carries
+        ss_ops.selective_scan(x[:, :4].contiguous(), dt[:, :4], A, Bm[:, :4], Cm[:, :4],
+                              carries=ss_ops.carries_buffer(x[:, :4], 4))
+    x3, dt3, A3, B3, C3 = _scan_args(dev, 1, 40, 32, 3, torch.float32, seed=470)
+    before = (ss_ops.launches, ss_ops.bwd_launches)
+    with pytest.raises(ValueError):  # n must be a power of two
+        ss_ops.SelectiveScanFn.apply(x3.requires_grad_(), dt3, A3, B3, C3)
+    assert (ss_ops.launches, ss_ops.bwd_launches) == before
+
+
+def test_selective_scan_bwd_device_kernels(dev):
+    """One backward call is three device kernels: the pack, the backward
+    and the reduction over its CTAs."""
+    x, dt, A, Bm, Cm = _scan_args(dev, 1, 600, 3200, 16, torch.bfloat16, seed=480)
+    carries = ss_ops.carries_buffer(x, 16)
+    ss_ops.selective_scan(x, dt, A, Bm, Cm, carries=carries)
+    dy = _rand(dev, 485, (1, 600, 3200))
+    kern = _device_kernels(lambda: ss_ops.selective_scan_bwd(x, dt, A, Bm, Cm, None, dy,
+                                                             carries=carries))
+    assert kern == {"selective_scan_pack_kernel": 1.0, "selective_scan_bwd_kernel": 1.0,
+                    "selective_scan_bwd_reduce_kernel": 1.0}, kern
+
+
+@pytest.mark.parametrize("name", ["hymba-1.5b", "falcon-mamba-7b"])
+def test_state_space_training_on_the_card_matches_the_cpu(dev, name):
+    """make_value_and_grad on a reduced float32 state-space model on the
+    card, through SelectiveScanFn (and FlashAttentionFn for hymba): the loss
+    within 1e-5 and every gradient leaf within 1e-4 of its largest element
+    of the CPU's plain path (float32 GEMMs, scans and attention summed in
+    other orders); one forward and one backward scan a layer; remat True
+    the same bits as none."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.steps import make_value_and_grad
+    from repro_torch.models import transformer as PT
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(reduced_config(name), dtype="float32")
+    params = PT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(490)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 300)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 300)).astype(np.int32)}
+    want_l, want_g = make_value_and_grad(cfg, remat=False)(params, batch)
+    on_card = _to(params, dev)
+    f0, b0 = ss_ops.launches_by_variant["chunked"], ss_ops.bwd_launches
+    got_l, got_g = make_value_and_grad(cfg, remat=False)(on_card, batch)
+    assert (ss_ops.launches_by_variant["chunked"] - f0,
+            ss_ops.bwd_launches - b0) == (cfg.n_layers, cfg.n_layers)
+    assert abs(got_l.item() - want_l.item()) <= 1e-5 * abs(want_l.item())
+    for g, w in zip(tree_leaves(got_g), tree_leaves(want_g)):
+        _close(g.cpu(), w, rel=1e-4)
+    rl, rg = make_value_and_grad(cfg, remat=True)(on_card, batch)
+    assert torch.equal(rl, got_l)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(rg), tree_leaves(got_g)))
