@@ -206,7 +206,9 @@ non-zero exit code:
                 2 against 1, one int8-compressed step; (t4) the train CLI at
                 --preset 100m resuming at step 6, and a FailureInjector
                 restart bit for bit an uninterrupted run; then state-space
-                training: (t5) selective_scan's backward kernel against its
+                training: (t5) selective_scan's backward kernel (its
+                registers and spill bytes from the build's ptxas -v log,
+                its CTAs an SM) against its
                 plain version at hymba-1.5b's training shape (b 1, s 4096,
                 d_in 3200, n 16, bfloat16), at falcon-mamba-7b's (d_in
                 8192) and with an h0 and a nonzero dh_final, two runs bit for
@@ -224,7 +226,8 @@ non-zero exit code:
                 own), and the scan alone (flash attention on both sides)
                 within (t3)'s limits on every leaf, remat bit for bit; (t8)
                 falcon-mamba-7b at full width cut to 12 of 64 layers, 3
-                steps, the loss falls, launches, step time, peak memory;
+                steps, the loss falls, launches, step time, peak memory, one
+                more step profiled as (t6)'s;
   14. sim     — the discrete-event sim mode on the card's host (no tensor,
                 no launch): (a) both golden timelines of tests/golden/
                 reproduced event for event; (b) the headline ordering's
@@ -257,6 +260,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -415,6 +419,7 @@ FALCON_TRAIN_LAYERS, FALCON_TRAIN_STEPS = 12, 3
 # 1.1e-5 (falcon-mamba) of the largest element: 5e-5 leaves 4x room
 SCAN_BWD_F32_REL = 5e-5
 SCAN_BWD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+B_LOG = "build/kernels/build.log"
 # float32 operations a (position, channel, state) element of the backward
 # needs at least: a and h_t again (4), g and q (3), and the five gradient
 # terms with their sums (12); an FMA counts 2
@@ -561,6 +566,28 @@ def kernel_name(key: str) -> str:
     """A kernel's own name in its profiler key, without namespace, template
     arguments and parameters (which may name ckv:: types too)."""
     return key.split("(")[0].split("ckv::")[-1].split("<")[0]
+
+
+def ptxas_info(fragment: str) -> dict:
+    """{mangled name: (registers, spill store bytes, spill load bytes)} of
+    every device function whose mangled name holds ``fragment``, as ptxas -v
+    reported them in the kernels' build log."""
+    from repro_torch.kernels import build as B
+
+    lines = (B.BUILD_DIR / "build.log").read_text().splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or fragment not in line:
+            continue
+        name = line.split("'")[1]
+        regs = spills = None
+        for nxt in lines[i + 1: i + 5]:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", nxt)
+            spills = (int(m[1]), int(m[2])) if m else spills
+            m = re.search(r"Used (\d+) registers", nxt)
+            regs = int(m[1]) if m else regs
+        out[name] = (regs, *spills)
+    return out
 
 
 def max_err(a, b) -> float:
@@ -3695,13 +3722,14 @@ def phase_train_step(cfg, smi_line):
 
 
 def profile_train_step(step, params, opt, batch, warm_ms: float, tag: str = "train (t2)",
-                       scan: bool = False):
+                       scan: bool = False, flash: bool = True):
     """One more train step under torch.profiler: the device's busy time, its
     idle share against a warm step's wall time, the flash backward kernels'
-    share, each of them by its own time and calls, and the top device ops;
-    with ``scan`` also the scan backward's kernels (its pack launches
-    counted as half the pack kernel's, which the forward launches as often)
-    and the scan forward's. Returns (params, opt, numbers)."""
+    share (``flash``: the model has attention), each of them by its own time
+    and calls, and the top device ops;
+    with ``scan`` also the scan backward's kernels (its own pack, the
+    backward, the reduction) and the scan forward's (the forward's pack and
+    the chunked kernel). Returns (params, opt, numbers)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3725,19 +3753,16 @@ def profile_train_step(step, params, opt, batch, warm_ms: float, tag: str = "tra
     by_kernel = by_name(lambda k: "fa_bwd" in k)
     bwd = sum(ms for _, ms in by_kernel.values())
     fwd = sum(t for k, _, t in dev if "flash_" in k and "fa_bwd" not in k) / 1e3
-    if busy <= 0 or bwd <= 0:
-        fail(f"{tag}: the profiler saw busy {busy} ms, backward kernels {bwd} ms")
+    if busy <= 0 or (flash and bwd <= 0):
+        fail(f"{tag}: the profiler saw busy {busy} ms, flash backward kernels {bwd} ms")
     top = sorted(dev, key=lambda x: -x[2])[:8]
     numbers = dict(busy_ms=busy, bwd_kernels_ms=bwd, fwd_kernels_ms=fwd,
                    bwd_kernels={k: {"calls": n, "ms": ms} for k, (n, ms) in by_kernel.items()})
     scan_text = ""
     if scan:
-        packs = by_name(lambda k: "selective_scan_pack_kernel" in k)
         sbwd = by_name(lambda k: "selective_scan_bwd" in k)
-        for name, (n, ms) in packs.items():  # the backward's half of the pack launches
-            sbwd[name] = [n // 2, ms / 2]
-        sfwd = sum(t for k, _, t in dev if "selective_scan_chunked_kernel" in k) / 1e3 + sum(
-            ms / 2 for _, ms in packs.values())
+        sfwd = sum(t for k, _, t in dev if "selective_scan_chunked_kernel" in k
+                   or "selective_scan_pack_kernel" in k) / 1e3
         s_ms = sum(ms for _, ms in sbwd.values())
         if s_ms <= 0:
             fail(f"{tag}: the profiler saw no scan backward kernel")
@@ -3747,11 +3772,11 @@ def profile_train_step(step, params, opt, batch, warm_ms: float, tag: str = "tra
         scan_text = (f"; scan backward kernels {s_ms:.1f} ms ({100 * s_ms / busy:.1f} %: "
                      + ", ".join(f"{k} x{n} {ms:.2f} ms" for k, (n, ms) in sorted(sbwd.items()))
                      + f"), scan forward {sfwd:.2f} ms")
+    flash_text = (f"flash backward kernels {bwd:.1f} ms ({100 * bwd / busy:.1f} %: "
+                  + ", ".join(f"{k} x{n} {ms:.2f} ms" for k, (n, ms) in sorted(by_kernel.items()))
+                  + f"), flash forward {fwd:.2f} ms" if flash else "no attention")
     print(f"{tag}: profiled step: device busy {busy:.1f} ms of a warm step's {warm_ms:.1f} "
-          f"ms ({100 * (1 - busy / warm_ms):.1f} % idle): flash backward kernels {bwd:.1f} ms "
-          f"({100 * bwd / busy:.1f} %: "
-          + ", ".join(f"{k} x{n} {ms:.2f} ms" for k, (n, ms) in sorted(by_kernel.items()))
-          + f"), flash forward {fwd:.2f} ms{scan_text}; top device ops: "
+          f"ms ({100 * (1 - busy / warm_ms):.1f} % idle): {flash_text}{scan_text}; top device ops: "
           + "; ".join(f"{k[:48]} x{n} {t / 1e3:.2f} ms" for k, n, t in top))
     return params, opt, numbers
 
@@ -3997,7 +4022,9 @@ def phase_train_scan_kernel(hcfg, fcfg, smi_line):
     bit, one call counted; the first two timed beside their bound, the plain
     version (one call to a synchronize) and the wrapper's host time; the
     forward with and without its carry stores, the same bits, both timed.
-    Returns {label: numbers}."""
+    First the backward kernel's registers and spill bytes (ptxas -v, every
+    instance) and its CTAs an SM at this shape. Returns {label: numbers},
+    with the kernel's under "design"."""
     import torch
     import torch.nn.functional as F
 
@@ -4009,8 +4036,18 @@ def phase_train_scan_kernel(hcfg, fcfg, smi_line):
     def rn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
 
-    rows = {}
     n, s = hcfg.ssm_state, TRAIN_SEQ
+    ptx = ptxas_info("selective_scan_bwd_kernel")
+    (regs, st_b, ld_b), = [v for k, v in ptx.items() if f"bfloat16Li{n}E" in k]
+    spilling = {k: v for k, v in ptx.items() if v[1] or v[2]}
+    ctas = ss.bwd_ctas_per_sm(n, torch.bfloat16)
+    print(f"train (t5): selective_scan_bwd_kernel<bfloat16, {n}> (ptxas -v, {B_LOG}): {regs} "
+          f"registers, {st_b} / {ld_b} bytes of spill stores / loads; {len(ptx)} instances, "
+          f"{len(spilling)} of them spilling (up to {max(v[0] for v in ptx.values())} registers); "
+          f"{ctas} CTAs of 256 threads an SM (occupancy calculator), {8 * ctas} warps")
+    rows = {"design": dict(registers=regs, spill_store_bytes=st_b, spill_load_bytes=ld_b,
+                           instances=len(ptx), instances_spilling=len(spilling),
+                           ctas_per_sm=ctas)}
     for label, d_in, seeded in (("hymba", hcfg.d_inner, False),
                                 ("falcon-mamba", fcfg.d_inner, False),
                                 ("hymba h0 dh_final", hcfg.d_inner, True)):
@@ -4172,7 +4209,8 @@ def phase_train_ssm_steps(cfg, steps: int, tag: str, smi_line, profile: bool = F
                    tokens_per_s=tokens / warm * 1e3,
                    mfu=flops / (warm / 1e3) / TENSOR_CORE_OPS_PER_S, peak_gib=peak)
     if profile:
-        params, opt, prof = profile_train_step(step, params, opt, batch, warm, tag=tag, scan=True)
+        params, opt, prof = profile_train_step(step, params, opt, batch, warm, tag=tag, scan=True,
+                                               flash=bool(attn))
         numbers.update(prof)
     del params, opt, metrics
     free_weights()
@@ -4276,7 +4314,8 @@ def phase_train_ssm(smi_line):
                                             profile=True)
     agree = phase_train_ssm_agree(hcfg, smi_line)
     f_cfg = dataclasses.replace(fcfg, n_layers=FALCON_TRAIN_LAYERS)
-    f_paths, f_step = phase_train_ssm_steps(f_cfg, FALCON_TRAIN_STEPS, "train (t8)", smi_line)
+    f_paths, f_step = phase_train_ssm_steps(f_cfg, FALCON_TRAIN_STEPS, "train (t8)", smi_line,
+                                            profile=True)
     h_path = f"{hcfg.name} {TRAIN_STEPS} train steps"
     f_path = f"{fcfg.name} ({FALCON_TRAIN_LAYERS} layers) {FALCON_TRAIN_STEPS} train steps"
     paths = {}  # the forward kernels'
@@ -4301,6 +4340,8 @@ def phase_train_ssm(smi_line):
            "exponential_bound_ms": r["exp_ms"],
            "library_ms": None, "host_ms": r["host_ms"],
            "forward_ms": r["fwd_ms"], "forward_with_carries_ms": r["fwd_carries_ms"],
+           **{k: kern["design"][k] for k in ("registers", "spill_store_bytes",
+                                              "spill_load_bytes", "ctas_per_sm")},
            "falcon_mamba": {"ms": fr["ms"], "plain_ms": fr["plain_ms"], "host_ms": fr["host_ms"],
                             "bound_ms": fr["bound"]["cuda_core"][0],
                             "exponential_bound_ms": fr["exp_ms"],

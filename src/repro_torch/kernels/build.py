@@ -132,9 +132,12 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.ckv_error_string.argtypes = [ctypes.c_int]
     lib.ckv_error_string.restype = ctypes.c_char_p
-    # the scratch sizes each kernel's own source computes (-1: not taken)
+    # the scratch sizes each kernel's own source computes (-1: not taken), and
+    # the scan backward's CTAs an SM
     for name, n_args in (("ckv_selective_scan_scratch", 4),
                          ("ckv_selective_scan_bwd_work_floats", 4),
+                         ("ckv_selective_scan_bwd_scratch", 4),
+                         ("ckv_selective_scan_bwd_occupancy", 2),
                          ("ckv_chunk_score_work_floats", 6),
                          ("ckv_chunk_attention_work_floats", 6),
                          ("ckv_chunk_attention_indexed_work_floats", 7),

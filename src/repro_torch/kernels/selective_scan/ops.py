@@ -16,14 +16,15 @@ the sequence length, never because another one failed:
 
 ``launches`` counts every launch, ``launches_by_variant`` each kernel's.
 
-The backward (``selective_scan_bwd``: the pack kernel, then a kernel in the
-chunked kernel's layout that walks the chunks from last to first, then a
-reduction of its per-CTA partials in a fixed order, no atomics) takes what
-the forward takes. It reads h at the start of every chunk: the chunked
-forward stores it when given ``carries=carries_buffer(x, n)``, in a kernel
-instance of its own, so serving's launches keep their code. A sequence of
-one chunk needs none (its carry is h0). ``ref.selective_scan_bwd_chunked_ref``
-is its decomposition in plain torch. ``SelectiveScanFn`` puts the forward and
+The backward (``selective_scan_bwd``: a pack kernel of its own, then a
+kernel that walks the chunks from last to first, a warp per two channels and
+a lane per run of BWD_RUN positions, two CTAs an SM, then a reduction of its
+per-CTA partials in a fixed order, no atomics) takes what the forward takes.
+It reads h at the start of every chunk: the chunked forward stores it when
+given ``carries=carries_buffer(x, n)``, in a kernel instance of its own, so
+serving's launches keep their code. A sequence of one chunk needs none (its
+carry is h0). ``ref.selective_scan_bwd_chunked_ref(..., run=BWD_RUN)`` is
+its decomposition in plain torch; ``bwd_ctas_per_sm`` its occupancy. ``SelectiveScanFn`` puts the forward and
 the backward under autograd; ``bwd_launches`` counts the backward's calls.
 The forward wrapper itself refuses inputs that require grad under grad
 mode: its output has no graph.
@@ -39,7 +40,9 @@ from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref, selec
 
 VARIANTS = {"sequential": 0, "chunked": 1}  # the C launcher's variant codes
 CHUNKED_MIN_S = 16
-CHUNK, RUN = 256, 16  # positions per chunk and per thread (SC_CHUNK, SC_RUN in the .cu)
+# positions per chunk and per thread (SC_CHUNK, SC_RUN in the .cu); the
+# backward's positions per lane (SB_RUN)
+CHUNK, RUN, BWD_RUN = 256, 16, 8
 
 launches = 0  # kernel launches since the count was last set to 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
@@ -195,7 +198,7 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: t
     dA = torch.empty((d_in, n), dtype=torch.float32, device=dev)
     dh0 = torch.empty((b, d_in, n), dtype=torch.float32, device=dev)
     lib = B.library()
-    scratch = torch.empty(lib.ckv_selective_scan_scratch(b, s, n, B.dtype_code(x)),
+    scratch = torch.empty(lib.ckv_selective_scan_bwd_scratch(b, s, n, B.dtype_code(x)),
                           dtype=torch.uint8, device=dev)
     work = torch.empty(lib.ckv_selective_scan_bwd_work_floats(b, s, d_in, n),
                        dtype=torch.float32, device=dev)
@@ -208,6 +211,16 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: t
     B.check(rc, "selective_scan_bwd")
     bwd_launches += 1
     return dx, ddt.to(dt.dtype), dA, dB, dC, dh0
+
+
+def bwd_ctas_per_sm(n: int, dtype: torch.dtype) -> int:
+    """CTAs an SM of the backward kernel at state size n and x's dtype, as
+    the CUDA occupancy calculator gives them on the current device."""
+    got = B.library().ckv_selective_scan_bwd_occupancy(n, B.DTYPE_CODES[str(dtype).removeprefix(
+        "torch.")])
+    if got < 0:
+        raise RuntimeError(f"selective_scan_bwd: no occupancy for n {n}, {dtype}")
+    return got
 
 
 class SelectiveScanFn(torch.autograd.Function):

@@ -84,7 +84,7 @@ def selective_scan_chunked_ref(
         ts = min(chunk, s - t0)
         take = _chunk_taker(b, t0, ts, chunk, run)
         dtc, xc, cc = take(dt), take(x), take(C)
-        _, hs, _ = _chunk_h(dtc, xc, take(B), carry, a2)
+        _, hs, _, _ = _chunk_h(dtc, xc, take(B), carry, a2)
         yc = torch.zeros(hs.shape[:-1], dtype=f32, device=x.device)
         for j in range(n):
             yc = cc[:, :, :, None, j] * hs[..., j] + yc
@@ -103,13 +103,14 @@ def _chunk_taker(b: int, t0: int, ts: int, chunk: int, run: int):
     return take
 
 
-def _chunk_h(dtc, xc, bc, carry, a2):
+def _chunk_h(dtc, xc, bc, carry, a2, backward=False):
     """The chunked kernel's h over one chunk from the h ``carry`` (b, d_in, n)
     at its start: per run the pairs (a_t, b_t) folded from a zero state into
     the running product of a and the local h, an inclusive Hillis-Steele scan
     of the runs' (prod a, h) shifted by one run, h_t = prod_t h_start + local_t.
-    Returns (a, h) (b, runs, run, d_in, n) and each run's h_start (b, runs,
-    d_in, n)."""
+    With ``backward`` (the backward kernel's arithmetic) h_t = a_t h_{t-1} +
+    b_t along each run from its h_start. Returns (a, h) (b, runs, run, d_in, n), each run's
+    h_start (b, runs, d_in, n) and each run's product of a."""
     n_runs, run = dtc.shape[1], dtc.shape[2]
     a = torch.exp2(dtc[..., None, None] * a2)  # (b, runs, run, d_in, n)
     bx = (dtc[..., None] * xc)[..., None] * bc[:, :, :, None, :]
@@ -131,7 +132,13 @@ def _chunk_h(dtc, xc, bc, carry, a2):
     ae = torch.cat([torch.ones_like(ag[:, :1]), ag[:, :-1]], 1)
     be = torch.cat([torch.zeros_like(bg[:, :1]), bg[:, :-1]], 1)
     h_start = ae * carry[:, None] + be  # (b, runs, d_in, n)
-    return a, prod * h_start[:, :, None] + local, h_start
+    if backward:
+        h = h_start
+        for r in range(run):
+            h = a[:, :, r] * h + bx[:, :, r]
+            local[:, :, r] = h
+        return a, local, h_start, prod[:, :, -1]
+    return a, prod * h_start[:, :, None] + local, h_start, prod[:, :, -1]
 
 
 def selective_scan_bwd_ref(
@@ -195,20 +202,24 @@ def selective_scan_bwd_chunked_ref(
     dy: torch.Tensor,  # (b, s, d_in)
     dh_final: Optional[torch.Tensor] = None,  # (b, d_in, n) or None
     chunk: int = 256,
-    run: int = 16,
+    run: int = 8,
 ) -> Tuple[torch.Tensor, ...]:
     """The backward kernel's decomposition of ``selective_scan_bwd_ref``, in
     float32. The forward's chunked form keeps h at the start of every chunk
     (the carries the forward kernel saves); the chunks are then walked from
-    last to first. Per chunk, h is recomputed from its carry as the forward
-    computes it; with q_t = a_t g_t = a_t (dy_t C_t + q_{t+1}), each run folds
-    its (prod a, q at its first position) backwards from a zero q after it,
-    an inclusive Hillis-Steele scan over the runs from the last (offsets 1,
-    2, 4, ...: the kernel's shuffles down) shifted by one run and seeded
-    with the q carried from the later chunk gives q after every run, and a
-    walk back over each run gives every g_t = dy_t C_t + q_{t+1}. q at the
-    chunk's first position is the next carry; dh0 is the last. Returns
-    (dx, ddt, dA, dB, dC, dh0), each in its input's dtype (dh0 float32)."""
+    last to first, ``chunk`` positions cut into runs of ``run`` (one lane
+    each on the card: 32 lanes of 8, a warp a channel). Per chunk, h is
+    recomputed from its carry in the forward's decomposition (h_t = a_t
+    h_{t-1} + b_t along each run from its start once the scan has given
+    that start); with q_t = a_t g_t = a_t (dy_t C_t + q_{t+1}), each run
+    folds its q at its first position backwards from a zero q after it (its
+    product of a is the forward fold's), an inclusive Hillis-Steele scan
+    over the runs from the last (offsets 1, 2, 4, ...: the kernel's shuffles
+    down) shifted by one run and seeded with the q carried from the later
+    chunk gives q after every run, and a walk back over each run gives every
+    g_t = dy_t C_t + q_{t+1}. q at the chunk's first position is the next
+    carry; dh0 is the last. Returns (dx, ddt, dA, dB, dC, dh0), each in its
+    input's dtype (dh0 float32)."""
     b, s, d_in = x.shape
     n = A.shape[1]
     f32 = torch.float32
@@ -221,7 +232,7 @@ def selective_scan_bwd_chunked_ref(
     for t0 in starts:
         carries.append(carry)
         take = _chunk_taker(b, t0, min(chunk, s - t0), chunk, run)
-        carry = _chunk_h(take(dt), take(x), take(B), carry, a2)[1][:, -1, -1]
+        carry = _chunk_h(take(dt), take(x), take(B), carry, a2)[1][:, -1, -1]  # the forward's
     q = (torch.zeros((b, d_in, n), dtype=f32, device=x.device) if dh_final is None
          else dh_final.to(f32))
     dx = torch.empty((b, s, d_in), dtype=f32, device=x.device)
@@ -233,13 +244,11 @@ def selective_scan_bwd_chunked_ref(
         ts = min(chunk, s - t0)
         take = _chunk_taker(b, t0, ts, chunk, run)
         dtc, xc, bc, cc, dyc = take(dt), take(x), take(B), take(C), take(dy)
-        a, hs, h_start = _chunk_h(dtc, xc, bc, h_carry, a2)
+        a, hs, h_start, pq = _chunk_h(dtc, xc, bc, h_carry, a2, backward=True)
         c = dyc[..., None] * cc[:, :, :, None, :]  # (b, runs, run, d_in, n)
-        pq = torch.ones_like(a[:, :, 0])
         ql = torch.zeros_like(a[:, :, 0])
         for r in reversed(range(run)):  # each run from a zero q after it
             ql = a[:, :, r] * (c[:, :, r] + ql)
-            pq = pq * a[:, :, r]
         ag, bg = pq, ql  # (b, runs, d_in, n)
         o = 1
         while o < n_runs:  # inclusive scan over the runs, from the last
@@ -264,7 +273,7 @@ def selective_scan_bwd_chunked_ref(
 
         dx[:, t0: t0 + ts] = cut(dtc[..., None] * bg_)
         ddt[:, t0: t0 + ts] = cut((xc * bg_).sum(-1) + (w * A.to(f32)).sum((-2, -1)))
-        dB[:, t0: t0 + ts] = cut(((dtc[..., None] * xc)[..., None] * g).sum(-2))
+        dB[:, t0: t0 + ts] = cut(dtc[..., None] * (xc[..., None] * g).sum(-2))
         dC[:, t0: t0 + ts] = cut((dyc[..., None] * hs).sum(-2))
         dA += (dtc[..., None, None] * w).sum((1, 2))
     return (dx.to(x.dtype), ddt.to(dt.dtype), dA.sum(0).to(A.dtype), dB.to(B.dtype),

@@ -6,10 +6,13 @@ CPU it runs the kernel's plain version. Under grad mode, with inputs that
 require grad (training), ``mamba_block`` calls ``SelectiveScanFn`` instead on
 both devices: on the card the forward kernel that also saves its chunk
 carries and the backward kernel, on the CPU the plain forward and backward.
-Decode and prefill without grad call the wrapper as before. The rounding points follow the JAX
-package's block: the depthwise conv and the projections in the model dtype,
-softplus in float32, prefill's dt rounded to the model dtype before the scan,
-decode's dt kept in float32.
+Decode and prefill without grad call the wrapper as before. The rounding
+points follow the JAX package's block: the depthwise conv and the projections
+in the model dtype, softplus in float32, prefill's dt rounded to the model
+dtype before the scan, decode's dt kept in float32. The scan runs in float32:
+``mamba_block`` refuses a config whose ``ssm_scan_dtype`` asks for another
+(the JAX block's bfloat16 scan elements are not ported); the decode step,
+like the JAX one, does not read the field.
 """
 from __future__ import annotations
 
@@ -47,7 +50,12 @@ def mamba_block(x: torch.Tensor, p: dict, cfg, *, return_state: bool = False):
 
     The state is (h_final (b, d_in, n) float32, conv window (b, k - 1, d_in)):
     the window holds the last k - 1 raw inputs before the conv, with the
-    leading zeros of the padding when s < k - 1."""
+    leading zeros of the padding when s < k - 1. Raises ValueError, before
+    any work, where ``cfg.ssm_scan_dtype`` is not "float32"."""
+    if cfg.ssm_scan_dtype != "float32":
+        raise ValueError(
+            f"mamba_block: ssm_scan_dtype {cfg.ssm_scan_dtype!r} is not supported: the scan "
+            "runs in float32, and the JAX block's bfloat16 scan is not ported")
     b, s, _ = x.shape
     d_in, n = cfg.d_inner, cfg.ssm_state
     xz = matmul(x, p["w_in"])  # (b, s, 2 * d_in)

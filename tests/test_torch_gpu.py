@@ -1504,14 +1504,19 @@ def _scan_bwd_close(got, want, dtype):
     (1, 1, 40, 16), (2, 5, 24, 8), (1, 15, 100, 4),  # sequential forwards: no carries
     (2, 16, 48, 16), (1, 255, 40, 32), (2, 257, 100, 16),  # one chunk, one past it
     (1, 700, 64, 2), (2, 3 * CHUNK + 5, 200, 16),  # ragged last chunks, d_in of 13 CTAs
+    # the backward's own edges: an odd d_in (a warp's second channel dead, x
+    # rows copied without 16-byte vectors), d_in under one CTA's 16
+    # channels, two whole chunks, n 32 (32 rows of sums, one CTA an SM) and
+    # n 2 (four groups of warps with rows of their own) past one chunk
+    (2, 40, 33, 16), (1, 2 * CHUNK, 8, 16), (2, 300, 24, 32), (2, CHUNK + 3, 17, 2),
 ])
 @pytest.mark.parametrize("seeded", [False, True])
 def test_selective_scan_bwd(dev, dtype, b, s, d_in, n, seeded):
     """The backward kernel against its plain version (and, where the forward
-    is chunked, the plain form of its own decomposition) at ragged s, d_in
-    not a multiple of 16, B and C strided slices of the projection, dt in
-    x's dtype as the model passes it, with and without h0 and dh_final; one
-    call counted; two runs the same bits (no atomics)."""
+    is chunked, the plain form of its own decomposition: runs of BWD_RUN) at
+    ragged s, d_in not a multiple of 16, B and C strided slices of the
+    projection, dt in x's dtype as the model passes it, with and without h0
+    and dh_final; one call counted; two runs the same bits (no atomics)."""
     x, dt, A, Bm, Cm = _scan_args(dev, b, s, d_in, n, dtype, seed=400)
     dt = dt.to(dtype)
     h0 = _rand(dev, 405, (b, d_in, n)) if seeded else None
@@ -1526,7 +1531,8 @@ def test_selective_scan_bwd(dev, dtype, b, s, d_in, n, seeded):
     _scan_bwd_close(got, selective_scan_bwd_ref(x, dt, A, Bm, Cm, h0, dy, dh), dtype)
     if chunked:
         _scan_bwd_close(got, selective_scan_bwd_chunked_ref(x, dt, A, Bm, Cm, h0, dy, dh,
-                                                            chunk=CHUNK, run=ss_ops.RUN), dtype)
+                                                            chunk=CHUNK, run=ss_ops.BWD_RUN),
+                        dtype)
     again = ss_ops.selective_scan_bwd(x, dt, A, Bm, Cm, h0, dy, dh, carries=carries)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
 
@@ -1607,16 +1613,31 @@ def test_selective_scan_bwd_raises_on_what_it_does_not_take(dev):
 
 
 def test_selective_scan_bwd_device_kernels(dev):
-    """One backward call is three device kernels: the pack, the backward
-    and the reduction over its CTAs."""
+    """One backward call is three device kernels: the backward's own pack
+    (its chunk image differs from the forward's), the backward and the
+    reduction over its CTAs."""
     x, dt, A, Bm, Cm = _scan_args(dev, 1, 600, 3200, 16, torch.bfloat16, seed=480)
     carries = ss_ops.carries_buffer(x, 16)
     ss_ops.selective_scan(x, dt, A, Bm, Cm, carries=carries)
     dy = _rand(dev, 485, (1, 600, 3200))
     kern = _device_kernels(lambda: ss_ops.selective_scan_bwd(x, dt, A, Bm, Cm, None, dy,
                                                              carries=carries))
-    assert kern == {"selective_scan_pack_kernel": 1.0, "selective_scan_bwd_kernel": 1.0,
+    assert kern == {"selective_scan_bwd_pack_kernel": 1.0, "selective_scan_bwd_kernel": 1.0,
                     "selective_scan_bwd_reduce_kernel": 1.0}, kern
+
+
+def test_selective_scan_bwd_occupancy(dev):
+    """The CTAs an SM the backward kernel is built for, as the CUDA
+    occupancy calculator gives them: two at the 16-bit training shapes (n
+    16: at most 128 registers a thread and ~112 KB of shared memory a CTA),
+    and wherever its shared memory allows; one at n 32 and float32 n 16,
+    whose chunk images and rows of sums take more."""
+    got = {str(dt_).removeprefix("torch."): {n: ss_ops.bwd_ctas_per_sm(n, dt_)
+                                              for n in (2, 4, 8, 16, 32)}
+           for dt_ in (torch.bfloat16, torch.float16, torch.float32)}
+    two = {2: 2, 4: 2, 8: 2, 16: 2, 32: 1}
+    assert got == {"bfloat16": two, "float16": two,
+                   "float32": {**two, 16: 1}}, got
 
 
 @pytest.mark.parametrize("name", ["hymba-1.5b", "falcon-mamba-7b"])

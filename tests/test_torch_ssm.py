@@ -310,6 +310,52 @@ def test_mamba_decode_step_matches_jax(dtype):
         _close(conv_t, conv_j, rtol=0, atol=0)
 
 
+# -- ssm_scan_dtype: the JAX block's bfloat16 scan is refused, not ignored -----
+def test_mamba_block_refuses_a_bfloat16_scan(monkeypatch):
+    """At ssm_scan_dtype "bfloat16" the JAX block keeps its scan elements and
+    the h . C product in bfloat16, so its output moves off the float32 one
+    on the same weights; the port's block, whose scan runs in float32 only,
+    raises ValueError instead, with and without grad, before any scan."""
+    cfg, pcfg, params, tparams = _pair("hymba-1.5b", "float32")
+    jp, tp = _layer(params["layers"]["mamba"], 0), PT.layer_params(tparams, 0)["mamba"]
+    x = _rand(13, (2, 37, cfg.d_model))
+    bf_cfg = dataclasses.replace(cfg, ssm_scan_dtype="bfloat16")
+    bf_pcfg = dataclasses.replace(pcfg, ssm_scan_dtype="bfloat16")
+    want = np.asarray(JS.mamba_block(jnp.asarray(x), jp, cfg))
+    got_bf = np.asarray(JS.mamba_block(jnp.asarray(x), jp, bf_cfg))
+    assert np.abs(got_bf - want).max() > 1e-4 * np.abs(want).max()  # the setting is felt
+    _close(PS.mamba_block(_t(x), tp, pcfg), want, **TOL["float32"])
+    calls = []
+    monkeypatch.setattr(PS, "selective_scan", lambda *a, **k: calls.append("scan"))
+    monkeypatch.setattr(PS, "SelectiveScanFn", None)  # any use of it fails differently
+    with pytest.raises(ValueError, match="ssm_scan_dtype"):
+        PS.mamba_block(_t(x), tp, bf_pcfg)
+    tracked = {k: v.clone().requires_grad_() for k, v in tp.items()}
+    with pytest.raises(ValueError, match="ssm_scan_dtype"):
+        PS.mamba_block(_t(x), tracked, bf_pcfg, return_state=True)
+    assert calls == []
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_decode_step_ignores_the_scan_dtype_as_jax_does(dtype):
+    """The JAX decode step does not read ssm_scan_dtype; the port's matches
+    it at "bfloat16" as at "float32"."""
+    cfg, pcfg, params, tparams = _pair("hymba-1.5b", dtype)
+    cfg = dataclasses.replace(cfg, ssm_scan_dtype="bfloat16")
+    pcfg = dataclasses.replace(pcfg, ssm_scan_dtype="bfloat16")
+    jp, tp = _layer(params["layers"]["mamba"], 0), PT.layer_params(tparams, 0)["mamba"]
+    b = 2
+    x = np.asarray(jnp.asarray(_rand(14, (b, 1, cfg.d_model)), cfg.activation_dtype()))
+    h0 = _rand(15, (b, cfg.d_inner, cfg.ssm_state), 0.5)
+    conv0 = np.asarray(jnp.asarray(_rand(16, (b, cfg.ssm_conv - 1, cfg.d_inner)),
+                                   cfg.activation_dtype()))
+    out_t, (h_t, _) = PS.mamba_decode_step(_t(x), (_t(h0), _t(conv0)), tp, pcfg)
+    out_j, (h_j, _) = JS.mamba_decode_step(jnp.asarray(x), (jnp.asarray(h0), jnp.asarray(conv0)),
+                                           jp, cfg)
+    _close(out_t, out_j, **TOL[dtype])
+    _close(h_t, h_j, **TOL[dtype])
+
+
 # -- whole models ---------------------------------------------------------------
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", STATE_NAMES)

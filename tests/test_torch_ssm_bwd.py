@@ -103,11 +103,13 @@ def test_bwd_ref_matches_jax_vjp_of_the_chunked_scan(b, s, d_in, n, chunk):
 
 
 @pytest.mark.parametrize("s,chunk,run", [(1, 16, 4), (7, 16, 4), (40, 16, 4), (300, 32, 4),
-                                         (300, 256, 16), (600, 256, 16)])
+                                         (300, 256, 16), (600, 256, 16),
+                                         (5, 256, 8), (300, 256, 8), (600, 256, 8)])
 @pytest.mark.parametrize("seeded", [False, True])
 def test_chunked_bwd_matches_sequential(s, chunk, run, seeded):
     """The backward kernel's decomposition: ragged last chunks, one run a
-    chunk too few to scan, the kernel's 256 / 16 over two and three chunks."""
+    chunk too few to scan, 256 / 16 over two and three chunks, and the
+    kernel's 256 / 8 (32 runs: a warp a channel) over one, two and three."""
     x, dt, A, B, C, h0, dy, dh = _t(*_inputs(3, 2, s, 40, 8))
     h0, dh = (h0, dh) if seeded else (None, None)
     want = selective_scan_bwd_ref(x, dt, A, B, C, h0, dy, dh)
