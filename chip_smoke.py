@@ -186,17 +186,22 @@ non-zero exit code:
                 heads of 128, vocab 151936, qk_norm), every earlier model
                 freed: (t1) flash_attention's backward kernel against its
                 plain version at the training shape (bfloat16, s 4096,
-                causal), with window 1024, and in float32 at d 16, two runs
-                bit for bit, the variant that ran (wgmma at bfloat16 d 128:
-                the forward's logsumexp held to its plain version and its
-                output the same bits with and without it), timed beside its
-                bound (five products; the variant's own work beside it),
-                SDPA's backward, the plain version and its host time; (t2)
+                causal), with window 1024, at gemma3-4b's heads (8 / 4 of
+                256, causal and window 1024: the mma_sync variant, its
+                instances' registers and spills from ptxas -v), at
+                hymba-1.5b's (25 / 5 of 64) and in float32 at d 16, two runs
+                bit for bit, the variant that ran (wgmma at bfloat16 d 64 /
+                128, mma_sync at d 256: the forward's logsumexp held to its
+                plain version and its output the same bits with and without
+                it), timed beside its bound (five products; the variant's
+                own work beside it), SDPA's backward (or the backend's
+                refusal), the plain version and its host time; (t2)
                 make_train_step (grad_accum 2, no remat, lr 3e-4) on seeded
                 bfloat16 weights over one fixed numpy-seeded batch of 2 x
                 4096 tokens for 5 steps: the loss falls, 2 x 28 flash
-                forward and backward launches a step, step time, tokens/s,
-                model-FLOPs utilisation, peak memory, one more step profiled
+                forward and backward launches a step (all wgmma), no plain
+                version, step time, tokens/s, model-FLOPs utilisation,
+                peak memory, one more step profiled
                 (the backward kernels' share, each by name: preprocess,
                 dK/dV, dQ); (u) a cold and a warm ContiguousKV
                 request of the dense shape on the trained weights (TTFT,
@@ -227,7 +232,21 @@ non-zero exit code:
                 within (t3)'s limits on every leaf, remat bit for bit; (t8)
                 falcon-mamba-7b at full width cut to 12 of 64 layers, 3
                 steps, the loss falls, launches, step time, peak memory, one
-                more step profiled as (t6)'s;
+                more step profiled as (t6)'s; then the families on the
+                backward's other shapes, each trained as (t2) for 3 steps at
+                full width and the depth FAMILY_TRAIN_LAYERS gives it (the
+                loss falls, 2 x layers flash forward and backward launches a
+                step, all of the variant its heads take, no plain version,
+                step time, tokens/s, model-FLOPs utilisation over each
+                layer's window and an MoE's active experts, peak memory, one
+                more step profiled): (t9) gemma3-4b at 12 of 34 layers (two
+                whole 5:1 groups; the mma_sync backward at d 256); (t10)
+                gemma3-4b at 6 layers (five windowed, layer 5 global) held
+                to the plain path within (t3)'s limits, remat bit for bit;
+                (t11) granite-moe-3b-a800m at 24 of 32 layers (its MoE
+                dispatch under grad); (t12) musicgen-large at 40 of 48
+                layers on numpy-seeded frame embeddings (wgmma at d 64,
+                n_q = n_kv);
   14. sim     — the discrete-event sim mode on the card's host (no tensor,
                 no launch): (a) both golden timelines of tests/golden/
                 reproduced event for event; (b) the headline ordering's
@@ -247,7 +266,10 @@ non-zero exit code:
      (``baseline_shapes``) at the baselines' and (``head_dim_256``) at
      gemma3-4b's, with its launches there; and each backward kernel as
      its own entry: ``flash_attention_bwd`` (its launches over qwen3's and
-     hymba's 5 train steps, per variant) and ``selective_scan_bwd`` (over
+     hymba's 5 train steps and (t9), (t11), (t12)'s 3, by path and by
+     variant; ``head_dim_256`` at gemma3-4b's shape and ``hymba_d64`` at
+     hymba-1.5b's, each with its time, bound, design bound, SDPA's time,
+     host time, errors and launches) and ``selective_scan_bwd`` (over
      hymba's 5 and falcon-mamba's 3 train steps);
   16. last line: ``{"ok": true, "device": {...}}``.
 
@@ -377,10 +399,15 @@ BWD_F32_REL = 1e-5
 LSE_TOL = 2e-5
 # the backward's work over the visible pairs: (products, exponentials) of
 # the function, S, dP, dV, dK and dQ with one exponential a pair (the
-# bound), and of each variant's design (``design_bound_ms``): wgmma computes
-# S and P in both of its gradient kernels, cuda_core_f32 in its stats pass too
+# bound), and of each variant's design (``design_bound_ms``): wgmma and
+# mma_sync compute S and P (and dP) in both of their gradient kernels,
+# cuda_core_f32 S and P in its stats pass too
 BWD_WORK = (5, 1)
-BWD_DESIGN_WORK = {"wgmma": (7, 2), "cuda_core_f32": (8, 3)}
+BWD_DESIGN_WORK = {"wgmma": (7, 2), "mma_sync": (7, 2), "cuda_core_f32": (8, 3)}
+# (t1)'s other shapes: gemma3-4b's heads (query, kv, head dim; d 256 trains
+# on the mma_sync backward) and hymba-1.5b's, whose flash backward runs 64
+# times in a training step
+SWA_HEADS, SSM_HEADS = (8, 4, 256), (25, 5, 64)
 # (t3) the kernel path against the plain path in bfloat16 at full width, 4
 # layers: the plain path rounds the scores to bfloat16 before its float32
 # softmax and P to bfloat16 before P V, the kernels keep both in float32 and
@@ -434,6 +461,26 @@ SCAN_BWD_OPS = 19
 # both sides (the scan alone, held to (t3)'s limits on every leaf); the
 # limits leave 2x room
 DT_BIAS_LIMITS = (0.95, 0.5)
+# (t9)-(t12): the new families trained as (t2) for FAMILY_TRAIN_STEPS steps,
+# each at the depth below. A step holds ~24 bytes a parameter at its AdamW
+# update (bfloat16 weights old and new, float32 gradient accumulators, the
+# old and the new float32 moments), where the card has ~79 GiB: gemma3-4b's
+# 4.55 B (1.34 B of them its untied vocab-262144 embed and unembed) would
+# want ~109 GB, so two whole 5:1 groups (12 layers, 2.48 B, layers 5 and 11
+# global), which peaked at 70.5 GiB on an H100 (its head's float32 logits,
+# log-softmax and their gradients, 4.3 GB each, in the backward): 18 layers
+# would not fit; granite-moe-3b-a800m's 3.37 B would want ~81 GB, and at 16
+# layers it peaked at 44.0 GiB in its backward (~1.1 GiB of MoE dispatch
+# activations a layer), so 24 of 32 (2.57 B, ~66 GiB predicted); musicgen-
+# large's 3.22 B ~77 GB, so 40 of 48 layers (2.69 B, 66.5 GiB measured)
+FAMILY_TRAIN_STEPS, SWA_AGREE_LAYERS = 3, 6
+FAMILY_TRAIN_LAYERS = {SWA_NAME: 12, MOE_NAME: 24, AUDIO_NAME: 40}
+FAMILY_TRAIN_DEPTH_WHY = {
+    SWA_NAME: "two whole 5:1 groups (layers 5 and 11 global); the full 4.55 B with AdamW "
+              "would want ~109 GB, and 12 layers peak at ~70 GiB",
+    MOE_NAME: "the full 3.37 B with AdamW would want ~81 GB before its MoE dispatch's "
+              "activations (~1.1 GiB a layer)",
+    AUDIO_NAME: "the full 3.22 B with AdamW would want ~77 GB at its update"}
 
 
 def fail(msg: str):
@@ -3531,33 +3578,57 @@ def _sdpa_bwd(q, k, v, do, window):
     return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
 
 
+def _sdpa_bwd_ms(q, k, v, do, window):
+    """(device ms of SDPA's backward on these inputs, None) or, where no
+    backend takes them, (None, its message)."""
+    try:
+        return device_ms(_sdpa_bwd(q, k, v, do, window), reps=10), None
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:200]
+
+
 def phase_train_kernel(cfg, smi_line):
     """(t1) flash_attention's backward kernel against its plain version at
     the training step's shape (bfloat16, causal), with sliding window 1024,
-    and in float32 at the tiny preset's d 16 (the forward's output, which
-    the backward reads, first held to its plain version; where the
-    backward's variant is wgmma, the forward run again with its logsumexp
-    output, the same bits, and that lse held to its plain version): each
-    gradient's error and two runs bit for bit, the variant that ran, timed
-    beside its bound (the function's five products; the products the
-    variant runs as ``design_bound``), SDPA's backward, the plain
-    version and the wrapper's host time. Returns {label: numbers}."""
+    at gemma3-4b's (8 / 4 heads of 256, causal and window 1024: the mma_sync
+    variant), at hymba-1.5b's (25 / 5 heads of 64, causal) and in float32 at
+    the tiny preset's d 16 (the forward's output, which the backward reads,
+    first held to its plain version; where the backward's variant reads a
+    logsumexp, the forward run again with its lse output, the same bits, and
+    that lse held to its plain version): each gradient's error and two runs
+    bit for bit, the variant that ran, timed beside its bound (the
+    function's five products; the products the variant runs as
+    ``design_bound``), SDPA's backward (or the backend's refusal), the plain
+    version and the wrapper's host time. First the registers and spill bytes
+    of the mma_sync backward's and forward's d 256 instances (ptxas -v).
+    Returns {label: numbers}, with those instances' under "mma_sync_ptxas"."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                          flash_attention_lse_ref)
 
+    ptx = {k: v for frag in ("_mma_kernel", "flash_tc_kernel")
+           for k, v in ptxas_info(frag).items() if "flash_tc" not in k or "Li256E" in k}
+    for name, (regs, st_b, ld_b) in sorted(ptx.items()):
+        print(f"train (t1): {name} (ptxas -v, {B_LOG}): {regs} registers, {st_b} / {ld_b} bytes "
+              f"of spill stores / loads")
     gen = torch.Generator(device=DEVICE).manual_seed(23)
 
     def rn(shape, dtype):
         return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
 
     s, nq, nkv, d = TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    shapes = (("main", torch.bfloat16, s, nq, nkv, d, 0),
-              ("window_1024", torch.bfloat16, s, nq, nkv, d, BWD_WINDOW),
+    bf = torch.bfloat16
+    shapes = (("main", bf, s, nq, nkv, d, 0),
+              ("window_1024", bf, s, nq, nkv, d, BWD_WINDOW),
+              ("gemma_d256", bf, s, *SWA_HEADS, 0),
+              ("gemma_d256_window_1024", bf, s, *SWA_HEADS, BWD_WINDOW),
+              ("hymba_d64", bf, s, *SSM_HEADS, 0),
               ("float32_tiny", torch.float32, 128, 4, 2, 16, 0))
-    out_rows = {}
+    out_rows = {"mma_sync_ptxas": {k: dict(zip(("registers", "spill_store_bytes",
+                                                "spill_load_bytes"), v))
+                                   for k, v in ptx.items()}}
     for label, dtype, s_, nq_, nkv_, d_, window in shapes:
         # the model's (b, s, n, d) projections, read through transposed views
         q = rn((1, s_, nq_, d_), dtype).transpose(1, 2)
@@ -3568,7 +3639,7 @@ def phase_train_kernel(cfg, smi_line):
         with torch.no_grad():  # the forward at this shape, held to its plain version
             out, f_err, f_tol = flash_held(f"train (t1) {label}", q, k, v, window=window)
             lse, lse_err = None, None
-            if variant == "wgmma":  # the same forward writing the lse the backward reads
+            if fa.writes_lse(dtype, d_):  # the same forward writing the lse the backward reads
                 lse = fa.lse_buffer(q)
                 again = fa.flash_attention(q, k, v, window=window, lse=lse)
                 lse_err = max_err(lse[..., :s_], flash_attention_lse_ref(q, k, window=window))
@@ -3596,20 +3667,23 @@ def phase_train_kernel(cfg, smi_line):
             return bounds(moved, work[0] * 2.0 * pairs * d_ * nq_, work[1] * nq_ * pairs)
 
         n_prod = BWD_DESIGN_WORK[variant][0]
-        r = dict(err=max(errs.values()), errs=errs, bit_identical=same, forward_err=f_err,
-                 lse_err=lse_err, variant=variant, products=n_prod,
+        library_ms, refused = _sdpa_bwd_ms(q, k, v, do, window)
+        r = dict(err=max(errs.values()), errs=errs, tols=tols, bit_identical=same,
+                 forward_err=f_err, lse_err=lse_err, variant=variant, products=n_prod,
                  ms=device_ms(lambda: fa.flash_attention_bwd(*args, **kw), reps=10),
-                 library_ms=device_ms(_sdpa_bwd(q, k, v, do, window), reps=10),
+                 library_ms=library_ms, library_refused=refused,
                  host_ms=host_ms(lambda: fa.flash_attention_bwd(*args, **kw), reps=10),
                  plain_ms=wall_ms(lambda: flash_attention_bwd_ref(*args, window=window), reps=3),
                  bound=work_bound(BWD_WORK), design_bound=work_bound(BWD_DESIGN_WORK[variant]))
         lse_text = "" if lse_err is None else f"; its lse max abs err {lse_err:.3g} (tol {LSE_TOL})"
+        sdpa_text = (f"SDPA's backward {library_ms:.4f} ms" if refused is None
+                     else f"SDPA's backward refused ({refused})")
         print(f"train (t1): flash_attention_bwd {label} ({dname(q)}, 1 x {nq_}/{nkv_} heads, "
               f"s {s_}, d {d_}, window {window}, variant {variant}): the forward's output max abs "
               f"err {f_err:.3g} (tol {f_tol:.3g}){lse_text}; max abs err dq {errs['dq']:.3g} dk "
               f"{errs['dk']:.3g} dv {errs['dv']:.3g} (tol {tols['dq']:.3g}, {tols['dk']:.3g}, "
               f"{tols['dv']:.3g}), two runs bit-identical; {r['ms']:.4f} ms on the card, "
-              f"SDPA's backward {r['library_ms']:.4f} ms, plain version {r['plain_ms']:.2f} ms, "
+              f"{sdpa_text}, plain version {r['plain_ms']:.2f} ms, "
               f"{bound_text(r['bound'])} ({BWD_WORK[0]} products); the {n_prod} products "
               f"{variant} runs: {r['design_bound']['tensor_core'][0]:.5f} ms; host time per call "
               f"{r['host_ms']:.4f} ms ({smi_line})")
@@ -3636,89 +3710,139 @@ def plain_attention():
 
 
 def _train_batch(cfg, b, s, seed):
-    """Next-token pairs of b rows of s + 1 numpy-seeded tokens, on the card."""
+    """Next-token pairs of b rows of s + 1 numpy-seeded tokens, on the card;
+    for a frontend family (musicgen's EnCodec frames) numpy-seeded frame
+    embeddings (b, s, d_model) in place of the tokens, with labels below
+    its vocab."""
     import numpy as np
     import torch
 
-    seq = np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s + 1))
-    return {"tokens": torch.as_tensor(seq[:, :-1], device=DEVICE),
-            "labels": torch.as_tensor(seq[:, 1:], device=DEVICE)}
+    rng = np.random.default_rng(seed)
+    seq = rng.integers(0, cfg.vocab_size, (b, s + 1))
+    batch = {"labels": torch.as_tensor(seq[:, 1:], device=DEVICE)}
+    if cfg.frontend:
+        embeds = rng.standard_normal((b, s, cfg.d_model), dtype=np.float32)
+        batch["embeds"] = torch.as_tensor(embeds, device=DEVICE).to(cfg.activation_dtype())
+    else:
+        batch["tokens"] = torch.as_tensor(seq[:, :-1], device=DEVICE)
+    return batch
 
 
-def _train_flops(cfg, n_params: int, b: int, s: int) -> float:
-    """Model FLOPs of one training step: 6 N T for the N parameters that
-    multiply (all but the input embedding's gather) over T = b s tokens, plus
-    the attention products: forward 2 x 2 x pairs x d x n_q a layer and
-    sequence, backward twice that."""
-    return (6.0 * n_params * b * s
-            + 3 * 4.0 * _visible_pairs(s, 0) * cfg.d_head * cfg.n_heads * cfg.n_layers * b)
+def _train_flops(cfg, params, b: int, s: int):
+    """(model FLOPs of one training step, what they count): 6 N T for the N
+    parameters that multiply (all but the input embedding's gather; of an
+    MoE's expert weights the top_k / n_experts share each token runs) over
+    T = b s tokens, plus the attention products: forward 2 x 2 x pairs x d x
+    n_q a layer and sequence, each layer's pairs under its own window,
+    backward twice that."""
+    from repro_torch.models.common import count_params
+
+    n = count_params(params) - params["embed"].numel()
+    what = f"6 x {n / 1e9:.3f} B params"
+    if cfg.family == "moe":
+        experts = sum(params["layers"]["moe"][k].numel() for k in ("w_gate", "w_up", "w_down"))
+        n -= experts * (1 - cfg.top_k / cfg.n_experts)
+        what = f"6 x {n / 1e9:.3f} B active params ({cfg.top_k} of {cfg.n_experts} experts)"
+    windows = [int(w) for w in cfg.window_sizes()] if cfg.has_attention else []
+    pairs = sum(_visible_pairs(s, w) for w in windows)
+    what += f" x {b * s} tokens"
+    if windows:
+        what += " + attention" + (f" (each layer's window: {sorted(set(windows))})"
+                                  if any(windows) else "")
+    return 6.0 * n * b * s + 3 * 4.0 * pairs * cfg.d_head * cfg.n_heads * b, what
 
 
-def phase_train_step(cfg, smi_line):
-    """(t2) make_train_step(grad_accum=2, remat=False, lr=3e-4) on full-width
-    qwen3-1.7b (seeded bfloat16 weights) over one fixed batch of 2 x 4096
-    numpy-seeded tokens for TRAIN_STEPS steps: the loss falls; each step's
-    flash forward and backward launches (2 x 28 each) asserted; step time,
-    tokens/s, model-FLOPs utilisation, peak memory; one more step profiled
-    (the backward kernels' share of its device time). Returns (params,
-    {path: launches}, numbers)."""
+def _flash_train_counts():
+    """The flash wrappers' counts: forward and backward, total and by variant."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    return {"flash forward": fa.launches, "flash backward": fa.bwd_launches,
+            **{f"flash forward {k}": n for k, n in fa.launches_by_variant.items()},
+            **{f"flash backward {k}": n for k, n in fa.bwd_launches_by_variant.items()}}
+
+
+def phase_train_family(cfg, steps: int, tag: str, smi_line, keep_params: bool = False):
+    """make_train_step(grad_accum=2, remat=False, lr=3e-4) on an attention
+    model at full width (seeded bfloat16 weights; depth as ``cfg`` has it)
+    over (t2)'s fixed batch of 2 x 4096 numpy-seeded tokens (frame embeddings
+    for musicgen) for ``steps`` steps: the loss falls; each step's flash
+    forward and backward launches (2 x layers each, every one of the
+    variants its dtype and head dim pick) and no plain version asserted;
+    step time, tokens/s, model-FLOPs utilisation (``_train_flops``, its
+    count printed), peak memory; one more step profiled (the flash backward
+    kernels' share of its device time, each by name, and the idle share).
+    Returns (params if ``keep_params`` else None, {kernel: launches},
+    numbers)."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models.common import count_params, param_bytes
+    from repro_torch.models.common import param_bytes
     from repro_torch.train.optimizer import adamw_init
 
-    params = _init_weights("train (t2)", cfg)
+    params = _init_weights(tag, cfg)
     opt = adamw_init(params)
-    print(f"train (t2): params {param_bytes(params) / 1e9:.2f} GB, AdamW moments "
+    print(f"{tag}: params {param_bytes(params) / 1e9:.2f} GB, AdamW moments "
           f"{param_bytes({'m': opt['m'], 'v': opt['v']}) / 1e9:.2f} GB")
     batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 23)
     step = make_train_step(cfg, grad_accum=TRAIN_ACCUM, remat=False, lr=TRAIN_LR)
-    expect = TRAIN_ACCUM * cfg.n_layers
+    per = TRAIN_ACCUM * cfg.n_layers
+    dtype = cfg.activation_dtype()
+    expect = {"flash forward": per, "flash backward": per,
+              f"flash forward {fa.variant_for(dtype, cfg.d_head)}": per,
+              f"flash backward {fa.bwd_variant_for(dtype, cfg.d_head)}": per}
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fa)
     fa.bwd_launches = fa.dout_copies = 0
     fa.bwd_launches_by_variant = dict.fromkeys(fa.bwd_launches_by_variant, 0)
     losses, step_ms = [], []
-    for i in range(TRAIN_STEPS):
-        f0, b0 = fa.launches, fa.bwd_launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt, metrics = step(params, opt, batch)
-        losses.append(float(metrics["loss"]))
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        got = (fa.launches - f0, fa.bwd_launches - b0)
-        if got != (expect, expect) or not math.isfinite(losses[-1]):
-            fail(f"train (t2) step {i}: loss {losses[-1]}, flash forward / backward launches "
-                 f"{got}, expected {expect} each")
-        print(f"train (t2): step {i}: loss {losses[-1]:.4f}, {step_ms[-1]:.1f} ms, flash "
-              f"launches forward {got[0]} backward {got[1]} ({smi_line})")
+    with plain_versions_counted({"flash_attention": fa}) as plain_calls:
+        for i in range(steps):
+            before = _flash_train_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            got = {k: n - before[k] for k, n in _flash_train_counts().items() if n != before[k]}
+            if got != expect or plain_calls or not math.isfinite(losses[-1]):
+                fail(f"{tag} step {i}: loss {losses[-1]}, launches {got}, expected {expect}; "
+                     f"plain versions {plain_calls}")
+            print(f"{tag}: step {i}: loss {losses[-1]:.4f}, {step_ms[-1]:.1f} ms, launches "
+                  f"{got} ({smi_line})")
     if not losses[-1] < losses[0]:
-        fail(f"train (t2): the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+        fail(f"{tag}: the loss did not fall over {steps} steps: {losses}")
     launches = {"flash_attention": counts(fa),
                 "flash_attention_bwd": {"launches": fa.bwd_launches,
                                         **{k: n for k, n in fa.bwd_launches_by_variant.items()
                                            if n}}}
-    n_mult = count_params(params) - params["embed"].numel()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     warm = statistics.median(step_ms[1:])
-    flops = _train_flops(cfg, n_mult, TRAIN_BATCH, TRAIN_SEQ)
+    flops, what = _train_flops(cfg, params, TRAIN_BATCH, TRAIN_SEQ)
+    mfu = flops / (warm / 1e3) / TENSOR_CORE_OPS_PER_S
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"train (t2): loss {losses[0]:.4f} -> {losses[-1]:.4f} over {TRAIN_STEPS} steps; warm "
-          f"step {warm:.1f} ms (median of steps 1-{TRAIN_STEPS - 1}), {tokens / warm * 1e3:,.0f} "
-          f"tokens/s; {flops / 1e12:.1f} TFLOP a step (6 x {n_mult / 1e9:.3f} B params x "
-          f"{tokens} tokens + attention), model-FLOPs utilisation "
-          f"{100 * flops / (warm / 1e3) / TENSOR_CORE_OPS_PER_S:.1f} % of 989 TFLOP/s; peak "
+    print(f"{tag}: {cfg.name} at {cfg.n_layers} layers: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} over {steps} steps; warm step {warm:.1f} ms (median of steps "
+          f"1-{steps - 1}), {tokens / warm * 1e3:,.0f} tokens/s; {flops / 1e12:.1f} TFLOP a "
+          f"step ({what}), model-FLOPs utilisation {100 * mfu:.1f} % of 989 TFLOP/s; peak "
           f"device memory {peak:.1f} GiB; dout copies {fa.dout_copies} ({smi_line})")
-    params, opt, prof = profile_train_step(step, params, opt, batch, warm)
+    params, opt, prof = profile_train_step(step, params, opt, batch, warm, tag=tag)
     del opt, metrics
+    if not keep_params:
+        params = None
     free_weights()
-    numbers = dict(losses=losses, step_ms=step_ms, warm_step_ms=warm,
-                   tokens_per_s=tokens / warm * 1e3, mfu=flops / (warm / 1e3) / TENSOR_CORE_OPS_PER_S,
-                   peak_gib=peak, dout_copies=fa.dout_copies, **prof)
+    numbers = dict(layers=cfg.n_layers, losses=losses, step_ms=step_ms, warm_step_ms=warm,
+                   tokens_per_s=tokens / warm * 1e3, mfu=mfu, mfu_counts=what, peak_gib=peak,
+                   dout_copies=fa.dout_copies, **prof)
     return params, launches, numbers
+
+
+def phase_train_step(cfg, smi_line):
+    """(t2) phase_train_family on full-width qwen3-1.7b (28 layers) for
+    TRAIN_STEPS steps: 2 x 28 flash forward and backward launches a step,
+    both wgmma. Returns (params, {path: launches}, numbers)."""
+    return phase_train_family(cfg, TRAIN_STEPS, "train (t2)", smi_line, keep_params=True)
 
 
 def profile_train_step(step, params, opt, batch, warm_ms: float, tag: str = "train (t2)",
@@ -4155,7 +4279,7 @@ def phase_train_ssm_steps(cfg, steps: int, tag: str, smi_line, profile: bool = F
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.selective_scan import ops as ss
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models.common import count_params, param_bytes
+    from repro_torch.models.common import param_bytes
     from repro_torch.train.optimizer import adamw_init
 
     params = _init_weights(tag, cfg)
@@ -4194,15 +4318,14 @@ def phase_train_ssm_steps(cfg, steps: int, tag: str, smi_line, profile: bool = F
         launches["flash_attention_bwd"] = {"launches": fa.bwd_launches,
                                            **{k: v for k, v in fa.bwd_launches_by_variant.items()
                                               if v}}
-    n_mult = count_params(params) - params["embed"].numel()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     warm = statistics.median(step_ms[1:])
-    flops = _train_flops(cfg, n_mult, TRAIN_BATCH, TRAIN_SEQ)
+    flops, what = _train_flops(cfg, params, TRAIN_BATCH, TRAIN_SEQ)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{tag}: loss {losses[0]:.4f} -> {losses[-1]:.4f} over {steps} steps; warm step "
           f"{warm:.1f} ms (median of steps 1-{steps - 1}), {tokens / warm * 1e3:,.0f} tokens/s; "
-          f"{flops / 1e12:.1f} TFLOP a step (6 x {n_mult / 1e9:.3f} B params x {tokens} tokens"
-          f"{' + attention' if attn else ''}; the scan's own work is not counted), model-FLOPs "
+          f"{flops / 1e12:.1f} TFLOP a step ({what}; the scan's own work is not counted), "
+          f"model-FLOPs "
           f"utilisation {100 * flops / (warm / 1e3) / TENSOR_CORE_OPS_PER_S:.1f} % of 989 "
           f"TFLOP/s; peak device memory {peak:.1f} GiB ({smi_line})")
     numbers = dict(layers=cfg.n_layers, losses=losses, step_ms=step_ms, warm_step_ms=warm,
@@ -4357,9 +4480,86 @@ def phase_train_ssm(smi_line):
     return paths, row, {h_path: h_paths["flash_attention_bwd"]}
 
 
+def phase_train_swa_agree(cfg, smi_line):
+    """(t10) gemma3-4b at full width cut to SWA_AGREE_LAYERS layers (the 5:1
+    pattern's five windowed layers and global layer 5, so both mask shapes
+    are held), bfloat16, one 4096-token row: the kernel path's loss and
+    gradients (one mma_sync flash backward a layer) against the card's
+    plain path (block-wise attention through autograd, no kernel launched)
+    within (t3)'s limits; remat True bit for bit no remat."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.steps import make_value_and_grad
+    from repro_torch.tree import path_key, tree_flatten_with_path, tree_leaves
+
+    cfgn = dataclasses.replace(cfg, n_layers=SWA_AGREE_LAYERS)
+    windows = [int(w) for w in cfgn.window_sizes()]
+    if 0 not in windows or not any(windows):
+        fail(f"train (t10): {SWA_AGREE_LAYERS} layers of {cfg.name} hold windows {windows}: "
+             f"not both mask shapes")
+    params = _init_weights("train (t10)", cfgn)
+    one = _train_batch(cfgn, 1, TRAIN_SEQ, 31)
+    vg = make_value_and_grad(cfgn, remat=False)
+    before = dict(fa.bwd_launches_by_variant)
+    l_k, g_k = vg(params, one)
+    got = {k: n - before[k] for k, n in fa.bwd_launches_by_variant.items() if n != before[k]}
+    if got != {"mma_sync": SWA_AGREE_LAYERS}:
+        fail(f"train (t10): flash backward launches {got}, expected {SWA_AGREE_LAYERS} mma_sync")
+    before = (fa.launches, fa.bwd_launches)
+    with plain_attention():
+        l_p, g_p = vg(params, one)
+    if (fa.launches, fa.bwd_launches) != before:
+        fail("train (t10): the plain path launched a flash kernel")
+    out = _agreement("train (t10)", f"{cfg.name} kernel path against the plain path, "
+                     f"{SWA_AGREE_LAYERS} layers (windows {windows})", l_k, g_k, l_p, g_p)
+    del g_p
+    l_r, g_r = make_value_and_grad(cfgn, remat=True)(params, one)
+    differ = [path_key(p) for (p, x), y in zip(tree_flatten_with_path(g_r), tree_leaves(g_k))
+              if not torch.equal(x, y)]
+    print(f"train (t10): remat True against False: loss bit for bit {torch.equal(l_r, l_k)}, "
+          f"{len(tree_leaves(g_k)) - len(differ)} of {len(tree_leaves(g_k))} gradient leaves bit "
+          f"for bit" + (f"; differing: {differ}" if differ else "") + f" ({smi_line})")
+    if differ or not torch.equal(l_r, l_k):
+        fail("train (t10): remat True is not bit for bit no remat")
+    del params, g_k, g_r
+    free_weights()
+    out["remat_leaves_differing"] = len(differ)
+    return out
+
+
+def phase_train_families(smi_line):
+    """(t9)-(t12): gemma3-4b trained at FAMILY_TRAIN_LAYERS[its name]
+    layers (the mma_sync backward at d 256), its 6-layer agreement, then
+    granite-moe-3b-a800m (its MoE dispatch under grad) and musicgen-large
+    (frame embeddings) trained, each at the depth FAMILY_TRAIN_LAYERS gives
+    it (the wgmma backward at d 64). Returns ({path: {kernel: launches}},
+    {model: numbers}, (t10)'s numbers)."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    paths, numbers = {}, {}
+    agree = None
+    for tag, name in (("train (t9)", SWA_NAME), ("train (t11)", MOE_NAME),
+                      ("train (t12)", AUDIO_NAME)):
+        full = get_config(name)
+        cfg = dataclasses.replace(full, n_layers=FAMILY_TRAIN_LAYERS[name])
+        print(f"{tag}: {name} at {cfg.n_layers} of its {full.n_layers} layers: "
+              f"{FAMILY_TRAIN_DEPTH_WHY[name]}")
+        _, launches, numbers[name] = phase_train_family(cfg, FAMILY_TRAIN_STEPS, tag, smi_line)
+        cut = "" if cfg.n_layers == full.n_layers else f" ({cfg.n_layers} layers)"
+        paths[f"{name}{cut} {FAMILY_TRAIN_STEPS} train steps"] = launches
+        if name == SWA_NAME:
+            agree = phase_train_swa_agree(full, smi_line)
+    print(f"train: (t9)-(t12) took {time.perf_counter() - t_phase:.1f} s")
+    return paths, numbers, agree
+
+
 def phase_train(smi_line):
     """Phase t: (t1)-(t4) and (u) on full-width qwen3-1.7b, then (t5)-(t8)
-    on the state-space models. Returns ({kernel: {path: launches}}, the two
+    on the state-space models, then (t9)-(t12) on gemma3-4b,
+    granite-moe-3b-a800m and musicgen-large. Returns ({kernel: {path:
+    launches}}, the two
     backward kernels' rows, {kernel: its hold at qwen3-1.7b's shapes})."""
     from repro_torch.configs import get_config
 
@@ -4374,19 +4574,26 @@ def phase_train(smi_line):
     ssm_paths, scan_row, ssm_flash_bwd = phase_train_ssm(smi_line)
     for name, by_path in ssm_paths.items():
         paths.setdefault(name, {}).update(by_path)
+    fam_paths, fam_steps, swa_agree = phase_train_families(smi_line)
     paths.setdefault("flash_attention", {})[
         f"qwen3-1.7b {TRAIN_STEPS} train steps (forward)"] = launches["flash_attention"]
+    for path, by_kernel in fam_paths.items():
+        paths["flash_attention"][f"{path} (forward)"] = by_kernel["flash_attention"]
+    bwd_paths = {f"qwen3-1.7b {TRAIN_STEPS} train steps": launches["flash_attention_bwd"],
+                 **ssm_flash_bwd,
+                 **{path: by_kernel["flash_attention_bwd"]
+                    for path, by_kernel in fam_paths.items()}}
+    by_variant = {}
+    for by_path in bwd_paths.values():
+        for k, n in by_path.items():
+            if k != "launches":
+                by_variant[k] = by_variant.get(k, 0) + n
     r = kern["main"]
     row = {"name": "flash_attention_bwd", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:68",
-           "launches": launches["flash_attention_bwd"]["launches"]
-           + sum(n["launches"] for n in ssm_flash_bwd.values()),
-           "launches_by_path": {f"qwen3-1.7b {TRAIN_STEPS} train steps":
-                                launches["flash_attention_bwd"], **ssm_flash_bwd},
-           "launches_by_variant": {k: n + sum(p.get(k, 0) for p in ssm_flash_bwd.values())
-                                   for k, n in launches["flash_attention_bwd"].items()
-                                   if k != "launches"},
+           "launches": sum(n["launches"] for n in bwd_paths.values()),
+           "launches_by_path": bwd_paths, "launches_by_variant": by_variant,
            "variant": r["variant"], "lse_err": r["lse_err"],
            "launches_per_training_step": TRAIN_ACCUM * cfg.n_layers,
            "max_abs_err": r["err"], "errs": r["errs"], "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -4397,17 +4604,34 @@ def phase_train(smi_line):
            "design_bound_ms": r["design_bound"]["tensor_core"][0],
            "design_products": r["products"],
            "library_ms": r["library_ms"], "host_ms": r["host_ms"],
-           "train_step": step, "agreement": agree}
+           "train_step": step, "agreement": agree,
+           "train_step_families": fam_steps, "agreement_gemma3_4b": swa_agree}
+
+    def shape_entry(x):
+        return {"ms": x["ms"], "library_ms": x["library_ms"],
+                "library_refused": x["library_refused"], "plain_ms": x["plain_ms"],
+                "host_ms": x["host_ms"], "bound_ms": x["bound"]["tensor_core"][0],
+                "bound_by": x["bound"]["tensor_core"][1],
+                "cuda_core_bound_ms": x["bound"]["cuda_core"][0], "max_abs_err": x["err"],
+                "errs": x["errs"], "lse_err": x["lse_err"], "variant": x["variant"],
+                "design_bound_ms": x["design_bound"]["tensor_core"][0],
+                "design_products": x["products"]}
+
     for label in ("window_1024", "float32_tiny"):
-        x = kern[label]
-        row[label] = {"ms": x["ms"], "library_ms": x["library_ms"], "plain_ms": x["plain_ms"],
-                      "host_ms": x["host_ms"], "bound_ms": x["bound"]["tensor_core"][0],
-                      "cuda_core_bound_ms": x["bound"]["cuda_core"][0], "max_abs_err": x["err"],
-                      "variant": x["variant"],
-                      "design_bound_ms": x["design_bound"]["tensor_core"][0],
-                      "design_products": x["products"]}
-    if row["launches"] < 1:
-        fail("flash_attention_bwd never launched on the training path")
+        row[label] = shape_entry(kern[label])
+    # gemma3-4b's d 256 (the mma_sync variant) and hymba-1.5b's d 64 shapes,
+    # with the launches the training runs made at each
+    d256_paths = {p: n for p, n in bwd_paths.items() if p.startswith(SWA_NAME)}
+    row["head_dim_256"] = {**shape_entry(kern["gemma_d256"]),
+                           "window_1024": shape_entry(kern["gemma_d256_window_1024"]),
+                           "launches": sum(n["launches"] for n in d256_paths.values()),
+                           "launches_by_path": d256_paths,
+                           "ptxas": kern["mma_sync_ptxas"]}
+    row["hymba_d64"] = {**shape_entry(kern["hymba_d64"]),
+                        "launches": sum(n["launches"] for p, n in bwd_paths.items()
+                                        if p.startswith(SSM_TRAIN_NAME))}
+    if row["launches"] < 1 or by_variant.get("mma_sync", 0) < 1:
+        fail(f"flash_attention_bwd on the training paths: {by_variant}")
     held["flash_attention"] = {"err": r["forward_err"]}
     return paths, [row, scan_row], held
 

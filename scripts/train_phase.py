@@ -5,7 +5,9 @@ this one), so that a parent and a change can be compared in one chip call:
     python3 scripts/train_phase.py [ROOT]
 
 (t1) holds flash_attention's backward to its plain version at full-width
-qwen3-1.7b's training shape and times it; (t2) runs 5 train steps of
+qwen3-1.7b's training shape (also with window 1024, at gemma3-4b's d 256
+heads and hymba-1.5b's 25 / 5 heads of 64) and times it; (t2) runs 5 train
+steps of
 full-width qwen3-1.7b over 2 x 4096 tokens and profiles one more (ROOT's
 chip_smoke.py, its own phase functions). Run parent, change, change,
 parent. It prints what the two phases print, then one JSON line: (t1)'s
@@ -39,7 +41,7 @@ def main() -> int:
     kern = cs.phase_train_kernel(cfg, smi)
     _, _, step = cs.phase_train_step(cfg, smi)
     print(json.dumps({"root": str(root), "card": smi,
-                      "t1_ms": {label: r["ms"] for label, r in kern.items()},
+                      "t1_ms": {label: r["ms"] for label, r in kern.items() if "ms" in r},
                       **{k: step[k] for k in ("warm_step_ms", "tokens_per_s", "mfu", "busy_ms",
                                               "bwd_kernels_ms")}}))
     return 0

@@ -56,6 +56,9 @@
 //   three tiles take 99 KB. The wgmma kernel's 128-key tiles at d = 256
 //   would hold 128 output floats and 64 scores a thread under the 168
 //   registers its launch bound leaves, and fit one stage in shared memory.
+//   Given an lse pointer at d = 256 (training gemma3-4b), its epilogue
+//   writes each row's logsumexp as the wgmma kernel's does, for the
+//   backward's mma_sync variant; the output is the same bits either way.
 //   P is rounded to the input dtype as the A operand of P V in both
 //   tensor-core kernels (the TPU kernel kept P in float32: the output
 //   differs from a float32 P by about one ulp of the output dtype).
@@ -83,75 +86,24 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "mma_sync.cuh"
 #include "wgmma.cuh"
 
 namespace ckv {
 
 constexpr int FA_BM = 64;  // query rows per CTA (16 per warp)
 constexpr int FA_BN = 64;  // keys per tile
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d[16x8] += a[16x16] * b[16x8], float32 accumulation
-template <typename T>
-__device__ __forceinline__ void mma16816(float d[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-// 16-byte asynchronous copy; a false predicate fills the 16 bytes with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows [r0, r0 + 64) of a (positions, HD) slab with row stride `ss` into a
-// shared tile of row stride HD + 8; rows at or past `n_rows` are zeros
-template <typename T, int HD>
-__device__ __forceinline__ void tile_async(T* dst, const T* src, long long ss, int r0,
-                                           int n_rows) {
-  constexpr int VPR = HD / 8, LD = HD + 8;
-  for (int i = threadIdx.x; i < FA_BM * VPR; i += blockDim.x) {
-    int r = i / VPR, c = (i % VPR) * 8;
-    bool ok = r0 + r < n_rows;
-    cp_async16(dst + r * LD + c, ok ? src + (r0 + r) * ss + c : src, ok);
-  }
-}
-
-// Rows are the CTA's query positions, keys one 64-key tile per step.
-template <typename T, int HD>
+// Rows are the CTA's query positions, keys one 64-key tile per step. LSE:
+// the instance that also writes each row's logsumexp (training at d = 256),
+// as the wgmma kernel's LSE instance does; the serving instance is unchanged.
+template <typename T, int HD, bool LSE>
 static __global__ void __launch_bounds__(128) flash_tc_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ out,
     int n_q, int n_kv, int s_q, int s_k, int causal, int window, int q_offset, float scale_log2,
     long long q_sb, long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss, long long o_sb,
-    long long o_sh, long long o_ss) {
+    long long o_sh, long long o_ss, float* __restrict__ lse, int lse_row) {
   constexpr int LD = HD + 8, KT = HD / 16, NT8 = FA_BN / 8, DT8 = HD / 8;
   extern __shared__ __align__(16) unsigned char fa_smem[];
   T* qs = reinterpret_cast<T*>(fa_smem);  // [64][LD]
@@ -171,7 +123,7 @@ static __global__ void __launch_bounds__(128) flash_tc_kernel(
   const int k_begin = window > 0 ? max(0, p_lo - window + 1) : 0;
   const int kb_begin = k_begin / FA_BN, kb_end = (k_end + FA_BN - 1) / FA_BN;
 
-  tile_async<T, HD>(qs, qb, q_ss, m0, s_q);
+  tile_async<T, HD, FA_BM>(qs, qb, q_ss, m0, s_q);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -195,9 +147,9 @@ static __global__ void __launch_bounds__(128) flash_tc_kernel(
   for (int kbi = kb_begin; kbi < kb_end; ++kbi) {
     const int n0 = kbi * FA_BN;
     __syncthreads();  // every warp is done with the previous K and V tiles
-    tile_async<T, HD>(ks, kb, k_ss, n0, s_k);
+    tile_async<T, HD, FA_BM>(ks, kb, k_ss, n0, s_k);
     cp_async_commit();
-    tile_async<T, HD>(vs, vb, v_ss, n0, s_k);
+    tile_async<T, HD, FA_BM>(vs, vb, v_ss, n0, s_k);
     cp_async_commit();
     cp_async_wait<1>();  // K has landed; V may still be in flight
     __syncthreads();
@@ -289,6 +241,13 @@ static __global__ void __launch_bounds__(128) flash_tc_kernel(
     for (int j = 0; j < DT8; ++j)
       *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t4) =
           pack2<T>(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+    // the row's logsumexp for the backward, in the wgmma kernel's units (log2
+    // of the scaled scores: P = exp2(scale_log2 s - lse)); 0 for a row that
+    // sees no key
+    if constexpr (LSE)
+      if (t4 == 0)
+        lse[((long long)b * n_q + qh) * lse_row + row + 8 * r] =
+            l_run[r] > 0.f ? m_run[r] + log2f(l_run[r]) : 0.f;
   }
 }
 
@@ -642,18 +601,27 @@ static int launch_flash_wgmma(const void* q, const void* k, const void* v, void*
   return 0;
 }
 
+// lse: only the d = 256 instance writes one (the backward's mma_sync variant
+// reads it; d 16 and 32 train through cuda_core_f32, which computes its own)
 template <typename T, int HD>
-static void launch_flash_tc(const void* q, const void* k, const void* v, void* out, int b,
-                            int n_q, int n_kv, int s_q, int s_k, int causal, int window,
-                            int q_offset, const long long* st, cudaStream_t stream) {
+static int launch_flash_tc(const void* q, const void* k, const void* v, void* out, int b,
+                           int n_q, int n_kv, int s_q, int s_k, int causal, int window,
+                           int q_offset, const long long* st, float* lse, int lse_row,
+                           cudaStream_t stream) {
   const size_t smem = sizeof(T) * 3 * FA_BM * (HD + 8);
-  cudaFuncSetAttribute(flash_tc_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  auto kernel = flash_tc_kernel<T, HD, false>;
+  if constexpr (HD == 256) {
+    if (lse) kernel = flash_tc_kernel<T, HD, true>;
+  } else if (lse) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   dim3 grid((s_q + FA_BM - 1) / FA_BM, n_q, b);
-  flash_tc_kernel<T, HD><<<grid, 128, smem, stream>>>(
+  kernel<<<grid, 128, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, n_q, n_kv, s_q, s_k, causal, window,
       q_offset, softmax_scale(HD) * LOG2E, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11]);
+      st[7], st[8], st[9], st[10], st[11], lse, lse_row);
+  return 0;
 }
 
 template <typename T>
@@ -670,24 +638,20 @@ static int launch_flash_16(const void* q, const void* k, const void* v, void* ou
                                         q_offset, st, lse, lse_row, stream);
     return (int)cudaErrorInvalidValue;
   }
-  if (variant != 1 || lse) return (int)cudaErrorInvalidValue;
+  if (variant != 1) return (int)cudaErrorInvalidValue;
   switch (d) {  // mma_sync
     case 16:
-      launch_flash_tc<T, 16>(q, k, v, out, b, n_q, n_kv, s_q, s_k, causal, window, q_offset, st,
-                             stream);
-      break;
+      return launch_flash_tc<T, 16>(q, k, v, out, b, n_q, n_kv, s_q, s_k, causal, window,
+                                    q_offset, st, lse, lse_row, stream);
     case 32:
-      launch_flash_tc<T, 32>(q, k, v, out, b, n_q, n_kv, s_q, s_k, causal, window, q_offset, st,
-                             stream);
-      break;
+      return launch_flash_tc<T, 32>(q, k, v, out, b, n_q, n_kv, s_q, s_k, causal, window,
+                                    q_offset, st, lse, lse_row, stream);
     case 256:
-      launch_flash_tc<T, 256>(q, k, v, out, b, n_q, n_kv, s_q, s_k, causal, window, q_offset,
-                              st, stream);
-      break;
+      return launch_flash_tc<T, 256>(q, k, v, out, b, n_q, n_kv, s_q, s_k, causal, window,
+                                     q_offset, st, lse, lse_row, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return 0;
 }
 
 }  // namespace ckv
@@ -696,10 +660,10 @@ static int launch_flash_16(const void* q, const void* k, const void* v, void* ou
 // strides (batch, head, position) and a contiguous head dim; rows 16-byte
 // aligned. variant: 0 the float32 CUDA-core kernel (float32, d any multiple
 // of 4 up to 256), 1 mma_sync (bfloat16/float16, d in {16, 32, 256}), 2 wgmma
-// (bfloat16/float16, d in {64, 128}). lse: null, or (wgmma only) float32
-// (b, n_q, s_q) with rows lse_row >= s_q floats apart, which the kernel fills
-// with each query row's logsumexp in log2 units (flash_wgmma_kernel's
-// epilogue) for the backward; the output is the same either way.
+// (bfloat16/float16, d in {64, 128}). lse: null, or (wgmma, and mma_sync at
+// d = 256) float32 (b, n_q, s_q) with rows lse_row >= s_q floats apart,
+// which the kernel fills with each query row's logsumexp in log2 units
+// (the epilogue's) for the backward; the output is the same either way.
 extern "C" int ckv_flash_attention(const void* q, const void* k, const void* v, void* out, int b,
                                    int n_q, int n_kv, int s_q, int s_k, int d, int causal,
                                    int window, int q_offset, long long q_sb, long long q_sh,

@@ -7,20 +7,27 @@ dtype and head dim, never because another one failed:
 * ``wgmma``: bfloat16/float16 with d in {64, 128} (every model the port
   runs but gemma3-4b): TMA loads into a ring of stages, wgmma products, warp-specialised;
 * ``mma_sync``: bfloat16/float16 with d in {16, 32, 256}, which the wgmma
-  tiles do not take (256: gemma3-4b's heads): mma.sync m16n8k16 tiles;
+  tiles do not take (256: gemma3-4b's heads): mma.sync m16n8k16 tiles; at
+  d 256 it also writes the logsumexp its backward reads;
 * ``cuda_core_f32``: float32, any d that is a multiple of 4 up to 256.
 
 ``launches`` counts every launch, ``launches_by_variant`` each kernel's.
 
 The backward (csrc/flash_attention_bwd.cu, no atomics) takes float32,
-bfloat16 and float16 at d in {16, 32, 64, 128}; its variant follows the
-forward's (``bwd_variant_for``):
+bfloat16 and float16 at d in {16, 32, 64, 128}, and bfloat16 and float16 at
+d 256; its variant is chosen by dtype and head dim (``bwd_variant_for``):
 
 * ``wgmma``: bfloat16/float16 with d in {64, 128}: a preprocess kernel (D),
   then a dK/dV and a dQ kernel on wgmma with TMA-fed stages, reading the
   logsumexp the wgmma forward saved (``lse``, log2 units);
-* ``cuda_core_f32``: everything else (float32, and 16-bit at d 16 / 32): a
+* ``mma_sync``: bfloat16/float16 with d 256 (gemma3-4b): the same
+  preprocess, then a dK/dV kernel whose warps own dV or dK (never both) and
+  a dQ kernel on mma.sync, reading the logsumexp the mma_sync forward saved;
+* ``cuda_core_f32``: float32 (d up to 128), and 16-bit at d 16 / 32: a
   stats pass, a dK/dV pass and a dQ pass in float32 on the CUDA cores.
+
+float32 at d 256 has no backward kernel and raises: the card trains in
+bfloat16, and CPU tensors run the plain version.
 
 ``flash_attention_bwd`` launches it and ``FlashAttentionFn`` puts the
 forward and the backward under autograd. ``bwd_launches`` counts its calls,
@@ -40,16 +47,19 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, fla
 
 # the C launchers' variant codes
 VARIANTS = {"cuda_core_f32": 0, "mma_sync": 1, "wgmma": 2}
-BWD_VARIANTS = ("cuda_core_f32", "wgmma")
+BWD_VARIANTS = ("cuda_core_f32", "wgmma", "mma_sync")
+# the backward variants that read the logsumexp their forward wrote
+LSE_VARIANTS = ("wgmma", "mma_sync")
 WGMMA_HEAD_DIMS = (64, 128)
 MMA_SYNC_HEAD_DIMS = (16, 32, 256)
-# rows of the logsumexp buffer: s_q rounded up to the wgmma kernels' 128-row
-# CTAs, so each 64-row stage of it is one aligned bulk copy
+# rows of the logsumexp buffer: s_q rounded up to the 128-row CTAs of the
+# wgmma kernels and of the mma_sync dQ kernel, so each 64-row stage of it is
+# one aligned copy
 LSE_ROW_ALIGN = 128
 
 launches = 0  # kernel launches since the count was last set to 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
-BWD_HEAD_DIMS = (16, 32, 64, 128)  # d 256 (gemma3-4b) waits for a later kernel
+BWD_HEAD_DIMS = (16, 32, 64, 128, 256)  # 256: 16-bit only (the mma_sync variant)
 bwd_launches = 0  # backward calls since the count was last set to 0
 bwd_launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
 dout_copies = 0  # output gradients copied into a layout the backward reads
@@ -64,8 +74,18 @@ def variant_for(dtype: torch.dtype, d: int) -> str:
 
 def bwd_variant_for(dtype: torch.dtype, d: int) -> str:
     """The backward kernels that run a CUDA call of this dtype and head dim:
-    wgmma where the forward runs wgmma (it saves the logsumexp they read)."""
+    wgmma where the forward runs wgmma, mma_sync for 16-bit d 256 (each
+    reads the logsumexp its forward saves), cuda_core_f32 otherwise."""
+    if dtype != torch.float32 and d == 256:
+        return "mma_sync"
     return "wgmma" if variant_for(dtype, d) == "wgmma" else "cuda_core_f32"
+
+
+def writes_lse(dtype: torch.dtype, d: int) -> bool:
+    """Whether the forward kernel of this dtype and head dim can write the
+    logsumexp (``flash_attention(..., lse=)``): the ones whose backward
+    reads it."""
+    return bwd_variant_for(dtype, d) in LSE_VARIANTS
 
 
 def lse_buffer(q: torch.Tensor) -> torch.Tensor:
@@ -110,14 +130,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_offset + i``. Returns (b, n_q, s_q, d) in q's dtype, laid out with
     q's strides.
 
-    ``lse`` (wgmma variant only, CUDA): a ``lse_buffer(q)`` that the kernel
-    fills with each query row's logsumexp in log2 units of the scaled scores
+    ``lse`` (CUDA, the wgmma variant and mma_sync at d 256: ``writes_lse``):
+    a ``lse_buffer(q)`` that the kernel fills with each query row's
+    logsumexp in log2 units of the scaled scores
     (``flash_attention_lse_ref``'s), for the backward; the output is the
     same bits with or without it."""
     global launches
     if B.on_cpu(q, k, v):
         if lse is not None:
-            raise ValueError("flash_attention: lse is written by the CUDA wgmma kernel only")
+            raise ValueError("flash_attention: lse is written by the CUDA kernels only")
         return flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
     B.refuse_grad("flash_attention (use FlashAttentionFn to train)", q, k, v)
     if q.dtype not in B.FLOAT_TYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -136,8 +157,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} window {window} q_offset {q_offset}")
     if lse is not None:
-        if variant != "wgmma":
-            raise ValueError(f"flash_attention: the {variant} kernel writes no lse")
+        if not writes_lse(q.dtype, d):
+            raise ValueError(f"flash_attention: the {variant} kernel writes no lse at d {d}")
         _check_lse(lse, q)
     align = 4 if f32 else 8
     out = torch.empty_like(q)  # q's strides: (b, s, n, d) storage stays so
@@ -169,6 +190,10 @@ def _check_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
         raise ValueError(f"flash_attention_bwd: unsupported shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} window {window} q_offset {q_offset} (head dims "
                          f"{BWD_HEAD_DIMS})")
+    if d == 256 and q.dtype == torch.float32:
+        raise ValueError("flash_attention_bwd: float32 at d 256 has no backward kernel (the "
+                         "d-256 backward is mma_sync, bfloat16/float16 only); train in "
+                         "bfloat16, or on CPU tensors, which run the plain version")
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
@@ -183,14 +208,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     16-byte aligned, or a head dim that is not contiguous) is copied once
     into a fresh contiguous tensor and counted in ``dout_copies``.
 
-    ``lse``: the wgmma variant's input, the logsumexp its forward wrote
-    (``FlashAttentionFn`` passes the one it saved); that variant raises
+    ``lse``: the wgmma and mma_sync variants' input, the logsumexp their
+    forward wrote (``FlashAttentionFn`` passes the one it saved); they raise
     without it. The cuda_core_f32 variant takes none: its stats pass computes
     its own."""
     global bwd_launches, dout_copies
     if B.on_cpu(q, k, v, out, dout):
         if lse is not None:
-            raise ValueError("flash_attention_bwd: lse is read by the CUDA wgmma kernels only")
+            raise ValueError("flash_attention_bwd: lse is read by the CUDA kernels only")
         return flash_attention_bwd_ref(q, k, v, out, dout, causal=causal, window=window,
                                        q_offset=q_offset)
     _check_bwd(q, k, v, window, q_offset)
@@ -200,9 +225,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     b, n_q, s_q, d = q.shape
     n_kv, s_k = k.shape[1], k.shape[2]
     variant = bwd_variant_for(q.dtype, d)
-    if variant == "wgmma":
+    if variant in LSE_VARIANTS:
         if lse is None:
-            raise ValueError("flash_attention_bwd: the wgmma kernels read the lse that "
+            raise ValueError(f"flash_attention_bwd: the {variant} kernels read the lse that "
                              "flash_attention(..., lse=lse_buffer(q)) wrote; none was given")
         _check_lse(lse, q)
     elif lse is not None:
@@ -234,8 +259,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` under autograd: the forward kernel, then the
     backward kernels (``flash_attention_bwd``) for the gradients of q, k and
-    v. Saves q, k, v, the output and, where the backward's variant is wgmma,
-    the logsumexp the forward wrote. On CPU tensors both are the plain
+    v. Saves q, k, v, the output and, where the backward's variant reads one
+    (wgmma, mma_sync), the logsumexp the forward wrote. On CPU tensors both are the plain
     versions. A CUDA call the backward does not take raises here, before the
     forward runs."""
 
@@ -244,7 +269,7 @@ class FlashAttentionFn(torch.autograd.Function):
         lse = None
         if not B.on_cpu(q, k, v):
             _check_bwd(q, k, v, window, q_offset)
-            if bwd_variant_for(q.dtype, q.shape[-1]) == "wgmma":
+            if writes_lse(q.dtype, q.shape[-1]):
                 lse = lse_buffer(q)
         out = flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset, lse=lse)
         ctx.save_for_backward(q, k, v, out, lse)

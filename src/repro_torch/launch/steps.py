@@ -41,8 +41,11 @@ def make_value_and_grad(cfg: ModelConfig, *, grad_accum: int = 1, block_q: int =
         tracked = tree_replace_leaves(params, leaves)
         with torch.enable_grad():
             loss = T.loss_fn(tracked, mb, cfg, block_q=block_q, remat=remat)
-            grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), tree_replace_leaves(params, list(grads))
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        # a leaf the loss does not read (the token embedding of a batch of
+        # frame embeddings) gets zeros, as jax.grad gives it
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        return loss.detach(), tree_replace_leaves(params, grads)
 
     def value_and_grad(params, batch):
         batch = _batch_on(batch, tree_leaves(params)[0].device)

@@ -4,6 +4,13 @@ package's order of operations.
 The state is ``{"m": tree, "v": tree, "step": 0-dim int32 tensor}`` on the
 params' device. ``global_norm`` sums the leaves in JAX's order (dict keys
 sorted), so the clip scale sums its float32 terms as the reference does.
+
+A leaf of more than ``CHUNK_ELEMENTS`` elements is updated a slice of its
+leading dim (a layer of a stacked leaf, rows of an embedding) at a time into
+its new tensors: the update is elementwise, so the bits are the same, and
+its float32 temporaries stay a slice's size instead of several copies of the
+largest leaf (a stacked expert or embedding leaf of ~1e9 elements would
+want 4 GB each).
 """
 from __future__ import annotations
 
@@ -12,6 +19,9 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map, tree_replace_leaves
+
+
+CHUNK_ELEMENTS = 1 << 25  # elements of a slice the update takes at a time
 
 
 def adamw_init(params) -> Dict[str, Any]:
@@ -49,7 +59,7 @@ def adamw_update(
     stepf = step.to(torch.float32)
     bc1, bc2 = 1 - b1 ** stepf, 1 - b2 ** stepf
 
-    def upd(g, m, v, p):
+    def upd_slice(g, m, v, p):
         g = g.to(torch.float32) * scale
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * torch.square(g)
@@ -57,6 +67,17 @@ def adamw_update(
         vh = v / bc2
         delta = mh / (torch.sqrt(vh) + eps) + weight_decay * p.to(torch.float32)
         return (p.to(torch.float32) - lr * delta).to(p.dtype), m, v
+
+    def upd(g, m, v, p):
+        if g.dim() == 0 or g.numel() <= CHUNK_ELEMENTS:
+            return upd_slice(g, m, v, p)
+        rows = max(1, CHUNK_ELEMENTS // (g.numel() // g.shape[0]))
+        out = (torch.empty_like(p), torch.empty_like(m), torch.empty_like(v))
+        for lo in range(0, g.shape[0], rows):
+            part = slice(lo, lo + rows)
+            for o, x in zip(out, upd_slice(g[part], m[part], v[part], p[part])):
+                o[part] = x
+        return out
 
     paths = [path for path, _ in tree_flatten_with_path(grads)]
 

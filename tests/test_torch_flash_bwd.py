@@ -11,7 +11,8 @@ forward and backward, so its gradients equal the plain version's.
 ``flash_attention_lse_ref`` (the logsumexp the wgmma forward saves for the
 backward, in log2 units) is held against ``jax.nn.logsumexp`` of the same
 masked, scaled float32 scores times log2(e), within 1e-5 of the largest
-|lse| (float32 sums in other orders).
+|lse| (float32 sums in other orders). Head dims 16, 64 and 256 (gemma3-4b,
+whose backward on the card is the mma_sync kernel).
 """
 import jax
 import jax.numpy as jnp
@@ -50,6 +51,9 @@ CASES = [  # group, causal, window, d, s_q, q_offset
     (4, True, 0, 16, 19, 13),   # queries at positions 13.. over 32 keys
     (2, True, 6, 16, 19, 13),
     (1, False, 0, 64, 23, 0),   # every key visible
+] + [
+    # gemma3-4b's head dim, which the mma_sync backward kernel takes
+    (g, True, w, 256, s, 0) for g in (1, 2) for w in (0, 9) for s in (37, 70)
 ]
 
 
@@ -108,21 +112,24 @@ def test_bwd_ref_keeps_input_dtypes():
     assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
 
 
-@pytest.mark.parametrize("causal,window,q_offset,s_q,s_k", [
+LSE_CASES = [  # causal, window, q_offset, s_q, s_k
     (True, 0, 0, 37, 37),
     (True, 5, 0, 37, 37),
     (True, 0, 13, 19, 32),
     (True, 6, 13, 19, 32),
     (False, 0, 0, 23, 23),
     (True, 5, 0, 19, 8),  # rows 12 on see no key: lse 0
-])
-def test_lse_ref_matches_jax_logsumexp(causal, window, q_offset, s_q, s_k):
-    q, k, _, _ = _inputs(4, 2, 4, 2, s_q, s_k, 32)
+]
+
+
+@pytest.mark.parametrize("causal,window,q_offset,s_q,s_k", LSE_CASES)
+def test_lse_ref_matches_jax_logsumexp(causal, window, q_offset, s_q, s_k, d=32):
+    q, k, _, _ = _inputs(4, 2, 4, 2, s_q, s_k, d)
     got = flash_attention_lse_ref(torch.from_numpy(q), torch.from_numpy(k), causal=causal,
                                   window=window, q_offset=q_offset, block_q=16)
     assert got.dtype == torch.float32 and got.shape == (2, 4, s_q)
-    sc = jnp.einsum("bngsd,bntd->bngst", jnp.asarray(q).reshape(2, 2, 2, s_q, 32),
-                    jnp.asarray(k)) * 32 ** -0.5
+    sc = jnp.einsum("bngsd,bntd->bngst", jnp.asarray(q).reshape(2, 2, 2, s_q, d),
+                    jnp.asarray(k)) * d ** -0.5
     i = q_offset + jnp.arange(s_q)[:, None]
     t = jnp.arange(s_k)[None, :]
     vis = jnp.ones((s_q, s_k), bool)
@@ -135,3 +142,9 @@ def test_lse_ref_matches_jax_logsumexp(causal, window, q_offset, s_q, s_k):
     _close(got.numpy(), want)
     if s_k == 8:
         assert (got[..., 12:] == 0).all()
+
+
+@pytest.mark.parametrize("causal,window,q_offset,s_q,s_k", [LSE_CASES[1], LSE_CASES[5]])
+def test_lse_ref_matches_jax_logsumexp_head_dim_256(causal, window, q_offset, s_q, s_k):
+    """The logsumexp the mma_sync forward saves at gemma3-4b's head dim."""
+    test_lse_ref_matches_jax_logsumexp(causal, window, q_offset, s_q, s_k, d=256)

@@ -1208,11 +1208,10 @@ def _bwd_inputs(dev, dtype, b, nq, nkv, s_q, s_k, d, transposed, seed=200):
 
 
 def _forward_for_bwd(q, k, v, **kw):
-    """The forward kernel's output and, where the backward's variant is
-    wgmma, the logsumexp it wrote for that backward (None otherwise), as
-    FlashAttentionFn saves them."""
-    lse = (fa_ops.lse_buffer(q) if fa_ops.bwd_variant_for(q.dtype, q.shape[-1]) == "wgmma"
-           else None)
+    """The forward kernel's output and, where the backward's variant reads
+    one (wgmma, mma_sync), the logsumexp it wrote for that backward (None
+    otherwise), as FlashAttentionFn saves them."""
+    lse = fa_ops.lse_buffer(q) if fa_ops.writes_lse(q.dtype, q.shape[-1]) else None
     return fa_ops.flash_attention(q, k, v, lse=lse, **kw), lse
 
 
@@ -1290,10 +1289,12 @@ def test_flash_attention_bwd_copies_an_unaligned_dout(dev):
 
 
 def test_flash_attention_bwd_raises_on_what_it_does_not_take(dev):
-    """d 256 (gemma3-4b) and the fp32 kernel's other head dims raise, before
-    the forward runs under FlashAttentionFn; nothing falls back."""
+    """float32 at d 256 (no backward kernel: the d-256 one is 16-bit), a
+    16-bit head dim no backward kernel takes, and the fp32 kernel's other
+    head dims raise, before the forward runs under FlashAttentionFn; nothing
+    falls back."""
     before = (fa_ops.launches, fa_ops.bwd_launches)
-    for d, dtype in ((256, torch.bfloat16), (20, torch.float32)):
+    for d, dtype in ((256, torch.float32), (96, torch.bfloat16), (20, torch.float32)):
         q = _rand(dev, 220, (1, 4, 32, d), dtype).requires_grad_()
         kv = _rand(dev, 221, (1, 2, 32, d), dtype).requires_grad_()
         with pytest.raises(ValueError):
@@ -1338,12 +1339,96 @@ def test_flash_attention_lse(dev, dtype, d, s_q, s_k, window, q_offset):
         assert (want[..., 59:] == 0).all() and (lse[..., 59:s_q] == 0).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("group,s_q,window,q_offset,transposed", [
+    (1, 130, 0, 0, False),   # ragged s: two 64-key tiles and a third of 2
+    (2, 130, 0, 0, True),
+    (2, 200, 40, 0, True),   # a window that cuts 64-key and 32-key tiles
+    (1, 150, 100, 0, False),
+    (2, 70, 30, 50, True),   # queries after a prefix, under a window
+    (1, 100, 0, 37, False),
+])
+def test_flash_attention_bwd_head_dim_256(dev, dtype, group, s_q, window, q_offset, transposed):
+    """The mma_sync backward at d 256 (gemma3-4b's heads) against its plain
+    version within FLASH_REL (P and dS rounded to 16 bits before their
+    products, as the wgmma variant does), fed by the mma_sync forward's lse;
+    one call counted under mma_sync, each gradient with its input's dtype and
+    strides, and two runs the same bits (no atomics)."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    b, nkv, d = 2, 2, 256
+    q, k, v, do = _bwd_inputs(dev, dtype, b, group * nkv, nkv, s_q, s_q + q_offset, d,
+                              transposed, seed=270)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    out, lse = _forward_for_bwd(q, k, v, **kw)
+    assert lse is not None
+    before = fa_ops.bwd_launches_by_variant["mma_sync"]
+    got = fa_ops.flash_attention_bwd(q, k, v, out, do, lse=lse, **kw)
+    assert fa_ops.bwd_launches_by_variant["mma_sync"] == before + 1
+    want = flash_attention_bwd_ref(q, k, v, out, do, **kw)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.stride() == x.stride()
+        _close(g, w, rel=FLASH_REL[dtype])
+    again = fa_ops.flash_attention_bwd(q, k, v, out, do, lse=lse, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("s_q,s_k,window,q_offset", [
+    (130, 130, 0, 0),
+    (130, 180, 17, 50),
+    (130, 40, 20, 0),  # rows 59 on see no key
+])
+def test_flash_attention_lse_head_dim_256(dev, dtype, s_q, s_k, window, q_offset):
+    """The mma_sync forward's logsumexp at d 256 against
+    flash_attention_lse_ref within LSE_TOL, 0 on a row that sees no key; the
+    output the same bits with and without the lse pointer."""
+    q = _rand(dev, 310, (2, s_q, 4, 256), dtype).transpose(1, 2)
+    k = _rand(dev, 311, (2, s_k, 2, 256), dtype).transpose(1, 2)
+    v = _rand(dev, 312, (2, s_k, 2, 256), dtype).transpose(1, 2)
+    kw = dict(window=window, q_offset=q_offset)
+    plain = fa_ops.flash_attention(q, k, v, **kw)
+    lse = fa_ops.lse_buffer(q)
+    before = fa_ops.launches_by_variant["mma_sync"]
+    out = fa_ops.flash_attention(q, k, v, lse=lse, **kw)
+    assert fa_ops.launches_by_variant["mma_sync"] == before + 1
+    assert torch.equal(out, plain)
+    want = flash_attention_lse_ref(q, k, **kw)
+    err = (lse[..., :s_q] - want).abs().max().item()
+    assert err <= LSE_TOL, err
+    if s_k == 40:
+        assert (want[..., 59:] == 0).all() and (lse[..., 59:s_q] == 0).all()
+
+
+def test_flash_attention_fn_head_dim_256(dev):
+    """FlashAttentionFn at d 256 in bfloat16: the mma_sync forward and the
+    mma_sync backward, which reads the lse the forward saved (no forward
+    launch in the backward), the same bits as flash_attention_bwd handed the
+    lse of a forward run apart."""
+    q, k, v, do = _bwd_inputs(dev, torch.bfloat16, 1, 8, 4, 150, 150, 256, True, seed=280)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    f0 = fa_ops.launches_by_variant["mma_sync"]
+    b0 = dict(fa_ops.bwd_launches_by_variant)
+    out = fa_ops.FlashAttentionFn.apply(*leaves, True, 64, 0)
+    assert fa_ops.launches_by_variant["mma_sync"] == f0 + 1
+    got = torch.autograd.grad(out, leaves, do)
+    assert fa_ops.launches_by_variant["mma_sync"] == f0 + 1
+    after = fa_ops.bwd_launches_by_variant
+    assert {n: after[n] - b0[n] for n in after} == {n: int(n == "mma_sync") for n in after}
+    again, lse = _forward_for_bwd(q, k, v, window=64)
+    assert torch.equal(again, out)
+    want = fa_ops.flash_attention_bwd(q, k, v, again, do, window=64, lse=lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_flash_attention_bwd_variants(dev):
     """bwd_launches_by_variant: bfloat16 at d 128 and float16 at d 64 run
-    wgmma, float32 and bfloat16 at d 16 cuda_core_f32, one call counted once
-    under its variant; wgmma raises without the forward's lse, and no forward
-    or backward but wgmma takes one."""
+    wgmma, bfloat16 at d 256 mma_sync, float32 and bfloat16 at d 16
+    cuda_core_f32, one call counted once under its variant; wgmma and
+    mma_sync raise without the forward's lse, and no forward or backward of
+    another variant takes one."""
     for dtype, d, variant in ((torch.bfloat16, 128, "wgmma"), (torch.float16, 64, "wgmma"),
+                              (torch.bfloat16, 256, "mma_sync"),
                               (torch.float32, 128, "cuda_core_f32"),
                               (torch.bfloat16, 16, "cuda_core_f32")):
         q, k, v, do = _bwd_inputs(dev, dtype, 1, 4, 2, 70, 70, d, True)
@@ -1353,7 +1438,7 @@ def test_flash_attention_bwd_variants(dev):
         after = fa_ops.bwd_launches_by_variant
         assert {n: after[n] - before[n] for n in after} == {n: int(n == variant) for n in after}
         assert fa_ops.bwd_variant_for(dtype, d) == variant
-        if variant == "wgmma":
+        if variant in fa_ops.LSE_VARIANTS:
             f0, b0 = fa_ops.launches, fa_ops.bwd_launches
             with pytest.raises(ValueError):
                 fa_ops.flash_attention_bwd(q, k, v, out, do)
@@ -1384,7 +1469,8 @@ def test_flash_attention_fn_saves_the_lse(dev):
 def test_flash_attention_bwd_device_kernels(dev):
     """One wgmma backward call is three device kernels: the preprocess (D),
     dK/dV and dQ, and no stats pass; a cuda_core_f32 call is its stats,
-    dK/dV and dQ passes."""
+    dK/dV and dQ passes; a mma_sync call (d 256) the preprocess and its own
+    dK/dV and dQ kernels."""
     q, k, v, do = _bwd_inputs(dev, torch.bfloat16, 1, 16, 8, 512, 512, 128, True)
     out, lse = _forward_for_bwd(q, k, v)
     kern = _device_kernels(lambda: fa_ops.flash_attention_bwd(q, k, v, out, do, lse=lse))
@@ -1395,6 +1481,11 @@ def test_flash_attention_bwd_device_kernels(dev):
     kern = _device_kernels(lambda: fa_ops.flash_attention_bwd(q, k, v, out, do))
     assert kern == {"fa_bwd_stats_kernel": 1.0, "fa_bwd_dkdv_kernel": 1.0,
                     "fa_bwd_dq_kernel": 1.0}, kern
+    q, k, v, do = _bwd_inputs(dev, torch.bfloat16, 1, 8, 4, 256, 256, 256, True)
+    out, lse = _forward_for_bwd(q, k, v)
+    kern = _device_kernels(lambda: fa_ops.flash_attention_bwd(q, k, v, out, do, lse=lse))
+    assert kern == {"fa_bwd_pre_kernel": 1.0, "fa_bwd_dkdv_mma_kernel": 1.0,
+                    "fa_bwd_dq_mma_kernel": 1.0}, kern
 
 
 def _grad_inputs(*tensors):

@@ -37,7 +37,8 @@ from repro_torch.tree import path_key, tree_flatten_with_path, tree_leaves, tree
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-FAMILIES = ["qwen3-1.7b", "gemma3-4b", "granite-moe-3b-a800m", "falcon-mamba-7b", "hymba-1.5b"]
+FAMILIES = ["qwen3-1.7b", "gemma3-4b", "granite-moe-3b-a800m", "falcon-mamba-7b", "hymba-1.5b",
+            "musicgen-large"]
 
 
 def _pair(name, dtype="float32", **overrides):
@@ -57,6 +58,18 @@ def _batch(vocab, b=4, s=32, seed=1, mask=False):
              "labels": rng.integers(0, vocab, (b, s)).astype(np.int32)}
     if mask:
         batch["loss_mask"] = (rng.random((b, s)) < 0.7).astype(np.float32)
+    return batch
+
+
+def _family_batch(cfg, seed=1):
+    """``_batch`` for a token family; for a frontend family (musicgen's
+    EnCodec frames) numpy frame embeddings in place of the tokens, which
+    both packages' loss_fn take as ``{"embeds": (b, s, d_model)}``."""
+    batch = _batch(cfg.vocab_size, seed=seed)
+    if cfg.frontend:
+        tokens = batch.pop("tokens")
+        batch["embeds"] = np.random.default_rng(seed + 100).standard_normal(
+            tokens.shape + (cfg.d_model,)).astype(np.float32)
     return batch
 
 
@@ -87,8 +100,10 @@ def _grads(pcfg, tparams, batch, **kw):
 
 @pytest.mark.parametrize("name", FAMILIES)
 def test_loss_and_grads_match_jax(name):
+    """musicgen-large trains on frame embeddings: its token embedding is not
+    read, and both packages give it zero gradients."""
     cfg, pcfg, params, tparams = _pair(name)
-    batch = _batch(cfg.vocab_size)
+    batch = _family_batch(cfg)
     jl, jg = jax.value_and_grad(
         lambda p: JT.loss_fn(p, jax.tree_util.tree_map(jnp.asarray, batch), cfg))(params)
     pl, pg = _grads(pcfg, tparams, batch, remat=False)
@@ -163,6 +178,27 @@ def test_counts_match_jax():
         assert PC.param_bytes(tparams) == JC.param_bytes(params)
         opt = adamw_init(tparams)
         assert PC.param_bytes(opt) == JC.param_bytes(jax_adamw_init(params))
+
+
+@pytest.mark.parametrize("chunk", [1, 40, 1000])
+def test_adamw_update_by_slices_is_bit_for_bit(monkeypatch, chunk):
+    """A leaf updated a slice of its leading dim at a time (the large leaves'
+    path) gives the same bits as the whole leaf at once: params, moments."""
+    from repro_torch.train import optimizer as O
+
+    _, _, _, tparams = _pair("granite-moe-3b-a800m")
+    rng = np.random.default_rng(6)
+    grads = tree_map(lambda p: torch.from_numpy(
+        rng.standard_normal(tuple(p.shape)).astype(np.float32)), tparams)
+    state = adamw_init(tparams)
+    state = {"m": tree_map(lambda m: m + 0.01, state["m"]),
+             "v": tree_map(lambda v: v + 0.02, state["v"]), "step": state["step"] + 2}
+    want_p, want_s = adamw_update(grads, state, tparams, lr=1e-2)
+    monkeypatch.setattr(O, "CHUNK_ELEMENTS", chunk)
+    got_p, got_s = adamw_update(grads, state, tparams, lr=1e-2)
+    for a, b in zip(tree_leaves((got_p, got_s["m"], got_s["v"])),
+                    tree_leaves((want_p, want_s["m"], want_s["v"]))):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
 
 
 def test_global_norm_sums_in_jax_leaf_order():
