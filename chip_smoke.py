@@ -151,8 +151,8 @@ non-zero exit code:
                 time, peak memory;
   9. wide     — (o) the four attention kernels at head dim 256, gemma3-4b's
                 shapes (8 query heads over 4 kv heads): flash_attention over
-                4096 tokens with window 0 and 1024 (the mma_sync kernel's
-                256-wide instance), chunk_score over the prefix and
+                4096 tokens with window 0 and 1024 (the wgmma kernel's d 256
+                instance), chunk_score over the prefix and
                 chunk_attention over 64 chunks of 16 under a 64-token suffix
                 (float32 queries; the indexed form at b = 2 bit for bit the
                 gathered), decode_attention over 16-token pages (bfloat16;
@@ -187,14 +187,14 @@ non-zero exit code:
                 freed: (t1) flash_attention's backward kernel against its
                 plain version at the training shape (bfloat16, s 4096,
                 causal), with window 1024, at gemma3-4b's heads (8 / 4 of
-                256, causal and window 1024: the mma_sync variant, its
-                instances' registers and spills from ptxas -v), at
-                hymba-1.5b's (25 / 5 of 64) and in float32 at d 16, two runs
-                bit for bit, the variant that ran (wgmma at bfloat16 d 64 /
-                128, mma_sync at d 256: the forward's logsumexp held to its
-                plain version and its output the same bits with and without
-                it), timed beside its bound (five products; the variant's
-                own work beside it), SDPA's backward (or the backend's
+                256, causal and window 1024: the wgmma variant's d 256
+                kernels, the registers and spills of them and of the d 256
+                forward from ptxas -v), at hymba-1.5b's (25 / 5 of 64) and in
+                float32 at d 16, two runs bit for bit, the variant that ran
+                (wgmma at bfloat16 d 64 / 128 / 256: the forward's logsumexp
+                held to its plain version and its output the same bits with
+                and without it), timed beside its bound (five products; the
+                variant's own work beside it), SDPA's backward (or the backend's
                 refusal), the plain version and its host time; (t2)
                 make_train_step (grad_accum 2, no remat, lr 3e-4) on seeded
                 bfloat16 weights over one fixed numpy-seeded batch of 2 x
@@ -240,7 +240,7 @@ non-zero exit code:
                 step time, tokens/s, model-FLOPs utilisation over each
                 layer's window and an MoE's active experts, peak memory, one
                 more step profiled): (t9) gemma3-4b at 12 of 34 layers (two
-                whole 5:1 groups; the mma_sync backward at d 256); (t10)
+                whole 5:1 groups; the wgmma backward at d 256); (t10)
                 gemma3-4b at 6 layers (five windowed, layer 5 global) held
                 to the plain path within (t3)'s limits, remat bit for bit;
                 (t11) granite-moe-3b-a800m at 24 of 32 layers (its MoE
@@ -399,13 +399,13 @@ BWD_F32_REL = 1e-5
 LSE_TOL = 2e-5
 # the backward's work over the visible pairs: (products, exponentials) of
 # the function, S, dP, dV, dK and dQ with one exponential a pair (the
-# bound), and of each variant's design (``design_bound_ms``): wgmma and
-# mma_sync compute S and P (and dP) in both of their gradient kernels,
-# cuda_core_f32 S and P in its stats pass too
+# bound), and of each variant's design (``design_bound_ms``): wgmma
+# computes S and P (and dP) in both of its gradient kernels, cuda_core_f32 S
+# and P in its stats pass too
 BWD_WORK = (5, 1)
-BWD_DESIGN_WORK = {"wgmma": (7, 2), "mma_sync": (7, 2), "cuda_core_f32": (8, 3)}
+BWD_DESIGN_WORK = {"wgmma": (7, 2), "cuda_core_f32": (8, 3)}
 # (t1)'s other shapes: gemma3-4b's heads (query, kv, head dim; d 256 trains
-# on the mma_sync backward) and hymba-1.5b's, whose flash backward runs 64
+# on the wgmma backward) and hymba-1.5b's, whose flash backward runs 64
 # times in a training step
 SWA_HEADS, SSM_HEADS = (8, 4, 256), (25, 5, 64)
 # (t3) the kernel path against the plain path in bfloat16 at full width, 4
@@ -3049,11 +3049,11 @@ def phase_wide_kernels(cfg, smi_line):
     pos = torch.arange(S, device=dev)
     flash = {}
     for window in (0, cfg.sliding_window):
-        before = fa.launches_by_variant["mma_sync"]
+        before = fa.launches_by_variant["wgmma"]
         got, err, tol = flash_held(f"d={d} window={window}", q, k, v, causal=True,
                                    window=window)
-        if fa.launches_by_variant["mma_sync"] != before + 1:
-            fail("flash_attention at d 256 did not run the mma_sync kernel")
+        if fa.launches_by_variant["wgmma"] != before + 1:
+            fail("flash_attention at d 256 did not run the wgmma kernel")
         if not torch.equal(got, fa.flash_attention(q, k, v, window=window)):
             fail("flash_attention at d 256 is not reproducible bit for bit")
         pairs = sum(min(i + 1, window or i + 1) for i in range(S))
@@ -3468,7 +3468,7 @@ def phase_swa(cfg, smi_line):
     params = _init_weights("swa (r)", cfg)
     rng = np.random.default_rng(13)
     prefix = rng.integers(0, cfg.vocab_size, PREFIX_LEN)
-    sess, ingest, took = _family_ingest(cfg, params, prefix, "mma_sync")
+    sess, ingest, took = _family_ingest(cfg, params, prefix, "wgmma")
     n_local = int((cfg.window_sizes() > 0).sum())
     print(f"swa (r): ingest of {PREFIX_LEN} tokens took {took:.2f} s (flash_attention launches "
           f"at d {cfg.d_head} {ingest}: {n_local} local layers with window "
@@ -3590,9 +3590,9 @@ def _sdpa_bwd_ms(q, k, v, do, window):
 def phase_train_kernel(cfg, smi_line):
     """(t1) flash_attention's backward kernel against its plain version at
     the training step's shape (bfloat16, causal), with sliding window 1024,
-    at gemma3-4b's (8 / 4 heads of 256, causal and window 1024: the mma_sync
-    variant), at hymba-1.5b's (25 / 5 heads of 64, causal) and in float32 at
-    the tiny preset's d 16 (the forward's output, which the backward reads,
+    at gemma3-4b's (8 / 4 heads of 256, causal and window 1024: the wgmma
+    variant's d 256 kernels), at hymba-1.5b's (25 / 5 heads of 64, causal)
+    and in float32 at the tiny preset's d 16 (the forward's output, which the backward reads,
     first held to its plain version; where the backward's variant reads a
     logsumexp, the forward run again with its lse output, the same bits, and
     that lse held to its plain version): each gradient's error and two runs
@@ -3600,16 +3600,16 @@ def phase_train_kernel(cfg, smi_line):
     function's five products; the products the variant runs as
     ``design_bound``), SDPA's backward (or the backend's refusal), the plain
     version and the wrapper's host time. First the registers and spill bytes
-    of the mma_sync backward's and forward's d 256 instances (ptxas -v).
-    Returns {label: numbers}, with those instances' under "mma_sync_ptxas"."""
+    of the d 256 kernels, the backward's and both of the forward's (with and
+    without the lse; ptxas -v). Returns {label: numbers}, with those
+    kernels' under "d256_ptxas"."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                          flash_attention_lse_ref)
 
-    ptx = {k: v for frag in ("_mma_kernel", "flash_tc_kernel")
-           for k, v in ptxas_info(frag).items() if "flash_tc" not in k or "Li256E" in k}
+    ptx = ptxas_info("wgmma256")
     for name, (regs, st_b, ld_b) in sorted(ptx.items()):
         print(f"train (t1): {name} (ptxas -v, {B_LOG}): {regs} registers, {st_b} / {ld_b} bytes "
               f"of spill stores / loads")
@@ -3626,9 +3626,9 @@ def phase_train_kernel(cfg, smi_line):
               ("gemma_d256_window_1024", bf, s, *SWA_HEADS, BWD_WINDOW),
               ("hymba_d64", bf, s, *SSM_HEADS, 0),
               ("float32_tiny", torch.float32, 128, 4, 2, 16, 0))
-    out_rows = {"mma_sync_ptxas": {k: dict(zip(("registers", "spill_store_bytes",
-                                                "spill_load_bytes"), v))
-                                   for k, v in ptx.items()}}
+    out_rows = {"d256_ptxas": {k: dict(zip(("registers", "spill_store_bytes",
+                                            "spill_load_bytes"), v))
+                               for k, v in ptx.items()}}
     for label, dtype, s_, nq_, nkv_, d_, window in shapes:
         # the model's (b, s, n, d) projections, read through transposed views
         q = rn((1, s_, nq_, d_), dtype).transpose(1, 2)
@@ -4484,7 +4484,7 @@ def phase_train_swa_agree(cfg, smi_line):
     """(t10) gemma3-4b at full width cut to SWA_AGREE_LAYERS layers (the 5:1
     pattern's five windowed layers and global layer 5, so both mask shapes
     are held), bfloat16, one 4096-token row: the kernel path's loss and
-    gradients (one mma_sync flash backward a layer) against the card's
+    gradients (one wgmma flash backward a layer) against the card's
     plain path (block-wise attention through autograd, no kernel launched)
     within (t3)'s limits; remat True bit for bit no remat."""
     import torch
@@ -4504,8 +4504,8 @@ def phase_train_swa_agree(cfg, smi_line):
     before = dict(fa.bwd_launches_by_variant)
     l_k, g_k = vg(params, one)
     got = {k: n - before[k] for k, n in fa.bwd_launches_by_variant.items() if n != before[k]}
-    if got != {"mma_sync": SWA_AGREE_LAYERS}:
-        fail(f"train (t10): flash backward launches {got}, expected {SWA_AGREE_LAYERS} mma_sync")
+    if got != {"wgmma": SWA_AGREE_LAYERS}:
+        fail(f"train (t10): flash backward launches {got}, expected {SWA_AGREE_LAYERS} wgmma")
     before = (fa.launches, fa.bwd_launches)
     with plain_attention():
         l_p, g_p = vg(params, one)
@@ -4530,7 +4530,7 @@ def phase_train_swa_agree(cfg, smi_line):
 
 def phase_train_families(smi_line):
     """(t9)-(t12): gemma3-4b trained at FAMILY_TRAIN_LAYERS[its name]
-    layers (the mma_sync backward at d 256), its 6-layer agreement, then
+    layers (the wgmma backward at d 256), its 6-layer agreement, then
     granite-moe-3b-a800m (its MoE dispatch under grad) and musicgen-large
     (frame embeddings) trained, each at the depth FAMILY_TRAIN_LAYERS gives
     it (the wgmma backward at d 64). Returns ({path: {kernel: launches}},
@@ -4619,18 +4619,18 @@ def phase_train(smi_line):
 
     for label in ("window_1024", "float32_tiny"):
         row[label] = shape_entry(kern[label])
-    # gemma3-4b's d 256 (the mma_sync variant) and hymba-1.5b's d 64 shapes,
+    # gemma3-4b's d 256 (the wgmma variant) and hymba-1.5b's d 64 shapes,
     # with the launches the training runs made at each
     d256_paths = {p: n for p, n in bwd_paths.items() if p.startswith(SWA_NAME)}
     row["head_dim_256"] = {**shape_entry(kern["gemma_d256"]),
                            "window_1024": shape_entry(kern["gemma_d256_window_1024"]),
                            "launches": sum(n["launches"] for n in d256_paths.values()),
                            "launches_by_path": d256_paths,
-                           "ptxas": kern["mma_sync_ptxas"]}
+                           "ptxas": kern["d256_ptxas"]}
     row["hymba_d64"] = {**shape_entry(kern["hymba_d64"]),
                         "launches": sum(n["launches"] for p, n in bwd_paths.items()
                                         if p.startswith(SSM_TRAIN_NAME))}
-    if row["launches"] < 1 or by_variant.get("mma_sync", 0) < 1:
+    if row["launches"] < 1 or set(by_variant) != {"wgmma"}:
         fail(f"flash_attention_bwd on the training paths: {by_variant}")
     held["flash_attention"] = {"err": r["forward_err"]}
     return paths, [row, scan_row], held

@@ -15,12 +15,12 @@
 //   D = rowsum(dO o O),  dP = dO V^T,  dS = P o (dP - D),
 //   dV = P^T dO,  dK = scale dS^T Q,  dQ = scale dS K.
 // Each gradient element is written by one thread of one CTA and every sum
-// runs in a fixed order: no atomics, the same bits on every run. Three
+// runs in a fixed order: no atomics, the same bits on every run. Two
 // variants, chosen by the wrapper by dtype and head dim (ops.py:
 // bwd_variant_for):
 //
-// * wgmma (bfloat16 / float16, d in {64, 128}: every model the port trains
-//   but gemma3-4b).
+// * wgmma (bfloat16 / float16, d in {64, 128, 256}: every model the port
+//   trains).
 //   The forward's wgmma kernel saved each query row's logsumexp, in log2
 //   units of the scaled scores (lse = m + log2 l, so P = exp2(scale log2(e)
 //   s - lse)), so nothing recomputes the softmax statistics. Three kernels:
@@ -59,35 +59,37 @@
 //   P and dS are rounded to 16 bits before the products that take them from
 //   registers; every product accumulates in float32 and each gradient is
 //   rounded once.
-// * mma_sync (bfloat16 / float16, d = 256: gemma3-4b), fed by the mma_sync
-//   forward's logsumexp (the same units and row layout as the wgmma
-//   forward's). Three kernels:
-//   - pre: the wgmma variant's, at d = 256;
-//   - dK/dV: a CTA of 8 warps per (request, kv head, 64 keys). At d = 256 a
-//     64-key x 256 tile of dK and of dV would be 256 floats a thread of a
-//     warpgroup, so no thread holds both: warps 0-3 own dV and warps 4-7 dK
-//     of the same 16 keys each (128 floats a thread). For every query head
-//     of the group and every 64-row query tile that sees any of the keys
-//     (Q, dO, lse and D by cp.async, double-buffered behind the current
-//     step; K and V loaded once), the dV warps run S^T = K Q^T and form
-//     P^T, the dK warps run dP^T = V dO^T (mma.sync m16n8k16, fragments by
-//     ldmatrix from tiles padded to 264 elements a row); P^T crosses to the
-//     dK warps through shared memory as float32 in the accumulator layout,
-//     the dK warps form dS^T = P^T o (dP^T - D), and each warp adds P^T dO
-//     or dS^T Q with its operand rounded to 16 bits (dO and Q read
-//     transposed). Each warp runs two products of a step, where one warp
-//     owning both would run three; shared memory holds K, V, two buffers of
-//     Q and dO and P^T: 215 KB, one CTA an SM.
-//   - dQ: a CTA of 8 warps per (request, query head, 128 query rows), 16
-//     rows a warp (a 16 x 256 accumulator), Q and dO loaded once, 32-key K
-//     and V tiles double-buffered: S = Q K^T, dP = dO V^T, dS on the
-//     registers, dQ += dS K with K read transposed. 32-key steps keep S, dP
-//     and dS to 40 registers beside the accumulator's 128.
-//   Seven products where the minimum is five (S and dP in both kernels), as
-//   in the wgmma variant; P and dS rounded to 16 bits before the products
-//   that take them. float32
-//   at d = 256 has no backward: the card trains in bfloat16, and the
-//   wrapper raises for it.
+//   At d = 256 (gemma3-4b) the preprocess is the same, and two kernels of
+//   their own take the other two roles, both 256 threads with one thread
+//   issuing the copies:
+//   - dK/dV: a CTA per (request, kv head, 64 keys). A 64-key x 256 tile of
+//     dK and of dV would be 256 floats a thread of a warpgroup, so the two
+//     warpgroups hold the same 64 keys and split by role: warpgroup 0 runs
+//     S^T = K Q^T, forms P^T and adds dV += P^T dO; warpgroup 1 runs
+//     dP^T = V dO^T, reads P^T from shared memory (float32, in the
+//     accumulator's own layout, between two named barriers), forms
+//     dS^T = P^T o (dP^T - D) and adds dK += dS^T Q: two products a
+//     warpgroup a step, 128 + 32 floats a thread. K and V stay resident,
+//     Q, dO, lse and D come through a ring of two stages (210 KB in all),
+//     and warpgroup 1's first thread, which finishes a step last, refills
+//     it. Every step of its query tiles sees some of its keys (the tiles
+//     are cut to the keys' visible range), so no step is skipped.
+//   - dQ: a CTA per (request, query head, 128 query rows), 64 a warpgroup
+//     (a 64 x 256 accumulator), Q and dO resident (128 KB), 64-key K tiles
+//     in two slots and V tiles in one (225 KB in all): S = Q K^T and
+//     dP = dO V^T as wgmma m64n64k16, dS on the registers, dQ += dS K with
+//     K read MN-major; 32 floats each of S, dP and dS beside the
+//     accumulator. V (i + 1) loads while dS and dQ (i) are computed, K
+//     (i + 1) while S and dP (i) are. A tile none of whose pairs a
+//     warpgroup sees runs all the same, its P masked to 0. ptxas serializes
+//     every product of a kernel (C7520) if a branch encloses them with a
+//     one-thread refill inside, or if a barrier wait sits between the
+//     products of one commit group: S and dP are two groups, the wait on V
+//     between them. 32-key tiles (m64n32k16 products, three stages) took
+//     0.289 ms at gemma3-4b's shape, and the serialized 64-key form 0.264,
+//     against 0.201 now: a product with both operands in shared memory
+//     reads (64 + N) x 32 bytes for 64 x N x 32 operations, 192 bytes a
+//     clock at N = 32 where the SM reads 128.
 // * cuda_core_f32 (float32 at d in {16, 32, 64, 128}, and 16-bit at d in
 //   {16, 32}, which the 128-byte swizzled tiles do not take): three kernels,
 //   float32 on the CUDA cores (the forward's 64 x 64 tiles and 4 x 4 scores a
@@ -110,16 +112,20 @@
 // 0.17 ms at the tensor cores' 989 TFLOP/s; the wgmma variant's seven are
 // 2.4e11, 0.24 ms; ~100 MB of q, k, v, O, dO and the gradients, 0.03 ms.
 // gemma3-4b's (8 query heads over 4, d 256) is the same 1.7e11, since
-// 8 x 256 = 16 x 128: 0.17 ms causal, 0.076 ms with window 1024; the
-// mma_sync variant runs its five products on pre-Hopper mma.sync, which
-// holds its rate well below the wgmma kernels'.
+// 8 x 256 = 16 x 128: 0.17 ms causal, 0.076 ms with window 1024 (seven
+// products: 0.24 and 0.106). Its kernels run at about three times the
+// five-product bound (PERF.md). What holds them back: the first product of
+// each kernel reads both operands from shared memory (S^T and dP^T, S and
+// dP), at the SM's 128 bytes a clock when the tensor cores run at full
+// rate; in dK/dV warpgroup 1's product waits for warpgroup 0's P^T, so
+// the tensor cores idle while both warpgroups are in their elementwise
+// work; and a warpgroup's elementwise work and its products take turns.
 // The float32 variant recomputes S three times and P twice (eight
 // products) on the CUDA cores' 67 TFLOP/s.
 #include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
-#include "mma_sync.cuh"
 #include "wgmma.cuh"
 
 namespace ckv {
@@ -863,6 +869,14 @@ static int launch_flash_bwd_wgmma(const void* q, const void* k, const void* v, c
 }
 
 template <typename T>
+static int launch_flash_bwd_wgmma256(const void* q, const void* k, const void* v,
+                                     const void* out, const void* dout, void* dq, void* dk,
+                                     void* dv, const float* lse, float* dsum, int b, int n_q,
+                                     int n_kv, int s_q, int s_k, int causal, int window,
+                                     int q_offset, int lse_row, const BwdStrides& st,
+                                     cudaStream_t stream);
+
+template <typename T>
 static int launch_flash_bwd_wgmma_d(int d, const void* q, const void* k, const void* v,
                                     const void* out, const void* dout, void* dq, void* dk,
                                     void* dv, const float* lse, float* dsum, int b, int n_q,
@@ -876,345 +890,423 @@ static int launch_flash_bwd_wgmma_d(int d, const void* q, const void* k, const v
     return launch_flash_bwd_wgmma<T, 128>(q, k, v, out, dout, dq, dk, dv, lse, dsum, b, n_q,
                                           n_kv, s_q, s_k, causal, window, q_offset, lse_row, st,
                                           stream);
+  if (d == 256)
+    return launch_flash_bwd_wgmma256<T>(q, k, v, out, dout, dq, dk, dv, lse, dsum, b, n_q, n_kv,
+                                        s_q, s_k, causal, window, q_offset, lse_row, st, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
-// mma_sync kernels (bfloat16 / float16, d = 256: gemma3-4b's heads)
+// wgmma + TMA kernels at d = 256 (bfloat16 / float16: gemma3-4b's heads)
+//
+// A 64-key x 256 tile of both dK and dV would be 256 floats a thread of a
+// warpgroup, so the dK/dV CTA splits its two warpgroups by role over the
+// same 64 keys: warpgroup 0 owns dV (S^T = K Q^T, P^T, dV += P^T dO) and
+// warpgroup 1 dK (dP^T = V dO^T, dS^T from P^T, dK += dS^T Q), 128 + 32
+// floats a thread each. P^T crosses from warpgroup 0 to warpgroup 1 through
+// shared memory as float32 in the accumulator's layout (thread t of one
+// reads what thread t of the other wrote), under two named barriers: "full"
+// (P^T written) and "free" (P^T read). The dQ CTA holds 128 query rows (64 a
+// warpgroup, a 64 x 256 accumulator) and walks 32-key K and V tiles, so S,
+// dP and dS take 16 floats each beside it.
 
-// At d = 256 a thread of the wgmma kernels would hold a 64-key x 256 tile of
-// dK and of dV (256 floats); here no thread holds both. The dK/dV CTA's 8
-// warps split by role: warps 0-3 own dV and warps 4-7 dK of the same 16
-// keys each (a 16 x 256 accumulator, 128 floats a thread). Per 64-row query
-// tile the dV warps compute S^T = K Q^T and P^T, the dK warps dP^T = V dO^T
-// (one product of 16 x 64 x 256 each), P^T crosses to the dK warps through
-// shared memory (float32, in the accumulator layout: each dK thread reads
-// what its dV twin wrote), and each warp then adds its own P^T dO or
-// dS^T Q. The dQ CTA holds 128 query rows (16 a warp, a 16 x 256
-// accumulator) and walks 32-key tiles, so its S, dP and dS add 40 registers
-// to the accumulator's 128.
-constexpr int BM_THREADS = 256;    // 8 warps
-constexpr int BM_HD = 256;         // the head dim these kernels take
-constexpr int BM_LD = BM_HD + 8;   // padded row stride of every tile (elements)
-constexpr int BM_KEYS = 64;        // keys of a dK/dV CTA (16 a warp of a role)
-constexpr int BM_QROWS = 64;       // query rows of a dK/dV step
-constexpr int BM_DQ_ROWS = 128;    // query rows of a dQ CTA
-constexpr int BM_DQ_KEYS = 32;     // keys of a dQ step
-constexpr int BM_TILE64 = 64 * BM_LD;  // elements of a padded 64-row tile
+constexpr int B2_SUB = 4;                   // 128-byte column blocks of a 256-wide row
+constexpr int B2_TILE = B2_SUB * BW_BOX;    // 64 rows x 256: 32 KB
+constexpr int B2_STAGES = 2;                // the dK/dV ring: Q and dO tiles
+// dK/dV: K and V resident, the ring of Q and dO, P^T (128 threads x 32
+// floats), each stage's lse and D, then the mbarriers
+constexpr int B2_KV_RING = 2 * B2_TILE;
+constexpr int B2_KV_PT = B2_KV_RING + 2 * B2_STAGES * B2_TILE;
+constexpr int B2_KV_STATS = B2_KV_PT + 128 * 32 * 4;
+constexpr int B2_KV_BAR = B2_KV_STATS + B2_STAGES * 512;
+constexpr int B2_KV_SMEM = 1024 + B2_KV_BAR + 8 * (1 + 2 * B2_STAGES);  // + alignment slack
+// dQ: Q and dO resident (128 rows each), 64-key K tiles in two slots and
+// V tiles in one (the most 227 KB hold), then the mbarriers: Q's, each K
+// slot's "full" and "empty", V's "full" and "empty"
+constexpr int B2_DQ_BAR = 7 * B2_TILE;
+constexpr int B2_DQ_SMEM = 1024 + B2_DQ_BAR + 8 * 7;
+static_assert(B2_KV_SMEM <= 232448 && B2_DQ_SMEM <= 232448, "over the H100's 227 KB a block");
+// named barriers of the dK/dV kernel (0 is __syncthreads'): P^T written, P^T read
+constexpr int B2_PT_FULL = 1, B2_PT_FREE = 2;
 
-// dK/dV: K, V, two buffers of Q and dO, P^T (4 warps x 32 floats x 32
-// lanes), two buffers of the tile's lse and D
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(BW_THREADS) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(BW_THREADS) : "memory");
+}
+
+// dK and dV of 64 keys of one kv head (warpgroup 0 dV, 1 dK), over every
+// query head of its group
 template <typename T>
-constexpr int bm_dkdv_smem() {
-  return (int)sizeof(T) * 6 * BM_TILE64 + 4 * (4 * 32 * 32 + 2 * 2 * BM_QROWS);
-}
-// dQ: Q and dO (128 rows each), two buffers of 32-key K and V tiles
-template <typename T>
-constexpr int bm_dq_smem() {
-  return (int)sizeof(T) * (2 * BM_DQ_ROWS + 2 * 2 * BM_DQ_KEYS) * BM_LD;
-}
-
-// acc[16 rows x 8 N] += A[16 rows x 16 kk] B[tile rows, columns] over HD
-// columns: A from rows [16 w, 16 w + 16) of tile `a`, B the rows
-// [0, 8 N) of tile `b` (both row-major with stride BM_LD: the product
-// a b^T, contracted over the head dim)
-template <typename T, int N>
-__device__ __forceinline__ void bm_abt(float acc[N][4], const T* a, const T* b, int w, int lane) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const T* ap = a + (w * 16 + (lane % 8) + 8 * ((lane / 8) % 2)) * BM_LD + 8 * (lane / 16);
-  const T* bp = b + ((lane % 8) + 8 * (lane / 16)) * BM_LD + 8 * ((lane / 8) % 2);
-#pragma unroll 4
-  for (int kk = 0; kk < BM_HD / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(af, ap + kk * 16);
-#pragma unroll
-    for (int j2 = 0; j2 < N / 2; ++j2) {
-      uint32_t bf[4];
-      ldsm_x4(bf, bp + j2 * 16 * BM_LD + kk * 16);
-      mma16816<T>(acc[2 * j2], af, bf[0], bf[1]);
-      mma16816<T>(acc[2 * j2 + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[16 x 256] += A[16 x 16 KK] B where A is in registers (the accumulator
-// of a 16 x 16 KK product rounded in pairs) and B the rows [0, 16 KK) of
-// tile `b` (row-major, stride BM_LD), read transposed
-template <typename T, int KK>
-__device__ __forceinline__ void bm_ab(float acc[BM_HD / 8][4], const uint32_t a[KK][4],
-                                      const T* b, int lane) {
-  const T* bp = b + ((lane % 8) + 8 * ((lane / 8) % 2)) * BM_LD + 8 * (lane / 16);
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk)
-#pragma unroll
-    for (int d2 = 0; d2 < BM_HD / 16; ++d2) {
-      uint32_t bf[4];
-      ldsm_x4_trans(bf, bp + kk * 16 * BM_LD + d2 * 16);
-      mma16816<T>(acc[2 * d2], a[kk], bf[0], bf[1]);
-      mma16816<T>(acc[2 * d2 + 1], a[kk], bf[2], bf[3]);
-    }
-}
-
-// the accumulator of a 16 x 16 KK product as KK A fragments, rounded to T
-template <typename T, int KK>
-__device__ __forceinline__ void bm_pack(uint32_t out[KK][4], const float x[2 * KK][4]) {
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk) {
-    out[kk][0] = pack2<T>(x[2 * kk][0], x[2 * kk][1]);
-    out[kk][1] = pack2<T>(x[2 * kk][2], x[2 * kk][3]);
-    out[kk][2] = pack2<T>(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    out[kk][3] = pack2<T>(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-  }
-}
-
-// dK and dV of 64 keys of one kv head, over every query head of its group
-template <typename T>
-static __global__ void __launch_bounds__(BM_THREADS, 1) fa_bwd_dkdv_mma_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dsum,
-    T* __restrict__ dk, T* __restrict__ dv, int n_q, int n_kv, int s_q, int s_k, int causal,
-    int window, int q_offset, int lse_row, float scale_log2, float scale, BwdStrides st) {
-  extern __shared__ __align__(16) unsigned char bm_smem[];
-  T* ks = reinterpret_cast<T*>(bm_smem);
-  T* vs = ks + BM_TILE64;
-  T* qs = vs + BM_TILE64;      // [2][64][BM_LD]
-  T* dos = qs + 2 * BM_TILE64;  // [2][64][BM_LD]
-  float* ps = reinterpret_cast<float*>(dos + 2 * BM_TILE64);  // [4][8][4][32]
-  float* stats = ps + 4 * 32 * 32;                             // [2][lse 64, D 64]
+static __global__ void __launch_bounds__(BW_THREADS, 1) fa_bwd_dkdv_wgmma256_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ dsum, T* __restrict__ dk,
+    T* __restrict__ dv, int n_q, int n_kv, int s_q, int s_k, int causal, int window,
+    int q_offset, int lse_row, float scale_log2, float scale, MapCoord cq, MapCoord ck,
+    MapCoord cv, MapCoord cdo, BwdStrides st) {
+  constexpr int SUB = B2_SUB, TILE = B2_TILE, STAGES = B2_STAGES, QB = BW_ROWS, KEYS = BW_ROWS;
+  extern __shared__ unsigned char bw_smem[];
+  // 1024-byte aligned base: the 128-byte swizzle repeats every 1024 bytes
+  const uint32_t raw = smem_addr(bw_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t k_s = base, v_s = base + TILE, q_s = base + B2_KV_RING;
+  const uint32_t do_s = q_s + STAGES * TILE, stats = base + B2_KV_STATS;
+  const uint32_t bar_kv = base + B2_KV_BAR;
+  float* pt = reinterpret_cast<float*>(bw_smem + (base + B2_KV_PT - raw));
+  const float* stats_p = reinterpret_cast<const float*>(bw_smem + (stats - raw));
+  auto bar_f = [&](int s) { return bar_kv + 8u * (1 + s); };
+  auto bar_e = [&](int s) { return bar_kv + 8u * (1 + STAGES + s); };
 
   // the key tile varies slowest across the grid: the CTAs that see the most
   // queries (causal: the first key tiles) start first, every head's together
-  const int n0 = blockIdx.y * BM_KEYS;
+  const int n0 = blockIdx.y * KEYS;
   const int kh = blockIdx.x, b = blockIdx.z, group = n_q / n_kv;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
-  const int role = warp / 4, wk = warp % 4;  // role 0: dV, 1: dK; keys 16 wk..
-  // the queries that see any of these keys, [i_lo, i_hi), in tiles of 64
-  const int t_hi = min(n0 + BM_KEYS, s_k) - 1;
+  // the queries that see any of these keys, [i_lo, i_hi), in tiles of QB
+  const int k_last = min(n0 + KEYS, s_k) - 1;
   const int i_lo = causal ? max(0, n0 - q_offset) : 0;
-  const int i_hi = window > 0 ? min(s_q, t_hi + window - q_offset) : s_q;
-  const int m_first = (i_lo / BM_QROWS) * BM_QROWS;
-  const int n_mt = i_hi > i_lo ? (i_hi - m_first + BM_QROWS - 1) / BM_QROWS : 0;
+  const int i_hi = window > 0 ? min(s_q, k_last + window - q_offset) : s_q;
+  const int m_first = (i_lo / QB) * QB;
+  const int n_mt = i_hi > i_lo ? (i_hi - m_first + QB - 1) / QB : 0;
   const int n_iter = group * n_mt;  // steps of (query head, query tile)
 
-  // step it's Q, dO, lse and D into buffer it % 2
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_f(s), 1);
+      mbar_init(bar_e(s), BW_THREADS);  // every thread releases the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // step it's Q and dO tiles and (1-d bulk copies) its 64 rows' lse and D
   auto issue = [&](int it) {
-    const int buf = it % 2, qh = kh * group + it / n_mt;
-    const int m0 = m_first + (it % n_mt) * BM_QROWS;
-    tile_async<T, BM_HD, BM_QROWS>(qs + buf * BM_TILE64,
-                                   q + b * st.sb[BQ] + qh * st.sh[BQ], st.ss[BQ], m0, s_q);
-    tile_async<T, BM_HD, BM_QROWS>(dos + buf * BM_TILE64,
-                                   dout + b * st.sb[BDO] + qh * st.sh[BDO], st.ss[BDO], m0, s_q);
+    const int s = it % STAGES, qh = kh * group + it / n_mt;
+    const int m0 = m_first + (it % n_mt) * QB;
+    mbar_expect_tx(bar_f(s), 2 * TILE + 512);
+    for (int c = 0; c < SUB; ++c) {
+      cq.load(q_s + s * TILE + c * BW_BOX, &tm_q, bar_f(s), c * 64, m0, qh, b);
+      cdo.load(do_s + s * TILE + c * BW_BOX, &tm_do, bar_f(s), c * 64, m0, qh, b);
+    }
     // rows up to lse_row (a multiple of 128) are allocated: past s_q they
     // are read and masked
-    if (threadIdx.x < 32) {
-      const long long row = ((long long)b * n_q + qh) * lse_row + m0;
-      const int part = threadIdx.x / 16, c = (threadIdx.x % 16) * 4;
-      cp_async16(stats + buf * 2 * BM_QROWS + part * BM_QROWS + c,
-                 (part ? dsum : lse) + row + c, true);
-    }
+    const long long row = ((long long)b * n_q + qh) * lse_row + m0;
+    bulk_load(stats + s * 512, lse + row, 256, bar_f(s));
+    bulk_load(stats + s * 512 + 256, dsum + row, 256, bar_f(s));
   };
-  if (n_iter > 0) {
-    tile_async<T, BM_HD, BM_KEYS>(ks, k + b * st.sb[BK] + kh * st.sh[BK], st.ss[BK], n0, s_k);
-    tile_async<T, BM_HD, BM_KEYS>(vs, v + b * st.sb[BV] + kh * st.sh[BV], st.ss[BV], n0, s_k);
-    issue(0);
+  if (threadIdx.x == 0 && n_iter > 0) {
+    mbar_expect_tx(bar_kv, 2 * TILE);
+    for (int c = 0; c < SUB; ++c) {
+      ck.load(k_s + c * BW_BOX, &tm_k, bar_kv, c * 64, n0, kh, b);
+      cv.load(v_s + c * BW_BOX, &tm_v, bar_kv, c * 64, n0, kh, b);
+    }
+    for (int it = 0; it < min(STAGES, n_iter); ++it) issue(it);
   }
-  cp_async_commit();
 
-  float acc[BM_HD / 8][4];  // dV (role 0) or dK (role 1): keys 16 wk + g (+ 8)
+  const int wg = threadIdx.x / 128;  // 0: dV, 1: dK
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int key = n0 + warp * 16 + g;  // this thread's keys: key and key + 8
+  // the first product's A operand: K (S^T = K Q^T) or V (dP^T = V dO^T)
+  const uint32_t a_w = wg ? v_s : k_s;
+  float* pt_t = pt + tid;
+  float acc[SUB][32];  // dV (warpgroup 0) or dK (1)
 #pragma unroll
-  for (int j = 0; j < BM_HD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const int key = n0 + 16 * wk + g;  // this thread's keys: key and key + 8
-  float* ps_w = ps + wk * 32 * 32 + lane;
+  for (int c = 0; c < SUB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  if (n_iter > 0) mbar_wait(bar_kv, 0);
 
   for (int it = 0; it < n_iter; ++it) {
-    const int buf = it % 2, m0 = m_first + (it % n_mt) * BM_QROWS;
-    if (it + 1 < n_iter) issue(it + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // step it's tiles (and K, V) have landed
-    __syncthreads();
-    const T* q_t = qs + buf * BM_TILE64;
-    const T* do_t = dos + buf * BM_TILE64;
-    const float* lse_t = stats + buf * 2 * BM_QROWS;
-    const float* dd_t = lse_t + BM_QROWS;
-    const int p_lo = q_offset + m0, p_hi = q_offset + min(m0 + BM_QROWS, s_q) - 1;
-    // every pair of the tile visible: no mask
-    const bool whole = m0 + BM_QROWS <= s_q && n0 + BM_KEYS <= s_k &&
-                       (!causal || n0 + BM_KEYS - 1 <= p_lo) &&
+    const int s = it % STAGES, m0 = m_first + (it % n_mt) * QB;
+    const uint32_t q_t = q_s + s * TILE, do_t = do_s + s * TILE;
+    const float* lse_t = stats_p + s * 128;
+    const float* dd_t = lse_t + 64;
+    const int p_lo = q_offset + m0, p_hi = q_offset + min(m0 + QB, s_q) - 1;
+    // every pair visible: no mask (the same for both warpgroups, which hold
+    // the same keys); every step sees some pair, the query tiles being cut
+    // to the keys' visible range
+    const bool whole = m0 + QB <= s_q && n0 + KEYS <= s_k && (!causal || n0 + KEYS - 1 <= p_lo) &&
                        (window <= 0 || p_hi - n0 < window);
-    // rows: this warp's 16 keys; columns: the tile's 64 queries
-    float x[8][4];
-    bm_abt<T, 8>(x, role ? vs : ks, role ? do_t : q_t, wk, lane);
-    if (role == 0) {  // P^T = exp2(S^T scale_log2 - lse), to the dK warps
+    mbar_wait(bar_f(s), (it / STAGES) & 1);
+    // rows: the keys; columns: the tile's queries
+    float x[32];
+    const uint32_t b_t = wg ? do_t : q_t;
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+    for (int kk = 0; kk < 16; ++kk) Wgmma<64, T>::ss(x, kmajor(a_w, kk), kmajor(b_t, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+    if (wg == 0) {  // P^T = exp2(S^T scale_log2 - lse), to warpgroup 1
+      if (it > 0) named_sync(B2_PT_FREE);  // the last step's P^T has been read
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + 8 * j + 2 * t4);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int i = 8 * j + 2 * t4 + (e & 1);
-          float p = fast_exp2(fmaf(x[j][e], scale_log2, -lse_t[i]));
-          if (!whole && !fb_visible(m0 + i, key + 8 * (e >> 1), s_q, s_k, causal, window,
-                                    q_offset))
+          float p = fast_exp2(fmaf(x[4 * j + e], scale_log2, -((e & 1) ? l2.y : l2.x)));
+          if (!whole && !fb_visible(m0 + 8 * j + 2 * t4 + (e & 1), key + 8 * (e >> 1), s_q,
+                                    s_k, causal, window, q_offset))
             p = 0.f;
-          x[j][e] = p;
-          ps_w[(j * 4 + e) * 32] = p;
+          x[4 * j + e] = p;
+          pt_t[(4 * j + e) * 128] = p;
         }
-    }
-    __syncthreads();
-    if (role == 1) {  // dS^T = P^T o (dP^T - D)
+      }
+      named_arrive(B2_PT_FULL);
+    } else {  // dS^T = P^T o (dP^T - D)
+      named_sync(B2_PT_FULL);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(dd_t + 8 * j + 2 * t4);
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          x[j][e] = ps_w[(j * 4 + e) * 32] * (x[j][e] - dd_t[8 * j + 2 * t4 + (e & 1)]);
+          x[4 * j + e] = pt_t[(4 * j + e) * 128] * (x[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+      }
+      named_arrive(B2_PT_FREE);
     }
-    // dV += P^T dO, dK += dS^T Q: P^T and dS^T rounded to T as A operands
+    // P^T or dS^T as A operands: accumulator tiles 2 kk and 2 kk + 1 hold
+    // queries [16 kk, 16 kk + 16); dV += P^T dO, dK += dS^T Q with dO and
+    // Q read MN-major
     uint32_t a[4][4];
-    bm_pack<T, 4>(a, x);
-    bm_ab<T, 4>(acc, a, role ? q_t : do_t, lane);
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int x2 = 0; x2 < 4; ++x2)
+        a[kk][x2] = pack2<T>(x[8 * kk + 2 * x2], x[8 * kk + 2 * x2 + 1]);
+    const uint32_t bm_t = wg ? q_t : do_t;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < SUB; ++c) Wgmma<64, T>::rs(acc[c], a[kk], mnmajor(bm_t, c, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < SUB; ++c) fence_regs(acc[c]);
+    mbar_arrive(bar_e(s));
+    // warpgroup 1 finishes a step last (its product waits for P^T), so its
+    // first thread refills the stage
+    if (threadIdx.x == 128 && it + STAGES < n_iter) {
+      mbar_wait(bar_e(s), (it / STAGES) & 1);
+      issue(it + STAGES);
+    }
   }
-  cp_async_wait<0>();
+  // every "free" arrival is waited for before the CTA ends
+  if (wg == 0 && n_iter > 0) named_sync(B2_PT_FREE);
 
-  T* dst = role ? dk : dv;
-  const int bi = role ? BDK : BDV;
-  const float mul = role ? scale : 1.f;
+  T* dst = wg ? dk : dv;
+  const int bi = wg ? BDK : BDV;
+  const float mul = wg ? scale : 1.f;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int t = key + 8 * r;
     if (t >= s_k) continue;
     T* row = dst + b * st.sb[bi] + kh * st.sh[bi] + (long long)t * st.ss[bi];
 #pragma unroll
-    for (int j = 0; j < BM_HD / 8; ++j)
-      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) =
-          pack2<T>(acc[j][2 * r] * mul, acc[j][2 * r + 1] * mul);
+    for (int c = 0; c < SUB; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(row + c * 64 + 8 * j + 2 * t4) =
+            pack2<T>(acc[c][4 * j + 2 * r] * mul, acc[c][4 * j + 2 * r + 1] * mul);
   }
 }
 
-// dQ of 128 query rows of one query head (16 a warp)
+// dQ of 128 query rows of one query head (64 a warpgroup), over 64-key
+// tiles. K has two slots and V one: thread 0 refills K (i + 1) while S and
+// dP (i) run, once both warpgroups have released K (i - 1), and V (i + 1)
+// while dQ += dS K (i) runs, once both have finished dP (i).
 template <typename T>
-static __global__ void __launch_bounds__(BM_THREADS, 1) fa_bwd_dq_mma_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dsum,
-    T* __restrict__ dq, int n_q, int n_kv, int s_q, int s_k, int causal, int window,
-    int q_offset, int lse_row, float scale_log2, float scale, BwdStrides st) {
-  constexpr int KT = BM_DQ_KEYS * BM_LD;  // elements of a padded key tile
-  extern __shared__ __align__(16) unsigned char bm_smem[];
-  T* qs = reinterpret_cast<T*>(bm_smem);  // [128][BM_LD]
-  T* dos = qs + BM_DQ_ROWS * BM_LD;        // [128][BM_LD]
-  T* ks = dos + BM_DQ_ROWS * BM_LD;        // [2][32][BM_LD]
-  T* vs = ks + 2 * KT;                     // [2][32][BM_LD]
+static __global__ void __launch_bounds__(BW_THREADS, 1) fa_bwd_dq_wgmma256_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ lse, const float* __restrict__ dsum, T* __restrict__ dq, int n_q,
+    int n_kv, int s_q, int s_k, int causal, int window, int q_offset, int lse_row,
+    float scale_log2, float scale, MapCoord cq, MapCoord ck, MapCoord cv, MapCoord cdo,
+    BwdStrides st) {
+  constexpr int SUB = B2_SUB, TILE = B2_TILE, BN = BW_ROWS;
+  extern __shared__ unsigned char bw_smem[];
+  const uint32_t raw = smem_addr(bw_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t q_s = base, do_s = base + 2 * TILE, k_s = base + 4 * TILE;
+  const uint32_t v_s = base + 6 * TILE, bar_q = base + B2_DQ_BAR;
+  auto bar_fk = [&](int s) { return bar_q + 8u * (1 + s); };
+  auto bar_ek = [&](int s) { return bar_q + 8u * (3 + s); };
+  const uint32_t bar_fv = bar_q + 40u, bar_ev = bar_q + 48u;
 
   // the longest rows first, every head's together
-  const int n_mb = (s_q + BM_DQ_ROWS - 1) / BM_DQ_ROWS;
-  const int m0 = (n_mb - 1 - blockIdx.y) * BM_DQ_ROWS;
+  const int n_mb = (s_q + 2 * BW_ROWS - 1) / (2 * BW_ROWS);
+  const int m0 = (n_mb - 1 - blockIdx.y) * 2 * BW_ROWS;
   const int qh = blockIdx.x, b = blockIdx.z, kh = qh / (n_q / n_kv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
   // the keys any row of this CTA may see, in whole tiles
-  const int p_lo = q_offset + m0, p_hi = q_offset + min(m0 + BM_DQ_ROWS, s_q) - 1;
+  const int p_lo = q_offset + m0, p_hi = q_offset + min(m0 + 2 * BW_ROWS, s_q) - 1;
   const int k_end = causal ? min(s_k, p_hi + 1) : s_k;
   const int k_begin = window > 0 ? max(0, p_lo - window + 1) : 0;
-  const int t_begin = k_begin / BM_DQ_KEYS;
-  const int n_tiles = max(0, (k_end + BM_DQ_KEYS - 1) / BM_DQ_KEYS - t_begin);
-  const T* kb = k + b * st.sb[BK] + kh * st.sh[BK];
-  const T* vb = v + b * st.sb[BV] + kh * st.sh[BV];
+  const int t_begin = k_begin / BN;
+  const int n_tiles = max(0, (k_end + BN - 1) / BN - t_begin);
 
-  auto issue = [&](int i) {
-    const int buf = i % 2, t0 = (t_begin + i) * BM_DQ_KEYS;
-    tile_async<T, BM_HD, BM_DQ_KEYS>(ks + buf * KT, kb, st.ss[BK], t0, s_k);
-    tile_async<T, BM_HD, BM_DQ_KEYS>(vs + buf * KT, vb, st.ss[BV], t0, s_k);
-  };
-  if (n_tiles > 0) {
-    tile_async<T, BM_HD, BM_DQ_ROWS>(qs, q + b * st.sb[BQ] + qh * st.sh[BQ], st.ss[BQ], m0, s_q);
-    tile_async<T, BM_HD, BM_DQ_ROWS>(dos, dout + b * st.sb[BDO] + qh * st.sh[BDO], st.ss[BDO],
-                                     m0, s_q);
-    issue(0);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(bar_fk(s), 1);
+      mbar_init(bar_ek(s), BW_THREADS);
+    }
+    mbar_init(bar_fv, 1);
+    mbar_init(bar_ev, BW_THREADS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_commit();
+  __syncthreads();
 
-  const int r0 = m0 + 16 * warp;       // this warp's first row
-  const int row = r0 + g;              // this thread's rows: row and row + 8
-  // the warp's positions, for the tests of a tile
-  const int w_lo = q_offset + r0, w_hi = q_offset + min(r0 + 15, s_q - 1);
+  // tile i's K (into slot i % 2) or V, issued by thread 0
+  auto issue = [&](const CUtensorMap* map, const MapCoord& co, uint32_t dst, uint32_t bar, int i) {
+    mbar_expect_tx(bar, TILE);
+    for (int c = 0; c < SUB; ++c)
+      co.load(dst + c * BW_BOX, map, bar, c * 64, (t_begin + i) * BN, kh, b);
+  };
+  if (threadIdx.x == 0 && n_tiles > 0) {
+    mbar_expect_tx(bar_q, 4 * TILE);
+    for (int w = 0; w < 2; ++w)
+      for (int c = 0; c < SUB; ++c) {
+        cq.load(q_s + w * TILE + c * BW_BOX, &tm_q, bar_q, c * 64, m0 + 64 * w, qh, b);
+        cdo.load(do_s + w * TILE + c * BW_BOX, &tm_do, bar_q, c * 64, m0 + 64 * w, qh, b);
+      }
+    for (int i = 0; i < min(2, n_tiles); ++i) issue(&tm_k, ck, k_s + i * TILE, bar_fk(i), i);
+    issue(&tm_v, cv, v_s, bar_fv, 0);
+  }
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int r0 = m0 + 64 * wg;         // this warpgroup's first row
+  const int row = r0 + warp * 16 + g;  // this thread's rows: row and row + 8
+  const bool ok[2] = {row < s_q, row + 8 < s_q};
+  // the warpgroup's positions, for the tests of a tile
+  const int w_lo = q_offset + r0, w_hi = q_offset + min(r0 + 63, s_q - 1);
   // rows up to lse_row (a multiple of 128) are allocated: past s_q they are
   // read and masked
   const long long rb = ((long long)b * n_q + qh) * lse_row;
   const float lr[2] = {lse[rb + row], lse[rb + row + 8]};
   const float dd[2] = {dsum[rb + row], dsum[rb + row + 8]};
-  float acc[BM_HD / 8][4];
+  const uint32_t q_w = q_s + wg * TILE, do_w = do_s + wg * TILE;
+  float dq_acc[SUB][32];
 #pragma unroll
-  for (int j = 0; j < BM_HD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int c = 0; c < SUB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq_acc[c][i] = 0.f;
+  if (n_tiles > 0) mbar_wait(bar_q, 0);
 
   for (int i = 0; i < n_tiles; ++i) {
-    const int buf = i % 2, t0 = (t_begin + i) * BM_DQ_KEYS;
-    if (i + 1 < n_tiles) issue(i + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // tile i (and Q, dO) have landed
-    __syncthreads();
-    const T* k_t = ks + buf * KT;
-    const int t_last = min(t0 + BM_DQ_KEYS - 1, s_k - 1);
-    const bool none = r0 >= s_q || (causal && t0 > w_hi) ||
-                      (window > 0 && w_lo - t_last >= window);
-    const bool whole = r0 + 16 <= s_q && t0 + BM_DQ_KEYS <= s_k &&
-                       (!causal || t0 + BM_DQ_KEYS - 1 <= w_lo) &&
-                       (window <= 0 || w_hi - t0 < window);
-    if (!none) {
-      // rows: this warp's queries; columns: the tile's keys
-      float sc[4][4], dp[4][4];
-      bm_abt<T, 4>(sc, qs, k_t, warp, lane);
-      bm_abt<T, 4>(dp, dos, vs + buf * KT, warp, lane);
+    const int ks = i % 2, n0 = (t_begin + i) * BN;
+    const uint32_t k_t = k_s + ks * TILE;
+    // every pair of the tile visible to this warpgroup's rows: no mask. A
+    // tile none of whose pairs is visible runs too, its P masked to 0: a
+    // branch around the products has ptxas serialize them (C7520)
+    const bool whole = r0 + 64 <= s_q && n0 + BN <= s_k && (!causal || n0 + BN - 1 <= w_lo) &&
+                       (window <= 0 || w_hi - n0 < window);
+    // rows: this warpgroup's queries; columns: the tile's keys
+    float sc[32], dp[32];
+    // S and dP as two commit groups: a wait on V between products of one
+    // group would have ptxas serialize every product (C7520)
+    mbar_wait(bar_fk(ks), (i / 2) & 1);
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+    for (int kk = 0; kk < 16; ++kk) Wgmma<64, T>::ss(sc, kmajor(q_w, kk), kmajor(k_t, kk), kk > 0);
+    wgmma_commit();
+    mbar_wait(bar_fv, i & 1);
+    wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          float p = fast_exp2(fmaf(sc[j][e], scale_log2, -lr[r]));
-          if (!whole && !fb_visible(row + 8 * r, t0 + 8 * j + 2 * t4 + (e & 1), s_q, s_k,
-                                    causal, window, q_offset))
-            p = 0.f;
-          dp[j][e] = p * (dp[j][e] - dd[r]);
-        }
-      uint32_t a[2][4];
-      bm_pack<T, 2>(a, dp);
-      bm_ab<T, 2>(acc, a, k_t, lane);  // dQ += dS K
+    for (int kk = 0; kk < 16; ++kk) Wgmma<64, T>::ss(dp, kmajor(do_w, kk), kmajor(v_s, kk), kk > 0);
+    wgmma_commit();
+    // K (i + 1) into the slot of K (i - 1), once both warpgroups are done
+    // with it
+    if (threadIdx.x == 0 && i >= 1 && i + 1 < n_tiles) {
+      mbar_wait(bar_ek(1 - ks), ((i - 1) / 2) & 1);
+      issue(&tm_k, ck, k_s + (1 - ks) * TILE, bar_fk(1 - ks), i + 1);
     }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    mbar_arrive(bar_ev);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = fast_exp2(fmaf(sc[4 * j + e], scale_log2, -lr[r]));
+        if (!whole && !fb_visible(row + 8 * r, n0 + 8 * j + 2 * t4 + (e & 1), s_q, s_k, causal,
+                                  window, q_offset))
+          p = 0.f;
+        dp[4 * j + e] = p * (dp[4 * j + e] - dd[r]);
+      }
+    uint32_t dsa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) dsa[kk][x] = pack2<T>(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
+    // dQ += dS K, K read MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < SUB; ++c) Wgmma<64, T>::rs(dq_acc[c], dsa[kk], mnmajor(k_t, c, kk));
+    wgmma_commit();
+    // V (i + 1), once both warpgroups are done with V (i)
+    if (threadIdx.x == 0 && i + 1 < n_tiles) {
+      mbar_wait(bar_ev, i & 1);
+      issue(&tm_v, cv, v_s, bar_fv, i + 1);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < SUB; ++c) fence_regs(dq_acc[c]);
+    mbar_arrive(bar_ek(ks));
   }
-  cp_async_wait<0>();
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (row + 8 * r >= s_q) continue;
+    if (!ok[r]) continue;
     T* dqr = dq + b * st.sb[BDQ] + qh * st.sh[BDQ] + (long long)(row + 8 * r) * st.ss[BDQ];
 #pragma unroll
-    for (int j = 0; j < BM_HD / 8; ++j)
-      *reinterpret_cast<uint32_t*>(dqr + 8 * j + 2 * t4) =
-          pack2<T>(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+    for (int c = 0; c < SUB; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(dqr + c * 64 + 8 * j + 2 * t4) =
+            pack2<T>(dq_acc[c][4 * j + 2 * r] * scale, dq_acc[c][4 * j + 2 * r + 1] * scale);
   }
 }
 
 template <typename T>
-static int launch_flash_bwd_mma(const void* q, const void* k, const void* v, const void* out,
-                                const void* dout, void* dq, void* dk, void* dv, const float* lse,
-                                float* dsum, int b, int n_q, int n_kv, int s_q, int s_k,
-                                int causal, int window, int q_offset, int lse_row,
-                                const BwdStrides& st, cudaStream_t stream) {
-  constexpr int smem_dkdv = bm_dkdv_smem<T>(), smem_dq = bm_dq_smem<T>();
-  cudaFuncSetAttribute(fa_bwd_dkdv_mma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem_dkdv);
-  cudaFuncSetAttribute(fa_bwd_dq_mma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem_dq);
-  const float scale = softmax_scale(BM_HD), scale_log2 = softmax_scale(BM_HD) * LOG2E;
-  const T *tq = (const T*)q, *tk = (const T*)k, *tv = (const T*)v, *tdo = (const T*)dout;
-  fa_bwd_pre_kernel<T, BM_HD><<<dim3(lse_row / 8, n_q, b), 256, 0, stream>>>(
-      (const T*)out, tdo, dsum, n_q, s_q, lse_row, st);
-  fa_bwd_dkdv_mma_kernel<T>
-      <<<dim3(n_kv, (s_k + BM_KEYS - 1) / BM_KEYS, b), BM_THREADS, smem_dkdv, stream>>>(
+static int launch_flash_bwd_wgmma256(const void* q, const void* k, const void* v,
+                                     const void* out, const void* dout, void* dq, void* dk,
+                                     void* dv, const float* lse, float* dsum, int b, int n_q,
+                                     int n_kv, int s_q, int s_k, int causal, int window,
+                                     int q_offset, int lse_row, const BwdStrides& st,
+                                     cudaStream_t stream) {
+  constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
+  CUtensorMap tq, tk, tv, tdo;
+  MapCoord cq, ck, cv, cdo;
+  if (!encode_map(&tq, q, BF, 256, s_q, n_q, b, st.ss[BQ], st.sh[BQ], st.sb[BQ], BW_ROWS, &cq) ||
+      !encode_map(&tk, k, BF, 256, s_k, n_kv, b, st.ss[BK], st.sh[BK], st.sb[BK], BW_ROWS, &ck) ||
+      !encode_map(&tv, v, BF, 256, s_k, n_kv, b, st.ss[BV], st.sh[BV], st.sb[BV], BW_ROWS, &cv) ||
+      !encode_map(&tdo, dout, BF, 256, s_q, n_q, b, st.ss[BDO], st.sh[BDO], st.sb[BDO], BW_ROWS,
+                  &cdo))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(fa_bwd_dkdv_wgmma256_kernel<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, B2_KV_SMEM);
+  cudaFuncSetAttribute(fa_bwd_dq_wgmma256_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       B2_DQ_SMEM);
+  const float scale = softmax_scale(256), scale_log2 = softmax_scale(256) * LOG2E;
+  fa_bwd_pre_kernel<T, 256><<<dim3(lse_row / 8, n_q, b), 256, 0, stream>>>(
+      (const T*)out, (const T*)dout, dsum, n_q, s_q, lse_row, st);
+  fa_bwd_dkdv_wgmma256_kernel<T>
+      <<<dim3(n_kv, (s_k + BW_ROWS - 1) / BW_ROWS, b), BW_THREADS, B2_KV_SMEM, stream>>>(
           tq, tk, tv, tdo, lse, dsum, (T*)dk, (T*)dv, n_q, n_kv, s_q, s_k, causal, window,
-          q_offset, lse_row, scale_log2, scale, st);
-  fa_bwd_dq_mma_kernel<T>
-      <<<dim3(n_q, (s_q + BM_DQ_ROWS - 1) / BM_DQ_ROWS, b), BM_THREADS, smem_dq, stream>>>(
-          tq, tk, tv, tdo, lse, dsum, (T*)dq, n_q, n_kv, s_q, s_k, causal, window, q_offset,
-          lse_row, scale_log2, scale, st);
+          q_offset, lse_row, scale_log2, scale, cq, ck, cv, cdo, st);
+  fa_bwd_dq_wgmma256_kernel<T>
+      <<<dim3(n_q, (s_q + 2 * BW_ROWS - 1) / (2 * BW_ROWS), b), BW_THREADS, B2_DQ_SMEM,
+         stream>>>(tq, tk, tv, tdo, lse, dsum, (T*)dq, n_q, n_kv, s_q, s_k, causal, window,
+                   q_offset, lse_row, scale_log2, scale, cq, ck, cv, cdo, st);
   return 0;
 }
 
@@ -1227,9 +1319,9 @@ static int launch_flash_bwd_mma(const void* q, const void* k, const void* v, con
 // (b, n_q, s_q) with rows lse_row >= s_q floats apart. variant 0
 // (cuda_core_f32: any of the three dtypes, d in {16, 32, 64, 128}): both are
 // scratch, which the stats pass fills. variant 2 (wgmma: bfloat16/float16,
-// d in {64, 128}) and variant 1 (mma_sync: bfloat16/float16, d = 256), each
-// with lse_row a multiple of 128: lse is the logsumexp the forward of the
-// same name wrote (log2 units) and dsum scratch, rows past s_q included.
+// d in {64, 128, 256}), with lse_row a multiple of 128: lse is the
+// logsumexp the wgmma forward wrote (log2 units) and dsum scratch, rows past
+// s_q included.
 extern "C" int ckv_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* out, const void* dout, void* dq, void* dk,
                                        void* dv, void* lse, void* dsum, int b, int n_q,
@@ -1247,23 +1339,7 @@ extern "C" int ckv_flash_attention_bwd(const void* q, const void* k, const void*
   float *fl = (float*)lse, *fd = (float*)dsum;
   if (lse_row < s_q) return (int)cudaErrorInvalidValue;
   int rc;
-  if (variant == 1) {
-    if (lse_row % 128 || d != ckv::BM_HD) return (int)cudaErrorInvalidValue;
-    switch (dtype) {
-      case ckv::BF16:
-        rc = ckv::launch_flash_bwd_mma<__nv_bfloat16>(q, k, v, out, dout, dq, dk, dv, fl, fd, b,
-                                                      n_q, n_kv, s_q, s_k, causal, window,
-                                                      q_offset, lse_row, st, s);
-        break;
-      case ckv::F16:
-        rc = ckv::launch_flash_bwd_mma<__half>(q, k, v, out, dout, dq, dk, dv, fl, fd, b, n_q,
-                                               n_kv, s_q, s_k, causal, window, q_offset, lse_row,
-                                               st, s);
-        break;
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-  } else if (variant == 2) {
+  if (variant == 2) {
     if (lse_row % 128) return (int)cudaErrorInvalidValue;
     switch (dtype) {
       case ckv::BF16:

@@ -1,7 +1,6 @@
-// mma.sync building blocks shared by flash_attention.cu's mma_sync forward and
-// flash_attention_bwd.cu's mma_sync backward: ldmatrix fragment loads, the
-// m16n8k16 product with float32 accumulation, and cp.async copies of padded
-// row tiles.
+// mma.sync building blocks of flash_attention.cu's mma_sync forward (d 16
+// and 32): ldmatrix fragment loads, the m16n8k16 product with float32
+// accumulation, and cp.async copies of padded row tiles.
 //
 // Fragments of m16n8k16 (g = lane / 4, t4 = lane % 4): the A operand (16 x 16)
 // holds a0 (row g, k 2 t4, 2 t4 + 1), a1 (row g + 8, the same k), a2 (row g,

@@ -4,11 +4,11 @@ A CPU tensor runs the plain version (ref.py); a CUDA tensor launches a
 kernel, or raises for what the kernels do not take. The kernel is chosen by
 dtype and head dim, never because another one failed:
 
-* ``wgmma``: bfloat16/float16 with d in {64, 128} (every model the port
-  runs but gemma3-4b): TMA loads into a ring of stages, wgmma products, warp-specialised;
-* ``mma_sync``: bfloat16/float16 with d in {16, 32, 256}, which the wgmma
-  tiles do not take (256: gemma3-4b's heads): mma.sync m16n8k16 tiles; at
-  d 256 it also writes the logsumexp its backward reads;
+* ``wgmma``: bfloat16/float16 with d in {64, 128, 256} (every model the
+  port runs; 256: gemma3-4b's heads): TMA loads into a ring of stages,
+  wgmma products; it also writes the logsumexp its backward reads;
+* ``mma_sync``: bfloat16/float16 with d in {16, 32}, which the 128-byte
+  swizzled tiles do not take: mma.sync m16n8k16 tiles;
 * ``cuda_core_f32``: float32, any d that is a multiple of 4 up to 256.
 
 ``launches`` counts every launch, ``launches_by_variant`` each kernel's.
@@ -17,12 +17,10 @@ The backward (csrc/flash_attention_bwd.cu, no atomics) takes float32,
 bfloat16 and float16 at d in {16, 32, 64, 128}, and bfloat16 and float16 at
 d 256; its variant is chosen by dtype and head dim (``bwd_variant_for``):
 
-* ``wgmma``: bfloat16/float16 with d in {64, 128}: a preprocess kernel (D),
-  then a dK/dV and a dQ kernel on wgmma with TMA-fed stages, reading the
-  logsumexp the wgmma forward saved (``lse``, log2 units);
-* ``mma_sync``: bfloat16/float16 with d 256 (gemma3-4b): the same
-  preprocess, then a dK/dV kernel whose warps own dV or dK (never both) and
-  a dQ kernel on mma.sync, reading the logsumexp the mma_sync forward saved;
+* ``wgmma``: bfloat16/float16 with d in {64, 128, 256}: a preprocess kernel
+  (D), then a dK/dV and a dQ kernel on wgmma with TMA-fed stages, reading
+  the logsumexp the wgmma forward saved (``lse``, log2 units); at d 256 the
+  dK/dV kernel's two warpgroups own dV and dK (never both);
 * ``cuda_core_f32``: float32 (d up to 128), and 16-bit at d 16 / 32: a
   stats pass, a dK/dV pass and a dQ pass in float32 on the CUDA cores.
 
@@ -47,19 +45,18 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, fla
 
 # the C launchers' variant codes
 VARIANTS = {"cuda_core_f32": 0, "mma_sync": 1, "wgmma": 2}
-BWD_VARIANTS = ("cuda_core_f32", "wgmma", "mma_sync")
+BWD_VARIANTS = ("cuda_core_f32", "wgmma")
 # the backward variants that read the logsumexp their forward wrote
-LSE_VARIANTS = ("wgmma", "mma_sync")
-WGMMA_HEAD_DIMS = (64, 128)
-MMA_SYNC_HEAD_DIMS = (16, 32, 256)
+LSE_VARIANTS = ("wgmma",)
+WGMMA_HEAD_DIMS = (64, 128, 256)
+MMA_SYNC_HEAD_DIMS = (16, 32)
 # rows of the logsumexp buffer: s_q rounded up to the 128-row CTAs of the
-# wgmma kernels and of the mma_sync dQ kernel, so each 64-row stage of it is
-# one aligned copy
+# wgmma kernels, so each 64-row stage of it is one aligned copy
 LSE_ROW_ALIGN = 128
 
 launches = 0  # kernel launches since the count was last set to 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
-BWD_HEAD_DIMS = (16, 32, 64, 128, 256)  # 256: 16-bit only (the mma_sync variant)
+BWD_HEAD_DIMS = (16, 32, 64, 128, 256)  # 256: 16-bit only (the wgmma variant)
 bwd_launches = 0  # backward calls since the count was last set to 0
 bwd_launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
 dout_copies = 0  # output gradients copied into a layout the backward reads
@@ -74,10 +71,8 @@ def variant_for(dtype: torch.dtype, d: int) -> str:
 
 def bwd_variant_for(dtype: torch.dtype, d: int) -> str:
     """The backward kernels that run a CUDA call of this dtype and head dim:
-    wgmma where the forward runs wgmma, mma_sync for 16-bit d 256 (each
-    reads the logsumexp its forward saves), cuda_core_f32 otherwise."""
-    if dtype != torch.float32 and d == 256:
-        return "mma_sync"
+    wgmma where the forward runs wgmma (it reads the logsumexp that forward
+    saves), cuda_core_f32 otherwise."""
     return "wgmma" if variant_for(dtype, d) == "wgmma" else "cuda_core_f32"
 
 
@@ -130,7 +125,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_offset + i``. Returns (b, n_q, s_q, d) in q's dtype, laid out with
     q's strides.
 
-    ``lse`` (CUDA, the wgmma variant and mma_sync at d 256: ``writes_lse``):
+    ``lse`` (CUDA, the wgmma variant: ``writes_lse``):
     a ``lse_buffer(q)`` that the kernel fills with each query row's
     logsumexp in log2 units of the scaled scores
     (``flash_attention_lse_ref``'s), for the backward; the output is the
@@ -192,7 +187,7 @@ def _check_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
                          f"{BWD_HEAD_DIMS})")
     if d == 256 and q.dtype == torch.float32:
         raise ValueError("flash_attention_bwd: float32 at d 256 has no backward kernel (the "
-                         "d-256 backward is mma_sync, bfloat16/float16 only); train in "
+                         "d-256 backward is wgmma, bfloat16/float16 only); train in "
                          "bfloat16, or on CPU tensors, which run the plain version")
 
 
@@ -208,10 +203,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     16-byte aligned, or a head dim that is not contiguous) is copied once
     into a fresh contiguous tensor and counted in ``dout_copies``.
 
-    ``lse``: the wgmma and mma_sync variants' input, the logsumexp their
-    forward wrote (``FlashAttentionFn`` passes the one it saved); they raise
-    without it. The cuda_core_f32 variant takes none: its stats pass computes
-    its own."""
+    ``lse``: the wgmma variant's input, the logsumexp its forward wrote
+    (``FlashAttentionFn`` passes the one it saved); it raises without it.
+    The cuda_core_f32 variant takes none: its stats pass computes its own."""
     global bwd_launches, dout_copies
     if B.on_cpu(q, k, v, out, dout):
         if lse is not None:
@@ -260,7 +254,7 @@ class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` under autograd: the forward kernel, then the
     backward kernels (``flash_attention_bwd``) for the gradients of q, k and
     v. Saves q, k, v, the output and, where the backward's variant reads one
-    (wgmma, mma_sync), the logsumexp the forward wrote. On CPU tensors both are the plain
+    (wgmma), the logsumexp the forward wrote. On CPU tensors both are the plain
     versions. A CUDA call the backward does not take raises here, before the
     forward runs."""
 

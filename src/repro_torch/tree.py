@@ -38,15 +38,18 @@ def tree_replace_leaves(tree: Any, leaves: list) -> Any:
     """A tree of ``tree``'s structure whose leaves, in JAX's order, are ``leaves``."""
     it = iter(leaves)
     order = {path: next(it) for path, _ in tree_flatten_with_path(tree)}
+    return _rebuild(tree, (), order)
 
-    def rebuild(t, prefix):
-        if isinstance(t, dict):
-            return {k: rebuild(v, prefix + (k,)) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return type(t)(rebuild(v, prefix + (i,)) for i, v in enumerate(t))
-        return order[prefix]
 
-    return rebuild(tree, ())
+def _rebuild(t: Any, prefix: Path, order: dict) -> Any:
+    # module level, not a closure: a nested function that calls itself is a
+    # reference cycle, which would keep ``order`` (the new leaves: a whole
+    # tree of parameters or moments in AdamW) alive until a GC pass
+    if isinstance(t, dict):
+        return {k: _rebuild(v, prefix + (k,), order) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_rebuild(v, prefix + (i,), order) for i, v in enumerate(t))
+    return order[prefix]
 
 
 def path_key(path: Path) -> str:

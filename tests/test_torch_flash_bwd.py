@@ -12,7 +12,7 @@ forward and backward, so its gradients equal the plain version's.
 backward, in log2 units) is held against ``jax.nn.logsumexp`` of the same
 masked, scaled float32 scores times log2(e), within 1e-5 of the largest
 |lse| (float32 sums in other orders). Head dims 16, 64 and 256 (gemma3-4b,
-whose backward on the card is the mma_sync kernel).
+whose backward on the card is the wgmma variant's d-256 kernels).
 """
 import jax
 import jax.numpy as jnp
@@ -52,7 +52,7 @@ CASES = [  # group, causal, window, d, s_q, q_offset
     (2, True, 6, 16, 19, 13),
     (1, False, 0, 64, 23, 0),   # every key visible
 ] + [
-    # gemma3-4b's head dim, which the mma_sync backward kernel takes
+    # gemma3-4b's head dim, which the wgmma backward's d-256 kernels take
     (g, True, w, 256, s, 0) for g in (1, 2) for w in (0, 9) for s in (37, 70)
 ]
 
@@ -146,5 +146,5 @@ def test_lse_ref_matches_jax_logsumexp(causal, window, q_offset, s_q, s_k, d=32)
 
 @pytest.mark.parametrize("causal,window,q_offset,s_q,s_k", [LSE_CASES[1], LSE_CASES[5]])
 def test_lse_ref_matches_jax_logsumexp_head_dim_256(causal, window, q_offset, s_q, s_k):
-    """The logsumexp the mma_sync forward saves at gemma3-4b's head dim."""
+    """The logsumexp the wgmma forward saves at gemma3-4b's head dim."""
     test_lse_ref_matches_jax_logsumexp(causal, window, q_offset, s_q, s_k, d=256)

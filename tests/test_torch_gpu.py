@@ -500,7 +500,7 @@ def test_flash_attention(dev, dtype, b, nq, nkv, s_q, s_k, d, causal, window, q_
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     variant = fa_ops.variant_for(dtype, d)
     assert variant == ("cuda_core_f32" if dtype == torch.float32 else
-                       "wgmma" if d in (64, 128) else "mma_sync")
+                       "wgmma" if d in (64, 128, 256) else "mma_sync")
     before, by_variant = fa_ops.launches, fa_ops.launches_by_variant[variant]
     got = fa_ops.flash_attention(q, k, v, **kw)
     assert fa_ops.launches == before + 1 and got.dtype == dtype
@@ -562,8 +562,17 @@ def test_selective_scan(dev, dtype, b, s, d_in, n):
     (1, 10, 2, 37, 421, 128, 100, 384),
     (1, 10, 2, 129, 129, 64, 0, 0),      # s one past a tile boundary
     (1, 4, 2, 257, 257, 128, 0, 0),
+    # d 256 (64-key tiles through 2 stages, 128-row CTAs): s off the tiles
+    (1, 2, 2, 37, 37, 256, 0, 0),        # group 1, under one tile
+    (2, 4, 2, 70, 70, 256, 0, 0),        # group 2, b = 2
+    (1, 8, 4, 300, 300, 256, 100, 0),    # gemma3-4b's group, a window cutting tiles
+    (1, 8, 4, 1000, 1000, 256, 0, 0),
+    (2, 2, 2, 300, 421, 256, 0, 121),    # queries after a prefix
+    (1, 8, 4, 70, 1094, 256, 1024, 1024),  # a suffix past the window after a prefix
 ])
 def test_flash_attention_wgmma_edges(dev, dtype, b, nq, nkv, s_q, s_k, d, window, q_offset):
+    """The wgmma kernel at the edges of its tiles, on transposed (b, s, n,
+    d) views, within FLASH_REL of its plain version; two runs the same bits."""
     q = _rand(dev, 5, (b, s_q, nq, d), dtype).transpose(1, 2)
     k = _rand(dev, 6, (b, s_k, nkv, d), dtype).transpose(1, 2)
     v = _rand(dev, 7, (b, s_k, nkv, d), dtype).transpose(1, 2)
@@ -572,6 +581,7 @@ def test_flash_attention_wgmma_edges(dev, dtype, b, nq, nkv, s_q, s_k, d, window
     got = fa_ops.flash_attention(q, k, v, **kw)
     assert fa_ops.launches_by_variant["wgmma"] == before + 1
     _close(got, flash_attention_ref(q, k, v, **kw), rel=FLASH_REL[dtype])
+    assert torch.equal(got, fa_ops.flash_attention(q, k, v, **kw))
 
 
 def _scan_args(dev, b, s, d_in, n, dtype, seed=0):
@@ -1073,8 +1083,8 @@ def test_state_pool_swap_on_the_card(dev, name):
 @pytest.mark.parametrize("s,window,q_offset", [(1100, 0, 0), (1100, 1024, 0), (70, 1024, 1050)])
 def test_flash_attention_head_dim_256(dev, dtype, s, window, q_offset):
     """d = 256 with gemma3-4b's group, whole causal and under its 1024-token
-    window, and a suffix past the window after a prefix: the mma_sync
-    kernel's 256-wide instance (float32: the CUDA-core one)."""
+    window, and a suffix past the window after a prefix: the wgmma kernel's
+    d-256 instance (float32: the CUDA-core one)."""
     nq, nkv, d = 8, 4, 256
     s_k = s + q_offset
     q = _rand(dev, 110, (1, s, nq, d), dtype).transpose(1, 2)
@@ -1082,7 +1092,7 @@ def test_flash_attention_head_dim_256(dev, dtype, s, window, q_offset):
     v = _rand(dev, 112, (1, s_k, nkv, d), dtype).transpose(1, 2)
     kw = dict(causal=True, window=window, q_offset=q_offset)
     variant = fa_ops.variant_for(dtype, d)
-    assert variant == ("cuda_core_f32" if dtype == torch.float32 else "mma_sync")
+    assert variant == ("cuda_core_f32" if dtype == torch.float32 else "wgmma")
     before = fa_ops.launches_by_variant[variant]
     got = fa_ops.flash_attention(q, k, v, **kw)
     assert fa_ops.launches_by_variant[variant] == before + 1
@@ -1209,7 +1219,7 @@ def _bwd_inputs(dev, dtype, b, nq, nkv, s_q, s_k, d, transposed, seed=200):
 
 def _forward_for_bwd(q, k, v, **kw):
     """The forward kernel's output and, where the backward's variant reads
-    one (wgmma, mma_sync), the logsumexp it wrote for that backward (None
+    one (wgmma), the logsumexp it wrote for that backward (None
     otherwise), as FlashAttentionFn saves them."""
     lse = fa_ops.lse_buffer(q) if fa_ops.writes_lse(q.dtype, q.shape[-1]) else None
     return fa_ops.flash_attention(q, k, v, lse=lse, **kw), lse
@@ -1347,13 +1357,18 @@ def test_flash_attention_lse(dev, dtype, d, s_q, s_k, window, q_offset):
     (1, 150, 100, 0, False),
     (2, 70, 30, 50, True),   # queries after a prefix, under a window
     (1, 100, 0, 37, False),
+    (1, 37, 0, 0, True),     # under one tile everywhere
+    (2, 300, 0, 0, False),
+    (2, 1000, 0, 0, True),   # many query tiles a dK/dV CTA, many key tiles a dQ one
+    (1, 1000, 300, 0, True),
+    (2, 70, 64, 1100, True),  # a suffix past the window after a prefix
 ])
 def test_flash_attention_bwd_head_dim_256(dev, dtype, group, s_q, window, q_offset, transposed):
-    """The mma_sync backward at d 256 (gemma3-4b's heads) against its plain
+    """The wgmma backward at d 256 (gemma3-4b's heads) against its plain
     version within FLASH_REL (P and dS rounded to 16 bits before their
-    products, as the wgmma variant does), fed by the mma_sync forward's lse;
-    one call counted under mma_sync, each gradient with its input's dtype and
-    strides, and two runs the same bits (no atomics)."""
+    products), fed by the wgmma forward's lse; one call counted under wgmma,
+    each gradient with its input's dtype and strides, and two runs the same
+    bits (no atomics)."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
 
     b, nkv, d = 2, 2, 256
@@ -1362,9 +1377,9 @@ def test_flash_attention_bwd_head_dim_256(dev, dtype, group, s_q, window, q_offs
     kw = dict(causal=True, window=window, q_offset=q_offset)
     out, lse = _forward_for_bwd(q, k, v, **kw)
     assert lse is not None
-    before = fa_ops.bwd_launches_by_variant["mma_sync"]
+    before = fa_ops.bwd_launches_by_variant["wgmma"]
     got = fa_ops.flash_attention_bwd(q, k, v, out, do, lse=lse, **kw)
-    assert fa_ops.bwd_launches_by_variant["mma_sync"] == before + 1
+    assert fa_ops.bwd_launches_by_variant["wgmma"] == before + 1
     want = flash_attention_bwd_ref(q, k, v, out, do, **kw)
     for g, w, x in zip(got, want, (q, k, v)):
         assert g.dtype == dtype and g.stride() == x.stride()
@@ -1378,20 +1393,23 @@ def test_flash_attention_bwd_head_dim_256(dev, dtype, group, s_q, window, q_offs
     (130, 130, 0, 0),
     (130, 180, 17, 50),
     (130, 40, 20, 0),  # rows 59 on see no key
+    (37, 37, 0, 0),
+    (1000, 1000, 300, 0),
+    (70, 1094, 1024, 1024),  # a suffix past the window after a prefix
 ])
 def test_flash_attention_lse_head_dim_256(dev, dtype, s_q, s_k, window, q_offset):
-    """The mma_sync forward's logsumexp at d 256 against
-    flash_attention_lse_ref within LSE_TOL, 0 on a row that sees no key; the
-    output the same bits with and without the lse pointer."""
+    """The wgmma forward's logsumexp at d 256 against flash_attention_lse_ref
+    within LSE_TOL, 0 on a row that sees no key; the output the same bits
+    with and without the lse pointer."""
     q = _rand(dev, 310, (2, s_q, 4, 256), dtype).transpose(1, 2)
     k = _rand(dev, 311, (2, s_k, 2, 256), dtype).transpose(1, 2)
     v = _rand(dev, 312, (2, s_k, 2, 256), dtype).transpose(1, 2)
     kw = dict(window=window, q_offset=q_offset)
     plain = fa_ops.flash_attention(q, k, v, **kw)
     lse = fa_ops.lse_buffer(q)
-    before = fa_ops.launches_by_variant["mma_sync"]
+    before = fa_ops.launches_by_variant["wgmma"]
     out = fa_ops.flash_attention(q, k, v, lse=lse, **kw)
-    assert fa_ops.launches_by_variant["mma_sync"] == before + 1
+    assert fa_ops.launches_by_variant["wgmma"] == before + 1
     assert torch.equal(out, plain)
     want = flash_attention_lse_ref(q, k, **kw)
     err = (lse[..., :s_q] - want).abs().max().item()
@@ -1401,20 +1419,20 @@ def test_flash_attention_lse_head_dim_256(dev, dtype, s_q, s_k, window, q_offset
 
 
 def test_flash_attention_fn_head_dim_256(dev):
-    """FlashAttentionFn at d 256 in bfloat16: the mma_sync forward and the
-    mma_sync backward, which reads the lse the forward saved (no forward
-    launch in the backward), the same bits as flash_attention_bwd handed the
-    lse of a forward run apart."""
+    """FlashAttentionFn at d 256 in bfloat16: the wgmma forward and the
+    wgmma backward, which reads the lse the forward saved (no forward launch
+    in the backward), the same bits as flash_attention_bwd handed the lse of
+    a forward run apart."""
     q, k, v, do = _bwd_inputs(dev, torch.bfloat16, 1, 8, 4, 150, 150, 256, True, seed=280)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    f0 = fa_ops.launches_by_variant["mma_sync"]
+    f0 = fa_ops.launches_by_variant["wgmma"]
     b0 = dict(fa_ops.bwd_launches_by_variant)
     out = fa_ops.FlashAttentionFn.apply(*leaves, True, 64, 0)
-    assert fa_ops.launches_by_variant["mma_sync"] == f0 + 1
+    assert fa_ops.launches_by_variant["wgmma"] == f0 + 1
     got = torch.autograd.grad(out, leaves, do)
-    assert fa_ops.launches_by_variant["mma_sync"] == f0 + 1
+    assert fa_ops.launches_by_variant["wgmma"] == f0 + 1
     after = fa_ops.bwd_launches_by_variant
-    assert {n: after[n] - b0[n] for n in after} == {n: int(n == "mma_sync") for n in after}
+    assert {n: after[n] - b0[n] for n in after} == {n: int(n == "wgmma") for n in after}
     again, lse = _forward_for_bwd(q, k, v, window=64)
     assert torch.equal(again, out)
     want = fa_ops.flash_attention_bwd(q, k, v, again, do, window=64, lse=lse)
@@ -1422,13 +1440,12 @@ def test_flash_attention_fn_head_dim_256(dev):
 
 
 def test_flash_attention_bwd_variants(dev):
-    """bwd_launches_by_variant: bfloat16 at d 128 and float16 at d 64 run
-    wgmma, bfloat16 at d 256 mma_sync, float32 and bfloat16 at d 16
-    cuda_core_f32, one call counted once under its variant; wgmma and
-    mma_sync raise without the forward's lse, and no forward or backward of
-    another variant takes one."""
+    """bwd_launches_by_variant: bfloat16 at d 128 and 256 and float16 at d 64
+    run wgmma, float32 and bfloat16 at d 16 cuda_core_f32, one call counted
+    once under its variant; wgmma raises without the forward's lse, and no
+    forward or backward of another variant takes one."""
     for dtype, d, variant in ((torch.bfloat16, 128, "wgmma"), (torch.float16, 64, "wgmma"),
-                              (torch.bfloat16, 256, "mma_sync"),
+                              (torch.bfloat16, 256, "wgmma"),
                               (torch.float32, 128, "cuda_core_f32"),
                               (torch.bfloat16, 16, "cuda_core_f32")):
         q, k, v, do = _bwd_inputs(dev, dtype, 1, 4, 2, 70, 70, d, True)
@@ -1468,9 +1485,8 @@ def test_flash_attention_fn_saves_the_lse(dev):
 
 def test_flash_attention_bwd_device_kernels(dev):
     """One wgmma backward call is three device kernels: the preprocess (D),
-    dK/dV and dQ, and no stats pass; a cuda_core_f32 call is its stats,
-    dK/dV and dQ passes; a mma_sync call (d 256) the preprocess and its own
-    dK/dV and dQ kernels."""
+    dK/dV and dQ, and no stats pass (at d 256 its own dK/dV and dQ kernels);
+    a cuda_core_f32 call is its stats, dK/dV and dQ passes."""
     q, k, v, do = _bwd_inputs(dev, torch.bfloat16, 1, 16, 8, 512, 512, 128, True)
     out, lse = _forward_for_bwd(q, k, v)
     kern = _device_kernels(lambda: fa_ops.flash_attention_bwd(q, k, v, out, do, lse=lse))
@@ -1484,8 +1500,8 @@ def test_flash_attention_bwd_device_kernels(dev):
     q, k, v, do = _bwd_inputs(dev, torch.bfloat16, 1, 8, 4, 256, 256, 256, True)
     out, lse = _forward_for_bwd(q, k, v)
     kern = _device_kernels(lambda: fa_ops.flash_attention_bwd(q, k, v, out, do, lse=lse))
-    assert kern == {"fa_bwd_pre_kernel": 1.0, "fa_bwd_dkdv_mma_kernel": 1.0,
-                    "fa_bwd_dq_mma_kernel": 1.0}, kern
+    assert kern == {"fa_bwd_pre_kernel": 1.0, "fa_bwd_dkdv_wgmma256_kernel": 1.0,
+                    "fa_bwd_dq_wgmma256_kernel": 1.0}, kern
 
 
 def _grad_inputs(*tensors):

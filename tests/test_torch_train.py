@@ -201,6 +201,27 @@ def test_adamw_update_by_slices_is_bit_for_bit(monkeypatch, chunk):
         assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
 
 
+def test_adamw_update_frees_its_trees_without_a_gc_pass():
+    """The params and moments an update returns are freed when their last
+    reference goes, not at some later pass of Python's cycle collector: no
+    reference cycle holds them (a step's replaced moments kept alive so on
+    the card varied the 12-layer gemma3-4b step's peak from 70 to 78 GiB)."""
+    import gc
+    import weakref
+
+    _, _, _, tparams = _pair("qwen3-1.7b")
+    grads = tree_map(torch.ones_like, tparams)
+    gc.collect()
+    gc.disable()
+    try:
+        new_p, new_s = adamw_update(grads, adamw_init(tparams), tparams)
+        refs = [weakref.ref(t) for t in tree_leaves((new_p, new_s["m"], new_s["v"]))]
+        del new_p, new_s
+        assert refs and all(r() is None for r in refs)
+    finally:
+        gc.enable()
+
+
 def test_global_norm_sums_in_jax_leaf_order():
     """A dict built in another key order sums its leaves in sorted order."""
     rng = np.random.default_rng(3)
