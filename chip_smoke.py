@@ -82,6 +82,25 @@ non-zero exit code:
                 (f) bit for bit (c); part_b_batch held directly on four
                 plans' layer-0 final chunks; TTFT,
                 TPOT, inter-token latency, tokens/s, batch size, peak memory;
+  5b. tp      — tensor-parallel decode on the same weights and session: (a)
+                decode_attention's logsumexp (return_lse) at the dense decode
+                shape (28 / 4 heads, d 128, 69 slots of 16 tokens with a pad,
+                and 66 of 64) in bfloat16 and float32 against its plain
+                version, out and mass the same bits with and without it, the
+                stacked call timed both ways; (b) make_sharded_paged_decode
+                over a mesh of the card repeated k = 1, 2, 4, 8 times at those
+                shapes (b = 3: a row a shard of 8 sees alone, a row no shard
+                sees) against the unsharded kernel, k = 1 bit for bit, one
+                launch a shard, timed; (c) serve's CLI with --tp-decode 0 at
+                c = 1 (bit for bit the run without it) and c = 4, then the
+                Scheduler at full width over RealCompute(tp_mesh=...): c = 1
+                bit for bit and c = 4 batched within the dense limits of the
+                runs without a mesh, every decode attend one stacked_lse
+                launch a layer, no plain version, p50 TTFT and TPOT beside
+                the runs without; (d) make_sharded_sparse_decode_step at
+                budget 1.0 on 2 shards of the card over a 4096-token serve
+                state against the dense decode_step (2e-2 of the largest
+                logit, JAX's test's limit);
   6. hybrid   — compute-or-load Re-Prefill and the three-tier prefix store
                 on the dense phase's weights and sessions (caches of size 0
                 unless named): a reference run of ContiguousKV without a
@@ -270,7 +289,8 @@ non-zero exit code:
      variant; ``head_dim_256`` at gemma3-4b's shape and ``hymba_d64`` at
      hymba-1.5b's, each with its time, bound, design bound, SDPA's time,
      host time, errors and launches) and ``selective_scan_bwd`` (over
-     hymba's 5 and falcon-mamba's 3 train steps);
+     hymba's 5 and falcon-mamba's 3 train steps); decode_attention's
+     ``sharded`` entry holds phase 5b's numbers and its launches on (b)-(d);
   16. last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
@@ -370,6 +390,16 @@ FLEET_SPEC, FLEET_REQUESTS, FLEET_DECODE = "qwen2_5_7b:2,hymba_1_5b:1,falcon_mam
 # sum in another order (sums of 3584 and 18944 products): a few float32
 # ulps of the largest value are expected, 1e-5 of it is the kernels' limit
 PART_B_BATCH_REL = 1e-5
+# tensor-parallel decode (phase 5b): the mesh's shard counts over the card;
+# pool pages at each page size (the table one pad slot past its pages: 69
+# slots at 16-token pages, the dense decode shape); requests of the
+# full-width serve runs and of serve's CLI; the logsumexp against its plain
+# version (float32 sums of the same exponentials in another order, a few
+# ulps of a value near 7); the sharded sparse step at budget 1.0 against the
+# dense decode_step, JAX's test's limit (tests/test_sharded_sparse.py)
+TP_SHARDS, TP_POOL_PAGES = (1, 2, 4, 8), {16: 70, 64: 67}
+TP_SERVE_REQUESTS, TP_CLI_REQUESTS = 4, 4
+DECODE_LSE_TOL, TP_SPARSE_REL = 1e-5, 2e-2
 # The same check as served, in bfloat16: both sides round every op to
 # bfloat16 through 32 layers in different orders (GEMV against GEMM, the
 # decode's bfloat16 scores against flash_attention's float32 ones, decode's
@@ -1527,6 +1557,361 @@ def _hold_part_b_batch(cfg, engine, suffixes, b: int = 4):
           f"h max abs err / max |h| {worst:.3g} (tol {PART_B_BATCH_REL}); {t_batch:.3f} ms to a "
           f"synchronize against {t_single:.3f} ms for the {b} single part B calls")
     return dict(h_rel_err=worst, batch_wall_ms=t_batch, single_calls_wall_ms=t_single)
+
+
+def _tp_decode_inputs(cfg, dtype, page, seed):
+    """``cfg``'s decode shape at ``page``-token pages, b = 3: row 0
+    over a shuffled pool of TP_POOL_PAGES pages, its table one pad slot past
+    its pages, its last page partial; row 1 over 5 pages that all lie in the
+    pool's first eighth (of k <= 8 shards only shard 0 sees it); row 2 of
+    length 0 (no shard sees anything)."""
+    import numpy as np
+    import torch
+
+    n_pages = TP_POOL_PAGES[page]
+    width = n_pages - 1
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    q = rn(3, cfg.n_heads, cfg.d_head)
+    kp, vp = (rn(3, n_pages, page, cfg.n_kv_heads, cfg.d_head) for _ in range(2))
+    rng = np.random.default_rng(seed)
+    tbl = np.full((3, width), -1, np.int32)
+    tbl[0, : width - 1] = rng.permutation(n_pages)[: width - 1]
+    tbl[1, :5] = rng.permutation(n_pages // 8)[:5]
+    tbl[2, :3] = [0, n_pages // 2, n_pages - 1]
+    lens = [(width - 2) * page + 5, 4 * page + 1, 0]
+    return (q, kp, vp, torch.from_numpy(tbl).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def phase_tp(cfg, ctx, smi_line):
+    """Tensor-parallel decode on the dense phase's weights and session, as
+    the module docstring's phase 5b says. Returns ({kernel: {path:
+    launches}}, decode_attention's ``sharded`` entry for the kernels line)."""
+    from repro_torch.kernels.chunk_attention import ops as ca
+    from repro_torch.kernels.chunk_score import ops as cs
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.selective_scan import ops as ss
+
+    t0 = time.perf_counter()
+    ops = {"chunk_score": cs, "chunk_attention": ca, "decode_attention": da,
+           "flash_attention": fa, "selective_scan": ss}
+    entry = {"lse": _tp_lse(cfg), "attend": _tp_attend(cfg, smi_line)}
+    with plain_versions_counted(ops) as plain_calls:
+        paths, entry["serve"] = _tp_serve(cfg, ctx, smi_line, ops, plain_calls)
+    entry["sparse_step"] = _tp_sparse_step(cfg, ctx, smi_line)
+    entry["launches"] = {"(b) attend, all k": entry["attend"].pop("launches"),
+                         "(c) serve": sum(p["launches"]
+                                          for p in paths["decode_attention"].values()),
+                         "(d) sparse step": entry["sparse_step"].pop("launches")}
+    print(f"tp: phase took {time.perf_counter() - t0:.1f} s")
+    return paths, entry
+
+
+def _tp_lse(cfg):
+    """(a) decode_attention's logsumexp at the dense decode shape, 16- and
+    64-token pages, bfloat16 and float32: lse within DECODE_LSE_TOL of the
+    plain version's, out and mass the same bits with and without it, and the
+    stacked call timed with and without it."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    out = {}
+    for page in (CHUNK, BLOCK):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kp, vp, tbl, lens = (x[:1] for x in _tp_decode_inputs(cfg, dtype, page, 11))
+            o, m, lse = da.decode_attention(q, kp, vp, tbl, lens, return_lse=True)
+            o2, m2 = da.decode_attention(q, kp, vp, tbl, lens)
+            if not (torch.equal(o, o2) and torch.equal(m, m2)):
+                fail(f"tp (a): decode_attention page {page} {dname(q)}: out or mass changed "
+                     f"with return_lse")
+            _, _, want = decode_attention_ref(q, kp, vp, tbl, lens, return_lse=True)
+            err = max_err(lse, want)
+            if not (err <= DECODE_LSE_TOL and torch.isfinite(lse).all()):
+                fail(f"tp (a): decode_attention page {page} {dname(q)}: lse err {err} > "
+                     f"{DECODE_LSE_TOL}")
+            ms = device_ms(lambda: da.decode_attention(q, kp, vp, tbl, lens))
+            ms_lse = device_ms(lambda: da.decode_attention(q, kp, vp, tbl, lens,
+                                                           return_lse=True))
+            key = f"page {page} {dname(q)}"
+            out[key] = dict(lse_err=err, ms=ms, lse_ms=ms_lse, tokens=int(lens.item()))
+            print(f"tp (a): decode_attention {key}, {int(lens.item())} tokens over "
+                  f"{tbl.shape[1]} slots (one a pad): lse max abs err {err:.3g} (tol "
+                  f"{DECODE_LSE_TOL}) against the plain version, out and mass bit-identical "
+                  f"with and without it; stacked call {ms:.4f} ms, with the logsumexp "
+                  f"{ms_lse:.4f} ms")
+    return out
+
+
+def _tp_attend(cfg, smi_line):
+    """(b) make_sharded_paged_decode over [card] x k, k in TP_SHARDS, at the
+    dense decode shape (b = 3, see _tp_decode_inputs): against the unsharded
+    kernel (float32 within 1e-5 of the largest output, bfloat16 within
+    FLASH_REL: each shard's output and the combine each round once; mass
+    within 1e-5), k = 1 bit for bit, one stacked_lse launch a shard, the row
+    no shard sees 0; timed per call beside the unsharded call."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.sharded_sparse import make_sharded_paged_decode
+
+    out = {"launches": 0}
+    for page in (CHUNK, BLOCK):
+        for dtype in (torch.bfloat16, torch.float32):
+            args = _tp_decode_inputs(cfg, dtype, page, 12)
+            want_o, want_m = da.decode_attention(*args)
+            rel = 1e-5 if dtype == torch.float32 else FLASH_REL
+            key = f"page {page} {dname(args[0])}"
+            q, kp, _, tbl, lens = args
+            n_tok = int(lens.sum())  # each row's valid tokens lie in its table's pages
+            bound = bounds(nbytes(q, want_o, want_m, tbl, lens)
+                           + 2 * n_tok * kp.shape[3] * kp.shape[4] * kp.element_size(),
+                           4.0 * q.shape[1] * q.shape[2] * n_tok, q.shape[1] * n_tok)
+            row = {"unsharded_ms": device_ms(lambda: da.decode_attention(*args)),
+                   "bound_ms": bound["tensor_core"][0], "bound_by": bound["tensor_core"][1]}
+            print(f"tp (b) {key}: {n_tok} valid tokens over b = 3, {bound_text(bound)}")
+            for k in TP_SHARDS:
+                attend = make_sharded_paged_decode(make_serving_mesh(
+                    devices=[torch.device(DEVICE)] * k))
+                before = da.launches_by_variant["stacked_lse"]
+                o, m = attend(*args)
+                launches = da.launches_by_variant["stacked_lse"] - before
+                out["launches"] += launches
+                err_o, err_m = max_err(o, want_o), max_err(m, want_m)
+                tol_o = rel * want_o.float().abs().max().item()
+                tol_m = 1e-5 * want_m.abs().max().item()
+                if not (err_o <= tol_o and err_m <= tol_m and launches == k):
+                    fail(f"tp (b) {key} k={k}: err out {err_o} (tol {tol_o}), mass {err_m} "
+                         f"(tol {tol_m}), {launches} launches")
+                if k == 1 and not (torch.equal(o, want_o) and torch.equal(m, want_m)):
+                    fail(f"tp (b) {key}: one shard is not bit for bit the unsharded kernel")
+                if o[2].abs().max().item() or m[2].abs().max().item():
+                    fail(f"tp (b) {key} k={k}: the row no shard sees is not 0")
+                ms = device_ms(lambda: attend(*args))
+                row[k] = dict(ms=ms, busy_ms=_busy_ms(lambda: attend(*args)),
+                              host_ms=host_ms(lambda: attend(*args)), err_out=err_o,
+                              err_mass=err_m, launches_per_call=launches)
+                print(f"tp (b) {key} k={k}: max abs err out {err_o:.3g} (tol {tol_o:.3g}), "
+                      f"mass {err_m:.3g} (tol {tol_m:.3g}) against the unsharded kernel"
+                      f"{', bit-identical' if k == 1 else ''}; {ms:.4f} ms a call by events "
+                      f"(unsharded {row['unsharded_ms']:.4f} ms), its kernels busy "
+                      f"{row[k]['busy_ms']:.4f} ms and its host {row[k]['host_ms']:.4f} ms a "
+                      f"call, {launches} launches a call ({smi_line})")
+            out[key] = row
+    return out
+
+
+def _busy_ms(fn, calls: int = 10) -> float:
+    """The device time of the kernels one call of ``fn`` runs, summed
+    (torch.profiler over ``calls`` calls, after a spin kernel it does not
+    count): no idle gap between them counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)  # a session may lose its first launch: let it be this one
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(us for key, _, us in device_events(prof) if "spin_kernel" not in key) / calls / 1e3
+
+
+def _tp_serve(cfg, ctx, smi_line, ops, plain_calls):
+    """(c) serve with --tp-decode 0: serve's CLI (2 layers, as the hybrid
+    phase runs it) at c = 1 and c = 4, the flag against none; then the
+    Scheduler at full width over RealCompute(tp_mesh=make_serving_mesh()),
+    c = 1 bit for bit and c = 4 batched within the dense limits of the runs
+    without a mesh, every decode attend one stacked_lse launch a layer."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.backends import RealCompute
+    from repro_torch.core.engine import ContiguousKVEngine
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serving import Request, Scheduler, summarize
+    from repro_torch.storage.timing import RealExecutor
+
+    L, V = cfg.n_layers, cfg.vocab_size
+    paths, numbers = {}, {}
+    base = ["--device", DEVICE, "--arch", cfg.name, "--n-layers", "2", "--requests",
+            str(TP_CLI_REQUESTS), "--decode-tokens", "3"]
+    for c in (1, 4):
+        runs = {}
+        for flag in ((), ("--tp-decode", "0")):
+            buf = io.StringIO()
+            reset_counts(*ops.values())
+            plain_calls.clear()
+            with contextlib.redirect_stdout(buf):
+                runs[flag] = serve_cli.main(base + ["--concurrency", str(c), *flag])
+            got = counts(ops["decode_attention"])
+            if plain_calls or (flag and set(got) != {"launches", "stacked_lse"}):
+                fail(f"tp (c) CLI c={c} {flag}: decode_attention {got}, plain {plain_calls}")
+            if flag:
+                paths.setdefault("decode_attention", {})[f"tp (c) serve CLI c={c}"] = got
+                if "tensor-parallel decode: 1 devices, mesh {'model': 1}" not in buf.getvalue():
+                    fail(f"tp (c) CLI: no mesh line:\n{buf.getvalue()}")
+        a, b = runs[()], runs[("--tp-decode", "0")]
+        worst = max(logit_agreement(x.result[0, -1], y.result[0, -1])[0] for x, y in zip(a, b))
+        if c == 1 and not all(np.array_equal(x.result, y.result)
+                              and x.trace.decode_tokens_out == y.trace.decode_tokens_out
+                              for x, y in zip(a, b)):
+            fail("tp (c) CLI c=1: --tp-decode 0 is not bit for bit the run without it")
+        if not worst <= DENSE_REL_TOL:
+            fail(f"tp (c) CLI c={c}: last logits max err / max |logit| {worst}")
+        print(f"tp (c) serve CLI --tp-decode 0 c={c} ({len(b)} requests, 2 layers): "
+              f"{'bit-identical to' if c == 1 else 'within the dense limits of'} the run "
+              f"without it (last logits {worst:.3g} of the largest)")
+
+    params, sess = ctx["params"], ctx["sess"]
+    rng = np.random.default_rng(7)  # the serve phase's suffixes
+    suffixes = [rng.integers(0, V, SUFFIX_LEN) for _ in range(TP_SERVE_REQUESTS)]
+    mesh = make_serving_mesh(devices=None if DEVICE == "cuda" else [torch.device(DEVICE)])
+
+    def run(label, c, tp):
+        eng = ContiguousKVEngine(sess, RealCompute(cfg, params, device=DEVICE,
+                                                   tp_mesh=mesh if tp else None),
+                                 RealExecutor(), budget=BUDGET, period=PERIOD,
+                                 subperiod=SUBPERIOD)
+        taps = _tapped(eng)
+        reqs = [Request(request_id=i, suffix=s, decode_tokens=DECODE_TOKENS)
+                for i, s in enumerate(suffixes)]
+        sched = Scheduler(eng, policy="fcfs", max_concurrency=c, batch_decode=True)
+        reset_counts(*ops.values())
+        plain_calls.clear()
+        done = sched.run(reqs)
+        torch.cuda.synchronize()
+        eng.ex.shutdown()
+        got = {k: counts(mod) for k, mod in ops.items()}
+        if plain_calls:
+            fail(f"tp (c) {label}: plain versions ran on the card: {plain_calls}")
+        for cr in done:
+            if cr.result.shape != (1, 1, V) or not np.isfinite(cr.result).all():
+                fail(f"tp (c) {label} request {cr.request.request_id}: bad output")
+        s = summarize(done)
+        sizes = [len(m) for m in sched.real_batch_log]
+        execs = TP_SERVE_REQUESTS * DECODE_TOKENS - sum(sizes) + len(sizes)
+        da_got = got["decode_attention"]
+        if tp:
+            want = {"launches": execs * L, "stacked_lse": execs * L}
+            if da_got != want:
+                fail(f"tp (c) {label}: decode_attention launches {da_got}, expected {want} "
+                     f"({execs} decode executions x {L} layers)")
+            paths.setdefault("decode_attention", {})[f"tp (c) {label}"] = da_got
+        print(f"tp (c) {label}: {TP_SERVE_REQUESTS} requests, p50 TTFT "
+              f"{s['p50_ttft'] * 1e3:.2f} ms, mean TPOT {s['mean_tpot'] * 1e3:.3f} ms, "
+              f"{len(sizes)} batched iterations, decode_attention {da_got} ({smi_line})")
+        return done, taps, s, sizes
+
+    for c in (1, 4):
+        d0, t0_, s0, _ = run(f"c={c} no mesh", c, False)
+        d1, t1_, s1, sizes = run(f"c={c} tp mesh {dict(mesh.shape)}", c, True)
+        worst = (0.0, 1.0)
+        agree = 0
+        for i in range(TP_SERVE_REQUESTS):
+            if not np.array_equal(t0_[i]["first"], t1_[i]["first"]):
+                fail(f"tp (c) c={c} request {i}: first-token logits differ with the mesh")
+            rel, cos = logit_agreement(t1_[i]["steps"][0][0, -1], t0_[i]["steps"][0][0, -1])
+            worst = (max(worst[0], rel), min(worst[1], cos))
+            agree += sum(x == y for x, y in zip(d0[i].trace.decode_tokens_out,
+                                                d1[i].trace.decode_tokens_out))
+            if c == 1 and not (np.array_equal(d0[i].result, d1[i].result)
+                               and d0[i].trace.decode_tokens_out
+                               == d1[i].trace.decode_tokens_out):
+                fail(f"tp (c) c=1 request {i}: not bit for bit the run without a mesh")
+        if not (worst[0] <= DENSE_REL_TOL and worst[1] >= DENSE_MIN_COS):
+            fail(f"tp (c) c={c}: first decode step max err / max |logit| {worst[0]}, cosine "
+                 f"{worst[1]}")
+        n_tok = TP_SERVE_REQUESTS * DECODE_TOKENS
+        print(f"tp (c) c={c}: first-token logits bit-identical with and without the mesh"
+              f"{', and logits and greedy tokens of every request' if c == 1 else ''}; first "
+              f"decode step, worst request: max abs err / max |logit| {worst[0]:.4g} (tol "
+              f"{DENSE_REL_TOL}), cosine {worst[1]:.6f}; greedy tokens agreeing {agree} of "
+              f"{n_tok}; p50 TTFT {s1['p50_ttft'] * 1e3:.2f} vs {s0['p50_ttft'] * 1e3:.2f} ms, "
+              f"mean TPOT {s1['mean_tpot'] * 1e3:.3f} vs {s0['mean_tpot'] * 1e3:.3f} ms "
+              f"(mesh vs none; {smi_line})")
+        numbers[f"c={c}"] = {"p50_ttft_ms": s1["p50_ttft"] * 1e3,
+                             "no_mesh_p50_ttft_ms": s0["p50_ttft"] * 1e3,
+                             "mean_tpot_ms": s1["mean_tpot"] * 1e3,
+                             "no_mesh_mean_tpot_ms": s0["mean_tpot"] * 1e3,
+                             "first_step_rel_err": worst[0], "batched_iterations": len(sizes)}
+    if not paths.get("decode_attention"):
+        fail("tp (c): decode_attention never launched on the tensor-parallel path")
+    return paths, numbers
+
+
+def _tp_sparse_step(cfg, ctx, smi_line):
+    """(d) make_sharded_sparse_decode_step at budget 1.0 on a 2-shard mesh of
+    the card over a full-width serve state of the PREFIX_LEN-token prefix
+    (the capacity rounded up to whole chunks on both shards), held to the
+    port's dense decode_step on a copy of the same state within
+    TP_SPARSE_REL of the largest logit (JAX's test's limit). Both run on
+    float32 copies of the weights, as JAX's test runs a float32 model: in
+    bfloat16 the two round differently through 28 layers (float32 attention
+    against the dense step's bfloat16 scores; an H100 run read 0.0211 of the
+    largest logit), which would hide a wrong selection or combine."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.sharded_sparse import make_sharded_sparse_decode_step
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    params = tree_map(lambda t: t.to(torch.float32), ctx["params"])
+    n_shards, c = 2, CHUNK
+    cap = -(-(PREFIX_LEN + 1) // (n_shards * c)) * n_shards * c
+    state = T.init_serve_state(cfg, 1, cap, device=DEVICE)
+    toks = torch.as_tensor(ctx["prefix"], device=DEVICE)[None]
+    T.prefill(params, {"tokens": toks}, cfg, state)
+    dense_state = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in state.items()}
+    kc = state["k"].reshape(cfg.n_layers, 1, cap // c, c, cfg.n_kv_heads, cfg.d_head)
+    state["kmean"] = kc.to(torch.float32).mean(dim=3)
+    tok = torch.as_tensor([[int(ctx["suffixes"][0][0])]], device=DEVICE)
+    dense, _ = T.decode_step(params, tok, cfg, dense_state)
+    step = make_sharded_sparse_decode_step(
+        cfg, make_serving_mesh(devices=[torch.device(DEVICE)] * n_shards), chunk_tokens=c,
+        budget=1.0)
+    before = da.launches
+    snap = {k: state[k].clone() for k in ("k", "v", "kmean")}
+    logits, new = step(params, tok, state)
+    torch.cuda.synchronize()
+    rel, cos = logit_agreement(logits[0, -1].float().cpu(), dense[0, -1].float().cpu())
+    if not (rel <= TP_SPARSE_REL and new["length"] == PREFIX_LEN + 1
+            and torch.isfinite(logits).all()):
+        fail(f"tp (d): sharded sparse step max err / max |logit| {rel} > {TP_SPARSE_REL} "
+             f"(length {new['length']})")
+    if not torch.equal(new["k"][0, :, PREFIX_LEN], dense_state["k"][0, :, PREFIX_LEN]):
+        fail("tp (d): layer 0's appended key differs from the dense step's")
+
+    def again():
+        for k in snap:
+            state[k].copy_(snap[k])
+        state["length"] = PREFIX_LEN
+        step(params, tok, state)
+    ms = wall_ms(again, reps=5)
+    print(f"tp (d): make_sharded_sparse_decode_step budget 1.0 on {n_shards} shards of the card "
+          f"over {PREFIX_LEN} tokens (capacity {cap}) against the dense decode_step: max abs err "
+          f"/ max |logit| {rel:.4g} (tol {TP_SPARSE_REL}), cosine {cos:.6f}, argmax "
+          f"{int(logits[0, -1].argmax())} vs {int(dense[0, -1].argmax())}; layer 0's appended "
+          f"key bit-identical; {ms:.2f} ms a step to a synchronize (plain torch, "
+          f"{da.launches - before} kernel launches; float32 weights; {smi_line})")
+    del params, state, dense_state, snap
+    torch.cuda.empty_cache()
+    return dict(rel_err=rel, cosine=cos, wall_ms=ms, launches=da.launches - before)
 
 
 def flash_held(label, q, k, v, **kw):
@@ -4884,6 +5269,9 @@ def main() -> int:
     for name, by_path in serve_paths.items():
         paths.setdefault(name, {}).update(by_path)
     rows["decode_attention"]["serve"] = {k: serve_numbers[k] for k in "abc"}
+    tp_paths, rows["decode_attention"]["sharded"] = phase_tp(cfg, ctx, smi_line)
+    for name, by_path in tp_paths.items():
+        paths.setdefault(name, {}).update(by_path)
     rows["chunk_attention"]["serve"] = {k: serve_numbers[k]
                                         for k in ("e", "f", "part_b_batch_hold")}
     hybrid_paths, hybrid_numbers = phase_hybrid(cfg, ctx, smi_line)
@@ -4978,7 +5366,7 @@ def main() -> int:
                     "falcon_decode_host_ms", "falcon_decode_bound_ms", "dense_ingest",
                     "falcon_prefill", "one_cta_per_sm_ms", "pools_form", "indexed",
                     "serve", "decode_batched", "fleet", "hybrid", "head_dim_256",
-                    "qwen3_1_7b"):
+                    "qwen3_1_7b", "sharded"):
             if key in r:
                 row[key] = r[key]
         kernels.append(row)

@@ -10,7 +10,12 @@ requests' same-layer final prefill chunks in one launch of the kernel's
 indexed form) and decode through ``decode_attention``: one request's
 step over its pool stacked as a batch of one, a scheduler's batched step
 (``decode_step_batch``) over b requests' own pools through the kernel's
-pools form, with no pad-and-stack copy. StateCompute
+pools form, with no pad-and-stack copy. Given a tensor-parallel mesh
+(``tp_mesh``), both decode paths run the sharded attend instead
+(``launch.sharded_sparse.make_sharded_paged_decode``): the pool's pages split
+over the mesh's shards, each shard through ``decode_attention`` with its
+logsumexp, the partials combined; the batched step then stacks its pools
+first, as the JAX backend does. StateCompute
 runs the SSM and hybrid families' serve path (``transformer.prefill`` and
 ``decode_step``): their prefill attention goes through ``flash_attention``
 and every mamba recurrence through ``selective_scan``; a scheduler's batched
@@ -308,9 +313,12 @@ class RealCompute:
     """Real-model execution on one device; batch = 1 request.
 
     ``params`` is the port's params dict (``transformer.init_params`` or
-    ``bridge.params_from_numpy``) on ``device``."""
+    ``bridge.params_from_numpy``) on ``device``. ``tp_mesh`` (a
+    ``launch.mesh.Mesh``, optional) routes ``decode_attend`` and
+    ``decode_step_batch`` through the tensor-parallel paged attend, a
+    drop-in with the same per-page mass contract."""
 
-    def __init__(self, cfg: ModelConfig, params, *, device="cuda"):
+    def __init__(self, cfg: ModelConfig, params, *, device="cuda", tp_mesh=None):
         if not cfg.has_attention:
             raise ValueError("Re-Prefill engine needs attention KV")
         self.cfg = cfg
@@ -319,6 +327,12 @@ class RealCompute:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the backend on {self.device}")
         self.params = params
+        self._tp_attend = None
+        if tp_mesh is not None:
+            # imported here: core's modules import nothing of launch at load
+            from repro_torch.launch.sharded_sparse import make_sharded_paged_decode
+
+            self._tp_attend = make_sharded_paged_decode(tp_mesh)
 
     def embed(self, suffix_tokens: np.ndarray) -> torch.Tensor:
         toks = torch.as_tensor(np.asarray(suffix_tokens), device=self.device)
@@ -461,7 +475,9 @@ class RealCompute:
         form as they are; the step uploads one control block (every layer's
         tables, lengths and pool pointers) and brings the logits and masses
         back in one copy. Host pools append on the host, stack there and
-        upload, as :class:`TailPool` does for one request. Returns one
+        upload, as :class:`TailPool` does for one request. With a
+        ``tp_mesh`` the layer's pools are stacked on the device (device pools)
+        or the host and go through the sharded attend. Returns one
         (logits (1, 1, vocab), {layer: resident-page mass}) per ctx, in
         order: what each plan's single-request step returns."""
         cfg = self.cfg
@@ -495,15 +511,19 @@ class RealCompute:
                     p.k[pg, off] = k_cur[i, 0]
                     p.v[pg, off] = v_cur[i, 0]
                 pointers, table, lengths = control[l]
-                out, page_mass = decode_attention_pools(
-                    q[:, 0], [p.k for p in pools[l]], [p.v for p in pools[l]], table, lengths,
-                    pointers)
+                ks, vs = [p.k for p in pools[l]], [p.v for p in pools[l]]
+                if self._tp_attend is None:
+                    out, page_mass = decode_attention_pools(q[:, 0], ks, vs, table, lengths,
+                                                            pointers)
+                else:  # the sharded attend takes one stacked pool, as JAX's does
+                    out, page_mass = self._tp_attend(q[:, 0], *stack_pool_buffers(ks, vs),
+                                                     table, lengths)
             else:
                 k_host, v_host = k_cur.cpu(), v_cur.cpu()
                 for i, p in enumerate(pools[l]):
                     p.append(k_host[i], v_host[i])
                 k_pool, v_pool, table, lengths = stack_tail_pools(pools[l])
-                out, page_mass = decode_attention(
+                out, page_mass = (self._tp_attend or decode_attention)(
                     q[:, 0], k_pool.to(self.device), v_pool.to(self.device),
                     table.to(self.device), lengths.to(self.device))
             lp = layer_params(self.params, l)
@@ -528,10 +548,11 @@ class RealCompute:
         The pool already holds the cache-resident unit pages, the suffix KV
         and every decoded position including the current one. Returns
         (h_out, mass) where mass is the head-averaged per-resident-page
-        attention probability (AGC's A_j) from the kernel's online softmax.
+        attention probability (AGC's A_j) from the kernel's online softmax
+        (with a ``tp_mesh``, from the sharded attend's combine).
         """
         cfg = self.cfg
-        out, page_mass = decode_attention(q[:, 0], *tail.attend_args())
+        out, page_mass = (self._tp_attend or decode_attention)(q[:, 0], *tail.attend_args())
         lp = layer_params(self.params, layer)
         h = h + matmul(out.reshape(1, 1, -1), lp["wo"].reshape(-1, cfg.d_model))
         h = _ffn(h, lp, cfg, dropless=True)

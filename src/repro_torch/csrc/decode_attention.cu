@@ -8,7 +8,12 @@
 // to a call without them (a masked key adds an exact 0 to every sum). It
 // returns the output in q's dtype and the per-page probability mass
 // (b, n_q, n_active), normalised by each head's final max and denominator —
-// the attention-guided cache's decode-time A_j.
+// the attention-guided cache's decode-time A_j. The stacked form can also
+// write each query row's logsumexp (natural log) of its scaled, masked
+// logits, lse = m + log(l) at the final max m and denominator l, which a
+// tensor-parallel caller needs to combine partials over disjoint page sets
+// (src/repro_torch/launch/sharded_sparse.py); a row with no key to attend
+// has l = 0 and lse = -inf.
 //
 // Two forms share one kernel body, templated on how a request's pages are
 // addressed: the stacked form reads request b's pages out of one
@@ -117,7 +122,8 @@ static __global__ void __launch_bounds__(DA_NT) decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pool, const T* __restrict__ v_pool,
     const long long* __restrict__ pool_ptrs, const int* __restrict__ table,
     const int* __restrict__ lengths, T* __restrict__ out, float* __restrict__ mass,
-    float* __restrict__ o_part, float* __restrict__ m_part, float* __restrict__ l_part,
+    float* __restrict__ lse, float* __restrict__ o_part, float* __restrict__ m_part,
+    float* __restrict__ l_part,
     int* __restrict__ counters, int b_total, int n_q, int n_kv,
     int n_pages, int page, int n_active, int d, int pps, float scale) {
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte vector
@@ -301,6 +307,7 @@ static __global__ void __launch_bounds__(DA_NT) decode_kernel(
     if (lane == 0) {
       ms[gq] = m;
       ls[gq] = 1.f / fmaxf(l, 1e-30f);
+      if (lse != nullptr) lse[at] = m + logf(l);
     }
   }
   __syncthreads();
@@ -374,7 +381,7 @@ inline size_t decode_work_floats(int b, int n_q, int n_active, int page, int d) 
 template <typename T, bool POOLS>
 static int launch_decode(const void* q, const void* k_pool, const void* v_pool,
                          const long long* pool_ptrs, const int* table, const int* lengths,
-                         void* out, float* mass, float* work, long long work_floats,
+                         void* out, float* mass, float* lse, float* work, long long work_floats,
                          int* counters, int b, int n_q, int n_kv, int n_pages, int page,
                          int n_active, int d, cudaStream_t st) {
   if (page < 1 || page > DA_MAX_KEYS || n_active < 1 || n_kv < 1 || n_q % n_kv || d % 8 ||
@@ -397,7 +404,7 @@ static int launch_decode(const void* q, const void* k_pool, const void* v_pool,
   float* l_part = m_part + rows;
   decode_kernel<T, POOLS><<<dim3(n_kv, b, n_split), DA_NT, decode_smem(G, d, nk, sizeof(T)), st>>>(
       (const T*)q, (const T*)k_pool, (const T*)v_pool, pool_ptrs, table, lengths, (T*)out, mass,
-      o_part, m_part, l_part, counters, b, n_q, n_kv, n_pages, page, n_active, d, pps,
+      lse, o_part, m_part, l_part, counters, b, n_q, n_kv, n_pages, page, n_active, d, pps,
       softmax_scale(d));
   return (int)cudaGetLastError();
 }
@@ -405,21 +412,21 @@ static int launch_decode(const void* q, const void* k_pool, const void* v_pool,
 template <bool POOLS>
 static int dispatch_decode(const void* q, const void* k_pool, const void* v_pool,
                            const long long* pool_ptrs, const int* table, const int* lengths,
-                           void* out, float* mass, float* work, long long work_floats,
+                           void* out, float* mass, float* lse, float* work, long long work_floats,
                            int* counters, int b, int n_q, int n_kv, int n_pages, int page,
                            int n_active, int d, int dtype, cudaStream_t st) {
   switch (dtype) {
     case F32:
       return launch_decode<float, POOLS>(q, k_pool, v_pool, pool_ptrs, table, lengths, out, mass,
-                                         work, work_floats, counters, b, n_q, n_kv, n_pages,
+                                         lse, work, work_floats, counters, b, n_q, n_kv, n_pages,
                                          page, n_active, d, st);
     case BF16:
       return launch_decode<__nv_bfloat16, POOLS>(q, k_pool, v_pool, pool_ptrs, table, lengths,
-                                                 out, mass, work, work_floats, counters, b, n_q,
+                                                 out, mass, lse, work, work_floats, counters, b, n_q,
                                                  n_kv, n_pages, page, n_active, d, st);
     case F16:
       return launch_decode<__half, POOLS>(q, k_pool, v_pool, pool_ptrs, table, lengths, out,
-                                          mass, work, work_floats, counters, b, n_q, n_kv,
+                                          mass, lse, work, work_floats, counters, b, n_q, n_kv,
                                           n_pages, page, n_active, d, st);
     default:
       return (int)cudaErrorInvalidValue;
@@ -437,30 +444,30 @@ extern "C" long long ckv_decode_attention_work_floats(int b, int n_q, int n_acti
 }
 
 // q (b, n_q, d), k_pool/v_pool (b, n_pages, page, n_kv, d) and out (b, n_q, d) in dtype;
-// table (b, n_active) int32, lengths (b,) int32; mass (b, n_q, n_active) float32.
-// Splits of max(1, 64 / page) whole pages; d a multiple of 8 up to 256. work: float32 scratch of
-// work_floats >= ckv_decode_attention_work_floats(...) (cudaErrorInvalidValue
-// otherwise); counters: b * n_kv int32, zero before the launch and zero again
-// after it.
+// table (b, n_active) int32, lengths (b,) int32; mass (b, n_q, n_active) float32;
+// lse (b, n_q) float32, or null for no logsumexp. Splits of max(1, 64 / page) whole pages;
+// d a multiple of 8 up to 256. work: float32 scratch of work_floats >=
+// ckv_decode_attention_work_floats(...) (cudaErrorInvalidValue otherwise);
+// counters: b * n_kv int32, zero before the launch and zero again after it.
 extern "C" int ckv_decode_attention(const void* q, const void* k_pool, const void* v_pool,
                                     const int* table, const int* lengths, void* out, float* mass,
-                                    float* work, long long work_floats, int* counters, int b,
-                                    int n_q, int n_kv, int n_pages, int page, int n_active, int d,
-                                    int dtype, void* stream) {
-  return ckv::dispatch_decode<false>(q, k_pool, v_pool, nullptr, table, lengths, out, mass, work,
-                                     work_floats, counters, b, n_q, n_kv, n_pages, page,
+                                    float* lse, float* work, long long work_floats, int* counters,
+                                    int b, int n_q, int n_kv, int n_pages, int page, int n_active,
+                                    int d, int dtype, void* stream) {
+  return ckv::dispatch_decode<false>(q, k_pool, v_pool, nullptr, table, lengths, out, mass, lse,
+                                     work, work_floats, counters, b, n_q, n_kv, n_pages, page,
                                      n_active, d, dtype, (cudaStream_t)stream);
 }
 
 // The pools form: pool_ptrs is a device block of 3 b int64 — request i's K
 // buffer, its V buffer (each (n_pages_i, page, n_kv, d) in dtype) and
-// n_pages_i; everything else as ckv_decode_attention.
+// n_pages_i; everything else as ckv_decode_attention, with no logsumexp.
 extern "C" int ckv_decode_attention_pools(const void* q, const long long* pool_ptrs,
                                           const int* table, const int* lengths, void* out,
                                           float* mass, float* work, long long work_floats,
                                           int* counters, int b, int n_q, int n_kv, int page,
                                           int n_active, int d, int dtype, void* stream) {
   return ckv::dispatch_decode<true>(q, nullptr, nullptr, pool_ptrs, table, lengths, out, mass,
-                                    work, work_floats, counters, b, n_q, n_kv, 0, page, n_active,
+                                    nullptr, work, work_floats, counters, b, n_q, n_kv, 0, page, n_active,
                                     d, dtype, (cudaStream_t)stream);
 }

@@ -42,9 +42,9 @@ SIGNATURES = {
     # q, k_pool, v_pool, k_suf, v_suf, chunk_idx, n_valid, out, mass, work, work_floats,
     # counters, b, s, n_q, n_kv, n_sel, c, d, q_dtype, stream
     "ckv_chunk_attention_indexed": [P] * 10 + [L, P] + [I] * 8 + [P],
-    # q, k_pool, v_pool, table, lengths, out, mass, work, work_floats, counters,
-    # b, n_q, n_kv, n_pages, page, n_active, d, dtype, stream
-    "ckv_decode_attention": [P] * 8 + [L, P] + [I] * 8 + [P],
+    # q, k_pool, v_pool, table, lengths, out, mass, lse (or null), work, work_floats,
+    # counters, b, n_q, n_kv, n_pages, page, n_active, d, dtype, stream
+    "ckv_decode_attention": [P] * 9 + [L, P] + [I] * 8 + [P],
     # q, pool_ptrs, table, lengths, out, mass, work, work_floats, counters,
     # b, n_q, n_kv, page, n_active, d, dtype, stream
     "ckv_decode_attention_pools": [P] * 7 + [L, P] + [I] * 7 + [P],

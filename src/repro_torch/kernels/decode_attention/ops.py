@@ -11,7 +11,10 @@ two outputs.
 Two forms: :func:`decode_attention` over one stacked ``(b, n_pages, ...)``
 pool, and :func:`decode_attention_pools` over b per-request pool buffers,
 which the kernel reads through their base pointers, with no pad-and-stack
-copy. Both count in ``launches``, and by form in ``launches_by_variant``.
+copy. Both count in ``launches``, and by form in ``launches_by_variant``:
+``stacked``, ``pools``, and ``stacked_lse`` for a stacked call that also
+writes each row's logsumexp (``return_lse=True``, the tensor-parallel
+decode's per-shard partial).
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from repro_torch.kernels.decode_attention.ref import (decode_attention_pools_ref
                                                       decode_attention_ref)
 
 launches = 0  # kernel launches since the count was last set to 0
-launches_by_variant = {"stacked": 0, "pools": 0}
+launches_by_variant = {"stacked": 0, "pools": 0, "stacked_lse": 0}
 
 
 def _check_geometry(q: torch.Tensor, n_kv: int, page: int, d: int, n_active: int, shapes):
@@ -36,8 +39,10 @@ def _check_geometry(q: torch.Tensor, n_kv: int, page: int, d: int, n_active: int
         raise ValueError(f"decode_attention: unsupported shapes q {tuple(q.shape)} {shapes}")
 
 
-def _launch(lib_fn, q, n_kv, page, n_active, d, pools_args, table, lengths, *extra_ints):
-    """Scratch, outputs and one launch of either form."""
+def _launch(lib_fn, q, n_kv, page, n_active, d, pools_args, table, lengths, lse_args,
+            *extra_ints):
+    """Scratch, outputs and one launch of either form; ``lse_args`` is the
+    stacked form's logsumexp pointer (0 for none), empty for the pools form."""
     lib = B.library()
     b, n_q, _ = q.shape
     work, counters = B.workspace(
@@ -47,23 +52,26 @@ def _launch(lib_fn, q, n_kv, page, n_active, d, pools_args, table, lengths, *ext
     mass = torch.empty(b, n_q, n_active, dtype=torch.float32, device=q.device)
     return out, mass, lib_fn(
         q.data_ptr(), *pools_args, table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        mass.data_ptr(), work.data_ptr(), work.numel(), counters.data_ptr(), b, n_q, n_kv,
-        *extra_ints, B.dtype_code(q), B.stream_handle(q))
+        mass.data_ptr(), *lse_args, work.data_ptr(), work.numel(), counters.data_ptr(), b, n_q,
+        n_kv, *extra_ints, B.dtype_code(q), B.stream_handle(q))
 
 
 def decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
-                     page_table: torch.Tensor, lengths: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     page_table: torch.Tensor, lengths: torch.Tensor, return_lse: bool = False):
     """Paged decode attention.
 
     q: (b, n_q, d); k_pool/v_pool: (b, n_pages, page, n_kv, d), q's dtype;
     page_table: (b, n_active) int32, < 0 marks a pad slot; lengths: (b,)
     int32 valid tokens counted over the table's slots. Returns (out (b, n_q,
     d) in q's dtype, mass (b, n_q, n_active) float32): ``mass[b, h, j]`` is
-    the share of head h's probability on slot j, exactly 0 on pad slots."""
+    the share of head h's probability on slot j, exactly 0 on pad slots.
+    With ``return_lse`` it also returns lse (b, n_q) float32, each row's
+    natural-log logsumexp of its scaled, masked logits; the kernel gives a
+    row with nothing to attend out 0, mass 0 and lse -inf, the plain version
+    a finite lse near -1e30. out and mass are the same bits either way."""
     global launches
     if B.on_cpu(q, k_pool, v_pool, page_table, lengths):
-        return decode_attention_ref(q, k_pool, v_pool, page_table, lengths)
+        return decode_attention_ref(q, k_pool, v_pool, page_table, lengths, return_lse)
     B.refuse_grad("decode_attention", q, k_pool, v_pool)
     B.require(q, "q", 3, B.FLOAT_TYPES)
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
@@ -80,13 +88,14 @@ def decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor
     _check_geometry(q, n_kv, page, d, n_active,
                     f"pool {tuple(k_pool.shape)} table {tuple(page_table.shape)}")
     lib = B.library()
+    lse = torch.empty(b, q.shape[1], dtype=torch.float32, device=q.device) if return_lse else None
     out, mass, rc = _launch(lib.ckv_decode_attention, q, n_kv, page, n_active, d,
                             (k_pool.data_ptr(), v_pool.data_ptr()), page_table, lengths,
-                            n_pages, page, n_active, d)
+                            (0 if lse is None else lse.data_ptr(),), n_pages, page, n_active, d)
     B.check(rc, "decode_attention")
     launches += 1
-    launches_by_variant["stacked"] += 1
-    return out, mass
+    launches_by_variant["stacked_lse" if return_lse else "stacked"] += 1
+    return (out, mass, lse) if return_lse else (out, mass)
 
 
 def pool_pointers(ks: Sequence[torch.Tensor], vs: Sequence[torch.Tensor]) -> np.ndarray:
@@ -163,7 +172,7 @@ def decode_attention_pools(q: torch.Tensor, ks: Sequence[torch.Tensor],
                          f"on {pointers.device.device}")
     lib = B.library()
     out, mass, rc = _launch(lib.ckv_decode_attention_pools, q, n_kv, page, n_active, d,
-                            (pointers.device.data_ptr(),), page_table, lengths,
+                            (pointers.device.data_ptr(),), page_table, lengths, (),
                             page, n_active, d)
     B.check(rc, "decode_attention_pools")
     launches += 1

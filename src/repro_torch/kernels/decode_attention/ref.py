@@ -15,8 +15,11 @@ def decode_attention_ref(
     v_pool: torch.Tensor,
     page_table: torch.Tensor,  # (b, n_active) int32 logical->physical; < 0 = pad
     lengths: torch.Tensor,  # (b,) valid token count
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (out (b, n_q, d) in q's dtype, mass (b, n_q, n_active) float32).
+    return_lse: bool = False,
+):
+    """Returns (out (b, n_q, d) in q's dtype, mass (b, n_q, n_active) float32),
+    and with ``return_lse`` also lse (b, n_q) float32: the natural-log
+    logsumexp of each row's scaled, masked logits.
 
     The softmax and the product with V run in float32 and the output is
     rounded once, as the kernel does. Pad slots (``page_table < 0``) are
@@ -44,6 +47,9 @@ def decode_attention_ref(
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bngt,btnd->bngd", p, v).to(q.dtype)
     mass = p.reshape(b, n_kv, group, n_active, page).sum(-1)
+    if return_lse:
+        return (out.reshape(b, n_q, d), mass.reshape(b, n_q, n_active),
+                torch.logsumexp(logits, dim=-1).reshape(b, n_q))
     return out.reshape(b, n_q, d), mass.reshape(b, n_q, n_active)
 
 

@@ -64,8 +64,12 @@ memory) and promote back on access, and keys become (prefix digest, layer,
 unit); the digest prints hits by tier, the log's read amplification and the
 units dedup saved.
 
-Not yet in the port, exiting at once with the slice that brings it:
-``--tp-decode``.
+``--tp-decode K`` (real mode) runs every decode attend tensor-parallel over
+a serving mesh (``launch.mesh.make_serving_mesh(kv_split=K)``, K = 0 for
+one flat axis) of the local cards, or of the CPU under ``--device cpu``:
+the pools' pages split over the mesh's shards, each shard through the
+decode_attention kernel with its logsumexp, the partials combined. Sim mode
+ignores it, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -76,19 +80,6 @@ import numpy as np
 from repro_torch.serving import (POLICIES, DisaggTopology, ReplicaSet, Request,
                                  Scheduler, make_arrivals, summarize)
 from repro_torch.serving.tenancy import ENGINE_CLASSES, build_sim_fleet, parse_fleet_spec
-
-# flags of the JAX package's driver that wait for a later slice of the port
-DEFERRED = {
-    "tp_decode": "--tp-decode comes with the port's multi-device slice",
-}
-
-
-def _refuse_deferred(args):
-    given = {"tp_decode": args.tp_decode is not None}
-    for flag, on in given.items():
-        if on:
-            raise SystemExit(f"not in the port yet: {DEFERRED[flag]}")
-
 
 def _parse_cache_tiers(spec: str):
     """"HBM:DRAM:SSD" unit capacities -> (device_cap, host_cap, ssd_cap)."""
@@ -187,6 +178,13 @@ def _real_main(args):
     if args.cache_tiers and args.system != "contiguous_kv":
         raise SystemExit("--cache-tiers needs --system contiguous_kv")
     dev = resolve_device(args.device)
+    tp_mesh = None
+    if args.tp_decode is not None:
+        from repro_torch.launch.mesh import make_serving_mesh
+
+        # every local card, or the CPU under --device cpu
+        tp_mesh = make_serving_mesh(kv_split=args.tp_decode,
+                                    devices=[dev] if dev.type == "cpu" else None)
     cfg = reduced_config(args.arch, n_layers=args.n_layers)
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     task = make_task(args.dataset, cfg.vocab_size, n_queries=args.requests)
@@ -213,7 +211,11 @@ def _real_main(args):
                   f"units, digest={sess.digest}")
     elif args.system != "as_lru":
         kw.update(budget=args.budget)
-    eng = ENGINE_CLASSES[args.system](sess, RealCompute(cfg, params, device=dev), ex, **kw)
+    if tp_mesh is not None:
+        print(f"tensor-parallel decode: {tp_mesh.devices.size} devices, "
+              f"mesh {dict(tp_mesh.shape)}")
+    eng = ENGINE_CLASSES[args.system](
+        sess, RealCompute(cfg, params, device=dev, tp_mesh=tp_mesh), ex, **kw)
 
     topology = None
     if args.disaggregate:
@@ -226,14 +228,15 @@ def _real_main(args):
         # logits whichever replica serves the decode phase
         replicas = ReplicaSet(
             topology=topology,
-            backends=[[RealCompute(cfg, params, device=dev) for _ in range(workers)]
+            backends=[[RealCompute(cfg, params, device=dev, tp_mesh=tp_mesh)
+                       for _ in range(workers)]
                       for _ in range(n)])
         split = (f" x {topology.n_prefill}P:{topology.n_decode}D each"
                  if topology is not None else "")
         print(f"replicating: {n} data-parallel replicas{split} "
               f"(pool handoff at decode)")
     elif topology is not None:
-        topology.decode_backends = [RealCompute(cfg, params, device=dev)
+        topology.decode_backends = [RealCompute(cfg, params, device=dev, tp_mesh=tp_mesh)
                                     for _ in range(topology.n_decode)]
         print(f"disaggregating: {topology.n_prefill} prefill / "
               f"{topology.n_decode} decode workers (pool handoff)")
@@ -507,7 +510,10 @@ def main(argv=None):
     p.add_argument("--replicas", default=None, metavar="N",
                    help="data-parallel serving replicas behind one Scheduler, one "
                         "backend each; composes with --disaggregate")
-    p.add_argument("--tp-decode", type=int, default=None, metavar="K")
+    p.add_argument("--tp-decode", type=int, default=None, metavar="K",
+                   help="real mode: tensor-parallel paged decode attention over a "
+                        "serving mesh of the local devices (K = kv_split; 0 = one "
+                        "flat axis)")
     p.add_argument("--arch", default="qwen2.5-14b")
     p.add_argument("--dataset", default="rte")
     p.add_argument("--n-layers", type=int, default=4)
@@ -532,7 +538,6 @@ def main(argv=None):
         p.error("--tenants must be >= 1")
     if args.concurrency < 1:
         p.error("--concurrency must be >= 1")
-    _refuse_deferred(args)
     if args.mode == "sim":
         return _sim_main(args)
     if args.fleet:

@@ -1,0 +1,226 @@
+"""Tensor-parallel decode over a :class:`repro_torch.launch.mesh.Mesh`.
+
+Two entry points, each splitting the KV over the mesh's shards and merging
+the shards' softmax partials with the flash-decode combine:
+
+- :func:`make_sharded_paged_decode`, the serving tier's paged attend (what
+  ``RealCompute(tp_mesh=...)`` runs): the pools' page dim is split over the
+  mesh's tensor axes, each shard attends to the pages it owns through the
+  hand-written ``decode_attention`` kernel, which also returns each row's
+  logsumexp, and the partials are combined in float32 on the first device;
+- :func:`make_sharded_sparse_decode_step`, ContiguousKV's sparse decode with
+  per-shard selection: each shard appends the new token's KV if it owns the
+  position, updates its chunk summaries, picks its own top chunks and
+  attends over them; plain torch, as the JAX package computes it outside
+  any kernel.
+
+The few tensor ops of each combine stand where the JAX package's ``pmax`` /
+``psum`` collectives stand (``src/repro/launch/sharded_sparse.py``).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import List, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.launch.mesh import Mesh, shard_devices, tp_axes
+from repro_torch.models import transformer as T
+from repro_torch.models.attention import qkv_project
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.layers import rms_norm
+
+NEG_INF = -1e30
+# a logsumexp at or below this is a row the shard had nothing to attend in:
+# the kernel gives -inf there, the plain version a finite value near NEG_INF
+MASKED_LSE = -1e29
+
+
+def _on(device: torch.device):
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _stack(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    return xs[0][None] if len(xs) == 1 else torch.stack(xs)
+
+
+def combine_partials(parts: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
+                     device: torch.device, dtype: torch.dtype):
+    """Merge shards' (out, mass, lse) partials of one attend over disjoint
+    page sets into (out in ``dtype``, mass float32), in float32 on
+    ``device``: ``w_s = exp(lse_s - logsumexp_s lse_s)`` (a softmax over the
+    shards), ``out = sum_s w_s out_s`` rounded once, ``mass = sum_s w_s
+    mass_s``. A shard whose row had nothing to attend (lse -inf, NaN or at
+    most MASKED_LSE) weighs exactly 0 and its out and mass are never read
+    (``torch.where``, not a product), so a row no shard can see comes out 0.
+    At one shard ``w`` is 1 and the result is the partial's bits."""
+    out_s, mass_s, lse = (_stack([p[i].to(device) for p in parts]) for i in range(3))
+    ok = lse > MASKED_LSE  # (k, b, n_q); False for -inf and NaN
+    w = torch.where(ok, torch.softmax(torch.where(ok, lse, float("-inf")), dim=0), 0.0)
+    ok, w = ok[..., None], w[..., None]
+    out = torch.where(ok, w * out_s.to(torch.float32), 0.0).sum(dim=0)
+    mass = torch.where(ok, w * mass_s, 0.0).sum(dim=0)
+    return out.to(dtype), mass
+
+
+def _shard_tables(table: torch.Tensor, local: int, n_shards: int) -> torch.Tensor:
+    """Every shard's page table at once, (n_shards, b, n_active): slot j
+    kept where shard s owns its page (``page // local == s``), -1 elsewhere
+    (a pad slot's -1 // local is -1: no shard's). Each shard's table starts
+    on a 16-byte boundary, as the kernel takes it."""
+    b, n = table.shape
+    stride = -(-b * n // 4) * 4
+    flat = torch.nn.functional.pad(table.reshape(-1), (0, stride - b * n), value=-1)
+    shard = torch.arange(n_shards, dtype=torch.int32, device=table.device)[:, None]
+    owned = torch.where(torch.div(flat, local, rounding_mode="floor") == shard, flat, -1)
+    return owned[:, : b * n].unflatten(1, (b, n))
+
+
+def make_sharded_paged_decode(mesh: Mesh):
+    """Tensor-parallel drop-in for ``decode_attention``.
+
+    Returns ``attend(q, k_pool, v_pool, page_table, lengths) -> (out,
+    mass)`` with the single-device contract (pad slots weigh exactly 0).
+    Shard s owns the physical pages ``[s * local, (s + 1) * local)``, local
+    = ceil(n_pages / n_shards) as the JAX package pads; slot positions stay
+    logical, so the ``pos < lengths`` mask is the single-device one. Each
+    shard runs ``decode_attention(..., return_lse=True)`` on its device
+    with the slots it does not own set to -1: on the pool's own device over
+    the whole pool (no slice, no copy), on another device over a copy of its
+    pages with the table rebased. The partials are combined on the mesh's
+    first device (:func:`combine_partials`) and returned on q's device."""
+    devices = shard_devices(mesh, tp_axes(mesh))
+    n_shards = len(devices)
+
+    def attend(q, k_pool, v_pool, page_table, lengths):
+        n_pages = k_pool.shape[1]
+        local = -(-n_pages // n_shards)
+        table = page_table.to(torch.int32)
+        lengths = lengths.to(torch.int32)
+        tables = [table] if n_shards == 1 else _shard_tables(table, local, n_shards)
+        parts = []
+        for s, dev in enumerate(devices):
+            lo = s * local
+            if dev == k_pool.device:
+                args = (q, k_pool, v_pool, tables[s], lengths)
+            else:
+                n = max(0, min(n_pages - lo, local))
+                blocks = []
+                for pool in (k_pool, v_pool):
+                    block = pool.new_zeros((pool.shape[0], local) + tuple(pool.shape[2:]),
+                                           device=dev)
+                    block[:, :n] = pool[:, lo: lo + n]
+                    blocks.append(block)
+                rebased = torch.where(tables[s] >= 0, tables[s] - lo, -1)
+                args = (q.to(dev), *blocks, rebased.to(dev), lengths.to(dev))
+            with _on(dev):
+                parts.append(decode_attention(*args, return_lse=True))
+        out, mass = combine_partials(parts, devices[0], q.dtype)
+        return out.to(q.device), mass.to(q.device)
+
+    return attend
+
+
+def _local_sparse_partial(q, k_shard, v_shard, km_shard, k_new, v_new, length: int, base: int,
+                          *, chunk_tokens: int, k_sel: int, group: int):
+    """One shard's step (JAX's ``_local_sparse_attention`` before its
+    collectives): the KV append and chunk-summary update if the shard owns
+    position ``length`` (in place), its top-``k_sel`` chunks by the query's
+    score against the resident summaries (ties to the lower index), and its
+    float32 softmax partial over them at the shard's own max. Returns
+    (m (b, n_kv, g, 1, 1), l, o (b, n_kv, g, 1, d))."""
+    b, s_local, n_kv, d = k_shard.shape
+    c = chunk_tokens
+    m_local = s_local // c
+    local_pos = length - base
+    if 0 <= local_pos < s_local:
+        k_shard[:, local_pos] = k_new[:, 0].to(k_shard.dtype)
+        v_shard[:, local_pos] = v_new[:, 0].to(v_shard.dtype)
+        km_shard[:, local_pos // c] += (k_new[:, 0] / c).to(km_shard.dtype)
+    dev = k_shard.device
+    qg = q.reshape(b, 1, n_kv, group, d).to(torch.float32)
+    s_mean = torch.einsum("bsngd,bmnd->bnsgm", qg, km_shard.to(torch.float32))
+    scores = s_mean.sum(dim=(1, 2, 3))  # (b, m_local)
+    cpos = base + torch.arange(m_local, device=dev) * c
+    scores = torch.where(cpos[None] <= length, scores, float("-inf"))
+    top = torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :k_sel]
+    rows = torch.arange(b, device=dev)[:, None]
+    kf = k_shard.reshape(b, m_local, c, n_kv, d)[rows, top].reshape(b, k_sel * c, n_kv, d)
+    vf = v_shard.reshape(b, m_local, c, n_kv, d)[rows, top].reshape(b, k_sel * c, n_kv, d)
+    sel_pos = (base + top[:, :, None] * c + torch.arange(c, device=dev)).reshape(b, -1)
+    logits = torch.einsum("bsngd,btnd->bngst", qg, kf.to(torch.float32)) * d ** -0.5
+    logits = torch.where((sel_pos <= length)[:, None, None, None], logits, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    return m, p.sum(dim=-1, keepdim=True), torch.einsum("bngst,btnd->bngsd", p,
+                                                        vf.to(torch.float32))
+
+
+def make_sharded_sparse_decode_step(cfg: ModelConfig, mesh: Mesh, *, chunk_tokens: int = 16,
+                                    budget: float = 0.05):
+    """ContiguousKV sparse decode with per-shard selection.
+
+    Returns ``step(params, token, state) -> (logits, state)`` over the
+    port's serve state with chunk summaries (``k`` / ``v`` (L, b, S, n_kv,
+    d), ``kmean`` (L, b, S / chunk_tokens, n_kv, d), ``length``): the KV's
+    position dim is split over every mesh axis but "pod", each shard picks
+    ``max(1, int(budget * m_local))`` of its m_local chunks (at most all of
+    them), and the shards' partials merge at the global max, so a shard
+    whose selection is all invalid weighs exactly 0. The state's buffers
+    are updated in place and the same dict is returned. A shard on another
+    device than the state works on a copy of its slice, written back."""
+    if not cfg.has_attention:
+        raise ValueError(f"{cfg.name}: the sparse decode step needs attention layers")
+    devices = shard_devices(mesh, [a for a in mesh.axis_names if a != "pod"])
+    n_shards, c = len(devices), chunk_tokens
+    group = cfg.n_heads // cfg.n_kv_heads
+
+    def step(params, token, state):
+        h = token.to(cfg.activation_dtype()) if token.dim() == 3 else params["embed"][token]
+        b = h.shape[0]
+        length = int(state["length"])
+        S = state["k"].shape[2]
+        if S % (n_shards * c):
+            raise ValueError(
+                f"sharded sparse decode needs the KV capacity S={S} divisible by "
+                f"n_shards*chunk_tokens = {n_shards}*{c} = {n_shards * c} so each shard holds "
+                f"whole ContiguousChunks; pad the KV state to a multiple or lower "
+                f"chunk_tokens/shard count")
+        s_local = S // n_shards
+        m_local = s_local // c
+        k_sel = min(max(1, int(budget * m_local)), m_local)
+        positions = torch.full((b, 1), length, dtype=torch.long, device=h.device)
+        for l in range(cfg.n_layers):
+            lp = T.layer_params(params, l)
+            xn = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+            q, k_new, v_new = qkv_project(xn, lp, cfg, positions)
+            parts: List[tuple] = []
+            for s, dev in enumerate(devices):
+                kv = (state["k"][l, :, s * s_local: (s + 1) * s_local],
+                      state["v"][l, :, s * s_local: (s + 1) * s_local],
+                      state["kmean"][l, :, s * m_local: (s + 1) * m_local])
+                moved = dev != kv[0].device
+                local = tuple(x.to(dev) for x in kv) if moved else kv
+                with _on(dev):
+                    part = _local_sparse_partial(
+                        q.to(dev), *local, k_new.to(dev), v_new.to(dev), length, s * s_local,
+                        chunk_tokens=c, k_sel=k_sel, group=group)
+                if moved:
+                    for x, y in zip(kv, local):
+                        x.copy_(y)
+                parts.append(tuple(x.to(h.device) for x in part))
+            m_glob = torch.stack([p[0] for p in parts]).amax(dim=0)
+            l_glob = o_glob = None
+            for m_s, l_s, o_s in parts:
+                corr = torch.exp(m_s - m_glob)
+                l_glob = l_s * corr if l_glob is None else l_glob + l_s * corr
+                o_glob = o_s * corr if o_glob is None else o_glob + o_s * corr
+            out = o_glob / l_glob.clamp_min(1e-30)  # (b, n_kv, g, 1, d)
+            out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.n_heads, cfg.d_head)
+            h = h + T._out_proj(out.to(q.dtype), lp, cfg)
+            h = T._ffn(h, lp, cfg, dropless=True)
+        state["length"] = length + 1
+        return T._logits(params, h, cfg), state
+
+    return step

@@ -1779,3 +1779,133 @@ def test_state_space_training_on_the_card_matches_the_cpu(dev, name):
     rl, rg = make_value_and_grad(cfg, remat=True)(on_card, batch)
     assert torch.equal(rl, got_l)
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(rg), tree_leaves(got_g)))
+
+
+# -- decode_attention's logsumexp and the tensor-parallel attend ------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("n_split", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_decode_attention_lse(dev, dtype, page, d, n_split):
+    """return_lse at 1 to 8 splits (the merge writes it at every count): lse
+    within 1e-5 of the plain version's (float32 sums of the same
+    exponentials in another order), counted as stacked_lse, and out and mass
+    the same bits as the call without it."""
+    pps = 64 // page
+    n_active = max(1, pps * n_split - pps // 2)  # a ragged last split where pages allow
+    lens = [(n_active - 1) * page + 3, max(1, (n_active // 2) * page - 1)]
+    q, kp, vp, tbl, ln = _decode_case(dev, dtype, 2, 28 if d < 256 else 8, 4, d, page,
+                                      n_active + 2, [n_active, n_active], lens, seed=700)
+    before = dict(da_ops.launches_by_variant)
+    o, m, lse = da_ops.decode_attention(q, kp, vp, tbl, ln, return_lse=True)
+    assert da_ops.launches_by_variant["stacked_lse"] == before["stacked_lse"] + 1
+    assert da_ops.launches_by_variant["stacked"] == before["stacked"]
+    _, _, want = decode_attention_ref(q, kp, vp, tbl, ln, return_lse=True)
+    assert lse.shape == want.shape == q.shape[:2] and lse.dtype == torch.float32
+    _close(lse, want)
+    o2, m2 = da_ops.decode_attention(q, kp, vp, tbl, ln)
+    assert torch.equal(o, o2) and torch.equal(m, m2)
+
+
+def test_decode_attention_lse_of_a_row_with_nothing_to_attend(dev):
+    """Row 1 has length 0: the kernel gives it out 0, mass 0 and lse -inf;
+    row 0 is untouched by it (the same bits as alone)."""
+    q, kp, vp, tbl, _ = _decode_case(dev, torch.bfloat16, 2, 28, 4, 128, 16, 12, [10, 10],
+                                     [0, 0], seed=710)
+    ln = torch.tensor([150, 0], dtype=torch.int32, device=dev)
+    o, m, lse = da_ops.decode_attention(q, kp, vp, tbl, ln, return_lse=True)
+    assert _all_zero(o[1]) and _all_zero(m[1]) and torch.isneginf(lse[1]).all()
+    o0, m0, l0 = da_ops.decode_attention(q[:1], kp[:1], vp[:1], tbl[:1], ln[:1],
+                                         return_lse=True)
+    assert torch.equal(o[0], o0[0]) and torch.equal(m[0], m0[0]) and torch.equal(lse[0], l0[0])
+
+
+def _tp_case(dev, dtype, page):
+    """The dense decode shape (28 / 4 heads, d 128) over 69 slots a row, one
+    of them a pad: row 0 over a shuffled pool of 70 pages, row 1 over 20
+    pages that all lie in the pool's first eighth (one shard of 8 sees them),
+    row 2 of length 0 (no shard sees anything)."""
+    n_pages, width = 70, 69
+    q = _rand(dev, 720, (3, 28, 128), dtype)
+    kp, vp = (_rand(dev, 721 + i, (3, n_pages, page, 4, 128), dtype) for i in (0, 1))
+    rng = np.random.default_rng(722)
+    tbl = np.full((3, width), -1, np.int32)
+    tbl[0, : width - 1] = rng.permutation(n_pages)[: width - 1]
+    tbl[1, :5] = rng.permutation(8)[:5]
+    tbl[2, :3] = [0, 40, 69]
+    lens = [(width - 2) * page + 5, 4 * page + 1, 0]
+    return (q, kp, vp, torch.from_numpy(tbl).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_sharded_paged_decode_on_the_card(dev, dtype, page, k):
+    """The sharded attend over [cuda] x k against the unsharded kernel: one
+    stacked_lse launch a shard and no plain version; float32 within 1e-5,
+    bfloat16 out within 2^-7 of the largest (each shard's output and the
+    combine's each round once), mass within 1e-5; at one shard the same bits.
+    Rows that a shard cannot see, and the row no shard sees, come out as the
+    unsharded kernel's (0 for the last)."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.launch.sharded_sparse import make_sharded_paged_decode
+
+    args = _tp_case(dev, dtype, page)
+    want_o, want_m = da_ops.decode_attention(*args)
+    attend = make_sharded_paged_decode(make_serving_mesh(devices=[dev] * k))
+    before = dict(da_ops.launches_by_variant)
+    o, m = attend(*args)
+    assert da_ops.launches_by_variant["stacked_lse"] - before["stacked_lse"] == k
+    assert o.dtype == dtype and o.device == args[0].device
+    if k == 1:
+        assert torch.equal(o, want_o) and torch.equal(m, want_m)
+    _close(o, want_o, rel=1e-5 if dtype == torch.float32 else 2.0 ** -7)
+    _close(m, want_m)
+    assert _all_zero(o[2]) and _all_zero(m[2]) and _all_zero(m[1, :, 5:])
+
+
+def test_decode_step_batch_on_a_one_shard_mesh_is_bit_for_bit(dev):
+    """RealCompute(tp_mesh=[cuda]).decode_step_batch, device and host pools,
+    bit for bit the backend without a mesh (the pools form on the same
+    pools), two steps; one stacked_lse launch a layer a step."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.backends import DeviceTailPool, RealCompute, TailPool
+    from repro_torch.core.stepplan import DecodeBatchCtx
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(reduced_config("qwen2.5-7b", n_layers=2), dtype="bfloat16")
+    params = _to(init_params(cfg, torch.Generator().manual_seed(0), device="cpu"), dev)
+    rng = np.random.default_rng(730)
+    data = [(7 * i + 1, 100 + i, [
+        tuple(rng.standard_normal((n, 16, cfg.n_kv_heads, cfg.d_head)).astype(np.float16)
+              for _ in range(2))
+        + tuple(torch.from_numpy(rng.standard_normal((1, 10 + i, cfg.n_kv_heads, cfg.d_head))
+                                 .astype(np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+        for _ in range(cfg.n_layers)]) for i, n in enumerate((3, 1, 2))]
+
+    def run(pool_cls, mesh):
+        be = RealCompute(cfg, params, device=dev, tp_mesh=mesh)
+        ctxs = [DecodeBatchCtx(be, tok, pos, {
+            l: pool_cls(kr, vr, (ks, vs), 16, 6, device=dev)
+            for l, (kr, vr, ks, vs) in enumerate(layers)}) for tok, pos, layers in data]
+        outs = []
+        for _ in range(2):
+            outs.append(be.decode_step_batch(ctxs))
+            for c in ctxs:
+                c.pos += 1
+        return outs
+
+    for pool_cls in (DeviceTailPool, TailPool):
+        plain = run(pool_cls, None)
+        before = da_ops.launches_by_variant["stacked_lse"]
+        tp = run(pool_cls, make_serving_mesh(devices=[dev]))
+        assert da_ops.launches_by_variant["stacked_lse"] - before == 2 * cfg.n_layers
+        for step_p, step_t in zip(plain, tp):
+            for (lp, mp), (lt, mt) in zip(step_p, step_t):
+                np.testing.assert_array_equal(lp, lt)
+                for l in mp:
+                    np.testing.assert_array_equal(mp[l], mt[l])

@@ -333,13 +333,39 @@ def test_serve_cli_on_the_cpu(capsys):
     assert "decode: mean TPOT=" in out
 
 
-@pytest.mark.parametrize("flags,slice_name", [
-    (["--mode", "sim", "--tp-decode", "0"], "multi-device slice"),
-    (["--tp-decode", "0"], "multi-device slice"),
-])
-def test_serve_cli_refuses_deferred_flags(flags, slice_name):
-    with pytest.raises(SystemExit, match=slice_name):
-        serve.main(["--device", "cpu"] + flags)
+CLI_C1 = ["--device", "cpu", "--arch", "qwen2.5-7b", "--n-layers", "2", "--requests", "2",
+          "--concurrency", "1", "--decode-tokens", "3"]
+
+
+def test_serve_cli_tp_decode_matches_the_run_without(capsys):
+    """--tp-decode 0 on the CPU: a one-shard mesh whose attend combines one
+    partial, so c = 1 gives the run without the flag's greedy tokens and
+    logits bit for bit."""
+    plain = serve.main(CLI_C1)
+    capsys.readouterr()
+    tp = serve.main(CLI_C1 + ["--tp-decode", "0"])
+    assert "tensor-parallel decode: 1 devices, mesh {'model': 1}" in capsys.readouterr().out
+    assert len(tp) == len(plain) == 2
+    for a, b in zip(plain, tp):
+        np.testing.assert_array_equal(a.result, b.result)
+        assert a.trace.decode_tokens_out == b.trace.decode_tokens_out
+        assert len(b.trace.decode_tokens_out) == 3
+
+
+def test_serve_cli_tp_decode_kv_split_must_divide_the_devices():
+    """--tp-decode 2 over the one CPU device: the JAX package's message."""
+    from repro.launch.mesh import make_serving_mesh as jax_serving_mesh
+
+    with pytest.raises(ValueError) as want:
+        jax_serving_mesh(kv_split=2)  # one CPU device in this process
+    with pytest.raises(ValueError) as got:
+        serve.main(["--device", "cpu", "--tp-decode", "2"])
+    assert str(got.value) == str(want.value)
+
+
+def test_serve_cli_fleet_refuses_tp_decode():
+    with pytest.raises(SystemExit, match="--tp-decode"):
+        serve.main(["--device", "cpu", "--fleet", "qwen2_5_7b:1", "--tp-decode", "0"])
 
 
 @pytest.mark.parametrize("flags", [

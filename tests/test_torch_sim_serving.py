@@ -239,7 +239,12 @@ def test_serve_sim_cli_matches_jax(argv, monkeypatch, capsys):
     assert "p50=" in want and "goodput=" in want
 
 
-def test_only_tp_decode_is_deferred():
-    assert set(serve.DEFERRED) == {"tp_decode"}
-    with pytest.raises(SystemExit, match="multi-device"):
-        serve.main(["--mode", "sim", "--tp-decode", "2"])
+def test_sim_ignores_tp_decode(capsys):
+    """--mode sim prints exactly what it prints without --tp-decode, as the
+    JAX package's sim mode ignores the flag."""
+    argv = ["--mode", "sim", "--requests", "4", "--decode-tokens", "2"]
+    serve.main(argv)
+    want = capsys.readouterr().out
+    done = serve.main(argv + ["--tp-decode", "2"])
+    assert capsys.readouterr().out == want
+    assert len(done) == 4 and "p50=" in want
