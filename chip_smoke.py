@@ -178,9 +178,9 @@ non-zero exit code:
                 the pools form at b = 2 bit for bit the stacked), each held
                 against its plain version and timed beside it, its bound,
                 scaled_dot_product_attention at d 256 and its host time;
-  10. moe     — (p) granite-moe-3b-a800m at full width (32 layers, 40
-                experts top 8, random bfloat16 weights from a seeded
-                generator): the e2e phase's request shape through
+  10. moe     — (p) granite-moe-3b-a800m at full width cut to
+                MOE_SERVE_LAYERS of its 32 layers (40 experts top 8, random
+                bfloat16 weights from a seeded generator): the e2e phase's request shape through
                 ContiguousKVEngine, launches per request and read
                 amplification asserted, TTFT / TPOT, a profiled request, the
                 expert assignments the ingest dropped at capacity factor
@@ -265,7 +265,28 @@ non-zero exit code:
                 (t11) granite-moe-3b-a800m at 24 of 32 layers (its MoE
                 dispatch under grad); (t12) musicgen-large at 40 of 48
                 layers on numpy-seeded frame embeddings (wgmma at d 64,
-                n_q = n_kv);
+                n_q = n_kv); then training over a mesh of the card
+                (``make_train_step(..., mesh=)``, each position of the mesh
+                on cuda:0): (t13) full-width qwen3-1.7b on a 2 x 2 mesh
+                (fsdp) for 3 steps of grad_accum 2 over 4 x 4096 seeded
+                tokens, step 1 held to the unsharded step over the same rows
+                at grad_accum 4 (loss, each leaf's largest difference and
+                cosine within the MESH_* limits; bit for bit printed), the
+                loss falls, 4 x 28 flash forward and backward launches a
+                step and no plain version, step ms beside the unsharded
+                step's, peak memory, the gather, reduce and AdamW-on-blocks
+                ms by events; (t13b) the same weights at (t2)'s batch on a
+                1 x 4 mesh, bit for bit the unsharded step; (t15)
+                compressed_psum over [cuda:0] x 4 on four rows' embedding
+                gradients (151936 x 2048 float32): within sum_i scale_i / 2
+                of the float32 sum, bytes on the wire against float32, ms by
+                events; (t14) granite-moe-3b-a800m at MOE_MESH_LAYERS layers
+                on the 2 x 2 mesh for one step: the split keeps and drops
+                exactly the unsharded step's assignments, the loss within
+                (t13)'s limit; (t16) at (t4)'s restart size a 2 x 2-sharded
+                checkpoint restored onto 2 x 2 and 1 x 4 bit for bit, and
+                one more mesh step from it bit for bit the uninterrupted
+                run's;
   14. sim     — the discrete-event sim mode on the card's host (no tensor,
                 no launch): (a) both golden timelines of tests/golden/
                 reproduced event for event; (b) the headline ordering's
@@ -285,8 +306,9 @@ non-zero exit code:
      (``baseline_shapes``) at the baselines' and (``head_dim_256``) at
      gemma3-4b's, with its launches there; and each backward kernel as
      its own entry: ``flash_attention_bwd`` (its launches over qwen3's and
-     hymba's 5 train steps and (t9), (t11), (t12)'s 3, by path and by
-     variant; ``head_dim_256`` at gemma3-4b's shape and ``hymba_d64`` at
+     hymba's 5 train steps, (t9), (t11), (t12)'s 3 and the mesh steps of
+     (t13), (t13b) and (t14), by path and by variant; ``train_over_mesh``
+     holds (t13)-(t16)'s numbers; ``head_dim_256`` at gemma3-4b's shape and ``hymba_d64`` at
      hymba-1.5b's, each with its time, bound, design bound, SDPA's time,
      host time, errors and launches) and ``selective_scan_bwd`` (over
      hymba's 5 and falcon-mamba's 3 train steps); decode_attention's
@@ -411,6 +433,10 @@ STEP_BF16_REL_TOL, STEP_BF16_MIN_COS = 0.1, 0.998
 # c = 4), gemma3-4b's d 256 heads, musicgen-large's frame embeddings
 MOE_NAME, SWA_NAME, AUDIO_NAME = "granite-moe-3b-a800m", "gemma3-4b", "musicgen-large"
 MOE_SERVE_REQUESTS, AUDIO_FRAMES, AUDIO_DECODE = 8, 1024, 8
+# (p)-(q) serve granite cut in depth for the run's time limit: at all 32
+# layers they took 104.1 s of an 853 s run on an H100 (a slower host ran the
+# whole script in 1136 s of the 1200 allowed); 16 layers keep every path
+MOE_SERVE_LAYERS = 16
 # training (phase t): qwen3-1.7b at full width, make_train_step over one
 # fixed batch of TRAIN_BATCH x TRAIN_SEQ tokens in TRAIN_ACCUM microbatches;
 # the backward kernel also with a sliding window of BWD_WINDOW
@@ -456,6 +482,32 @@ ACCUM_LOSS_REL, ACCUM_MIN_COS = 1e-3, 0.999
 RESTART_ARCH = "qwen3-1.7b"
 RESTART_OVERRIDES = dict(n_layers=4, d_model=512, d_ff=1536, vocab_size=4096, n_heads=4,
                          n_kv_heads=2, d_head=128, dtype="bfloat16")
+# training over a mesh (t13)-(t16): qwen3-1.7b on a 2 x 2 mesh of the card
+# for MESH_STEPS steps of grad_accum MESH_ACCUM over MESH_BATCH rows of
+# TRAIN_SEQ tokens (one row a dp shard a microbatch), granite-moe-3b-a800m
+# at MOE_MESH_LAYERS layers over MESH_BATCH rows of MOE_MESH_SEQ (its
+# unsharded reference runs 2-row microbatches: 4096 tokens each, (t11)'s
+# microbatch; 16 layers peaked at 44.0 GiB unsharded on an H100, and the mesh
+# adds a gathered bfloat16 copy of the params)
+MESH_BATCH, MESH_ACCUM, MESH_STEPS = 4, 2, 3
+MOE_MESH_LAYERS, MOE_MESH_SEQ = 16, 2048
+# (t13)'s step 1 against the unsharded step over the same rows: each dp
+# shard's rows are one unsharded microbatch (the same kernels on the same
+# rows, the same bfloat16 gradients), and the mesh sums them in float32 as
+# half-weighted parts where the unsharded step sums whole ones and divides
+# by 4 (scaling by 1/2 is exact): the same bits are expected. The limits
+# allow float32 sums in other orders: the loss within 1e-6 relative, the
+# moments within 1e-6 of each leaf's largest element, the bfloat16 params
+# within one bfloat16 ulp (2^-8) of it (an Adam step on a gradient a few
+# float32 ulps apart rounding the other way), every leaf at cosine
+# >= 0.99999
+MESH_LOSS_REL, MESH_PARAM_REL, MESH_MOMENT_REL, MESH_MIN_COS = 1e-6, 2.0 ** -8, 1e-6, 0.99999
+# (t14)'s loss against the unsharded step: a part's GEMMs run over 2048
+# rows where the microbatch's run over 4096, and cuBLAS sums those in other
+# orders, so a router logit near a tie flips and the queue positions after
+# it shift (an H100 run: 1.8 % of granite's assignments kept or dropped
+# otherwise, the loss 7.5e-6 apart); 1e-4 leaves ~13x room
+MOE_MESH_LOSS_REL = 1e-4
 # state-space training (t5)-(t8): hymba-1.5b at full width and depth for
 # TRAIN_STEPS steps, falcon-mamba-7b at full width cut to FALCON_TRAIN_LAYERS
 # of its 64 layers for FALCON_TRAIN_STEPS steps, on (t2)'s batch shape. The
@@ -3681,7 +3733,8 @@ def _hold_budget_one(tag, cfg, params, prefix, suffix):
 
 
 def phase_moe(cfg, smi_line):
-    """(p) granite-moe-3b-a800m at full width through ContiguousKVEngine:
+    """(p) granite-moe-3b-a800m at full width (depth as ``cfg`` has it)
+    through ContiguousKVEngine:
     the dense cell's request shape, each kernel's launches per request, read
     amplification 1.0, TTFT and TPOT, a profiled request, the assignments
     the ingest dropped at capacity, and a budget-1.0 request against the
@@ -3720,7 +3773,8 @@ def phase_moe(cfg, smi_line):
     dcfg = dataclasses.replace(cfg, moe_capacity_factor=cfg.n_experts / cfg.top_k)
     _hold_budget_one(f"moe (p): budget 1.0 at capacity factor {dcfg.moe_capacity_factor}",
                      dcfg, params, prefix, suffixes[0])
-    paths = {k: {"granite-moe-3b-a800m requests": c} for k, c in req_paths.items()}
+    paths = {k: {f"granite-moe-3b-a800m ({cfg.n_layers} layers) requests": c}
+             for k, c in req_paths.items()}
     paths["flash_attention"] = {"granite-moe-3b-a800m ingest": ingest}
     numbers.update(dropped=dropped, assignments=assigned, dropped_by_layer=by_layer)
     serve_paths, numbers["serve"] = _moe_serve(cfg, params, sess, smi_line)
@@ -4940,12 +4994,478 @@ def phase_train_families(smi_line):
     return paths, numbers, agree
 
 
+# ---------------------------------------------------------------------------
+# training over a mesh (t13)-(t16)
+# ---------------------------------------------------------------------------
+def _host_tree(tree):
+    """A tree of tensors (or ShardedTensor leaves, gathered) copied to the
+    host, so a reference step's outputs leave the card's memory."""
+    from repro_torch.launch.sharding import ShardedTensor, unshard
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda x: unshard(x, "cpu") if isinstance(x, ShardedTensor)
+                    else x.detach().to("cpu"), tree)
+
+
+def _mesh_state(cfg, params, mesh):
+    """(params, AdamW's zero state) laid out on ``mesh`` by
+    param_shardings(fsdp=True), the step replicated; each moment leaf is made
+    and laid out one at a time, so the whole float32 state never sits on the
+    card twice."""
+    import torch
+
+    from repro_torch.launch.sharding import NamedSharding, P, param_shardings, shard, shard_tree
+    from repro_torch.tree import tree_map
+
+    sh = param_shardings(cfg, mesh, fsdp=True)
+
+    def zeros(p, s):
+        return shard(torch.zeros(p.shape, dtype=torch.float32, device=p.device), s)
+
+    opt = {"m": tree_map(zeros, params, sh), "v": tree_map(zeros, params, sh),
+           "step": shard(torch.zeros((), dtype=torch.int32, device=DEVICE),
+                         NamedSharding(mesh, P()))}
+    return shard_tree(params, sh), opt, sh
+
+
+def _mesh_agreement(tag, got_p, got_o, ref_p, ref_o, loss, ref_loss):
+    """The mesh step's new params and moments (ShardedTensor trees) against
+    the unsharded step's (host trees): each leaf's largest difference over
+    its largest element, its cosine, and bit for bit. Returns numbers."""
+    import torch
+
+    from repro_torch.launch.sharding import unshard
+    from repro_torch.tree import path_key, tree_flatten_with_path, tree_leaves
+
+    worst = {k: (0.0, "every leaf") for k in ("params", "m", "v")}
+    min_cos, bitwise, leaves = 1.0, True, 0
+    for kind, got, ref in (("params", got_p, ref_p), ("m", got_o["m"], ref_o["m"]),
+                           ("v", got_o["v"], ref_o["v"])):
+        for (path, g), r in zip(tree_flatten_with_path(got), tree_leaves(ref)):
+            g = unshard(g, DEVICE)
+            r = r.to(DEVICE)
+            leaves += 1
+            bitwise &= g.dtype == r.dtype and torch.equal(g, r)
+            gf, rf = g.float(), r.float()
+            rel = ((gf - rf).abs().max() / rf.abs().max().clamp(min=1e-30)).item()
+            if rel > worst[kind][0]:
+                worst[kind] = (rel, path_key(path))
+            if rf.abs().max() > 0 and gf.abs().max() > 0:  # in float64: equal leaves give 1
+                gd, rd = gf.reshape(-1).double(), rf.reshape(-1).double()
+                min_cos = min(min_cos, (gd @ rd / (gd.norm() * rd.norm())).item())
+                del gd, rd
+            del g, r, gf, rf
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    print(f"{tag}: against the unsharded step: loss {loss:.6f} / {ref_loss:.6f} (relative "
+          f"{loss_rel:.3g}, limit {MESH_LOSS_REL:g}); largest leaf difference over its largest "
+          f"element: params {worst['params'][0]:.3g} ({worst['params'][1]}, limit "
+          f"{MESH_PARAM_REL:g}), m {worst['m'][0]:.3g} ({worst['m'][1]}), v {worst['v'][0]:.3g} "
+          f"({worst['v'][1]}) (moments' limit {MESH_MOMENT_REL:g}); smallest cosine {min_cos:.7f} "
+          f"(limit {MESH_MIN_COS}); bit for bit: {bitwise} ({leaves} leaves)")
+    if (loss_rel > MESH_LOSS_REL or worst["params"][0] > MESH_PARAM_REL
+            or max(worst["m"][0], worst["v"][0]) > MESH_MOMENT_REL or min_cos < MESH_MIN_COS):
+        fail(f"{tag}: the mesh step disagrees with the unsharded step")
+    return dict(loss_rel=loss_rel, param_rel=worst["params"][0], m_rel=worst["m"][0],
+                v_rel=worst["v"][0], min_cos=min_cos, bit_for_bit=bitwise)
+
+
+def _flash_step_counts(tag, expect):
+    """Resets the flash wrappers' counts; returns a function that reads them
+    after the step and fails unless they are ``expect``."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    reset_counts(fa)
+    fa.bwd_launches = 0
+    fa.bwd_launches_by_variant = dict.fromkeys(fa.bwd_launches_by_variant, 0)
+
+    def read():
+        got = {"flash forward": fa.launches, "flash backward": fa.bwd_launches}
+        if got != expect:
+            fail(f"{tag}: flash launches {got}, expected {expect}")
+        return {"flash_attention": counts(fa),
+                "flash_attention_bwd": {"launches": fa.bwd_launches,
+                                        **{k: n for k, n in fa.bwd_launches_by_variant.items()
+                                           if n}}}
+
+    return read
+
+
+def _timed(fn):
+    """(fn(), its ms to a synchronize)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_train_mesh_qwen(cfg, params, smi_line):
+    """(t13) full-width qwen3-1.7b on a 2 x 2 mesh of the card ([cuda:0] x
+    4, fsdp): MESH_STEPS steps of grad_accum MESH_ACCUM over MESH_BATCH x
+    TRAIN_SEQ seeded tokens, step 1 held to the unsharded step over the same
+    rows with grad_accum MESH_BATCH (each dp shard's rows are then one
+    unsharded microbatch); the step ms beside the unsharded step's, peak
+    memory, the gather, reduce and update ms by events, the flash launches
+    a step. (t13b) the same weights at (t2)'s batch on a 1 x 4 mesh: one
+    step bit for bit the unsharded step's. Returns ({kernel: {path:
+    launches}}, numbers)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.mesh import dp_axes, make_host_mesh, shard_devices
+    from repro_torch.launch.steps import (make_train_step, mesh_accumulate, mesh_gather,
+                                          mesh_update)
+    from repro_torch.train.optimizer import adamw_init, clip_scale
+    from repro_torch.tree import tree_map
+
+    tag = "train (t13)"
+    batch = _train_batch(cfg, MESH_BATCH, TRAIN_SEQ, 29)
+    per_row = MESH_BATCH * cfg.n_layers  # flash calls a step: one a layer and row
+    expect = {"flash forward": per_row, "flash backward": per_row}
+    paths = {"flash_attention": {}, "flash_attention_bwd": {}}
+    ref_step = make_train_step(cfg, grad_accum=MESH_BATCH, remat=False, lr=TRAIN_LR)
+    ref_step(params, adamw_init(params), batch)  # warm-up, its result dropped
+    free_weights()
+    torch.cuda.reset_peak_memory_stats()
+    read = _flash_step_counts(tag, expect)
+    (rp, ro, rm), ref_ms = _timed(lambda: ref_step(params, adamw_init(params), batch))
+    read()
+    ref_peak = torch.cuda.max_memory_allocated() / 2**30
+    ref_loss = float(rm["loss"])
+    ref_p, ref_o = _host_tree(rp), _host_tree({"m": ro["m"], "v": ro["v"]})
+    del rp, ro, rm
+    free_weights()
+    print(f"{tag}: the unsharded step (grad_accum {MESH_BATCH}, one row a microbatch): loss "
+          f"{ref_loss:.6f}, {ref_ms:.1f} ms, peak {ref_peak:.1f} GiB ({smi_line})")
+
+    mesh = make_host_mesh(2, 2, devices=[torch.device(DEVICE, 0)] * 4)
+    ps, opt, sh = _mesh_state(cfg, params, mesh)
+    step = make_train_step(cfg, grad_accum=MESH_ACCUM, remat=False, lr=TRAIN_LR, mesh=mesh)
+    losses, step_ms, agree = [], [], None
+    torch.cuda.reset_peak_memory_stats()
+    with plain_versions_counted({"flash_attention": fa}) as plain_calls:
+        for i in range(MESH_STEPS):
+            read = _flash_step_counts(f"{tag} step {i}", expect)
+            (ps, opt, metrics), ms = _timed(lambda: step(ps, opt, batch))
+            launched = read()
+            losses.append(float(metrics["loss"]))
+            step_ms.append(ms)
+            if plain_calls or not math.isfinite(losses[-1]):
+                fail(f"{tag} step {i}: loss {losses[-1]}, plain versions {plain_calls}")
+            print(f"{tag}: mesh step {i}: loss {losses[-1]:.4f}, {ms:.1f} ms, launches "
+                  f"{launched['flash_attention']} / {launched['flash_attention_bwd']} "
+                  f"({smi_line})")
+            for k in paths:
+                for key, n in launched[k].items():
+                    paths[k][key] = paths[k].get(key, 0) + n
+            if i == 0:
+                agree = _mesh_agreement(tag, ps, opt, ref_p, ref_o, losses[0], ref_loss)
+                del ref_p, ref_o
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not losses[-1] < losses[0]:
+        fail(f"{tag}: the loss did not fall over {MESH_STEPS} steps: {losses}")
+    # the step's collective-shaped parts alone, by events: the gather of the
+    # params, one dp shard's bfloat16 gradient added into the float32
+    # accumulator (the bfloat16 params stand in for it), AdamW on the blocks
+    devs = shard_devices(mesh, dp_axes(mesh))
+    gather_ms = device_ms(lambda: mesh_gather(ps, devs), reps=5)
+    full = mesh_gather(ps, devs)[devs[0]]
+    acc = mesh_accumulate(None, full, 0.5)
+    reduce_ms = device_ms(lambda: mesh_accumulate(acc, full, 0.5), reps=5)
+    scale = clip_scale(acc)
+    update_ms = device_ms(lambda: mesh_update(acc, opt, ps, lr=TRAIN_LR, scale=scale), reps=3)
+    del full, acc
+    warm = statistics.median(step_ms[1:])
+    tokens = MESH_BATCH * TRAIN_SEQ
+    print(f"{tag}: {cfg.name} on a 2 x 2 mesh of the card: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} over {MESH_STEPS} steps; warm step {warm:.1f} ms (median of steps "
+          f"1-{MESH_STEPS - 1}) against the unsharded step's {ref_ms:.1f} ms over the same rows, "
+          f"{tokens / warm * 1e3:,.0f} tokens/s; peak {peak:.1f} GiB (unsharded "
+          f"{ref_peak:.1f}); by events: gather {gather_ms:.2f} ms, reduce of one shard's "
+          f"gradients {reduce_ms:.2f} ms (x {MESH_BATCH} a step), AdamW on the blocks "
+          f"{update_ms:.2f} ms; flash {per_row} forward and {per_row} backward launches a step "
+          f"({smi_line})")
+    numbers = dict(losses=losses, step_ms=step_ms, warm_step_ms=warm, unsharded_step_ms=ref_ms,
+                   peak_gib=peak, unsharded_peak_gib=ref_peak, gather_ms=gather_ms,
+                   reduce_ms=reduce_ms, update_ms=update_ms, agreement=agree)
+    del ps, opt, metrics
+    free_weights()
+
+    tag = "train (t13b)"
+    batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 23)
+    kw = dict(grad_accum=TRAIN_ACCUM, remat=False, lr=TRAIN_LR)
+    per = TRAIN_ACCUM * cfg.n_layers
+    make_train_step(cfg, **kw)(params, adamw_init(params), batch)  # warm-up, dropped
+    free_weights()
+    read = _flash_step_counts(tag, {"flash forward": per, "flash backward": per})
+    (rp, ro, rm), ref_ms = _timed(lambda: make_train_step(cfg, **kw)(params, adamw_init(params),
+                                                                      batch))
+    read()
+    ref_loss = float(rm["loss"])
+    ref_p, ref_o = _host_tree(rp), _host_tree({"m": ro["m"], "v": ro["v"]})
+    del rp, ro, rm
+    free_weights()
+    mesh = make_host_mesh(1, 4, devices=[torch.device(DEVICE, 0)] * 4)
+    ps, opt, _ = _mesh_state(cfg, params, mesh)
+    read = _flash_step_counts(tag, {"flash forward": per, "flash backward": per})
+    (ps, opt, metrics), ms = _timed(lambda: make_train_step(cfg, mesh=mesh, **kw)(ps, opt, batch))
+    launched = read()
+    for k in paths:
+        for key, n in launched[k].items():
+            paths[k][key] = paths[k].get(key, 0) + n
+    print(f"{tag}: {cfg.name} on a 1 x 4 mesh (one dp shard), (t2)'s batch: {ms:.1f} ms against "
+          f"the unsharded {ref_ms:.1f} ms ({smi_line})")
+    b_agree = _mesh_agreement(tag, ps, opt, ref_p, ref_o, float(metrics["loss"]), ref_loss)
+    if not b_agree["bit_for_bit"]:
+        fail(f"{tag}: the one-dp-shard mesh step is not bit for bit the unsharded step")
+    numbers["one_dp_shard"] = dict(step_ms=ms, unsharded_step_ms=ref_ms, **b_agree)
+    del ps, opt, metrics, ref_p, ref_o
+    free_weights()
+    return paths, numbers
+
+
+def phase_train_mesh_moe(smi_line):
+    """(t14) granite-moe-3b-a800m cut to MOE_MESH_LAYERS layers on the 2 x 2
+    mesh for one step of grad_accum MESH_ACCUM over MESH_BATCH x
+    MOE_MESH_SEQ tokens, each ``moe.dispatch`` call recorded (top-k ids,
+    capacity, keep mask). Held bit for bit: each microbatch's two parts keep
+    and drop, layer by layer, exactly what the microbatch's dispatch over the
+    parts' routing, concatenated, keeps and drops (the split's own
+    invariant). Against the unsharded step over the same microbatches: the
+    top-k ids and keep masks that differ, counted from the first layer on
+    (the card's GEMMs sum a part's 2048 rows and a microbatch's 4096 in
+    other orders, so a router logit near a tie can flip), and the loss
+    within MOE_MESH_LOSS_REL. Returns ({kernel: {path: launches}},
+    numbers)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import moe as PM
+    from repro_torch.train.optimizer import adamw_init
+
+    tag = "train (t14)"
+    full = get_config(MOE_NAME)
+    cfg = dataclasses.replace(full, n_layers=MOE_MESH_LAYERS)
+    print(f"{tag}: {MOE_NAME} at {cfg.n_layers} of its {full.n_layers} layers: the unsharded "
+          f"reference, the sharded copy and the gathered params share the card")
+    params = _init_weights(tag, cfg)
+    batch = _train_batch(cfg, MESH_BATCH, MOE_MESH_SEQ, 31)
+    kw = dict(grad_accum=MESH_ACCUM, remat=False, lr=TRAIN_LR)
+    seen = []
+    real = PM.dispatch
+
+    def recording(top_idx, cap, n_experts, offset=None):
+        out = real(top_idx, cap, n_experts, offset)
+        seen.append((top_idx, cap, out[1]))
+        return out
+
+    per = MESH_ACCUM * cfg.n_layers
+    make_train_step(cfg, **kw)(params, adamw_init(params), batch)  # warm-up, dropped
+    free_weights()
+    PM.dispatch = recording
+    try:
+        read = _flash_step_counts(tag, {"flash forward": per, "flash backward": per})
+        (rp, ro, rm), ref_ms = _timed(lambda: make_train_step(cfg, **kw)(
+            params, adamw_init(params), batch))
+        read()
+        ref_loss = float(rm["loss"])
+        whole = list(seen)
+        del rp, ro, rm
+        free_weights()
+        seen.clear()
+        mesh = make_host_mesh(2, 2, devices=[torch.device(DEVICE, 0)] * 4)
+        ps, opt, _ = _mesh_state(cfg, params, mesh)
+        del params
+        read = _flash_step_counts(tag, {"flash forward": 2 * per, "flash backward": 2 * per})
+        (ps, opt, metrics), ms = _timed(lambda: make_train_step(cfg, mesh=mesh, **kw)(
+            ps, opt, batch))
+        launched = read()
+    finally:
+        PM.dispatch = real
+    L = cfg.n_layers
+    if len(whole) != MESH_ACCUM * L or len(seen) != 2 * MESH_ACCUM * L:
+        fail(f"{tag}: {len(whole)} / {len(seen)} dispatches recorded")
+    invariant = True
+    routed = kept_differ = dropped = kept = 0
+    first_layer = None
+    for i in range(MESH_ACCUM):
+        for l in range(L):
+            parts = [seen[(2 * i + j) * L + l] for j in range(2)]
+            idx = torch.cat([p[0] for p in parts])
+            keep = torch.cat([p[2] for p in parts])
+            w_idx, w_cap, w_keep = whole[i * L + l]
+            invariant &= all(p[1] == w_cap for p in parts) and torch.equal(
+                real(idx, w_cap, cfg.n_experts)[1], keep)
+            n_routed = int((idx != w_idx).sum())
+            routed += n_routed
+            kept_differ += int((keep != w_keep).sum())
+            if n_routed and first_layer is None:
+                first_layer = l
+            dropped += int((~w_keep).sum())
+            kept += int(w_keep.sum())
+    loss = float(metrics["loss"])
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    total = kept + dropped
+    print(f"{tag}: the parts' keep masks bit for bit the microbatch's dispatch of their "
+          f"routing: {invariant}; against the unsharded step ({kept} kept, {dropped} dropped of "
+          f"{total} assignments over {MESH_ACCUM} microbatches x {L} layers): top-k ids differ "
+          f"in {routed} ({100 * routed / total:.3f} %), keep masks in {kept_differ} "
+          f"({100 * kept_differ / total:.3f} %), first at layer {first_layer}; loss {loss:.6f} "
+          f"against {ref_loss:.6f} (relative {loss_rel:.3g}, limit {MOE_MESH_LOSS_REL:g}); step "
+          f"{ms:.1f} ms (the first on the mesh) against the unsharded {ref_ms:.1f} ms; flash launches "
+          f"{launched['flash_attention']} / {launched['flash_attention_bwd']} ({smi_line})")
+    if not invariant or dropped == 0 or loss_rel > MOE_MESH_LOSS_REL:
+        fail(f"{tag}: the split changed the MoE dispatch or the loss")
+    del ps, opt, metrics, whole
+    seen.clear()
+    free_weights()
+    paths = {k: {key: n for key, n in v.items()} for k, v in launched.items()}
+    return paths, dict(layers=L, kept=kept, dropped=dropped, invariant_bit_for_bit=invariant,
+                       routing_differs=routed, keep_differs=kept_differ,
+                       first_differing_layer=first_layer, loss_rel=loss_rel, step_ms=ms,
+                       unsharded_step_ms=ref_ms)
+
+
+def phase_compressed_psum(cfg, params, smi_line):
+    """(t15) compressed_psum over [cuda:0] x 4 on qwen3-1.7b's largest
+    gradient leaf, the embedding's (vocab x d_model float32): the four
+    participants are the embedding gradients of four rows of (t13)'s batch,
+    each of its own forward and backward. Each element within sum_i
+    scale_i / 2 of the float32 sum; bytes on the wire against float32; ms by
+    events beside the float32 sum's. Returns numbers."""
+    import torch
+
+    from repro_torch.launch.steps import _loss_and_grads
+    from repro_torch.train.compression import compressed_psum
+
+    tag = "train (t15)"
+    batch = _train_batch(cfg, MESH_BATCH, TRAIN_SEQ, 29)
+    xs = []
+    for r in range(MESH_BATCH):
+        _, g = _loss_and_grads(cfg, params, {k: v[r: r + 1] for k, v in batch.items()},
+                               block_q=512, remat=False)
+        xs.append(g["embed"].float())
+        del g
+    free_weights()
+    got = compressed_psum(xs)
+    exact = xs[0] + xs[1] + xs[2] + xs[3]
+    scales = sum(float(x.abs().max()) / 127.0 for x in xs)
+    err = float((got[0] - exact).abs().max())
+    same = all(torch.equal(got[0], g) for g in got[1:])
+    n, p = xs[0].numel(), len(xs)
+    wire, f32_wire = p * (p - 1) * (n + 4), p * (p - 1) * 4 * n
+    ms = device_ms(lambda: compressed_psum(xs), reps=10)
+    f32_ms = device_ms(lambda: xs[0] + xs[1] + xs[2] + xs[3], reps=10)
+    print(f"{tag}: compressed_psum over 4 participants of {tuple(xs[0].shape)} float32: largest "
+          f"error against the float32 sum {err:.4g} (limit sum_i scale_i / 2 = {scales / 2:.4g}); "
+          f"every participant's sum the same bits: {same}; {wire / 1e9:.3f} GB on the wire "
+          f"(int8 and a scale a participant, to each other one) against {f32_wire / 1e9:.3f} GB "
+          f"in float32 ({f32_wire / wire:.2f}x); {ms:.3f} ms by events (one device: no bytes "
+          f"cross a link) against {f32_ms:.3f} ms for the plain float32 sum ({smi_line})")
+    if err > scales / 2 * (1 + 1e-5) or not same:
+        fail(f"{tag}: compressed_psum's error {err} passes sum_i scale_i / 2 = {scales / 2}")
+    del xs, got, exact
+    free_weights()
+    return dict(err=err, limit=scales / 2, wire_bytes=wire, float32_wire_bytes=f32_wire, ms=ms,
+                float32_sum_ms=f32_ms)
+
+
+def phase_train_mesh_restore(smi_line):
+    """(t16) at (t4)'s restart size: a 2 x 2-sharded params-and-moments
+    tree saved after one mesh step, restored with ``shardings=`` onto the
+    2 x 2 mesh and onto 1 x 4, each bit for bit; one more mesh step from
+    the 2 x 2 restore bit for bit the uninterrupted run's."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import (NamedSharding, P, block_index, param_shardings,
+                                             unshard)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.tree import tree_leaves
+
+    tag = "train (t16)"
+    cfg = reduced_config(RESTART_ARCH, **RESTART_OVERRIDES)
+    params = T.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    batch = _train_batch(cfg, 4, 256, 41)
+    dev0 = torch.device(DEVICE, 0)
+    mesh = make_host_mesh(2, 2, devices=[dev0] * 4)
+    ps, opt, _ = _mesh_state(cfg, params, mesh)
+    del params
+    step = make_train_step(cfg, grad_accum=2, remat=False, lr=1e-3, mesh=mesh)
+    ps, opt, _ = step(ps, opt, batch)
+    tree = {"params": ps, "opt": opt}
+    flat = [unshard(x, "cpu") for x in tree_leaves(tree)]
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, 1, tree)
+        restored = {}
+        for grid in ((2, 2), (1, 4)):
+            m = make_host_mesh(*grid, devices=[dev0] * 4)
+            msh = param_shardings(cfg, m, fsdp=True)
+            shardings = {"params": msh, "opt": {"m": msh, "v": msh,
+                                                "step": NamedSharding(m, P())}}
+            got = restore_checkpoint(tmp, 1, tree, shardings)
+            same = all(g.mesh is m and all(
+                torch.equal(g.block_at(pos).cpu(), w[block_index(g.shape, g.sharding, pos)])
+                for pos in g.positions()) for g, w in zip(tree_leaves(got), flat))
+            print(f"{tag}: the 2 x 2-sharded checkpoint restored onto a {grid[0]} x {grid[1]} "
+                  f"mesh: every block bit for bit the saved leaf's slice: {same}")
+            ok &= same
+            restored[grid] = got
+    p1, o1, _ = step(ps, opt, batch)
+    r = restored[(2, 2)]
+    p2, o2, _ = step(r["params"], r["opt"], batch)
+    again = all(torch.equal(a.block_at(pos), b.block_at(pos))
+                for a, b in zip(tree_leaves({"p": p1, "o": o1}), tree_leaves({"p": p2, "o": o2}))
+                for pos in a.positions())
+    print(f"{tag}: {cfg.name} ({cfg.dtype}, {cfg.n_layers} layers, d_model {cfg.d_model}): one "
+          f"more mesh step from the restore bit for bit the uninterrupted run's: {again} "
+          f"({smi_line})")
+    if not (ok and again):
+        fail(f"{tag}: the sharded restore is not bit for bit")
+    free_weights()
+    return dict(restore_bit_for_bit=ok, step_after_restore_bit_for_bit=again)
+
+
+def phase_train_mesh(smi_line):
+    """(t13)-(t16): training over a mesh of the card. Returns ({kernel:
+    {path: launches}}, numbers)."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_NAME)
+    params = _init_weights("train (t13)", cfg)
+    q_paths, numbers = phase_train_mesh_qwen(cfg, params, smi_line)
+    numbers["compressed_psum"] = phase_compressed_psum(cfg, params, smi_line)
+    del params
+    free_weights()
+    m_paths, numbers["granite"] = phase_train_mesh_moe(smi_line)
+    numbers["restore"] = phase_train_mesh_restore(smi_line)
+    paths = {}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        paths[name] = {
+            f"qwen3-1.7b {MESH_STEPS} mesh train steps (2 x 2) and one (1 x 4)": q_paths[name],
+            f"{MOE_NAME} ({MOE_MESH_LAYERS} layers) one mesh train step (2 x 2)": m_paths[name]}
+    numbers["seconds"] = time.perf_counter() - t_phase
+    print(f"train: (t13)-(t16) took {numbers['seconds']:.1f} s")
+    return paths, numbers
+
+
 def phase_train(smi_line):
     """Phase t: (t1)-(t4) and (u) on full-width qwen3-1.7b, then (t5)-(t8)
     on the state-space models, then (t9)-(t12) on gemma3-4b,
-    granite-moe-3b-a800m and musicgen-large. Returns ({kernel: {path:
-    launches}}, the two
-    backward kernels' rows, {kernel: its hold at qwen3-1.7b's shapes})."""
+    granite-moe-3b-a800m and musicgen-large, then (t13)-(t16), training
+    over a mesh. Returns ({kernel: {path: launches}}, the two backward
+    kernels' rows, {kernel: its hold at qwen3-1.7b's shapes})."""
     from repro_torch.configs import get_config
 
     cfg = get_config(TRAIN_NAME)
@@ -4960,14 +5480,18 @@ def phase_train(smi_line):
     for name, by_path in ssm_paths.items():
         paths.setdefault(name, {}).update(by_path)
     fam_paths, fam_steps, swa_agree = phase_train_families(smi_line)
+    mesh_paths, mesh_numbers = phase_train_mesh(smi_line)
     paths.setdefault("flash_attention", {})[
         f"qwen3-1.7b {TRAIN_STEPS} train steps (forward)"] = launches["flash_attention"]
     for path, by_kernel in fam_paths.items():
         paths["flash_attention"][f"{path} (forward)"] = by_kernel["flash_attention"]
+    paths["flash_attention"].update({f"{path} (forward)": n
+                                     for path, n in mesh_paths["flash_attention"].items()})
     bwd_paths = {f"qwen3-1.7b {TRAIN_STEPS} train steps": launches["flash_attention_bwd"],
                  **ssm_flash_bwd,
                  **{path: by_kernel["flash_attention_bwd"]
-                    for path, by_kernel in fam_paths.items()}}
+                    for path, by_kernel in fam_paths.items()},
+                 **mesh_paths["flash_attention_bwd"]}
     by_variant = {}
     for by_path in bwd_paths.values():
         for k, n in by_path.items():
@@ -4990,7 +5514,8 @@ def phase_train(smi_line):
            "design_products": r["products"],
            "library_ms": r["library_ms"], "host_ms": r["host_ms"],
            "train_step": step, "agreement": agree,
-           "train_step_families": fam_steps, "agreement_gemma3_4b": swa_agree}
+           "train_step_families": fam_steps, "agreement_gemma3_4b": swa_agree,
+           "train_over_mesh": mesh_numbers}
 
     def shape_entry(x):
         return {"ms": x["ms"], "library_ms": x["library_ms"],
@@ -5229,6 +5754,20 @@ def phase_sim(ref, smi_line):
     print(f"sim: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+def time_phases():
+    """Make every ``phase_*`` function print its seconds when it returns
+    (nested phases too), so a run shows where its time limit goes."""
+    g = globals()
+    for name in [n for n in g if n.startswith("phase_")]:
+        def timed(*a, _f=g[name], _n=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _f(*a, **kw)
+            finally:
+                print(f"time: {_n} {time.perf_counter() - t0:.1f} s")
+        g[name] = timed
+
+
 def main() -> int:
     try:
         import torch
@@ -5247,6 +5786,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
 
+    time_phases()
     cfg = get_config("qwen2.5-7b")
     hcfg, fcfg = get_config("hymba-1.5b"), get_config("falcon-mamba-7b")
     smi_line = phase_device()
@@ -5302,7 +5842,8 @@ def main() -> int:
     # the new families, each model's weights freed before the next loads
     del weights
     free_weights()
-    mcfg, gcfg, acfg = get_config(MOE_NAME), get_config(SWA_NAME), get_config(AUDIO_NAME)
+    mcfg = dataclasses.replace(get_config(MOE_NAME), n_layers=MOE_SERVE_LAYERS)
+    gcfg, acfg = get_config(SWA_NAME), get_config(AUDIO_NAME)
     wide = phase_wide_kernels(gcfg, smi_line)
     for phase, c in ((phase_moe, mcfg), (phase_swa, gcfg), (phase_audio, acfg)):
         new_paths, _ = phase(c, smi_line)

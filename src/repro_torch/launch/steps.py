@@ -3,25 +3,46 @@ decode_step, and the ContiguousKV sparse decode step.
 
 Batches may be numpy arrays or tensors; a train step moves them to the
 params' device. Entry points run where the params live: on the card unless
-the caller built them on the CPU.
+the caller built them on the CPU. ``make_train_step(..., mesh=)`` is the
+train step over a device mesh, the counterpart of the JAX package's
+``jax.jit(make_train_step(...))`` on inputs laid out by ``param_shardings``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import itertools
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
+from repro_torch.launch.mesh import dp_axes, shard_devices
+from repro_torch.launch.sharding import ShardedTensor, block_index, unshard, unshard_tree
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import NEG_INF, _grouped_out, _grouped_scores, qkv_project
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import rms_norm
+from repro_torch.models.moe import MoeRoute
 from repro_torch.train import compression as GC
-from repro_torch.train.optimizer import adamw_update
+from repro_torch.train.optimizer import adamw_update, clip_scale
 from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map, tree_replace_leaves
 
 
 def _batch_on(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _loss_and_grads(cfg: ModelConfig, params, mb, *, block_q: int, remat, moe_routes=None):
+    """(loss, grads in the params' dtypes) of one microbatch."""
+    flat = tree_flatten_with_path(params)
+    leaves = [leaf.detach().requires_grad_() for _, leaf in flat]
+    tracked = tree_replace_leaves(params, leaves)
+    with torch.enable_grad():
+        loss = T.loss_fn(tracked, mb, cfg, block_q=block_q, remat=remat, moe_routes=moe_routes)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    # a leaf the loss does not read (the token embedding of a batch of
+    # frame embeddings) gets zeros, as jax.grad gives it
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return loss.detach(), tree_replace_leaves(params, grads)
 
 
 def make_value_and_grad(cfg: ModelConfig, *, grad_accum: int = 1, block_q: int = 512,
@@ -36,16 +57,7 @@ def make_value_and_grad(cfg: ModelConfig, *, grad_accum: int = 1, block_q: int =
     With ``grad_accum`` 1 the gradients keep the params' dtypes."""
 
     def one(params, mb):
-        flat = tree_flatten_with_path(params)
-        leaves = [leaf.detach().requires_grad_() for _, leaf in flat]
-        tracked = tree_replace_leaves(params, leaves)
-        with torch.enable_grad():
-            loss = T.loss_fn(tracked, mb, cfg, block_q=block_q, remat=remat)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        # a leaf the loss does not read (the token embedding of a batch of
-        # frame embeddings) gets zeros, as jax.grad gives it
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        return loss.detach(), tree_replace_leaves(params, grads)
+        return _loss_and_grads(cfg, params, mb, block_q=block_q, remat=remat)
 
     def value_and_grad(params, batch):
         batch = _batch_on(batch, tree_leaves(params)[0].device)
@@ -76,10 +88,18 @@ def make_train_step(
     remat=True,
     lr: float = 3e-4,
     grad_compression: Optional[str] = None,  # None | "int8"
+    mesh=None,
 ):
     """Returns train_step(params, opt_state, batch) -> (params, opt, metrics):
     the loss and gradients (``make_value_and_grad``), the int8 numerics if
-    asked, then AdamW. ``metrics["loss"]`` stays on the device."""
+    asked, then AdamW. ``metrics["loss"]`` stays on the device.
+
+    With a ``mesh`` the step takes and returns trees of ``ShardedTensor``
+    (params and moments laid out by ``param_shardings``, the step counter
+    replicated); see ``_make_mesh_train_step``."""
+    if mesh is not None:
+        return _make_mesh_train_step(cfg, mesh, grad_accum=grad_accum, block_q=block_q,
+                                     remat=remat, lr=lr, grad_compression=grad_compression)
     value_and_grad = make_value_and_grad(cfg, grad_accum=grad_accum, block_q=block_q,
                                          remat=remat)
 
@@ -88,6 +108,175 @@ def make_train_step(
         if grad_compression == "int8":
             grads = GC.quantize_dequantize_tree(grads)
         new_params, new_opt = adamw_update(grads, opt_state, params, lr=lr)
+        return new_params, new_opt, {"loss": loss}
+
+    return train_step
+
+
+# --------------------------------------------------------------------------
+# the train step over a mesh
+# --------------------------------------------------------------------------
+def mesh_gather(params, devices) -> Dict[torch.device, Any]:
+    """The params tree gathered whole once on each distinct device of
+    ``devices``: shards that share a device share the copy."""
+    return {d: unshard_tree(params, d) for d in dict.fromkeys(devices)}
+
+
+def mesh_accumulate(acc, grads, weight: float):
+    """``acc += weight * grads`` leaf by leaf, in float32 on the
+    accumulator's device (``acc`` None: a new float32 accumulator)."""
+    if acc is None:
+        acc = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device),
+                       grads)
+
+    def add(a, g):
+        g = g.to(device=a.device, dtype=torch.float32)
+        if weight == 1.0:
+            a.add_(g)
+        else:
+            a.add_(g, alpha=weight)
+
+    tree_map(add, acc, grads)
+    return acc
+
+
+def mesh_update(grads, opt_state, params, *, lr: float, scale: torch.Tensor):
+    """AdamW on every mesh position's blocks, on the position's device, with
+    the clip factor ``scale`` of the global gradient: ``grads`` holds the
+    global gradient of each leaf, ``params`` / ``opt_state["m"]`` /
+    ``opt_state["v"]`` trees of ``ShardedTensor`` and ``opt_state["step"]``
+    one laid out replicated (``P()``). Returns (new params, new state), laid
+    out as they came."""
+    p_leaves = tree_leaves(params)
+    g_leaves, m_leaves = tree_leaves(grads), tree_leaves(opt_state["m"])
+    v_leaves = tree_leaves(opt_state["v"])
+    step = opt_state["step"]
+    mesh = p_leaves[0].mesh
+    grid = mesh.devices.shape
+    out = [[np.empty(grid, dtype=object) for _ in p_leaves] for _ in range(3)]
+    steps = np.empty(grid, dtype=object)
+    for pos in itertools.product(*(range(n) for n in grid)):
+        dev = mesh.devices[pos]
+        gs = [g[block_index(p.shape, p.sharding, pos)].to(dev) for g, p in zip(g_leaves, p_leaves)]
+        st = {"m": [m.block_at(pos) for m in m_leaves], "v": [v.block_at(pos) for v in v_leaves],
+              "step": step.block_at(pos)}
+        new_p, new_s = adamw_update(gs, st, [p.block_at(pos) for p in p_leaves], lr=lr,
+                                    scale=scale.to(dev))
+        del gs
+        for i, trio in enumerate(zip(new_p, new_s["m"], new_s["v"])):
+            for k in range(3):
+                out[k][i][pos] = trio[k]
+        steps[pos] = new_s["step"]
+
+    def rebuild(tree, blocks):
+        return tree_replace_leaves(tree, [ShardedTensor(x.shape, b.reshape(-1)[0].dtype,
+                                                        x.sharding, b)
+                                          for x, b in zip(tree_leaves(tree), blocks)])
+
+    return rebuild(params, out[0]), {"m": rebuild(opt_state["m"], out[1]),
+                                     "v": rebuild(opt_state["v"], out[2]),
+                                     "step": ShardedTensor((), step.dtype, step.sharding, steps)}
+
+
+def _row_parts(i: int, mb: int, n_dp: int) -> List[tuple]:
+    """(dp shard, first row, end row) of microbatch i's parts: its rows
+    split over the dp shards in order, or all on shard 0 where they do not
+    divide."""
+    lo = i * mb
+    if mb % n_dp:
+        return [(0, lo, lo + mb)]
+    r = mb // n_dp
+    return [(j, lo + j * r, lo + (j + 1) * r) for j in range(n_dp)]
+
+
+def _part_weights(batch, parts) -> List[float]:
+    """Each part's share of its microbatch's mean loss: its token count, or
+    its ``loss_mask`` sum, over the microbatch's (``loss_fn`` divides a
+    masked sum by max(mask sum, 1), so max(m_j, 1) / max(M, 1))."""
+    if len(parts) == 1:
+        return [1.0]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        total = parts[-1][2] - parts[0][1]
+        return [(hi - lo) / total for _, lo, hi in parts]
+    total = max(float(mask[parts[0][1]: parts[-1][2]].sum()), 1.0)
+    return [max(float(mask[lo:hi].sum()), 1.0) / total for _, lo, hi in parts]
+
+
+def _make_mesh_train_step(cfg: ModelConfig, mesh, *, grad_accum: int, block_q: int, remat,
+                          lr: float, grad_compression: Optional[str]):
+    """The train step over ``mesh``, per step:
+
+    - gather: each param leaf gathered once on each distinct device that
+      computes (the first device of each dp shard,
+      ``shard_devices(mesh, dp_axes(mesh))``);
+    - microbatches: microbatch i is rows [i mb, (i + 1) mb) of the global
+      batch, as in JAX's step, its rows split over the dp shards in order
+      (all on the first shard where they do not divide);
+    - each dp shard's forward and backward of ``loss_fn`` on its rows, the
+      shards in order, an MoE layer keeping the microbatch's dispatch
+      (``moe.MoeRoute``);
+    - combine: the losses and gradients summed into the microbatch's mean
+      in float32, each part weighed by its token count or its ``loss_mask``
+      sum, accumulated over the microbatches in order on the first shard's
+      device (with ``grad_accum`` 1 the gradients then take the params'
+      dtypes, as the step without a mesh keeps them);
+    - the int8 numerics and AdamW's global-norm clip on the global gradient
+      of each leaf (one absmax scale a leaf, each element once in the
+      norm); then AdamW on each position's blocks on its device.
+
+    Tensor axes shard storage only (params, gradients, moments): every dp
+    shard computes with whole gathered params. On a mesh with one dp shard
+    the step is bit for bit the step without a mesh."""
+    devs = shard_devices(mesh, dp_axes(mesh))
+    moe = cfg.family == "moe"
+
+    def train_step(params, opt_state, batch):
+        home = devs[0]
+        batch = {k: unshard(v, home) if isinstance(v, ShardedTensor)
+                 else torch.as_tensor(v, device=home) for k, v in batch.items()}
+        b = next(iter(batch.values())).shape[0]
+        mb = b // grad_accum
+        gathered = mesh_gather(params, devs)
+        acc, lsum, grads = None, None, None
+        for i in range(grad_accum):
+            parts = _row_parts(i, mb, len(devs))
+            weights = _part_weights(batch, parts)
+            offsets = [None] * cfg.n_layers
+            for (j, lo, hi), w in zip(parts, weights):
+                dev = devs[j]
+                routes = None
+                if moe and len(parts) > 1:
+                    tokens = (parts[-1][2] - parts[0][1]) * batch["labels"].shape[1]
+                    routes = [MoeRoute(tokens, None if o is None else o.to(dev)) for o in offsets]
+                l_j, g_j = _loss_and_grads(cfg, gathered[dev], {k: v[lo:hi].to(dev)
+                                                                for k, v in batch.items()},
+                                           block_q=block_q, remat=remat, moe_routes=routes)
+                if routes is not None:
+                    offsets = [r.counts if o is None else o.to(dev) + r.counts
+                               for o, r in zip(offsets, routes)]
+                l_j = l_j.to(home)
+                if grad_accum == 1 and len(parts) == 1:
+                    grads, lsum = g_j, l_j
+                else:
+                    acc = mesh_accumulate(acc, g_j, w)
+                    if lsum is None:
+                        lsum = torch.zeros((), dtype=torch.float32, device=home)
+                    lsum = lsum + (l_j if w == 1.0 else w * l_j)
+                del g_j
+        del gathered
+        if acc is not None:
+            if grad_accum > 1:
+                tree_map(lambda a: a.div_(grad_accum), acc)
+                grads = acc
+            else:  # one microbatch over several shards: the params' dtypes
+                grads = tree_map(lambda a, p: a.to(p.dtype), acc, params)
+            del acc
+        loss = lsum / grad_accum if grad_accum > 1 else lsum
+        if grad_compression == "int8":
+            grads = GC.quantize_dequantize_tree(grads)
+        new_params, new_opt = mesh_update(grads, opt_state, params, lr=lr,
+                                          scale=clip_scale(grads))
         return new_params, new_opt, {"loss": loss}
 
     return train_step

@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.flash_attention.ops import FlashAttentionFn, flash_attention
+from repro_torch.launch import act_sharding
 from repro_torch.models.layers import apply_rope, matmul, rms_norm
 
 NEG_INF = -1e30
@@ -140,7 +141,9 @@ def qkv_project(
     def proj(w):  # "bsd,dhk->bshk"
         return matmul(x, w.reshape(d_model, -1)).reshape(b, s, w.shape[1], w.shape[2])
 
-    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    q = act_sharding.constrain(proj(p["wq"]), "heads")
+    k = act_sharding.constrain(proj(p["wk"]), "heads")
+    v = act_sharding.constrain(proj(p["wv"]), "heads")
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]

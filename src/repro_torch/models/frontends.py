@@ -5,13 +5,20 @@ The transformer backbone is the assigned architecture; the EnCodec tokenizer
 (musicgen-large) and the InternViT vision tower (internvl2-76b) are
 represented by precomputed frame / patch embeddings of width d_model, which
 ``transformer.forward``, ``prefill`` and ``decode_step`` take as
-``{"embeds": ...}`` in place of token ids.
+``{"embeds": ...}`` in place of token ids. ``make_frontend_embeds`` makes
+real tensors; ``frontend_embed_spec`` the abstract one (no allocation).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import resolve_device
+
+
+def frontend_embed_spec(cfg, batch: int, seq: int):
+    from repro_torch.launch.specs import ShapeDtypeStruct
+
+    return ShapeDtypeStruct((batch, seq, cfg.d_model), cfg.activation_dtype())
 
 
 def make_frontend_embeds(cfg, batch: int, seq: int, generator: torch.Generator,

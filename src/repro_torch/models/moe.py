@@ -13,9 +13,18 @@ tensor sums with atomics in an order that changes from run to run. Here each
 token gathers its kept assignments and sums them one after another in
 ascending expert order, the order of the reference's flattened (expert,
 slot) gather table, so two runs give the same bits on the card.
+
+A microbatch whose rows are split over data-parallel shards (the train
+step over a mesh) keeps the microbatch's dispatch: each shard's call takes
+a :class:`MoeRoute` with the microbatch's token count, which sizes the
+capacity, and each expert's assignments in the shards before it, which
+start that expert's queue. The shards then run in order and keep and drop
+the assignments the whole microbatch would. Only integers cross shards, so
+the backward is unchanged.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional
 
 import torch
@@ -25,6 +34,18 @@ from repro_torch.models.layers import matmul
 # When a list, every moe_ffn call appends the number of (token, expert)
 # assignments it dropped at capacity, as a device scalar (no host sync).
 drop_log: Optional[List[torch.Tensor]] = None
+
+
+@dataclasses.dataclass
+class MoeRoute:
+    """One layer's part of a microbatch's dispatch: ``tokens``, the
+    microbatch's token count; ``offset``, (E,) assignments each expert took
+    in the rows before this part (None: none); ``counts``, this part's
+    assignments an expert, set by ``moe_ffn``."""
+
+    tokens: int
+    offset: Optional[torch.Tensor] = None
+    counts: Optional[torch.Tensor] = None
 
 
 def _router(x: torch.Tensor, w_router: torch.Tensor, top_k: int):
@@ -45,11 +66,13 @@ def capacity(T: int, n_experts: int, top_k: int, capacity_factor: float,
     return min(cap, T)
 
 
-def dispatch(top_idx: torch.Tensor, cap: int, n_experts: int):
+def dispatch(top_idx: torch.Tensor, cap: int, n_experts: int,
+             offset: Optional[torch.Tensor] = None):
     """The routing table of (T, k) top-k expert ids at ``cap`` slots an
     expert: (slot (T k,) of each flattened (token, slot) assignment, E cap
     where it overflowed; keep (T k,) bool; gather_idx (E, cap), the token in
-    each expert slot or T where it is empty)."""
+    each expert slot or T where it is empty). ``offset`` (E,) starts each
+    expert's queue that many places in."""
     T, k = top_idx.shape
     E, dev = n_experts, top_idx.device
     flat_expert = top_idx.reshape(-1)
@@ -57,6 +80,8 @@ def dispatch(top_idx: torch.Tensor, cap: int, n_experts: int):
     # earlier assignments to the same expert, token-major
     onehot = torch.nn.functional.one_hot(flat_expert, E)
     pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(dim=-1)
+    if offset is not None:
+        pos = pos + offset[flat_expert]
     keep = pos < cap
     slot = torch.where(keep, flat_expert * cap + pos, E * cap)  # E cap: the overflow bucket
     table = torch.full((E * cap + 1,), T, dtype=torch.long, device=dev)
@@ -65,19 +90,24 @@ def dispatch(top_idx: torch.Tensor, cap: int, n_experts: int):
 
 
 def moe_ffn(x: torch.Tensor, params: dict, *, n_experts: int, top_k: int,
-            capacity_factor: float = 1.25, dropless: bool = False) -> torch.Tensor:
+            capacity_factor: float = 1.25, dropless: bool = False,
+            route: Optional[MoeRoute] = None) -> torch.Tensor:
     """x: (..., d_model). params: w_router (d, E), w_gate/w_up (E, d, f),
     w_down (E, f, d). ``dropless=True`` sets the capacity to T (decode,
-    where dropping a token would corrupt generation)."""
+    where dropping a token would corrupt generation). ``route``: x is a
+    part of a larger microbatch (see the module docstring)."""
     orig_shape = x.shape
     d = orig_shape[-1]
     xt = x.reshape(-1, d)
     T = xt.shape[0]
     E, k = n_experts, top_k
-    cap = capacity(T, E, k, capacity_factor, dropless)
+    cap = capacity(T if route is None else route.tokens, E, k, capacity_factor, dropless)
 
     top_idx, top_w = _router(xt, params["w_router"], k)  # (T, k)
-    slot, keep, gather_idx = dispatch(top_idx, cap, E)
+    slot, keep, gather_idx = dispatch(top_idx, cap, E,
+                                      None if route is None else route.offset)
+    if route is not None:
+        route.counts = torch.bincount(top_idx.reshape(-1), minlength=E)
     if drop_log is not None:
         drop_log.append((~keep).sum())
 

@@ -23,6 +23,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
+from repro_torch.launch import act_sharding
 from repro_torch.models.attention import attention_decode, attention_prefill, qkv_project
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import matmul, rms_norm, swiglu
@@ -43,7 +44,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Params:
     """Random weights with the JAX package's shapes, scales and dtypes.
 
-    ``generator`` must live on ``device``. Each layer is drawn in float32 and
+    ``generator`` must live on ``device`` (on ``device="meta"``, which
+    allocates nothing and gives the shapes and dtypes alone, it may be
+    None). Each layer is drawn in float32 and
     cast into its slot of the stacked tensor, so the float32 transient stays
     one layer's tensor at full width."""
     if cfg.family not in FAMILIES:
@@ -136,16 +139,20 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _ffn(h: torch.Tensor, lp: Params, cfg: ModelConfig, *,
-         dropless: bool = False) -> torch.Tensor:
+         dropless: bool = False, route=None) -> torch.Tensor:
     """The FFN sublayer with its residual. An MoE layer drops assignments
-    past its experts' capacity unless ``dropless`` (decode, part B)."""
+    past its experts' capacity unless ``dropless`` (decode, part B);
+    ``route`` (``moe.MoeRoute``) makes h a part of a larger microbatch."""
     if cfg.family == "moe":
         x = rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
-        return h + moe_ffn(x, lp["moe"], n_experts=cfg.n_experts, top_k=cfg.top_k,
-                           capacity_factor=cfg.moe_capacity_factor, dropless=dropless)
+        return act_sharding.constrain(h + moe_ffn(
+            x, lp["moe"], n_experts=cfg.n_experts, top_k=cfg.top_k,
+            capacity_factor=cfg.moe_capacity_factor, dropless=dropless, route=route),
+            "hidden")
     if "w_gate" in lp:
         x = rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
-        return h + swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
+        return act_sharding.constrain(h + swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"]),
+                                      "hidden")
     return h
 
 
@@ -166,8 +173,9 @@ def _out_proj(attn: torch.Tensor, lp: Params, cfg: ModelConfig) -> torch.Tensor:
     return matmul(attn.reshape(b, s, -1), lp["wo"].reshape(-1, cfg.d_model))
 
 
-def _layer_prefill(h, lp, window, positions, cfg, block_q):
-    """One layer over the whole prompt: (h, (k, v) or None, mamba state or None)."""
+def _layer_prefill(h, lp, window, positions, cfg, block_q, route=None):
+    """One layer over the whole prompt: (h, (k, v) or None, mamba state or
+    None). ``route``: the MoE FFN's part of a split microbatch."""
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
     if cfg.family == "ssm":
         out, st = mamba_block(x, lp["mamba"], cfg, return_state=True)
@@ -178,7 +186,7 @@ def _layer_prefill(h, lp, window, positions, cfg, block_q):
     if cfg.family == "hybrid":
         s_out, st = mamba_block(x, lp["mamba"], cfg, return_state=True)
         out = 0.5 * (out + s_out)
-    h = _ffn(h + out, lp, cfg)
+    h = _ffn(h + out, lp, cfg, route=route)
     return h, (k, v), st
 
 
@@ -191,6 +199,7 @@ def forward(
     logits_positions: str = "all",  # "all" (training) | "last" (prefill)
     return_kv: bool = False,
     remat: Union[bool, str] = False,
+    moe_routes=None,
 ):
     """Full causal forward over ``batch["tokens"]`` (b, s), or
     ``batch["embeds"]`` (b, s, d_model) for the frontend families.
@@ -200,6 +209,9 @@ def forward(
     the backward pass; "dots" saves its matrix products without batch dims
     (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``).
 
+    ``moe_routes`` (a ``moe.MoeRoute`` a layer) makes the batch a part of a
+    larger microbatch whose MoE dispatch it keeps.
+
     Returns logits (and per-layer KV, each (L, b, s, n_kv, d_head), if asked;
     None for the attention-free family)."""
     h = _inputs_to_h(params, batch, cfg)
@@ -207,8 +219,8 @@ def forward(
     positions = torch.arange(s, device=h.device).expand(b, s)
     windows = cfg.window_sizes()
 
-    def layer(h, lp, window):
-        return _layer_prefill(h, lp, window, positions, cfg, block_q)
+    def layer(h, lp, window, route):
+        return _layer_prefill(h, lp, window, positions, cfg, block_q, route)
 
     if remat == "dots":
         context_fn = functools.partial(create_selective_checkpoint_contexts, _save_dots)
@@ -217,7 +229,7 @@ def forward(
         layer = functools.partial(checkpoint, layer, use_reentrant=False)
     ks, vs = [], []
     for l, lp in enumerate(unstacked_layers(params, cfg.n_layers)):
-        h, kv, _ = layer(h, lp, int(windows[l]))
+        h, kv, _ = layer(h, lp, int(windows[l]), None if moe_routes is None else moe_routes[l])
         if return_kv and kv is not None:
             ks.append(kv[0])
             vs.append(kv[1])
@@ -228,10 +240,12 @@ def forward(
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            block_q: int = 512, remat: Union[bool, str] = False) -> torch.Tensor:
+            block_q: int = 512, remat: Union[bool, str] = False,
+            moe_routes=None) -> torch.Tensor:
     """Next-token cross entropy. ``batch`` needs tokens or embeds, and
-    labels; an optional ``loss_mask`` weights the positions."""
-    logits = forward(params, batch, cfg, block_q=block_q, remat=remat)
+    labels; an optional ``loss_mask`` weights the positions. ``moe_routes``
+    as ``forward`` takes them."""
+    logits = forward(params, batch, cfg, block_q=block_q, remat=remat, moe_routes=moe_routes)
     labels = batch["labels"]
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]

@@ -13,6 +13,12 @@ bit for bit. (The JAX package's own restore cannot read one: it hands the
 void array to ``jnp.asarray``.) Saves can run on a background thread; the
 tensors are copied to the host before the thread starts, so the train loop
 may go on updating them.
+
+A tree laid out on a mesh (``launch/sharding.ShardedTensor`` leaves) is
+saved gathered to the host, as JAX's ``np.asarray`` gathers: the same bytes
+as the unsharded tree's. ``restore_checkpoint(..., shardings=)`` lays each
+leaf with a ``NamedSharding`` onto its mesh, any mesh: an elastic restart
+onto another topology.
 """
 from __future__ import annotations
 
@@ -25,11 +31,15 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.launch.sharding import ShardedTensor, shard, unshard
 from repro_torch.tree import path_key, tree_flatten_with_path, tree_replace_leaves, treedef_str
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().to("cpu", copy=True)  # the caller may go on updating its tensor
+def _to_numpy(t) -> np.ndarray:
+    if isinstance(t, ShardedTensor):
+        t = unshard(t, "cpu")  # a fresh host tensor
+    else:
+        t = t.detach().to("cpu", copy=True)  # the caller may go on updating its tensor
     if t.dtype == torch.bfloat16:
         return t.contiguous().view(torch.int16).numpy().view("V2")
     return t.numpy()
@@ -85,18 +95,28 @@ def _from_numpy(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
 
 
 def restore_checkpoint(directory: str, step: int, target_tree, shardings=None):
-    """Restore into the structure of ``target_tree``, each leaf on its target
-    leaf's device. ``shardings`` (a re-layout onto a device mesh) waits for
-    the multi-device slice and raises if given."""
-    if shardings is not None:
-        raise NotImplementedError("sharded restore waits for the multi-device slice")
+    """Restore into the structure of ``target_tree``. ``shardings`` (the
+    same tree shape, ``NamedSharding`` leaves or None) lays each leaf with
+    a sharding onto its mesh (``shard``); a leaf without one lands on its
+    target leaf's device, or in its layout where the target leaf is a
+    ``ShardedTensor``."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         dtypes: Dict[str, str] = json.load(f)["dtypes"]
     flat = tree_flatten_with_path(target_tree)
+    flat_sh = ({path_key(p): sh for p, sh in tree_flatten_with_path(shardings)}
+               if shardings is not None else {})
+    leaves = []
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        leaves = [_from_numpy(data[path_key(p)], dtypes[path_key(p)], leaf.device)
-                  for p, leaf in flat]
+        for p, leaf in flat:
+            key = path_key(p)
+            sh = flat_sh.get(key)
+            if sh is None and isinstance(leaf, ShardedTensor):
+                sh = leaf.sharding
+            if sh is None:
+                leaves.append(_from_numpy(data[key], dtypes[key], leaf.device))
+            else:
+                leaves.append(shard(_from_numpy(data[key], dtypes[key], "cpu"), sh))
     return tree_replace_leaves(target_tree, leaves)
 
 

@@ -39,6 +39,12 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sq)
 
 
+def clip_scale(grads, clip_norm: float = 1.0) -> torch.Tensor:
+    """The global-norm clip's factor on every gradient: min(1, clip_norm /
+    ||grads||)."""
+    return torch.clamp(clip_norm / torch.clamp(global_norm(grads), min=1e-9), max=1.0)
+
+
 def adamw_update(
     grads,
     state: Dict[str, Any],
@@ -50,12 +56,15 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     clip_norm: float = 1.0,
+    scale=None,
 ) -> Tuple[Any, Dict[str, Any]]:
     """One AdamW step: new params (in their dtypes) and new state. Nothing
-    is updated in place."""
+    is updated in place. ``scale`` is the clip factor where the caller
+    computed it over a larger tree than ``grads`` (a mesh position's blocks
+    of the global gradient); else ``clip_scale(grads, clip_norm)``."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
-    scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    if scale is None:
+        scale = clip_scale(grads, clip_norm)
     stepf = step.to(torch.float32)
     bc1, bc2 = 1 - b1 ** stepf, 1 - b2 ** stepf
 

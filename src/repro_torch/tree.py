@@ -2,11 +2,15 @@
 
 JAX flattens a dict in sorted key order. The optimizer's global norm, the
 checkpoint's keys and the tests' leaf-by-leaf comparisons follow that order,
-whatever order the port's dicts were built in.
+whatever order the port's dicts were built in. Only plain lists and tuples
+are nodes: a tuple subclass (a sharding spec ``P``, a ``torch.Size``) is a
+leaf, as JAX's ``is_leaf=lambda x: isinstance(x, P)`` makes it.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
+
+_SEQUENCES = (list, tuple)
 
 Path = Tuple[Any, ...]
 
@@ -15,7 +19,7 @@ def tree_flatten_with_path(tree: Any, prefix: Path = ()) -> List[Tuple[Path, Any
     """(path, leaf) pairs in JAX's order: dict keys sorted, sequences in order."""
     if isinstance(tree, dict):
         return [pl for k in sorted(tree) for pl in tree_flatten_with_path(tree[k], prefix + (k,))]
-    if isinstance(tree, (list, tuple)):
+    if type(tree) in _SEQUENCES:
         return [pl for i, x in enumerate(tree) for pl in tree_flatten_with_path(x, prefix + (i,))]
     return [(prefix, tree)]
 
@@ -29,7 +33,7 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     in a tree of ``tree``'s structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
+    if type(tree) in _SEQUENCES:
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
     return fn(tree, *rest)
 
@@ -47,7 +51,7 @@ def _rebuild(t: Any, prefix: Path, order: dict) -> Any:
     # tree of parameters or moments in AdamW) alive until a GC pass
     if isinstance(t, dict):
         return {k: _rebuild(v, prefix + (k,), order) for k, v in t.items()}
-    if isinstance(t, (list, tuple)):
+    if type(t) in _SEQUENCES:
         return type(t)(_rebuild(v, prefix + (i,), order) for i, v in enumerate(t))
     return order[prefix]
 

@@ -1,7 +1,10 @@
 """The port's checkpointing and fault tolerance, and checkpoints across packages.
 
-Mirrors tests/test_checkpoint.py (round trip, async save, retention, restart
-after an injected failure, heartbeat and straggler detection) on the port,
+Mirrors tests/test_checkpoint.py (round trip, async save, retention, the
+elastic restore onto another mesh, restart after an injected failure,
+heartbeat and straggler detection) on the port, with a tree laid out on a
+mesh of ``[cpu] * 4`` saved and restored bit for bit and a train run over
+a mesh restarted from its sharded checkpoint,
 and holds the on-disk format to the JAX package's: a checkpoint written by
 either package restores in the other, bit for bit, with the same manifest.
 bfloat16 leaves are stored as both packages store them, raw 2-byte values
@@ -25,6 +28,9 @@ from repro.train import checkpoint as JCK
 from repro.train.optimizer import adamw_init as jax_adamw_init
 from repro_torch import bridge
 from repro_torch.configs import reduced_config
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.sharding import (NamedSharding, P, ShardedTensor, block_index,
+                                         param_shardings, shard_tree, unshard_tree)
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import transformer as PT
 from repro_torch.train.checkpoint import (CheckpointManager, latest_step, restore_checkpoint,
@@ -39,6 +45,17 @@ def state():
     cfg = dataclasses.replace(reduced_config("qwen3-1.7b", n_layers=2), dtype="float32")
     params = PT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     return cfg, params, adamw_init(params)
+
+
+CPU = torch.device("cpu")
+
+
+def _on_mesh(cfg, params, opt, mesh, shard_leaves=True):
+    """({"params", "opt"} laid out on ``mesh`` by ``param_shardings``, the
+    step replicated; their shardings)."""
+    psh = param_shardings(cfg, mesh, fsdp=True)
+    sh = {"params": psh, "opt": {"m": psh, "v": psh, "step": NamedSharding(mesh, P())}}
+    return (shard_tree({"params": params, "opt": opt}, sh) if shard_leaves else None), sh
 
 
 def _trees_equal(a, b):
@@ -95,11 +112,88 @@ class TestCheckpoint:
         mgr.save(3, {"params": params}, blocking=True)
         assert sorted(os.listdir(tmp_path)) == ["step_00000003"]
 
-    def test_sharded_restore_waits_for_multi_device(self, state, tmp_path):
-        _, params, _ = state
+    @pytest.mark.parametrize("grid", [(1, 1), (2, 2)])
+    def test_elastic_restore_onto_different_mesh(self, state, tmp_path, grid):
+        """Save unsharded, restore with explicit shardings onto a 1 x 1 and
+        a 2 x 2 mesh (the path used when node counts change between runs):
+        every leaf laid out on the mesh, equal to the saved tree."""
+        cfg, params, _ = state
         save_checkpoint(str(tmp_path), 1, {"params": params})
-        with pytest.raises(NotImplementedError):
-            restore_checkpoint(str(tmp_path), 1, {"params": params}, shardings={"params": None})
+        mesh = make_host_mesh(*grid, devices=[CPU] * 4)
+        sh = {"params": param_shardings(cfg, mesh, fsdp=True)}
+        restored = restore_checkpoint(str(tmp_path), 1, {"params": params}, sh)
+        _trees_equal({"params": params}, unshard_tree(restored, CPU))
+        for leaf, want in zip(tree_leaves(restored), tree_leaves(sh)):
+            assert isinstance(leaf, ShardedTensor) and leaf.sharding == want
+            assert leaf.mesh.shape["model"] == grid[1]
+
+    def test_sharded_save_restores_bit_for_bit(self, state, tmp_path):
+        """Params and moments laid out on a 2 x 2 mesh save the unsharded
+        tree's bytes; restored onto 2 x 2 and onto 1 x 4 every block is bit
+        for bit the saved leaf's slice; a ShardedTensor target without
+        shardings keeps its own layout; a None sharding restores on the
+        target leaf's device."""
+        cfg, params, opt = state
+        mesh = make_host_mesh(2, 2, devices=[CPU] * 4)
+        tree, sh = _on_mesh(cfg, params, opt, mesh)
+        save_checkpoint(str(tmp_path / "mesh"), 2, tree)
+        save_checkpoint(str(tmp_path / "flat"), 2, {"params": params, "opt": opt})
+        assert _manifest(tmp_path / "mesh", 2) == _manifest(tmp_path / "flat", 2)
+        with np.load(tmp_path / "mesh" / "step_00000002" / "arrays.npz") as a, \
+                np.load(tmp_path / "flat" / "step_00000002" / "arrays.npz") as b:
+            assert sorted(a.files) == sorted(b.files)
+            for k in a.files:
+                assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+        flat = {"params": params, "opt": opt}
+        for grid in ((2, 2), (1, 4)):
+            m = make_host_mesh(*grid, devices=[CPU] * 4)
+            _, msh = _on_mesh(cfg, params, opt, m, shard_leaves=False)
+            got = restore_checkpoint(str(tmp_path / "mesh"), 2, tree, msh)
+            for g, w in zip(tree_leaves(got), tree_leaves(flat)):
+                assert isinstance(g, ShardedTensor) and g.mesh is m
+                for pos in g.positions():
+                    b = g.block_at(pos)
+                    assert b.dtype == w.dtype and torch.equal(b, w[block_index(g.shape,
+                                                                           g.sharding, pos)])
+        kept = restore_checkpoint(str(tmp_path / "mesh"), 2, tree)
+        assert all(k.sharding == t.sharding for k, t in zip(tree_leaves(kept), tree_leaves(tree)))
+        plain = restore_checkpoint(str(tmp_path / "mesh"), 2, flat,
+                                   {"params": None, "opt": {"m": None, "v": None, "step": None}})
+        _trees_equal(plain, flat)
+
+    def test_mesh_step_restart_resumes_training(self, state, tmp_path):
+        """Train on a 2 x 2 mesh, kill at step 3 (injected), restore the
+        sharded checkpoint with ``shardings=`` and finish: the params and
+        moments equal an uninterrupted mesh run's bit for bit."""
+        cfg, params, opt = state
+        mesh = make_host_mesh(2, 2, devices=[CPU] * 4)
+        tree, sh = _on_mesh(cfg, params, opt, mesh)
+        rng = np.random.default_rng(1)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32),
+                 "labels": rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)}
+        step_fn = make_train_step(cfg, grad_accum=2, remat=False, lr=1e-3, mesh=mesh)
+        mgr = CheckpointManager(str(tmp_path), keep=2)
+        injector = FailureInjector(fail_at=[3])
+
+        def run(p, o, start, save=True):
+            for s in range(start, 5):
+                if save:
+                    injector.maybe_fail(s)
+                p, o, _ = step_fn(p, o, batch)
+                if save:
+                    mgr.save(s, {"params": p, "opt": o}, blocking=True)
+            return p, o
+
+        with pytest.raises(RuntimeError, match="injected node failure at step 3"):
+            run(tree["params"], tree["opt"], 0)
+        assert mgr.latest() == 2
+        restored = mgr.restore(tree, sh)
+        p, o = run(restored["params"], restored["opt"], 3)
+        p2, o2 = run(tree["params"], tree["opt"], 0, save=False)
+        for a, b in zip(tree_leaves({"params": p, "opt": o}), tree_leaves({"params": p2,
+                                                                             "opt": o2})):
+            assert a.sharding == b.sharding
+            assert all(torch.equal(a.block_at(pos), b.block_at(pos)) for pos in a.positions())
 
     def test_restart_resumes_training(self, state, tmp_path):
         """Kill at step 3 (injected), restart from the checkpoint, finish: the

@@ -1909,3 +1909,128 @@ def test_decode_step_batch_on_a_one_shard_mesh_is_bit_for_bit(dev):
                 np.testing.assert_array_equal(lp, lt)
                 for l in mp:
                     np.testing.assert_array_equal(mp[l], mt[l])
+
+
+# -- training over a mesh of the card ([cuda] x 4) ------------------------------
+def _mesh_setup(dev, arch, data, model, **overrides):
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import NamedSharding, P, param_shardings, shard, shard_tree
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg = dataclasses.replace(reduced_config(arch, **overrides), dtype="float32")
+    params = _to(init_params(cfg, torch.Generator().manual_seed(0), device="cpu"), dev)
+    mesh = make_host_mesh(data, model, devices=[dev] * 4)
+    sh = param_shardings(cfg, mesh, fsdp=True)
+    opt = adamw_init(params)
+    on_mesh = (shard_tree(params, sh),
+               {"m": shard_tree(opt["m"], sh), "v": shard_tree(opt["v"], sh),
+                "step": shard(opt["step"], NamedSharding(mesh, P()))})
+    rng = np.random.default_rng(300)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)}
+    return cfg, params, mesh, on_mesh, batch
+
+
+@pytest.mark.parametrize("grid", [(1, 4), (2, 2)])
+def test_mesh_train_step_on_the_card(dev, grid):
+    """make_train_step(mesh=) on reduced float32 qwen3-1.7b over [cuda] x 4,
+    through both flash kernels, against the card's step without a mesh: a
+    1 x 4 mesh (one dp shard, grad_accum 2) bit for bit; a 2 x 2 mesh
+    (grad_accum 2, one row a part) against the unsharded step at grad_accum
+    4 (one row a microbatch: the same kernels on the same rows, parts
+    weighed by an exact 1/2), the loss within 1e-6 and every block within
+    1e-6 of its leaf's largest element; 4 x 2 flash launches a step both
+    ways."""
+    from repro_torch.launch.sharding import block_index
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.tree import tree_leaves
+
+    cfg, params, mesh, (ps, opt), batch = _mesh_setup(dev, "qwen3-1.7b", *grid)
+    kw = dict(remat=False, lr=1e-3)
+    want_p, want_o, want_m = make_train_step(cfg, grad_accum=2 if grid[0] == 1 else 4, **kw)(
+        params, adamw_init(params), batch)
+    f0, b0 = fa_ops.launches, fa_ops.bwd_launches
+    got_p, got_o, got_m = make_train_step(cfg, grad_accum=2, mesh=mesh, **kw)(ps, opt, batch)
+    rows = 2 * cfg.n_layers if grid[0] == 1 else 4 * cfg.n_layers
+    assert (fa_ops.launches - f0, fa_ops.bwd_launches - b0) == (rows, rows)
+    exact = grid[0] == 1
+    if exact:
+        assert torch.equal(got_m["loss"], want_m["loss"])
+    else:
+        assert abs(got_m["loss"].item() - want_m["loss"].item()) <= 1e-6 * abs(
+            want_m["loss"].item())
+    for got, want in ((got_p, want_p), (got_o["m"], want_o["m"]), (got_o["v"], want_o["v"])):
+        for g, w in zip(tree_leaves(got), tree_leaves(want)):
+            for pos in g.positions():
+                blk, ref = g.block_at(pos), w[block_index(g.shape, g.sharding, pos)]
+                assert blk.device.type == "cuda"
+                if exact:
+                    assert torch.equal(blk, ref)
+                else:
+                    err = (blk - ref).abs().max().item()
+                    assert err <= 1e-6 * max(w.abs().max().item(), 1e-30)
+
+
+def test_mesh_split_keeps_moe_dispatch_on_the_card(dev, monkeypatch):
+    """Reduced float32 mixtral-8x22b at capacity factor 0.5 on a 2 x 2 mesh
+    of the card: each microbatch's two parts keep and drop exactly what the
+    microbatch's dispatch over their routing, concatenated, does (bit for
+    bit), some assignments drop, and the loss is within 1e-5 of the card's
+    unsharded step's (its GEMMs over twice the rows may sum in other
+    orders)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import moe as PM
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg, params, mesh, (ps, opt), batch = _mesh_setup(dev, "mixtral-8x22b", 2, 2,
+                                                      moe_capacity_factor=0.5)
+    _, _, want_m = make_train_step(cfg, grad_accum=2, remat=False, lr=1e-3)(
+        params, adamw_init(params), batch)
+    seen = []
+    real = PM.dispatch
+
+    def recording(top_idx, cap, n_experts, offset=None):
+        out = real(top_idx, cap, n_experts, offset)
+        seen.append((top_idx, cap, out[1]))
+        return out
+
+    monkeypatch.setattr(PM, "dispatch", recording)
+    _, _, got_m = make_train_step(cfg, grad_accum=2, remat=False, lr=1e-3, mesh=mesh)(
+        ps, opt, batch)
+    L = cfg.n_layers
+    assert len(seen) == 2 * 2 * L
+    dropped = 0
+    for i in range(2):
+        for l in range(L):
+            parts = [seen[(2 * i + j) * L + l] for j in range(2)]
+            keep = torch.cat([p[2] for p in parts])
+            whole = real(torch.cat([p[0] for p in parts]), parts[0][1], cfg.n_experts)[1]
+            assert parts[0][1] == parts[1][1] and torch.equal(whole, keep)
+            dropped += int((~keep).sum())
+    assert dropped > 0
+    assert abs(got_m["loss"].item() - want_m["loss"].item()) <= 1e-5 * abs(want_m["loss"].item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_compressed_psum_on_the_card(dev, dtype):
+    """compressed_psum over [cuda] x 4: every participant's sum the same
+    bits, bit for bit the CPU's (the same elementwise float32 ops in the same
+    order), within sum_i scale_i / 2 of the float32 sum."""
+    from repro_torch.train.compression import compressed_psum
+
+    xs = [_rand(dev, 310 + i, (300, 77)) * (10.0 ** (i - 1)) for i in range(4)]
+    xs = [x.to(dtype) for x in xs]
+    got = compressed_psum(xs)
+    want = compressed_psum([x.cpu() for x in xs])
+    assert all(g.device.type == "cuda" and g.dtype == dtype for g in got)
+    assert all(torch.equal(got[0], g) for g in got[1:])
+    assert torch.equal(got[0].cpu(), want[0])
+    exact = sum(x.float() for x in xs)
+    limit = sum(x.float().abs().max().item() / 127.0 for x in xs) / 2
+    if dtype == torch.float32:
+        assert (got[0] - exact).abs().max().item() <= limit * (1 + 1e-5)
