@@ -222,7 +222,14 @@ non-zero exit code:
                 version, step time, tokens/s, model-FLOPs utilisation,
                 peak memory, one more step profiled
                 (the backward kernels' share, each by name: preprocess,
-                dK/dV, dQ); (u) a cold and a warm ContiguousKV
+                dK/dV, dQ); (t17) the dry run's count held against a live
+                step: (t2)'s step counted by ``launch/roofline.py``'s
+                StepAnalyzer on the card and on meta tensors (the same aten
+                products, kernel work and 56 + 56 flash launches), the
+                predicted bytes against max_memory_allocated and the
+                roofline time against the warm step, and ``python -m
+                repro_torch.launch.dryrun`` on qwen3-1.7b's train_4k cell;
+                (u) a cold and a warm ContiguousKV
                 request of the dense shape on the trained weights (TTFT,
                 TPOT); (t3) at full width cut to 4 layers: the kernel path's
                 loss and gradients against the plain path (block-wise
@@ -307,8 +314,8 @@ non-zero exit code:
      gemma3-4b's, with its launches there; and each backward kernel as
      its own entry: ``flash_attention_bwd`` (its launches over qwen3's and
      hymba's 5 train steps, (t9), (t11), (t12)'s 3 and the mesh steps of
-     (t13), (t13b) and (t14), by path and by variant; ``train_over_mesh``
-     holds (t13)-(t16)'s numbers; ``head_dim_256`` at gemma3-4b's shape and ``hymba_d64`` at
+     (t13), (t13b) and (t14), by path and by variant; ``dry_run`` holds
+     (t17)'s numbers, ``train_over_mesh`` (t13)-(t16)'s; ``head_dim_256`` at gemma3-4b's shape and ``hymba_d64`` at
      hymba-1.5b's, each with its time, bound, design bound, SDPA's time,
      host time, errors and launches) and ``selective_scan_bwd`` (over
      hymba's 5 and falcon-mamba's 3 train steps); decode_attention's
@@ -324,6 +331,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -625,6 +633,22 @@ def bounds(nbytes: float, ops: float, exps: float, tf32_ops: float | None = None
         term = max(t, key=t.get)
         out[name] = (t[term], "bytes" if term == "bytes" else "operations", term)
     return out
+
+
+def work_bounds(name: str, **shapes):
+    """``bounds`` of one call of kernel ``name``: its bytes, products and
+    exponentials as ``kernels/work.py``'s ``kernel_work`` counts them."""
+    from repro_torch.kernels.work import kernel_work
+
+    w = kernel_work(name, **shapes)
+    return bounds(w.bytes, w.products, w.exponentials)
+
+
+def flash_shapes(q, k, **kw) -> dict:
+    """A flash call's shapes as ``kernel_work`` takes them."""
+    b, n_q, s_q, d = q.shape
+    return dict(b=b, n_q=n_q, n_kv=k.shape[1], s_q=s_q, s_k=k.shape[2], d=d,
+                itemsize=q.element_size(), **kw)
 
 
 def bound_text(bound) -> str:
@@ -1026,8 +1050,9 @@ def decode_attention_timing(q, kp, vp, table, lens, o, pm, err) -> dict:
     return dict(err=err, ms=device_ms(call), host_ms=host_ms(call),
                 plain_ms=wall_ms(lambda: decode_attention_ref(q, kp, vp, table, lens)),
                 sdpa_output_only_ms=device_ms(sdpa),
-                bound=bounds(nbytes(q, o, pm, table, lens) + 2 * L * nkv * d * kp.element_size(),
-                             4.0 * nq * d * L, nq * L))
+                bound=work_bounds("decode_attention", b=q.shape[0], n_q=nq, n_kv=nkv, d=d,
+                                  n_active=table.shape[1], tokens=L,
+                                  itemsize=q.element_size()))
 
 
 def phase_pools_kernels(cfg):
@@ -1723,9 +1748,9 @@ def _tp_attend(cfg, smi_line):
             key = f"page {page} {dname(args[0])}"
             q, kp, _, tbl, lens = args
             n_tok = int(lens.sum())  # each row's valid tokens lie in its table's pages
-            bound = bounds(nbytes(q, want_o, want_m, tbl, lens)
-                           + 2 * n_tok * kp.shape[3] * kp.shape[4] * kp.element_size(),
-                           4.0 * q.shape[1] * q.shape[2] * n_tok, q.shape[1] * n_tok)
+            bound = work_bounds("decode_attention", b=q.shape[0], n_q=q.shape[1],
+                                n_kv=kp.shape[3], d=kp.shape[4], n_active=tbl.shape[1],
+                                tokens=n_tok, itemsize=q.element_size())
             row = {"unsharded_ms": device_ms(lambda: da.decode_attention(*args)),
                    "bound_ms": bound["tensor_core"][0], "bound_by": bound["tensor_core"][1]}
             print(f"tp (b) {key}: {n_tok} valid tokens over b = 3, {bound_text(bound)}")
@@ -1979,22 +2004,21 @@ def flash_held(label, q, k, v, **kw):
     return got, err, tol
 
 
-def flash_timed(q, k, v, got, **kw) -> dict:
+def flash_timed(q, k, v, **kw) -> dict:
     """A causal self-attention call's device, SDPA, host and plain times and
-    its bound (s_q = s_k, no offset: s(s + 1) / 2 key-query pairs a head)."""
+    its bound (``work_bounds``; s_q = s_k, no offset: s(s + 1) / 2 key-query
+    pairs a head)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    n_heads, s, d = q.shape[1:]
-    pairs = s * (s + 1) // 2
     return dict(ms=device_ms(lambda: flash_attention(q, k, v, **kw)),
                 library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True, enable_gqa=True)),
                 host_ms=host_ms(lambda: flash_attention(q, k, v, **kw)),
                 plain_ms=wall_ms(lambda: flash_attention_ref(q, k, v, **kw), reps=3),
-                bound=bounds(nbytes(q, k, v, got), 4.0 * n_heads * d * pairs, n_heads * pairs))
+                bound=work_bounds("flash_attention", **flash_shapes(q, k, **kw)))
 
 
 def phase_hybrid(cfg, ctx, smi_line):
@@ -2383,8 +2407,8 @@ def _flash_at(cfg, end, smi_line):
     q = rn(1, end, cfg.n_heads, cfg.d_head).transpose(1, 2)
     k = rn(1, end, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
     v = rn(1, end, cfg.n_kv_heads, cfg.d_head).transpose(1, 2)
-    got, err, tol = flash_held(f"at s = {end}", q, k, v)
-    r = dict(s=end, err=err, **flash_timed(q, k, v, got))
+    _, err, tol = flash_held(f"at s = {end}", q, k, v)
+    r = dict(s=end, err=err, **flash_timed(q, k, v))
     print(f"hybrid: flash_attention at the recompute's s = {end} "
           f"({fa.variant_for(q.dtype, cfg.d_head)}): max abs err {err:.3g} (tol {tol:.3g}); "
           f"{r['ms']:.4f} ms on the card, scaled_dot_product_attention {r['library_ms']:.4f} ms, "
@@ -2445,7 +2469,7 @@ def phase_state_kernels(hcfg, dcfg, fcfg):
         print(f"kernels: flash_attention {label} q {tuple(q.shape)} k {tuple(k.shape)} "
               f"{dname(q)} ({variant}): max abs err {err:.3g} (tol {tol:.3g})")
         if label in ("hymba prefill", "dense ingest"):
-            r = dict(err=err, **flash_timed(q, k, v, got, **kw))
+            r = dict(err=err, **flash_timed(q, k, v, **kw))
             print(f"kernels: flash_attention {label}: {variant} {r['ms']:.4f} ms on the card, "
                   f"scaled_dot_product_attention {r['library_ms']:.4f} ms, plain version "
                   f"{r['plain_ms']:.2f} ms, {bound_text(r['bound'])}; host time per call "
@@ -2480,10 +2504,14 @@ def phase_state_kernels(hcfg, dcfg, fcfg):
               f"({variant}): max abs err {err:.3g} on y and h (tol {tol:.3g})")
         return err, y, h
 
-    def scan_bound(args, y, h):  # bytes read and written once; one exp per
-        x = args[0]              # (t, channel, state), ~6 float32 operations each
+    def scan_shapes(args, **kw):
+        x, dt = args[0], args[1]
         b, s, d_in = x.shape
-        return bounds(nbytes(*args, y, h), 6.0 * b * s * d_in * n, b * s * d_in * n)
+        return dict(b=b, s=s, d_in=d_in, n=n, itemsize=x.element_size(),
+                    dt_itemsize=dt.element_size(), **kw)
+
+    def scan_bound(args):  # bytes read and written once; one exp and ~6 float32
+        return work_bounds("selective_scan", **scan_shapes(args))  # operations a (t, d, j)
 
     args = scan_inputs(1, s_full, torch.bfloat16)
     err, y_full, h_full = check("hymba prefill", args)
@@ -2525,20 +2553,18 @@ def phase_state_kernels(hcfg, dcfg, fcfg):
     fdec = scan_inputs(1, 1, torch.float32, d_in=fcfg.d_inner)
     fh0 = rn(1, fcfg.d_inner, n, dtype=torch.float32)
 
-    def step_bound(a, h_in):  # the decode step: state (and x, dt, B, C, y) moved once
-        y, h = selective_scan(*a, h_in)
-        b, _, d_in = a[0].shape
-        return bounds(nbytes(*a, h_in, y, h), 6.0 * b * d_in * n, b * d_in * n)["tensor_core"]
+    def step_bound(a):  # the decode step: state (and x, dt, B, C, y) moved once
+        return work_bounds("selective_scan", **scan_shapes(a, h0=True))["tensor_core"]
     r = dict(err=err, ms=device_ms(lambda: selective_scan(*args)), library_ms=None,
              host_ms=host_ms(lambda: selective_scan(*args)),
              plain_ms=wall_ms(lambda: selective_scan_ref(*args), reps=2),
              decode_ms=device_ms(lambda: selective_scan(*dec, h0)),
              decode_host_ms=host_ms(lambda: selective_scan(*dec, h0)),
-             decode_bound_ms=step_bound(dec, h0)[0],
+             decode_bound_ms=step_bound(dec)[0],
              falcon_decode_ms=device_ms(lambda: selective_scan(*fdec, fh0)),
              falcon_decode_host_ms=host_ms(lambda: selective_scan(*fdec, fh0)),
-             falcon_decode_bound_ms=step_bound(fdec, fh0)[0],
-             bound=scan_bound(args, y_full, h_full))
+             falcon_decode_bound_ms=step_bound(fdec)[0],
+             bound=scan_bound(args))
     print(f"kernels: selective_scan hymba prefill: chunked {r['ms']:.4f} ms on the card, "
           f"plain version {r['plain_ms']:.1f} ms, {bound_text(r['bound'])}, host time per "
           f"call {r['host_ms']:.4f} ms; decode step (sequential) {r['decode_ms']:.4f} ms "
@@ -2559,9 +2585,9 @@ def phase_state_kernels(hcfg, dcfg, fcfg):
     fargs = scan_inputs(1, s_full, torch.bfloat16, d_in=fcfg.d_inner)
     _, fy, fh = check("falcon-mamba prefill", fargs)
     r["falcon_prefill"] = dict(ms=device_ms(lambda: selective_scan(*fargs)),
-                               bound_ms=scan_bound(fargs, fy, fh)["tensor_core"][0])
+                               bound_ms=scan_bound(fargs)["tensor_core"][0])
     print(f"kernels: selective_scan falcon-mamba prefill (d_inner {fcfg.d_inner}): chunked "
-          f"{r['falcon_prefill']['ms']:.4f} ms, {bound_text(scan_bound(fargs, fy, fh))}")
+          f"{r['falcon_prefill']['ms']:.4f} ms, {bound_text(scan_bound(fargs))}")
     # the decode step batched: b = 2, the fleet's state-space batches of two
     # requests, and b = 4 (drawn last, so every input above is as before)
     for label, d_in in widths:
@@ -2573,7 +2599,7 @@ def phase_state_kernels(hcfg, dcfg, fcfg):
     for (label, b), (a, h_in, e) in steps.items():
         if b == 1:
             continue
-        bound = step_bound(a, h_in)
+        bound = step_bound(a)
         row = dict(max_abs_err=e, ms=device_ms(lambda: selective_scan(*a, h_in)),
                    bound_ms=bound[0], bound_by=bound[1],
                    host_ms=host_ms(lambda: selective_scan(*a, h_in)),
@@ -3493,7 +3519,6 @@ def phase_wide_kernels(cfg, smi_line):
             fail("flash_attention at d 256 did not run the wgmma kernel")
         if not torch.equal(got, fa.flash_attention(q, k, v, window=window)):
             fail("flash_attention at d 256 is not reproducible bit for bit")
-        pairs = sum(min(i + 1, window or i + 1) for i in range(S))
         mask = (pos[None, :] <= pos[:, None]) & (
             (pos[:, None] - pos[None, :] < window) if window else True)
 
@@ -3506,7 +3531,7 @@ def phase_wide_kernels(cfg, smi_line):
             library_ms=device_ms(sdpa),
             host_ms=host_ms(lambda w=window: fa.flash_attention(q, k, v, window=w)),
             plain_ms=wall_ms(lambda w=window: flash_attention_ref(q, k, v, window=w), reps=3),
-            bound=bounds(nbytes(q, k, v, got), 4.0 * nq * d * pairs, nq * pairs))
+            bound=work_bounds("flash_attention", **flash_shapes(q, k, window=window)))
         r = flash[f"window_{window}"]
         print(f"wide (o): flash_attention d={d} s={S} window={window}: max abs err {err:.3g} "
               f"(tol {tol:.3g}), two runs bit-identical; {r['ms']:.4f} ms on the card, "
@@ -4100,9 +4125,13 @@ def phase_train_kernel(cfg, smi_line):
         if not same or any(errs[n] > tols[n] for n in errs):
             fail(f"flash_attention_bwd {label}: errors {errs} (tolerances {tols}), two runs "
                  f"bit-identical: {same}")
-        pairs, moved = _visible_pairs(s_, window), nbytes(q, k, v, out, do, *got)
+        pairs = _visible_pairs(s_, window)
+        shapes = flash_shapes(q, k, window=window)
 
-        def work_bound(work):
+        def work_bound(work):  # the products and exponentials a design runs, the bytes moved
+            from repro_torch.kernels.work import kernel_work
+
+            moved = kernel_work("flash_attention_bwd", **shapes).bytes
             return bounds(moved, work[0] * 2.0 * pairs * d_ * nq_, work[1] * nq_ * pairs)
 
         n_prod = BWD_DESIGN_WORK[variant][0]
@@ -4113,7 +4142,8 @@ def phase_train_kernel(cfg, smi_line):
                  library_ms=library_ms, library_refused=refused,
                  host_ms=host_ms(lambda: fa.flash_attention_bwd(*args, **kw), reps=10),
                  plain_ms=wall_ms(lambda: flash_attention_bwd_ref(*args, window=window), reps=3),
-                 bound=work_bound(BWD_WORK), design_bound=work_bound(BWD_DESIGN_WORK[variant]))
+                 bound=work_bounds("flash_attention_bwd", **shapes),
+                 design_bound=work_bound(BWD_DESIGN_WORK[variant]))
         lse_text = "" if lse_err is None else f"; its lse max abs err {lse_err:.3g} (tol {LSE_TOL})"
         sdpa_text = (f"SDPA's backward {library_ms:.4f} ms" if refused is None
                      else f"SDPA's backward refused ({refused})")
@@ -4282,6 +4312,136 @@ def phase_train_step(cfg, smi_line):
     TRAIN_STEPS steps: 2 x 28 flash forward and backward launches a step,
     both wgmma. Returns (params, {path: launches}, numbers)."""
     return phase_train_family(cfg, TRAIN_STEPS, "train (t2)", smi_line, keep_params=True)
+
+
+def phase_train_roofline(cfg, params, warm_ms: float, smi_line):
+    """(t17) The dry run's count held against a live step: (t2)'s step
+    (``make_train_step(grad_accum=2, remat=False)`` on full-width qwen3-1.7b
+    over (t2)'s 2 x 4096 tokens, bfloat16, the weights (t2) trained) counted
+    under ``StepAnalyzer`` once on the card, its flash kernels launching,
+    and once on meta tensors of the same shapes, whose wrappers' meta routes
+    launch nothing: the aten products, each kernel's ``kernel_work`` totals
+    and the launches the wrappers report to the analyzer (56 flash forward,
+    56 backward) must be equal, the wrappers' own counters must show the 56
+    + 56 live launches and none on meta. Printed
+    beside the card's name and power limit: the predicted bytes (the step's
+    arguments plus the meta count's peak live bytes) against
+    ``torch.cuda.max_memory_allocated`` over the live step, the roofline
+    time against (t2)'s warm step and that share, and the dominant term;
+    then the row of ``python -m repro_torch.launch.dryrun`` on qwen3-1.7b's
+    train_4k cell over the single-pod mesh, run in a process of its own
+    beside the counts. The step's outputs are dropped:
+    (u) serves (t2)'s weights. Returns ({kernel: {path: launches}},
+    numbers)."""
+    t_phase = time.perf_counter()
+    # the dry run's CLI counts on the host's CPU while this process counts
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cfg.name, "--shape",
+           "train_4k", "--mesh", "single"]
+    cli = subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        paths, numbers = _train_roofline_counts(cfg, params, warm_ms, smi_line)
+        out, err = cli.communicate(timeout=300)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.communicate()
+    cli_s = time.perf_counter() - t_phase
+    if cli.returncode != 0:
+        fail(f"train (t17): the dry run exited {cli.returncode}: {err[-2000:]}")
+    row = [ln for ln in out.splitlines() if ln.startswith(cfg.name)]
+    print(f"train (t17): python -m repro_torch.launch.dryrun --arch {cfg.name} --shape train_4k "
+          f"--mesh single (done {cli_s:.1f} s after the phase began): "
+          f"{row[0] if row else out[-500:]}")
+    numbers.update(dryrun_cli_s=cli_s, dryrun_row=row[0] if row else None,
+                   seconds=time.perf_counter() - t_phase)
+    return paths, numbers
+
+
+def _train_roofline_counts(cfg, params, warm_ms: float, smi_line):
+    """(t17)'s two counts of (t2)'s step and what they predict (see
+    ``phase_train_roofline``)."""
+    import torch
+
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.tree import tree_leaves, tree_map
+
+    batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 23)
+    step = make_train_step(cfg, grad_accum=TRAIN_ACCUM, remat=False, lr=TRAIN_LR)
+    opt = adamw_init(params)
+    arg_bytes = sum(nbytes(t) for t in tree_leaves((params, opt, batch)))
+
+    def count(args):  # the analyzer and the launches the wrappers counted
+        before = _flash_train_counts()
+        with RL.StepAnalyzer() as a:
+            out = step(*args)
+        del out
+        got = {k: n - before[k] for k, n in _flash_train_counts().items() if n != before[k]}
+        return a, got
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    live, live_launches = count((params, opt, batch))
+    torch.cuda.synchronize()
+    live_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+
+    def meta(t):
+        return torch.empty_like(t, device="meta")
+
+    # the meta routes launch nothing: they report to the analyzer alone
+    t0 = time.perf_counter()
+    dry, dry_launches = count((tree_map(meta, params), tree_map(meta, opt), tree_map(meta, batch)))
+    meta_s = time.perf_counter() - t0
+    del opt
+    free_weights()
+    per = TRAIN_ACCUM * cfg.n_layers
+    flash = {"flash forward": per, "flash backward": per, "flash forward wgmma": per,
+             "flash backward wgmma": per}
+    reported = {("flash_attention", "wgmma"): per, ("flash_attention_bwd", "wgmma"): per}
+    if (live.aten_flops != dry.aten_flops or live.kernels != dry.kernels
+            or live.launches != dry.launches or live.launches != reported
+            or live_launches != flash or dry_launches):
+        fail(f"train (t17): the live and the meta count differ: aten products "
+             f"{live.aten_flops} / {dry.aten_flops}, kernels {live.kernels} / {dry.kernels}, "
+             f"launches reported {live.launches} / {dry.launches} (expected {reported}), "
+             f"launched {live_launches} / {dry_launches} (expected {flash} / none)")
+    model_flops, _ = _train_flops(cfg, params, TRAIN_BATCH, TRAIN_SEQ)
+    predicted = arg_bytes + dry.peak_bytes
+    rep = RL.roofline(dry.metrics, arch=cfg.name, shape="train (t2)", mesh="one card",
+                      model_flops_per_device=model_flops, bytes_per_device=predicted)
+    t_roof = max(rep.t_compute, rep.t_memory, rep.t_collective)
+    share = t_roof / (warm_ms / 1e3)
+    kern = {k: {n: v[n] for n in ("calls", "products", "bytes", "exponentials")}
+            for k, v in dry.kernels.items()}
+    print(f"train (t17): (t2)'s step counted live ({live_s:.1f} s) and on meta ({meta_s:.1f} s): "
+          f"aten products {live.aten_flops:.6e} both, kernel work equal ({kern}), launches "
+          f"reported {dict(live.launches)} both, launched {live_launches} live and none on meta "
+          f"({smi_line})")
+    print(f"train (t17): predicted bytes {predicted / 2**30:.2f} GiB (arguments "
+          f"{arg_bytes / 2**30:.2f} + the meta count's peak live {dry.peak_bytes / 2**30:.2f}) "
+          f"against max_memory_allocated {peak / 2**30:.2f} GiB over the live step (allocated "
+          f"before it {base / 2**30:.2f}; the live count's peak live {live.peak_bytes / 2**30:.2f}); "
+          f"roofline {t_roof * 1e3:.1f} ms (compute {rep.t_compute * 1e3:.1f}, memory "
+          f"{rep.t_memory * 1e3:.1f}, every-op memory {rep.t_memory_upper * 1e3:.1f}) against "
+          f"(t2)'s warm step {warm_ms:.1f} ms: {100 * share:.1f} %, dominant {rep.dominant}; "
+          f"useful {rep.useful_ratio:.3f} ({smi_line})")
+    numbers = dict(aten_flops=dry.aten_flops, kernels=kern, launches=live_launches,
+                   predicted_bytes=predicted, arg_bytes=arg_bytes, meta_peak_bytes=dry.peak_bytes,
+                   live_peak_bytes=live.peak_bytes, max_memory_allocated=peak,
+                   allocated_before=base, roofline_ms=t_roof * 1e3, t_compute_ms=rep.t_compute * 1e3,
+                   t_memory_ms=rep.t_memory * 1e3, t_memory_upper_ms=rep.t_memory_upper * 1e3,
+                   warm_step_ms=warm_ms, roofline_share=share, dominant=rep.dominant,
+                   live_count_s=live_s, meta_count_s=meta_s)
+    paths = {"flash_attention": {"qwen3-1.7b train step counted live (t17) (forward)":
+                                 {"launches": per, "wgmma": per}},
+             "flash_attention_bwd": {"qwen3-1.7b train step counted live (t17)":
+                                     {"launches": per, "wgmma": per}}}
+    return paths, numbers
 
 
 def profile_train_step(step, params, opt, batch, warm_ms: float, tag: str = "train (t2)",
@@ -4647,9 +4807,10 @@ def phase_train_scan_kernel(hcfg, fcfg, smi_line):
             fail(f"selective_scan_bwd {label}: errors {errs} (tolerances {tols}), two runs "
                  f"bit-identical: {same}")
         elems = s * d_in * n
-        moved = nbytes(*args[:5], dy, *got) + (nbytes(h0, dh) if seeded else 0)
         r = dict(err=max(errs.values()), errs=errs, tols=tols, bit_identical=same, plain_ms=plain_ms,
-                 bound=bounds(moved, SCAN_BWD_OPS * elems, elems),
+                 bound=work_bounds("selective_scan_bwd", b=1, s=s, d_in=d_in, n=n,
+                                   itemsize=x.element_size(), dt_itemsize=dt.element_size(),
+                                   h0=seeded, dh_final=seeded),
                  exp_ms=elems / EXP_PER_S * 1e3)
         text = ""
         if not seeded:
@@ -5471,6 +5632,7 @@ def phase_train(smi_line):
     cfg = get_config(TRAIN_NAME)
     kern = phase_train_kernel(cfg, smi_line)
     params, launches, step = phase_train_step(cfg, smi_line)
+    roof_paths, roof = phase_train_roofline(cfg, params, step["warm_step_ms"], smi_line)
     paths, held = phase_train_serve(cfg, params, smi_line)
     del params
     free_weights()
@@ -5487,7 +5649,9 @@ def phase_train(smi_line):
         paths["flash_attention"][f"{path} (forward)"] = by_kernel["flash_attention"]
     paths["flash_attention"].update({f"{path} (forward)": n
                                      for path, n in mesh_paths["flash_attention"].items()})
+    paths["flash_attention"].update(roof_paths["flash_attention"])
     bwd_paths = {f"qwen3-1.7b {TRAIN_STEPS} train steps": launches["flash_attention_bwd"],
+                 **roof_paths["flash_attention_bwd"],
                  **ssm_flash_bwd,
                  **{path: by_kernel["flash_attention_bwd"]
                     for path, by_kernel in fam_paths.items()},
@@ -5513,7 +5677,7 @@ def phase_train(smi_line):
            "design_bound_ms": r["design_bound"]["tensor_core"][0],
            "design_products": r["products"],
            "library_ms": r["library_ms"], "host_ms": r["host_ms"],
-           "train_step": step, "agreement": agree,
+           "train_step": step, "dry_run": roof, "agreement": agree,
            "train_step_families": fam_steps, "agreement_gemma3_4b": swa_agree,
            "train_over_mesh": mesh_numbers}
 

@@ -170,16 +170,28 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def on_cpu(*tensors: torch.Tensor) -> bool:
-    """True if every tensor lies on the CPU, False if every one lies on one
-    CUDA device; raises for a mix or any other device."""
+def route(*tensors: torch.Tensor) -> str:
+    """"cpu", "cuda" or "meta": the device type every tensor shares; raises
+    for a mix or any other device. A wrapper with a meta route (the dry
+    run's path) asks this first; the others call ``on_cpu``."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel for device {dev}")
-    return dev.type == "cpu"
+    return dev.type
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True if every tensor lies on the CPU, False if every one lies on one
+    CUDA device; raises for a mix, for meta tensors (this wrapper has no
+    meta route) or any other device."""
+    where = route(*tensors)
+    if where == "meta":
+        raise ValueError("no meta route for this kernel: only the dry run's path "
+                         "(flash_attention, selective_scan) has one")
+    return where == "cpu"
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:

@@ -13,6 +13,13 @@ dtype and head dim, never because another one failed:
 
 ``launches`` counts every launch, ``launches_by_variant`` each kernel's.
 
+Meta tensors (the dry run, ``launch/dryrun.py``) take the CUDA route's
+checks and get its outputs' shapes, dtypes and strides, uninitialised. Such
+a call launches nothing, counts in none of the counters here and runs no
+plain version, whose s x s scores the kernel never holds: it reports the
+variant the card would run and the kernel's work (``kernels/work.py``) to
+the active recorder, as a CUDA launch does.
+
 The backward (csrc/flash_attention_bwd.cu, no atomics) takes float32,
 bfloat16 and float16 at d in {16, 32, 64, 128}, and bfloat16 and float16 at
 d 256; its variant is chosen by dtype and head dim (``bwd_variant_for``):
@@ -41,6 +48,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build as B
+from repro_torch.kernels import work as W
 from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
 
 # the C launchers' variant codes
@@ -114,6 +122,15 @@ def _strides(t: torch.Tensor, name: str, align: int):
     return t.stride()[:3]
 
 
+def _shapes(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int, q_offset: int,
+            **extra) -> dict:
+    """A call's shapes as ``work.kernel_work`` takes them."""
+    b, n_q, s_q, d = q.shape
+    return dict(b=b, n_q=n_q, n_kv=k.shape[1], s_q=s_q, s_k=k.shape[2], d=d,
+                itemsize=q.element_size(), causal=bool(causal), window=int(window),
+                q_offset=int(q_offset), **extra)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     lse: torch.Tensor | None = None) -> torch.Tensor:
@@ -131,7 +148,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``flash_attention_lse_ref``'s), for the backward; the output is the
     same bits with or without it."""
     global launches
-    if B.on_cpu(q, k, v):
+    where = B.route(q, k, v)
+    if where == "cpu":
         if lse is not None:
             raise ValueError("flash_attention: lse is written by the CUDA kernels only")
         return flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
@@ -157,16 +175,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _check_lse(lse, q)
     align = 4 if f32 else 8
     out = torch.empty_like(q)  # q's strides: (b, s, n, d) storage stays so
-    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, n_q, n_kv, s_q, s_k, d, int(causal), int(window), int(q_offset)]
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        args += _strides(t, name, align)
-    args += [None if lse is None else lse.data_ptr(), 0 if lse is None else lse.shape[2]]
-    rc = B.library().ckv_flash_attention(*args, B.dtype_code(q), VARIANTS[variant],
-                                         B.stream_handle(q))
-    B.check(rc, f"flash_attention {variant}")
-    launches += 1
-    launches_by_variant[variant] += 1
+    strides = [st for name, t in (("q", q), ("k", k), ("v", v), ("out", out))
+               for st in _strides(t, name, align)]
+    recorder = W.active()
+    if recorder is not None:
+        recorder.add_kernel("flash_attention", variant, **_shapes(
+            q, k, causal, window, q_offset, lse_rows=0 if lse is None else lse.shape[2]))
+    if where == "cuda":
+        rc = B.library().ckv_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, n_q, n_kv, s_q, s_k, d, int(causal), int(window), int(q_offset), *strides,
+            None if lse is None else lse.data_ptr(), 0 if lse is None else lse.shape[2],
+            B.dtype_code(q), VARIANTS[variant], B.stream_handle(q))
+        B.check(rc, f"flash_attention {variant}")
+        launches += 1
+        launches_by_variant[variant] += 1
     return out
 
 
@@ -207,7 +230,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     (``FlashAttentionFn`` passes the one it saved); it raises without it.
     The cuda_core_f32 variant takes none: its stats pass computes its own."""
     global bwd_launches, dout_copies
-    if B.on_cpu(q, k, v, out, dout):
+    where = B.route(q, k, v, out, dout)
+    if where == "cpu":
         if lse is not None:
             raise ValueError("flash_attention_bwd: lse is read by the CUDA kernels only")
         return flash_attention_bwd_ref(q, k, v, out, dout, causal=causal, window=window,
@@ -233,20 +257,26 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
         # a fresh allocation: .contiguous() would hand back a contiguous tensor
         # that starts off a 16-byte boundary as it is
         dout = dout.clone(memory_format=torch.contiguous_format)
-        dout_copies += 1
+        if where == "cuda":
+            dout_copies += 1
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dsum = torch.empty_like(lse)
     tensors = (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout), ("dq", dq),
                ("dk", dk), ("dv", dv))
-    strides = (ctypes.c_longlong * 24)(*[st for name, t in tensors
-                                         for st in _strides(t, name, align)])
-    rc = B.library().ckv_flash_attention_bwd(
-        *(t.data_ptr() for _, t in tensors), lse.data_ptr(), dsum.data_ptr(),
-        b, n_q, n_kv, s_q, s_k, d, int(causal), int(window), int(q_offset), lse.shape[2],
-        strides, B.dtype_code(q), VARIANTS[variant], B.stream_handle(q))
-    B.check(rc, f"flash_attention_bwd {variant}")
-    bwd_launches += 1
-    bwd_launches_by_variant[variant] += 1
+    strides = [st for name, t in tensors for st in _strides(t, name, align)]
+    dsum = torch.empty_like(lse)  # the kernels' scratch (D)
+    recorder = W.active()
+    if recorder is not None:
+        recorder.add_kernel("flash_attention_bwd", variant,
+                            **_shapes(q, k, causal, window, q_offset))
+    if where == "cuda":
+        rc = B.library().ckv_flash_attention_bwd(
+            *(t.data_ptr() for _, t in tensors), lse.data_ptr(), dsum.data_ptr(),
+            b, n_q, n_kv, s_q, s_k, d, int(causal), int(window), int(q_offset), lse.shape[2],
+            (ctypes.c_longlong * 24)(*strides), B.dtype_code(q), VARIANTS[variant],
+            B.stream_handle(q))
+        B.check(rc, f"flash_attention_bwd {variant}")
+        bwd_launches += 1
+        bwd_launches_by_variant[variant] += 1
     return dq, dk, dv
 
 
@@ -255,13 +285,13 @@ class FlashAttentionFn(torch.autograd.Function):
     backward kernels (``flash_attention_bwd``) for the gradients of q, k and
     v. Saves q, k, v, the output and, where the backward's variant reads one
     (wgmma), the logsumexp the forward wrote. On CPU tensors both are the plain
-    versions. A CUDA call the backward does not take raises here, before the
-    forward runs."""
+    versions; on meta tensors both take their meta routes. A CUDA call the
+    backward does not take raises here, before the forward runs."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool = True, window: int = 0, q_offset: int = 0):
         lse = None
-        if not B.on_cpu(q, k, v):
+        if B.route(q, k, v) != "cpu":
             _check_bwd(q, k, v, window, q_offset)
             if writes_lse(q.dtype, q.shape[-1]):
                 lse = lse_buffer(q)

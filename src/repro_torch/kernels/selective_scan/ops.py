@@ -28,6 +28,14 @@ its decomposition in plain torch; ``bwd_ctas_per_sm`` its occupancy. ``Selective
 the backward under autograd; ``bwd_launches`` counts the backward's calls.
 The forward wrapper itself refuses inputs that require grad under grad
 mode: its output has no graph.
+
+Meta tensors (the dry run, ``launch/dryrun.py``) take the CUDA route's
+checks and get its outputs' shapes and dtypes, uninitialised. Such a call
+launches nothing, counts in none of the counters here and runs no plain
+version: it reports the variant the card would run and the kernel's work
+(``kernels/work.py``) to the active recorder, as a CUDA launch does. The
+scratch the library sizes (the chunk images, the backward's per-CTA
+partials) is not allocated there.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build as B
+from repro_torch.kernels import work as W
 from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref, selective_scan_ref
 
 VARIANTS = {"sequential": 0, "chunked": 1}  # the C launcher's variant codes
@@ -118,7 +127,8 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch
     backward; y and h_final are the same bits with or without it."""
     global launches
     tensors = [x, dt, A, Bm, Cm] + ([] if h0 is None else [h0])
-    if B.on_cpu(*tensors):
+    where = B.route(*tensors)
+    if where == "cpu":
         if carries is not None:
             raise ValueError("selective_scan: carries are written by the CUDA chunked kernel only")
         return selective_scan_ref(x, dt, A, Bm, Cm, h0)
@@ -134,6 +144,13 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch
     c_sb, c_ss = _row_strides(Cm, "C")
     y = torch.empty((b, s, d_in), dtype=torch.float32, device=x.device)
     h = torch.empty((b, d_in, n), dtype=torch.float32, device=x.device)
+    recorder = W.active()
+    if recorder is not None:
+        recorder.add_kernel("selective_scan", variant, b=b, s=s, d_in=d_in, n=n,
+                            itemsize=x.element_size(), dt_itemsize=dt.element_size(),
+                            h0=h0 is not None, chunks=0 if carries is None else carries.shape[1])
+    if where == "meta":
+        return y, h
     lib = B.library()
     scratch = None  # the chunked kernel's per-chunk images of B, C and dt
     if variant == "chunked":
@@ -167,7 +184,8 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: t
     CUDA call of more than one chunk raises without it."""
     global bwd_launches
     tensors = [x, dt, A, Bm, Cm, dy] + [t for t in (h0, dh_final) if t is not None]
-    if B.on_cpu(*tensors):
+    where = B.route(*tensors)
+    if where == "cpu":
         if carries is not None:
             raise ValueError("selective_scan_bwd: carries are read by the CUDA kernel only")
         return selective_scan_bwd_ref(x, dt, A, Bm, Cm, h0, dy, dh_final)
@@ -197,6 +215,13 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: t
     ddt = torch.empty((b, s), dtype=torch.float32, device=dev)
     dA = torch.empty((d_in, n), dtype=torch.float32, device=dev)
     dh0 = torch.empty((b, d_in, n), dtype=torch.float32, device=dev)
+    recorder = W.active()
+    if recorder is not None:
+        recorder.add_kernel("selective_scan_bwd", "chunked", b=b, s=s, d_in=d_in, n=n,
+                            itemsize=x.element_size(), dt_itemsize=dt.element_size(),
+                            h0=h0 is not None, dh_final=dh_final is not None)
+    if where == "meta":
+        return dx, ddt.to(dt.dtype), dA, dB, dC, dh0
     lib = B.library()
     scratch = torch.empty(lib.ckv_selective_scan_bwd_scratch(b, s, n, B.dtype_code(x)),
                           dtype=torch.uint8, device=dev)
@@ -228,14 +253,15 @@ class SelectiveScanFn(torch.autograd.Function):
     one storing its carries where s >= CHUNKED_MIN_S), then the backward
     kernels (``selective_scan_bwd``) for the gradients of x, dt, A, B, C and
     h0; inputs that need none get None. Saves the inputs and the carries. On
-    CPU tensors both are the plain versions. A CUDA call the backward does
+    CPU tensors both are the plain versions; on meta tensors both take their
+    meta routes. A CUDA call the backward does
     not take raises here, before the forward runs."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, h0=None):
         ctx.set_materialize_grads(False)
         carries = None
-        if not B.on_cpu(*[t for t in (x, dt, A, Bm, Cm, h0) if t is not None]):
+        if B.route(*[t for t in (x, dt, A, Bm, Cm, h0) if t is not None]) != "cpu":
             _check(x, dt, A, Bm, Cm, h0, "SelectiveScanFn")
             if variant_for(x.shape[1]) == "chunked":
                 carries = carries_buffer(x, A.shape[1])

@@ -15,7 +15,10 @@ the shards' softmax partials with the flash-decode combine:
   any kernel.
 
 The few tensor ops of each combine stand where the JAX package's ``pmax`` /
-``psum`` collectives stand (``src/repro/launch/sharded_sparse.py``).
+``psum`` collectives stand (``src/repro/launch/sharded_sparse.py``). To a
+step analyzer (``launch/roofline.py``) the sparse decode step's shards are a
+loop (``roofline.loop``) and its combine's ``pmax`` and ``psum`` all-reduces
+over the shards.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.launch import roofline as RL
 from repro_torch.launch.mesh import Mesh, shard_devices, tp_axes
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import qkv_project
@@ -174,7 +178,7 @@ def make_sharded_sparse_decode_step(cfg: ModelConfig, mesh: Mesh, *, chunk_token
         raise ValueError(f"{cfg.name}: the sparse decode step needs attention layers")
     devices = shard_devices(mesh, [a for a in mesh.axis_names if a != "pod"])
     n_shards, c = len(devices), chunk_tokens
-    group = cfg.n_heads // cfg.n_kv_heads
+    group, d_head = cfg.n_heads // cfg.n_kv_heads, cfg.d_head
 
     def step(params, token, state):
         h = token.to(cfg.activation_dtype()) if token.dim() == 3 else params["embed"][token]
@@ -196,7 +200,7 @@ def make_sharded_sparse_decode_step(cfg: ModelConfig, mesh: Mesh, *, chunk_token
             xn = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
             q, k_new, v_new = qkv_project(xn, lp, cfg, positions)
             parts: List[tuple] = []
-            for s, dev in enumerate(devices):
+            for s, dev in RL.loop(enumerate(devices), per_device=1 / n_shards):
                 kv = (state["k"][l, :, s * s_local: (s + 1) * s_local],
                       state["v"][l, :, s * s_local: (s + 1) * s_local],
                       state["kmean"][l, :, s * m_local: (s + 1) * m_local])
@@ -210,6 +214,8 @@ def make_sharded_sparse_decode_step(cfg: ModelConfig, mesh: Mesh, *, chunk_token
                     for x, y in zip(kv, local):
                         x.copy_(y)
                 parts.append(tuple(x.to(h.device) for x in part))
+            for size in (4 * b * cfg.n_heads, 4 * b * cfg.n_heads, 4 * b * cfg.n_heads * d_head):
+                RL.collective("all-reduce", size, n_shards, devices=n_shards)  # m, l, o
             m_glob = torch.stack([p[0] for p in parts]).amax(dim=0)
             l_glob = o_glob = None
             for m_s, l_s, o_s in parts:

@@ -10,11 +10,13 @@ train step over a device mesh, the counterpart of the JAX package's
 from __future__ import annotations
 
 import itertools
+import math
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.launch import roofline as RL
 from repro_torch.launch.mesh import dp_axes, shard_devices
 from repro_torch.launch.sharding import ShardedTensor, block_index, unshard, unshard_tree
 from repro_torch.models import transformer as T
@@ -118,7 +120,15 @@ def make_train_step(
 # --------------------------------------------------------------------------
 def mesh_gather(params, devices) -> Dict[torch.device, Any]:
     """The params tree gathered whole once on each distinct device of
-    ``devices``: shards that share a device share the copy."""
+    ``devices``: shards that share a device share the copy. To a step
+    analyzer each leaf is an all-gather on each of ``devices`` over the
+    leaf's distinct blocks (``launch/roofline.py``)."""
+    if RL.active() is not None:
+        for x in tree_leaves(params):
+            if isinstance(x, ShardedTensor):
+                n = math.prod(x.shape)  # over n / (a block's elements) distinct blocks
+                RL.collective("all-gather", n * x.dtype.itemsize, n // x.blocks.flat[0].numel(),
+                              devices=len(devices))
     return {d: unshard_tree(params, d) for d in dict.fromkeys(devices)}
 
 
@@ -155,7 +165,8 @@ def mesh_update(grads, opt_state, params, *, lr: float, scale: torch.Tensor):
     grid = mesh.devices.shape
     out = [[np.empty(grid, dtype=object) for _ in p_leaves] for _ in range(3)]
     steps = np.empty(grid, dtype=object)
-    for pos in itertools.product(*(range(n) for n in grid)):
+    for pos in RL.loop(itertools.product(*(range(n) for n in grid)),
+                       per_device=1 / mesh.devices.size):
         dev = mesh.devices[pos]
         gs = [g[block_index(p.shape, p.sharding, pos)].to(dev) for g, p in zip(g_leaves, p_leaves)]
         st = {"m": [m.block_at(pos) for m in m_leaves], "v": [v.block_at(pos) for v in v_leaves],
@@ -227,7 +238,13 @@ def _make_mesh_train_step(cfg: ModelConfig, mesh, *, grad_accum: int, block_q: i
 
     Tensor axes shard storage only (params, gradients, moments): every dp
     shard computes with whole gathered params. On a mesh with one dp shard
-    the step is bit for bit the step without a mesh."""
+    the step is bit for bit the step without a mesh.
+
+    To a step analyzer (``launch/roofline.py``) the parts of every
+    microbatch and AdamW's mesh positions are loops (``roofline.loop``,
+    which may run one item for all), each part's gradients a reduce-scatter
+    over its microbatch's parts, and the gather ``mesh_gather``'s
+    all-gathers."""
     devs = shard_devices(mesh, dp_axes(mesh))
     moe = cfg.family == "moe"
 
@@ -238,32 +255,42 @@ def _make_mesh_train_step(cfg: ModelConfig, mesh, *, grad_accum: int, block_q: i
         b = next(iter(batch.values())).shape[0]
         mb = b // grad_accum
         gathered = mesh_gather(params, devs)
-        acc, lsum, grads = None, None, None
+        units = []  # (microbatch, dp shard, first row, end row, weight, parts)
         for i in range(grad_accum):
             parts = _row_parts(i, mb, len(devs))
-            weights = _part_weights(batch, parts)
-            offsets = [None] * cfg.n_layers
-            for (j, lo, hi), w in zip(parts, weights):
-                dev = devs[j]
-                routes = None
-                if moe and len(parts) > 1:
-                    tokens = (parts[-1][2] - parts[0][1]) * batch["labels"].shape[1]
-                    routes = [MoeRoute(tokens, None if o is None else o.to(dev)) for o in offsets]
-                l_j, g_j = _loss_and_grads(cfg, gathered[dev], {k: v[lo:hi].to(dev)
-                                                                for k, v in batch.items()},
-                                           block_q=block_q, remat=remat, moe_routes=routes)
-                if routes is not None:
-                    offsets = [r.counts if o is None else o.to(dev) + r.counts
-                               for o, r in zip(offsets, routes)]
-                l_j = l_j.to(home)
-                if grad_accum == 1 and len(parts) == 1:
-                    grads, lsum = g_j, l_j
-                else:
-                    acc = mesh_accumulate(acc, g_j, w)
-                    if lsum is None:
-                        lsum = torch.zeros((), dtype=torch.float32, device=home)
-                    lsum = lsum + (l_j if w == 1.0 else w * l_j)
-                del g_j
+            units += [(i, j, lo, hi, w, len(parts))
+                      for (j, lo, hi), w in zip(parts, _part_weights(batch, parts))]
+        acc, lsum, grads = None, None, None
+        if grad_accum > 1 or units[0][5] > 1:
+            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=home),
+                           params)
+            lsum = torch.zeros((), dtype=torch.float32, device=home)
+        offsets, current = None, None
+        for i, j, lo, hi, w, n_parts in RL.loop(units, per_device=1 / len(devs)):
+            if i != current:  # a microbatch's first part
+                offsets, current = [None] * cfg.n_layers, i
+            dev = devs[j]
+            routes = None
+            if moe and n_parts > 1:
+                tokens = mb * batch["labels"].shape[1]
+                routes = [MoeRoute(tokens, None if o is None else o.to(dev)) for o in offsets]
+            l_j, g_j = _loss_and_grads(cfg, gathered[dev], {k: v[lo:hi].to(dev)
+                                                            for k, v in batch.items()},
+                                       block_q=block_q, remat=remat, moe_routes=routes)
+            if routes is not None:
+                offsets = [r.counts if o is None else o.to(dev) + r.counts
+                           for o, r in zip(offsets, routes)]
+            l_j = l_j.to(home)
+            if acc is None:
+                grads, lsum = g_j, l_j
+            else:
+                if RL.active() is not None and n_parts > 1:  # the dp shards' reduce
+                    for g in tree_leaves(g_j):
+                        RL.collective("reduce-scatter", g.numel() * g.element_size() / n_parts,
+                                      n_parts)
+                mesh_accumulate(acc, g_j, w)
+                lsum = lsum + (l_j if w == 1.0 else w * l_j)
+            del g_j
         del gathered
         if acc is not None:
             if grad_accum > 1:

@@ -1,7 +1,9 @@
 """Attention: GQA prefill, single-step decode over a KV cache, QKV projection.
 
 On the card, prefill runs the flash_attention kernel, and under autograd
-its backward kernel too (``FlashAttentionFn``). On the CPU it runs the JAX
+its backward kernel too (``FlashAttentionFn``); meta tensors (the dry run)
+take the same calls, whose meta routes count the kernels' work without
+launching. On the CPU it runs the JAX
 package's block-wise form (``attention_prefill_blockwise``): one query block
 at a time, so peak score memory is block_q x seq_k rather than seq^2, and
 autograd differentiates it as it is. Decode is plain torch on both, as the
@@ -58,10 +60,11 @@ def attention_prefill(
     their (b, s, n, d) strides: float32 scores and probabilities, output
     rounded once. When grad mode is on and an input requires grad, the call
     goes through ``FlashAttentionFn``, whose backward is the flash_attention
-    backward kernel; without grad the forward kernel alone runs. CPU tensors
-    take ``attention_prefill_blockwise``.
+    backward kernel; without grad the forward kernel alone runs. Meta tensors
+    take the same calls (the wrappers' meta routes). CPU tensors take
+    ``attention_prefill_blockwise``.
     """
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         if scale is not None:
             raise ValueError("the flash_attention kernel scales by d ** -0.5 only")
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)

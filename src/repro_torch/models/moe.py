@@ -84,8 +84,12 @@ def dispatch(top_idx: torch.Tensor, cap: int, n_experts: int,
         pos = pos + offset[flat_expert]
     keep = pos < cap
     slot = torch.where(keep, flat_expert * cap + pos, E * cap)  # E cap: the overflow bucket
+    # each assignment written at its slot, a dropped one as T into the
+    # overflow entry that is sliced away: no shape that depends on the data,
+    # so meta tensors (the dry run) take it too
+    tokens = torch.arange(T, device=dev).repeat_interleave(k)
     table = torch.full((E * cap + 1,), T, dtype=torch.long, device=dev)
-    table[slot[keep]] = torch.arange(T, device=dev).repeat_interleave(k)[keep]
+    table.index_put_((slot,), torch.where(keep, tokens, T))
     return slot, keep, table[: E * cap].reshape(E, cap)
 
 
@@ -106,8 +110,10 @@ def moe_ffn(x: torch.Tensor, params: dict, *, n_experts: int, top_k: int,
     top_idx, top_w = _router(xt, params["w_router"], k)  # (T, k)
     slot, keep, gather_idx = dispatch(top_idx, cap, E,
                                       None if route is None else route.offset)
-    if route is not None:
-        route.counts = torch.bincount(top_idx.reshape(-1), minlength=E)
+    if route is not None:  # bincount, in a form a meta tensor takes
+        flat = top_idx.reshape(-1)
+        route.counts = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
+            0, flat, torch.ones_like(flat))
     if drop_log is not None:
         drop_log.append((~keep).sum())
 
@@ -118,7 +124,7 @@ def moe_ffn(x: torch.Tensor, params: dict, *, n_experts: int, top_k: int,
     ye = matmul(h, params["w_down"])  # (E, cap, d)
 
     w_table = torch.zeros(E * cap + 1, dtype=torch.float32, device=x.device)
-    w_table[slot[keep]] = top_w.reshape(-1)[keep]
+    w_table.index_put_((slot,), torch.where(keep, top_w.reshape(-1), 0.0))
     contrib = ye.to(torch.float32).reshape(-1, d) * w_table[: E * cap, None]
     contrib = torch.cat([contrib, contrib.new_zeros(1, d)])  # row E cap: a dropped slot
     # combine: each token's slots in ascending expert order, summed in turn

@@ -45,6 +45,15 @@ def _conv(windows, conv_w: torch.Tensor, conv_b: torch.Tensor, dtype) -> torch.T
     return acc.to(dtype) + conv_b
 
 
+def check_scan_dtype(cfg) -> None:
+    """Raise ValueError where ``cfg.ssm_scan_dtype`` is not "float32": the
+    scan runs in float32 only."""
+    if cfg.ssm_scan_dtype != "float32":
+        raise ValueError(
+            f"mamba_block: ssm_scan_dtype {cfg.ssm_scan_dtype!r} is not supported: the scan "
+            "runs in float32, and the JAX block's bfloat16 scan is not ported")
+
+
 def mamba_block(x: torch.Tensor, p: dict, cfg, *, return_state: bool = False):
     """Full mamba-1 mixer. x: (b, s, d_model) -> (b, s, d_model)[, state].
 
@@ -52,10 +61,7 @@ def mamba_block(x: torch.Tensor, p: dict, cfg, *, return_state: bool = False):
     the window holds the last k - 1 raw inputs before the conv, with the
     leading zeros of the padding when s < k - 1. Raises ValueError, before
     any work, where ``cfg.ssm_scan_dtype`` is not "float32"."""
-    if cfg.ssm_scan_dtype != "float32":
-        raise ValueError(
-            f"mamba_block: ssm_scan_dtype {cfg.ssm_scan_dtype!r} is not supported: the scan "
-            "runs in float32, and the JAX block's bfloat16 scan is not ported")
+    check_scan_dtype(cfg)
     b, s, _ = x.shape
     d_in, n = cfg.d_inner, cfg.ssm_state
     xz = matmul(x, p["w_in"])  # (b, s, 2 * d_in)

@@ -267,33 +267,48 @@ def _device_kernels(fn, calls=10):
     kept no device event, or in which some kernel's launches over
     ``calls`` are not a whole number, is run again, up to PROFILER_SESSIONS
     in all: fn launches the same kernels on every call, so only a lost or
-    cut trace is empty or fractional (one session read 9 of 10
-    chunk_attn_kernel launches), and a wrapper that launches nothing, or
-    another set of kernels, reads so every time. Padded sessions have also
-    lost the first launch of a session: three sessions running read 9 of 10
-    launches of fn's first kernel (fa_bwd_pre_kernel in one test,
-    selective_scan_pack_kernel in another) and all of the rest. So each
-    session first launches a short spin kernel (``torch.cuda._sleep``),
-    which is not counted."""
+    cut trace is empty or fractional, and a wrapper that launches nothing,
+    or another set of kernels, reads so every time.
+
+    A session also loses the first kernel records it takes: after the
+    suite's earlier tests, a diagnostic session lost its first two or three
+    records (a spin kernel, then the scan backward's pack and its backward
+    kernel), while fn's outputs, held bit for bit under inputs alternating
+    from call to call, showed every pack ran. So each session first launches a spin kernel (``torch.cuda._sleep``)
+    and calls fn once, which take those losses, synchronizes, then launches
+    a second spin kernel as a marker and calls fn ``calls`` times; only the
+    device events that start after the marker count. A session whose marker
+    was lost is run again."""
     import time
 
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    got = {}
     for _ in range(PROFILER_SESSIONS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILER_PAD_S)
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda.synchronize()
             torch.cuda._sleep(1000)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
             time.sleep(PROFILER_PAD_S)
-        # the kernel's name: its parameter types may name ckv:: types too
-        got = {e.key.split("(")[0].split("ckv::")[-1].split("<")[0]: e.count / calls
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and "spin_kernel" not in e.key}
+        events = sorted((e.time_range.start, e.name) for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        marks = [t for t, name in events if "spin_kernel" in name]
+        if not marks:
+            continue
+        got = {}
+        for t, name in events:
+            if t > marks[-1]:
+                # the kernel's name: its parameter types may name ckv:: types too
+                key = name.split("(")[0].split("ckv::")[-1].split("<")[0]
+                got[key] = got.get(key, 0) + 1
+        got = {k: n / calls for k, n in got.items()}
         if got and all(float(n).is_integer() for n in got.values()):
             return got
     return got
@@ -2034,3 +2049,49 @@ def test_compressed_psum_on_the_card(dev, dtype):
     limit = sum(x.float().abs().max().item() / 127.0 for x in xs) / 2
     if dtype == torch.float32:
         assert (got[0] - exact).abs().max().item() <= limit * (1 + 1e-5)
+
+
+def _train_counts(cfg, device, batch):
+    """StepAnalyzer's count of one make_train_step(grad_accum=2) call on
+    ``device`` ("cuda": the kernels launch; "meta": their meta routes): the
+    aten products, each kernel's work and the launches by kernel and
+    variant."""
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as PT
+    from repro_torch.train.optimizer import adamw_init
+
+    gen = torch.Generator(device=device).manual_seed(0) if device == "cuda" else None
+    params = PT.init_params(cfg, gen, device=device)
+    opt = adamw_init(params)
+    batch = {k: v.to(device) if device == "cuda" else torch.empty_like(v, device="meta")
+             for k, v in batch.items()}
+    step = make_train_step(cfg, grad_accum=2, remat=False)
+    with RL.StepAnalyzer() as a:
+        step(params, opt, batch)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return a.aten_flops, a.kernels, a.launches
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "hymba-1.5b"])
+def test_meta_count_equals_the_live_count(dev, arch):
+    """A small bfloat16 train step (grad_accum 2, 2 x 64 tokens) counted live
+    on the card, its flash forward and backward (and hymba's scan forward
+    and backward) launching, and on meta tensors, where the wrappers'
+    meta routes launch nothing: the same aten products, the same work of
+    each kernel (calls, products, bytes, exponentials) and the same
+    launches by kernel and variant."""
+    from repro_torch.configs import reduced_config
+
+    cfg = reduced_config(arch, d_head=64)
+    seq = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 65))
+    batch = {"tokens": torch.as_tensor(seq[:, :-1]), "labels": torch.as_tensor(seq[:, 1:])}
+    live, meta = _train_counts(cfg, "cuda", batch), _train_counts(cfg, "meta", batch)
+    assert live == meta
+    flash = {("flash_attention", "wgmma"): 2 * cfg.n_layers,
+             ("flash_attention_bwd", "wgmma"): 2 * cfg.n_layers}
+    scan = {("selective_scan", "chunked"): 2 * cfg.n_layers,
+            ("selective_scan_bwd", "chunked"): 2 * cfg.n_layers} if arch == "hymba-1.5b" else {}
+    assert live[2] == {**flash, **scan}
+    assert live[0] > 0 and all(k["products"] > 0 for k in live[1].values())
