@@ -293,7 +293,24 @@ non-zero exit code:
                 (t13)'s limit; (t16) at (t4)'s restart size a 2 x 2-sharded
                 checkpoint restored onto 2 x 2 and 1 x 4 bit for bit, and
                 one more mesh step from it bit for bit the uninterrupted
-                run's;
+                run's; then serving over a mesh of the card (v):
+                ``make_prefill_step(cfg, mesh=)`` and
+                ``make_decode_step(cfg, mesh=)`` on (t13)'s qwen3-1.7b
+                weights laid out by param_shardings (fsdp), a prompt and 16
+                decode steps teacher-forced on the unsharded step's greedy
+                tokens, over 1 x 1 (2 x 4096 tokens) and 2 x 1 (16 x 1024)
+                meshes bit for bit the unsharded steps (2 x 1 over each dp
+                shard's 8 rows), 2 x 2 at 16 x 1024 (rows over data, kv
+                heads over model) and at 2 x 4096 (the cache's sequence over
+                data: the split attend and its combine) within twice the
+                bfloat16 floor (the unsharded step's relative L2 from a
+                float32 run of the same weights) in logits and cache, flash
+                launches a prefill = layers x tensor shards x dp parts, no
+                plain version; then full-width hymba-1.5b on 1 x 2 (25 / 5
+                heads: the ceil split and the fallback gathers; 1600
+                channels a shard) held the same way, its scan's chunked and
+                step launches counted per shard; prefill and decode-step ms
+                by events beside the unsharded steps', peak memory;
   14. sim     — the discrete-event sim mode on the card's host (no tensor,
                 no launch): (a) both golden timelines of tests/golden/
                 reproduced event for event; (b) the headline ordering's
@@ -320,6 +337,8 @@ non-zero exit code:
      host time, errors and launches) and ``selective_scan_bwd`` (over
      hymba's 5 and falcon-mamba's 3 train steps); decode_attention's
      ``sharded`` entry holds phase 5b's numbers and its launches on (b)-(d);
+     flash_attention's and selective_scan's ``serve_mesh`` entries hold
+     (v)'s numbers, and their launches on (v)'s paths count in theirs;
   16. last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
@@ -516,6 +535,24 @@ MESH_LOSS_REL, MESH_PARAM_REL, MESH_MOMENT_REL, MESH_MIN_COS = 1e-6, 2.0 ** -8, 
 # it shift (an H100 run: 1.8 % of granite's assignments kept or dropped
 # otherwise, the loss 7.5e-6 apart); 1e-4 leaves ~13x room
 MOE_MESH_LOSS_REL = 1e-4
+# (v) serving over a mesh of the card (make_prefill_step / make_decode_step
+# with mesh=, launch/tp_compute.py): a prompt then SERVE_MESH_DECODE decode
+# steps teacher-forced on the unsharded step's greedy tokens, over a cache of
+# the prompt and the decode steps. Cases (data, model, batch, prompt): 1 x 1
+# and 2 x 1 bit for bit the unsharded steps (2 x 1 over each dp shard's 8
+# rows); elsewhere the logits and each cache leaf within SERVE_MESH_FLOOR_X
+# times the bfloat16 floor in relative L2 of the unsharded step's, the floor
+# being the unsharded step's own relative L2 from a float32 run of the same
+# weights on the same tokens (the row-parallel partials round in bfloat16
+# before their float32 sum, as GSPMD's bfloat16 partials do: two bfloat16
+# roundings of one function, each about as far from float32 as the other;
+# a CPU run of a reduced qwen3 measured the floor at 0.015-0.017, the mesh
+# 0.011-0.016 from the unsharded step, 0.015-0.017 from float32), and a
+# row's argmax equal wherever its unsharded top-2 margin exceeds 4x the
+# row's largest logit difference
+SERVE_MESH_DECODE, SERVE_MESH_FLOOR_X = 16, 2.0
+SERVE_MESH_CASES = ((1, 1, 2, 4096), (2, 1, 16, 1024), (2, 2, 16, 1024), (2, 2, 2, 4096))
+SERVE_MESH_HYBRID = ((1, 2, 2, 4096),)  # hymba-1.5b: 25 / 5 heads, 1600 channels a shard
 # state-space training (t5)-(t8): hymba-1.5b at full width and depth for
 # TRAIN_STEPS steps, falcon-mamba-7b at full width cut to FALCON_TRAIN_LAYERS
 # of its 64 layers for FALCON_TRAIN_STEPS steps, on (t2)'s batch shape. The
@@ -5597,9 +5634,236 @@ def phase_train_mesh_restore(smi_line):
     return dict(restore_bit_for_bit=ok, step_after_restore_bit_for_bit=again)
 
 
+def _serve_tokens(cfg, b, s, seed):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)).to(DEVICE)
+
+
+def _serve_run(cfg, params, tokens, feed=None, mesh=None):
+    """Prefill ``tokens`` (b, s) and SERVE_MESH_DECODE decode steps,
+    unsharded or over ``mesh`` (``params`` laid out on it), each input laid
+    out as its spec says before its call's events. ``feed``: the decode
+    tokens (teacher forcing); None: greedy, the tokens picked returned.
+    Returns (the logits of each call, the state, the tokens fed, prefill ms,
+    [ms a decode step]) by CUDA events."""
+    import torch
+
+    from repro_torch.launch.sharding import batch_specs, serve_state_shardings, shard
+    from repro_torch.launch.specs import decode_token_tree
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import transformer as T
+
+    b, s = tokens.shape
+    state = T.init_serve_state(cfg, b, s + SERVE_MESH_DECODE, device=DEVICE)
+    batch, put = {"tokens": tokens}, (lambda t: t)
+    if mesh is not None:
+        ssh = serve_state_shardings(cfg, mesh, b)
+        state = {k: v if k == "length" else shard(v, ssh[k]) for k, v in state.items()}
+        batch = {"tokens": shard(tokens, batch_specs(cfg, mesh, b, s, training=False)["tokens"])}
+        tsh = decode_token_tree(cfg, mesh, b).sharding
+        put = lambda t: shard(t, tsh)  # noqa: E731
+    prefill, decode = make_prefill_step(cfg, mesh=mesh), make_decode_step(cfg, mesh=mesh)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * (SERVE_MESH_DECODE + 1))]
+    ev[0].record()
+    logits, state = prefill(params, batch, state)
+    ev[1].record()
+    outs, fed = [logits], []
+    for i in range(SERVE_MESH_DECODE):
+        tok = logits.argmax(-1).to(torch.int32) if feed is None else feed[i]
+        fed.append(tok)
+        x = put(tok)
+        ev[2 * i + 2].record()
+        logits, state = decode(params, x, state)
+        ev[2 * i + 3].record()
+        outs.append(logits)
+    torch.cuda.synchronize()
+    ms = [ev[2 * i].elapsed_time(ev[2 * i + 1]) for i in range(SERVE_MESH_DECODE + 1)]
+    return outs, state, fed, ms[0], ms[1:]
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+def _serve_mesh_hold(tag, got, want, got_state, want_state, floor, exact: bool) -> dict:
+    """The mesh run's logits and state against the unsharded run's (both
+    whole, the state's blocks gathered): bit for bit where ``exact``, else
+    within SERVE_MESH_FLOOR_X x ``floor`` (the unsharded run's relative L2
+    from float32: {"logits": x, leaf: x}), and argmax equal in every row
+    whose unsharded top-2 margin exceeds 4x its largest logit difference."""
+    import torch
+
+    from repro_torch.launch.sharding import unshard
+
+    worst, bitwise, flips, sure_rows = 0.0, True, 0, 0
+    for g, w in zip(got, want):
+        bitwise &= torch.equal(g, w)
+        worst = max(worst, _rel_l2(g, w))
+        diff = (g - w).abs().amax(-1)
+        top2 = w.topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > 4 * diff
+        sure_rows += int(sure.sum())
+        flips += int(((g.argmax(-1) != w.argmax(-1)) & sure).sum())
+    rel = {"logits": worst}
+    for name, st in got_state.items():
+        if name == "length":
+            continue
+        whole = unshard(st, DEVICE)
+        bitwise &= torch.equal(whole, want_state[name])
+        rel[name] = _rel_l2(whole, want_state[name])
+        del whole
+    print(f"{tag}: against the unsharded step, relative L2 (the largest over the prefill and "
+          f"{SERVE_MESH_DECODE} decode steps) {_fmt(rel)}, the unsharded step's from float32 "
+          f"{_fmt(floor)} (limit {SERVE_MESH_FLOOR_X:g}x it); argmax flips {flips} of "
+          f"{sure_rows} rows beyond 4x their difference; bit for bit: {bitwise}")
+    if exact and not bitwise:
+        fail(f"{tag}: not bit for bit the unsharded step")
+    if flips or any(rel[k] > SERVE_MESH_FLOOR_X * floor[k] for k in rel):
+        fail(f"{tag}: the mesh steps disagree with the unsharded steps")
+    return dict(rel_l2=rel, bf16_floor=floor, argmax_flips=flips, sure_rows=sure_rows,
+                bit_for_bit=bitwise)
+
+
+def _fmt(d: dict) -> str:
+    return ", ".join(f"{k} {v:.3g}" for k, v in d.items())
+
+
+def _serve_reference(cfg, params, params32, b, s, parts, seed):
+    """The unsharded steps over ``parts`` row blocks of a seeded (b, s)
+    prompt, greedy, then a float32 run (``params32``) of the whole batch on
+    the same tokens; returns (tokens, the decode tokens, logits and state of
+    the blocks joined by rows, the bfloat16 floor {"logits": x, leaf: x},
+    prefill ms, median decode ms)."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as T
+
+    tokens = _serve_tokens(cfg, b, s, seed)
+    r = b // parts
+    # a warm-up prefill at the shape, dropped: the timed runs start warm
+    make_prefill_step(cfg)(params, {"tokens": tokens[:r]}, T.init_serve_state(cfg, r, s, DEVICE))
+    runs = [_serve_run(cfg, params, tokens[j * r: (j + 1) * r]) for j in range(parts)]
+    logits = [torch.cat([run[0][i] for run in runs]) for i in range(SERVE_MESH_DECODE + 1)]
+    state = {k: torch.cat([run[1][k] for run in runs], dim=1)
+             for k in runs[0][1] if k != "length"}
+    feed = [torch.cat([run[2][i] for run in runs]) for i in range(SERVE_MESH_DECODE)]
+    ms = (sum(run[3] for run in runs),
+          statistics.median(sum(run[4][i] for run in runs) for i in range(SERVE_MESH_DECODE)))
+    del runs
+    f_logits, f_state, _, _, _ = _serve_run(dataclasses.replace(cfg, dtype="float32"), params32,
+                                            tokens, feed)
+    floor = {"logits": max(_rel_l2(a, b) for a, b in zip(logits, f_logits))}
+    floor.update({k: _rel_l2(state[k], f_state[k]) for k in state})
+    return (tokens, feed, logits, state, floor) + ms
+
+
+def phase_serve_mesh(cfg, params, smi_line, cases, tag="serve (v)") -> tuple:
+    """(v) ``cfg`` served over meshes of the card (each position on cuda:0):
+    for each (data, model, batch, prompt) of ``cases``, the unsharded
+    prefill and SERVE_MESH_DECODE greedy decode steps (over each dp shard's
+    rows where the batch splits), then the mesh steps on params laid out by
+    param_shardings (fsdp) teacher-forced on the same tokens, held by
+    ``_serve_mesh_hold`` (bit for bit on 1 x 1 and k x 1 meshes); flash
+    launches a prefill = layers x tensor shards x dp parts, a state-space
+    model's scan launches (chunked a prefill, sequential a decode step) =
+    layers x tensor shards x dp parts; no plain version. Prints prefill ms
+    and ms a decode step by events, mesh beside unsharded, and the peak
+    memory. Returns ({kernel: launches}, numbers)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.selective_scan import ops as ss
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import param_shardings, shard_tree
+
+    from repro_torch.tree import tree_map
+
+    ssm = cfg.family in ("ssm", "hybrid")
+    ops = {"flash_attention": fa} | ({"selective_scan": ss} if ssm else {})
+    launched = {name: {"launches": 0} for name in ops}
+    numbers, dev0 = {}, torch.device(DEVICE, 0)
+    refs = {}
+    params32 = tree_map(lambda x: x.float(), params)
+    for b, s, parts in dict.fromkeys((b, s, d if b >= 16 else 1) for d, _, b, s in cases):
+        refs[b, s, parts] = _serve_reference(cfg, params, params32, b, s, parts, 50 + b)
+    del params32
+    for data, model, b, s in cases:
+        case = f"{data} x {model}, {b} x {s}"
+        parts = data if b >= 16 else 1
+        tokens, feed, want, want_state, floor, ref_prefill, ref_decode = refs[b, s, parts]
+        mesh = make_host_mesh(data, model, devices=[dev0] * (data * model))
+        ps = shard_tree(params, param_shardings(cfg, mesh, fsdp=True))
+        free_weights()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*ops.values())
+        with plain_versions_counted(ops) as plain_calls:
+            got, state, _, prefill_ms, decode_ms = _serve_run(cfg, ps, tokens, feed, mesh)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_att = sum(1 for t in range(model) if -(-cfg.n_heads // model) * t < cfg.n_heads)
+        want_fa = cfg.n_layers * n_att * parts
+        want_ss = cfg.n_layers * model * parts if ssm else 0
+        if plain_calls or fa.launches != want_fa:
+            fail(f"{tag} {case}: flash launches {fa.launches} (expected {want_fa}), plain "
+                 f"versions {plain_calls}")
+        if ssm and (ss.launches_by_variant["chunked"] != want_ss
+                    or ss.launches_by_variant["sequential"] != want_ss * SERVE_MESH_DECODE):
+            fail(f"{tag} {case}: scan launches {counts(ss)}, expected {want_ss} chunked and "
+                 f"{want_ss * SERVE_MESH_DECODE} sequential")
+        for name, mod in ops.items():
+            for key, n in counts(mod).items():
+                launched[name][key] = launched[name].get(key, 0) + n
+        hold = _serve_mesh_hold(f"{tag} {cfg.name} {case}", got, want, state, want_state,
+                                floor, exact=model == 1)
+        dec = statistics.median(decode_ms)
+        print(f"{tag}: {cfg.name} on a {case} mesh: prefill {prefill_ms:.2f} ms (unsharded "
+              f"{ref_prefill:.2f}), a decode step {dec:.2f} ms (median of {SERVE_MESH_DECODE}; "
+              f"unsharded {ref_decode:.2f}), flash {fa.launches} launches a prefill"
+              + (f", scan {ss.launches_by_variant['chunked']} chunked + "
+                 f"{ss.launches_by_variant['sequential']} sequential" if ssm else "")
+              + f", peak {peak:.1f} GiB ({smi_line})")
+        numbers[case] = dict(prefill_ms=prefill_ms, unsharded_prefill_ms=ref_prefill,
+                             decode_ms=dec, unsharded_decode_ms=ref_decode, peak_gib=peak,
+                             flash_launches=fa.launches, **hold)
+        del ps, state, got
+        free_weights()
+    return launched, numbers
+
+
+def phase_serve_mesh_models(cfg, params, smi_line, extra=()):
+    """(v): qwen3-1.7b (``params``) over SERVE_MESH_CASES and ``extra``,
+    then full-width hymba-1.5b from a seeded init over SERVE_MESH_HYBRID (its
+    heads and kv heads do not divide 2: the fallback gathers and the ceil
+    split; 1600 of its 3200 channels a shard). Returns ({kernel: {path:
+    launches}}, numbers)."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    q_launched, numbers = phase_serve_mesh(cfg, params, smi_line, SERVE_MESH_CASES + extra)
+    hcfg = get_config(SSM_TRAIN_NAME)
+    hparams = _init_weights("serve (v)", hcfg)
+    h_launched, numbers[hcfg.name] = phase_serve_mesh(hcfg, hparams, smi_line,
+                                                      SERVE_MESH_HYBRID)
+    del hparams
+    free_weights()
+    paths = {"flash_attention": {
+        f"{cfg.name} served over meshes of the card (v)": q_launched["flash_attention"],
+        f"{hcfg.name} served over a 1 x 2 mesh (v)": h_launched["flash_attention"]},
+        "selective_scan": {f"{hcfg.name} served over a 1 x 2 mesh (v)":
+                           h_launched["selective_scan"]}}
+    numbers["seconds"] = time.perf_counter() - t0
+    print(f"serve (v): took {numbers['seconds']:.1f} s")
+    return paths, numbers
+
+
 def phase_train_mesh(smi_line):
-    """(t13)-(t16): training over a mesh of the card. Returns ({kernel:
-    {path: launches}}, numbers)."""
+    """(t13)-(t16): training over a mesh of the card, then (v), serving over
+    one, on (t13)'s weights. Returns ({kernel: {path: launches}}, numbers,
+    (v)'s ({kernel: {path: launches}}, numbers))."""
     from repro_torch.configs import get_config
 
     t_phase = time.perf_counter()
@@ -5607,6 +5871,7 @@ def phase_train_mesh(smi_line):
     params = _init_weights("train (t13)", cfg)
     q_paths, numbers = phase_train_mesh_qwen(cfg, params, smi_line)
     numbers["compressed_psum"] = phase_compressed_psum(cfg, params, smi_line)
+    serve = phase_serve_mesh_models(cfg, params, smi_line)
     del params
     free_weights()
     m_paths, numbers["granite"] = phase_train_mesh_moe(smi_line)
@@ -5617,8 +5882,8 @@ def phase_train_mesh(smi_line):
             f"qwen3-1.7b {MESH_STEPS} mesh train steps (2 x 2) and one (1 x 4)": q_paths[name],
             f"{MOE_NAME} ({MOE_MESH_LAYERS} layers) one mesh train step (2 x 2)": m_paths[name]}
     numbers["seconds"] = time.perf_counter() - t_phase
-    print(f"train: (t13)-(t16) took {numbers['seconds']:.1f} s")
-    return paths, numbers
+    print(f"train: (t13)-(t16) and (v) took {numbers['seconds']:.1f} s")
+    return paths, numbers, serve
 
 
 def phase_train(smi_line):
@@ -5642,7 +5907,9 @@ def phase_train(smi_line):
     for name, by_path in ssm_paths.items():
         paths.setdefault(name, {}).update(by_path)
     fam_paths, fam_steps, swa_agree = phase_train_families(smi_line)
-    mesh_paths, mesh_numbers = phase_train_mesh(smi_line)
+    mesh_paths, mesh_numbers, (serve_paths, serve_numbers) = phase_train_mesh(smi_line)
+    for name, by_path in serve_paths.items():
+        paths.setdefault(name, {}).update(by_path)
     paths.setdefault("flash_attention", {})[
         f"qwen3-1.7b {TRAIN_STEPS} train steps (forward)"] = launches["flash_attention"]
     for path, by_kernel in fam_paths.items():
@@ -5707,6 +5974,7 @@ def phase_train(smi_line):
     if row["launches"] < 1 or set(by_variant) != {"wgmma"}:
         fail(f"flash_attention_bwd on the training paths: {by_variant}")
     held["flash_attention"] = {"err": r["forward_err"]}
+    held["serve_mesh"] = serve_numbers
     return paths, [row, scan_row], held
 
 
@@ -6032,6 +6300,9 @@ def main() -> int:
     train_paths, bwd_rows, train_held = phase_train(smi_line)
     for name, by_path in train_paths.items():
         paths.setdefault(name, {}).update(by_path)
+    serve_mesh = train_held.pop("serve_mesh")
+    rows["flash_attention"]["serve_mesh"] = serve_mesh
+    rows["selective_scan"]["serve_mesh"] = {"hymba-1.5b": serve_mesh["hymba-1.5b"]}
     for name, r in train_held.items():
         rows[name]["qwen3_1_7b"] = {k: (r[k]["tensor_core"][0] if k == "bound" else r[k])
                                     for k in ("err", "ms", "plain_ms", "host_ms", "bound")
@@ -6071,7 +6342,7 @@ def main() -> int:
                     "falcon_decode_host_ms", "falcon_decode_bound_ms", "dense_ingest",
                     "falcon_prefill", "one_cta_per_sm_ms", "pools_form", "indexed",
                     "serve", "decode_batched", "fleet", "hybrid", "head_dim_256",
-                    "qwen3_1_7b", "sharded"):
+                    "qwen3_1_7b", "sharded", "serve_mesh"):
             if key in r:
                 row[key] = r[key]
         kernels.append(row)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's (t13)-(t16), training over a mesh of the card, alone,
-from the checkout at ROOT (default: this one):
+"""chip_smoke.py's (t13)-(t16), training over a mesh of the card, and (v),
+serving over one, alone, from the checkout at ROOT (default: this one):
 
     python3 scripts/mesh_phase.py [ROOT]
 
@@ -9,8 +9,8 @@ It builds the kernels (``phase_device``), then runs ``phase_train_mesh``:
 unsharded step over the same rows, (t13b) a 1 x 4 mesh bit for bit the
 unsharded step, (t15) compressed_psum on four embedding gradients, (t14)
 granite-moe-3b-a800m's dispatch under the split, (t16) the sharded
-restore. It prints what the phases print, then one JSON line of their
-numbers.
+restore, (v) qwen3-1.7b and hymba-1.5b served over meshes of the card. It
+prints what the phases print, then one JSON line of their numbers.
 """
 from __future__ import annotations
 
@@ -34,8 +34,9 @@ def main() -> int:
     import chip_smoke as cs
 
     smi = cs.phase_device()
-    paths, numbers = cs.phase_train_mesh(smi)
-    print(json.dumps({"root": str(root), "card": smi, "launches": paths, **numbers}))
+    paths, numbers, (serve_paths, serve_numbers) = cs.phase_train_mesh(smi)
+    print(json.dumps({"root": str(root), "card": smi, "launches": {**paths, "serve": serve_paths},
+                      **numbers, "serve": serve_numbers}))
     return 0
 
 

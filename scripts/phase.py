@@ -27,6 +27,13 @@ PHASE is one of:
   wrappers add a call), the median of ROUNDS rounds of LOOKUPS calls. Only
   the wrappers come from ROOT; the timing is this file's.
 
+- ``serve_mesh``: builds the kernels, then chip_smoke.py's (v) on
+  full-width qwen3-1.7b from a seeded init (its meshes of the card at their
+  batches) with one more case, a 1 x 16 mesh at batch 2 x 4096: its 8 kv
+  heads do not divide 16, so the cache's sequence splits over the tensor
+  axis, as on the production mesh; then hymba-1.5b on 1 x 2. ROOT's
+  chip_smoke.py must have (v).
+
 Run parent, change, change, parent. It prints what the phases print, then
 one JSON line: the root, the card, and each phase's numbers.
 """
@@ -40,7 +47,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("t17", "host")
+PHASES = ("t17", "host", "serve_mesh")
+SERVE_MESH_EXTRA = ((1, 16, 2, 4096),)
 CALLS, ROUNDS, LOOKUPS = 100, 9, 100_000
 
 
@@ -51,6 +59,16 @@ def phase_t17(smi: str) -> dict:
     cfg = get_config(cs.TRAIN_NAME)
     params, _, step = cs.phase_train_step(cfg, smi)
     paths, numbers = cs.phase_train_roofline(cfg, params, step["warm_step_ms"], smi)
+    return {"launches": paths, **numbers}
+
+
+def phase_serve_mesh(smi: str) -> dict:
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+
+    cfg = get_config(cs.TRAIN_NAME)
+    params = cs._init_weights("serve (v)", cfg)
+    paths, numbers = cs.phase_serve_mesh_models(cfg, params, smi, SERVE_MESH_EXTRA)
     return {"launches": paths, **numbers}
 
 
@@ -143,7 +161,8 @@ def main() -> int:
     smi = cs.phase_device()
     got = {"root": str(root), "card": smi}
     for name in args.phases:
-        got[name] = {"t17": phase_t17, "host": phase_host}[name](smi)
+        got[name] = {"t17": phase_t17, "host": phase_host,
+                     "serve_mesh": phase_serve_mesh}[name](smi)
     print(json.dumps(got))
     return 0
 

@@ -11,12 +11,15 @@ is active, ``constrain(x, role)`` pins activation shardings for GSPMD:
 :func:`activation_spec` gives the spec JAX's ``constrain`` pins for a shape
 and role under a policy. The port's :func:`constrain` returns ``x``
 unchanged, with or without a policy: the port has no partitioner to take a
-hint. Its train step over a mesh (``launch/steps.py``) lays activations out
-by its own batch split, each data-parallel shard's rows on that shard's
-device, which is ``P(dp, ...)``: what ``hidden`` asks for. The model code
-calls ``constrain`` at the reference's three sites (q, k and v in
-``qkv_project``, the MoE and the dense FFN's residual returns), so that the
-two packages' model code reads alike.
+hint. Its steps over a mesh lay activations out themselves: the train step
+(``launch/steps.py``) by its own batch split, each data-parallel shard's
+rows on that shard's device, which is ``P(dp, ...)``, what ``hidden`` asks
+for; the serving steps (``launch/tp_compute.py``) by that split where the
+batch is 16 or more, and each tensor shard's q / k / v by its own heads,
+which is ``heads``' kv-head or full-head sharding (the sequence-parallel
+form is not used). The model code calls ``constrain`` at the reference's
+three sites (q, k and v in ``qkv_project``, the MoE and the dense FFN's
+residual returns), so that the two packages' model code reads alike.
 """
 from __future__ import annotations
 
@@ -102,6 +105,6 @@ def _spec(shape, role, policy):
 
 
 def constrain(x, role: str):
-    """``x`` unchanged: the port's mesh step lays activations out by its
-    batch split (see the module docstring)."""
+    """``x`` unchanged: the port's mesh steps lay activations out
+    themselves (see the module docstring)."""
     return x

@@ -28,21 +28,28 @@ file names:
   - Temporaries, for the train step over the mesh (``launch/steps.py``):
     the gathered whole params a computing device holds, the float32
     gradient accumulator, and the peak live bytes of one data-parallel
-    part (the analyzer's largest loop item). For a serving step, which
-    the port runs on one device with whole tensors, the step's own peak
-    live bytes less its new outputs.
+    part (the analyzer's largest loop item). For the serving steps over
+    the mesh (``launch/tp_compute.py``), one position's: the step's own
+    peak live bytes, which under the analyzer's sampling of the dp
+    shards, tensor shards and cache blocks are those of the first
+    position (its rows' activations, its gathered layer and its largest
+    loop item at once), less the logits.
   - Outputs and aliases: the train step returns new params and moments
     (AdamW updates nothing in place), so one position's blocks are outputs
     and nothing aliases; a serving step updates its state in place, so
     the state's blocks are outputs that alias their arguments, and the
-    logits are new.
+    logits (whole, on the mesh's first device) are new.
 
-  ``fits`` says whether that is within one card's memory. The mesh step
+  ``fits`` says whether that is within one card's memory. The train step
   gathers whole params on every computing device, so the large configs do
-  not fit: the row reports it, the cell is not cut.
+  not fit: the row reports it, the cell is not cut. The serving steps
+  gather one layer's slice at a time. The sparse decode steps (``--sparse``,
+  ``--sharded-sparse``) take whole tensors on one device, and their rows
+  keep that one-device count (their ``note`` says so).
 
-A cell's repeated loops (the mesh step's parts and AdamW's positions) are
-counted by sampling (``roofline.loop``). ``--ssm-bf16`` is refused, before
+A cell's repeated loops (the mesh steps' parts, tensor shards and cache
+blocks, and AdamW's positions) are counted by sampling (``roofline.loop``).
+``--ssm-bf16`` is refused, before
 any count, as ``models/ssm.py``'s ``mamba_block`` refuses it; ``--ssm-chunk``
 is applied and tagged, and changes nothing the CUDA scan does (its chunk is
 256); ``--seq-parallel`` is tagged, and the port's ``constrain`` returns its
@@ -98,7 +105,7 @@ def build_step(cfg, shape_name: str, *, sparse: bool = False,
         fn = make_train_step(cfg, grad_accum=ga, remat=_REMAT[remat], block_q=block_q, mesh=mesh)
         donate = (0, 1)
     elif spec.kind == "prefill":
-        fn = make_prefill_step(cfg, block_q=block_q)
+        fn = make_prefill_step(cfg, block_q=block_q, mesh=mesh)
         donate = (2,)
     else:
         if sharded_sparse and cfg.has_attention:
@@ -108,7 +115,7 @@ def build_step(cfg, shape_name: str, *, sparse: bool = False,
             fn = make_sparse_decode_step(cfg, chunk_tokens=16, budget=0.05,
                                          cached_summaries=cached_summaries)
         else:
-            fn = make_decode_step(cfg)
+            fn = make_decode_step(cfg, mesh=mesh)
         donate = (2,)
     return fn, donate
 
@@ -136,25 +143,29 @@ def _sharded(x: ShapeDtypeStruct, mesh) -> ShardedTensor:
     return ShardedTensor(tuple(x.shape), x.dtype, x.sharding, blocks)
 
 
-def materialize(cfg, shape_name: str, args, mesh):
+def materialize(cfg, shape_name: str, args, mesh, *, one_device: bool = False):
     """The step's arguments on meta, at the shapes the port computes with:
     the train step's params and moments laid out on the mesh (a meta block
     at each position) and its batch whole; a serving step's params, inputs
-    and state whole, the state's ``length`` a Python int (prefill 0; decode
-    at the last position of its cache)."""
+    and state laid out on the mesh too, or whole where ``one_device`` (the
+    sparse decode steps), the state's ``length`` a Python int (prefill 0;
+    decode at the last position of its cache)."""
     spec = SHAPES[shape_name]
 
     def whole(x):
         return torch.empty(x.shape, dtype=x.dtype, device=META)
 
+    def laid(x):
+        return _sharded(x, mesh)
+
     if spec.kind == "train":
         params, opt, batch = args
-        return (tree_map(lambda x: _sharded(x, mesh), params),
-                tree_map(lambda x: _sharded(x, mesh), opt), tree_map(whole, batch))
+        return tree_map(laid, params), tree_map(laid, opt), tree_map(whole, batch)
     params, inputs, state = args
-    state = {k: (0 if spec.kind == "prefill" else spec.seq - 1) if k == "length" else whole(x)
+    put = whole if one_device else laid
+    state = {k: (0 if spec.kind == "prefill" else spec.seq - 1) if k == "length" else put(x)
              for k, x in state.items()}
-    return tree_map(whole, params), tree_map(whole, inputs), state
+    return tree_map(put, params), tree_map(put, inputs), state
 
 
 def _variant(*, sharded_sparse, sparse, cached_summaries, fsdp, remat, ssm_chunk, ssm_bf16,
@@ -219,7 +230,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
                        remat=remat)
     specs = input_specs(cfg, shape_name, mesh, fsdp=fsdp,
                         sparse_summaries=(sparse and cached_summaries) or sharded_sparse)
-    args = materialize(cfg, shape_name, specs, mesh)
+    one_device = spec.kind == "decode" and cfg.has_attention and (sparse or sharded_sparse)
+    args = materialize(cfg, shape_name, specs, mesh, one_device=one_device)
     with activation_sharding(mesh, shard_batch=spec.batch >= 16,
                              seq_parallel=seq_parallel), RL.StepAnalyzer() as analyzer:
         out = fn(*args)
@@ -252,7 +264,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
         metrics, arch=arch, shape=shape_name + variant,
         mesh=mesh_kind, model_flops_per_device=mf_dev,
         bytes_per_device=bytes_dev, hw=hw,
-        note=f"count={t_count:.1f}s devices={n_dev}")
+        note=f"count={t_count:.1f}s devices={n_dev}"
+             + (" one-device count (the sparse decode step takes whole tensors)"
+                if one_device else ""))
     row = report.to_dict()
     row.update(
         ok=True,

@@ -58,13 +58,17 @@ def combine_partials(parts: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Ten
     mass_s``. A shard whose row had nothing to attend (lse -inf, NaN or at
     most MASKED_LSE) weighs exactly 0 and its out and mass are never read
     (``torch.where``, not a product), so a row no shard can see comes out 0.
-    At one shard ``w`` is 1 and the result is the partial's bits."""
-    out_s, mass_s, lse = (_stack([p[i].to(device) for p in parts]) for i in range(3))
+    At one shard ``w`` is 1 and the result is the partial's bits. A mass of
+    None (an attend that computes none, ``launch/tp_compute.py``) gives a
+    mass of None."""
+    out_s, lse = (_stack([p[i].to(device) for p in parts]) for i in (0, 2))
     ok = lse > MASKED_LSE  # (k, b, n_q); False for -inf and NaN
     w = torch.where(ok, torch.softmax(torch.where(ok, lse, float("-inf")), dim=0), 0.0)
     ok, w = ok[..., None], w[..., None]
     out = torch.where(ok, w * out_s.to(torch.float32), 0.0).sum(dim=0)
-    mass = torch.where(ok, w * mass_s, 0.0).sum(dim=0)
+    if parts[0][1] is None:
+        return out.to(dtype), None
+    mass = torch.where(ok, w * _stack([p[1].to(device) for p in parts]), 0.0).sum(dim=0)
     return out.to(dtype), mass
 
 

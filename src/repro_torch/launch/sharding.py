@@ -31,6 +31,7 @@ the CPU tests against JAX on k forced host devices.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 from typing import Any, Dict, Tuple
 
@@ -317,6 +318,98 @@ def unshard(st: ShardedTensor, device) -> torch.Tensor:
         seen.add(key)
         out[sl] = st.block_at(pos)
     return out
+
+
+def _bounds(sl: slice, n: int) -> Tuple[int, int]:
+    lo, hi, step = sl.indices(n)
+    if step != 1:
+        raise ValueError(f"a piece of a sharded tensor takes unit-step slices, got {sl}")
+    return lo, max(lo, hi)
+
+
+def block_pieces(st: ShardedTensor, index: Tuple[slice, ...], near, *,
+                 replicas: bool = False):
+    """The pieces of the global slice ``st[index]`` (one unit-step slice a
+    dim), one a distinct block that holds part of it: (mesh position, the
+    piece's slices in the slice ``index`` selects, its slices in the
+    block). A block held at several positions (a replica) is read where its
+    coordinates on the axes its dims do not use are ``near``'s (a position
+    tuple), so a position reads its own replicas; ``replicas=True`` gives
+    every position that holds each piece (what a write must reach)."""
+    bounds = tuple(_bounds(sl, n) for sl, n in
+                   zip(tuple(index) + (slice(None),) * len(st.shape), st.shape))
+    return _piece_plan(st.sharding, tuple(st.shape), bounds, tuple(near), replicas)
+
+
+@functools.lru_cache(maxsize=1 << 16)
+def _piece_plan(sharding: NamedSharding, shape, bounds, near, replicas: bool) -> tuple:
+    """:func:`block_pieces`' answer, a pure function of the layout, the
+    slice's bounds and the position: a step over a mesh asks for the same
+    plans every layer and call."""
+    mesh = sharding.mesh
+    dims = _dim_axes(sharding.spec, len(shape))
+    spans = []  # per dim: (axes, block size, [(part, lo, hi) of the parts the slice meets])
+    los = []
+    out = []
+    for n, axes, (lo, hi) in zip(shape, dims, bounds):
+        size = n // _axis_size(mesh, axes)
+        los.append(lo)
+        spans.append((axes, size, [(i, max(lo, i * size), min(hi, (i + 1) * size))
+                                   for i in range(lo // size, -(-hi // size))]))
+    used = {a for axes in dims for a in axes}
+    free = [a for a in mesh.axis_names if a not in used] if replicas else []
+    copies = itertools.product(*(range(mesh.shape[a]) for a in free))
+    for rep, combo in itertools.product(list(copies), itertools.product(
+            *(parts for _, _, parts in spans))):
+        coord = dict(zip(mesh.axis_names, near))
+        coord.update(zip(free, rep))
+        for (axes, _, _), (i, _, _) in zip(spans, combo):
+            for a in reversed(axes):  # row-major over the dim's axes
+                coord[a], i = i % mesh.shape[a], i // mesh.shape[a]
+        out_sl = tuple(slice(a - lo, b - lo) for (_, a, b), lo in zip(combo, los))
+        blk_sl = tuple(slice(a - i * size, b - i * size)
+                       for ((_, size, _), (i, a, b)) in zip(spans, combo))
+        out.append((tuple(coord[a] for a in mesh.axis_names), out_sl, blk_sl))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=1 << 16)
+def _gather_plan(sharding: NamedSharding, shape, bounds, near) -> tuple:
+    """(the pieces as (position, block slices, whether they cover the
+    block), the number of blocks each dim's pieces span, whether any piece
+    lies at another position than ``near``) of :func:`gather_slice`."""
+    sizes = [n // _axis_size(sharding.mesh, axes)
+             for n, axes in zip(shape, _dim_axes(sharding.spec, len(shape)))]
+    pieces = _piece_plan(sharding, shape, bounds, near, False)
+    grid = tuple(len({p[1][d].start for p in pieces}) for d in range(len(shape)))
+    return (tuple((pos, blk_sl, all(sl.stop - sl.start == n for sl, n in zip(blk_sl, sizes)))
+                  for pos, _, blk_sl in pieces),
+            grid, any(pos != near for pos, _, _ in pieces))
+
+
+def gather_slice(st: ShardedTensor, index: Tuple[slice, ...], device, near):
+    """``st[index]`` on ``device``, assembled from the blocks that hold it
+    (:func:`block_pieces`, replicas read near ``near``). Returns (the
+    tensor, the number of blocks read, whether any lies at another position
+    than ``near``). A slice of ``near``'s own block on ``device`` comes back
+    as a view of the block, uncopied."""
+    bounds = tuple(_bounds(sl, n) for sl, n in
+                   zip(tuple(index) + (slice(None),) * len(st.shape), st.shape))
+    pieces, grid, remote = _gather_plan(st.sharding, tuple(st.shape), bounds, tuple(near))
+    parts = [st.block_at(pos) if whole else st.block_at(pos)[blk_sl]
+             for pos, blk_sl, whole in pieces]
+    if len(parts) == 1:
+        if not remote and parts[0].device == torch.device(device):
+            return parts[0], 1, False
+        return parts[0].to(device, copy=True), 1, remote
+    # the pieces come in row-major order over a grid of blocks: join each
+    # dim's runs of them, innermost dim first
+    items = [p.to(device) for p in parts]
+    for d in reversed(range(len(grid))):
+        if grid[d] > 1:
+            items = [torch.cat(items[i: i + grid[d]], dim=d)
+                     for i in range(0, len(items), grid[d])]
+    return items[0], len(parts), remote
 
 
 def shard_tree(tree, shardings):

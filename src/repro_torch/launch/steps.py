@@ -5,7 +5,14 @@ Batches may be numpy arrays or tensors; a train step moves them to the
 params' device. Entry points run where the params live: on the card unless
 the caller built them on the CPU. ``make_train_step(..., mesh=)`` is the
 train step over a device mesh, the counterpart of the JAX package's
-``jax.jit(make_train_step(...))`` on inputs laid out by ``param_shardings``.
+``jax.jit(make_train_step(...))`` on inputs laid out by ``param_shardings``;
+it gathers whole params on each computing device and splits only the batch.
+``make_prefill_step(..., mesh=)`` and ``make_decode_step(..., mesh=)`` are
+the serving steps over a mesh, the counterparts of JAX's jitted serving
+steps on params, inputs and a serve state laid out by ``param_shardings``,
+``batch_specs`` and ``serve_state_shardings``: they split heads, d_ff
+columns, experts, mamba channels and the vocabulary over the tensor axes
+and gather one layer's weights at a time (``launch/tp_compute.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch
 from repro_torch.launch import roofline as RL
 from repro_torch.launch.mesh import dp_axes, shard_devices
 from repro_torch.launch.sharding import ShardedTensor, block_index, unshard, unshard_tree
+from repro_torch.launch.tp_compute import MeshServe
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import NEG_INF, _grouped_out, _grouped_scores, qkv_project
 from repro_torch.models.common import ModelConfig
@@ -309,8 +317,14 @@ def _make_mesh_train_step(cfg: ModelConfig, mesh, *, grad_accum: int, block_q: i
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, *, block_q: int = 512):
-    """prefill_step(params, batch, state) -> (first-token logits, state)."""
+def make_prefill_step(cfg: ModelConfig, *, block_q: int = 512, mesh=None):
+    """prefill_step(params, batch, state) -> (first-token logits, state).
+
+    With a ``mesh`` the step runs over it (``tp_compute.MeshServe``): params,
+    inputs and state laid out on the mesh as ``ShardedTensor``, the logits
+    returned on the mesh's first device."""
+    if mesh is not None:
+        return MeshServe(cfg, mesh, block_q=block_q).prefill
 
     def prefill_step(params, batch, state):
         return T.prefill(params, batch, cfg, state, block_q=block_q)
@@ -318,8 +332,11 @@ def make_prefill_step(cfg: ModelConfig, *, block_q: int = 512):
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
-    """decode_step(params, token, state) -> (logits, state)."""
+def make_decode_step(cfg: ModelConfig, *, mesh=None):
+    """decode_step(params, token, state) -> (logits, state); with a
+    ``mesh``, over it as ``make_prefill_step``'s."""
+    if mesh is not None:
+        return MeshServe(cfg, mesh).decode
 
     def decode_step(params, token, state):
         return T.decode_step(params, token, cfg, state)

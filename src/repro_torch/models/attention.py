@@ -114,22 +114,34 @@ def attention_decode(
     length: int,
     window: int = 0,
     scale: Optional[float] = None,
-) -> torch.Tensor:
+    pos0: int = 0,
+    return_lse: bool = False,
+):
     """Single-step decode. q: (b, 1, n_q, d); caches: (b, S, n_kv, d).
 
     `length` = number of valid cache positions (the new token's KV must already
-    be written at position length-1).
+    be written at position length-1). ``pos0``: the caches hold positions
+    ``pos0 .. pos0 + S - 1`` (a block of a cache split by sequence).
+
+    ``return_lse=True`` also returns each row's logsumexp of its masked,
+    scaled float32 scores, (b, n_q) float32, for the flash-decode combine of
+    blocks (``launch/sharded_sparse.combine_partials``); a block with no
+    valid position gives a value near NEG_INF there, which the combine
+    weighs 0. The output is the same bits either way.
     """
     d = q.shape[-1]
     scale = scale if scale is not None else d ** -0.5
-    pos = torch.arange(k_cache.shape[1], device=q.device)
+    pos = pos0 + torch.arange(k_cache.shape[1], device=q.device)
     mask = pos < length
     if window > 0:
         mask = mask & ((length - 1) - pos < window)
     scores = _grouped_scores(q, k_cache).to(torch.float32) * scale  # (b, n_q, 1, S)
     scores = torch.where(mask[None, None, None, :], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1).to(v_cache.dtype)
-    return _grouped_out(p, v_cache)
+    out = _grouped_out(p, v_cache)
+    if return_lse:
+        return out, torch.logsumexp(scores[:, :, 0], dim=-1)
+    return out
 
 
 def qkv_project(

@@ -47,7 +47,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    """SwiGLU FFN: down( silu(x@gate) * (x@up) )."""
+    """SwiGLU FFN: down( silu(x@gate) * (x@up) ). On a tensor shard's d_ff
+    columns of ``w_gate`` / ``w_up`` and rows of ``w_down`` it is the
+    shard's partial sum, which ``launch/tp_compute.py`` sums over the
+    shards."""
     g = matmul(x, w_gate)
     u = matmul(x, w_up)
     h = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u

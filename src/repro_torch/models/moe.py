@@ -21,6 +21,11 @@ capacity, and each expert's assignments in the shards before it, which
 start that expert's queue. The shards then run in order and keep and drop
 the assignments the whole microbatch would. Only integers cross shards, so
 the backward is unchanged.
+
+``moe_ffn`` is three parts, which a tensor-parallel layer
+(``launch/tp_compute.py``) runs apart: :func:`route_tokens` once,
+:func:`expert_ffn` on each shard's experts (or each expert's columns), and
+:func:`combine` once over all the experts' outputs.
 """
 from __future__ import annotations
 
@@ -93,6 +98,71 @@ def dispatch(top_idx: torch.Tensor, cap: int, n_experts: int,
     return slot, keep, table[: E * cap].reshape(E, cap)
 
 
+@dataclasses.dataclass
+class Dispatch:
+    """One call's routing (:func:`route`): ``top_idx`` (T, k) expert ids and
+    ``top_w`` (T, k) float32 weights; ``slot``, ``keep`` and ``gather_idx``
+    as :func:`dispatch` gives them at ``cap`` slots an expert."""
+
+    top_idx: torch.Tensor
+    top_w: torch.Tensor
+    slot: torch.Tensor
+    keep: torch.Tensor
+    gather_idx: torch.Tensor
+    cap: int
+
+
+def route_tokens(xt: torch.Tensor, w_router: torch.Tensor, *, n_experts: int, top_k: int,
+                 capacity_factor: float = 1.25, dropless: bool = False,
+                 route: Optional[MoeRoute] = None) -> Dispatch:
+    """The router and the dispatch of xt (T, d): ``moe_ffn``'s first part,
+    which every expert shard of a tensor-parallel layer shares."""
+    T = xt.shape[0]
+    E, k = n_experts, top_k
+    cap = capacity(T if route is None else route.tokens, E, k, capacity_factor, dropless)
+    top_idx, top_w = _router(xt, w_router, k)  # (T, k)
+    slot, keep, gather_idx = dispatch(top_idx, cap, E, None if route is None else route.offset)
+    if route is not None:  # bincount, in a form a meta tensor takes
+        flat = top_idx.reshape(-1)
+        route.counts = torch.zeros(E, dtype=torch.long, device=xt.device).scatter_add_(
+            0, flat, torch.ones_like(flat))
+    if drop_log is not None:
+        drop_log.append((~keep).sum())
+    return Dispatch(top_idx, top_w, slot, keep, gather_idx, cap)
+
+
+def expert_ffn(xt: torch.Tensor, gather_idx: torch.Tensor, w_gate: torch.Tensor,
+               w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU over their queues: xt (T, d), gather_idx (E', cap)
+    (T where a slot is empty), w_gate / w_up (E', d, f), w_down (E', f, d)
+    -> (E', cap, d). E' may be a shard of the experts and f a shard of each
+    expert's columns (the output is then a partial sum)."""
+    d = xt.shape[-1]
+    xe = torch.cat([xt, xt.new_zeros(1, d)])[gather_idx]  # (E', cap, d); row T is zeros
+    g = matmul(xe, w_gate)
+    u = matmul(xe, w_up)
+    h = torch.nn.functional.silu(g.to(torch.float32)).to(xe.dtype) * u
+    return matmul(h, w_down)
+
+
+def combine(ye: torch.Tensor, disp: Dispatch, dtype: torch.dtype) -> torch.Tensor:
+    """Each token's kept expert outputs (ye (E, cap, d)) weighted by its
+    router weights and summed in float32 in ascending expert order: (T, d)
+    in ``dtype``."""
+    E, cap, d = ye.shape
+    T, k = disp.top_idx.shape
+    w_table = torch.zeros(E * cap + 1, dtype=torch.float32, device=ye.device)
+    w_table.index_put_((disp.slot,), torch.where(disp.keep, disp.top_w.reshape(-1), 0.0))
+    contrib = ye.to(torch.float32).reshape(-1, d) * w_table[: E * cap, None]
+    contrib = torch.cat([contrib, contrib.new_zeros(1, d)])  # row E cap: a dropped slot
+    # combine: each token's slots in ascending expert order, summed in turn
+    rows = disp.slot.reshape(T, k).gather(1, torch.argsort(disp.top_idx, dim=-1))
+    out = contrib[rows[:, 0]]
+    for j in range(1, k):
+        out = out + contrib[rows[:, j]]
+    return out.to(dtype)
+
+
 def moe_ffn(x: torch.Tensor, params: dict, *, n_experts: int, top_k: int,
             capacity_factor: float = 1.25, dropless: bool = False,
             route: Optional[MoeRoute] = None) -> torch.Tensor:
@@ -101,38 +171,11 @@ def moe_ffn(x: torch.Tensor, params: dict, *, n_experts: int, top_k: int,
     where dropping a token would corrupt generation). ``route``: x is a
     part of a larger microbatch (see the module docstring)."""
     orig_shape = x.shape
-    d = orig_shape[-1]
-    xt = x.reshape(-1, d)
-    T = xt.shape[0]
-    E, k = n_experts, top_k
-    cap = capacity(T if route is None else route.tokens, E, k, capacity_factor, dropless)
-
-    top_idx, top_w = _router(xt, params["w_router"], k)  # (T, k)
-    slot, keep, gather_idx = dispatch(top_idx, cap, E,
-                                      None if route is None else route.offset)
-    if route is not None:  # bincount, in a form a meta tensor takes
-        flat = top_idx.reshape(-1)
-        route.counts = torch.zeros(E, dtype=torch.long, device=x.device).scatter_add_(
-            0, flat, torch.ones_like(flat))
-    if drop_log is not None:
-        drop_log.append((~keep).sum())
-
-    xe = torch.cat([xt, xt.new_zeros(1, d)])[gather_idx]  # (E, cap, d); row T is zeros
-    g = matmul(xe, params["w_gate"])
-    u = matmul(xe, params["w_up"])
-    h = torch.nn.functional.silu(g.to(torch.float32)).to(xe.dtype) * u
-    ye = matmul(h, params["w_down"])  # (E, cap, d)
-
-    w_table = torch.zeros(E * cap + 1, dtype=torch.float32, device=x.device)
-    w_table.index_put_((slot,), torch.where(keep, top_w.reshape(-1), 0.0))
-    contrib = ye.to(torch.float32).reshape(-1, d) * w_table[: E * cap, None]
-    contrib = torch.cat([contrib, contrib.new_zeros(1, d)])  # row E cap: a dropped slot
-    # combine: each token's slots in ascending expert order, summed in turn
-    rows = slot.reshape(T, k).gather(1, torch.argsort(top_idx, dim=-1))
-    out = contrib[rows[:, 0]]
-    for j in range(1, k):
-        out = out + contrib[rows[:, j]]
-    return out.to(x.dtype).reshape(orig_shape)
+    xt = x.reshape(-1, orig_shape[-1])
+    disp = route_tokens(xt, params["w_router"], n_experts=n_experts, top_k=top_k,
+                        capacity_factor=capacity_factor, dropless=dropless, route=route)
+    ye = expert_ffn(xt, disp.gather_idx, params["w_gate"], params["w_up"], params["w_down"])
+    return combine(ye, disp, x.dtype).reshape(orig_shape)
 
 
 def init_moe_params(cfg, generator: torch.Generator, dtype, device, layers: int) -> dict:

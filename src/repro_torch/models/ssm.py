@@ -13,6 +13,12 @@ dtype before the scan, decode's dt kept in float32. The scan runs in float32:
 ``mamba_block`` refuses a config whose ``ssm_scan_dtype`` asks for another
 (the JAX block's bfloat16 scan elements are not ported); the decode step,
 like the JAX one, does not read the field.
+
+Each mixer is two halves around the sum of ``w_x``'s partial products
+(:func:`mamba_in` / :func:`mamba_out`, :func:`mamba_decode_in` /
+:func:`mamba_decode_out`), so that a tensor-parallel layer
+(``launch/tp_compute.py``) runs them on each shard's slice of the d_inner
+channels and sums the x_proj partials over the shards between them.
 """
 from __future__ import annotations
 
@@ -54,6 +60,42 @@ def check_scan_dtype(cfg) -> None:
             "runs in float32, and the JAX block's bfloat16 scan is not ported")
 
 
+def mamba_in(x: torch.Tensor, p: dict):
+    """The mixer up to the scan over p's channels (all of them, or a tensor
+    shard's slice: ``w_in``'s x and z columns of the slice side by side,
+    ``conv_w`` / ``conv_b`` / ``w_x``'s rows of it). x: (b, s, d_model) ->
+    (xi, z, the padded raw input xpad (b, s + k - 1, d_in'), the x_proj
+    partial (b, s, 2n + 1): B, C and dt over the slice's channels, which a
+    sharded layer sums over its shards before :func:`mamba_out`)."""
+    s = x.shape[1]
+    d_in = p["w_in"].shape[1] // 2
+    xz = matmul(x, p["w_in"])  # (b, s, 2 * d_in)
+    xi_raw, z = xz[..., :d_in], xz[..., d_in:]
+    k = p["conv_w"].shape[0]
+    xpad = F.pad(xi_raw, (0, 0, k - 1, 0))  # (b, s + k - 1, d_in)
+    xi = _silu(_conv([xpad[:, i: i + s] for i in range(k)], p["conv_w"], p["conv_b"],
+                     x.dtype))
+    return xi, z, xpad, matmul(xi, p["w_x"])  # x_proj: B, C, dt (dt_rank 1)
+
+
+def mamba_out(xi: torch.Tensor, z: torch.Tensor, proj: torch.Tensor, p: dict, cfg):
+    """The scan over xi's channels with the summed x_proj ``proj``, then D,
+    the gate and ``w_out``: (out (b, s, d_model), a partial sum where p's
+    channels are a shard's, h_final (b, d_in', n) float32)."""
+    n = cfg.ssm_state
+    Bv, Cv, dt_raw = proj[..., :n], proj[..., n: 2 * n], proj[..., 2 * n:]
+    dt = _softplus(dt_raw.to(torch.float32) + p["dt_bias"]).to(xi.dtype)
+    A = -torch.exp(p["A_log"].to(torch.float32))  # (d_in, n)
+    args = (xi, dt[..., 0], A, Bv, Cv)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        y, h_final = SelectiveScanFn.apply(*args)
+    else:
+        y, h_final = selective_scan(*args)
+    y = y + xi.to(torch.float32) * p["D"].to(torch.float32)
+    y = y.to(xi.dtype) * _silu(z)
+    return matmul(y, p["w_out"]), h_final
+
+
 def mamba_block(x: torch.Tensor, p: dict, cfg, *, return_state: bool = False):
     """Full mamba-1 mixer. x: (b, s, d_model) -> (b, s, d_model)[, state].
 
@@ -62,29 +104,41 @@ def mamba_block(x: torch.Tensor, p: dict, cfg, *, return_state: bool = False):
     leading zeros of the padding when s < k - 1. Raises ValueError, before
     any work, where ``cfg.ssm_scan_dtype`` is not "float32"."""
     check_scan_dtype(cfg)
-    b, s, _ = x.shape
-    d_in, n = cfg.d_inner, cfg.ssm_state
-    xz = matmul(x, p["w_in"])  # (b, s, 2 * d_in)
-    xi_raw, z = xz[..., :d_in], xz[..., d_in:]
-    k = p["conv_w"].shape[0]
-    xpad = F.pad(xi_raw, (0, 0, k - 1, 0))  # (b, s + k - 1, d_in)
-    xi = _silu(_conv([xpad[:, i: i + s] for i in range(k)], p["conv_w"], p["conv_b"],
-                     x.dtype))
-    proj = matmul(xi, p["w_x"])  # (b, s, 2n + 1): B, C, dt (dt_rank 1)
-    Bv, Cv, dt_raw = proj[..., :n], proj[..., n: 2 * n], proj[..., 2 * n:]
-    dt = _softplus(dt_raw.to(torch.float32) + p["dt_bias"]).to(x.dtype)
-    A = -torch.exp(p["A_log"].to(torch.float32))  # (d_in, n)
-    args = (xi, dt[..., 0], A, Bv, Cv)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        y, h_final = SelectiveScanFn.apply(*args)
-    else:
-        y, h_final = selective_scan(*args)
-    y = y + xi.to(torch.float32) * p["D"].to(torch.float32)
-    y = y.to(x.dtype) * _silu(z)
-    out = matmul(y, p["w_out"])
+    s = x.shape[1]
+    xi, z, xpad, proj = mamba_in(x, p)
+    out, h_final = mamba_out(xi, z, proj, p, cfg)
     if return_state:
+        k = p["conv_w"].shape[0]
         return out, (h_final, xpad[:, s: s + k - 1].contiguous())
     return out
+
+
+def mamba_decode_in(x: torch.Tensor, conv_buf: torch.Tensor, p: dict):
+    """The decode step up to the scan, over p's channels (as
+    :func:`mamba_in`): x (b, 1, d_model), conv_buf (b, k - 1, d_in') ->
+    (xc (b, d_in'), z (b, 1, d_in'), the new conv window, the x_proj partial
+    (b, 2n + 1))."""
+    d_in = p["w_in"].shape[1] // 2
+    xz = matmul(x, p["w_in"])
+    xi, z = xz[..., :d_in], xz[..., d_in:]  # (b, 1, d_in)
+    win = torch.cat([conv_buf, xi], dim=1)  # (b, k, d_in)
+    xc = _silu(_conv(win.unbind(1), p["conv_w"], p["conv_b"], x.dtype))  # (b, d_in)
+    return xc, z, win[:, 1:], matmul(xc, p["w_x"])
+
+
+def mamba_decode_out(xc: torch.Tensor, z: torch.Tensor, proj: torch.Tensor, h: torch.Tensor,
+                     p: dict, cfg):
+    """The decode step's scan (``selective_scan`` at s = 1, seeded with the
+    carried h) with the summed x_proj, then D, the gate and ``w_out``: (out
+    (b, 1, d_model), a partial sum where p's channels are a shard's, h)."""
+    n = cfg.ssm_state
+    Bv, Cv, dt_raw = proj[:, :n], proj[:, n: 2 * n], proj[:, 2 * n:]
+    dt = _softplus(dt_raw.to(torch.float32) + p["dt_bias"])  # (b, 1) float32
+    A = -torch.exp(p["A_log"].to(torch.float32))
+    y1, h = selective_scan(xc[:, None], dt, A, Bv[:, None], Cv[:, None], h)
+    y = y1[:, 0] + xc.to(torch.float32) * p["D"].to(torch.float32)
+    y = y.to(xc.dtype) * _silu(z[:, 0])
+    return matmul(y, p["w_out"])[:, None], h
 
 
 def mamba_decode_step(
@@ -96,20 +150,8 @@ def mamba_decode_step(
     """O(1) recurrent decode step: the single-position update runs through
     ``selective_scan`` at s = 1, seeded with the carried state ``h``."""
     h, conv_buf = state
-    d_in, n = cfg.d_inner, cfg.ssm_state
-    xz = matmul(x, p["w_in"])
-    xi, z = xz[..., :d_in], xz[..., d_in:]  # (b, 1, d_in)
-    win = torch.cat([conv_buf, xi], dim=1)  # (b, k, d_in)
-    new_buf = win[:, 1:]
-    xc = _silu(_conv(win.unbind(1), p["conv_w"], p["conv_b"], x.dtype))  # (b, d_in)
-    proj = matmul(xc, p["w_x"])
-    Bv, Cv, dt_raw = proj[:, :n], proj[:, n: 2 * n], proj[:, 2 * n:]
-    dt = _softplus(dt_raw.to(torch.float32) + p["dt_bias"])  # (b, 1) float32
-    A = -torch.exp(p["A_log"].to(torch.float32))
-    y1, h = selective_scan(xc[:, None], dt, A, Bv[:, None], Cv[:, None], h)
-    y = y1[:, 0] + xc.to(torch.float32) * p["D"].to(torch.float32)
-    y = y.to(x.dtype) * _silu(z[:, 0])
-    out = matmul(y, p["w_out"])[:, None]
+    xc, z, new_buf, proj = mamba_decode_in(x, conv_buf, p)
+    out, h = mamba_decode_out(xc, z, proj, h, p, cfg)
     return out, (h, new_buf)
 
 

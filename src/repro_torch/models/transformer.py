@@ -173,6 +173,28 @@ def _out_proj(attn: torch.Tensor, lp: Params, cfg: ModelConfig) -> torch.Tensor:
     return matmul(attn.reshape(b, s, -1), lp["wo"].reshape(-1, cfg.d_model))
 
 
+def attention_sublayer(x, lp, window, positions, cfg, block_q, kv_heads=None):
+    """The prompt's attention over lp's q heads (all of them, or a tensor
+    shard's, ``launch/tp_compute.py``): (out (b, s, d_model), k, v), out a
+    partial sum where the heads are a shard's. ``kv_heads``: the index into
+    k's and v's heads of each q head's kv head, where the shard's q heads
+    are not whole groups of its kv heads (the attention then reads those
+    heads, one a q head)."""
+    q, k, v = qkv_project(x, lp, cfg, positions)
+    kq, vq = (k, v) if kv_heads is None else (k[:, :, kv_heads], v[:, :, kv_heads])
+    out = _out_proj(attention_prefill(q, kq, vq, window=window, block_q=block_q), lp, cfg)
+    return out, k, v
+
+
+def mixer_out(cfg: ModelConfig, a_out, s_out):
+    """The token mixer's output from the attention's (``a_out``) and the
+    mamba heads' (``s_out``) as the family has them: the hybrid family's
+    mean of the two."""
+    if cfg.family == "ssm":
+        return s_out
+    return a_out if s_out is None else 0.5 * (a_out + s_out)
+
+
 def _layer_prefill(h, lp, window, positions, cfg, block_q, route=None):
     """One layer over the whole prompt: (h, (k, v) or None, mamba state or
     None). ``route``: the MoE FFN's part of a split microbatch."""
@@ -180,13 +202,11 @@ def _layer_prefill(h, lp, window, positions, cfg, block_q, route=None):
     if cfg.family == "ssm":
         out, st = mamba_block(x, lp["mamba"], cfg, return_state=True)
         return h + out, None, st
-    q, k, v = qkv_project(x, lp, cfg, positions)
-    out = _out_proj(attention_prefill(q, k, v, window=window, block_q=block_q), lp, cfg)
-    st = None
+    out, k, v = attention_sublayer(x, lp, window, positions, cfg, block_q)
+    s_out = st = None
     if cfg.family == "hybrid":
         s_out, st = mamba_block(x, lp["mamba"], cfg, return_state=True)
-        out = 0.5 * (out + s_out)
-    h = _ffn(h + out, lp, cfg, route=route)
+    h = _ffn(h + mixer_out(cfg, out, s_out), lp, cfg, route=route)
     return h, (k, v), st
 
 
@@ -325,6 +345,7 @@ def decode_step(
     for l in range(cfg.n_layers):
         lp = layer_params(params, l)
         xn = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+        out = s_out = None
         if cfg.has_attention:
             q, k_new, v_new = qkv_project(xn, lp, cfg, positions)
             state["k"][l, :, length: length + 1] = k_new
@@ -337,7 +358,6 @@ def decode_step(
                 xn, (state["ssm_h"][l], state["ssm_conv"][l]), lp["mamba"], cfg)
             state["ssm_h"][l] = h_s
             state["ssm_conv"][l] = conv_s
-            out = s_out if cfg.family == "ssm" else 0.5 * (out + s_out)
-        h = _ffn(h + out, lp, cfg, dropless=True)
+        h = _ffn(h + mixer_out(cfg, out, s_out), lp, cfg, dropless=True)
     state["length"] = length + 1
     return _logits(params, h, cfg), state

@@ -130,7 +130,10 @@ def test_swap_out_in_bit_identical():
         dev.append(*_token(rng))
     q = _t(_rand(rng, (1, N_Q, D)))
     out0, mass0 = decode_attention(q, *dev.attend_args())
-    k0, v0, ptr = dev.k.clone(), dev.v.clone(), dev.k.data_ptr()
+    # the old buffer stays referenced, so the allocator cannot hand its
+    # address to swap_in's copy (on the CPU it would, now and then)
+    k_old = dev.k
+    k0, v0, ptr = dev.k.clone(), dev.v.clone(), k_old.data_ptr()
     nbytes = dev.swap_out()
     assert not dev.is_resident and dev.k.device.type == "cpu"
     assert nbytes == 2 * k0.numel() * k0.element_size()  # K and V both travel

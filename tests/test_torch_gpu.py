@@ -2095,3 +2095,79 @@ def test_meta_count_equals_the_live_count(dev, arch):
             ("selective_scan_bwd", "chunked"): 2 * cfg.n_layers} if arch == "hymba-1.5b" else {}
     assert live[2] == {**flash, **scan}
     assert live[0] > 0 and all(k["products"] > 0 for k in live[1].values())
+
+
+def _serve_mesh_run(cfg, params, tokens, feed, mesh=None):
+    """A prefill of ``tokens`` and a decode step on each of ``feed`` (greedy
+    where ``feed`` is an int: that many steps): (logits of each call, the
+    tokens fed, launches after the prefill and at the end)."""
+    from repro_torch.launch.sharding import batch_specs, serve_state_shardings, shard
+    from repro_torch.launch.specs import decode_token_tree
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import transformer as T
+
+    b, s = tokens.shape
+    n = feed if isinstance(feed, int) else len(feed)
+    state = T.init_serve_state(cfg, b, s + n, device=tokens.device)
+    batch, put = {"tokens": tokens}, (lambda t: t)
+    if mesh is not None:
+        ssh = serve_state_shardings(cfg, mesh, b)
+        state = {k: v if k == "length" else shard(v, ssh[k]) for k, v in state.items()}
+        batch = {"tokens": shard(tokens, batch_specs(cfg, mesh, b, s, training=False)["tokens"])}
+        tsh = decode_token_tree(cfg, mesh, b).sharding
+        put = lambda t: shard(t, tsh)  # noqa: E731
+    for mod in (fa_ops, ss_ops):
+        mod.launches = 0
+        mod.launches_by_variant = dict.fromkeys(mod.launches_by_variant, 0)
+    logits, state = make_prefill_step(cfg, mesh=mesh)(params, batch, state)
+    after_prefill = (fa_ops.launches, dict(ss_ops.launches_by_variant))
+    outs, fed = [logits], []
+    for i in range(n):
+        tok = logits.argmax(-1).to(torch.int32) if isinstance(feed, int) else feed[i]
+        fed.append(tok)
+        logits, state = make_decode_step(cfg, mesh=mesh)(params, put(tok), state)
+        outs.append(logits)
+    return outs, fed, after_prefill, dict(ss_ops.launches_by_variant)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "hymba-1.5b"])
+def test_mesh_serve_steps_on_the_card(dev, arch):
+    """A reduced bfloat16 config (d_head 64; hymba at 5 / 5 heads, which do
+    not divide 2: the ceil split and the fallback gathers) served over a
+    1 x 2 mesh of the card, a prefill of 2 x 256 tokens and 4 decode steps
+    teacher-forced on the unsharded step's greedy tokens: flash launches once
+    a layer and shard in the prefill, hymba's scan once a layer and shard
+    in the prefill (chunked) and in each decode step (sequential); the
+    logits within chip_smoke.py's limit (SERVE_MESH_FLOOR_X = 2) of the
+    unsharded step's: twice the unsharded step's own relative L2 from a
+    float32 run of the same weights."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import param_shardings, shard_tree
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    over = dict(n_heads=5, n_kv_heads=5) if arch == "hymba-1.5b" else {}
+    cfg = dataclasses.replace(reduced_config(arch, d_head=64, **over), dtype="bfloat16")
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 256)),
+                             dtype=torch.int32, device=dev)
+    want, feed, _, _ = _serve_mesh_run(cfg, params, tokens, 4)
+    f32, _, _, _ = _serve_mesh_run(dataclasses.replace(cfg, dtype="float32"),
+                                   tree_map(lambda x: x.float(), params), tokens, feed)
+    mesh = make_host_mesh(1, 2, devices=[dev] * 2)
+    got, _, (fa_prefill, ss_prefill), ss_end = _serve_mesh_run(
+        cfg, shard_tree(params, param_shardings(cfg, mesh, fsdp=True)), tokens, feed, mesh)
+    assert fa_prefill == 2 * cfg.n_layers
+    if arch == "hymba-1.5b":
+        assert ss_prefill == {"chunked": 2 * cfg.n_layers, "sequential": 0}
+        assert ss_end == {"chunked": 2 * cfg.n_layers, "sequential": 2 * cfg.n_layers * 4}
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    floor = max(rel(w, f) for w, f in zip(want, f32))
+    worst = max(rel(g, w) for g, w in zip(got, want))
+    assert 0 < floor and worst <= 2.0 * floor, (worst, floor)
