@@ -275,22 +275,25 @@ non-zero exit code:
                 n_q = n_kv); then training over a mesh of the card
                 (``make_train_step(..., mesh=)``, each position of the mesh
                 on cuda:0): (t13) full-width qwen3-1.7b on a 2 x 2 mesh
-                (fsdp) for 3 steps of grad_accum 2 over 4 x 4096 seeded
-                tokens, step 1 held to the unsharded step over the same rows
-                at grad_accum 4 (loss, each leaf's largest difference and
-                cosine within the MESH_* limits; bit for bit printed), the
-                loss falls, 4 x 28 flash forward and backward launches a
-                step and no plain version, step ms beside the unsharded
-                step's, peak memory, the gather, reduce and AdamW-on-blocks
-                ms by events; (t13b) the same weights at (t2)'s batch on a
-                1 x 4 mesh, bit for bit the unsharded step; (t15)
+                (fsdp) for 3 tensor-parallel steps of grad_accum 2 over 4 x
+                4096 seeded tokens, each layer on its tensor shard's
+                weights, step 1 held to the unsharded step over the same
+                rows at grad_accum 4 within twice the bfloat16 floor
+                measured in the run (that step's relative distance from its
+                float32 computation: loss, moments, the params' update), the
+                loss falls, 8 x 28 flash forward and backward launches a
+                step at 8 / 4 heads and no plain version, step ms beside the
+                unsharded step's, peak memory, one layer's gathers, their
+                reduce and AdamW-on-blocks ms by events; (t13b) the same
+                batch on a 2 x 1 mesh, bit for bit the unsharded step; (t15)
                 compressed_psum over [cuda:0] x 4 on four rows' embedding
                 gradients (151936 x 2048 float32): within sum_i scale_i / 2
                 of the float32 sum, bytes on the wire against float32, ms by
                 events; (t14) granite-moe-3b-a800m at MOE_MESH_LAYERS layers
-                on the 2 x 2 mesh for one step: the split keeps and drops
-                exactly the unsharded step's assignments, the loss within
-                (t13)'s limit; (t16) at (t4)'s restart size a 2 x 2-sharded
+                on the 2 x 2 mesh for one tensor-parallel step (20 experts a
+                shard): the split keeps and drops exactly what the
+                microbatch's dispatch of its routing does, the loss within
+                MOE_MESH_LOSS_REL of the unsharded step's; (t16) at (t4)'s restart size a 2 x 2-sharded
                 checkpoint restored onto 2 x 2 and 1 x 4 bit for bit, and
                 one more mesh step from it bit for bit the uninterrupted
                 run's; then serving over a mesh of the card (v):
@@ -510,30 +513,32 @@ RESTART_ARCH = "qwen3-1.7b"
 RESTART_OVERRIDES = dict(n_layers=4, d_model=512, d_ff=1536, vocab_size=4096, n_heads=4,
                          n_kv_heads=2, d_head=128, dtype="bfloat16")
 # training over a mesh (t13)-(t16): qwen3-1.7b on a 2 x 2 mesh of the card
-# for MESH_STEPS steps of grad_accum MESH_ACCUM over MESH_BATCH rows of
-# TRAIN_SEQ tokens (one row a dp shard a microbatch), granite-moe-3b-a800m
-# at MOE_MESH_LAYERS layers over MESH_BATCH rows of MOE_MESH_SEQ (its
-# unsharded reference runs 2-row microbatches: 4096 tokens each, (t11)'s
-# microbatch; 16 layers peaked at 44.0 GiB unsharded on an H100, and the mesh
-# adds a gathered bfloat16 copy of the params)
+# for MESH_STEPS tensor-parallel steps of grad_accum MESH_ACCUM over
+# MESH_BATCH rows of TRAIN_SEQ tokens (one row a dp shard a microbatch),
+# granite-moe-3b-a800m at MOE_MESH_LAYERS layers over MESH_BATCH rows of
+# MOE_MESH_SEQ (its unsharded reference runs 2-row microbatches: 4096 tokens
+# each, (t11)'s microbatch; 16 layers peaked at 44.0 GiB unsharded on an
+# H100)
 MESH_BATCH, MESH_ACCUM, MESH_STEPS = 4, 2, 3
 MOE_MESH_LAYERS, MOE_MESH_SEQ = 16, 2048
-# (t13)'s step 1 against the unsharded step over the same rows: each dp
-# shard's rows are one unsharded microbatch (the same kernels on the same
-# rows, the same bfloat16 gradients), and the mesh sums them in float32 as
-# half-weighted parts where the unsharded step sums whole ones and divides
-# by 4 (scaling by 1/2 is exact): the same bits are expected. The limits
-# allow float32 sums in other orders: the loss within 1e-6 relative, the
-# moments within 1e-6 of each leaf's largest element, the bfloat16 params
-# within one bfloat16 ulp (2^-8) of it (an Adam step on a gradient a few
-# float32 ulps apart rounding the other way), every leaf at cosine
-# >= 0.99999
-MESH_LOSS_REL, MESH_PARAM_REL, MESH_MOMENT_REL, MESH_MIN_COS = 1e-6, 2.0 ** -8, 1e-6, 0.99999
+# (t13)'s step 1 against the unsharded step over the same rows (each dp
+# part's rows one unsharded microbatch): the tensor shards' row-parallel
+# partials round to bfloat16 before their float32 sum, as GSPMD's do, so the
+# two are two bfloat16 roundings of one step. The limit is MESH_FLOOR_X
+# times the floor measured in the run, the unsharded step's own relative
+# distance from a float32 computation of the same step (moments, params'
+# update, and the positions' log-likelihoods for the loss), as (v) holds
+# serving. (t13b), one tensor shard: the
+# parts' gradients weighed by an exact 1/2 and summed in float32 are the
+# microbatches' summed and divided by 4, bit for bit
+MESH_FLOOR_X = 2.0
 # (t14)'s loss against the unsharded step: a part's GEMMs run over 2048
 # rows where the microbatch's run over 4096, and cuBLAS sums those in other
 # orders, so a router logit near a tie flips and the queue positions after
-# it shift (an H100 run: 1.8 % of granite's assignments kept or dropped
-# otherwise, the loss 7.5e-6 apart); 1e-4 leaves ~13x room
+# it shift (an H100 run of the dp-only mesh step: 1.8 % of granite's
+# assignments kept or dropped otherwise, the loss 7.5e-6 apart; of the
+# tensor-parallel one, whose shards' bfloat16 partials add (t13)'s
+# rounding: 4.0 % and 1.63e-5); 1e-4 leaves ~6x room
 MOE_MESH_LOSS_REL = 1e-4
 # (v) serving over a mesh of the card (make_prefill_step / make_decode_step
 # with mesh=, launch/tp_compute.py): a prompt then SERVE_MESH_DECODE decode
@@ -5226,45 +5231,216 @@ def _mesh_state(cfg, params, mesh):
     return shard_tree(params, sh), opt, sh
 
 
-def _mesh_agreement(tag, got_p, got_o, ref_p, ref_o, loss, ref_loss):
+def _mesh_agreement(got_p, got_o, ref_p, ref_o, old_p):
     """The mesh step's new params and moments (ShardedTensor trees) against
-    the unsharded step's (host trees): each leaf's largest difference over
-    its largest element, its cosine, and bit for bit. Returns numbers."""
+    the unsharded step's (host trees): bit for bit, each kind's largest leaf
+    difference over the leaf's largest element, the smallest cosine, and
+    the relative L2 of the moments and of the params' update (new minus
+    ``old_p``, the params before the step), over the whole tree and leaf by
+    leaf (``leaf_l2``: kind -> [(leaf, relative L2)] in the tree's order).
+    Returns numbers."""
     import torch
 
     from repro_torch.launch.sharding import unshard
     from repro_torch.tree import path_key, tree_flatten_with_path, tree_leaves
 
     worst = {k: (0.0, "every leaf") for k in ("params", "m", "v")}
-    min_cos, bitwise, leaves = 1.0, True, 0
+    sums = {k: [0.0, 0.0] for k in ("update", "m", "v")}  # sum (got - ref)^2, sum ref^2
+    leaf_l2 = {k: [] for k in ("update", "m", "v")}
+    min_cos, bitwise, leaves = (1.0, "every leaf"), True, 0
+    olds = tree_leaves(old_p)
     for kind, got, ref in (("params", got_p, ref_p), ("m", got_o["m"], ref_o["m"]),
                            ("v", got_o["v"], ref_o["v"])):
-        for (path, g), r in zip(tree_flatten_with_path(got), tree_leaves(ref)):
+        for i, ((path, g), r) in enumerate(zip(tree_flatten_with_path(got), tree_leaves(ref))):
             g = unshard(g, DEVICE)
             r = r.to(DEVICE)
             leaves += 1
             bitwise &= g.dtype == r.dtype and torch.equal(g, r)
-            gf, rf = g.float(), r.float()
+            gf, rf = g.double(), r.double()
             rel = ((gf - rf).abs().max() / rf.abs().max().clamp(min=1e-30)).item()
             if rel > worst[kind][0]:
                 worst[kind] = (rel, path_key(path))
-            if rf.abs().max() > 0 and gf.abs().max() > 0:  # in float64: equal leaves give 1
-                gd, rd = gf.reshape(-1).double(), rf.reshape(-1).double()
-                min_cos = min(min_cos, (gd @ rd / (gd.norm() * rd.norm())).item())
-                del gd, rd
+            if rf.abs().max() > 0 and gf.abs().max() > 0:
+                gd, rd = gf.reshape(-1), rf.reshape(-1)
+                cos = (gd @ rd / (gd.norm() * rd.norm())).item()
+                if cos < min_cos[0]:
+                    min_cos = (cos, f"{kind} {path_key(path)}")
+            k = kind
+            if kind == "params":
+                old = olds[i].double()
+                gf, rf, k = gf - old, rf - old, "update"
+            a, b = ((gf - rf) ** 2).sum().item(), (rf ** 2).sum().item()
+            sums[k][0] += a
+            sums[k][1] += b
+            leaf_l2[k].append((path_key(path), (a / max(b, 1e-300)) ** 0.5))
             del g, r, gf, rf
-    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
-    print(f"{tag}: against the unsharded step: loss {loss:.6f} / {ref_loss:.6f} (relative "
-          f"{loss_rel:.3g}, limit {MESH_LOSS_REL:g}); largest leaf difference over its largest "
-          f"element: params {worst['params'][0]:.3g} ({worst['params'][1]}, limit "
-          f"{MESH_PARAM_REL:g}), m {worst['m'][0]:.3g} ({worst['m'][1]}), v {worst['v'][0]:.3g} "
-          f"({worst['v'][1]}) (moments' limit {MESH_MOMENT_REL:g}); smallest cosine {min_cos:.7f} "
-          f"(limit {MESH_MIN_COS}); bit for bit: {bitwise} ({leaves} leaves)")
-    if (loss_rel > MESH_LOSS_REL or worst["params"][0] > MESH_PARAM_REL
-            or max(worst["m"][0], worst["v"][0]) > MESH_MOMENT_REL or min_cos < MESH_MIN_COS):
-        fail(f"{tag}: the mesh step disagrees with the unsharded step")
-    return dict(loss_rel=loss_rel, param_rel=worst["params"][0], m_rel=worst["m"][0],
-                v_rel=worst["v"][0], min_cos=min_cos, bit_for_bit=bitwise)
+    return dict(rel_l2={k: (a / max(b, 1e-300)) ** 0.5 for k, (a, b) in sums.items()},
+                leaf_l2=leaf_l2, max_rel={k: v[0] for k, v in worst.items()},
+                max_rel_leaf={k: v[1] for k, v in worst.items()}, min_cos=min_cos[0],
+                min_cos_leaf=min_cos[1], bit_for_bit=bitwise, leaves=leaves)
+
+
+def _f32_floor(cfg, params, batch, ref_p, ref_o, accum):
+    """The bfloat16 floor of (t13): the unsharded bfloat16 step's (``ref_p``,
+    ``ref_o``, host trees) relative distance from a float32 computation of
+    the same step, of the first moments, the second moments and the params'
+    update, each a relative L2 over the whole tree and over each leaf
+    (``leaf``: kind -> [relative L2] in the tree's order), and of the loss:
+    the relative L2 of the positions' negative log-likelihoods under the
+    bfloat16 and float32 params (``_position_nll``). The float32 step is
+    its first half, the loss and gradient of float32 copies of ``params``
+    (``make_value_and_grad`` with ``accum`` microbatches, remat), and
+    AdamW's first update from zero moments leaf by leaf (m = (1 - b1) c g,
+    v = (1 - b2) (c g)^2, the update -lr (m-hat / (sqrt(v-hat) + eps) + wd
+    p), c the float32 gradient's clip), so no float32 moment tree sits on
+    the card whole. Returns (the floor, the float32 loss, the bfloat16
+    params' positions' negative log-likelihoods)."""
+    import torch
+
+    from repro_torch.launch.steps import make_value_and_grad
+    from repro_torch.train.optimizer import clip_scale
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(lambda p: p.float(), params)
+    nll16, nll32 = (_position_nll(c, p, batch) for c, p in ((cfg, params), (cfg32, params32)))
+    loss32, g32 = make_value_and_grad(cfg32, grad_accum=accum, block_q=512, remat=True)(
+        params32, batch)
+    del params32
+    c = clip_scale(g32)
+    b1, b2, eps, wd = 0.9, 0.95, 1e-8, 0.1  # optimizer.adamw_update's defaults
+    sums = {k: [0.0, 0.0] for k in ("update", "m", "v")}
+    leaf = {k: [] for k in sums}
+    for g, p, rp, rm, rv in zip(tree_leaves(g32), tree_leaves(params), tree_leaves(ref_p),
+                                tree_leaves(ref_o["m"]), tree_leaves(ref_o["v"])):
+        gc = g * c
+        m, v = (1 - b1) * gc, (1 - b2) * torch.square(gc)
+        pf = p.float()
+        upd = -TRAIN_LR * ((m / (1 - b1)) / (torch.sqrt(v / (1 - b2)) + eps) + wd * pf)
+        for k, want, got in (("m", m, rm.to(DEVICE)), ("v", v, rv.to(DEVICE)),
+                             ("update", upd, rp.to(DEVICE).float() - pf)):
+            a = ((got.double() - want.double()) ** 2).sum().item()
+            b = (want.double() ** 2).sum().item()
+            sums[k][0] += a
+            sums[k][1] += b
+            leaf[k].append((a / max(b, 1e-300)) ** 0.5)
+        del gc, m, v, pf, upd
+    del g32
+    floor = {k: (a / max(b, 1e-300)) ** 0.5 for k, (a, b) in sums.items()}
+    floor.update(loss=_rel_l2(nll16, nll32), leaf=leaf)
+    return floor, float(loss32), nll16
+
+
+def _position_nll(cfg, params, batch):
+    """Each position's negative log-likelihood of its label under
+    ``params``, in the batch's row order, float32: forwards without grad, a
+    row at a time."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    rows = []
+    with torch.no_grad():
+        for r in range(batch["labels"].shape[0]):
+            mb = {k: v[r: r + 1] for k, v in batch.items()}
+            logp = torch.log_softmax(T.forward(params, mb, cfg), dim=-1)
+            rows.append(-logp.gather(-1, mb["labels"][..., None].long())[..., 0].reshape(-1))
+            del logp
+    return torch.cat(rows).float()
+
+
+def _recorded_nll():
+    """Wraps ``tp_compute.vocab_cross_entropy`` to record, from each call's
+    vocabulary shards' logits, its positions' negative log-likelihoods
+    (each row's log-sum-exp joined over the shards, less the label's logit
+    from the shard that owns it), in the order of the calls: a mesh train
+    step's dp parts, in its batch's row order. Returns (the record, a
+    function that restores the wrapper)."""
+    import torch
+
+    from repro_torch.launch import tp_compute as TPC
+
+    seen, real = [], TPC.vocab_cross_entropy
+
+    def recording(zs, labels, mask, home, n, shards=None):
+        with torch.no_grad():
+            lse, zl = [], torch.zeros(labels.shape, dtype=torch.float32, device=home)
+            for t in sorted(zs):
+                z, v0 = zs[t]
+                lse.append(torch.logsumexp(z, dim=-1).to(home))
+                idx = labels.to(z.device).long() - v0
+                own = (idx >= 0) & (idx < z.shape[-1])
+                zl += torch.where(own, z.gather(-1, idx.clamp(0, z.shape[-1] - 1)[..., None])
+                                  [..., 0], 0.0).to(home)
+            seen.append((torch.logsumexp(torch.stack(lse), dim=0) - zl).reshape(-1))
+        return real(zs, labels, mask, home, n, shards)
+
+    TPC.vocab_cross_entropy = recording
+
+    def restore():
+        TPC.vocab_cross_entropy = real
+
+    return seen, restore
+
+
+def _hold_to_floor(tag, agree, floor) -> dict:
+    """Fails unless the mesh step's distance from the unsharded step is
+    within MESH_FLOOR_X x ``floor`` (``_f32_floor``), like for like: the
+    positions' negative log-likelihoods' relative L2 (``agree["loss"]``)
+    against the positions' floor; the moments' and the update's relative
+    L2 over the whole tree against the tree's floor, and over each leaf
+    against the larger of that leaf's own floor and the tree's (a leaf the
+    unsharded step computes almost exactly in bfloat16, a float32 norm
+    scale, or one of a few dozen elements, such as hymba's per-layer
+    ``dt_bias``, has an own floor far below the step's rounding, which the
+    mesh step's other roundings upstream move it by). Prints the readings,
+    the limits and each kind's worst leaf; returns the limits."""
+    limits = {k: MESH_FLOOR_X * floor[k] for k in ("loss", "m", "v", "update")}
+    readings = {"loss": agree["loss"], **agree["rel_l2"]}
+    worst, failed = {}, [k for k in limits if readings[k] > limits[k]]
+    for k, got in agree["leaf_l2"].items():
+        ratios = []
+        for (name, x), own in zip(got, floor["leaf"][k]):
+            f = max(own, floor[k])
+            ratios.append((x / f if f > 0 else (0.0 if x == 0 else math.inf), name, x, own))
+        worst[k] = max(ratios)
+        failed += [f"{k} {name}" for r, name, *_ in ratios if r > MESH_FLOOR_X]
+    print(f"{tag}: step 1 against the unsharded step, relative L2 (the loss: of the "
+          f"positions' negative log-likelihoods): {_fmt(readings)}; limits ({MESH_FLOOR_X:g}x "
+          f"the floor): {_fmt(limits)}; each leaf against {MESH_FLOOR_X:g}x the larger of its "
+          f"own floor and the tree's, the worst of each kind (reading, own floor, reading over "
+          f"the floor held): " + ", ".join(f"{k} {name} {x:.3g}, {own:.3g}, {r:.3g}"
+                                           for k, (r, name, x, own) in worst.items()))
+    if failed:
+        fail(f"{tag}: the tensor-parallel step is farther from the unsharded step than "
+             f"{MESH_FLOOR_X:g}x the bfloat16 floor: {failed}")
+    return dict(limits, worst_leaf_ratio={k: w[0] for k, w in worst.items()},
+                worst_leaf={k: w[1] for k, w in worst.items()})
+
+
+def _flash_shapes():
+    """Wraps the flash wrappers to record each launch's (q heads, kv
+    heads); returns (the record, a function that restores them). The
+    launch counts are the wrappers' own."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    seen = {"forward": set(), "backward": set()}
+    real_f, real_b = fa.flash_attention, fa.flash_attention_bwd
+
+    def fwd(q, k, v, **kw):
+        seen["forward"].add((q.shape[1], k.shape[1], fa.variant_for(q.dtype, q.shape[-1])))
+        return real_f(q, k, v, **kw)
+
+    def bwd(q, k, v, *a, **kw):
+        seen["backward"].add((q.shape[1], k.shape[1], fa.bwd_variant_for(q.dtype, q.shape[-1])))
+        return real_b(q, k, v, *a, **kw)
+
+    fa.flash_attention, fa.flash_attention_bwd = fwd, bwd
+
+    def restore():
+        fa.flash_attention, fa.flash_attention_bwd = real_f, real_b
+
+    return seen, restore
 
 
 def _flash_step_counts(tag, expect):
@@ -5299,35 +5475,78 @@ def _timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def _mesh_join_ms(cfg, ps, opt, mesh):
+    """(t13)'s joins alone, by events: one layer's weight slices gathered
+    for every mesh position (``MeshServe._weights`` under grad, the
+    forward of ``_WeightGather``), then the same with each slice's backward
+    (a gradient of ones added into the float32 block accumulators, the
+    reduce-scatter), and AdamW on the blocks (``mesh_update``). Returns
+    (gather ms, gather and reduce ms) a layer, and the update's ms."""
+    import torch
+
+    from repro_torch.launch.steps import mesh_update
+    from repro_torch.launch.tp_compute import GradSink, MeshServe, _Part, _Train
+    from repro_torch.tree import tree_leaves
+
+    model = MeshServe(cfg, mesh)
+
+    def layer(sink, backward):
+        for j in range(model.n_dp):
+            part = _Part(j, slice(0, 1), mesh.devices[model.pos(j, 0)], model.pos(j, 0), None,
+                         0, False, 1.0, train=_Train(sink, 0.5))
+            part.train.open_scope()
+            with torch.enable_grad():
+                for t in range(model.n_tp):
+                    pos = model.pos(j, t)
+                    w = tree_leaves(model._weights(ps, 0, model.shards[t], mesh.devices[pos],
+                                                   pos, part))
+                    if backward:
+                        torch.autograd.backward(w, [torch.ones_like(x) for x in w])
+
+    sink = GradSink(ps)  # the gathers' scopes stay open: this sink is never finished
+    gather_ms = device_ms(lambda: layer(sink, False), reps=5)
+    del sink
+    sink = GradSink(ps)
+    both_ms = device_ms(lambda: layer(sink, True), reps=5)
+    grads = sink.finish(lambda st, a: a)
+    one = torch.ones((), dtype=torch.float32, device=DEVICE)
+    update_ms = device_ms(lambda: mesh_update(grads, opt, ps, lr=TRAIN_LR, scale=one), reps=3)
+    del sink, grads
+    return gather_ms, both_ms, update_ms
+
+
 def phase_train_mesh_qwen(cfg, params, smi_line):
     """(t13) full-width qwen3-1.7b on a 2 x 2 mesh of the card ([cuda:0] x
-    4, fsdp): MESH_STEPS steps of grad_accum MESH_ACCUM over MESH_BATCH x
-    TRAIN_SEQ seeded tokens, step 1 held to the unsharded step over the same
-    rows with grad_accum MESH_BATCH (each dp shard's rows are then one
-    unsharded microbatch); the step ms beside the unsharded step's, peak
-    memory, the gather, reduce and update ms by events, the flash launches
-    a step. (t13b) the same weights at (t2)'s batch on a 1 x 4 mesh: one
-    step bit for bit the unsharded step's. Returns ({kernel: {path:
-    launches}}, numbers)."""
+    4, fsdp): MESH_STEPS tensor-parallel steps of grad_accum MESH_ACCUM over
+    MESH_BATCH x TRAIN_SEQ seeded tokens, each layer on its tensor shard's
+    8 / 4 heads, 3072 d_ff columns and 75968 vocabulary columns. Step 1 held
+    to the unsharded step over the same rows with grad_accum MESH_BATCH
+    (each dp part's rows one unsharded microbatch), within MESH_FLOOR_X x
+    the floor measured here: that step's own relative distance from a
+    float32 computation of it (``_f32_floor``), for the loss, the moments
+    and the params' update. The step ms beside the unsharded step's, peak
+    memory, the per-layer gathers, their reduce and AdamW by events, the
+    flash launches and their heads a step. (t13b) the same batch on a 2 x 1
+    mesh (one tensor shard): one step bit for bit the unsharded step's.
+    Returns ({kernel: {path: launches}}, numbers)."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.launch.mesh import dp_axes, make_host_mesh, shard_devices
-    from repro_torch.launch.steps import (make_train_step, mesh_accumulate, mesh_gather,
-                                          mesh_update)
-    from repro_torch.train.optimizer import adamw_init, clip_scale
-    from repro_torch.tree import tree_map
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train.optimizer import adamw_init
 
     tag = "train (t13)"
+    n_tp = 2
     batch = _train_batch(cfg, MESH_BATCH, TRAIN_SEQ, 29)
-    per_row = MESH_BATCH * cfg.n_layers  # flash calls a step: one a layer and row
-    expect = {"flash forward": per_row, "flash backward": per_row}
+    per_row = MESH_BATCH * cfg.n_layers  # the unsharded step: one call a layer and row
+    per_step = per_row * n_tp  # the mesh: one a layer, dp part, tensor shard and microbatch
     paths = {"flash_attention": {}, "flash_attention_bwd": {}}
     ref_step = make_train_step(cfg, grad_accum=MESH_BATCH, remat=False, lr=TRAIN_LR)
     ref_step(params, adamw_init(params), batch)  # warm-up, its result dropped
     free_weights()
     torch.cuda.reset_peak_memory_stats()
-    read = _flash_step_counts(tag, expect)
+    read = _flash_step_counts(tag, {"flash forward": per_row, "flash backward": per_row})
     (rp, ro, rm), ref_ms = _timed(lambda: ref_step(params, adamw_init(params), batch))
     read()
     ref_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -5337,17 +5556,34 @@ def phase_train_mesh_qwen(cfg, params, smi_line):
     free_weights()
     print(f"{tag}: the unsharded step (grad_accum {MESH_BATCH}, one row a microbatch): loss "
           f"{ref_loss:.6f}, {ref_ms:.1f} ms, peak {ref_peak:.1f} GiB ({smi_line})")
+    t0 = time.perf_counter()
+    floor, loss32, ref_nll = _f32_floor(cfg, params, batch, ref_p, ref_o, MESH_BATCH)
+    free_weights()
+    print(f"{tag}: the bfloat16 floor, the unsharded step's relative distance from its float32 "
+          f"computation (float32 loss {loss32:.6f}): "
+          f"{_fmt({k: v for k, v in floor.items() if k != 'leaf'})} "
+          f"({time.perf_counter() - t0:.1f} s)")
 
-    mesh = make_host_mesh(2, 2, devices=[torch.device(DEVICE, 0)] * 4)
-    ps, opt, sh = _mesh_state(cfg, params, mesh)
+    mesh = make_host_mesh(2, n_tp, devices=[torch.device(DEVICE, 0)] * 4)
+    ps, opt, _ = _mesh_state(cfg, params, mesh)
     step = make_train_step(cfg, grad_accum=MESH_ACCUM, remat=False, lr=TRAIN_LR, mesh=mesh)
-    losses, step_ms, agree = [], [], None
-    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, agree, heads, peak = [], [], None, None, 0.0
     with plain_versions_counted({"flash_attention": fa}) as plain_calls:
         for i in range(MESH_STEPS):
-            read = _flash_step_counts(f"{tag} step {i}", expect)
-            (ps, opt, metrics), ms = _timed(lambda: step(ps, opt, batch))
+            torch.cuda.reset_peak_memory_stats()
+            read = _flash_step_counts(f"{tag} step {i}", {"flash forward": per_step,
+                                                          "flash backward": per_step})
+            if i == 0:
+                heads, restore = _flash_shapes()
+                nll, restore_nll = _recorded_nll()
+            try:
+                (new_ps, new_opt, metrics), ms = _timed(lambda: step(ps, opt, batch))
+            finally:
+                if i == 0:
+                    restore()
+                    restore_nll()
             launched = read()
+            peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)  # the step's own
             losses.append(float(metrics["loss"]))
             step_ms.append(ms)
             if plain_calls or not math.isfinite(losses[-1]):
@@ -5359,69 +5595,151 @@ def phase_train_mesh_qwen(cfg, params, smi_line):
                 for key, n in launched[k].items():
                     paths[k][key] = paths[k].get(key, 0) + n
             if i == 0:
-                agree = _mesh_agreement(tag, ps, opt, ref_p, ref_o, losses[0], ref_loss)
-                del ref_p, ref_o
-    peak = torch.cuda.max_memory_allocated() / 2**30
+                agree = _mesh_agreement(new_ps, new_opt, ref_p, ref_o, params)
+                agree["loss"] = _rel_l2(torch.cat(nll), ref_nll)
+                agree["mean_loss"] = abs(losses[0] - ref_loss) / abs(ref_loss)
+            ps, opt = new_ps, new_opt
+            del new_ps, new_opt
+    want_heads = {(cfg.n_heads // n_tp, cfg.n_kv_heads // n_tp, "wgmma")}
+    if heads["forward"] != want_heads or heads["backward"] != want_heads:
+        fail(f"{tag}: flash ran at (q heads, kv heads, variant) {heads}, expected {want_heads}")
+    limits = _hold_to_floor(tag, agree, floor)
+    print(f"{tag}: the mean loss's relative difference {agree['mean_loss']:.3g}; largest leaf "
+          f"difference over its largest element {_fmt(agree['max_rel'])}, smallest cosine "
+          f"{agree['min_cos']:.7f} ({agree['min_cos_leaf']}); bit for bit: {agree['bit_for_bit']} "
+          f"({agree['leaves']} leaves); flash at (q, kv heads, variant) "
+          f"{sorted(heads['forward'])} forward, {sorted(heads['backward'])} backward")
     if not losses[-1] < losses[0]:
         fail(f"{tag}: the loss did not fall over {MESH_STEPS} steps: {losses}")
-    # the step's collective-shaped parts alone, by events: the gather of the
-    # params, one dp shard's bfloat16 gradient added into the float32
-    # accumulator (the bfloat16 params stand in for it), AdamW on the blocks
-    devs = shard_devices(mesh, dp_axes(mesh))
-    gather_ms = device_ms(lambda: mesh_gather(ps, devs), reps=5)
-    full = mesh_gather(ps, devs)[devs[0]]
-    acc = mesh_accumulate(None, full, 0.5)
-    reduce_ms = device_ms(lambda: mesh_accumulate(acc, full, 0.5), reps=5)
-    scale = clip_scale(acc)
-    update_ms = device_ms(lambda: mesh_update(acc, opt, ps, lr=TRAIN_LR, scale=scale), reps=3)
-    del full, acc
+    gather_ms, both_ms, update_ms = _mesh_join_ms(cfg, ps, opt, mesh)
     warm = statistics.median(step_ms[1:])
     tokens = MESH_BATCH * TRAIN_SEQ
-    print(f"{tag}: {cfg.name} on a 2 x 2 mesh of the card: loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f} over {MESH_STEPS} steps; warm step {warm:.1f} ms (median of steps "
-          f"1-{MESH_STEPS - 1}) against the unsharded step's {ref_ms:.1f} ms over the same rows, "
-          f"{tokens / warm * 1e3:,.0f} tokens/s; peak {peak:.1f} GiB (unsharded "
-          f"{ref_peak:.1f}); by events: gather {gather_ms:.2f} ms, reduce of one shard's "
-          f"gradients {reduce_ms:.2f} ms (x {MESH_BATCH} a step), AdamW on the blocks "
-          f"{update_ms:.2f} ms; flash {per_row} forward and {per_row} backward launches a step "
-          f"({smi_line})")
+    print(f"{tag}: {cfg.name} on a 2 x 2 mesh of the card, tensor-parallel: loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f} over {MESH_STEPS} steps; warm step {warm:.1f} ms (median of "
+          f"steps 1-{MESH_STEPS - 1}) against the unsharded step's {ref_ms:.1f} ms over the same "
+          f"rows, {tokens / warm * 1e3:,.0f} tokens/s; peak {peak:.1f} GiB (unsharded "
+          f"{ref_peak:.1f}; the dp-only 2 x 2 step, whole params gathered on each dp shard: "
+          f"53.0 on an H100); "
+          f"by events: one layer's weight slices gathered for the 4 positions {gather_ms:.2f} ms, "
+          f"with their gradients' reduce {both_ms:.2f} ms (x {cfg.n_layers} layers x "
+          f"{MESH_ACCUM} microbatches a step), AdamW on the blocks {update_ms:.2f} ms; flash "
+          f"{per_step} forward and {per_step} backward launches a step ({smi_line})")
     numbers = dict(losses=losses, step_ms=step_ms, warm_step_ms=warm, unsharded_step_ms=ref_ms,
-                   peak_gib=peak, unsharded_peak_gib=ref_peak, gather_ms=gather_ms,
-                   reduce_ms=reduce_ms, update_ms=update_ms, agreement=agree)
+                   peak_gib=peak, unsharded_peak_gib=ref_peak, layer_gather_ms=gather_ms,
+                   layer_gather_reduce_ms=both_ms, update_ms=update_ms,
+                   floor={k: v for k, v in floor.items() if k != "leaf"}, limits=limits,
+                   agreement={k: v for k, v in agree.items() if k != "leaf_l2"},
+                   flash_heads={k: sorted(v) for k, v in heads.items()})
     del ps, opt, metrics
     free_weights()
 
     tag = "train (t13b)"
-    batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 23)
-    kw = dict(grad_accum=TRAIN_ACCUM, remat=False, lr=TRAIN_LR)
-    per = TRAIN_ACCUM * cfg.n_layers
-    make_train_step(cfg, **kw)(params, adamw_init(params), batch)  # warm-up, dropped
-    free_weights()
-    read = _flash_step_counts(tag, {"flash forward": per, "flash backward": per})
-    (rp, ro, rm), ref_ms = _timed(lambda: make_train_step(cfg, **kw)(params, adamw_init(params),
-                                                                      batch))
-    read()
-    ref_loss = float(rm["loss"])
-    ref_p, ref_o = _host_tree(rp), _host_tree({"m": ro["m"], "v": ro["v"]})
-    del rp, ro, rm
-    free_weights()
-    mesh = make_host_mesh(1, 4, devices=[torch.device(DEVICE, 0)] * 4)
+    mesh = make_host_mesh(2, 1, devices=[torch.device(DEVICE, 0)] * 2)
     ps, opt, _ = _mesh_state(cfg, params, mesh)
-    read = _flash_step_counts(tag, {"flash forward": per, "flash backward": per})
-    (ps, opt, metrics), ms = _timed(lambda: make_train_step(cfg, mesh=mesh, **kw)(ps, opt, batch))
+    read = _flash_step_counts(tag, {"flash forward": per_row, "flash backward": per_row})
+    (ps, opt, metrics), ms = _timed(lambda: make_train_step(
+        cfg, grad_accum=MESH_ACCUM, remat=False, lr=TRAIN_LR, mesh=mesh)(ps, opt, batch))
     launched = read()
     for k in paths:
         for key, n in launched[k].items():
             paths[k][key] = paths[k].get(key, 0) + n
-    print(f"{tag}: {cfg.name} on a 1 x 4 mesh (one dp shard), (t2)'s batch: {ms:.1f} ms against "
-          f"the unsharded {ref_ms:.1f} ms ({smi_line})")
-    b_agree = _mesh_agreement(tag, ps, opt, ref_p, ref_o, float(metrics["loss"]), ref_loss)
-    if not b_agree["bit_for_bit"]:
-        fail(f"{tag}: the one-dp-shard mesh step is not bit for bit the unsharded step")
-    numbers["one_dp_shard"] = dict(step_ms=ms, unsharded_step_ms=ref_ms, **b_agree)
+    b_agree = _mesh_agreement(ps, opt, ref_p, ref_o, params)
+    print(f"{tag}: {cfg.name} on a 2 x 1 mesh (one tensor shard, one row a dp part) over "
+          f"(t13)'s batch: {ms:.1f} ms against the unsharded {ref_ms:.1f} ms; the loss "
+          f"{float(metrics['loss']):.6f} against {ref_loss:.6f}; bit for bit: "
+          f"{b_agree['bit_for_bit']} ({b_agree['leaves']} leaves) ({smi_line})")
+    if not (b_agree["bit_for_bit"] and float(metrics["loss"]) == ref_loss):
+        fail(f"{tag}: the mesh step with one tensor shard is not bit for bit the unsharded step")
+    numbers["one_tensor_shard"] = dict(step_ms=ms, unsharded_step_ms=ref_ms, **b_agree)
     del ps, opt, metrics, ref_p, ref_o
     free_weights()
     return paths, numbers
+
+
+def phase_train_mesh_hybrid(smi_line):
+    """hymba-1.5b at full width on a 1 x 2 mesh of the card, one
+    tensor-parallel step of grad_accum TRAIN_ACCUM over TRAIN_BATCH x
+    TRAIN_SEQ seeded tokens: its 25 heads split ceil-wise 13 / 12 over the
+    two tensor shards (each shard's kv heads read one a q head through
+    ``kv_index``), its 3200 mamba channels 1600 a shard through the scan's
+    forward with carries and its backward, no plain version. Held as (t13):
+    within MESH_FLOOR_X x the unsharded step's relative distance from its
+    float32 computation (the positions' log-likelihoods, the moments and
+    the params' update, over the tree and leaf by leaf). Not in the main
+    run (its time limit): ``scripts/phase.py train_mesh_hymba``. Returns
+    ({kernel: {path: launches}}, numbers)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.selective_scan import ops as ss
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train.optimizer import adamw_init
+
+    tag = "train (hymba mesh)"
+    cfg = get_config(SSM_TRAIN_NAME)
+    params = _init_weights(tag, cfg)
+    batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 37)
+    kw = dict(grad_accum=TRAIN_ACCUM, remat=False, lr=TRAIN_LR)
+    ref_step = make_train_step(cfg, **kw)
+    ref_step(params, adamw_init(params), batch)  # warm-up, dropped
+    free_weights()
+    (rp, ro, rm), ref_ms = _timed(lambda: ref_step(params, adamw_init(params), batch))
+    ref_loss = float(rm["loss"])
+    ref_p, ref_o = _host_tree(rp), _host_tree({"m": ro["m"], "v": ro["v"]})
+    del rp, ro, rm
+    free_weights()
+    floor, loss32, ref_nll = _f32_floor(cfg, params, batch, ref_p, ref_o, TRAIN_ACCUM)
+    print(f"{tag}: the unsharded step {ref_ms:.1f} ms, loss {ref_loss:.6f} (float32 "
+          f"{loss32:.6f}); the bfloat16 floor "
+          f"{_fmt({k: v for k, v in floor.items() if k != 'leaf'})} ({smi_line})")
+    n_tp = 2
+    mesh = make_host_mesh(1, n_tp, devices=[torch.device(DEVICE, 0)] * n_tp)
+    ps, opt, _ = _mesh_state(cfg, params, mesh)
+    step = make_train_step(cfg, mesh=mesh, **kw)
+    per = TRAIN_ACCUM * cfg.n_layers * n_tp  # one a layer, microbatch and tensor shard
+    with plain_versions_counted({"flash_attention": fa, "selective_scan": ss}) as plain_calls:
+        reset_counts(fa, ss)
+        fa.bwd_launches = ss.bwd_launches = 0
+        fa.bwd_launches_by_variant = dict.fromkeys(fa.bwd_launches_by_variant, 0)
+        heads, restore = _flash_shapes()
+        nll, restore_nll = _recorded_nll()
+        try:
+            (new_ps, new_opt, metrics), ms = _timed(lambda: step(ps, opt, batch))
+        finally:
+            restore()
+            restore_nll()
+    got = {"flash forward": fa.launches, "flash backward": fa.bwd_launches,
+           "scan forward": ss.launches, "scan backward": ss.bwd_launches}
+    if got != dict.fromkeys(got, per) or plain_calls:
+        fail(f"{tag}: launches {got}, expected {per} each; plain versions {plain_calls}")
+    paths = {"flash_attention": counts(fa),
+             "flash_attention_bwd": {"launches": fa.bwd_launches,
+                                     **{k: n for k, n in fa.bwd_launches_by_variant.items() if n}},
+             "selective_scan": counts(ss), "selective_scan_bwd": {"launches": ss.bwd_launches}}
+    loss = float(metrics["loss"])
+    print(f"{tag}: mesh step: loss {loss:.4f}, {ms:.1f} ms, launches {paths}; flash at (q, kv "
+          f"heads, variant) {sorted(heads['forward'])} / {sorted(heads['backward'])} "
+          f"({smi_line})")
+    shard_heads = {(13, 13, "wgmma"), (12, 12, "wgmma")}
+    if heads["forward"] != shard_heads or heads["backward"] != shard_heads:
+        fail(f"{tag}: flash ran at {heads}, expected {shard_heads}")
+    if not math.isfinite(loss):
+        fail(f"{tag}: loss {loss}")
+    agree = _mesh_agreement(new_ps, new_opt, ref_p, ref_o, params)
+    agree["loss"] = _rel_l2(torch.cat(nll), ref_nll)
+    agree["mean_loss"] = abs(loss - ref_loss) / abs(ref_loss)
+    limits = _hold_to_floor(tag, agree, floor)
+    print(f"{tag}: {cfg.name} on a 1 x 2 mesh: the mean loss's relative difference "
+          f"{agree['mean_loss']:.3g}, smallest cosine {agree['min_cos']:.7f} "
+          f"({agree['min_cos_leaf']}); {ms:.1f} ms against the unsharded {ref_ms:.1f} ms "
+          f"({smi_line})")
+    del ps, opt, new_ps, new_opt, metrics, params, ref_p, ref_o
+    free_weights()
+    return paths, dict(loss=loss, step_ms=ms, unsharded_step_ms=ref_ms,
+                       floor={k: v for k, v in floor.items() if k != "leaf"}, limits=limits,
+                       agreement={k: v for k, v in agree.items() if k != "leaf_l2"})
 
 
 def phase_train_mesh_moe(smi_line):
@@ -5434,9 +5752,9 @@ def phase_train_mesh_moe(smi_line):
     invariant). Against the unsharded step over the same microbatches: the
     top-k ids and keep masks that differ, counted from the first layer on
     (the card's GEMMs sum a part's 2048 rows and a microbatch's 4096 in
-    other orders, so a router logit near a tie can flip), and the loss
-    within MOE_MESH_LOSS_REL. Returns ({kernel: {path: launches}},
-    numbers)."""
+    other orders, and the tensor shards' partials round to bfloat16 before
+    their sum, so a router logit near a tie can flip), and the loss within
+    MOE_MESH_LOSS_REL. Returns ({kernel: {path: launches}}, numbers)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -5449,7 +5767,7 @@ def phase_train_mesh_moe(smi_line):
     full = get_config(MOE_NAME)
     cfg = dataclasses.replace(full, n_layers=MOE_MESH_LAYERS)
     print(f"{tag}: {MOE_NAME} at {cfg.n_layers} of its {full.n_layers} layers: the unsharded "
-          f"reference, the sharded copy and the gathered params share the card")
+          f"reference and the sharded copy share the card")
     params = _init_weights(tag, cfg)
     batch = _train_batch(cfg, MESH_BATCH, MOE_MESH_SEQ, 31)
     kw = dict(grad_accum=MESH_ACCUM, remat=False, lr=TRAIN_LR)
@@ -5478,7 +5796,8 @@ def phase_train_mesh_moe(smi_line):
         mesh = make_host_mesh(2, 2, devices=[torch.device(DEVICE, 0)] * 4)
         ps, opt, _ = _mesh_state(cfg, params, mesh)
         del params
-        read = _flash_step_counts(tag, {"flash forward": 2 * per, "flash backward": 2 * per})
+        # one a layer, dp part and tensor shard, each shard's half of the heads
+        read = _flash_step_counts(tag, {"flash forward": 4 * per, "flash backward": 4 * per})
         (ps, opt, metrics), ms = _timed(lambda: make_train_step(cfg, mesh=mesh, **kw)(
             ps, opt, batch))
         launched = read()
@@ -5879,7 +6198,7 @@ def phase_train_mesh(smi_line):
     paths = {}
     for name in ("flash_attention", "flash_attention_bwd"):
         paths[name] = {
-            f"qwen3-1.7b {MESH_STEPS} mesh train steps (2 x 2) and one (1 x 4)": q_paths[name],
+            f"qwen3-1.7b {MESH_STEPS} mesh train steps (2 x 2) and one (2 x 1)": q_paths[name],
             f"{MOE_NAME} ({MOE_MESH_LAYERS} layers) one mesh train step (2 x 2)": m_paths[name]}
     numbers["seconds"] = time.perf_counter() - t_phase
     print(f"train: (t13)-(t16) and (v) took {numbers['seconds']:.1f} s")

@@ -34,6 +34,19 @@ PHASE is one of:
   axis, as on the production mesh; then hymba-1.5b on 1 x 2. ROOT's
   chip_smoke.py must have (v).
 
+- ``t2``: builds the kernels, trains full-width qwen3-1.7b as (t2) does
+  (``phase_train_step``: its step ms, warm step the median of steps 1-4),
+  then times ROOT's ``optimizer.clip_scale`` by events on float32 copies
+  of the trained params (the shapes and dtype of the step's gradients at
+  grad_accum 2): the global-norm clip every unsharded train step computes.
+
+- ``train_mesh_hymba``: builds the kernels, then full-width hymba-1.5b
+  trained one step on a 1 x 2 mesh of the card (``phase_train_mesh_hybrid``):
+  its 25 heads 13 / 12 a tensor shard and its 3200 mamba channels 1600 a
+  shard through flash_attention and selective_scan forward and backward,
+  held within twice the unsharded step's distance from float32. ROOT's
+  chip_smoke.py must have it.
+
 Run parent, change, change, parent. It prints what the phases print, then
 one JSON line: the root, the card, and each phase's numbers.
 """
@@ -47,7 +60,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("t17", "host", "serve_mesh")
+PHASES = ("t2", "t17", "host", "serve_mesh", "train_mesh_hymba")
 SERVE_MESH_EXTRA = ((1, 16, 2, 4096),)
 CALLS, ROUNDS, LOOKUPS = 100, 9, 100_000
 
@@ -62,6 +75,24 @@ def phase_t17(smi: str) -> dict:
     return {"launches": paths, **numbers}
 
 
+def phase_t2(smi: str) -> dict:
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import clip_scale
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config(cs.TRAIN_NAME)
+    params, paths, numbers = cs.phase_train_step(cfg, smi)
+    grads = tree_map(lambda p: p.float(), params)  # grad_accum 2: float32 gradients
+    del params
+    clip_ms = cs.device_ms(lambda: clip_scale(grads), reps=9)
+    n = sum(g.numel() for g in tree_leaves(grads))
+    print(f"t2: clip_scale on {cfg.name}'s {n:,} float32 gradient elements: {clip_ms:.3f} ms by "
+          f"events, against (t2)'s warm step {numbers['warm_step_ms']:.1f} ms ({smi})")
+    del grads
+    return {"launches": paths, "clip_scale_ms": clip_ms, **numbers}
+
+
 def phase_serve_mesh(smi: str) -> dict:
     import chip_smoke as cs
     from repro_torch.configs import get_config
@@ -69,6 +100,13 @@ def phase_serve_mesh(smi: str) -> dict:
     cfg = get_config(cs.TRAIN_NAME)
     params = cs._init_weights("serve (v)", cfg)
     paths, numbers = cs.phase_serve_mesh_models(cfg, params, smi, SERVE_MESH_EXTRA)
+    return {"launches": paths, **numbers}
+
+
+def phase_train_mesh_hymba(smi: str) -> dict:
+    import chip_smoke as cs
+
+    paths, numbers = cs.phase_train_mesh_hybrid(smi)
     return {"launches": paths, **numbers}
 
 
@@ -161,8 +199,9 @@ def main() -> int:
     smi = cs.phase_device()
     got = {"root": str(root), "card": smi}
     for name in args.phases:
-        got[name] = {"t17": phase_t17, "host": phase_host,
-                     "serve_mesh": phase_serve_mesh}[name](smi)
+        got[name] = {"t2": phase_t2, "t17": phase_t17, "host": phase_host,
+                     "serve_mesh": phase_serve_mesh,
+                     "train_mesh_hymba": phase_train_mesh_hymba}[name](smi)
     print(json.dumps(got))
     return 0
 

@@ -26,24 +26,24 @@ file names:
   - Arguments: each input leaf's block on one device
     (``sharding.block_index``).
   - Temporaries, for the train step over the mesh (``launch/steps.py``):
-    the gathered whole params a computing device holds, the float32
-    gradient accumulator, and the peak live bytes of one data-parallel
-    part (the analyzer's largest loop item). For the serving steps over
-    the mesh (``launch/tp_compute.py``), one position's: the step's own
-    peak live bytes, which under the analyzer's sampling of the dp
-    shards, tensor shards and cache blocks are those of the first
-    position (its rows' activations, its gathered layer and its largest
-    loop item at once), less the logits.
+    the float32 gradient accumulators of one position's blocks, and the
+    peak live bytes of one data-parallel part's forward and backward (the
+    analyzer's largest loop item), which under the analyzer's sampling of
+    the tensor shards are those of the first position: its rows' saved
+    activations, one layer's gathered slice and compute, its vocabulary
+    columns' logits. For the serving steps over the mesh
+    (``launch/tp_compute.py``), one position's: the step's own peak live
+    bytes, sampled the same way (its rows' activations, its gathered layer
+    and its largest loop item at once), less the logits.
   - Outputs and aliases: the train step returns new params and moments
     (AdamW updates nothing in place), so one position's blocks are outputs
     and nothing aliases; a serving step updates its state in place, so
     the state's blocks are outputs that alias their arguments, and the
     logits (whole, on the mesh's first device) are new.
 
-  ``fits`` says whether that is within one card's memory. The train step
-  gathers whole params on every computing device, so the large configs do
-  not fit: the row reports it, the cell is not cut. The serving steps
-  gather one layer's slice at a time. The sparse decode steps (``--sparse``,
+  ``fits`` says whether that is within one card's memory; a cell that
+  does not fit is reported, not cut. The mesh steps gather one layer's
+  slice at a time. The sparse decode steps (``--sparse``,
   ``--sharded-sparse``) take whole tensors on one device, and their rows
   keep that one-device count (their ``note`` says so).
 
@@ -73,7 +73,7 @@ from repro_torch.configs import ASSIGNED, get_config
 from repro_torch.kernels.selective_scan.ops import CHUNK as SCAN_CHUNK
 from repro_torch.launch import roofline as RL
 from repro_torch.launch.act_sharding import activation_sharding
-from repro_torch.launch.mesh import dp_axes, make_production_mesh
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.sharding import ShardedTensor, block_index
 from repro_torch.launch.specs import SHAPES, ShapeDtypeStruct, input_specs, model_flops_global
 from repro_torch.launch.steps import (
@@ -241,13 +241,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
     mf_dev = model_flops_global(cfg, shape_name) / n_dev
     a_bytes = arg_bytes(specs, mesh)
     if spec.kind == "train":
-        params = specs[0]
-        gathered = sum(_bytes(x.shape, x.dtype) for x in tree_leaves(params))
-        ga = grad_accum if grad_accum is not None else spec.grad_accum
-        n_dp = math.prod(mesh.shape[a] for a in dp_axes(mesh))
-        accumulates = ga > 1 or (n_dp > 1 and spec.batch // ga % n_dp == 0)  # several parts
-        acc = sum(4 * math.prod(x.shape) for x in tree_leaves(params)) if accumulates else 0
-        temp = gathered + acc + analyzer.item_peak_bytes
+        acc = sum(4 * math.prod(_block_shape(x, mesh)) for x in tree_leaves(specs[0]))
+        temp = acc + analyzer.item_peak_bytes
         out_b = arg_bytes(specs[:2], mesh) + 4  # a position's new params and moments, the loss
         alias = 0
     else:

@@ -21,22 +21,29 @@ tensors, and fills a :class:`Metrics` with the reference's fields:
   - collective wire bytes per device with the reference's names and ring
     factors, split by group size. A process that drives every device of a
     mesh copies shards with plain tensor ops, so the mesh operations declare
-    their collectives from the shardings (:func:`collective`): the train
-    step's gather as all-gather and its per-shard gradient reduce as
-    reduce-scatter (``launch/steps.py``), the sharded sparse decode step's
-    combine as all-reduce (``launch/sharded_sparse.py``). Their copies
-    count as the ops they are; a declaration adds wire bytes only;
+    their collectives from the shardings (:func:`collective`): the weight
+    gathers as all-gathers and their backward as reduce-scatters, the
+    row-parallel sums as all-reduces (``launch/tp_compute.py``), the
+    sharded sparse decode step's combine as an all-reduce
+    (``launch/sharded_sparse.py``). A gather's copies count as the ops they
+    are; a join's own sums run under :func:`uncounted` (they are its
+    collective's work) and add only the declared wire bytes;
   - the peak of the live bytes the step allocated (``peak_bytes``), op by
     op, from the storages' lifetimes.
 
 Repeat counts: the reference multiplies a ``while`` body by its trip count.
 The port's layers are eager Python loops and are counted as they run. The
-mesh step's loop over data-parallel parts and microbatches, and AdamW's over
-mesh positions, run through :func:`loop`: under an analyzer that samples
-loops (the default) only the first item runs, counted as many times as
-there are items; without sampling every item runs. The two counts agree
-where the items do the same work, and sampling keeps a 256-position
-production cell countable in seconds.
+mesh steps' loops over data-parallel parts and microbatches and over tensor
+shards, and AdamW's over mesh positions, run through :func:`loop`: under an
+analyzer that samples loops (the default) only the first item runs, counted
+as many times as there are items; without sampling every item runs. The two
+counts agree where the items do the same work, and sampling keeps a
+256-position production cell countable in seconds. The backward of an op a
+loop item ran is counted at that item's scale: the analyzer keeps the range
+of autograd sequence numbers each item's forward created and looks the
+running backward node up in it; a layer recomputed under remat
+(:func:`recomputed`) counts at the scale of the loops it runs through
+again.
 
 Per device: ``metrics`` holds one device's share, ``whole`` the whole step
 as the process runs it. An op outside a loop is one device's work (the
@@ -49,6 +56,7 @@ device that takes part.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
 import threading
@@ -66,6 +74,14 @@ COLLECTIVE_OPS = (
 )
 
 aten = torch.ops.aten
+# the autograd node running a backward on this thread (None in a forward),
+# and the sequence number the next node made on this thread will take
+_current_node = getattr(torch._C, "_current_autograd_node", None)
+_next_seq_nr = getattr(torch._C._autograd, "_get_sequence_nr", None)
+
+
+def in_backward() -> bool:
+    return _current_node is not None and _current_node() is not None
 
 
 def _packets(*names):
@@ -165,6 +181,11 @@ class StepAnalyzer(Recorder):
         self.live_bytes = self.peak_bytes = self.item_peak_bytes = 0
         self._mult = (1.0, 1.0)  # (device, whole)
         self._items = []  # [live bytes at the item's start, its peak], innermost last
+        # closed forward scales: their first sequence numbers (sorted) and
+        # (start, end, (device, whole)) a scale, in the same order
+        self._span_starts, self._spans = [], []
+        self._quiet = 0  # open uncounted() blocks
+        self._replay = 0  # open recomputed() blocks inside a backward
         self._storages: Dict[int, weakref.ref] = {}
         # a CUDA backward runs on autograd's device thread, and a storage's
         # last reference may drop on either thread
@@ -177,15 +198,37 @@ class StepAnalyzer(Recorder):
         saved = self._mult
         self._mult = (saved[0] * device, saved[1] * whole)
         self._items.append([self.live_bytes, 0])
+        start = None if _next_seq_nr is None or in_backward() else _next_seq_nr()
         try:
             yield
         finally:
+            if start is not None:
+                i = bisect.bisect_right(self._span_starts, start)
+                self._span_starts.insert(i, start)
+                self._spans.insert(i, (start, _next_seq_nr(), self._mult))
             self._mult = saved
             self.item_peak_bytes = max(self.item_peak_bytes, self._items.pop()[1])
 
+    def _scale(self):
+        """(device, whole) multipliers of the op running now: in a backward
+        (outside a recomputed layer) those of the innermost scale whose
+        forward made the running node, else the open scales'."""
+        if self._replay or not self._spans or not in_backward():
+            return self._mult
+        seq = _current_node()._sequence_nr()
+        i = bisect.bisect_right(self._span_starts, seq)
+        while i:  # the innermost containing span starts last among those that do
+            i -= 1
+            start, end, mult = self._spans[i]
+            if seq < end:
+                return mult
+        return self._mult
+
     # -- recording -----------------------------------------------------------
     def _add(self, flops: float, nbytes: float, min_bytes: float):
-        dev, whole = self._mult
+        if self._quiet:
+            return
+        dev, whole = self._scale()
         with self._lock:
             for m, k in ((self.metrics, dev), (self.whole, whole)):
                 m.flops += flops * k
@@ -199,7 +242,7 @@ class StepAnalyzer(Recorder):
         counters count only what launched."""
         work = kernel_work(name, **shapes)
         self._add(work.products, work.bytes, work.bytes)
-        k = self._mult[0]
+        k = self._scale()[0]
         with self._lock:
             row = self.kernels.setdefault(name, dict(calls=0.0, products=0.0, bytes=0.0,
                                                      exponentials=0.0))
@@ -229,7 +272,7 @@ class StepAnalyzer(Recorder):
             wire, g = size, 2
         if wire <= 0:
             return
-        dev, whole = self._mult
+        dev, whole = self._scale()
         with self._lock:
             for m, k in ((self.metrics, dev), (self.whole, whole * devices)):
                 m.coll_bytes[op] = m.coll_bytes.get(op, 0.0) + wire * k
@@ -259,10 +302,10 @@ class StepAnalyzer(Recorder):
         out = func(*args, **kwargs)
         packet = func._overloadpacket
         flops = 0.0
-        if packet in flop_registry:
+        if packet in flop_registry and not self._quiet:
             flops = float(flop_registry[packet](*args, **kwargs, out_val=out))
             with self._lock:
-                self.aten_flops += flops * self._mult[0]
+                self.aten_flops += flops * self._scale()[0]
         mutates = func._schema.is_mutable
         if func.is_view or packet in _NO_TRAFFIC_OPS:
             nbytes = 0
@@ -310,6 +353,38 @@ def collective(op: str, size: float, group: int, devices: int = 1) -> None:
     analyzer = active()
     if analyzer is not None and group > 1:
         analyzer.add_collective(op, size, group, devices)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Ops inside add no FLOPs or bytes to the active analyzer (their
+    allocations still count towards the live bytes): a join's sums and
+    copies, which stand for its declared collective."""
+    analyzer = active()
+    if analyzer is None:
+        yield
+        return
+    analyzer._quiet += 1
+    try:
+        yield
+    finally:
+        analyzer._quiet -= 1
+
+
+@contextlib.contextmanager
+def recomputed():
+    """Wraps a layer body that remat runs again in the backward: there its
+    ops count at the scale of the loops they run through, as in the
+    forward, not at the scale of the backward node that asked for them."""
+    analyzer = active()
+    if analyzer is None or not in_backward():
+        yield
+        return
+    analyzer._replay += 1
+    try:
+        yield
+    finally:
+        analyzer._replay -= 1
 
 
 # --------------------------------------------------------------------------

@@ -6,13 +6,14 @@ params' device. Entry points run where the params live: on the card unless
 the caller built them on the CPU. ``make_train_step(..., mesh=)`` is the
 train step over a device mesh, the counterpart of the JAX package's
 ``jax.jit(make_train_step(...))`` on inputs laid out by ``param_shardings``;
-it gathers whole params on each computing device and splits only the batch.
 ``make_prefill_step(..., mesh=)`` and ``make_decode_step(..., mesh=)`` are
 the serving steps over a mesh, the counterparts of JAX's jitted serving
 steps on params, inputs and a serve state laid out by ``param_shardings``,
-``batch_specs`` and ``serve_state_shardings``: they split heads, d_ff
-columns, experts, mamba channels and the vocabulary over the tensor axes
-and gather one layer's weights at a time (``launch/tp_compute.py``).
+``batch_specs`` and ``serve_state_shardings``. All three split each
+microbatch's or batch's rows over the dp axes and heads, d_ff columns,
+experts, mamba channels and the vocabulary over the tensor axes, gathering
+one layer's weight slices at a time (``launch/tp_compute.py``, whose layer
+body they share); the train step differentiates it.
 """
 from __future__ import annotations
 
@@ -24,16 +25,15 @@ import numpy as np
 import torch
 
 from repro_torch.launch import roofline as RL
-from repro_torch.launch.mesh import dp_axes, shard_devices
-from repro_torch.launch.sharding import ShardedTensor, block_index, unshard, unshard_tree
-from repro_torch.launch.tp_compute import MeshServe
+from repro_torch.launch.sharding import ShardedTensor, unshard
+from repro_torch.launch.tp_compute import GradSink, MeshServe
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import NEG_INF, _grouped_out, _grouped_scores, qkv_project
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.moe import MoeRoute
 from repro_torch.train import compression as GC
-from repro_torch.train.optimizer import adamw_update, clip_scale
+from repro_torch.train.optimizer import adamw_update, clip_factor, global_norm_blocks
 from repro_torch.tree import tree_flatten_with_path, tree_leaves, tree_map, tree_replace_leaves
 
 
@@ -126,45 +126,13 @@ def make_train_step(
 # --------------------------------------------------------------------------
 # the train step over a mesh
 # --------------------------------------------------------------------------
-def mesh_gather(params, devices) -> Dict[torch.device, Any]:
-    """The params tree gathered whole once on each distinct device of
-    ``devices``: shards that share a device share the copy. To a step
-    analyzer each leaf is an all-gather on each of ``devices`` over the
-    leaf's distinct blocks (``launch/roofline.py``)."""
-    if RL.active() is not None:
-        for x in tree_leaves(params):
-            if isinstance(x, ShardedTensor):
-                n = math.prod(x.shape)  # over n / (a block's elements) distinct blocks
-                RL.collective("all-gather", n * x.dtype.itemsize, n // x.blocks.flat[0].numel(),
-                              devices=len(devices))
-    return {d: unshard_tree(params, d) for d in dict.fromkeys(devices)}
-
-
-def mesh_accumulate(acc, grads, weight: float):
-    """``acc += weight * grads`` leaf by leaf, in float32 on the
-    accumulator's device (``acc`` None: a new float32 accumulator)."""
-    if acc is None:
-        acc = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device),
-                       grads)
-
-    def add(a, g):
-        g = g.to(device=a.device, dtype=torch.float32)
-        if weight == 1.0:
-            a.add_(g)
-        else:
-            a.add_(g, alpha=weight)
-
-    tree_map(add, acc, grads)
-    return acc
-
-
 def mesh_update(grads, opt_state, params, *, lr: float, scale: torch.Tensor):
     """AdamW on every mesh position's blocks, on the position's device, with
-    the clip factor ``scale`` of the global gradient: ``grads`` holds the
-    global gradient of each leaf, ``params`` / ``opt_state["m"]`` /
-    ``opt_state["v"]`` trees of ``ShardedTensor`` and ``opt_state["step"]``
-    one laid out replicated (``P()``). Returns (new params, new state), laid
-    out as they came."""
+    the clip factor ``scale`` of the global gradient: ``grads``,
+    ``params``, ``opt_state["m"]`` and ``opt_state["v"]`` trees of
+    ``ShardedTensor`` laid out alike (a position's gradient block is its
+    params block's) and ``opt_state["step"]`` one laid out replicated
+    (``P()``). Returns (new params, new state), laid out as they came."""
     p_leaves = tree_leaves(params)
     g_leaves, m_leaves = tree_leaves(grads), tree_leaves(opt_state["m"])
     v_leaves = tree_leaves(opt_state["v"])
@@ -176,7 +144,7 @@ def mesh_update(grads, opt_state, params, *, lr: float, scale: torch.Tensor):
     for pos in RL.loop(itertools.product(*(range(n) for n in grid)),
                        per_device=1 / mesh.devices.size):
         dev = mesh.devices[pos]
-        gs = [g[block_index(p.shape, p.sharding, pos)].to(dev) for g, p in zip(g_leaves, p_leaves)]
+        gs = [g.block_at(pos).to(dev) for g in g_leaves]
         st = {"m": [m.block_at(pos) for m in m_leaves], "v": [v.block_at(pos) for v in v_leaves],
               "step": step.block_at(pos)}
         new_p, new_s = adamw_update(gs, st, [p.block_at(pos) for p in p_leaves], lr=lr,
@@ -222,99 +190,122 @@ def _part_weights(batch, parts) -> List[float]:
     return [max(float(mask[lo:hi].sum()), 1.0) / total for _, lo, hi in parts]
 
 
+def _declare_replica_sums(params) -> None:
+    """The gradient all-reduce over each block's replicas (a block held at
+    r > 1 positions: a replicated leaf, or one the dp axes do not split),
+    to a step analyzer."""
+    if RL.active() is None:
+        return
+    for st in tree_leaves(params):
+        blk = st.blocks.flat[0]
+        n = st.blocks.size
+        r = n * blk.numel() // max(math.prod(st.shape), 1)
+        RL.collective("all-reduce", blk.numel() * st.dtype.itemsize, r, devices=n)
+
+
 def _make_mesh_train_step(cfg: ModelConfig, mesh, *, grad_accum: int, block_q: int, remat,
                           lr: float, grad_compression: Optional[str]):
     """The train step over ``mesh``, per step:
 
-    - gather: each param leaf gathered once on each distinct device that
-      computes (the first device of each dp shard,
-      ``shard_devices(mesh, dp_axes(mesh))``);
     - microbatches: microbatch i is rows [i mb, (i + 1) mb) of the global
       batch, as in JAX's step, its rows split over the dp shards in order
       (all on the first shard where they do not divide);
-    - each dp shard's forward and backward of ``loss_fn`` on its rows, the
-      shards in order, an MoE layer keeping the microbatch's dispatch
+    - each dp part's forward through ``tp_compute.MeshServe``'s layer body
+      at positions (j, t) for every tensor shard t: each layer's weight
+      slices gathered for the layer and freed after it (under ``remat`` the
+      layer's gathers and compute checkpointed together, so its backward
+      gathers again), heads, d_ff columns, experts, mamba channels and the
+      vocabulary over the tensor shards, the loss from the vocabulary
+      shards' statistics (no device forms the whole logits); an MoE layer
+      routes once, replicated, keeping the microbatch's dispatch
       (``moe.MoeRoute``);
-    - combine: the losses and gradients summed into the microbatch's mean
-      in float32, each part weighed by its token count or its ``loss_mask``
-      sum, accumulated over the microbatches in order on the first shard's
-      device (with ``grad_accum`` 1 the gradients then take the params'
-      dtypes, as the step without a mesh keeps them);
-    - the int8 numerics and AdamW's global-norm clip on the global gradient
-      of each leaf (one absmax scale a leaf, each element once in the
-      norm); then AdamW on each position's blocks on its device.
+    - each part's backward, weighed by its token count or its ``loss_mask``
+      sum, adds its gradient block by block in float32 into one accumulator
+      a distinct block of each leaf (``tp_compute.GradSink``): the parts in
+      order, the microbatches in order; the losses likewise; then the
+      accumulators are divided by ``grad_accum``, or, with ``grad_accum`` 1,
+      take the params' dtypes, as the step without a mesh keeps them;
+    - the int8 numerics (one absmax scale a leaf, the max over its blocks)
+      and AdamW's global-norm clip over the distinct blocks (each element
+      once, ``optimizer.global_norm_blocks``); then AdamW on each
+      position's blocks on its device (``mesh_update``).
 
-    Tensor axes shard storage only (params, gradients, moments): every dp
-    shard computes with whole gathered params. On a mesh with one dp shard
-    the step is bit for bit the step without a mesh.
+    No device holds a whole param leaf or its gradient.
+
+    Exactness: on a 1 x 1 mesh the step is bit for bit the step without a
+    mesh; on a mesh whose tensor axes have size 1 it is bit for bit the
+    step without a mesh over one microbatch a dp part (each part weighed by
+    an exact 1/2 or 1/4: the same float32 sums); with tensor axes larger
+    than 1 it differs by the order of the float32 sums of the joins
+    (``tp_compute``'s module docstring), as JAX's GSPMD step differs from
+    its unsharded step.
 
     To a step analyzer (``launch/roofline.py``) the parts of every
-    microbatch and AdamW's mesh positions are loops (``roofline.loop``,
-    which may run one item for all), each part's gradients a reduce-scatter
-    over its microbatch's parts, and the gather ``mesh_gather``'s
-    all-gathers."""
-    devs = shard_devices(mesh, dp_axes(mesh))
+    microbatch, each layer's tensor shards and AdamW's mesh positions are
+    loops (``roofline.loop``, which may run one item for all); the joins
+    declare their collectives forward and backward, and each replicated
+    block's gradient an all-reduce over its replicas."""
+    model = MeshServe(cfg, mesh, block_q=block_q)
+    home = mesh.devices[model.pos(0, 0)]
     moe = cfg.family == "moe"
 
     def train_step(params, opt_state, batch):
-        home = devs[0]
         batch = {k: unshard(v, home) if isinstance(v, ShardedTensor)
                  else torch.as_tensor(v, device=home) for k, v in batch.items()}
         b = next(iter(batch.values())).shape[0]
         mb = b // grad_accum
-        gathered = mesh_gather(params, devs)
         units = []  # (microbatch, dp shard, first row, end row, weight, parts)
         for i in range(grad_accum):
-            parts = _row_parts(i, mb, len(devs))
+            parts = _row_parts(i, mb, model.n_dp)
             units += [(i, j, lo, hi, w, len(parts))
                       for (j, lo, hi), w in zip(parts, _part_weights(batch, parts))]
-        acc, lsum, grads = None, None, None
-        if grad_accum > 1 or units[0][5] > 1:
-            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=home),
-                           params)
-            lsum = torch.zeros((), dtype=torch.float32, device=home)
+        sink = GradSink(params)
+        lsum = None if grad_accum == 1 and units[0][5] == 1 else torch.zeros(
+            (), dtype=torch.float32, device=home)
         offsets, current = None, None
-        for i, j, lo, hi, w, n_parts in RL.loop(units, per_device=1 / len(devs)):
+        for i, j, lo, hi, w, n_parts in RL.loop(units, per_device=1 / model.n_dp):
             if i != current:  # a microbatch's first part
                 offsets, current = [None] * cfg.n_layers, i
-            dev = devs[j]
+            dev = mesh.devices[model.pos(j, 0)]
             routes = None
             if moe and n_parts > 1:
                 tokens = mb * batch["labels"].shape[1]
                 routes = [MoeRoute(tokens, None if o is None else o.to(dev)) for o in offsets]
-            l_j, g_j = _loss_and_grads(cfg, gathered[dev], {k: v[lo:hi].to(dev)
-                                                            for k, v in batch.items()},
-                                       block_q=block_q, remat=remat, moe_routes=routes)
+            with torch.enable_grad():
+                l_j = model.part_loss(params, batch, j, slice(lo, hi), sink, w, routes,
+                                      remat=remat)
+                torch.autograd.backward(l_j)
             if routes is not None:
                 offsets = [r.counts if o is None else o.to(dev) + r.counts
                            for o, r in zip(offsets, routes)]
-            l_j = l_j.to(home)
-            if acc is None:
-                grads, lsum = g_j, l_j
+            l_j = l_j.detach().to(home)
+            if lsum is None:
+                lsum = l_j
             else:
-                if RL.active() is not None and n_parts > 1:  # the dp shards' reduce
-                    for g in tree_leaves(g_j):
-                        RL.collective("reduce-scatter", g.numel() * g.element_size() / n_parts,
-                                      n_parts)
-                mesh_accumulate(acc, g_j, w)
                 lsum = lsum + (l_j if w == 1.0 else w * l_j)
-            del g_j
-        del gathered
-        if acc is not None:
-            if grad_accum > 1:
-                tree_map(lambda a: a.div_(grad_accum), acc)
-                grads = acc
-            else:  # one microbatch over several shards: the params' dtypes
-                grads = tree_map(lambda a, p: a.to(p.dtype), acc, params)
-            del acc
+        _declare_replica_sums(params)
         loss = lsum / grad_accum if grad_accum > 1 else lsum
+        if grad_accum > 1:
+            grads = sink.finish(lambda st, a: a.div_(grad_accum))
+        else:
+            grads = sink.finish(lambda st, a: a.to(st.dtype))
+        del sink
+        distinct = _distinct_blocks(grads)
         if grad_compression == "int8":
-            grads = GC.quantize_dequantize_tree(grads)
-        new_params, new_opt = mesh_update(grads, opt_state, params, lr=lr,
-                                          scale=clip_scale(grads))
+            for blocks in distinct:
+                for blk, q in zip(blocks, GC.quantize_dequantize_blocks(blocks)):
+                    blk.copy_(q)
+        scale = clip_factor(global_norm_blocks(distinct))
+        new_params, new_opt = mesh_update(grads, opt_state, params, lr=lr, scale=scale)
         return new_params, new_opt, {"loss": loss}
 
     return train_step
+
+
+def _distinct_blocks(tree) -> List[List[torch.Tensor]]:
+    """Each leaf's distinct blocks, each once, of a tree of ShardedTensor
+    whose replicas share their tensors, in the tree's order."""
+    return [list({id(blk): blk for blk in st.blocks.flat}.values()) for st in tree_leaves(tree)]
 
 
 def make_prefill_step(cfg: ModelConfig, *, block_q: int = 512, mesh=None):

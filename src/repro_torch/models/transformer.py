@@ -138,6 +138,20 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def rematerialized(layer, remat: Union[bool, str], **kw):
+    """``layer`` under ``remat`` (``forward``'s): checkpointed
+    (``torch.utils.checkpoint``, non-reentrant, with ``kw``) saving nothing
+    inside it (True) or its products without batch dims ("dots"), or as it
+    is."""
+    if remat == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+        return functools.partial(checkpoint, layer, use_reentrant=False, context_fn=context_fn,
+                                 **kw)
+    if remat:
+        return functools.partial(checkpoint, layer, use_reentrant=False, **kw)
+    return layer
+
+
 def _ffn(h: torch.Tensor, lp: Params, cfg: ModelConfig, *,
          dropless: bool = False, route=None) -> torch.Tensor:
     """The FFN sublayer with its residual. An MoE layer drops assignments
@@ -242,11 +256,7 @@ def forward(
     def layer(h, lp, window, route):
         return _layer_prefill(h, lp, window, positions, cfg, block_q, route)
 
-    if remat == "dots":
-        context_fn = functools.partial(create_selective_checkpoint_contexts, _save_dots)
-        layer = functools.partial(checkpoint, layer, use_reentrant=False, context_fn=context_fn)
-    elif remat:
-        layer = functools.partial(checkpoint, layer, use_reentrant=False)
+    layer = rematerialized(layer, remat)
     ks, vs = [], []
     for l, lp in enumerate(unstacked_layers(params, cfg.n_layers)):
         h, kv, _ = layer(h, lp, int(windows[l]), None if moe_routes is None else moe_routes[l])
@@ -266,10 +276,15 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     labels; an optional ``loss_mask`` weights the positions. ``moe_routes``
     as ``forward`` takes them."""
     logits = forward(params, batch, cfg, block_q=block_q, remat=remat, moe_routes=moe_routes)
-    labels = batch["labels"]
+    return cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
+    """``loss_fn``'s loss of float32 ``logits`` (..., vocab): the mean of
+    each position's negative log-likelihood of its label, or its sum
+    weighted by ``mask`` over max(mask's sum, 1)."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
-    mask = batch.get("loss_mask")
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
     return nll.mean()

@@ -16,11 +16,18 @@ import torch
 from repro_torch.tree import tree_map
 
 
+def _scale(absmax: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(absmax, min=1e-12) / 127.0
+
+
+def _levels(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x.to(torch.float32) / scale), -127, 127).to(torch.int8)
+
+
 def _quantize(x: torch.Tensor):
     """(int8 levels, float32 absmax scale) of x."""
-    xf = x.to(torch.float32)
-    scale = torch.clamp(xf.abs().max(), min=1e-12) / 127.0
-    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
+    scale = _scale(x.to(torch.float32).abs().max())
+    return _levels(x, scale), scale
 
 
 def quantize_dequantize(x: torch.Tensor) -> torch.Tensor:
@@ -30,6 +37,17 @@ def quantize_dequantize(x: torch.Tensor) -> torch.Tensor:
 
 def quantize_dequantize_tree(tree):
     return tree_map(quantize_dequantize, tree)
+
+
+def quantize_dequantize_blocks(blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``quantize_dequantize`` of a leaf held as ``blocks`` (its distinct
+    blocks, each once): one absmax scale, the max over the blocks, and each
+    block quantized with it; each element the bits the whole leaf's call
+    gives it."""
+    scale = _scale(torch.stack([b.to(torch.float32).abs().max().to(blocks[0].device)
+                                for b in blocks]).max())
+    return [(_levels(b, scale.to(b.device)).to(torch.float32) * scale.to(b.device)).to(b.dtype)
+            for b in blocks]
 
 
 def compressed_psum(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:

@@ -2,8 +2,15 @@
 package's order of operations.
 
 The state is ``{"m": tree, "v": tree, "step": 0-dim int32 tensor}`` on the
-params' device. ``global_norm`` sums the leaves in JAX's order (dict keys
-sorted), so the clip scale sums its float32 terms as the reference does.
+params' device. ``global_norm`` sums the leaves in float32 in JAX's order
+(dict keys sorted), as the reference does, each leaf's sum of squares
+accumulated in float64 and rounded once, so that ``global_norm_blocks``
+(a train step over a mesh, which sums each block of a leaf on its own)
+gives the same clip but through float64's rounding, far below a float32
+ulp. The float64 sums cost every train step about 20 bytes of traffic an
+element of a float32 gradient (its read, a float64 copy of a chunk, the
+copy's read) against float32's 12, and a temporary of ``CHUNK_ELEMENTS``
+float64 (PERF.md has the time).
 
 A leaf of more than ``CHUNK_ELEMENTS`` elements is updated a slice of its
 leading dim (a layer of a stacked leaf, rows of an embedding) at a time into
@@ -34,15 +41,40 @@ def adamw_init(params) -> Dict[str, Any]:
     }
 
 
+def _sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """sum(x ** 2) in float64, ``CHUNK_ELEMENTS`` at a time: each chunk's
+    float64 copy read once by one reduction (its L2 norm, squared)."""
+    flat = x.reshape(-1)
+    return sum(torch.linalg.vector_norm(flat[i: i + CHUNK_ELEMENTS].to(torch.float64)) ** 2
+               for i in range(0, flat.numel(), CHUNK_ELEMENTS))
+
+
 def global_norm(tree) -> torch.Tensor:
-    sq = sum(torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree))
-    return torch.sqrt(sq)
+    """The L2 norm of every leaf's elements together, float32: each leaf's
+    sum of squares accumulated in float64 and rounded once, the leaves'
+    sums added in float32 in order."""
+    return torch.sqrt(sum(_sum_squares(x).to(torch.float32) for x in tree_leaves(tree)))
+
+
+def global_norm_blocks(leaves) -> torch.Tensor:
+    """``global_norm`` of a tree held as ``leaves``, each the list of its
+    distinct blocks (every element once): a leaf's blocks' float64 sums of
+    squares added on the first block's device and rounded once, so the
+    result is the whole tree's but for float64's rounding."""
+    home = leaves[0][0].device
+    return torch.sqrt(sum(sum(_sum_squares(b).to(home) for b in blocks).to(torch.float32)
+                          for blocks in leaves))
+
+
+def clip_factor(norm: torch.Tensor, clip_norm: float = 1.0) -> torch.Tensor:
+    """min(1, clip_norm / norm): the global-norm clip's factor."""
+    return torch.clamp(clip_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
 
 def clip_scale(grads, clip_norm: float = 1.0) -> torch.Tensor:
-    """The global-norm clip's factor on every gradient: min(1, clip_norm /
-    ||grads||)."""
-    return torch.clamp(clip_norm / torch.clamp(global_norm(grads), min=1e-9), max=1.0)
+    """The global-norm clip's factor on every gradient of the tree
+    ``grads``."""
+    return clip_factor(global_norm(grads), clip_norm)
 
 
 def adamw_update(

@@ -163,9 +163,10 @@ def test_run_cell_writes_jax_rows(tmp_path):
         assert row["fits"] == (row["bytes_per_device"] <= 80e9)
         launches = row["launches"]
         if cell["shape_name"] == "train_4k":
-            # one dp part of one microbatch run, remat: 2 x 28 forwards, 28 backwards
+            # one dp part of one microbatch run, its first tensor shard, remat:
+            # 2 x 28 forwards, 28 backwards; the row-parallel sums' all-reduces
             assert launches == {"flash_attention/wgmma": 56, "flash_attention_bwd/wgmma": 28}
-            assert set(row["coll_bytes"]) == {"all-gather", "reduce-scatter"}
+            assert set(row["coll_bytes"]) == {"all-gather", "all-reduce", "reduce-scatter"}
         elif cell["arch"] == "falcon-mamba-7b":
             # the first tensor shard of the first dp shard, a launch a layer
             assert launches == {"selective_scan/chunked": 64}

@@ -1938,7 +1938,7 @@ def _mesh_setup(dev, arch, data, model, **overrides):
 
     cfg = dataclasses.replace(reduced_config(arch, **overrides), dtype="float32")
     params = _to(init_params(cfg, torch.Generator().manual_seed(0), device="cpu"), dev)
-    mesh = make_host_mesh(data, model, devices=[dev] * 4)
+    mesh = make_host_mesh(data, model, devices=[dev] * (data * model))
     sh = param_shardings(cfg, mesh, fsdp=True)
     opt = adamw_init(params)
     on_mesh = (shard_tree(params, sh),
@@ -1950,45 +1950,64 @@ def _mesh_setup(dev, arch, data, model, **overrides):
     return cfg, params, mesh, on_mesh, batch
 
 
-@pytest.mark.parametrize("grid", [(1, 4), (2, 2)])
-def test_mesh_train_step_on_the_card(dev, grid):
-    """make_train_step(mesh=) on reduced float32 qwen3-1.7b over [cuda] x 4,
-    through both flash kernels, against the card's step without a mesh: a
-    1 x 4 mesh (one dp shard, grad_accum 2) bit for bit; a 2 x 2 mesh
-    (grad_accum 2, one row a part) against the unsharded step at grad_accum
-    4 (one row a microbatch: the same kernels on the same rows, parts
-    weighed by an exact 1/2), the loss within 1e-6 and every block within
-    1e-6 of its leaf's largest element; 4 x 2 flash launches a step both
-    ways."""
-    from repro_torch.launch.sharding import block_index
+@pytest.mark.parametrize("arch,grid", [("qwen3-1.7b", (1, 4)), ("qwen3-1.7b", (2, 2)),
+                                       ("qwen3-1.7b", (2, 1)), ("hymba-1.5b", (1, 2))])
+def test_mesh_train_step_on_the_card(dev, arch, grid):
+    """make_train_step(mesh=) on reduced float32 qwen3-1.7b over [cuda] x k,
+    through both flash kernels, against the card's step without a mesh:
+    grad_accum 2 on the mesh, the unsharded step over one microbatch a dp
+    part (grad_accum 2 on 1 x 4 and 1 x 2, 4 elsewhere). With one tensor
+    shard (2 x 1) bit for bit (parts weighed by an exact 1/2); over tensor
+    shards (1 x 4: one q head a shard, each kv head computed by the two
+    shards that read it; 2 x 2) the loss within 1e-6 and every block within
+    1e-5 of its leaf's largest element, leaf by leaf, but for at most 1e-3
+    of a params leaf within 2 lr (Adam's first step on a gradient near 0
+    takes its sign), the limits ``tests/test_torch_mesh_train.py`` holds
+    against JAX; flash launches one a layer, microbatch, dp part and tensor
+    shard. hymba-1.5b at 5 q heads over one kv head on 1 x 2, held the
+    same way: 3 / 2 heads a shard, the kv head read by both, half the
+    mamba channels a shard through the scan's forward and backward, which
+    launch as often as flash."""
+    from repro_torch.launch.sharding import block_index, unshard
     from repro_torch.launch.steps import make_train_step
     from repro_torch.train.optimizer import adamw_init
     from repro_torch.tree import tree_leaves
 
-    cfg, params, mesh, (ps, opt), batch = _mesh_setup(dev, "qwen3-1.7b", *grid)
+    over = {"n_heads": 5, "n_kv_heads": 1} if arch == "hymba-1.5b" else {}
+    cfg, params, mesh, (ps, opt), batch = _mesh_setup(dev, arch, *grid, **over)
     kw = dict(remat=False, lr=1e-3)
-    want_p, want_o, want_m = make_train_step(cfg, grad_accum=2 if grid[0] == 1 else 4, **kw)(
+    want_p, want_o, want_m = make_train_step(cfg, grad_accum=2 * grid[0], **kw)(
         params, adamw_init(params), batch)
     f0, b0 = fa_ops.launches, fa_ops.bwd_launches
+    s0, sb0 = ss_ops.launches, ss_ops.bwd_launches
     got_p, got_o, got_m = make_train_step(cfg, grad_accum=2, mesh=mesh, **kw)(ps, opt, batch)
-    rows = 2 * cfg.n_layers if grid[0] == 1 else 4 * cfg.n_layers
-    assert (fa_ops.launches - f0, fa_ops.bwd_launches - b0) == (rows, rows)
-    exact = grid[0] == 1
+    calls = 2 * grid[0] * grid[1] * cfg.n_layers
+    assert (fa_ops.launches - f0, fa_ops.bwd_launches - b0) == (calls, calls)
+    scans = calls if cfg.family == "hybrid" else 0
+    assert (ss_ops.launches - s0, ss_ops.bwd_launches - sb0) == (scans, scans)
+    exact = grid[1] == 1
     if exact:
         assert torch.equal(got_m["loss"], want_m["loss"])
     else:
         assert abs(got_m["loss"].item() - want_m["loss"].item()) <= 1e-6 * abs(
             want_m["loss"].item())
-    for got, want in ((got_p, want_p), (got_o["m"], want_o["m"]), (got_o["v"], want_o["v"])):
+    for kind, got, want in (("params", got_p, want_p), ("m", got_o["m"], want_o["m"]),
+                            ("v", got_o["v"], want_o["v"])):
         for g, w in zip(tree_leaves(got), tree_leaves(want)):
             for pos in g.positions():
                 blk, ref = g.block_at(pos), w[block_index(g.shape, g.sharding, pos)]
                 assert blk.device.type == "cuda"
                 if exact:
                     assert torch.equal(blk, ref)
-                else:
-                    err = (blk - ref).abs().max().item()
-                    assert err <= 1e-6 * max(w.abs().max().item(), 1e-30)
+            if exact:
+                continue
+            err = (unshard(g, dev) - w).abs()
+            limit = 1e-5 * max(w.abs().max().item(), 1e-30)
+            if kind == "params":
+                assert err.max().item() <= 2 * kw["lr"]
+                assert (err > limit + 1e-4 * kw["lr"]).float().mean().item() <= 1e-3
+            else:
+                assert err.max().item() <= limit
 
 
 def test_mesh_split_keeps_moe_dispatch_on_the_card(dev, monkeypatch):

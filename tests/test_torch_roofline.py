@@ -26,7 +26,8 @@ from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref, selec
 from repro_torch.launch import roofline as RL
 from repro_torch.launch import steps as PS
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.launch.sharding import NamedSharding, P, param_shardings, shard, shard_tree
+from repro_torch.launch.sharding import (NamedSharding, P, block_index, param_shardings, shard,
+                                         shard_tree)
 from repro_torch.models import transformer as PT
 from repro_torch.train.optimizer import adamw_init
 
@@ -153,41 +154,62 @@ def test_sampled_loops_equal_a_full_count():
 
 
 def test_mesh_gather_reports_all_gather_bytes():
-    """``mesh_gather`` on a 2 x 2 CPU mesh declares each sharded leaf an
-    all-gather on each computing device, at the ring factor (g - 1) / g of
-    the gathered leaf over its g distinct blocks; a replicated leaf moves
-    nothing."""
-    mesh = make_host_mesh(2, 2, devices=[torch.device("cpu")] * 4)
+    """The train step's weight gather (``tp_compute._WeightGather``) on a 2 x
+    2 CPU mesh, a whole leaf gathered for position (0, 0): forward an
+    all-gather over the leaf's g distinct blocks at the ring factor (g - 1)
+    / g of the gathered leaf, backward a reduce-scatter of its gradient
+    (each block's share, g - 1 times on the wire); a replicated leaf, read
+    where it lies, moves nothing. The gathered leaf is the leaf, and its
+    gradient lands block by block in the sink's float32 accumulators."""
+    from repro_torch.launch import tp_compute as TPC
+
+    cpu = torch.device("cpu")
+    mesh = make_host_mesh(2, 2, devices=[cpu] * 4)
     x = torch.arange(8 * 16, dtype=torch.float32).reshape(8, 16)
     tree = {"model": shard(x, NamedSharding(mesh, P(None, "model"))),
             "both": shard(x, NamedSharding(mesh, P("data", "model"))),
             "replicated": shard(x, NamedSharding(mesh, P()))}
-    devs = [torch.device("cpu")] * 2
-    with RL.StepAnalyzer() as a:
-        got = PS.mesh_gather(tree, devs)
+    sink = TPC.GradSink(tree)
+    train = TPC._Train(sink, 1.0)
+    train.open_scope()
+    coef = torch.randn(8, 16, generator=torch.Generator().manual_seed(0))
+    with RL.StepAnalyzer() as a, torch.enable_grad():
+        got = {k: TPC._WeightGather.apply(train.anchor, st, (slice(None),), cpu, (0, 0),
+                                          train.scope) for k, st in tree.items()}
+        fwd = dict(a.metrics.coll_bytes)
+        torch.autograd.backward(sum((g * coef).sum() for g in got.values()))
     size = x.numel() * 4
-    assert a.metrics.coll_bytes == {"all-gather": pytest.approx(size / 2 + size * 3 / 4)}
-    assert a.metrics.coll_by_group == {2: pytest.approx(size / 2), 4: pytest.approx(size * 3 / 4)}
-    assert a.whole.coll_bytes["all-gather"] == pytest.approx(2 * (size / 2 + size * 3 / 4))
-    for leaf in got[torch.device("cpu")].values():
-        assert torch.equal(leaf, x)
+    assert fwd == {"all-gather": pytest.approx(size / 2 + size * 3 / 4)}
+    assert a.metrics.coll_bytes == {"all-gather": pytest.approx(size / 2 + size * 3 / 4),
+                                    "reduce-scatter": pytest.approx(size / 2 + size * 3 / 4)}
+    assert a.metrics.coll_by_group == {2: pytest.approx(size), 4: pytest.approx(size * 3 / 2)}
+    assert a.whole.coll_bytes == a.metrics.coll_bytes
+    for k, st in tree.items():
+        assert torch.equal(got[k].detach(), x)
+        for pos in st.positions():
+            sl = block_index(st.shape, st.sharding, pos)
+            assert torch.equal(sink.acc[st][TPC.GradSink.key(st, pos)], coef[sl])
 
 
 def test_dot_flops_per_device_are_split_over_dp_not_model():
-    """Per-device FLOPs of the mesh train step are its whole step's over the
-    data-parallel shards, whatever the model axis: 2 x 2 and 2 x 1 give the
-    same per device, half the step's; 1 x 4 gives the whole step's; and the
-    whole step equals the step without a mesh on the same rows.
+    """Per-device FLOPs of the mesh train step are its whole step's over
+    every shard, data-parallel and tensor: 2 x 2 gives a quarter of the
+    step without a mesh on the same rows, 2 x 1 half, 1 x 1 all of it, and
+    the whole 2 x 2, 2 x 1 and 1 x 1 steps equal the step without a mesh.
+    On 1 x 4 the reduced qwen3's 2 kv heads are each computed by the two
+    shards that read them (its 4 q heads one a shard), so its whole step
+    adds those projections, forward and backward, and a device's share is
+    a quarter of that.
 
     JAX's ``test_dot_flops_per_device_are_sharded`` finds a product sharded
-    over both axes (GSPMD splits each product over ``model`` too). The
-    port's mesh step gathers whole params on each data-parallel shard's
-    device and splits only the rows, so its products split over dp alone."""
+    over both axes (GSPMD splits each product over ``model`` too); the
+    port's step splits heads, d_ff columns and the vocabulary over the
+    tensor shards (``launch/tp_compute.py``), and the rows over dp."""
     cfg = dataclasses.replace(reduced_config("qwen3-1.7b"), n_layers=2)
     cpu = torch.device("cpu")
     flops = {}
-    for shape in ((2, 2), (2, 1), (1, 4)):
-        mesh = make_host_mesh(*shape, devices=[cpu] * 4)
+    for shape in ((2, 2), (2, 1), (1, 4), (1, 1)):
+        mesh = make_host_mesh(*shape, devices=[cpu] * (shape[0] * shape[1]))
         step = PS.make_train_step(cfg, grad_accum=1, remat=False, mesh=mesh)
         a = _count(step, *_mesh_step_inputs(cfg, mesh))
         flops[shape] = (a.metrics.flops, a.whole.flops)
@@ -197,9 +219,13 @@ def test_dot_flops_per_device_are_split_over_dp_not_model():
     batch = {"tokens": torch.as_tensor(seq[:, :-1]), "labels": torch.as_tensor(seq[:, 1:])}
     plain = _count(PS.make_train_step(cfg, grad_accum=1, remat=False), params,
                    adamw_init(params), batch).metrics.flops
-    assert flops[2, 2][1] == flops[2, 1][1] == flops[1, 4][1] == plain > 0
-    assert flops[2, 2][0] == flops[2, 1][0] == plain / 2
-    assert flops[1, 4][0] == plain
+    assert flops[2, 2][1] == flops[2, 1][1] == flops[1, 1][1] == flops[1, 1][0] == plain > 0
+    assert flops[2, 2][0] == plain / 4 and flops[2, 1][0] == plain / 2
+    # the kv projections, a layer: 2 (wk, wv) x 3 (forward, two backward) x
+    # 2 b s d (n_kv d_head) flops, done once more by the second shard of
+    # each kv head
+    kv = cfg.n_layers * 2 * 3 * 2 * (4 * 32) * cfg.d_model * (cfg.n_kv_heads * cfg.d_head)
+    assert flops[1, 4][1] == plain + kv and flops[1, 4][0] == (plain + kv) / 4
 
 
 def test_kernel_work_reproduces_recorded_bounds():
