@@ -313,7 +313,21 @@ non-zero exit code:
                 heads: the ceil split and the fallback gathers; 1600
                 channels a shard) held the same way, its scan's chunked and
                 step launches counted per shard; prefill and decode-step ms
-                by events beside the unsharded steps', peak memory;
+                by events beside the unsharded steps', peak memory; and,
+                inside (v) on the same qwen3-1.7b weights, ContiguousKV's
+                sparse decode over meshes of the card (vs):
+                ``make_sparse_decode_step(cfg, mesh=)`` at chunks of 16 and
+                budget 0.05, without and with cached chunk summaries, the
+                mesh prefill then 4 sparse steps teacher-forced on the
+                unsharded sparse step's greedy tokens over 1 x 1 (2 x 4096)
+                and 2 x 1 (16 x 1024) bit for bit the unsharded step, 2 x 2
+                (2 x 4096: the cache's sequence over data, its kv heads over
+                model) within twice the bfloat16 floor; the share of
+                (step, layer, row) picks equal to the unsharded step's;
+                flash launches = layers x tensor shards x dp parts, no plain
+                version; ms a sparse step by events beside the unsharded
+                sparse step's and (v)'s dense mesh decode step's, peak
+                memory;
   14. sim     — the discrete-event sim mode on the card's host (no tensor,
                 no launch): (a) both golden timelines of tests/golden/
                 reproduced event for event; (b) the headline ordering's
@@ -341,7 +355,8 @@ non-zero exit code:
      hymba's 5 and falcon-mamba's 3 train steps); decode_attention's
      ``sharded`` entry holds phase 5b's numbers and its launches on (b)-(d);
      flash_attention's and selective_scan's ``serve_mesh`` entries hold
-     (v)'s numbers, and their launches on (v)'s paths count in theirs;
+     (v)'s numbers ((vs)'s under ``sparse (vs)``), and their launches on
+     (v)'s and (vs)'s paths count in theirs;
   16. last line: ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero, printing no result, without one or
@@ -558,6 +573,19 @@ MOE_MESH_LOSS_REL = 1e-4
 SERVE_MESH_DECODE, SERVE_MESH_FLOOR_X = 16, 2.0
 SERVE_MESH_CASES = ((1, 1, 2, 4096), (2, 1, 16, 1024), (2, 2, 16, 1024), (2, 2, 2, 4096))
 SERVE_MESH_HYBRID = ((1, 2, 2, 4096),)  # hymba-1.5b: 25 / 5 heads, 1600 channels a shard
+# (vs) ContiguousKV's sparse decode over meshes of the card, inside (v) on its
+# qwen3-1.7b weights: the dry run's chunks and budget, SPARSE_MESH_STEPS
+# steps after the mesh prefill, the cache's capacity the prompt and the
+# steps rounded up to a multiple of its sequence blocks x chunk_tokens; 1 x 1
+# and 2 x 1 (at 16 rows) bit for bit, 2 x 2 within (v)'s limit
+SPARSE_MESH_STEPS, SPARSE_MESH_CHUNK, SPARSE_MESH_BUDGET = 4, 16, 0.05
+SPARSE_MESH_CASES = ((1, 1, 2, 4096), (2, 1, 16, 1024), (2, 2, 2, 4096))
+# on a mesh with tensor shards the bfloat16 picks follow rounding (random
+# weights' chunk means lie close: a first H100 run matched 0.406 of the
+# unsharded step's); a float32 run of the mesh on the same tokens separates
+# that from a wrong pick, which would miss most of the float32 step's picks
+# (the CPU tests hold every float32 pick equal at reduced size)
+SPARSE_MESH_F32_PICKS = 0.9
 # state-space training (t5)-(t8): hymba-1.5b at full width and depth for
 # TRAIN_STEPS steps, falcon-mamba-7b at full width cut to FALCON_TRAIN_LAYERS
 # of its 64 layers for FALCON_TRAIN_STEPS steps, on (t2)'s batch shape. The
@@ -6008,12 +6036,14 @@ def _rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
 
 
-def _serve_mesh_hold(tag, got, want, got_state, want_state, floor, exact: bool) -> dict:
+def _serve_mesh_hold(tag, got, want, got_state, want_state, floor, exact: bool,
+                     steps: int = SERVE_MESH_DECODE) -> dict:
     """The mesh run's logits and state against the unsharded run's (both
     whole, the state's blocks gathered): bit for bit where ``exact``, else
     within SERVE_MESH_FLOOR_X x ``floor`` (the unsharded run's relative L2
-    from float32: {"logits": x, leaf: x}), and argmax equal in every row
-    whose unsharded top-2 margin exceeds 4x its largest logit difference."""
+    from float32: {"logits": x, leaf: x}; None where ``exact`` needs none),
+    and argmax equal in every row whose unsharded top-2 margin exceeds 4x
+    its largest logit difference."""
     import torch
 
     from repro_torch.launch.sharding import unshard
@@ -6036,12 +6066,13 @@ def _serve_mesh_hold(tag, got, want, got_state, want_state, floor, exact: bool) 
         rel[name] = _rel_l2(whole, want_state[name])
         del whole
     print(f"{tag}: against the unsharded step, relative L2 (the largest over the prefill and "
-          f"{SERVE_MESH_DECODE} decode steps) {_fmt(rel)}, the unsharded step's from float32 "
-          f"{_fmt(floor)} (limit {SERVE_MESH_FLOOR_X:g}x it); argmax flips {flips} of "
-          f"{sure_rows} rows beyond 4x their difference; bit for bit: {bitwise}")
+          f"{steps} decode steps) {_fmt(rel)}, the unsharded step's from float32 "
+          + (f"{_fmt(floor)} (limit {SERVE_MESH_FLOOR_X:g}x it)" if floor else "not run")
+          + f"; argmax flips {flips} of {sure_rows} rows beyond 4x their difference; bit for "
+          f"bit: {bitwise}")
     if exact and not bitwise:
         fail(f"{tag}: not bit for bit the unsharded step")
-    if flips or any(rel[k] > SERVE_MESH_FLOOR_X * floor[k] for k in rel):
+    if flips or (floor and any(rel[k] > SERVE_MESH_FLOOR_X * floor[k] for k in rel)):
         fail(f"{tag}: the mesh steps disagree with the unsharded steps")
     return dict(rel_l2=rel, bf16_floor=floor, argmax_flips=flips, sure_rows=sure_rows,
                 bit_for_bit=bitwise)
@@ -6153,8 +6184,249 @@ def phase_serve_mesh(cfg, params, smi_line, cases, tag="serve (v)") -> tuple:
     return launched, numbers
 
 
+def _summaries(kst):
+    """Each chunk's mean key (L, b, S / c, n_kv, d) of the cache ``kst``
+    (L, b, S, n_kv, d): a tensor, or a ShardedTensor whose blocks each give
+    their own chunks' means, laid out on its spec."""
+    import numpy as np
+
+    from repro_torch.launch.sharding import ShardedTensor
+
+    c = SPARSE_MESH_CHUNK
+
+    def means(k):
+        L, b, s, n, d = k.shape
+        return k.view(L, b, s // c, c, n, d).mean(dim=3)
+
+    if not isinstance(kst, ShardedTensor):
+        return means(kst)
+    blocks = np.empty(kst.blocks.shape, dtype=object)
+    for pos in kst.positions():
+        blocks[pos] = means(kst.block_at(pos))
+    L, b, s, n, d = kst.shape
+    return ShardedTensor((L, b, s // c, n, d), kst.dtype, kst.sharding, blocks)
+
+
+def _sparse_run(cfg, params, tokens, cap, cached, feed=None, mesh=None):
+    """Prefill ``tokens`` (b, s) into a cache of ``cap`` positions, then
+    SPARSE_MESH_STEPS sparse decode steps (SPARSE_MESH_CHUNK,
+    SPARSE_MESH_BUDGET), unsharded or over ``mesh`` (``params`` laid out on
+    it); ``cached``: the chunk summaries built from the prefilled cache.
+    ``feed``: the decode tokens; None: greedy. Returns (the prefill's and
+    each step's logits, the state, the tokens fed, [ms a step] by CUDA
+    events)."""
+    import torch
+
+    from repro_torch.launch.sharding import batch_specs, serve_state_shardings, shard
+    from repro_torch.launch.specs import decode_token_tree
+    from repro_torch.launch.steps import make_prefill_step, make_sparse_decode_step
+    from repro_torch.models import transformer as T
+
+    b, s = tokens.shape
+    state = T.init_serve_state(cfg, b, cap, device=DEVICE)
+    batch, put = {"tokens": tokens}, (lambda t: t)
+    if mesh is not None:
+        ssh = serve_state_shardings(cfg, mesh, b)
+        state = {k: v if k == "length" else shard(v, ssh[k]) for k, v in state.items()}
+        batch = {"tokens": shard(tokens, batch_specs(cfg, mesh, b, s, training=False)["tokens"])}
+        tsh = decode_token_tree(cfg, mesh, b).sharding
+        put = lambda t: shard(t, tsh)  # noqa: E731
+    logits, state = make_prefill_step(cfg, mesh=mesh)(params, batch, state)
+    if cached:
+        state["kmean"] = _summaries(state["k"])
+    step = make_sparse_decode_step(cfg, chunk_tokens=SPARSE_MESH_CHUNK, budget=SPARSE_MESH_BUDGET,
+                                   cached_summaries=cached, mesh=mesh)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * SPARSE_MESH_STEPS)]
+    outs, fed = [logits], []
+    for i in range(SPARSE_MESH_STEPS):
+        tok = logits.argmax(-1).to(torch.int32) if feed is None else feed[i]
+        fed.append(tok)
+        x = put(tok)
+        ev[2 * i].record()
+        logits, state = step(params, x, state)
+        ev[2 * i + 1].record()
+        outs.append(logits)
+    torch.cuda.synchronize()
+    return outs, state, fed, [ev[2 * i].elapsed_time(ev[2 * i + 1])
+                              for i in range(SPARSE_MESH_STEPS)]
+
+
+@contextlib.contextmanager
+def _picks_recorded():
+    """Every pick ``steps.top_chunks`` returns while entered, in call
+    order."""
+    from repro_torch.launch import steps
+
+    calls, real = [], steps.top_chunks
+
+    def recording(scores, k):
+        out = real(scores, k)
+        calls.append(out)
+        return out
+
+    steps.top_chunks = recording
+    try:
+        yield calls
+    finally:
+        steps.top_chunks = real
+
+
+def _seq_blocks(cfg, mesh, b) -> int:
+    """The number of blocks serve_state_shardings splits the cache's
+    sequence into on ``mesh`` at batch ``b``."""
+    import numpy as np
+
+    from repro_torch.launch.sharding import block_index, serve_state_shardings
+
+    sh = serve_state_shardings(cfg, mesh, b)["k"]
+    shape = (cfg.n_layers, b, 1 << 20, cfg.n_kv_heads, cfg.d_head)
+    return len({block_index(shape, sh, pos)[2].start
+                for pos in np.ndindex(*mesh.devices.shape)})
+
+
+def _picks_share(got, want, parts: int, b: int) -> int:
+    """How many (step, layer, row) selections of the mesh run's picks
+    ``got`` (step by step, its dp parts in turn) equal, as sets, those of
+    the unsharded runs ``want`` (one run a dp part, in turn). Returns
+    (equal, all)."""
+    import torch
+
+    n = len(want) // parts  # a run's calls: steps x layers
+    L = n // SPARSE_MESH_STEPS
+    ref_by = [torch.cat([want[j * n + i] for j in range(parts)]) for i in range(n)]
+    got_by = [torch.cat([got[(i // L * parts + j) * L + i % L] for j in range(parts)])
+              for i in range(n)]
+    return sum(int((g.sort(dim=1).values == w.sort(dim=1).values).all(dim=1).sum())
+               for g, w in zip(got_by, ref_by)), n * b
+
+
+def phase_serve_mesh_sparse(cfg, params, smi_line, dense) -> tuple:
+    """(vs) ContiguousKV's sparse decode over meshes of the card, on (v)'s
+    ``cfg`` and ``params``: for each (data, model, batch, prompt) of
+    SPARSE_MESH_CASES, without and with cached summaries, the unsharded
+    prefill and SPARSE_MESH_STEPS greedy sparse steps (over each dp shard's
+    rows where the batch splits), then the mesh prefill and steps on params
+    laid out by param_shardings, teacher-forced on the same tokens, held by
+    ``_serve_mesh_hold`` (bit for bit on k x 1 meshes; elsewhere against a
+    float32 unsharded run's floor), the share of (step, layer, row) picks
+    (as sets) equal to the unsharded step's, flash launches = layers x
+    tensor shards x dp parts, no plain version. ``dense``: (v)'s numbers by
+    case, whose decode ms print beside. Returns (flash's launches in the
+    mesh runs, in all and by variant, numbers)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import param_shardings, shard_tree
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    launched, numbers, dev0 = {"launches": 0}, {}, torch.device(DEVICE, 0)
+    tag, L, c = "serve (vs)", cfg.n_layers, SPARSE_MESH_CHUNK
+    params32 = None
+    for data, model, b, s in SPARSE_MESH_CASES:
+        mesh = make_host_mesh(data, model, devices=[dev0] * (data * model))
+        blocks = _seq_blocks(cfg, mesh, b)
+        cap = -(-(s + SPARSE_MESH_STEPS) // (blocks * c)) * blocks * c
+        parts = data if b >= 16 else 1
+        r = b // parts
+        tokens = _serve_tokens(cfg, b, s, 70 + b)
+        ps = shard_tree(params, param_shardings(cfg, mesh, fsdp=True))
+        for cached in (False, True):
+            case = f"{data} x {model}, {b} x {s}" + (", cached summaries" if cached else "")
+            with _picks_recorded() as ref_picks:
+                runs = [_sparse_run(cfg, params, tokens[j * r: (j + 1) * r], cap, cached)
+                        for j in range(parts)]
+            want = [torch.cat([run[0][i] for run in runs]) for i in range(SPARSE_MESH_STEPS + 1)]
+            want_state = {k: torch.cat([run[1][k] for run in runs], dim=1)
+                          for k in runs[0][1] if k != "length"}
+            feed = [torch.cat([run[2][i] for run in runs]) for i in range(SPARSE_MESH_STEPS)]
+            ref_ms = statistics.median(sum(run[3][i] for run in runs)
+                                       for i in range(SPARSE_MESH_STEPS))
+            del runs
+            floor, cfg32 = None, dataclasses.replace(cfg, dtype="float32")
+            if model > 1:  # the bfloat16 floor from a float32 run on the same tokens
+                if params32 is None:
+                    params32 = tree_map(lambda x: x.float(), params)
+                with _picks_recorded() as f_picks:
+                    f_logits, f_state, _, _ = _sparse_run(cfg32, params32, tokens, cap, cached,
+                                                          feed)
+                floor = {"logits": max(_rel_l2(a, b_) for a, b_ in zip(want, f_logits))}
+                floor.update({k: _rel_l2(want_state[k], f_state[k]) for k in want_state})
+                del f_state
+            free_weights()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(fa)
+            with plain_versions_counted({"flash_attention": fa}) as plain_calls, \
+                    _picks_recorded() as got_picks:
+                got, state, _, ms = _sparse_run(cfg, ps, tokens, cap, cached, feed, mesh)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            n_att = sum(1 for t in range(model) if -(-cfg.n_heads // model) * t < cfg.n_heads)
+            want_fa = L * n_att * parts
+            if plain_calls or fa.launches != want_fa:
+                fail(f"{tag} {case}: flash launches {fa.launches} (expected {want_fa}), plain "
+                     f"versions {plain_calls}")
+            for key, n in counts(fa).items():
+                launched[key] = launched.get(key, 0) + n
+            same, total = _picks_share(got_picks, ref_picks, parts, b)
+            share = same / total
+            f32 = {}
+            if model > 1:  # the mesh in float32: its picks against the float32 step's
+                ps32 = shard_tree(params32, param_shardings(cfg32, mesh, fsdp=True))
+                reset_counts(fa)
+                with plain_versions_counted({"flash_attention": fa}) as plain_calls, \
+                        _picks_recorded() as m_picks:
+                    m_logits, _, _, _ = _sparse_run(cfg32, ps32, tokens, cap, cached, feed,
+                                                    mesh)
+                del ps32
+                if plain_calls or fa.launches != want_fa:
+                    fail(f"{tag} {case} float32: flash launches {fa.launches} (expected "
+                         f"{want_fa}), plain versions {plain_calls}")
+                for key, n in counts(fa).items():
+                    launched[key] = launched.get(key, 0) + n
+                f_same, _ = _picks_share(m_picks, f_picks, parts, b)
+                f32 = dict(picks_equal_f32=f_same, picks_share_f32=f_same / total,
+                           rel_l2_f32=max(_rel_l2(a, b_) for a, b_ in zip(m_logits, f_logits)))
+                print(f"{tag}: {cfg.name} on a {case} mesh in float32: picks equal to the "
+                      f"unsharded float32 step's in {f_same} of {total} selections "
+                      f"({f32['picks_share_f32']:.4f}; limit {SPARSE_MESH_F32_PICKS}), logits "
+                      f"{f32['rel_l2_f32']:.3g} from it (relative L2, the largest over the "
+                      f"prefill and {SPARSE_MESH_STEPS} steps)")
+                if f32["picks_share_f32"] < SPARSE_MESH_F32_PICKS:
+                    fail(f"{tag} {case}: the float32 mesh picks other chunks than the "
+                         f"float32 unsharded step")
+                del m_logits, f_logits
+            hold = _serve_mesh_hold(f"{tag} {cfg.name} {case}", got, want, state, want_state,
+                                    floor, exact=model == 1, steps=SPARSE_MESH_STEPS)
+            step_ms = statistics.median(ms)
+            dense_key = f"{data} x {model}, {b} x {s}"
+            dense_ms = dense.get(dense_key, {}).get("decode_ms")
+            print(f"{tag}: {cfg.name} on a {case} mesh (capacity {cap}, "
+                  f"{max(1, int(SPARSE_MESH_BUDGET * (cap // c)))} of {cap // c} chunks a "
+                  f"layer): a sparse step {step_ms:.2f} ms (median of {SPARSE_MESH_STEPS}; "
+                  f"unsharded {ref_ms:.2f}; (v)'s dense mesh decode step "
+                  + (f"{dense_ms:.2f} ms" if dense_ms is not None else "not run") + "), picks "
+                  f"equal to the unsharded step's in {same} of {total} (step, layer, row) "
+                  f"selections ({share:.4f}), flash {fa.launches} launches, peak {peak:.1f} "
+                  f"GiB ({smi_line})")
+            numbers[case] = dict(step_ms=step_ms, step_ms_all=ms, unsharded_step_ms=ref_ms,
+                                 dense_mesh_decode_ms=dense_ms, capacity=cap, peak_gib=peak,
+                                 picks_equal=same, picks=total, picks_share=share,
+                                 flash_launches=want_fa, **f32, **hold)
+            del got, state, want, want_state, feed
+            free_weights()
+        del ps
+        free_weights()
+    del params32
+    free_weights()
+    numbers["seconds"] = time.perf_counter() - t0
+    print(f"{tag}: took {numbers['seconds']:.1f} s")
+    return launched, numbers
+
+
 def phase_serve_mesh_models(cfg, params, smi_line, extra=()):
     """(v): qwen3-1.7b (``params``) over SERVE_MESH_CASES and ``extra``,
+    its sparse decode over SPARSE_MESH_CASES (vs),
     then full-width hymba-1.5b from a seeded init over SERVE_MESH_HYBRID (its
     heads and kv heads do not divide 2: the fallback gathers and the ceil
     split; 1600 of its 3200 channels a shard). Returns ({kernel: {path:
@@ -6163,6 +6435,8 @@ def phase_serve_mesh_models(cfg, params, smi_line, extra=()):
 
     t0 = time.perf_counter()
     q_launched, numbers = phase_serve_mesh(cfg, params, smi_line, SERVE_MESH_CASES + extra)
+    s_launched, numbers["sparse (vs)"] = phase_serve_mesh_sparse(cfg, params, smi_line,
+                                                                 dict(numbers))
     hcfg = get_config(SSM_TRAIN_NAME)
     hparams = _init_weights("serve (v)", hcfg)
     h_launched, numbers[hcfg.name] = phase_serve_mesh(hcfg, hparams, smi_line,
@@ -6171,6 +6445,7 @@ def phase_serve_mesh_models(cfg, params, smi_line, extra=()):
     free_weights()
     paths = {"flash_attention": {
         f"{cfg.name} served over meshes of the card (v)": q_launched["flash_attention"],
+        f"{cfg.name} sparse decode over meshes of the card, the mesh prefills (vs)": s_launched,
         f"{hcfg.name} served over a 1 x 2 mesh (v)": h_launched["flash_attention"]},
         "selective_scan": {f"{hcfg.name} served over a 1 x 2 mesh (v)":
                            h_launched["selective_scan"]}}

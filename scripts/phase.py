@@ -34,6 +34,12 @@ PHASE is one of:
   axis, as on the production mesh; then hymba-1.5b on 1 x 2. ROOT's
   chip_smoke.py must have (v).
 
+- ``serve_mesh_sparse``: builds the kernels, then chip_smoke.py's (v) on
+  full-width qwen3-1.7b from a seeded init over (vs)'s meshes and batches
+  alone (the dense mesh decode steps whose times (vs) prints beside its
+  own), then (vs): ContiguousKV's sparse decode over those meshes, without
+  and with cached chunk summaries. ROOT's chip_smoke.py must have (vs).
+
 - ``t2``: builds the kernels, trains full-width qwen3-1.7b as (t2) does
   (``phase_train_step``: its step ms, warm step the median of steps 1-4),
   then times ROOT's ``optimizer.clip_scale`` by events on float32 copies
@@ -60,7 +66,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("t2", "t17", "host", "serve_mesh", "train_mesh_hymba")
+PHASES = ("t2", "t17", "host", "serve_mesh", "serve_mesh_sparse", "train_mesh_hymba")
 SERVE_MESH_EXTRA = ((1, 16, 2, 4096),)
 CALLS, ROUNDS, LOOKUPS = 100, 9, 100_000
 
@@ -101,6 +107,17 @@ def phase_serve_mesh(smi: str) -> dict:
     params = cs._init_weights("serve (v)", cfg)
     paths, numbers = cs.phase_serve_mesh_models(cfg, params, smi, SERVE_MESH_EXTRA)
     return {"launches": paths, **numbers}
+
+
+def phase_serve_mesh_sparse(smi: str) -> dict:
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+
+    cfg = get_config(cs.TRAIN_NAME)
+    params = cs._init_weights("serve (vs)", cfg)
+    _, dense = cs.phase_serve_mesh(cfg, params, smi, cs.SPARSE_MESH_CASES)
+    launched, numbers = cs.phase_serve_mesh_sparse(cfg, params, smi, dense)
+    return {"launches": launched, "dense": dense, **numbers}
 
 
 def phase_train_mesh_hymba(smi: str) -> dict:
@@ -201,6 +218,7 @@ def main() -> int:
     for name in args.phases:
         got[name] = {"t2": phase_t2, "t17": phase_t17, "host": phase_host,
                      "serve_mesh": phase_serve_mesh,
+                     "serve_mesh_sparse": phase_serve_mesh_sparse,
                      "train_mesh_hymba": phase_train_mesh_hymba}[name](smi)
     print(json.dumps(got))
     return 0

@@ -43,9 +43,13 @@ file names:
 
   ``fits`` says whether that is within one card's memory; a cell that
   does not fit is reported, not cut. The mesh steps gather one layer's
-  slice at a time. The sparse decode steps (``--sparse``,
-  ``--sharded-sparse``) take whole tensors on one device, and their rows
-  keep that one-device count (their ``note`` says so).
+  slice at a time. The sparse decode rows (``--sparse``, with or without
+  ``--cached-summaries``) run ``make_sparse_decode_step(mesh=)``, whose
+  blocks each attend over the picked chunks they hold: on meta tensors,
+  which hold no picks, each block is taken to hold an even share of them;
+  the ``--sharded-sparse`` rows run ``make_sharded_sparse_decode_step`` on
+  the same laid-out inputs, the first shard's device computing the
+  projections on one layer's gathered weights.
 
 A cell's repeated loops (the mesh steps' parts, tensor shards and cache
 blocks, and AdamW's positions) are counted by sampling (``roofline.loop``).
@@ -113,7 +117,7 @@ def build_step(cfg, shape_name: str, *, sparse: bool = False,
             fn = make_sharded_sparse_decode_step(cfg, mesh, chunk_tokens=16, budget=0.05)
         elif sparse and cfg.has_attention:
             fn = make_sparse_decode_step(cfg, chunk_tokens=16, budget=0.05,
-                                         cached_summaries=cached_summaries)
+                                         cached_summaries=cached_summaries, mesh=mesh)
         else:
             fn = make_decode_step(cfg, mesh=mesh)
         donate = (2,)
@@ -147,9 +151,9 @@ def materialize(cfg, shape_name: str, args, mesh, *, one_device: bool = False):
     """The step's arguments on meta, at the shapes the port computes with:
     the train step's params and moments laid out on the mesh (a meta block
     at each position) and its batch whole; a serving step's params, inputs
-    and state laid out on the mesh too, or whole where ``one_device`` (the
-    sparse decode steps), the state's ``length`` a Python int (prefill 0;
-    decode at the last position of its cache)."""
+    and state laid out on the mesh too, or whole where ``one_device`` (to
+    count a whole step without a mesh), the state's ``length`` a Python int
+    (prefill 0; decode at the last position of its cache)."""
     spec = SHAPES[shape_name]
 
     def whole(x):
@@ -230,8 +234,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
                        remat=remat)
     specs = input_specs(cfg, shape_name, mesh, fsdp=fsdp,
                         sparse_summaries=(sparse and cached_summaries) or sharded_sparse)
-    one_device = spec.kind == "decode" and cfg.has_attention and (sparse or sharded_sparse)
-    args = materialize(cfg, shape_name, specs, mesh, one_device=one_device)
+    args = materialize(cfg, shape_name, specs, mesh)
     with activation_sharding(mesh, shard_batch=spec.batch >= 16,
                              seq_parallel=seq_parallel), RL.StepAnalyzer() as analyzer:
         out = fn(*args)
@@ -259,9 +262,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
         metrics, arch=arch, shape=shape_name + variant,
         mesh=mesh_kind, model_flops_per_device=mf_dev,
         bytes_per_device=bytes_dev, hw=hw,
-        note=f"count={t_count:.1f}s devices={n_dev}"
-             + (" one-device count (the sparse decode step takes whole tensors)"
-                if one_device else ""))
+        note=f"count={t_count:.1f}s devices={n_dev}")
     row = report.to_dict()
     row.update(
         ok=True,

@@ -130,12 +130,16 @@ def make_host_mesh(data: int = 1, model: int = 1,
     return _make_mesh((data, model), ("data", "model"), devs)
 
 
-def shard_devices(mesh: Mesh, axes: Sequence[str]) -> list:
-    """The device of each shard over ``axes``, in the order of the flattened
-    shard index (row-major over ``axes``, as ``lax.axis_index`` numbers a
-    tuple of axes); every other axis is taken at index 0, where its
-    replicas of the shard lie."""
+def shard_positions(mesh: Mesh, axes: Sequence[str]) -> list:
+    """The mesh position of each shard over ``axes``, in the order of the
+    flattened shard index (row-major over ``axes``, as ``lax.axis_index``
+    numbers a tuple of axes); every other axis is taken at index 0, where
+    its replicas of the shard lie."""
     at = [mesh.axis_names.index(a) for a in axes]
-    rest = [i for i in range(len(mesh.axis_names)) if i not in at]
-    grid = np.transpose(mesh.devices, rest + at)[(0,) * len(rest)]
-    return list(np.asarray(grid).reshape(-1))
+    return [tuple(p[at.index(i)] if i in at else 0 for i in range(len(mesh.axis_names)))
+            for p in np.ndindex(*(mesh.devices.shape[i] for i in at))]
+
+
+def shard_devices(mesh: Mesh, axes: Sequence[str]) -> list:
+    """The device of each shard over ``axes`` (:func:`shard_positions`)."""
+    return [mesh.devices[pos] for pos in shard_positions(mesh, axes)]

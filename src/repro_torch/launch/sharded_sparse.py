@@ -9,16 +9,23 @@ the shards' softmax partials with the flash-decode combine:
   hand-written ``decode_attention`` kernel, which also returns each row's
   logsumexp, and the partials are combined in float32 on the first device;
 - :func:`make_sharded_sparse_decode_step`, ContiguousKV's sparse decode with
-  per-shard selection: each shard appends the new token's KV if it owns the
-  position, updates its chunk summaries, picks its own top chunks and
-  attends over them; plain torch, as the JAX package computes it outside
-  any kernel.
+  per-shard selection: each sequence shard appends the new token's KV if it
+  owns the position, updates its chunk summaries, picks its own top chunks
+  and attends over them; plain torch, as the JAX package computes it
+  outside any kernel. It takes whole tensors, or params, token and a state
+  laid out on the mesh (``ShardedTensor``, the layout
+  ``specs.input_specs(..., sparse_summaries=True)`` gives): each shard then
+  reads its sequence slice of k, v and kmean from the blocks that hold it,
+  where it lies, and the new token's rows are written into every block
+  that holds them.
 
 The few tensor ops of each combine stand where the JAX package's ``pmax`` /
 ``psum`` collectives stand (``src/repro/launch/sharded_sparse.py``). To a
 step analyzer (``launch/roofline.py``) the sparse decode step's shards are a
-loop (``roofline.loop``) and its combine's ``pmax`` and ``psum`` all-reduces
-over the shards.
+loop (``roofline.loop``), its combine's ``pmax`` and ``psum`` all-reduces
+over the shards, and a laid-out input's reads and writes at other positions
+all-gathers and collective-permutes (``tp_compute.read_slice`` and
+``write_slice``, the steps over a mesh's).
 """
 from __future__ import annotations
 
@@ -29,13 +36,16 @@ import torch
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.launch import roofline as RL
-from repro_torch.launch.mesh import Mesh, shard_devices, tp_axes
+from repro_torch.launch.mesh import Mesh, shard_devices, shard_positions, tp_axes
+from repro_torch.launch.sharding import ShardedTensor
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import qkv_project
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import rms_norm
+from repro_torch.tree import tree_map
 
 NEG_INF = -1e30
+NAMES = ("k", "v", "kmean")  # the sparse decode state's per-position leaves
 # a logsumexp at or below this is a row the shard had nothing to attend in:
 # the kernel gives -inf there, the plain version a finite value near NEG_INF
 MASKED_LSE = -1e29
@@ -176,16 +186,37 @@ def make_sharded_sparse_decode_step(cfg: ModelConfig, mesh: Mesh, *, chunk_token
     ``max(1, int(budget * m_local))`` of its m_local chunks (at most all of
     them), and the shards' partials merge at the global max, so a shard
     whose selection is all invalid weighs exactly 0. The state's buffers
-    are updated in place and the same dict is returned. A shard on another
-    device than the state works on a copy of its slice, written back."""
+    are updated in place and the same dict is returned.
+
+    Whole tensors: a shard on another device than the state works on a
+    copy of its slice, written back. Laid out on the mesh (``k``, ``v``,
+    ``kmean`` as ``ShardedTensor``, and params and token as tensors or
+    ``ShardedTensor``): each shard reads its slice at its own mesh position
+    (``tp_compute.read_slice``), and the shard that holds position
+    ``length`` writes the new token's K / V rows and its chunk's summary
+    into every block that holds them (``tp_compute.write_slice``); the
+    projections, FFN and logits run on the first shard's device, one
+    layer's weights gathered there at a time. Both give the same bits."""
+    from repro_torch.launch.tp_compute import read_slice, write_slice  # it imports this module
+
     if not cfg.has_attention:
         raise ValueError(f"{cfg.name}: the sparse decode step needs attention layers")
-    devices = shard_devices(mesh, [a for a in mesh.axis_names if a != "pod"])
+    axes = [a for a in mesh.axis_names if a != "pod"]
+    devices, places = shard_devices(mesh, axes), shard_positions(mesh, axes)
     n_shards, c = len(devices), chunk_tokens
     group, d_head = cfg.n_heads // cfg.n_kv_heads, cfg.d_head
 
+    def whole(x, index, dev):  # x[index]: a view, or gathered at the first shard's position
+        return read_slice(x, index, dev, places[0]) if isinstance(x, ShardedTensor) else x[index]
+
     def step(params, token, state):
-        h = token.to(cfg.activation_dtype()) if token.dim() == 3 else params["embed"][token]
+        laid = isinstance(state["k"], ShardedTensor)
+        home = devices[0] if isinstance(token, ShardedTensor) else token.device
+        token = whole(token, (slice(None),), home)
+        if token.dim() == 3:
+            h = token.to(cfg.activation_dtype())
+        else:
+            h = whole(params["embed"], (slice(None),), home)[token]
         b = h.shape[0]
         length = int(state["length"])
         S = state["k"].shape[2]
@@ -200,15 +231,19 @@ def make_sharded_sparse_decode_step(cfg: ModelConfig, mesh: Mesh, *, chunk_token
         k_sel = min(max(1, int(budget * m_local)), m_local)
         positions = torch.full((b, 1), length, dtype=torch.long, device=h.device)
         for l in range(cfg.n_layers):
-            lp = T.layer_params(params, l)
+            lp = tree_map(lambda x: whole(x, (slice(l, l + 1),), home)[0], params["layers"])
             xn = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
             q, k_new, v_new = qkv_project(xn, lp, cfg, positions)
             parts: List[tuple] = []
             for s, dev in RL.loop(enumerate(devices), per_device=1 / n_shards):
-                kv = (state["k"][l, :, s * s_local: (s + 1) * s_local],
-                      state["v"][l, :, s * s_local: (s + 1) * s_local],
-                      state["kmean"][l, :, s * m_local: (s + 1) * m_local])
-                moved = dev != kv[0].device
+                seq = slice(s * s_local, (s + 1) * s_local)
+                spans = (seq, seq, slice(s * m_local, (s + 1) * m_local))  # k, v, kmean
+                if laid:  # the shard's slices where they lie (a view of its own block)
+                    kv = tuple(read_slice(state[n], (slice(l, l + 1), slice(None), sl), dev,
+                                          places[s])[0] for n, sl in zip(NAMES, spans))
+                else:
+                    kv = tuple(state[n][l, :, sl] for n, sl in zip(NAMES, spans))
+                moved = not laid and dev != kv[0].device
                 local = tuple(x.to(dev) for x in kv) if moved else kv
                 with _on(dev):
                     part = _local_sparse_partial(
@@ -217,6 +252,12 @@ def make_sharded_sparse_decode_step(cfg: ModelConfig, mesh: Mesh, *, chunk_token
                 if moved:
                     for x, y in zip(kv, local):
                         x.copy_(y)
+                if laid and 0 <= length - s * s_local < s_local:  # the new rows, everywhere
+                    at = length - s * s_local
+                    for n, x, i, j in zip(NAMES, local, (length, length, length // c),
+                                          (at, at, at // c)):
+                        write_slice(state[n], (slice(l, l + 1), slice(None), slice(i, i + 1)),
+                                    x[None, :, j: j + 1], places[s])
                 parts.append(tuple(x.to(h.device) for x in part))
             for size in (4 * b * cfg.n_heads, 4 * b * cfg.n_heads, 4 * b * cfg.n_heads * d_head):
                 RL.collective("all-reduce", size, n_shards, devices=n_shards)  # m, l, o
@@ -230,7 +271,10 @@ def make_sharded_sparse_decode_step(cfg: ModelConfig, mesh: Mesh, *, chunk_token
             out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.n_heads, cfg.d_head)
             h = h + T._out_proj(out.to(q.dtype), lp, cfg)
             h = T._ffn(h, lp, cfg, dropless=True)
+            del lp  # one layer's gathered weights at a time
         state["length"] = length + 1
-        return T._logits(params, h, cfg), state
+        head = {k: whole(params[k], (slice(None),), home)
+                for k in ("final_norm", "embed" if cfg.tie_embeddings else "unembed")}
+        return T._logits(head, h, cfg), state
 
     return step

@@ -6,17 +6,19 @@ params' device. Entry points run where the params live: on the card unless
 the caller built them on the CPU. ``make_train_step(..., mesh=)`` is the
 train step over a device mesh, the counterpart of the JAX package's
 ``jax.jit(make_train_step(...))`` on inputs laid out by ``param_shardings``;
-``make_prefill_step(..., mesh=)`` and ``make_decode_step(..., mesh=)`` are
-the serving steps over a mesh, the counterparts of JAX's jitted serving
-steps on params, inputs and a serve state laid out by ``param_shardings``,
-``batch_specs`` and ``serve_state_shardings``. All three split each
-microbatch's or batch's rows over the dp axes and heads, d_ff columns,
-experts, mamba channels and the vocabulary over the tensor axes, gathering
-one layer's weight slices at a time (``launch/tp_compute.py``, whose layer
-body they share); the train step differentiates it.
+``make_prefill_step(..., mesh=)``, ``make_decode_step(..., mesh=)`` and
+``make_sparse_decode_step(..., mesh=)`` are the serving steps over a mesh,
+the counterparts of JAX's jitted serving steps on params, inputs and a
+serve state laid out by ``param_shardings``, ``batch_specs`` and
+``serve_state_shardings``. All of them split each microbatch's or batch's
+rows over the dp axes and heads, d_ff columns, experts, mamba channels and
+the vocabulary over the tensor axes, gathering one layer's weight slices at
+a time (``launch/tp_compute.py``, whose layer body they share); the train
+step differentiates it.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 from typing import Any, Dict, List, Optional
@@ -26,9 +28,9 @@ import torch
 
 from repro_torch.launch import roofline as RL
 from repro_torch.launch.sharding import ShardedTensor, unshard
-from repro_torch.launch.tp_compute import GradSink, MeshServe
+from repro_torch.launch.tp_compute import GradSink, MeshServe, attend_chunks, chunk_scores
 from repro_torch.models import transformer as T
-from repro_torch.models.attention import NEG_INF, _grouped_out, _grouped_scores, qkv_project
+from repro_torch.models.attention import qkv_project
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.moe import MoeRoute
@@ -335,25 +337,45 @@ def make_decode_step(cfg: ModelConfig, *, mesh=None):
     return decode_step
 
 
+def top_chunks(chunk_scores: torch.Tensor, k: int) -> torch.Tensor:
+    """The ``k`` highest-scoring chunks of each row of ``chunk_scores`` (b,
+    m), highest first, ties to the lower chunk index, as ``lax.top_k``
+    breaks them: (b, k) indices. The sparse decode steps pick through this
+    function, with a mesh or without."""
+    return torch.sort(chunk_scores, dim=-1, descending=True, stable=True).indices[:, :k]
+
+
 def make_sparse_decode_step(cfg: ModelConfig, *, chunk_tokens: int = 16,
-                            budget: float = 0.05, cached_summaries: bool = False):
+                            budget: float = 0.05, cached_summaries: bool = False, mesh=None):
     """ContiguousKV-sparse decode: one new token attends to only the
     top-(budget) ContiguousChunks of the cached context per layer.
 
     Per layer, chunk scores of the query against chunk-mean keys pick
     ``max(1, int(budget * m))`` of the m chunks of the serve state's K cache
     (``state["k"]``, (L, b, S, n_kv, d) with S a multiple of
-    ``chunk_tokens``); attention runs over the picked chunks' positions
-    only. Ties go to the lower chunk index, as ``lax.top_k`` breaks them.
-    Plain torch, as the JAX package computes it outside any kernel.
+    ``chunk_tokens``; :func:`top_chunks`); attention runs over the picked
+    chunks' positions only. The selection and the attend are plain torch,
+    as the JAX package computes them outside any kernel.
 
     ``cached_summaries=True`` keeps the chunk-mean keys in the state
     (``state["kmean"]``, (L, b, m, n_kv, d)) and adds the new key's 1/c share
     to its chunk's mean, so identification never re-reads the K cache. The
     state's buffers are updated in place and the same dict is returned, as
-    the port's ``decode_step`` does."""
+    the port's ``decode_step`` does.
+
+    Without a ``mesh`` the step takes whole tensors. With one it is
+    ``tp_compute.MeshServe.sparse_decode`` over it, the counterpart of
+    JAX's step jitted on a state laid out by ``serve_state_shardings``
+    (``kmean`` on k's spec): params, token and state laid out as
+    ``make_decode_step(mesh=)`` takes them, each tensor shard scoring the
+    chunks of the cache blocks that hold its kv heads where they lie, the
+    scores summed over the shards for one global pick, each block attending
+    over the picked chunks it holds."""
     if not cfg.has_attention:
         raise ValueError(f"{cfg.name}: the sparse decode step needs attention layers")
+    if mesh is not None:
+        return functools.partial(MeshServe(cfg, mesh).sparse_decode, chunk_tokens=chunk_tokens,
+                                 budget=budget, cached_summaries=cached_summaries)
     c, n_kv, d = chunk_tokens, cfg.n_kv_heads, cfg.d_head
 
     def sparse_decode_step(params, token, state):
@@ -365,7 +387,6 @@ def make_sparse_decode_step(cfg: ModelConfig, *, chunk_tokens: int = 16,
         dev = h.device
         positions = torch.full((b, 1), length, dtype=torch.long, device=dev)
         cpos = torch.arange(m_chunks, device=dev) * c
-        rows = torch.arange(b, device=dev)[:, None]
         for l in range(cfg.n_layers):
             lp = T.layer_params(params, l)
             xn = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
@@ -373,28 +394,17 @@ def make_sparse_decode_step(cfg: ModelConfig, *, chunk_tokens: int = 16,
             k_cache, v_cache = state["k"][l], state["v"][l]
             k_cache[:, length: length + 1] = k_new
             v_cache[:, length: length + 1] = v_new
-            kc = k_cache.reshape(b, m_chunks, c, n_kv, d)
             if cached_summaries:
                 kmean = state["kmean"][l]
                 kmean[:, length // c] += (k_new[:, 0] / c).to(kmean.dtype)
                 k_mean = kmean
-            else:
-                k_mean = kc.mean(dim=2)  # re-reads the whole K cache
-            scores = _grouped_scores(q, k_mean)  # (b, n_q, 1, m)
-            chunk_scores = scores.to(torch.float32).sum(dim=(1, 2))  # (b, m)
-            chunk_scores = torch.where(cpos[None] < length + 1, chunk_scores,
-                                       float("-inf"))
-            top_idx = torch.sort(chunk_scores, dim=-1, descending=True,
-                                 stable=True).indices[:, :k_sel_count]
-            k_flat = kc[rows, top_idx].reshape(b, k_sel_count * c, n_kv, d)
-            v_flat = v_cache.reshape(kc.shape)[rows, top_idx].reshape(b, k_sel_count * c, n_kv, d)
-            sel_pos = (top_idx[:, :, None] * c
-                       + torch.arange(c, device=dev)[None, None, :]).reshape(b, -1)
-            valid = sel_pos <= length  # positions of a picked chunk past the new token
-            att = _grouped_scores(q, k_flat).to(torch.float32) * (d ** -0.5)
-            att = torch.where(valid[:, None, None, :], att, NEG_INF)
-            p = torch.softmax(att, dim=-1).to(v_flat.dtype)
-            h = h + T._out_proj(_grouped_out(p, v_flat), lp, cfg)
+            else:  # re-reads the whole K cache
+                k_mean = k_cache.reshape(b, m_chunks, c, n_kv, d).mean(dim=2)
+            scores = torch.where(cpos[None] < length + 1, chunk_scores(q, k_mean),
+                                 float("-inf"))
+            top_idx = top_chunks(scores, k_sel_count)
+            attn = attend_chunks(q, k_cache, v_cache, top_idx, chunk_tokens=c, length=length)
+            h = h + T._out_proj(attn, lp, cfg)
             h = T._ffn(h, lp, cfg, dropless=True)
         state["length"] = length + 1
         return T._logits(params, h, cfg), state

@@ -72,14 +72,29 @@ Serving writes the new K/V and mamba state into every block that holds them
 attends each cache block where it lies and merges a row's blocks with the
 flash-decode combine (``sharded_sparse.combine_partials``) in block order.
 
+ContiguousKV's sparse decode (:meth:`MeshServe.sparse_decode`) runs the same
+layer body with a sparse attend in the decode attend's place. Each tensor
+shard scores the chunks of every cache block that holds its kv heads, where
+the block lies: its q heads against the block's chunk-mean keys (the block's
+K averaged a chunk, or its ``kmean`` block), summed in float32 over the
+heads. The shards' (b, m) partials are summed in float32 in shard order on
+the part's first device (an all-reduce of b x m floats), the chunks past the
+new token masked, and one top-k (``steps.top_chunks``) gives every shard the
+same picks. Each block then attends over the picked chunks it holds and the
+blocks merge by the same combine; a block that holds none of a row's picks
+weighs 0 there. With cached summaries the new key's 1/c share is added to
+its chunk's ``kmean`` row once a kv head, by the first shard that holds the
+head, and written into every block that holds the row.
+
 Exactness: on a 1 x 1 mesh the steps are bit for bit the unsharded steps;
 on a k x 1 mesh, bit for bit the unsharded steps over each dp shard's rows
 (serving at batch >= 16); elsewhere they differ by the order of the float32
-sums above.
+sums above (the sparse decode's picks too, where two chunks' scores lie
+within that order's rounding).
 
 To a step analyzer, the dp shards, the tensor shards and the cache blocks
 are loops (``roofline.loop``) with their share of a device, and each join
-and write above a declared collective.
+and write above a declared collective, the chunk scores' sum an all-reduce.
 """
 from __future__ import annotations
 
@@ -96,7 +111,8 @@ from repro_torch.launch.sharded_sparse import _on, combine_partials
 from repro_torch.launch.sharding import (NamedSharding, ShardedTensor, block_index, block_pieces,
                                          gather_slice)
 from repro_torch.models import transformer as T
-from repro_torch.models.attention import attention_decode, qkv_project
+from repro_torch.models.attention import (NEG_INF, _grouped_out, _grouped_scores,
+                                         attention_decode, qkv_project)
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import matmul, rms_norm, swiglu
 from repro_torch.models.moe import MoeRoute, combine, expert_ffn, route_tokens
@@ -162,6 +178,130 @@ def plan_shards(cfg: ModelConfig, n_tp: int) -> List[Shard]:
             channels=split(cfg.d_inner, n_tp, t) if cfg.family in T.STATE_FAMILIES else (0, 0),
             vocab=split(cfg.vocab_size, n_tp, t)))
     return out
+
+
+# --------------------------------------------------------------------------
+# reads and writes of a tensor laid out on the mesh
+# --------------------------------------------------------------------------
+def read_slice(st: ShardedTensor, index, device, near) -> torch.Tensor:
+    """``st[index]`` on ``device`` for mesh position ``near``
+    (``sharding.gather_slice``: a view of near's own block where the slice
+    lies there), declared to a step analyzer as an all-gather over the
+    blocks read where any lies at another position (a collective-permute
+    from one block)."""
+    out, n_blocks, remote = gather_slice(st, index, device, near)
+    if remote:
+        RL.collective("all-gather" if n_blocks > 1 else "collective-permute",
+                      _nbytes(out), max(n_blocks, 2))
+    return out
+
+
+def write_slice(st: ShardedTensor, index, value: torch.Tensor, near, spread: float = 1.0):
+    """``value`` (the shape of ``st[index]``) into every block that holds
+    part of it, replicas too; a block at another position than ``near``
+    takes it as a collective-permute (``spread`` of them a device)."""
+    pieces = list(block_pieces(st, index, near, replicas=True))
+    elems = sum(math.prod(sl.stop - sl.start for sl in out_sl)
+                for pos, out_sl, _ in pieces if pos != tuple(near))
+    if elems:
+        RL.collective("collective-permute", elems * value.element_size() * spread, 2)
+    for pos, out_sl, blk_sl in RL.loop(pieces, per_device=spread):
+        blk = st.block_at(pos)
+        blk[blk_sl] = value[out_sl].to(blk.device)
+
+
+# --------------------------------------------------------------------------
+# ContiguousKV's sparse attend, a cache block at a time
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SparseDecode:
+    """ContiguousKV's sparse decode (``steps.make_sparse_decode_step``):
+    ``max(1, int(budget * m))`` of the cache's m chunks of ``chunk_tokens``
+    a layer, scored on the chunk means of K, or on the state's ``kmean``
+    where ``cached_summaries``."""
+
+    chunk_tokens: int
+    budget: float
+    cached_summaries: bool
+    blocks: Tuple[Tuple[int, int], ...] = ()  # the cache blocks' chunk ranges [c0, c1)
+
+
+def chunk_scores(q: torch.Tensor, k_mean: torch.Tensor) -> torch.Tensor:
+    """q (b, 1, n_q, d) against chunk-mean keys (b, m, n_kv, d): each chunk's
+    scores summed in float32 over the q heads, (b, m)."""
+    return _grouped_scores(q, k_mean).to(torch.float32).sum(dim=(1, 2))
+
+
+def attend_chunks(q, k, v, picks, *, chunk_tokens: int, length: int, pos0: int = 0,
+                  most: Optional[int] = None, return_lse: bool = False):
+    """q (b, 1, n_q, d) over the picked chunks (``picks`` (b, k), chunk
+    indices of the whole cache) that the block k, v (b, S_blk, n_kv, d),
+    positions ``pos0`` on, holds: each one's positions up to ``length`` (the
+    new token's), in the order picked. ``most``: the most picks any row has
+    in the block, where fewer than k; each row's held picks then come first
+    and the attend reads ``most`` chunks a row. Returns (b, 1, n_q, d), and
+    with ``return_lse`` each row's logsumexp of its masked float32 scores
+    (b, n_q): near NEG_INF where the block holds none of the row's picks,
+    which ``combine_partials`` weighs 0. Over a whole cache (``pos0`` 0) it
+    is the unsharded sparse step's attend."""
+    b, s_blk, n_kv, d = k.shape
+    c = chunk_tokens
+    m_blk, c0 = s_blk // c, pos0 // c
+    rows = torch.arange(b, device=q.device)[:, None]
+    if most is not None and most < picks.shape[1]:
+        inside = (picks >= c0) & (picks < c0 + m_blk)
+        order = torch.sort((~inside).to(torch.int8), dim=1, stable=True).indices[:, :most]
+        picks = picks.gather(1, order)
+    local = (picks - c0).clamp(0, m_blk - 1)
+    kc = k.reshape(b, m_blk, c, n_kv, d)
+    k_flat = kc[rows, local].reshape(b, -1, n_kv, d)
+    v_flat = v.reshape(kc.shape)[rows, local].reshape(b, -1, n_kv, d)
+    sel_pos = (picks[:, :, None] * c
+               + torch.arange(c, device=q.device)[None, None, :]).reshape(b, -1)
+    held = ((picks >= c0) & (picks < c0 + m_blk)).repeat_interleave(c, dim=1)
+    valid = (sel_pos <= length) & held  # positions of a picked chunk past the new token
+    att = _grouped_scores(q, k_flat).to(torch.float32) * (d ** -0.5)
+    att = torch.where(valid[:, None, None, :], att, NEG_INF)
+    p = torch.softmax(att, dim=-1).to(v_flat.dtype)
+    out = _grouped_out(p, v_flat)
+    if return_lse:
+        return out, torch.logsumexp(att[:, :, 0], dim=-1)
+    return out
+
+
+def check_chunk_layout(state, chunk_tokens: int, cached_summaries: bool) -> tuple:
+    """The chunk ranges [c0, c1) of the cache's sequence blocks, in order.
+    Raises ValueError where a cache block of ``state["k"]`` (a
+    ``ShardedTensor``) splits a chunk of ``chunk_tokens``, or, with
+    ``cached_summaries``, where a block of ``state["kmean"]`` does not hold
+    the chunks of the same position's K block (the same rows and kv
+    heads)."""
+    kst, c = state["k"], chunk_tokens
+    S = kst.shape[2]
+    kmst = state.get("kmean") if cached_summaries else None
+    if cached_summaries and kmst is None:
+        raise ValueError("sparse decode with cached_summaries needs the state's kmean")
+    ranges = set()
+    for pos in kst.positions():
+        kb = block_index(kst.shape, kst.sharding, pos)
+        s0, s1 = kb[2].start, kb[2].stop
+        if s0 % c or s1 % c:
+            n = S // (s1 - s0)
+            raise ValueError(
+                f"sparse decode over a mesh needs each cache block to hold whole "
+                f"ContiguousChunks: the KV capacity S={S} splits into {n} blocks of {s1 - s0} "
+                f"positions, not a multiple of chunk_tokens={c}; pad the KV state to a "
+                f"multiple of n_blocks*chunk_tokens = {n}*{c} = {n * c} or lower chunk_tokens")
+        if kmst is not None:
+            mb = block_index(kmst.shape, kmst.sharding, pos)
+            if (mb[2] != slice(s0 // c, s1 // c) or mb[:2] != kb[:2] or mb[3:] != kb[3:]):
+                raise ValueError(
+                    f"sparse decode over a mesh needs kmean's blocks to hold the chunks of k's: "
+                    f"at mesh position {tuple(pos)} k holds positions [{s0}, {s1}) and kmean "
+                    f"chunks [{mb[2].start}, {mb[2].stop}) of {kmst.shape[2]}; lay kmean "
+                    f"(L, b, S/chunk_tokens, n_kv, d) out on k's spec")
+        ranges.add((s0 // c, s1 // c))
+    return tuple(sorted(ranges))
 
 
 # --------------------------------------------------------------------------
@@ -528,6 +668,7 @@ class _Part:
     spread: float  # the share of a part's cache blocks one device holds
     positions: Optional[torch.Tensor] = None
     train: Optional[_Train] = None
+    sparse: Optional[SparseDecode] = None  # the sparse decode step's settings
 
 
 class MeshServe:
@@ -540,7 +681,10 @@ class MeshServe:
     ``k``, ``v``, ``ssm_h`` and ``ssm_conv`` as ``ShardedTensor`` laid out by
     ``serve_state_shardings`` (``length`` a Python int). They return the
     logits on the mesh's first device and the state dict, its blocks
-    written in place.
+    written in place. ``sparse_decode(params, token, state, *,
+    chunk_tokens, budget, cached_summaries)`` is ContiguousKV's sparse
+    decode step over the same layout, ``state["kmean"]`` laid out on k's
+    spec.
 
     ``part_loss(...)`` is one dp part of a train step's microbatch: its
     forward through the same layer body and the vocabulary-parallel loss;
@@ -554,6 +698,12 @@ class MeshServe:
         self.n_tp = math.prod(mesh.shape[a] for a in self.tp)
         self.shards = plan_shards(cfg, self.n_tp)
         self.first = mesh.devices.flat[0]
+        # the kv heads whose chunk summaries each shard updates: those no
+        # earlier shard holds (a kv head two shards read is updated once)
+        done, self.kv_owned = 0, []
+        for sh in self.shards:
+            self.kv_owned.append((max(sh.kv[0], done), sh.kv[1]))
+            done = max(done, sh.kv[1])
 
     # -- positions and movement ------------------------------------------------
     def pos(self, j: int, t: int) -> tuple:
@@ -571,28 +721,11 @@ class MeshServe:
         if part.train is not None:
             return _WeightGather.apply(part.train.anchor, st, index, device, near,
                                        part.train.scope)
-        out, n_blocks, remote = gather_slice(st, index, device, near)
-        if remote:
-            RL.collective("all-gather" if n_blocks > 1 else "collective-permute",
-                          _nbytes(out), max(n_blocks, 2))
-        return out
+        return read_slice(st, index, device, near)
 
     def _layer_slice(self, st: ShardedTensor, l: int, device, near, part: _Part,
                      *index) -> torch.Tensor:
         return self._gather(st, (slice(l, l + 1),) + index, device, near, part)[0]
-
-    def _write(self, st: ShardedTensor, index, value: torch.Tensor, near, spread: float):
-        """``value`` (the shape of ``st[index]``) into every block that holds
-        part of it, replicas too; a block at another position than ``near``
-        takes it as a collective-permute (``spread`` of them a device)."""
-        pieces = list(block_pieces(st, index, near, replicas=True))
-        elems = sum(math.prod(sl.stop - sl.start for sl in out_sl)
-                    for pos, out_sl, _ in pieces if pos != tuple(near))
-        if elems:
-            RL.collective("collective-permute", elems * value.element_size() * spread, 2)
-        for pos, out_sl, blk_sl in RL.loop(pieces, per_device=spread):
-            blk = st.block_at(pos)
-            blk[blk_sl] = value[out_sl].to(blk.device)
 
     def _sum(self, parts: List[torch.Tensor], home) -> torch.Tensor:
         """Row-parallel partials summed in shard order on ``home`` in
@@ -674,6 +807,19 @@ class MeshServe:
     def decode(self, params, token, state):
         return self._run(params, token, state, decode=True)
 
+    def sparse_decode(self, params, token, state, *, chunk_tokens: int = 16,
+                      budget: float = 0.05, cached_summaries: bool = False):
+        """ContiguousKV's sparse decode step over the mesh (the module
+        docstring): the unsharded step's semantics
+        (``steps.make_sparse_decode_step``) with its picks global over the
+        cache's blocks. Raises ValueError, before anything is written, for
+        a layout whose blocks split a chunk (``check_chunk_layout``)."""
+        if not self.cfg.has_attention:
+            raise ValueError(f"{self.cfg.name}: the sparse decode step needs attention layers")
+        blocks = check_chunk_layout(state, chunk_tokens, cached_summaries)
+        return self._run(params, token, state, decode=True,
+                         sparse=SparseDecode(chunk_tokens, budget, cached_summaries, blocks))
+
     def _parts(self, b: int) -> List[Tuple[int, int, int]]:
         """(dp shard, first row, end row) of each computing dp shard."""
         if b < 16 or self.n_dp == 1:
@@ -683,7 +829,8 @@ class MeshServe:
         r = b // self.n_dp
         return [(j, j * r, (j + 1) * r) for j in range(self.n_dp)]
 
-    def _run(self, params, inputs, state, *, decode: bool):
+    def _run(self, params, inputs, state, *, decode: bool,
+             sparse: Optional[SparseDecode] = None):
         cfg = self.cfg
         b, s = inputs.shape[:2]
         length = int(state["length"]) if decode else 0
@@ -693,7 +840,7 @@ class MeshServe:
         for j, lo, hi in RL.loop(parts, per_device=1 / len(parts)):
             near = self.pos(j, 0)
             part = _Part(j, slice(lo, hi), self.mesh.devices[near], near, state, length,
-                         decode, len(parts) / self.n_dp)
+                         decode, len(parts) / self.n_dp, sparse=sparse)
             routes = None
             if cfg.family == "moe" and len(parts) > 1:
                 routes = [MoeRoute(b * s, None if o is None else o.to(part.home))
@@ -840,10 +987,11 @@ class MeshServe:
                                                  proj_parts)
         del xs
         if part.decode and cfg.has_attention:
+            picks = None if part.sparse is None else self._pick_chunks(qs, l, part)
             for t, sh, pos, dev in self._tensor_shards(part):
                 if t in qs:
                     with _on(dev):
-                        attn = self._attend(qs[t], l, sh, pos, part, window)
+                        attn = self._attend(qs[t], l, sh, pos, part, window, picks)
                         a_parts.append(T._out_proj(attn, ws[t], cfg))
         a_out = self._sum(a_parts, home) if a_parts else None
         s_out = None
@@ -877,44 +1025,147 @@ class MeshServe:
         if part.state is not None:
             seq = slice(part.length, part.length + k.shape[1])
             for name, val in (("k", k), ("v", v)):
-                self._write(part.state[name], (slice(l, l + 1), part.rows, seq, slice(*sh.kv)),
+                write_slice(part.state[name], (slice(l, l + 1), part.rows, seq, slice(*sh.kv)),
                             val[None], pos, part.spread)
+            if part.sparse is not None and part.sparse.cached_summaries:
+                self._add_summary(k, l, sh, pos, part)
         return q
 
-    def _attend(self, q, l, sh: Shard, pos, part: _Part, window):
-        """The decode attend of the shard's q heads over the cache blocks
-        that hold their kv heads, each block where it lies, the blocks of
-        one row and kv heads merged by the flash-decode combine in block
-        order. Returns (b, 1, heads, d) on the shard's device."""
-        cfg = self.cfg
-        g = cfg.n_heads // cfg.n_kv_heads
+    def _add_summary(self, k, l, sh: Shard, pos, part: _Part):
+        """The new key's 1/c share added to its chunk's mean in
+        ``kmean`` for the kv heads this shard updates (``kv_owned``), the
+        row written into every block that holds it."""
+        o0, o1 = self.kv_owned[self.shards.index(sh)]
+        if o1 <= o0:
+            return
+        c, st = part.sparse.chunk_tokens, part.state["kmean"]
+        chunk = part.length // c
+        index = (slice(l, l + 1), part.rows, slice(chunk, chunk + 1), slice(o0, o1))
+        old = self._gather(st, index, k.device, pos, part)
+        delta = (k[:, 0, o0 - sh.kv[0]: o1 - sh.kv[0]] / c).to(st.dtype)
+        write_slice(st, index, old + delta[None, :, None], pos, part.spread)
+
+    def _kv_groups(self, l, sh: Shard, pos, part: _Part):
+        """The cache blocks that hold shard ``sh``'s kv heads for the part's
+        rows, grouped by kv heads in head order: (the group's q heads as
+        [q0, q1) of the shard's, each one's index into the group's kv heads
+        or None (``kv_index``), its pieces (``block_pieces``) in sequence
+        order)."""
+        g = self.cfg.n_heads // self.cfg.n_kv_heads
         (h0, h1), (kv0, kv1) = sh.heads, sh.kv
-        kst, vst = part.state["k"], part.state["v"]
         index = (slice(l, l + 1), part.rows, ALL, slice(kv0, kv1))
         groups: Dict[Tuple[int, int], list] = {}
-        for piece in block_pieces(kst, index, pos):
+        for piece in block_pieces(part.state["k"], index, pos):
             rows, heads = piece[1][1], piece[1][3]
             if (rows.start, rows.stop) != (0, part.rows.stop - part.rows.start):
                 raise ValueError("the cache splits a dp shard's rows: not a serve-state layout")
             groups.setdefault((heads.start, heads.stop), []).append(piece)
-        outs = []
+        out = []
         for (a, b), pieces in sorted(groups.items()):
-            ka, kb = kv0 + a, kv0 + b
-            qa, qb = max(h0, ka * g), min(h1, kb * g)
-            q_sub = q[:, :, qa - h0: qb - h0]
-            idx = kv_index(qa, qb, g, ka)
-            pieces = sorted(pieces, key=lambda p: p[1][2].start)
+            qa, qb = max(h0, (kv0 + a) * g), min(h1, (kv0 + b) * g)
+            out.append(((qa - h0, qb - h0), kv_index(qa, qb, g, kv0 + a),
+                        sorted(pieces, key=lambda p: p[1][2].start)))
+        return out
+
+    def _pick_chunks(self, qs, l, part: _Part):
+        """The sparse decode's picks of layer l for the part's rows: (picks
+        (b, k) on the part's first device, {a sequence block's first chunk:
+        the most picks a row has in it}). Each tensor shard's chunk scores
+        over the blocks that hold its kv heads (:meth:`_shard_scores`) are
+        summed in float32 in shard order (an all-reduce), the chunks from
+        the new token's on masked, then ``steps.top_chunks``. The most a
+        block holds is read from the picks (one read a layer and part) where
+        the cache has several sequence blocks; on meta tensors, which hold
+        no data, each block is taken to hold an even share of them, at most
+        all its chunks."""
+        from repro_torch.launch import steps  # it imports this module
+
+        sp, state = part.sparse, part.state
+        m = state["k"].shape[2] // sp.chunk_tokens
+        partials = []
+        for t, sh, pos, dev in self._tensor_shards(part):
+            if t in qs:
+                with _on(dev):
+                    partials.append(self._shard_scores(qs[t], l, sh, pos, part, m))
+        b = part.rows.stop - part.rows.start
+        RL.collective("all-reduce", 4 * b * m, self.n_tp, devices=self.n_tp)
+        with RL.uncounted():
+            scores = _float32_sum(partials, part.home, torch.float32)
+        cpos = torch.arange(m, device=part.home) * sp.chunk_tokens
+        scores = torch.where(cpos[None] < part.length + 1, scores, float("-inf"))
+        k = max(1, int(sp.budget * m))
+        picks = steps.top_chunks(scores, k)
+        if len(sp.blocks) == 1:  # one block holds every pick
+            most = [k]
+        elif picks.device.type == "meta":
+            share = -(-k // len(sp.blocks))
+            most = [min(share, c1 - c0) for c0, c1 in sp.blocks]
+        else:
+            most = torch.stack([((picks >= c0) & (picks < c1)).sum(dim=1).amax()
+                                for c0, c1 in sp.blocks]).tolist()
+        return picks, {c0: n for (c0, _), n in zip(sp.blocks, most)}
+
+    def _shard_scores(self, q, l, sh: Shard, pos, part: _Part, m: int) -> torch.Tensor:
+        """Shard ``sh``'s partial chunk scores (b, m) float32 on q's device:
+        its q heads against each block's chunk means (``kmean``'s block, or
+        the K block averaged a chunk), each block where it lies, the kv
+        head groups' sums added in head order."""
+        c = part.sparse.chunk_tokens
+        kst = part.state["kmean" if part.sparse.cached_summaries else "k"]
+        total = None
+        for (q0, q1), idx, pieces in self._kv_groups(l, sh, pos, part):
+            q_sub = q[:, :, q0:q1]
+            out = torch.zeros((q.shape[0], m), dtype=torch.float32, device=q.device)
+            for bpos, out_sl, blk_sl in RL.loop(pieces, per_device=part.spread):
+                dev = self.mesh.devices[bpos]
+                s0, s1 = out_sl[2].start, out_sl[2].stop
+                with _on(dev):
+                    if part.sparse.cached_summaries:
+                        sl = blk_sl[:2] + (slice(blk_sl[2].start // c, blk_sl[2].stop // c),
+                                           blk_sl[3])
+                        k_mean = kst.block_at(bpos)[sl][0]
+                    else:
+                        kb_ = kst.block_at(bpos)[blk_sl][0]
+                        k_mean = kb_.reshape(kb_.shape[0], -1, c, *kb_.shape[2:]).mean(dim=2)
+                    if idx is not None:
+                        k_mean = k_mean[:, :, list(idx)]
+                    out[:, s0 // c: s1 // c] = chunk_scores(q_sub.to(dev), k_mean).to(q.device)
+            total = out if total is None else total + out
+        return total
+
+    def _attend(self, q, l, sh: Shard, pos, part: _Part, window, picks=None):
+        """The decode attend of the shard's q heads over the cache blocks
+        that hold their kv heads, each block where it lies, the blocks of
+        one row and kv heads merged by the flash-decode combine in block
+        order; with ``picks`` (the sparse decode's, :meth:`_pick_chunks`)
+        over the picked chunks each block holds (:func:`attend_chunks`), a
+        block that holds none of them skipped. Returns (b, 1, heads, d) on
+        the shard's device."""
+        kst, vst = part.state["k"], part.state["v"]
+        outs = []
+        for (q0, q1), idx, pieces in self._kv_groups(l, sh, pos, part):
+            q_sub = q[:, :, q0:q1]
             combined = len(pieces) > 1
             partials = []
             for bpos, out_sl, blk_sl in RL.loop(pieces, per_device=part.spread):
+                most = None if picks is None else picks[1][out_sl[2].start
+                                                            // part.sparse.chunk_tokens]
+                if most == 0:
+                    continue
                 dev = self.mesh.devices[bpos]
                 kb_, vb_ = kst.block_at(bpos)[blk_sl][0], vst.block_at(bpos)[blk_sl][0]
                 if idx is not None:
                     kb_, vb_ = kb_[:, :, list(idx)], vb_[:, :, list(idx)]
                 with _on(dev):
-                    partials.append(attention_decode(
-                        q_sub.to(dev), kb_, vb_, length=part.length + 1, window=window,
-                        pos0=out_sl[2].start, return_lse=combined))
+                    if picks is None:
+                        partials.append(attention_decode(
+                            q_sub.to(dev), kb_, vb_, length=part.length + 1, window=window,
+                            pos0=out_sl[2].start, return_lse=combined))
+                    else:
+                        partials.append(attend_chunks(
+                            q_sub.to(dev), kb_, vb_, picks[0].to(dev),
+                            chunk_tokens=part.sparse.chunk_tokens, length=part.length,
+                            pos0=out_sl[2].start, most=most, return_lse=combined))
             if combined:
                 parts = [(o[:, 0], None, lse) for o, lse in partials]
                 RL.collective("all-reduce", 4 * q_sub.numel(), len(pieces), devices=len(pieces))
@@ -946,7 +1197,7 @@ class MeshServe:
             new_conv = xpad[:, s: s + p["conv_w"].shape[0] - 1]
             mid = (xi, z)
         if part.state is not None:
-            self._write(part.state["ssm_conv"], self._state_index("ssm_conv", l, sh, part),
+            write_slice(part.state["ssm_conv"], self._state_index("ssm_conv", l, sh, part),
                         new_conv[None], pos, part.spread)
         proj_parts.append(proj)
         return mid
@@ -961,7 +1212,7 @@ class MeshServe:
         else:
             out, h = mamba_out(*mid, proj, p, self.cfg)
         if part.state is not None:
-            self._write(part.state["ssm_h"], index, h[None], pos, part.spread)
+            write_slice(part.state["ssm_h"], index, h[None], pos, part.spread)
         return out
 
     # -- the FFN ---------------------------------------------------------------

@@ -4,9 +4,10 @@ the CPU.
 - Per-device argument bytes: the port's ``arg_bytes`` (each input leaf's
   block from the shard layout) equals, to the byte, the sum of each JAX
   ``input_specs`` leaf's ``sharding.shard_shape``, for every assigned config
-  and shape on both production meshes and on the GQA mesh (kv_split 4).
-  JAX's side runs in one subprocess with 512 forced host devices and
-  compiles nothing.
+  and shape on both production meshes and on the GQA mesh (kv_split 4),
+  and for every decode shape again with the sparse decode's chunk
+  summaries (``sparse_summaries=True``). JAX's side runs in one subprocess
+  with 512 forced host devices and compiles nothing.
 - Products: a reduced float32 decode step's FLOPs counted by
   ``StepAnalyzer`` on meta tensors are within 1 % of ``HloAnalyzer`` on
   JAX's compiled step on one host device (the two count the same dots;
@@ -15,6 +16,11 @@ the CPU.
 - ``run_cell`` on four full-width cells (dense train, an ``ssm`` config, an
   MoE config, ``--sharded-sparse``) writes rows with the JAX rows' keys
   under the JAX file names; ``--ssm-bf16`` is refused.
+- The sparse decode's cell over the mesh (qwen3-1.7b decode_32k,
+  ``--sparse --cached-summaries``) is counted per position: it fits, holds
+  the dense row's bytes plus its chunk summaries' blocks and temporaries,
+  and its FLOPs a device times 256 are within 1.15x of the whole unsharded
+  sparse step's.
 """
 import dataclasses
 import json
@@ -67,10 +73,11 @@ for arch in ASSIGNED:
         for mk, mesh in meshes.items():
             if mk == "single~kv4" and arch != KV_SPLIT_ARCH:
                 continue
-            args = S.input_specs(cfg, shape, mesh)
-            out[f"{arch}|{shape}|{mk}"] = sum(
-                math.prod(x.sharding.shard_shape(x.shape)) * x.dtype.itemsize
-                for x in jax.tree_util.tree_leaves(args))
+            for sparse in (False, True) if S.SHAPES[shape].kind == "decode" else (False,):
+                args = S.input_specs(cfg, shape, mesh, sparse_summaries=sparse)
+                out[f"{arch}|{shape}|{mk}" + ("|sparse" if sparse else "")] = sum(
+                    math.prod(x.sharding.shard_shape(x.shape)) * x.dtype.itemsize
+                    for x in jax.tree_util.tree_leaves(args))
 print(json.dumps(out))
 """
 
@@ -85,11 +92,13 @@ def test_per_device_argument_bytes_equal_jax():
     want = json.loads(proc.stdout.strip().splitlines()[-1])
     meshes = {k: make_production_mesh(devices=[META] * (512 if "multi_pod" in kw else 256), **kw)
               for k, kw in MESHES.items()}
-    assert len(want) == len(ASSIGNED) * len(SHAPES) * 2 + len(SHAPES)
+    n_decode = sum(1 for s in SHAPES.values() if s.kind == "decode")
+    assert len(want) == (len(ASSIGNED) * 2 + 1) * (len(SHAPES) + n_decode)
     got = {}
     for key in want:
-        arch, shape, mk = key.split("|")
-        got[key] = DR.arg_bytes(input_specs(get_config(arch), shape, meshes[mk]), meshes[mk])
+        arch, shape, mk, *sparse = key.split("|")
+        specs = input_specs(get_config(arch), shape, meshes[mk], sparse_summaries=bool(sparse))
+        got[key] = DR.arg_bytes(specs, meshes[mk])
     assert got == want
 
 
@@ -172,8 +181,9 @@ def test_run_cell_writes_jax_rows(tmp_path):
             assert launches == {"selective_scan/chunked": 64}
             assert set(row["coll_bytes"]) == {"all-gather", "all-reduce"}
         elif cell.get("sharded_sparse"):
-            assert set(row["coll_bytes"]) == {"all-reduce"} and not launches
-            assert "one-device count" in row["note"]
+            # each shard's slice gathered where the state's blocks lie, the combine
+            assert set(row["coll_bytes"]) == {"all-gather", "all-reduce"} and not launches
+            assert "one-device" not in row["note"]
         else:  # granite's decode over the mesh: 40 experts, each one's d_ff split 16 ways
             assert set(row["coll_bytes"]) == {"all-gather", "all-reduce", "collective-permute"}
     assert len(os.listdir(tmp_path)) == len(CELLS)
@@ -209,5 +219,34 @@ def test_prefill_cell_over_the_mesh_fits():
                           one_device=True)
     with RL.StepAnalyzer() as whole:
         make_prefill_step(cfg)(*args)
+    ratio = row["flops"] * 256 / whole.metrics.flops
+    assert 1.0 <= ratio <= 1.15, ratio
+
+
+def test_sparse_decode_cell_over_the_mesh_fits():
+    """qwen3-1.7b decode_32k ``--sparse --cached-summaries`` on the 16 x 16
+    mesh through ``make_sparse_decode_step(cfg, mesh=)``: counted per
+    position (no one-device note), it fits 80 GB a device, its arguments are
+    the dense row's plus its chunk summaries' blocks, its bytes a device at
+    most the dense row's plus those blocks and its temporaries, it declares
+    the chunk scores' all-reduce, and its FLOPs a device times 256 are
+    within 1.0-1.15x of the whole unsharded sparse step's count (each block
+    attends over the picks it holds, an even share of them on meta)."""
+    from repro_torch.launch.steps import make_sparse_decode_step
+
+    dense = DR.run_cell("qwen3-1.7b", "decode_32k", "single")
+    row = DR.run_cell("qwen3-1.7b", "decode_32k", "single", sparse=True, cached_summaries=True)
+    assert row["ok"] and row["fits"] and row["bytes_per_device"] < 80e9
+    assert "one-device" not in row["note"] and not row["launches"]
+    cfg = get_config("qwen3-1.7b")
+    mesh = make_production_mesh(devices=[META] * 256)
+    specs = input_specs(cfg, "decode_32k", mesh, sparse_summaries=True)
+    kmean = DR.arg_bytes({"kmean": specs[2]["kmean"]}, mesh)
+    assert kmean > 0 and row["arg_bytes"] == dense["arg_bytes"] + kmean
+    assert row["bytes_per_device"] <= dense["bytes_per_device"] + kmean + row["temp_bytes"]
+    assert {"all-gather", "all-reduce", "collective-permute"} <= set(row["coll_bytes"])
+    args = DR.materialize(cfg, "decode_32k", specs, mesh, one_device=True)
+    with RL.StepAnalyzer() as whole:
+        make_sparse_decode_step(cfg, chunk_tokens=16, budget=0.05, cached_summaries=True)(*args)
     ratio = row["flops"] * 256 / whole.metrics.flops
     assert 1.0 <= ratio <= 1.15, ratio

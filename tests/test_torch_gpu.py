@@ -2190,3 +2190,71 @@ def test_mesh_serve_steps_on_the_card(dev, arch):
     floor = max(rel(w, f) for w, f in zip(want, f32))
     worst = max(rel(g, w) for g, w in zip(got, want))
     assert 0 < floor and worst <= 2.0 * floor, (worst, floor)
+
+
+@pytest.mark.parametrize("cached", [False, True], ids=["kmeans", "summaries"])
+def test_mesh_sparse_step_on_the_card(dev, monkeypatch, cached):
+    """A reduced float32 qwen3-1.7b (d_head 64) prefilled with 2 x 256
+    tokens over a 2 x 2 mesh of the card (``[cuda:0] * 4``: the cache's
+    sequence over the data axis, its kv heads over the model axis), then 4
+    ContiguousKV sparse decode steps (chunks of 16, budget 0.25) teacher-
+    forced on the unsharded sparse step's greedy tokens: flash launches once
+    a layer and tensor shard in the prefill and never in the steps; the
+    logits within 1e-5 of the unsharded step's largest and every (step,
+    layer, row) pick the unsharded step's (float32: the two differ only by
+    the order of the float32 sums)."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import steps as PS
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import (NamedSharding, batch_specs, param_shardings,
+                                             serve_state_shardings, shard, shard_tree, unshard)
+    from repro_torch.launch.specs import decode_token_tree
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(reduced_config("qwen3-1.7b", d_head=64), dtype="float32")
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    b, s, n, c, cap = 2, 256, 4, 16, 288  # 260 positions rounded up to 2 blocks x 16
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab_size, (b, s)),
+                             dtype=torch.int32, device=dev)
+    picks, real = [], PS.top_chunks
+    monkeypatch.setattr(PS, "top_chunks", lambda x, k: picks.append(real(x, k)) or picks[-1])
+
+    def run(mesh, feed):
+        state = T.init_serve_state(cfg, b, cap, device=dev)
+        batch, put, ps = {"tokens": tokens}, (lambda t: t), params
+        if mesh is not None:
+            ssh = serve_state_shardings(cfg, mesh, b)
+            state = {k: v if k == "length" else shard(v, ssh[k]) for k, v in state.items()}
+            batch = {"tokens": shard(tokens,
+                                     batch_specs(cfg, mesh, b, s, training=False)["tokens"])}
+            put = lambda t: shard(t, decode_token_tree(cfg, mesh, b).sharding)  # noqa: E731
+            ps = shard_tree(params, param_shardings(cfg, mesh, fsdp=True))
+        fa_ops.launches = 0
+        logits, state = PS.make_prefill_step(cfg, mesh=mesh)(ps, batch, state)
+        prefill_launches = fa_ops.launches
+        if cached:
+            k = state["k"] if mesh is None else unshard(state["k"], dev)
+            km = k.reshape(cfg.n_layers, b, cap // c, c, cfg.n_kv_heads, cfg.d_head).mean(dim=3)
+            state["kmean"] = km if mesh is None else shard(km, NamedSharding(mesh, ssh["k"].spec))
+        step = PS.make_sparse_decode_step(cfg, chunk_tokens=c, budget=0.25,
+                                          cached_summaries=cached, mesh=mesh)
+        outs, fed = [], []
+        for i in range(n):
+            tok = logits.argmax(-1).to(torch.int32) if feed is None else feed[i]
+            fed.append(tok)
+            logits, state = step(ps, put(tok), state)
+            outs.append(logits)
+        assert fa_ops.launches == prefill_launches
+        return outs, fed, prefill_launches
+
+    want, feed, _ = run(None, None)
+    want_picks = picks[:]
+    picks.clear()
+    got, _, launches = run(make_host_mesh(2, 2, devices=[dev] * 4), feed)
+    assert launches == 2 * cfg.n_layers
+    assert len(picks) == len(want_picks) == n * cfg.n_layers
+    assert all(torch.equal(g, w) for g, w in zip(picks, want_picks))
+    for g, w in zip(got, want):
+        _close(g, w)
