@@ -328,6 +328,13 @@ non-zero exit code:
                 version; ms a sparse step by events beside the unsharded
                 sparse step's and (v)'s dense mesh decode step's, peak
                 memory;
+  13w. laid-out init (w) — ``init_params(cfg, generator, device,
+                shardings=)`` on full-width qwen3-1.7b over a 2 x 2 mesh of
+                the card (``[cuda:0] * 4``, fsdp): every block of every leaf
+                bit for bit ``shard_tree(init_params(...), shardings)``'s,
+                both timed to a synchronize on the mesh's devices
+                (``mesh.synchronize``), the laid-out init's peak beside the
+                whole tree's bytes;
   14. sim     — the discrete-event sim mode on the card's host (no tensor,
                 no launch): (a) both golden timelines of tests/golden/
                 reproduced event for event; (b) the headline ordering's
@@ -6780,6 +6787,55 @@ def phase_sim(ref, smi_line):
     print(f"sim: phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+def phase_laid_out_init(smi_line) -> dict:
+    """(w) the laid-out init of full-width qwen3-1.7b on a 2 x 2 mesh of
+    the card against init_params + shard_tree, block by block bit for bit;
+    both timed, the laid-out one's peak printed. Returns its numbers."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import (make_host_mesh, peak_memory, reset_peak_memory,
+                                         synchronize)
+    from repro_torch.launch.sharding import param_shardings, shard_tree
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_flatten_with_path
+
+    cfg = get_config(TRAIN_NAME)
+    dev = torch.device(DEVICE, 0)
+    mesh = make_host_mesh(2, 2, devices=[dev] * 4)
+    sh = param_shardings(cfg, mesh, fsdp=True)
+    free_weights()
+    reset_peak_memory(mesh)
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    got = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev, shardings=sh)
+    synchronize(mesh)
+    laid_s = time.perf_counter() - t0
+    peak = max(peak_memory(mesh).values()) - before
+    t0 = time.perf_counter()
+    want = shard_tree(T.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev), sh)
+    synchronize(mesh)
+    plain_s = time.perf_counter() - t0
+    n_blocks = total = 0
+    for (path, g), (_, w) in zip(tree_flatten_with_path(got), tree_flatten_with_path(want)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"laid-out init (w): {path} is {g.shape} {g.dtype}, not {w.shape} {w.dtype}")
+        for pos in w.positions():
+            a, b = g.block_at(pos), w.block_at(pos)
+            if a.device != b.device or not torch.equal(a, b):
+                fail(f"laid-out init (w): {path} at {pos} differs from shard_tree's block")
+            n_blocks += 1
+            total += a.numel() * a.element_size()
+    print(f"laid-out init (w): {cfg.name} on a 2 x 2 mesh of the card: {n_blocks} blocks, "
+          f"{total / 2**30:.2f} GiB, bit for bit init_params + shard_tree; {laid_s:.2f} s laid "
+          f"out (peak {peak / 2**30:.2f} GiB above what was held), {plain_s:.2f} s whole then "
+          f"sharded ({smi_line})")
+    del got, want
+    free_weights()
+    return dict(blocks=n_blocks, bytes=total, laid_out_s=laid_s, peak_bytes=peak,
+                whole_then_shard_s=plain_s)
+
+
 def time_phases():
     """Make every ``phase_*`` function print its seconds when it returns
     (nested phases too), so a run shows where its time limit goes."""
@@ -6901,6 +6957,7 @@ def main() -> int:
         rows[name]["qwen3_1_7b"] = {k: (r[k]["tensor_core"][0] if k == "bound" else r[k])
                                     for k in ("err", "ms", "plain_ms", "host_ms", "bound")
                                     if k in r}
+    phase_laid_out_init(smi_line)
     phase_sim(sim_ref, smi_line)
     sources = {"chunk_score": ("src/repro_torch/csrc/chunk_score.cu",
                                "src/repro/kernels/chunk_score/kernel.py:65"),

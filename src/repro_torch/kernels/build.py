@@ -170,6 +170,27 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def on_own_device(fn):
+    """``fn``, a wrapper's entry point, run with the device of its first
+    tensor argument made current where that tensor lies on a CUDA device.
+
+    A launcher runs in the current device's context and takes its stream
+    from ``stream_handle``, so a call on tensors of ``cuda:1`` while
+    ``cuda:0`` is current would hand one card's stream to the other card's
+    context; under the guard the current device, its stream, its scratch
+    (``workspace``) and the kernel's per-device attributes are the
+    tensors'. A CPU or meta call runs ``fn`` as it is."""
+    @functools.wraps(fn)
+    def guarded(*args, **kwargs):
+        t = next((a for a in args if isinstance(a, torch.Tensor)), None)
+        if t is None or t.device.type != "cuda":
+            return fn(*args, **kwargs)
+        with torch.cuda.device(t.device):
+            return fn(*args, **kwargs)
+
+    return guarded
+
+
 def route(*tensors: torch.Tensor) -> str:
     """"cpu", "cuda" or "meta": the device type every tensor shares; raises
     for a mix or any other device. A wrapper with a meta route (the dry

@@ -35,6 +35,7 @@ def _check_geometry(name, s, n_q, d, c, n_kv, dk, shapes):
         raise ValueError(f"{name}: unsupported shapes {shapes}")
 
 
+@B.on_own_device
 def chunk_attention(q: torch.Tensor, k_sel: torch.Tensor, v_sel: torch.Tensor,
                     n_valid: int, k_suf: torch.Tensor, v_suf: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -81,6 +82,7 @@ def chunk_attention(q: torch.Tensor, k_sel: torch.Tensor, v_sel: torch.Tensor,
     return out, mass
 
 
+@B.on_own_device
 def chunk_attention_indexed(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                             chunk_idx: torch.Tensor, n_valid: torch.Tensor,
                             k_suf: torch.Tensor, v_suf: torch.Tensor

@@ -18,6 +18,7 @@ from repro_torch.kernels.chunk_score.ref import chunk_score_ref
 launches = 0  # kernel launches since the count was last set to 0
 
 
+@B.on_own_device
 def chunk_score(q: torch.Tensor, k: torch.Tensor, chunk_tokens: int) -> torch.Tensor:
     """ContiguousChunk scores (Eq. 1): (ceil(n / c),) float32.
 

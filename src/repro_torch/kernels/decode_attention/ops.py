@@ -56,6 +56,7 @@ def _launch(lib_fn, q, n_kv, page, n_active, d, pools_args, table, lengths, lse_
         n_kv, *extra_ints, B.dtype_code(q), B.stream_handle(q))
 
 
+@B.on_own_device
 def decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                      page_table: torch.Tensor, lengths: torch.Tensor, return_lse: bool = False):
     """Paged decode attention.
@@ -117,6 +118,7 @@ class PoolPointers:
     device: torch.Tensor
 
 
+@B.on_own_device
 def decode_attention_pools(q: torch.Tensor, ks: Sequence[torch.Tensor],
                            vs: Sequence[torch.Tensor], page_table: torch.Tensor,
                            lengths: torch.Tensor, pointers: Optional[PoolPointers] = None

@@ -131,6 +131,7 @@ def _shapes(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int, q_offse
                 q_offset=int(q_offset), **extra)
 
 
+@B.on_own_device
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     lse: torch.Tensor | None = None) -> torch.Tensor:
@@ -214,6 +215,7 @@ def _check_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
                          "bfloat16, or on CPU tensors, which run the plain version")
 
 
+@B.on_own_device
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True, window: int = 0,
                         q_offset: int = 0, lse: torch.Tensor | None = None):

@@ -111,6 +111,7 @@ def _check_carries(carries: torch.Tensor, x: torch.Tensor, n: int) -> None:
                          f"is not a carries_buffer for x {tuple(x.shape)} and n {n}")
 
 
+@B.on_own_device
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
                    Cm: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
                    carries: Optional[torch.Tensor] = None
@@ -169,6 +170,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch
     return y, h
 
 
+@B.on_own_device
 def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
                        Cm: torch.Tensor, h0: Optional[torch.Tensor], dy: torch.Tensor,
                        dh_final: Optional[torch.Tensor] = None, *,

@@ -10,11 +10,16 @@ package's ``shard_map`` bodies call ``pmax`` / ``psum``.
 The mesh is one process's view of its local devices, not a
 ``torch.distributed`` process group. The serving tier it exists for is one
 process driving every local device, as the JAX package's ``serve`` drives
-them through ``shard_map``; a process group would make ``serve`` a program
-of one process per rank, and NCCL does not put two ranks on one card. A
-device may appear more than once: ``[cuda:0] * k`` (or ``[cpu] * k``) is a
-mesh of k shards on one device, which stands where the JAX tests force k
-host devices, so the CPU tests and a one-card machine run the k-shard path.
+them through ``shard_map``: over a host's distinct cards its shards' work
+runs on their own cards, their tensors move between cards by peer copies,
+and every kernel launches under its tensors' device (the wrappers' own
+guard, ``kernels/build.py:on_own_device``). A process group waits for a
+mesh over more than one host. A device may appear more than once:
+``[cuda:0] * k`` (or ``[cpu] * k``) is a mesh of k shards on one device,
+which stands where the JAX tests force k host devices, so the CPU tests
+and a one-card machine run the k-shard path. :func:`synchronize` and
+:func:`peak_memory` read every card of a mesh, where ``torch.cuda``'s
+calls without a device read the current one alone.
 
 The builders take ``devices=`` explicitly and default to every local CUDA
 device; with no CUDA device and no ``devices=`` they raise, never falling
@@ -143,3 +148,33 @@ def shard_positions(mesh: Mesh, axes: Sequence[str]) -> list:
 def shard_devices(mesh: Mesh, axes: Sequence[str]) -> list:
     """The device of each shard over ``axes`` (:func:`shard_positions`)."""
     return [mesh.devices[pos] for pos in shard_positions(mesh, axes)]
+
+
+def distinct_devices(mesh: Mesh) -> list:
+    """The mesh's devices, each once, in the mesh's order."""
+    return list(dict.fromkeys(mesh.devices.flat))
+
+
+def synchronize(mesh: Mesh) -> None:
+    """Wait for the work queued on every CUDA device of ``mesh``: a step
+    over several cards has ended when its last card has, and
+    ``torch.cuda.synchronize()`` without a device waits for the current
+    one alone."""
+    for d in distinct_devices(mesh):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def reset_peak_memory(mesh: Mesh) -> None:
+    """``torch.cuda.reset_peak_memory_stats`` on every CUDA device of the
+    mesh."""
+    for d in distinct_devices(mesh):
+        if d.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(d)
+
+
+def peak_memory(mesh: Mesh) -> Dict[str, int]:
+    """Each CUDA device's peak allocated bytes since its last reset
+    (``torch.cuda.max_memory_allocated(d)``), by device name."""
+    return {str(d): torch.cuda.max_memory_allocated(d) for d in distinct_devices(mesh)
+            if d.type == "cuda"}

@@ -46,6 +46,9 @@ from repro_torch.tree import tree_map
 
 NEG_INF = -1e30
 NAMES = ("k", "v", "kmean")  # the sparse decode state's per-position leaves
+# bytes of pages the paged attend has copied onto shards' devices other than
+# the pool's since the count was last set to 0
+page_copy_bytes = 0
 # a logsumexp at or below this is a row the shard had nothing to attend in:
 # the kernel gives -inf there, the plain version a finite value near NEG_INF
 MASKED_LSE = -1e29
@@ -107,11 +110,13 @@ def make_sharded_paged_decode(mesh: Mesh):
     with the slots it does not own set to -1: on the pool's own device over
     the whole pool (no slice, no copy), on another device over a copy of its
     pages with the table rebased. The partials are combined on the mesh's
-    first device (:func:`combine_partials`) and returned on q's device."""
+    first device (:func:`combine_partials`) and returned on q's device.
+    The copies' bytes add to ``page_copy_bytes``."""
     devices = shard_devices(mesh, tp_axes(mesh))
     n_shards = len(devices)
 
     def attend(q, k_pool, v_pool, page_table, lengths):
+        global page_copy_bytes
         n_pages = k_pool.shape[1]
         local = -(-n_pages // n_shards)
         table = page_table.to(torch.int32)
@@ -130,6 +135,7 @@ def make_sharded_paged_decode(mesh: Mesh):
                                            device=dev)
                     block[:, :n] = pool[:, lo: lo + n]
                     blocks.append(block)
+                    page_copy_bytes += block[:, :n].numel() * block.element_size()
                 rebased = torch.where(tables[s] >= 0, tables[s] - lo, -1)
                 args = (q.to(dev), *blocks, rebased.to(dev), lengths.to(dev))
             with _on(dev):

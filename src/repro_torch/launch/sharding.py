@@ -23,10 +23,12 @@ device, as the JAX package's single controller does, and the train step
 over a mesh (``launch/steps.py``) runs each data-parallel shard's forward
 and backward in turn and combines them with plain tensor ops where JAX's
 ``jit`` partitions the step. A ``torch.distributed`` process group (a
-process a rank) is not used: NCCL does not put two ranks on one card, so a
-one-card machine could not run a sharded layout at all, where a mesh of
-``[cuda:0] * k`` runs the k-shard path there and ``[cpu] * k`` runs it in
+process a rank) is not used: one process drives a host's cards, and a mesh
+of ``[cuda:0] * k`` runs the k-shard path on one card and ``[cpu] * k`` in
 the CPU tests against JAX on k forced host devices.
+``init_params(..., shardings=)`` (:class:`LaidOutLeaves`) makes a model's
+params straight into their blocks, so a model no one device holds can be
+laid out over several.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.launch.mesh import Mesh, dp_axes, kv_axes, tp_axes
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import Leaves, ModelConfig
 from repro_torch.tree import tree_map
 
 
@@ -410,6 +412,53 @@ def gather_slice(st: ShardedTensor, index: Tuple[slice, ...], device, near):
             items = [torch.cat(items[i: i + grid[d]], dim=d)
                      for i in range(0, len(items), grid[d])]
     return items[0], len(parts), remote
+
+
+class LaidOutLeaves(Leaves):
+    """``init_params``' leaves laid out on a mesh (``init_params(...,
+    shardings=)``): each a :class:`ShardedTensor` bit for bit
+    :func:`shard` of the leaf ``Leaves`` would make.
+
+    The draws are ``Leaves``' own, on the generator's device in the same
+    order. A stacked leaf's blocks are allocated on their devices and each
+    layer's cast draw is copied into every block that holds part of it
+    before the next layer is drawn, so at most one layer's float32 draw of
+    one leaf lives beside the blocks. A leaf drawn whole (the embedding, the
+    unembedding) and a constant one are made whole on the generator's
+    device and sharded."""
+
+    def __init__(self, generator, device, shardings):
+        super().__init__(generator, device)
+        self.shardings = shardings
+
+    def _sharding(self, path) -> NamedSharding:
+        sh = self.shardings
+        for k in path:
+            sh = sh[k]
+        return sh
+
+    def stacked(self, path, layers: int, shape, std: float, dtype) -> ShardedTensor:
+        sh = self._sharding(path)
+        mesh, full = sh.mesh, (layers,) + tuple(shape)
+        blocks = np.empty(mesh.devices.shape, dtype=object)
+        where = {}
+        for pos in itertools.product(*(range(n) for n in mesh.devices.shape)):
+            where[pos] = block_index(full, sh, pos)
+            blocks[pos] = torch.empty(tuple(sl.stop - sl.start for sl in where[pos]),
+                                      dtype=dtype, device=mesh.devices[pos])
+        for l in range(layers):
+            x = self.draw(shape, std).to(dtype)
+            for pos, sl in where.items():
+                if sl[0].start <= l < sl[0].stop:
+                    blocks[pos][l - sl[0].start] = x[sl[1:]]
+            del x
+        return ShardedTensor(full, dtype, sh, blocks)
+
+    def normal(self, path, shape, std: float, dtype) -> ShardedTensor:
+        return shard(super().normal(path, shape, std, dtype), self._sharding(path))
+
+    def const(self, path, make) -> ShardedTensor:
+        return shard(make(self.device), self._sharding(path))
 
 
 def shard_tree(tree, shardings):

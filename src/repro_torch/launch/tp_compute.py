@@ -101,6 +101,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -380,13 +381,16 @@ class _Scope:
     of them. A scope that waits is in its sink's ``open`` set, which ``GradSink.finish`` requires
     empty; a scope ``tracked`` False (one a rematerialized layer opens in
     the backward, whose gathers' own backwards never run: the forward's
-    nodes take the gradients) is left out of it."""
+    nodes take the gradients) is left out of it. Over distinct cards
+    autograd runs each card's backward nodes on a thread of its own, so the
+    gradients arrive under a lock."""
 
     def __init__(self, sink: GradSink, weight: float, tracked: bool = True):
         self.sink, self.weight, self.tracked = sink, weight, tracked
         self.expect: Dict[tuple, int] = {}
         self.held: Dict[tuple, list] = {}
         self.n = self.pending = 0
+        self.lock = threading.Lock()
 
     def register(self, st: ShardedTensor, pieces) -> int:
         for pos, _, _ in pieces:
@@ -399,6 +403,10 @@ class _Scope:
         return self.n
 
     def arrive(self, st: ShardedTensor, pieces, order: int, grad: torch.Tensor):
+        with self.lock:
+            self._arrive(st, pieces, order, grad)
+
+    def _arrive(self, st: ShardedTensor, pieces, order: int, grad: torch.Tensor):
         for pos, out_sl, blk_sl in pieces:
             key = (st, GradSink.key(st, pos))
             held = self.held.setdefault(key, [])
@@ -415,7 +423,9 @@ class _Scope:
                 total = torch.zeros([b - a for a, b in zip(lo, hi)], dtype=torch.float32,
                                     device=held[0][3].device)
                 for _, _, sl, g in sorted(held, key=lambda h: h[0]):
-                    total[tuple(slice(x.start - a, x.stop - a) for x, a in zip(sl, lo))] += g
+                    # each gather's gradient lies on its shard's device
+                    total[tuple(slice(x.start - a, x.stop - a) for x, a in zip(sl, lo))] += \
+                        g.to(total.device)
                 self.sink.add(st, pos, tuple(slice(a, b) for a, b in zip(lo, hi)), total,
                               self.weight)
         self.pending -= len(pieces)

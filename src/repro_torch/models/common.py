@@ -158,3 +158,34 @@ def param_bytes(tree) -> int:
 def count_params(tree) -> int:
     """Elements of every tensor leaf of a params tree."""
     return sum(x.numel() for x in tree_leaves(tree))
+
+
+class Leaves:
+    """How ``init_params`` makes its leaves: each on ``device``, whole.
+
+    Every random leaf is drawn in float32 from ``generator`` on ``device``
+    (:meth:`draw`) and cast, a stacked leaf one layer at a time, in the
+    order ``init_params`` asks for them; ``path`` names the leaf in the
+    params tree. ``launch/sharding.py``'s ``LaidOutLeaves`` makes the same
+    leaves straight into blocks on a mesh, from the same draws."""
+
+    def __init__(self, generator: Optional[torch.Generator], device: torch.device):
+        self.generator, self.device = generator, device
+
+    def draw(self, shape, std: float) -> torch.Tensor:
+        return std * torch.randn(shape, generator=self.generator, device=self.device)
+
+    def stacked(self, path, layers: int, shape, std: float, dtype) -> torch.Tensor:
+        """(layers, *shape): each layer a normal draw of ``std``, cast."""
+        out = torch.empty((layers,) + tuple(shape), dtype=dtype, device=self.device)
+        for l in range(layers):
+            out[l] = self.draw(shape, std).to(dtype)
+        return out
+
+    def normal(self, path, shape, std: float, dtype) -> torch.Tensor:
+        """One normal draw of ``std`` of the whole leaf, cast."""
+        return self.draw(shape, std).to(dtype)
+
+    def const(self, path, make) -> torch.Tensor:
+        """The leaf ``make(device)`` builds (no draw)."""
+        return make(self.device)

@@ -178,21 +178,19 @@ def moe_ffn(x: torch.Tensor, params: dict, *, n_experts: int, top_k: int,
     return combine(ye, disp, x.dtype).reshape(orig_shape)
 
 
-def init_moe_params(cfg, generator: torch.Generator, dtype, device, layers: int) -> dict:
+def init_moe_params(cfg, make, dtype, layers: int) -> dict:
     """Random router and expert weights with the JAX package's shapes,
     scales and dtypes, stacked over ``layers``; each layer is drawn in
-    float32 and cast into its slot."""
+    float32 and cast into its slot. ``make``: the ``models.common.Leaves``
+    that places them."""
     d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
 
-    def stacked(shape, std):
-        out = torch.empty((layers,) + shape, dtype=dtype, device=device)
-        for l in range(layers):
-            out[l] = std * torch.randn(shape, generator=generator, device=device)
-        return out
+    def stacked(name, shape, std):
+        return make.stacked(("layers", "moe", name), layers, shape, std, dtype)
 
     return {
-        "w_router": stacked((d, E), d ** -0.5),
-        "w_gate": stacked((E, d, f), d ** -0.5),
-        "w_up": stacked((E, d, f), d ** -0.5),
-        "w_down": stacked((E, f, d), f ** -0.5),
+        "w_router": stacked("w_router", (d, E), d ** -0.5),
+        "w_gate": stacked("w_gate", (E, d, f), d ** -0.5),
+        "w_up": stacked("w_up", (E, d, f), d ** -0.5),
+        "w_down": stacked("w_down", (E, f, d), f ** -0.5),
     }

@@ -155,29 +155,32 @@ def mamba_decode_step(
     return out, (h, new_buf)
 
 
-def init_mamba_params(cfg, generator: torch.Generator, dtype, device, layers: int) -> dict:
+def init_mamba_params(cfg, make, dtype, layers: int) -> dict:
     """Random mixer weights with the JAX package's shapes, scales and dtypes,
     stacked over ``layers``; each layer is drawn in float32 and cast into
-    its slot."""
+    its slot. ``make``: the ``models.common.Leaves`` that places them."""
     d, d_in, n, k = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
-    f32 = dict(dtype=torch.float32, device=device)
+    at = ("layers", "mamba")
 
-    def stacked(shape, std):
-        out = torch.empty((layers,) + shape, dtype=dtype, device=device)
-        for l in range(layers):
-            out[l] = std * torch.randn(shape, generator=generator, device=device)
-        return out
+    def stacked(name, shape, std):
+        return make.stacked(at + (name,), layers, shape, std, dtype)
 
-    a_log = torch.log(torch.arange(1, n + 1, **f32)).expand(layers, d_in, n).contiguous()
+    def const(name, fn):
+        return make.const(at + (name,), fn)
+
+    a_log = const("A_log", lambda dev: torch.log(torch.arange(
+        1, n + 1, dtype=torch.float32, device=dev)).expand(layers, d_in, n).contiguous())
     return {
-        "w_in": stacked((d, 2 * d_in), d ** -0.5),
-        "conv_w": stacked((k, d_in), 0.1),
-        "conv_b": torch.zeros((layers, d_in), dtype=dtype, device=device),
-        "w_x": stacked((d_in, 2 * n + 1), d_in ** -0.5),
-        "dt_bias": torch.zeros((layers, 1), **f32),
+        "w_in": stacked("w_in", (d, 2 * d_in), d ** -0.5),
+        "conv_w": stacked("conv_w", (k, d_in), 0.1),
+        "conv_b": const("conv_b", lambda dev: torch.zeros((layers, d_in), dtype=dtype,
+                                                          device=dev)),
+        "w_x": stacked("w_x", (d_in, 2 * n + 1), d_in ** -0.5),
+        "dt_bias": const("dt_bias", lambda dev: torch.zeros((layers, 1), dtype=torch.float32,
+                                                            device=dev)),
         "A_log": a_log,
-        "D": torch.ones((layers, d_in), **f32),
-        "w_out": stacked((d_in, d), d_in ** -0.5),
+        "D": const("D", lambda dev: torch.ones((layers, d_in), dtype=torch.float32, device=dev)),
+        "w_out": stacked("w_out", (d_in, d), d_in ** -0.5),
     }
 
 

@@ -25,7 +25,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.device import resolve_device
 from repro_torch.launch import act_sharding
 from repro_torch.models.attention import attention_decode, attention_prefill, qkv_project
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import Leaves, ModelConfig
 from repro_torch.models.layers import matmul, rms_norm, swiglu
 from repro_torch.models.moe import init_moe_params, moe_ffn
 from repro_torch.models.ssm import (
@@ -41,67 +41,75 @@ FAMILIES = ("dense", "moe", "audio", "vlm") + STATE_FAMILIES
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> Params:
+                device="cuda", shardings=None) -> Params:
     """Random weights with the JAX package's shapes, scales and dtypes.
 
     ``generator`` must live on ``device`` (on ``device="meta"``, which
     allocates nothing and gives the shapes and dtypes alone, it may be
     None). Each layer is drawn in float32 and
     cast into its slot of the stacked tensor, so the float32 transient stays
-    one layer's tensor at full width."""
+    one layer's tensor at full width.
+
+    ``shardings`` (a tree of ``NamedSharding`` in the params' structure,
+    ``launch.sharding.param_shardings``): the params laid out on its mesh,
+    a tree of ``ShardedTensor`` bit for bit ``shard_tree(init_params(cfg,
+    generator, device), shardings)``. The same draws are made on ``device``
+    in the same order, and each layer's cast slice is written straight into
+    the blocks that hold it: no whole stacked leaf is ever formed, so a
+    model no one device holds can be laid out over several."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
     dev = resolve_device(device)
+    if shardings is None:
+        make = Leaves(generator, dev)
+    else:
+        from repro_torch.launch.sharding import LaidOutLeaves
+
+        make = LaidOutLeaves(generator, dev, shardings)
     dtype = cfg.activation_dtype()
     d, L = cfg.d_model, cfg.n_layers
 
-    def normal(shape, std):
-        return (std * torch.randn(shape, generator=generator, device=dev)).to(dtype)
+    def stacked(name, shape, std):
+        return make.stacked(("layers", name), L, shape, std, dtype)
 
-    def stacked(shape, std):
-        out = torch.empty((L,) + shape, dtype=dtype, device=dev)
-        for l in range(L):
-            out[l] = normal(shape, std)
-        return out
-
-    def zeros(shape):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+    def zeros(path, shape):
+        return make.const(path, lambda at: torch.zeros(shape, dtype=dtype, device=at))
 
     s_in = d ** -0.5
     layers: Params = {}
     if cfg.has_attention:
         layers.update({
-            "wq": stacked((d, cfg.n_heads, cfg.d_head), s_in),
-            "wk": stacked((d, cfg.n_kv_heads, cfg.d_head), s_in),
-            "wv": stacked((d, cfg.n_kv_heads, cfg.d_head), s_in),
-            "wo": stacked((cfg.n_heads, cfg.d_head, d), cfg.attn_dim ** -0.5),
+            "wq": stacked("wq", (d, cfg.n_heads, cfg.d_head), s_in),
+            "wk": stacked("wk", (d, cfg.n_kv_heads, cfg.d_head), s_in),
+            "wv": stacked("wv", (d, cfg.n_kv_heads, cfg.d_head), s_in),
+            "wo": stacked("wo", (cfg.n_heads, cfg.d_head, d), cfg.attn_dim ** -0.5),
         })
         if cfg.qkv_bias:
-            layers["bq"] = zeros((L, cfg.n_heads, cfg.d_head))
-            layers["bk"] = zeros((L, cfg.n_kv_heads, cfg.d_head))
-            layers["bv"] = zeros((L, cfg.n_kv_heads, cfg.d_head))
+            layers["bq"] = zeros(("layers", "bq"), (L, cfg.n_heads, cfg.d_head))
+            layers["bk"] = zeros(("layers", "bk"), (L, cfg.n_kv_heads, cfg.d_head))
+            layers["bv"] = zeros(("layers", "bv"), (L, cfg.n_kv_heads, cfg.d_head))
         if cfg.qk_norm:
-            layers["q_norm"] = zeros((L, cfg.d_head))
-            layers["k_norm"] = zeros((L, cfg.d_head))
-    layers["attn_norm"] = zeros((L, d))  # pre-mixer norm of every family
+            layers["q_norm"] = zeros(("layers", "q_norm"), (L, cfg.d_head))
+            layers["k_norm"] = zeros(("layers", "k_norm"), (L, cfg.d_head))
+    layers["attn_norm"] = zeros(("layers", "attn_norm"), (L, d))  # pre-mixer norm of every family
     if cfg.family in STATE_FAMILIES:
-        layers["mamba"] = init_mamba_params(cfg, generator, dtype, dev, L)
+        layers["mamba"] = init_mamba_params(cfg, make, dtype, L)
     if cfg.family == "moe":
-        layers["moe"] = init_moe_params(cfg, generator, dtype, dev, L)
-        layers["ffn_norm"] = zeros((L, d))
+        layers["moe"] = init_moe_params(cfg, make, dtype, L)
+        layers["ffn_norm"] = zeros(("layers", "ffn_norm"), (L, d))
     elif cfg.d_ff and cfg.family != "ssm":
         f = cfg.d_ff
-        layers["w_gate"] = stacked((d, f), s_in)
-        layers["w_up"] = stacked((d, f), s_in)
-        layers["w_down"] = stacked((f, d), f ** -0.5)
-        layers["ffn_norm"] = zeros((L, d))
+        layers["w_gate"] = stacked("w_gate", (d, f), s_in)
+        layers["w_up"] = stacked("w_up", (d, f), s_in)
+        layers["w_down"] = stacked("w_down", (f, d), f ** -0.5)
+        layers["ffn_norm"] = zeros(("layers", "ffn_norm"), (L, d))
     params: Params = {
-        "embed": normal((cfg.vocab_size, d), d ** -0.5),
+        "embed": make.normal(("embed",), (cfg.vocab_size, d), d ** -0.5, dtype),
         "layers": layers,
-        "final_norm": zeros((d,)),
+        "final_norm": zeros(("final_norm",), (d,)),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = normal((d, cfg.vocab_size), d ** -0.5)
+        params["unembed"] = make.normal(("unembed",), (d, cfg.vocab_size), d ** -0.5, dtype)
     return params
 
 

@@ -2258,3 +2258,218 @@ def test_mesh_sparse_step_on_the_card(dev, monkeypatch, cached):
     assert all(torch.equal(g, w) for g, w in zip(picks, want_picks))
     for g, w in zip(got, want):
         _close(g, w)
+
+
+# -- four distinct cards ----------------------------------------------------------
+@pytest.fixture
+def four(dev):
+    n = torch.cuda.device_count()
+    if n < 4:
+        pytest.skip(f"needs four CUDA cards, {n} present")
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+FAR_KERNELS = ["chunk_score", "chunk_attention", "chunk_attention_indexed", "decode_attention",
+               "decode_attention_pools", "flash_attention", "flash_attention_bwd",
+               "selective_scan", "selective_scan_bwd"]
+
+
+def _far_case(name, d3):
+    """(the wrapper's call, its plain version's, the relative limit) on
+    tensors of ``d3``, at this file's shapes and limits."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_pools_ref
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    bf = torch.bfloat16
+    if name == "chunk_score":
+        q, k = _rand(d3, 0, (20, 8, 32)), _rand(d3, 1, (100, 2, 32), torch.float16)
+        return lambda: cs_ops.chunk_score(q, k, 16), lambda: chunk_score_ref(q, k, 16), 1e-5
+    if name == "chunk_attention":
+        q = _rand(d3, 0, (20, 8, 32))
+        ks, vs = (_rand(d3, i, (8, 16, 2, 32), torch.float16) for i in (1, 2))
+        kf, vf = (_rand(d3, i, (20, 2, 32)) for i in (3, 4))
+        return (lambda: ca_ops.chunk_attention(q, ks, vs, 5, kf, vf),
+                lambda: chunk_attention_ref(q, ks, vs, 5, kf, vf), 1e-5)
+    if name == "chunk_attention_indexed":
+        q, kp, vp, idx, kf, vf = _indexed_case(d3, 80, 2, 40, 28, 4, 96, 16, 128, 24,
+                                               torch.float32)
+        nv = torch.tensor([24, 9], dtype=torch.int32, device=d3)
+        return (lambda: ca_ops.chunk_attention_indexed(q, kp, vp, idx, nv, kf, vf),
+                lambda: chunk_attention_indexed_ref(q, kp, vp, idx, nv, kf, vf), 1e-5)
+    if name == "decode_attention":
+        q = _rand(d3, 0, (2, 8, 32), bf)
+        kp, vp = (_rand(d3, i, (2, 9, 16, 2, 32), bf) for i in (1, 2))
+        tbl = torch.tensor([[0, 1, 2, 3, 4, 5, 6], [3, 1, 0, 2, -1, -1, -1]], dtype=torch.int32,
+                           device=d3)
+        lens = torch.tensor([6 * 16 + 5, 3 * 16 + 9], dtype=torch.int32, device=d3)
+        return (lambda: da_ops.decode_attention(q, kp, vp, tbl, lens),
+                lambda: decode_attention_ref(q, kp, vp, tbl, lens), 2.0 ** -7)
+    if name == "decode_attention_pools":
+        q, ks, vs, tbl, lens = _pools_case(d3, bf, 16, [70, 63, 56], [70, 62, 56], seed=73)
+        return (lambda: da_ops.decode_attention_pools(q, ks, vs, tbl, lens),
+                lambda: decode_attention_pools_ref(q, ks, vs, tbl, lens), 2.0 ** -7)
+    if name == "flash_attention":
+        q, k, v, _ = _bwd_inputs(d3, bf, 2, 8, 2, 130, 130, 128, True)
+        return (lambda: fa_ops.flash_attention(q, k, v), lambda: flash_attention_ref(q, k, v),
+                FLASH_REL[bf])
+    if name == "flash_attention_bwd":
+        q, k, v, do = _bwd_inputs(d3, bf, 2, 8, 2, 130, 130, 128, True)
+        out, lse = _forward_for_bwd(q, k, v)
+        return (lambda: fa_ops.flash_attention_bwd(q, k, v, out, do, lse=lse),
+                lambda: flash_attention_bwd_ref(q, k, v, out, do), FLASH_REL[bf])
+    x, dt, A, Bm, Cm = _scan_args(d3, 2, 300, 48, 16, torch.float32, seed=400)
+    carries = ss_ops.carries_buffer(x, 16)
+    if name == "selective_scan":
+        return (lambda: ss_ops.selective_scan(x, dt, A, Bm, Cm, carries=carries),
+                lambda: selective_scan_ref(x, dt, A, Bm, Cm), 1e-5)
+    dy = _rand(d3, 407, (2, 300, 48))
+    ss_ops.selective_scan(x, dt, A, Bm, Cm, carries=carries)
+    return (lambda: ss_ops.selective_scan_bwd(x, dt, A, Bm, Cm, None, dy, carries=carries),
+            lambda: selective_scan_bwd_ref(x, dt, A, Bm, Cm, None, dy), 1e-5)
+
+
+@pytest.mark.parametrize("name", FAR_KERNELS)
+def test_kernel_on_another_card_than_the_current(four, name):
+    """Each wrapper's CUDA route called on tensors of cuda:3 while cuda:0 is
+    current launches under cuda:3 (``build.on_own_device``): its plain
+    version's results within this file's limits, one launch counted, and
+    cuda:0 still current after the call."""
+    d3 = four[3]
+    with torch.cuda.device(four[0]):
+        call, plain, rel = _far_case(name, d3)
+        mod = {"chunk_score": cs_ops, "chunk_attention": ca_ops, "decode_attention": da_ops,
+               "flash_attention": fa_ops, "selective_scan": ss_ops}[
+                   name.removesuffix("_bwd").removesuffix("_indexed").removesuffix("_pools")]
+        bwd = name.endswith("_bwd")
+        before = mod.bwd_launches if bwd else mod.launches
+        got = call()
+        torch.cuda.synchronize(d3)
+        assert torch.cuda.current_device() == 0
+        assert (mod.bwd_launches if bwd else mod.launches) == before + 1
+        want = plain()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        if g is None:
+            continue
+        assert g.device == d3
+        _close(g, w, rel=rel)
+
+
+def _four_card_serve(four, cfg, tokens, data, model, n):
+    """The mesh prefill and ``n`` greedy decode steps over cards 0-3, then
+    over [cuda:0] x 4 teacher-forced on the first run's tokens, params laid
+    out by the laid-out init: [(logits of each call, tokens fed)] x 2."""
+    from repro_torch.launch.mesh import make_host_mesh, synchronize
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.models import transformer as T
+
+    runs = []
+    for devices in (four, [four[0]] * 4):
+        mesh = make_host_mesh(data, model, devices=devices)
+        ps = T.init_params(cfg, torch.Generator(device=four[0]).manual_seed(0), four[0],
+                           shardings=param_shardings(cfg, mesh, fsdp=True))
+        logits, fed, _, _ = _serve_mesh_run(cfg, ps, tokens, runs[0][1] if runs else n, mesh)
+        synchronize(mesh)
+        runs.append((logits, fed))
+    return runs
+
+
+@pytest.mark.parametrize("arch,grid", [("qwen3-1.7b", (2, 2)), ("qwen3-1.7b", (1, 4)),
+                                       ("hymba-1.5b", (1, 4))])
+def test_mesh_serve_steps_on_four_cards(four, arch, grid):
+    """The mesh serve steps on a reduced bfloat16 config over cards 0-3 are
+    bit for bit the same steps over [cuda:0] x 4: the same kernels and
+    products on the same shapes in the same order, only the blocks'
+    devices differ."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+
+    cfg = dataclasses.replace(reduced_config(arch, d_head=64), dtype="bfloat16")
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 256)),
+                             dtype=torch.int32, device=four[0])
+    (far, _), (near, _) = _four_card_serve(four, cfg, tokens, *grid, 4)
+    for g, w in zip(far, near):
+        assert g.device == four[0] and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("cached", [False, True], ids=["kmeans", "summaries"])
+def test_mesh_sparse_step_on_four_cards(four, cached):
+    """ContiguousKV's sparse decode over a 2 x 2 mesh of cards 0-3 (reduced
+    bfloat16 qwen3-1.7b, 2 x 256 prompt tokens, 4 greedy steps, chunks of
+    16, budget 0.25) is bit for bit the same over [cuda:0] x 4: logits,
+    picks and every cache block."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import steps as PS
+    from repro_torch.launch.mesh import make_host_mesh, synchronize
+    from repro_torch.launch.sharding import (NamedSharding, batch_specs, param_shardings,
+                                             serve_state_shardings, shard, unshard)
+    from repro_torch.launch.specs import decode_token_tree
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(reduced_config("qwen3-1.7b", d_head=64), dtype="bfloat16")
+    b, s, c, cap = 2, 256, 16, 288
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab_size, (b, s)),
+                             dtype=torch.int32, device=four[0])
+    runs = []
+    for devices in (four, [four[0]] * 4):
+        mesh = make_host_mesh(2, 2, devices=devices)
+        ps = T.init_params(cfg, torch.Generator(device=four[0]).manual_seed(0), four[0],
+                           shardings=param_shardings(cfg, mesh, fsdp=True))
+        ssh = serve_state_shardings(cfg, mesh, b)
+        state = {k: v if k == "length" else shard(v, ssh[k])
+                 for k, v in T.init_serve_state(cfg, b, cap, device=four[0]).items()}
+        batch = {"tokens": shard(tokens, batch_specs(cfg, mesh, b, s, training=False)["tokens"])}
+        logits, state = PS.make_prefill_step(cfg, mesh=mesh)(ps, batch, state)
+        if cached:
+            k = unshard(state["k"], four[0])
+            km = k.reshape(cfg.n_layers, b, cap // c, c, cfg.n_kv_heads, cfg.d_head).mean(dim=3)
+            state["kmean"] = shard(km, NamedSharding(mesh, ssh["k"].spec))
+        step = PS.make_sparse_decode_step(cfg, chunk_tokens=c, budget=0.25,
+                                          cached_summaries=cached, mesh=mesh)
+        outs = []
+        for _ in range(4):
+            tok = shard(logits.argmax(-1).to(torch.int32), decode_token_tree(cfg, mesh, b).sharding)
+            logits, state = step(ps, tok, state)
+            outs.append(logits)
+        synchronize(mesh)
+        runs.append((outs, {k: unshard(v, four[0]) for k, v in state.items() if k != "length"}))
+    (far, far_state), (near, near_state) = runs
+    assert all(torch.equal(g, w) for g, w in zip(far, near))
+    assert all(torch.equal(far_state[k], near_state[k]) for k in near_state)
+
+
+def test_mesh_train_step_on_four_cards(four):
+    """make_train_step(mesh=) on reduced float32 qwen3-1.7b over a 2 x 2 mesh
+    of cards 0-3, 2 steps at grad_accum 2, is bit for bit the same step over
+    [cuda:0] x 4: params, moments and loss, block by block on the blocks'
+    own cards."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import NamedSharding, P, param_shardings, shard, shard_tree
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.tree import tree_leaves
+
+    cfg, params, _, _, batch = _mesh_setup(four[0], "qwen3-1.7b", 2, 2)
+    runs = []
+    for devices in (four, [four[0]] * 4):
+        mesh = make_host_mesh(2, 2, devices=devices)
+        sh = param_shardings(cfg, mesh, fsdp=True)
+        opt = adamw_init(params)
+        ps = shard_tree(params, sh)
+        os_ = {"m": shard_tree(opt["m"], sh), "v": shard_tree(opt["v"], sh),
+               "step": shard(opt["step"], NamedSharding(mesh, P()))}
+        step = make_train_step(cfg, grad_accum=2, mesh=mesh, remat=False, lr=1e-3)
+        for _ in range(2):
+            ps, os_, metrics = step(ps, os_, batch)
+        runs.append((ps, os_, metrics["loss"].to(four[0])))
+    (fp, fo, fl), (np_, no, nl) = runs
+    assert torch.equal(fl, nl)
+    for got, want in ((fp, np_), (fo["m"], no["m"]), (fo["v"], no["v"])):
+        for g, w in zip(tree_leaves(got), tree_leaves(want)):
+            for pos in g.positions():
+                assert g.block_at(pos).device == four[pos[0] * 2 + pos[1]]
+                assert torch.equal(g.block_at(pos).to(four[0]), w.block_at(pos))

@@ -22,7 +22,9 @@ bias and one kv head, so its cache splits by sequence over the tensor axis
 too; mixtral-8x22b, 4 experts over the shards, and 6 on the 1 x 4 mesh,
 which splits each expert's d_ff; falcon-mamba-7b; hymba-1.5b, also with 6 /
 3 heads and a vocabulary of 250 on the 1 x 4 mesh, which takes the ceil
-split and the fallback layouts; musicgen-large on embeds:
+split and the fallback layouts; musicgen-large on embeds; internvl2-76b on
+patch embeddings on 2 x 2 at batch 4 (its one kv head at this size takes
+the fallback layouts):
 - every call's logits within 1e-5 of its largest |logit| (float32 sums in
   other orders: GSPMD keeps the unsharded step's semantics, so JAX's mesh
   step is its unsharded step up to those orders);
@@ -71,7 +73,8 @@ CEIL = {"n_heads": 6, "n_kv_heads": 3, "vocab_size": 250}
 # two batches crossed with them so that each arch and each mesh sees both
 CASES = ([(a, {}, d, m, (4, 16)[(i + k) % 2]) for i, a in enumerate(ARCHS)
           for k, (d, m) in enumerate(((2, 2), (1, 4)))]
-         + [("mixtral-8x22b", {"n_experts": 6}, 1, 4, 4), ("hymba-1.5b", CEIL, 1, 4, 4)])
+         + [("mixtral-8x22b", {"n_experts": 6}, 1, 4, 4), ("hymba-1.5b", CEIL, 1, 4, 4),
+            ("internvl2-76b", {}, 2, 2, 4)])
 
 
 def _key(arch, over):

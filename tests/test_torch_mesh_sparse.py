@@ -21,7 +21,8 @@ Limits, for qwen3-1.7b, qwen2.5-14b (one kv head: its cache splits by
 sequence over the tensor axis too) and mixtral-8x22b (the dropless MoE FFN)
 each on the 2 x 2 and the 1 x 4 mesh, at batch 4 on one and 16 on the
 other, and qwen3-1.7b with 6 / 3 heads and a vocabulary of 250 on 1 x 4 (the
-ceil split), each without and with cached summaries; those of
+ceil split), and internvl2-76b on patch embeddings on 1 x 4 at batch 4,
+each without and with cached summaries; those of
 ``tests/test_torch_mesh_serve.py``:
 - every step's logits within 1e-5 of its largest |logit|;
 - every block of k, v and kmean within 1e-5 of the leaf's largest |value|
@@ -70,7 +71,7 @@ CEIL = {"n_heads": 6, "n_kv_heads": 3, "vocab_size": 250}
 # two batches crossed with them so that each arch and each mesh sees both
 CASES = ([(a, {}, d, m, (4, 16)[(i + k) % 2]) for i, a in enumerate(ARCHS)
           for k, (d, m) in enumerate(((2, 2), (1, 4)))]
-         + [("qwen3-1.7b", CEIL, 1, 4, 4)])
+         + [("qwen3-1.7b", CEIL, 1, 4, 4), ("internvl2-76b", {}, 1, 4, 4)])
 
 
 def _key(arch, over):
@@ -117,8 +118,8 @@ for arch, over, dp, tp, b in CASES_ARG:
     ssh = serve_state_shardings(cfg, mesh, b)
     state = T.init_serve_state(cfg, b, MAX_LEN)
     state = {k: (jax.device_put(v, ssh[k]) if k in ssh else v) for k, v in state.items()}
-    batch = {"tokens": jax.device_put(inp[:, :S],
-                                      batch_specs(cfg, mesh, b, S, training=False)["tokens"])}
+    name = "embeds" if cfg.frontend else "tokens"
+    batch = {name: jax.device_put(inp[:, :S], batch_specs(cfg, mesh, b, S, training=False)[name])}
     tsh = decode_token_tree(cfg, mesh, b).sharding
     with mesh, activation_sharding(mesh, shard_batch=b >= 16):
         _, prefilled = jax.jit(make_prefill_step(cfg, block_q=S))(params, batch, state)
@@ -148,8 +149,12 @@ def _cfg(arch, over):
 
 
 def _inputs(cfg, b, seed):
-    """A prompt of S tokens and N_DECODE decode tokens, (b, S + N_DECODE)."""
+    """A prompt of S tokens and N_DECODE decode tokens, (b, S + N_DECODE);
+    for a frontend config S + N_DECODE embeddings, (b, S + N_DECODE, d)."""
     rng = np.random.default_rng(seed)
+    if cfg.frontend:
+        return torch.from_numpy((cfg.d_model ** -0.5 * rng.standard_normal(
+            (b, S + N_DECODE, cfg.d_model))).astype(np.float32))
     return torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, S + N_DECODE)).astype(np.int32))
 
 
@@ -221,7 +226,8 @@ def _mesh_run(cfg, params, inp, data, model, cached, budget=BUDGET, dense=False)
     ssh = serve_state_shardings(cfg, mesh, b)
     state = {k: (v if k == "length" else shard(v, ssh[k]))
              for k, v in PT.init_serve_state(cfg, b, MAX_LEN, device="cpu").items()}
-    batch = {"tokens": shard(inp[:, :S], batch_specs(cfg, mesh, b, S, training=False)["tokens"])}
+    name = "embeds" if cfg.frontend else "tokens"
+    batch = {name: shard(inp[:, :S], batch_specs(cfg, mesh, b, S, training=False)[name])}
     _, state = PS.make_prefill_step(cfg, mesh=mesh)(ps, batch, state)
     if cached:
         state["kmean"] = shard(_summaries(cfg, unshard(state["k"], CPU)),
@@ -239,7 +245,8 @@ def _mesh_run(cfg, params, inp, data, model, cached, budget=BUDGET, dense=False)
 def _plain_run(cfg, params, inp, cached):
     """The unsharded prefill and N_DECODE sparse steps on ``inp``."""
     state = PT.init_serve_state(cfg, inp.shape[0], MAX_LEN, device="cpu")
-    _, state = PS.make_prefill_step(cfg)(params, {"tokens": inp[:, :S]}, state)
+    _, state = PS.make_prefill_step(cfg)(
+        params, {"embeds" if cfg.frontend else "tokens": inp[:, :S]}, state)
     if cached:
         state["kmean"] = _summaries(cfg, state["k"])
     step = PS.make_sparse_decode_step(cfg, chunk_tokens=C, budget=BUDGET, cached_summaries=cached)
